@@ -1,0 +1,42 @@
+"""Padded device outputs -> per-image results in the reference layout
+(counterpart of ``bonai_tpu/apis/test.py::results_to_host``)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.masks import paste_mask_rle
+
+
+def results_to_host(device_out, metas, num_classes=1, mask_thr=0.5,
+                    with_offset=True):
+    """Convert one batch of ``simple_test`` outputs to per-image tuples
+    ``(bbox_results, segm_results[, offsets])``: ``bbox_results`` is a
+    per-class list of ``(n, 5)`` float32 arrays, ``segm_results`` per-class
+    lists of COCO RLE dicts (masks pasted into the original image of
+    ``metas[i]['ori_shape']``), ``offsets`` an ``(n, 2)`` float32 array."""
+    host = {k: v.float().cpu().numpy() if v.is_floating_point()
+            else v.cpu().numpy() for k, v in device_out.items()}
+    boxes, scores = host["det_bboxes"], host["det_scores"]
+    labels, valid = host["det_labels"], host["det_valid"].astype(bool)
+    masks = host.get("mask_probs")
+    offsets = host.get("offsets")
+    results = []
+    for i in range(boxes.shape[0]):
+        meta = metas[i] if i < len(metas) else {}
+        v = valid[i]
+        bx, sc, lb = boxes[i][v], scores[i][v], labels[i][v]
+        oh, ow = (int(s) for s in (meta.get("ori_shape") or (1024, 1024)))
+        bbox_results = [np.concatenate([bx[lb == c], sc[lb == c, None]], 1)
+                        if (lb == c).any() else np.zeros((0, 5), np.float32)
+                        for c in range(num_classes)]
+        out = [bbox_results]
+        if masks is not None:
+            mp = masks[i][v]
+            out.append([[paste_mask_rle(m, b, oh, ow, mask_thr)
+                         for m, b in zip(mp[lb == c], bx[lb == c])]
+                        for c in range(num_classes)])
+        if with_offset and offsets is not None:
+            out.append(offsets[i][v].astype(np.float32))
+        results.append(tuple(out) if len(out) > 1 else bbox_results)
+    return results

@@ -1,0 +1,41 @@
+"""Detector builder (counterpart of ``bonai_tpu/models/builder.py``) for
+the detector types the port implements so far."""
+
+from __future__ import annotations
+
+from ..registry import Registry
+from .detectors.loft import LOFT
+
+DETECTORS = Registry("detector")
+DETECTORS.register_module()(LOFT)
+
+
+def _plain(obj):
+    """ConfigDict -> plain dict, recursively."""
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    return obj
+
+
+def build_detector(cfg, train_cfg=None, test_cfg=None):
+    """Build the detector ``cfg['type']`` names from its config dicts.
+    A type the port does not implement yet raises ``NotImplementedError``
+    naming the ROADMAP.md item that ports it.  ``train_cfg`` is read by
+    nothing yet: the port serves only (ROADMAP.md item A2 trains)."""
+    cfg = _plain(dict(cfg))
+    det_type = cfg.pop("type")
+    if det_type not in DETECTORS:
+        raise NotImplementedError(
+            f"detector type {det_type!r} is not ported to bonai_tpu_torch "
+            f"yet (ROADMAP.md item A7; ported: {sorted(DETECTORS.module_dict)})")
+    if cfg.get("rpn_head") is None or cfg.get("roi_head") is None:
+        raise NotImplementedError(
+            "detectors without an RPN or RoI head are not ported yet "
+            "(ROADMAP.md item A7)")
+    return DETECTORS.get(det_type)(
+        backbone=cfg["backbone"], neck=cfg["neck"],
+        rpn_head=cfg["rpn_head"], roi_head=cfg["roi_head"],
+        test_cfg=_plain(dict(test_cfg)) if test_cfg else None,
+        roi_align_impl=cfg.get("roi_align_impl"))

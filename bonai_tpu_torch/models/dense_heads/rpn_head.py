@@ -1,0 +1,98 @@
+"""RPN head and proposal generation (counterpart of
+``bonai_tpu/models/dense_heads/rpn_head.py``: ``RPNHead`` and
+``rpn_proposals_single``, batched over images here)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...core.boxes import clip_boxes, delta2bbox
+from ...core.nms import nms
+from ..init import normal_, zeros_
+
+
+class RPNHead(nn.Module):
+    """3x3 conv + relu, then 1x1 objectness (A) and 1x1 deltas (A*4)."""
+
+    def __init__(self, in_channels=256, feat_channels=256, num_anchors=3):
+        super().__init__()
+        self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
+        self.rpn_cls = nn.Conv2d(feat_channels, num_anchors, 1)
+        self.rpn_reg = nn.Conv2d(feat_channels, num_anchors * 4, 1)
+
+    def init_weights(self, gen):
+        for m in (self.rpn_conv, self.rpn_cls, self.rpn_reg):
+            normal_(m.weight, 0.01, gen)
+            zeros_(m.bias)
+
+    def forward(self, feats):
+        """NCHW levels -> per-level ``(B, A, H, W)`` and ``(B, A*4, H, W)``."""
+        cls_scores, bbox_preds = [], []
+        for x in feats:
+            t = F.relu(self.rpn_conv(x))
+            cls_scores.append(self.rpn_cls(t))
+            bbox_preds.append(self.rpn_reg(t))
+        return cls_scores, bbox_preds
+
+
+def rpn_proposals(cls_scores, bbox_preds, anchors_levels, img_shape, cfg):
+    """Proposals for a batch of images.
+
+    Per image and level: top ``nms_pre`` anchors by sigmoid score, decode,
+    clip to ``img_shape`` ``(B, 2)`` (h, w), hard NMS at ``nms_thr``; then
+    the top ``max_num`` over all levels.  Returns ``(B, max_num, 4)``
+    boxes, ``(B, max_num)`` scores and a bool valid mask.
+    """
+    nms_pre = cfg.get("nms_pre", 1000)
+    max_num = cfg.get("max_num", cfg.get("nms_post", 1000))
+    nms_thr = cfg.get("nms_thr", 0.7)
+    min_bbox_size = cfg.get("min_bbox_size", 0)
+    b = cls_scores[0].shape[0]
+    hw = (img_shape[:, 0:1].float(), img_shape[:, 1:2].float())
+    level_boxes, level_scores, level_valid = [], [], []
+    for scores, deltas, anchors in zip(cls_scores, bbox_preds,
+                                       anchors_levels):
+        # (B, A, H, W) -> (B, H*W*A): the anchors' (y, x, a) order
+        s = torch.sigmoid(scores.permute(0, 2, 3, 1).reshape(b, -1).float())
+        d = deltas.permute(0, 2, 3, 1).reshape(b, -1, 4).float()
+        if s.shape[1] > nms_pre:
+            s, idx = torch.sort(s, dim=1, descending=True, stable=True)
+            s, idx = s[:, :nms_pre], idx[:, :nms_pre]
+            d = d.gather(1, idx[..., None].expand(b, nms_pre, 4))
+            a = anchors[idx]
+        else:
+            a = anchors.expand(b, -1, 4)
+        boxes = clip_boxes(delta2bbox(a, d), hw)
+        valid = torch.ones_like(s, dtype=torch.bool)
+        if min_bbox_size > 0:
+            valid = ((boxes[..., 2] - boxes[..., 0] > min_bbox_size)
+                     & (boxes[..., 3] - boxes[..., 1] > min_bbox_size))
+        level_boxes.append(boxes)
+        level_scores.append(s)
+        level_valid.append(valid)
+
+    # one NMS over all levels: each level is its own padded problem
+    sizes = [s.shape[1] for s in level_scores]
+    m = max(sizes)
+
+    def stack(xs, value):
+        return torch.stack([F.pad(x, (0, 0) * (x.dim() - 2) + (0, m - x.shape[1]),
+                                  value=value) for x in xs], dim=1)
+
+    keep = nms(stack(level_boxes, 0.0), stack(level_scores, 0.0), nms_thr,
+               valid=stack(level_valid, False))
+    all_boxes = torch.cat(level_boxes, dim=1)
+    all_scores = torch.cat(
+        [torch.where(keep[:, i, :n], s, torch.zeros_like(s))
+         for i, (n, s) in enumerate(zip(sizes, level_scores))], dim=1)
+    k = min(max_num, all_scores.shape[1])
+    top_scores, top_idx = torch.sort(all_scores, dim=1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    top_boxes = all_boxes.gather(1, top_idx[..., None].expand(b, k, 4))
+    if k < max_num:
+        top_boxes = F.pad(top_boxes, (0, 0, 0, max_num - k))
+        top_scores = F.pad(top_scores, (0, max_num - k))
+    return top_boxes, top_scores, top_scores > 0

@@ -1,0 +1,63 @@
+"""LOFT: the two-stage trunk plus the roof->footprint offset branch with
+feature-orientation augmentation (counterpart of
+``bonai_tpu/models/detectors/loft.py``, inference on the rectangle-offset
+path of ``LOFT._extra_simple_test``)."""
+
+from __future__ import annotations
+
+from ...core.boxes import delta2offset
+from ..roi_heads.offset_heads import OffsetHeadExpandFeature, foa_offset_fusion
+from .two_stage import TwoStageDetector, _require_type, boxes_to_rois
+
+_UNPORTED_ROI_KEYS = ("height_head", "offset_height_head", "angle_head",
+                      "side_face_head", "offset_field_head",
+                      "offset_reweight")
+
+
+class LOFT(TwoStageDetector):
+
+    def _setup_roi_head(self, cfg):
+        super()._setup_roi_head(cfg)
+        unported = [k for k in _UNPORTED_ROI_KEYS if cfg.get(k)]
+        if unported:
+            raise NotImplementedError(
+                f"LOFT attribute heads {unported} are not ported to "
+                f"bonai_tpu_torch yet (ROADMAP.md item A5)")
+        oh = dict(cfg["offset_head"])
+        _require_type(oh, "OffsetHeadExpandFeature", "A5")
+        coder = dict(oh.get("offset_coder", {}))
+        _require_type(coder, "DeltaXYOffsetCoder", "A5")
+        self.offset_coder_means = tuple(coder.get("target_means", (0., 0.)))
+        self.offset_coder_stds = tuple(coder.get("target_stds", (.5, .5)))
+        self.roi_head["offset_head"] = OffsetHeadExpandFeature(
+            roi_feat_size=oh.get("roi_feat_size", 7),
+            in_channels=oh.get("in_channels", 256),
+            num_convs=oh.get("num_convs", 4),
+            num_fcs=oh.get("num_fcs", 2),
+            reg_num=oh.get("reg_num", 2),
+            conv_out_channels=oh.get("conv_out_channels", 256),
+            fc_out_channels=oh.get("fc_out_channels", 1024),
+            expand_feature_num=oh.get("expand_feature_num", 4),
+            share_expand_fc=oh.get("share_expand_fc", False),
+            rotations=tuple(oh.get("rotations", (0, 90, 180, 270))),
+            offset_coordinate=oh.get("offset_coordinate", "rectangle"))
+        self.offset_extractor_cfg = self._extractor(
+            cfg["offset_roi_extractor"])
+
+    def _extra_simple_test(self, feats, det_boxes, det_valid, img_shape,
+                           scale_factor):
+        """Offsets of the detections, decoded against their boxes
+        (bounded by ``img_shape``) and mapped back to original-image
+        pixels (divided by ``scale_factor``)."""
+        b, p = det_boxes.shape[:2]
+        rois, roi_valid = boxes_to_rois(det_boxes, det_valid)
+        head = self.roi_head["offset_head"]
+        pred = head(self._roi_align_cfg(self.offset_extractor_cfg, feats,
+                                        rois, roi_valid))
+        fused = foa_offset_fusion(pred, head.rotations)
+        hs = img_shape[:, 0].float().repeat_interleave(p)
+        ws = img_shape[:, 1].float().repeat_interleave(p)
+        offsets = delta2offset(rois[:, 1:5], fused, self.offset_coder_means,
+                               self.offset_coder_stds, max_shape=(hs, ws))
+        return {"offsets": offsets.reshape(b, p, 2)
+                / scale_factor.float()[:, None, None]}

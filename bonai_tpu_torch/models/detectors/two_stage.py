@@ -1,0 +1,221 @@
+"""Two-stage detector trunk, inference only (counterpart of
+``bonai_tpu/models/detectors/two_stage.py``: ``boxes_to_rois``,
+``extract_feat``, ``_roi_align_cfg``, ``_rpn_and_proposals``,
+``simple_test``, ``_rcnn_simple_test``).
+
+Public layouts are the JAX package's: images ``(B, H, W, 3)``, FPN levels
+``(B, H, W, C)`` (NHWC views of channels-last NCHW maps, no copy), RoI
+features ``(R, oh, ow, C)``, and detections as fixed-capacity padded
+tensors with validity masks.  Submodule names are mmdet v2.3's
+(``backbone``, ``neck``, ``rpn_head``, ``roi_head.bbox_head``, ...), so an
+mmdet ``state_dict`` loads as it is.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...core.anchors import AnchorGenerator
+from ...core.boxes import clip_boxes, delta2bbox
+from ...core.nms import multiclass_nms
+from ...ops.roi_align import multilevel_roi_align
+from ...ops.roi_align_block import roi_align_block
+from ..backbones.resnet import ResNet
+from ..dense_heads.rpn_head import RPNHead, rpn_proposals
+from ..necks.fpn import FPN
+from ..roi_heads.bbox_head import Shared2FCBBoxHead
+from ..roi_heads.mask_head import FCNMaskHead
+
+
+def boxes_to_rois(boxes, valid):
+    """``(B, N, 4)`` boxes -> ``(B*N, 5)`` rois with a leading batch index,
+    and the ``(B*N,)`` validity mask."""
+    b, n = boxes.shape[:2]
+    idx = torch.arange(b, dtype=boxes.dtype, device=boxes.device)
+    idx = idx.repeat_interleave(n)[:, None]
+    return torch.cat([idx, boxes.reshape(b * n, 4)], dim=1), \
+        valid.reshape(b * n)
+
+
+def _kwargs(cfg, name, allowed, item):
+    """Constructor arguments of a sub-config; a key the port does not
+    implement raises, naming the ROADMAP item that ports it."""
+    cfg = dict(cfg)
+    cfg.pop("type", None)
+    extra = sorted(set(cfg) - set(allowed))
+    if extra:
+        raise NotImplementedError(
+            f"{name} options {extra} are not ported to bonai_tpu_torch yet "
+            f"(ROADMAP.md item {item})")
+    return cfg
+
+
+def _require_type(cfg, expected, item):
+    t = dict(cfg).get("type", expected)
+    if t != expected:
+        raise NotImplementedError(
+            f"{t} is not ported to bonai_tpu_torch yet (ROADMAP.md item "
+            f"{item})")
+
+
+class TwoStageDetector(nn.Module):
+    """FPN two-stage trunk: ResNet + FPN + RPN + bbox and mask heads."""
+
+    def __init__(self, backbone, neck, rpn_head, roi_head, test_cfg=None,
+                 roi_align_impl=None):
+        super().__init__()
+        self.test_cfg = test_cfg
+        self.roi_align_impl = roi_align_impl
+        _require_type(backbone, "ResNet", "A6")
+        self.backbone = ResNet(**_kwargs(
+            backbone, "backbone", ("depth", "num_stages", "out_indices",
+                                   "frozen_stages", "norm_eval", "style",
+                                   "base_channels"), "A6"))
+        _require_type(neck, "FPN", "A6")
+        self.neck = FPN(**_kwargs(neck, "neck", (
+            "in_channels", "out_channels", "num_outs", "start_level",
+            "add_extra_convs"), "A6"))
+        rh = dict(rpn_head)
+        _require_type(rh, "RPNHead", "A6")
+        ag = dict(rh.get("anchor_generator", {}))
+        _require_type(ag, "AnchorGenerator", "A6")
+        ag.pop("type", None)
+        self.anchor_generator = AnchorGenerator(**ag)
+        # the RPN decodes with unit stds whatever its bbox_coder says, as
+        # the JAX package does (ROADMAP.md queue C)
+        _require_type(rh.get("bbox_coder", {}), "DeltaXYWHBBoxCoder", "A6")
+        self.rpn_head = RPNHead(
+            rh.get("in_channels", 256), rh.get("feat_channels", 256),
+            len(ag.get("ratios", [0.5, 1.0, 2.0]))
+            * len(ag.get("scales", [8])))
+        self._anchors = {}
+        self.roi_head = nn.ModuleDict()
+        self._setup_roi_head(dict(roi_head))
+
+    def _setup_roi_head(self, cfg):
+        bh = dict(cfg["bbox_head"])
+        _require_type(bh, "Shared2FCBBoxHead", "A7")
+        self.bbox_coder = dict(bh.get("bbox_coder", {}))
+        _require_type(self.bbox_coder, "DeltaXYWHBBoxCoder", "A7")
+        self.roi_head["bbox_head"] = Shared2FCBBoxHead(
+            bh.get("num_classes", 1), bh.get("in_channels", 256),
+            bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
+            bh.get("reg_class_agnostic", False))
+        self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
+        mh = dict(cfg["mask_head"])
+        _require_type(mh, "FCNMaskHead", "A7")
+        self.roi_head["mask_head"] = FCNMaskHead(
+            mh.get("num_convs", 4), mh.get("in_channels", 256),
+            mh.get("conv_out_channels", 256), mh.get("num_classes", 1))
+        self.mask_extractor_cfg = self._extractor(cfg["mask_roi_extractor"])
+
+    @staticmethod
+    def _extractor(cfg):
+        cfg = dict(cfg)
+        _require_type(cfg, "SingleRoIExtractor", "A7")
+        _require_type(cfg.get("roi_layer", {}), "RoIAlign", "A7")
+        return cfg
+
+    def init_weights(self, gen):
+        """Seeded random weights from the ``torch.Generator`` ``gen``."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "init_weights"):
+                m.init_weights(gen)
+
+    # ---------------- shared helpers ----------------
+    def extract_feat(self, img):
+        """``(B, H, W, 3)`` image -> tuple of NHWC FPN levels."""
+        x = img.permute(0, 3, 1, 2)
+        feats = self.neck(self.backbone(x))
+        return tuple(f.permute(0, 2, 3, 1) for f in feats)
+
+    def _roi_align_cfg(self, extractor_cfg, feats, rois, roi_valid):
+        """RoI features for one extractor config.  ``impl='block'`` (the
+        BONAI config's ``roi_align_impl``) on CUDA tensors runs the
+        ``roi_align_block`` kernel; on CPU tensors it runs the gather-rule
+        ``multilevel_roi_align``, as the JAX package does off the TPU (the
+        two differ only for RoIs the block rule pushes coarser)."""
+        layer = dict(extractor_cfg.get("roi_layer", {}))
+        out_size = layer.get("output_size", 7)
+        sr = layer.get("sampling_ratio", 0) or 2    # static grid
+        strides = list(extractor_cfg.get("featmap_strides", [4, 8, 16, 32]))
+        impl = extractor_cfg.get("impl", self.roi_align_impl or "gather")
+        if impl not in ("block", "gather"):
+            raise NotImplementedError(
+                f"roi_align_impl={impl!r} is not ported to bonai_tpu_torch "
+                f"yet (ROADMAP.md queue B)")
+        levels = [f.contiguous() for f in feats[:len(strides)]]
+        fn = roi_align_block if (impl == "block" and levels[0].is_cuda) \
+            else multilevel_roi_align
+        return fn(levels, rois, out_size, strides, sampling_ratio=sr,
+                  finest_scale=extractor_cfg.get("finest_scale", 56),
+                  roi_valid=roi_valid)
+
+    def _grid_anchors(self, feats):
+        sizes = tuple((int(f.shape[1]), int(f.shape[2])) for f in feats)
+        key = (sizes, feats[0].device)
+        if key not in self._anchors:
+            self._anchors[key] = [
+                torch.from_numpy(a).to(feats[0].device)
+                for a in self.anchor_generator.grid_anchors(sizes)]
+        return self._anchors[key]
+
+    def _rpn_and_proposals(self, feats, img_shape, proposal_cfg):
+        cls_scores, bbox_preds = self.rpn_head(
+            [f.permute(0, 3, 1, 2) for f in feats])
+        props, scores, valid = rpn_proposals(
+            cls_scores, bbox_preds, self._grid_anchors(feats), img_shape,
+            proposal_cfg)
+        return props, scores, valid
+
+    # ---------------- inference ----------------
+    @torch.inference_mode()
+    def simple_test(self, img, img_shape, scale_factor):
+        """Batched inference on ``(B, H, W, 3)`` normalised, padded images
+        with ``img_shape`` ``(B, 2)`` (resized h, w) and ``scale_factor``
+        ``(B,)``.  Returns padded, fixed-shape results: ``det_bboxes``
+        ``(B, P, 4)`` in original-image pixels, ``det_scores``,
+        ``det_labels``, ``det_valid``, ``mask_probs`` ``(B, P, 28, 28)``
+        and the extra branches' outputs."""
+        dtype = next(self.parameters()).dtype
+        feats = self.extract_feat(img.to(dtype))
+        proposals, _, prop_valid = self._rpn_and_proposals(
+            feats, img_shape, dict(self.test_cfg.get("rpn", {})))
+        return self._rcnn_simple_test(feats, proposals, prop_valid,
+                                      img_shape, scale_factor)
+
+    def _rcnn_simple_test(self, feats, proposals, prop_valid, img_shape,
+                          scale_factor):
+        rcnn = dict(self.test_cfg["rcnn"])
+        b, n = proposals.shape[:2]
+        rois, roi_valid = boxes_to_rois(proposals, prop_valid)
+        cls_score, bbox_pred = self.roi_head["bbox_head"](self._roi_align_cfg(
+            self.bbox_extractor_cfg, feats, rois, roi_valid))
+        scores = torch.softmax(cls_score, dim=-1).reshape(b, n, -1)
+        boxes = delta2bbox(proposals, bbox_pred.reshape(b, n, -1),
+                           self.bbox_coder.get("target_means", (0.,) * 4),
+                           self.bbox_coder.get("target_stds", (1.,) * 4))
+        hw = (img_shape[:, 0, None, None].float(),
+              img_shape[:, 1, None, None].float())
+        boxes = clip_boxes(boxes.reshape(b, n, -1, 4), hw).reshape(b, n, -1)
+        det_boxes, det_scores, det_labels, det_valid = multiclass_nms(
+            boxes, scores, rcnn.get("score_thr", 0.05),
+            dict(rcnn.get("nms", dict(type="nms", iou_threshold=0.5))),
+            rcnn.get("max_per_img", 100), valid=prop_valid)
+        sf = scale_factor.float()[:, None, None]
+        out = {"det_bboxes": det_boxes / sf, "det_scores": det_scores,
+               "det_labels": det_labels, "det_valid": det_valid}
+        # the mask and extra branches read scale-space boxes
+        rois, roi_valid = boxes_to_rois(det_boxes, det_valid)
+        logits = self.roi_head["mask_head"](self._roi_align_cfg(
+            self.mask_extractor_cfg, feats, rois, roi_valid))
+        out["mask_probs"] = torch.sigmoid(logits[:, 0]).reshape(
+            b, -1, *logits.shape[2:])
+        out.update(self._extra_simple_test(feats, det_boxes, det_valid,
+                                           img_shape, scale_factor))
+        return out
+
+    def _extra_simple_test(self, feats, det_boxes, det_valid, img_shape,
+                           scale_factor):
+        return {}

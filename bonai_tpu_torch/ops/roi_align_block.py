@@ -1,0 +1,155 @@
+"""Multi-level RoIAlign with the block level rule: the CUDA kernel
+(``csrc/roi_align_block_fwd.cu``) and its plain PyTorch version.
+
+Counterpart of ``bonai_tpu.ops.pallas_roi_align_block.pallas_block_roi_align``
+(forward).  The level rule is the gather rule
+(``floor(log2(sqrt(wh)/56))``) with the block kernel's symmetric push: an
+RoI whose larger extent spans more than ``window - 4`` cells at its level
+moves coarser until it fits (``_block_plan`` there).  It is computed here
+in torch, once, and both versions read it.
+
+``roi_align_block`` takes the plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ._build import load_library
+from .roi_align import _as_pair, map_roi_levels, roi_align_at_levels
+
+_MAX_LEVELS = 4         # kMaxLevels in the CUDA source
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def block_levels(boxes, featmap_strides, finest_scale=56, window=32):
+    """Level per RoI under the block rule: the gather rule, then pushed
+    coarser until ``max(w, h)`` spans at most ``window - 4`` cells."""
+    num_levels = len(featmap_strides)
+    lvl = map_roi_levels(boxes, num_levels, finest_scale)
+    ext = torch.maximum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1])
+    need = ext / (float(featmap_strides[0]) * (window - 4))
+    lvl_min = torch.ceil(torch.log2(need.clamp(min=1e-9))).long()
+    return torch.maximum(lvl, lvl_min).clamp(0, num_levels - 1)
+
+
+def roi_align_block_ref(levels, rois, output_size, featmap_strides,
+                        sampling_ratio=2, aligned=True, finest_scale=56,
+                        roi_valid=None):
+    """Plain PyTorch version of the kernel: same level rule, same
+    arithmetic, float32 sums, output in the levels' dtype."""
+    lvl = block_levels(rois[:, 1:5].float(), featmap_strides, finest_scale)
+    return roi_align_at_levels(levels, rois, lvl, output_size,
+                               featmap_strides, sampling_ratio, aligned,
+                               roi_valid)
+
+
+@functools.cache
+def _kernel():
+    """The C entry point of ``csrc/roi_align_block_fwd.cu``, built and
+    bound at first use."""
+    fn = load_library("roi_align_block_fwd").roi_align_block_fwd
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
+                  sampling_ratio):
+    if not 1 <= num_levels <= _MAX_LEVELS or len(levels) < num_levels:
+        raise ValueError(f"roi_align_block takes 1..{_MAX_LEVELS} levels, "
+                         f"got {len(levels)} maps for {num_levels} strides")
+    if not aligned:
+        raise ValueError("roi_align_block computes aligned=True only")
+    if int(sampling_ratio) < 1:
+        raise ValueError("sampling_ratio must be >= 1")
+    dev, dtype = levels[0].device, levels[0].dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"roi_align_block takes float32 or bfloat16 "
+                        f"levels, got {dtype}")
+    B, C = levels[0].shape[0], levels[0].shape[-1]
+    for f in levels[:num_levels]:
+        if f.device != dev or f.dtype != dtype:
+            raise ValueError("all levels must share one device and dtype")
+        if f.dim() != 4 or f.shape[0] != B or f.shape[-1] != C:
+            raise ValueError(f"levels must be (B, H, W, C) with one B and "
+                             f"C, got {tuple(f.shape)}")
+        if not f.is_contiguous():
+            raise ValueError("levels must be contiguous NHWC tensors")
+        if f.data_ptr() % 8:
+            raise ValueError("levels must be 8-byte aligned")
+    if C % 2:
+        raise ValueError(f"roi_align_block needs an even channel count, "
+                         f"got {C}")
+    if (rois.device != dev or rois.dtype != torch.float32 or rois.dim() != 2
+            or rois.shape[1] != 5 or not rois.is_contiguous()):
+        raise ValueError("rois must be a contiguous float32 (R, 5) tensor "
+                         "on the levels' device")
+    if roi_valid is not None and (roi_valid.device != dev
+                                  or roi_valid.dtype != torch.bool
+                                  or roi_valid.shape != rois.shape[:1]):
+        raise ValueError("roi_valid must be a bool (R,) tensor on the "
+                         "levels' device")
+
+
+def roi_align_block(levels, rois, output_size, featmap_strides,
+                    sampling_ratio=2, aligned=True, finest_scale=56,
+                    roi_valid=None):
+    """Multi-level RoIAlign, block level rule.
+
+    Args:
+      levels: list of ``(B, Hl, Wl, C)`` contiguous NHWC maps (float32 or
+        bfloat16), one per stride.
+      rois: ``(R, 5)`` float32 ``[batch_idx, x1, y1, x2, y2]``.
+      roi_valid: optional ``(R,)`` bool; invalid rows come out as zeros.
+
+    Returns ``(R, oh, ow, C)`` in the levels' dtype.  CUDA tensors go to
+    the kernel (``roi_align_block.launches`` counts its launches); CPU
+    tensors go to :func:`roi_align_block_ref`.
+    """
+    device = levels[0].device
+    if device.type == "cpu":
+        return roi_align_block_ref(levels, rois, output_size,
+                                   featmap_strides, sampling_ratio, aligned,
+                                   finest_scale, roi_valid)
+    if device.type != "cuda":
+        raise ValueError(f"roi_align_block runs on cuda or cpu, not {device}")
+    num_levels = len(featmap_strides)
+    _check_inputs(levels, rois, roi_valid, num_levels, aligned,
+                  sampling_ratio)
+    oh, ow = _as_pair(output_size)
+    levels = levels[:num_levels]
+    B, C = levels[0].shape[0], levels[0].shape[-1]
+    R = rois.shape[0]
+    lvl = block_levels(rois[:, 1:5], featmap_strides,
+                       finest_scale).to(torch.int32)
+    if roi_valid is None:
+        roi_valid = torch.ones(R, dtype=torch.bool, device=device)
+    out = torch.empty((R, oh, ow, C), dtype=levels[0].dtype, device=device)
+    rc = _kernel()(
+        (ctypes.c_void_p * num_levels)(*[f.data_ptr() for f in levels]),
+        (ctypes.c_int * num_levels)(*[f.shape[1] for f in levels]),
+        (ctypes.c_int * num_levels)(*[f.shape[2] for f in levels]),
+        (ctypes.c_float * num_levels)(*[1.0 / s for s in featmap_strides]),
+        num_levels, B, C, rois.data_ptr(), lvl.data_ptr(),
+        roi_valid.data_ptr(), R, oh, ow, int(sampling_ratio),
+        _DTYPE_CODES[levels[0].dtype], out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"roi_align_block_fwd launch failed: CUDA error "
+                           f"{rc}")
+    roi_align_block.launches += 1
+    return out
+
+
+roi_align_block.launches = 0
