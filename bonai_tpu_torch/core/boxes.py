@@ -1,6 +1,7 @@
 """Box and offset geometry (counterpart of ``bonai_tpu/core/boxes.py``):
-IoU, the delta-xywh box coder, the delta-xy offset coder and clipping, on
-batched tensors."""
+IoU, the delta-xywh box coder, the delta-xy offset coder, offset rotation
+and clipping, on batched tensors.  Each keeps the JAX function's order of
+operations: the assigner compares IoUs for exact equality."""
 
 from __future__ import annotations
 
@@ -23,6 +24,31 @@ def bbox_overlaps(boxes1, boxes2, eps=1e-6):
     union = bbox_area(boxes1)[..., :, None] + bbox_area(boxes2)[..., None, :] \
         - inter
     return inter / union.clamp(min=eps)
+
+
+def _div(a, b):
+    """``a / b`` for a tuple ``b`` of coder constants, as a true division
+    by a tensor (CUDA turns division by a Python number into a
+    multiplication by its reciprocal)."""
+    return a / a.new_tensor(b)
+
+
+def bbox2delta(proposals, gt, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.),
+               eps=1e-7):
+    """Encode ``gt`` boxes as deltas of ``proposals`` (both ``(..., 4)``);
+    ``eps`` keeps zero-size padded boxes finite."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = (proposals[..., 2] - proposals[..., 0]).clamp(min=eps)
+    ph = (proposals[..., 3] - proposals[..., 1]).clamp(min=eps)
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                          torch.log(gw.clamp(min=eps) / pw),
+                          torch.log(gh.clamp(min=eps) / ph)], dim=-1)
+    return _div(deltas - deltas.new_tensor(means), stds)
 
 
 def delta2bbox(rois, deltas, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.),
@@ -49,6 +75,26 @@ def delta2bbox(rois, deltas, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.),
     if max_shape is not None:
         boxes = clip_boxes(boxes, max_shape)
     return boxes.reshape(deltas.shape)
+
+
+def offset2delta(proposals, gt_offsets, means=(0., 0.), stds=(0.5, 0.5),
+                 eps=1e-7):
+    """Encode roof->footprint offsets ``(..., 2)`` relative to the
+    proposal size."""
+    pw = (proposals[..., 2] - proposals[..., 0]).clamp(min=eps)
+    ph = (proposals[..., 3] - proposals[..., 1]).clamp(min=eps)
+    deltas = torch.stack([gt_offsets[..., 0] / pw, gt_offsets[..., 1] / ph],
+                         dim=-1)
+    return _div(deltas - deltas.new_tensor(means), stds)
+
+
+def offset_rotate(offsets, angle_deg):
+    """Rotate ``(..., 2)`` offset vectors by ``angle_deg`` (the LOFT FOA
+    branch turn): ``(x cos a + y sin a, -x sin a + y cos a)``."""
+    a = math.radians(angle_deg)
+    c, s = math.cos(a), math.sin(a)
+    x, y = offsets[..., 0], offsets[..., 1]
+    return torch.stack([x * c + y * s, -x * s + y * c], dim=-1)
 
 
 def delta2offset(rois, deltas, means=(0., 0.), stds=(0.5, 0.5),

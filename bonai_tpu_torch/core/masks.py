@@ -1,5 +1,7 @@
-"""Host-side mask paste and COCO RLE, in numpy (counterpart of
-``bonai_tpu/core/masks.py::paste_masks_np`` and the RLE encoder of
+"""Mask targets for training, on the device, and the host-side mask paste
+and COCO RLE in numpy (counterparts of
+``bonai_tpu/core/masks.py::mask_targets_from_instance_masks`` and
+``paste_masks_np``, and of the RLE encoder of
 ``bonai_tpu/datasets/mask_utils.py``, without cv2).
 
 A detection's mask is pasted into its box crop only, and its RLE is built
@@ -10,6 +12,70 @@ from that crop: no ``(n, H, W)`` stack of full-image masks is ever made
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def _interp_matrix(coords, size):
+    """``(P, S)`` fractional mask coordinates -> ``(P, S, size)`` bilinear
+    weights, zero outside ``[-1, size]`` (the instance is 0 outside its
+    box)."""
+    inside = (coords > -1.0) & (coords < size)
+    c = coords.clamp(0.0, size - 1.0)
+    c0 = torch.floor(c).clamp(0, size - 2)
+    frac = (c - c0)[..., None]
+    iota = torch.arange(size, dtype=torch.float32, device=coords.device)
+    zero = frac.new_tensor(0.0)
+    w = (torch.where(iota == c0[..., None], 1.0 - frac, zero)
+         + torch.where(iota == c0[..., None] + 1.0, frac, zero))
+    return w * inside[..., None]
+
+
+def mask_targets_from_instance_masks(pos_proposals, matched_gt_bboxes,
+                                     matched_inst_masks, mask_size=28):
+    """``(P, S, S)`` binary float32 mask targets of positive proposals.
+
+    Args:
+      pos_proposals: ``(P, 4)`` proposal boxes (image coordinates).
+      matched_gt_bboxes: ``(P, 4)`` their matched GT boxes.
+      matched_inst_masks: ``(P, M, M)`` instance-local GT masks, each
+        covering its GT box exactly.
+
+    Each target cell is the bilinear sample of the instance mask at the
+    cell's centre within the proposal, binarised at 0.5; the sampling is
+    two separable interpolation products in float32 (autocast off).
+
+    A GT box sampled as its own proposal puts its cells exactly on the 0.5
+    threshold (every coordinate lands half-way between mask pixels), where
+    one rounding more or less in the coordinates flips a target.  The
+    coordinates are therefore computed as XLA compiles the JAX function:
+    the cell centres as ``(i + 0.5) * float32(1 / S)`` and both
+    multiply-adds rounded once (in float64, then to float32).
+    """
+    m = matched_inst_masks.shape[-1]
+    dev = pos_proposals.device
+    with torch.autocast(dev.type, enabled=False):
+        boxes = pos_proposals.float()
+        gt = matched_gt_bboxes.float()
+        recip = torch.tensor(1.0 / mask_size, dtype=torch.float32,
+                             device=dev)
+        cell = ((torch.arange(mask_size, dtype=torch.float32, device=dev)
+                 + 0.5) * recip).double()
+
+        def fused(a, b, c):              # a * b + c, rounded once
+            return (a.double() * b + c).float()
+
+        xs = fused((boxes[:, 2] - boxes[:, 0])[:, None], cell,
+                   boxes[:, 0:1].double())
+        ys = fused((boxes[:, 3] - boxes[:, 1])[:, None], cell,
+                   boxes[:, 1:2].double())
+        gw = (gt[:, 2] - gt[:, 0]).clamp(min=1e-6)[:, None]
+        gh = (gt[:, 3] - gt[:, 1]).clamp(min=1e-6)[:, None]
+        u = fused((xs - gt[:, 0:1]) / gw, float(m), -0.5)
+        v = fused((ys - gt[:, 1:2]) / gh, float(m), -0.5)
+        rows = torch.bmm(_interp_matrix(v, m),
+                         matched_inst_masks.float())           # (P, S, M)
+        vals = torch.bmm(rows, _interp_matrix(u, m).transpose(1, 2))
+    return (vals >= 0.5).float()
 
 
 def _axis(n_in, n_out):

@@ -28,48 +28,11 @@
 // be even and the level and output pointers 8-byte aligned (the wrapper
 // checks both).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "roi_align_block_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 4;
-constexpr int kMaxThreads = 128;
-
-struct Levels {
-  const void* ptr[kMaxLevels];
-  int height[kMaxLevels];
-  int width[kMaxLevels];
-  float inv_stride[kMaxLevels];
-};
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Border rule of one axis (ops/roi_align.py::_bilinear_params).
-__device__ __forceinline__ bool axis_params(float v, float size, int* i0,
-                                            float* frac) {
-  const bool outside = (v < -1.0f) || (v > size);
-  const float c = fminf(fmaxf(v, 0.0f), size - 1.0f);
-  const float f0 = fminf(floorf(c), fmaxf(size - 2.0f, 0.0f));
-  *i0 = static_cast<int>(f0);
-  *frac = c - f0;
-  return outside;
-}
+using namespace roi_align_block;
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -95,17 +58,9 @@ roi_align_block_fwd_kernel(Levels lv, int batch, int channels,
   const int W = lv.width[l];
   const float Hf = static_cast<float>(H);
   const float Wf = static_cast<float>(W);
-  const float inv = lv.inv_stride[l];
   const T* base = static_cast<const T*>(lv.ptr[l]) +
                   static_cast<size_t>(b) * H * W * channels + c;
-  // aligned=True: half-pixel shift; plain multiplies and adds (no FMA
-  // contraction) so the sample points equal the plain version's
-  const float x1 = __fsub_rn(__fmul_rn(roi[1], inv), 0.5f);
-  const float y1 = __fsub_rn(__fmul_rn(roi[2], inv), 0.5f);
-  const float x2 = __fsub_rn(__fmul_rn(roi[3], inv), 0.5f);
-  const float y2 = __fsub_rn(__fmul_rn(roi[4], inv), 0.5f);
-  const float bin_w = __fdiv_rn(__fsub_rn(x2, x1), static_cast<float>(out_w));
-  const float bin_h = __fdiv_rn(__fsub_rn(y2, y1), static_cast<float>(out_h));
+  const RoiGrid g = roi_grid(roi, lv.inv_stride[l], out_h, out_w);
   const float count = static_cast<float>(sr * sr);
   const size_t row = static_cast<size_t>(W) * channels;
 
@@ -113,19 +68,14 @@ roi_align_block_fwd_kernel(Levels lv, int batch, int channels,
     for (int pw = 0; pw < out_w; ++pw) {
       float a0 = 0.f, a1 = 0.f;
       for (int iy = 0; iy < sr; ++iy) {
-        const float gy = __fadd_rn(static_cast<float>(ph),
-                                   __fdiv_rn(iy + 0.5f, static_cast<float>(sr)));
         int y0;
         float ly;
-        const bool out_y = axis_params(__fadd_rn(y1, __fmul_rn(bin_h, gy)), Hf, &y0, &ly);
-        if (out_y) continue;
+        if (axis_params(sample_coord(g.y1, g.bin_h, ph, iy, sr), Hf, &y0, &ly)) continue;
         const int y1i = min(y0 + 1, H - 1);
         for (int ix = 0; ix < sr; ++ix) {
-          const float gx = __fadd_rn(static_cast<float>(pw),
-                                     __fdiv_rn(ix + 0.5f, static_cast<float>(sr)));
           int x0;
           float lx;
-          if (axis_params(__fadd_rn(x1, __fmul_rn(bin_w, gx)), Wf, &x0, &lx)) continue;
+          if (axis_params(sample_coord(g.x1, g.bin_w, pw, ix, sr), Wf, &x0, &lx)) continue;
           const int x1i = min(x0 + 1, W - 1);
           const float hy = 1.f - ly, hx = 1.f - lx;
           const float2 v00 = load2(base + y0 * row + static_cast<size_t>(x0) * channels);
@@ -155,17 +105,10 @@ extern "C" int roi_align_block_fwd(const void* const* level_ptrs,
                                    int num_rois, int out_h, int out_w,
                                    int sampling_ratio, int dtype, void* out,
                                    void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || channels < 2 ||
-      channels % 2 != 0 || sampling_ratio < 1 || batch < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   Levels lv;
-  for (int i = 0; i < kMaxLevels; ++i) {
-    const int j = i < num_levels ? i : num_levels - 1;
-    lv.ptr[i] = level_ptrs[j];
-    lv.height[i] = heights[j];
-    lv.width[i] = widths[j];
-    lv.inv_stride[i] = inv_strides[j];
+  if (!fill_levels(&lv, const_cast<void* const*>(level_ptrs), heights, widths,
+                   inv_strides, num_levels, channels, sampling_ratio, batch)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_rois == 0) return 0;
   const int pairs = channels / 2;

@@ -22,8 +22,8 @@ def _plain(obj):
 def build_detector(cfg, train_cfg=None, test_cfg=None):
     """Build the detector ``cfg['type']`` names from its config dicts.
     A type the port does not implement yet raises ``NotImplementedError``
-    naming the ROADMAP.md item that ports it.  ``train_cfg`` is read by
-    nothing yet: the port serves only (ROADMAP.md item A2 trains)."""
+    naming the ROADMAP.md item that ports it.  ``train_cfg`` is what
+    ``forward_train`` reads (the serving path needs only ``test_cfg``)."""
     cfg = _plain(dict(cfg))
     det_type = cfg.pop("type")
     if det_type not in DETECTORS:
@@ -37,5 +37,6 @@ def build_detector(cfg, train_cfg=None, test_cfg=None):
     return DETECTORS.get(det_type)(
         backbone=cfg["backbone"], neck=cfg["neck"],
         rpn_head=cfg["rpn_head"], roi_head=cfg["roi_head"],
+        train_cfg=_plain(dict(train_cfg)) if train_cfg else None,
         test_cfg=_plain(dict(test_cfg)) if test_cfg else None,
         roi_align_impl=cfg.get("roi_align_impl"))

@@ -1,6 +1,7 @@
-"""RPN head and proposal generation (counterpart of
-``bonai_tpu/models/dense_heads/rpn_head.py``: ``RPNHead`` and
-``rpn_proposals_single``, batched over images here)."""
+"""RPN head, proposal generation, targets and loss (counterpart of
+``bonai_tpu/models/dense_heads/rpn_head.py``: ``RPNHead``,
+``rpn_proposals_single``, ``rpn_targets`` and ``rpn_loss``, batched over
+images here)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core.boxes import clip_boxes, delta2bbox
+from ...core.assigners import max_iou_assign
+from ...core.boxes import bbox2delta, clip_boxes, delta2bbox
 from ...core.nms import nms
+from ...core.samplers import random_sample
 from ..init import normal_, zeros_
+from ..losses import binary_cross_entropy, l1_loss
 
 
 class RPNHead(nn.Module):
@@ -96,3 +100,73 @@ def rpn_proposals(cls_scores, bbox_preds, anchors_levels, img_shape, cfg):
         top_boxes = F.pad(top_boxes, (0, 0, 0, max_num - k))
         top_scores = F.pad(top_scores, (0, max_num - k))
     return top_boxes, top_scores, top_scores > 0
+
+
+def _flatten(cls_scores, bbox_preds):
+    """Per-level ``(B, A, H, W)`` / ``(B, A*4, H, W)`` -> float32
+    ``(B, N)`` / ``(B, N, 4)`` in the anchors' ``(level, y, x, a)``
+    order."""
+    b = cls_scores[0].shape[0]
+    cls = torch.cat([s.permute(0, 2, 3, 1).reshape(b, -1)
+                     for s in cls_scores], dim=1).float()
+    reg = torch.cat([r.permute(0, 2, 3, 1).reshape(b, -1, 4)
+                     for r in bbox_preds], dim=1).float()
+    return cls, reg
+
+
+def rpn_targets(anchors, gt_bboxes, gt_valid, u_pos, u_neg, assigner_cfg,
+                sampler_cfg):
+    """RPN targets of a batch over the flattened ``(N, 4)`` anchors.
+
+    ``gt_bboxes`` ``(B, G, 4)``, ``gt_valid`` ``(B, G)``; ``u_pos``/
+    ``u_neg`` ``(B, N)`` the sampler's uniforms.  Returns ``labels``,
+    ``label_weights`` ``(B, N)``, ``bbox_targets``, ``bbox_weights``
+    ``(B, N, 4)`` and ``num_samples`` ``(B,)``.
+    """
+    assigned, _ = max_iou_assign(
+        anchors, gt_bboxes, gt_valid,
+        pos_iou_thr=assigner_cfg.get("pos_iou_thr", 0.7),
+        neg_iou_thr=assigner_cfg.get("neg_iou_thr", 0.3),
+        min_pos_iou=assigner_cfg.get("min_pos_iou", 0.3),
+        match_low_quality=assigner_cfg.get("match_low_quality", True))
+    res = random_sample(assigned, sampler_cfg.get("num", 256),
+                        sampler_cfg.get("pos_fraction", 0.5), u_pos, u_neg,
+                        sampler_cfg.get("neg_pos_ub", -1))
+    b, n = assigned.shape
+    inds = res["inds"]
+    pos = res["is_pos"].float()
+    valid = res["valid"].float()
+    # a candidate is sampled at most once (padded slots add zeros)
+    labels = anchors.new_zeros((b, n)).scatter_add_(1, inds, pos)
+    label_weights = anchors.new_zeros((b, n)).scatter_add_(1, inds, valid)
+    matched = gt_bboxes.gather(
+        1, res["pos_gt_inds"][..., None].expand(-1, -1, 4))
+    deltas = bbox2delta(anchors[inds], matched)
+    idx4 = inds[..., None].expand(-1, -1, 4)
+    w = pos[..., None]
+    bbox_targets = anchors.new_zeros((b, n, 4)).scatter_add_(1, idx4,
+                                                             deltas * w)
+    bbox_weights = anchors.new_zeros((b, n, 4)).scatter_add_(
+        1, idx4, w.expand(-1, -1, 4))
+    return labels, label_weights, bbox_targets, bbox_weights, valid.sum(1)
+
+
+def rpn_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_valid, draw,
+             train_cfg):
+    """RPN losses of a batch: sigmoid cross-entropy over the sampled
+    anchors and L1 over the positive ones, both averaged over all sampled
+    anchors of the batch.
+
+    ``cls_scores``/``bbox_preds`` are the head's per-level outputs,
+    ``anchors`` the ``(N, 4)`` concatenated level anchors, ``draw`` the
+    sampler's draw source (:func:`~bonai_tpu_torch.core.samplers
+    .generator_draws`)."""
+    cls, reg = _flatten(cls_scores, bbox_preds)
+    u_pos, u_neg = draw(cls.shape, cls.device)
+    labels, lw, bt, bw, ns = rpn_targets(
+        anchors, gt_bboxes, gt_valid, u_pos, u_neg,
+        dict(train_cfg["assigner"]), dict(train_cfg["sampler"]))
+    num_total = ns.sum().clamp(min=1.0)
+    return {"loss_rpn_cls": binary_cross_entropy(cls, labels, lw,
+                                                 avg_factor=num_total),
+            "loss_rpn_bbox": l1_loss(reg, bt, bw, avg_factor=num_total)}

@@ -1,13 +1,16 @@
 """LOFT: the two-stage trunk plus the roof->footprint offset branch with
 feature-orientation augmentation (counterpart of
-``bonai_tpu/models/detectors/loft.py``, inference on the rectangle-offset
-path of ``LOFT._extra_simple_test``)."""
+``bonai_tpu/models/detectors/loft.py`` on the FOA rectangle-offset path:
+``_offset_loss``, ``_extra_forward_train`` and ``_extra_simple_test``)."""
 
 from __future__ import annotations
 
 from ...core.boxes import delta2offset
-from ..roi_heads.offset_heads import OffsetHeadExpandFeature, foa_offset_fusion
-from .two_stage import TwoStageDetector, _require_type, boxes_to_rois
+from ..losses import smooth_l1_loss
+from ..roi_heads.offset_heads import (OffsetHeadExpandFeature,
+                                      foa_offset_fusion, foa_offset_targets)
+from .two_stage import (TwoStageDetector, _gather_rows, _require_type,
+                        boxes_to_rois)
 
 _UNPORTED_ROI_KEYS = ("height_head", "offset_height_head", "angle_head",
                       "side_face_head", "offset_field_head",
@@ -25,6 +28,7 @@ class LOFT(TwoStageDetector):
                 f"bonai_tpu_torch yet (ROADMAP.md item A5)")
         oh = dict(cfg["offset_head"])
         _require_type(oh, "OffsetHeadExpandFeature", "A5")
+        self.offset_loss = dict(oh.get("loss_offset", {}))
         coder = dict(oh.get("offset_coder", {}))
         _require_type(coder, "DeltaXYOffsetCoder", "A5")
         self.offset_coder_means = tuple(coder.get("target_means", (0., 0.)))
@@ -43,6 +47,25 @@ class LOFT(TwoStageDetector):
             offset_coordinate=oh.get("offset_coordinate", "rectangle"))
         self.offset_extractor_cfg = self._extractor(
             cfg["offset_roi_extractor"])
+
+    def _offset_loss(self, pred, target, weight):
+        _require_type(self.offset_loss, "SmoothL1Loss", "A5")
+        return self.offset_loss.get("loss_weight", 1.0) * smooth_l1_loss(
+            pred, target, self.offset_loss.get("beta", 1.0), weight)
+
+    def _extra_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
+                             pos_gt):
+        """Offset loss of the positive RoIs: every FOA branch against the
+        GT offset turned by its angle, padded rows weighted 0."""
+        rois, roi_valid = boxes_to_rois(pos_boxes, pos_is_pos)
+        head = self.roi_head["offset_head"]
+        pred = head(self._roi_align_cfg(self.offset_extractor_cfg, feats,
+                                        rois, roi_valid))     # (E, BP, 2)
+        targets = foa_offset_targets(
+            rois[:, 1:5], _gather_rows(batch["gt_offsets"], pos_gt),
+            head.rotations, self.offset_coder_means, self.offset_coder_stds)
+        w = roi_valid.float()[None, :, None].expand_as(targets)
+        return {"loss_offset": self._offset_loss(pred, targets, w)}
 
     def _extra_simple_test(self, feats, det_boxes, det_valid, img_shape,
                            scale_factor):

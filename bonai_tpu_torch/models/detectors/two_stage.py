@@ -1,7 +1,13 @@
-"""Two-stage detector trunk, inference only (counterpart of
+"""Two-stage detector trunk (counterpart of
 ``bonai_tpu/models/detectors/two_stage.py``: ``boxes_to_rois``,
-``extract_feat``, ``_roi_align_cfg``, ``_rpn_and_proposals``,
-``simple_test``, ``_rcnn_simple_test``).
+``assign_rcnn``, ``assign_and_sample_rcnn``, ``extract_feat``,
+``_roi_align_cfg``, ``_rpn_and_proposals``, ``forward_train``,
+``_roi_forward_train``, ``_mask_forward_train``, ``simple_test``,
+``_rcnn_simple_test``).
+
+Training is the plain path of the JAX package: random sampling, the
+L1 box loss, no Dynamic R-CNN, PISA or hard mining (their options raise,
+naming the ROADMAP.md item that ports them).
 
 Public layouts are the JAX package's: images ``(B, H, W, 3)``, FPN levels
 ``(B, H, W, C)`` (NHWC views of channels-last NCHW maps, no copy), RoI
@@ -17,14 +23,18 @@ import torch
 from torch import nn
 
 from ...core.anchors import AnchorGenerator
+from ...core.assigners import max_iou_assign
 from ...core.boxes import clip_boxes, delta2bbox
+from ...core.masks import mask_targets_from_instance_masks
 from ...core.nms import multiclass_nms
+from ...core.samplers import random_sample
 from ...ops.roi_align import multilevel_roi_align
 from ...ops.roi_align_block import roi_align_block
 from ..backbones.resnet import ResNet
-from ..dense_heads.rpn_head import RPNHead, rpn_proposals
+from ..dense_heads.rpn_head import RPNHead, rpn_loss, rpn_proposals
+from ..losses import binary_cross_entropy, cross_entropy, l1_loss
 from ..necks.fpn import FPN
-from ..roi_heads.bbox_head import Shared2FCBBoxHead
+from ..roi_heads.bbox_head import Shared2FCBBoxHead, bbox_targets
 from ..roi_heads.mask_head import FCNMaskHead
 
 
@@ -36,6 +46,54 @@ def boxes_to_rois(boxes, valid):
     idx = idx.repeat_interleave(n)[:, None]
     return torch.cat([idx, boxes.reshape(b * n, 4)], dim=1), \
         valid.reshape(b * n)
+
+
+def assign_rcnn(proposals, proposal_valid, gt_bboxes, gt_valid,
+                assigner_cfg):
+    """Second-stage assignment of a batch with ``add_gt_as_proposals``: the
+    GT boxes join the candidates ahead of the proposals (their IoU of 1
+    with themselves makes them positives).  Returns the candidates
+    ``(B, G+N, 4)``, their validity, assignment and max IoU."""
+    cand = torch.cat([gt_bboxes, proposals], dim=1)
+    cand_valid = torch.cat([gt_valid, proposal_valid], dim=1)
+    assigned, max_ov = max_iou_assign(
+        cand, gt_bboxes, gt_valid,
+        pos_iou_thr=assigner_cfg.get("pos_iou_thr", 0.5),
+        neg_iou_thr=assigner_cfg.get("neg_iou_thr", 0.5),
+        min_pos_iou=assigner_cfg.get("min_pos_iou", 0.5),
+        match_low_quality=assigner_cfg.get("match_low_quality", True),
+        box_valid=cand_valid)
+    return cand, cand_valid, assigned, max_ov
+
+
+def assign_and_sample_rcnn(draw, proposals, proposal_valid, gt_bboxes,
+                           gt_valid, assigner_cfg, sampler_cfg):
+    """Assign and randomly sample the second-stage candidates of a batch.
+    Returns the sampler's result (``(B, num)`` each) and the sampled boxes
+    ``(B, num, 4)``."""
+    stype = sampler_cfg.get("type", "RandomSampler")
+    if stype != "RandomSampler":
+        raise NotImplementedError(f"{stype} is not ported to bonai_tpu_torch "
+                                  f"yet (ROADMAP.md item A7)")
+    if not sampler_cfg.get("add_gt_as_proposals", True):
+        raise NotImplementedError("add_gt_as_proposals=False is not ported "
+                                  "to bonai_tpu_torch yet (ROADMAP.md item "
+                                  "A7)")
+    cand, _, assigned, _ = assign_rcnn(proposals, proposal_valid, gt_bboxes,
+                                       gt_valid, assigner_cfg)
+    u_pos, u_neg = draw(assigned.shape, assigned.device)
+    res = random_sample(assigned, sampler_cfg.get("num", 512),
+                        sampler_cfg.get("pos_fraction", 0.25), u_pos, u_neg,
+                        sampler_cfg.get("neg_pos_ub", -1))
+    sampled = cand.gather(1, res["inds"][..., None].expand(-1, -1, 4))
+    return res, sampled
+
+
+def _gather_rows(x, idx):
+    """``x[b, idx[b, j]]`` for ``x`` ``(B, G, ...)`` and ``idx`` ``(B, P)``
+    -> ``(B*P, ...)``."""
+    bidx = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[bidx, idx].reshape(-1, *x.shape[2:])
 
 
 def _kwargs(cfg, name, allowed, item):
@@ -62,9 +120,10 @@ def _require_type(cfg, expected, item):
 class TwoStageDetector(nn.Module):
     """FPN two-stage trunk: ResNet + FPN + RPN + bbox and mask heads."""
 
-    def __init__(self, backbone, neck, rpn_head, roi_head, test_cfg=None,
-                 roi_align_impl=None):
+    def __init__(self, backbone, neck, rpn_head, roi_head, train_cfg=None,
+                 test_cfg=None, roi_align_impl=None):
         super().__init__()
+        self.train_cfg = train_cfg
         self.test_cfg = test_cfg
         self.roi_align_impl = roi_align_impl
         _require_type(backbone, "ResNet", "A6")
@@ -96,6 +155,7 @@ class TwoStageDetector(nn.Module):
     def _setup_roi_head(self, cfg):
         bh = dict(cfg["bbox_head"])
         _require_type(bh, "Shared2FCBBoxHead", "A7")
+        self.bbox_loss = dict(bh.get("loss_bbox", {}))
         self.bbox_coder = dict(bh.get("bbox_coder", {}))
         _require_type(self.bbox_coder, "DeltaXYWHBBoxCoder", "A7")
         self.roi_head["bbox_head"] = Shared2FCBBoxHead(
@@ -125,8 +185,15 @@ class TwoStageDetector(nn.Module):
 
     # ---------------- shared helpers ----------------
     def extract_feat(self, img):
-        """``(B, H, W, 3)`` image -> tuple of NHWC FPN levels."""
+        """``(B, H, W, 3)`` image -> tuple of NHWC FPN levels.
+
+        On the CPU the backbone runs in contiguous NCHW: PyTorch's CPU
+        (oneDNN) weight gradient of a strided 1x1 convolution over a
+        channels-last input that needs no gradient (``layer2``'s
+        downsample behind the frozen ``layer1``) corrupts the heap."""
         x = img.permute(0, 3, 1, 2)
+        if not x.is_cuda:
+            x = x.contiguous()
         feats = self.neck(self.backbone(x))
         return tuple(f.permute(0, 2, 3, 1) for f in feats)
 
@@ -168,6 +235,105 @@ class TwoStageDetector(nn.Module):
             cls_scores, bbox_preds, self._grid_anchors(feats), img_shape,
             proposal_cfg)
         return props, scores, valid
+
+    # ---------------- training ----------------
+    def forward_train(self, batch, draw):
+        """The loss dict of one padded batch.
+
+        ``batch`` holds the JAX package's batch contract as tensors on the
+        model's device: ``image`` ``(B, H, W, 3)`` normalised, ``img_shape``
+        ``(B, 2)``, ``gt_bboxes`` ``(B, G, 4)``, ``gt_labels``, ``gt_valid``
+        ``(B, G)``, ``gt_masks`` ``(B, G, M, M)`` instance-local masks and,
+        for LOFT, ``gt_offsets`` ``(B, G, 2)``.  ``draw`` is the samplers'
+        draw source (:func:`~bonai_tpu_torch.core.samplers.generator_draws`),
+        called for the RPN and then for the R-CNN.
+        """
+        feats = self.extract_feat(batch["image"])
+        cls_scores, bbox_preds = self.rpn_head(
+            [f.permute(0, 3, 1, 2) for f in feats])
+        anchors = self._grid_anchors(feats)
+        with torch.no_grad():       # proposals are constants of the step
+            proposals, _, prop_valid = rpn_proposals(
+                cls_scores, bbox_preds, anchors, batch["img_shape"],
+                dict(self.train_cfg.get("rpn_proposal", {})))
+        losses = rpn_loss(cls_scores, bbox_preds, torch.cat(anchors),
+                          batch["gt_bboxes"], batch["gt_valid"], draw,
+                          dict(self.train_cfg["rpn"]))
+        losses.update(self._roi_forward_train(
+            feats, proposals.detach(), prop_valid, batch, draw))
+        return losses
+
+    def _roi_forward_train(self, feats, proposals, prop_valid, batch, draw):
+        rcnn = dict(self.train_cfg["rcnn"])
+        _require_type(self.bbox_loss, "L1Loss", "A7")
+        unported = sorted(k for k in ("dynamic_rcnn", "isr", "carl")
+                          if rcnn.get(k))
+        if unported:
+            raise NotImplementedError(f"train_cfg.rcnn options {unported} "
+                                      f"are not ported to bonai_tpu_torch "
+                                      f"yet (ROADMAP.md item A7)")
+        sampler_cfg = dict(rcnn["sampler"])
+        num = sampler_cfg.get("num", 512)
+        num_pos = int(num * sampler_cfg.get("pos_fraction", 0.25))
+        gt_bboxes = batch["gt_bboxes"]
+        b = gt_bboxes.shape[0]
+        res, sampled = assign_and_sample_rcnn(
+            draw, proposals, prop_valid, gt_bboxes, batch["gt_valid"],
+            dict(rcnn["assigner"]), sampler_cfg)
+        head = self.roi_head["bbox_head"]
+        nc = head.fc_cls.out_features - 1
+        labels, label_w, bbox_t, bbox_w = bbox_targets(
+            sampled, res, gt_bboxes, batch["gt_labels"], nc,
+            tuple(self.bbox_coder.get("target_means", (0.,) * 4)),
+            tuple(self.bbox_coder.get("target_stds", (1.,) * 4)))
+        rois, roi_valid = boxes_to_rois(sampled, res["valid"])
+        cls_score, bbox_pred = head(self._roi_align_cfg(
+            self.bbox_extractor_cfg, feats, rois, roi_valid))
+        n_tot = b * num
+        labels = labels.reshape(n_tot)
+        label_w = label_w.reshape(n_tot)
+        if head.fc_reg.out_features == 4:       # class-agnostic or one class
+            pred4 = bbox_pred[:, :4]
+        else:
+            pred4 = bbox_pred.reshape(n_tot, nc, 4).gather(
+                1, labels.clamp(0, nc - 1)[:, None, None].expand(-1, 1, 4)
+            )[:, 0]
+        losses = {
+            "loss_cls": cross_entropy(
+                cls_score, labels, label_w,
+                avg_factor=(label_w > 0).sum().float().clamp(min=1.0)),
+            "loss_bbox": l1_loss(pred4, bbox_t.reshape(n_tot, 4),
+                                 bbox_w.reshape(n_tot, 4),
+                                 avg_factor=float(n_tot))}
+        # the mask and extra branches take the positive slots (the sampler
+        # ranks the positives first)
+        pos_boxes = sampled[:, :num_pos]
+        pos_is_pos = res["is_pos"][:, :num_pos]
+        pos_gt = res["pos_gt_inds"][:, :num_pos]
+        losses.update(self._mask_forward_train(feats, batch, rcnn, pos_boxes,
+                                               pos_is_pos, pos_gt))
+        losses.update(self._extra_forward_train(feats, batch, rcnn,
+                                                pos_boxes, pos_is_pos,
+                                                pos_gt))
+        return losses
+
+    def _mask_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
+                            pos_gt):
+        mask_size = rcnn.get("mask_size", 28)
+        rois, roi_valid = boxes_to_rois(pos_boxes, pos_is_pos)
+        logits = self.roi_head["mask_head"](self._roi_align_cfg(
+            self.mask_extractor_cfg, feats, rois, roi_valid))[:, 0]
+        targets = mask_targets_from_instance_masks(
+            rois[:, 1:5], _gather_rows(batch["gt_bboxes"], pos_gt),
+            _gather_rows(batch["gt_masks"], pos_gt), mask_size)
+        w = roi_valid.float()[:, None, None]
+        return {"loss_mask": binary_cross_entropy(
+            logits, targets, w.expand_as(logits),
+            avg_factor=(w.sum() * mask_size * mask_size).clamp(min=1.0))}
+
+    def _extra_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
+                             pos_gt):
+        return {}
 
     # ---------------- inference ----------------
     @torch.inference_mode()

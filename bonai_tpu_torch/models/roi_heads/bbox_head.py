@@ -1,13 +1,36 @@
-"""Box head (counterpart of ``bonai_tpu/models/roi_heads/bbox_head.py``
-``Shared2FCBBoxHead``).  v2.3 labels: foreground 0..C-1, background C
-(the last softmax column)."""
+"""Box head and its training targets (counterpart of
+``bonai_tpu/models/roi_heads/bbox_head.py``: ``Shared2FCBBoxHead`` and
+``bbox_targets_single``, batched over images here).  v2.3 labels:
+foreground 0..C-1, background C (the last softmax column)."""
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.boxes import bbox2delta
 from ..init import normal_, xavier_uniform_, zeros_
+
+
+def bbox_targets(sampled_boxes, sample_res, gt_bboxes, gt_labels,
+                 num_classes, target_means, target_stds):
+    """Targets of the sampled boxes ``(B, S, 4)`` of a batch, from the
+    sampler's result (``is_pos``, ``valid``, ``pos_gt_inds``, each
+    ``(B, S)``) and the padded GT ``(B, G, 4)`` / ``(B, G)``.
+
+    Returns ``labels`` (int64, background = ``num_classes``),
+    ``label_weights``, ``bbox_targets`` and ``bbox_weights``.
+    """
+    is_pos = sample_res["is_pos"]
+    matched = sample_res["pos_gt_inds"]
+    labels = gt_labels.long().gather(1, matched)
+    labels = labels.where(is_pos, labels.new_tensor(num_classes))
+    label_weights = sample_res["valid"].float()
+    deltas = bbox2delta(
+        sampled_boxes, gt_bboxes.gather(1, matched[..., None].expand(-1, -1, 4)),
+        target_means, target_stds)
+    w = is_pos.float()[..., None]
+    return labels, label_weights, deltas * w, w.expand_as(deltas)
 
 
 class Shared2FCBBoxHead(nn.Module):

@@ -1,6 +1,6 @@
 """LOFT FOA offset head (counterpart of
 ``bonai_tpu/models/roi_heads/offset_heads.py`` ``OffsetHeadExpandFeature``,
-``rotate_feature`` and ``foa_offset_fusion``).
+``rotate_feature``, ``foa_offset_targets`` and ``foa_offset_fusion``).
 
 Each rotation branch turns the RoI features by k*90 degrees, runs its own
 conv tower and the shared FCs; inference keeps, per axis, the largest
@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.boxes import offset2delta, offset_rotate
 from ..init import fan_in_uniform_, kaiming_fan_out_, normal_, zeros_
 
 
@@ -77,6 +78,23 @@ class OffsetHeadExpandFeature(nn.Module):
                 t = F.relu(fc(t))
             outs.append(self.fc_offset(t).float())
         return torch.stack(outs)
+
+
+def foa_offset_targets(pos_boxes, matched_offsets, rotations,
+                       coder_means=(0., 0.), coder_stds=(0.5, 0.5)):
+    """Encoded offset targets ``(E, P, 2)`` of each FOA branch: the GT
+    offset turned by the branch angle; at 90 and 270 degrees x and y swap
+    roles inside the encoding (rotated x normalised by the box height)."""
+    outs = []
+    for angle in rotations:
+        rot = offset_rotate(matched_offsets, angle)
+        if _branch_swaps_xy(angle):
+            enc = offset2delta(pos_boxes, rot.flip(-1), coder_means,
+                               coder_stds).flip(-1)
+        else:
+            enc = offset2delta(pos_boxes, rot, coder_means, coder_stds)
+        outs.append(enc)
+    return torch.stack(outs)
 
 
 def foa_offset_fusion(offset_pred, rotations):

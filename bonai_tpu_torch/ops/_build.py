@@ -3,7 +3,8 @@ plain-C shared libraries with ``nvcc`` and loads them with ``ctypes``.
 
 Each library is built at first use from the repository's sources alone,
 into ``build/kernels/`` at the repository root, under a name that carries
-a hash of its source and flags (an edited source builds anew).  The
+a hash of its source, the shared headers (``csrc/*.cuh``) and the flags
+(an edited source or header builds anew).  The
 ``-Xptxas=-v`` report (registers, shared memory, spills) is kept beside
 the library as ``<name>.ptxas.txt``.
 """
@@ -38,6 +39,8 @@ def _nvcc():
 def library_path(name):
     """Path of the shared library built from ``csrc/<name>.cu``."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

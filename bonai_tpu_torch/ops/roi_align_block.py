@@ -1,15 +1,20 @@
-"""Multi-level RoIAlign with the block level rule: the CUDA kernel
-(``csrc/roi_align_block_fwd.cu``) and its plain PyTorch version.
+"""Multi-level RoIAlign with the block level rule: the CUDA kernels
+(``csrc/roi_align_block_fwd.cu`` forward, ``csrc/roi_align_block_bwd.cu``
+backward) and their plain PyTorch version.
 
 Counterpart of ``bonai_tpu.ops.pallas_roi_align_block.pallas_block_roi_align``
-(forward).  The level rule is the gather rule
+and its custom VJP.  The level rule is the gather rule
 (``floor(log2(sqrt(wh)/56))``) with the block kernel's symmetric push: an
 RoI whose larger extent spans more than ``window - 4`` cells at its level
 moves coarser until it fits (``_block_plan`` there).  It is computed here
 in torch, once, and both versions read it.
 
-``roi_align_block`` takes the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.
+``roi_align_block`` takes the plain version only for tensors on the CPU
+(autograd differentiates it there); for CUDA tensors it goes through
+:class:`_RoIAlignBlock`, whose forward launches the forward kernel and
+whose backward launches the backward kernel, or raises.  The RoIs get no
+gradient (the detector's RoIs are sampled proposals, constants of the
+step).
 """
 
 from __future__ import annotations
@@ -49,10 +54,11 @@ def roi_align_block_ref(levels, rois, output_size, featmap_strides,
 
 
 @functools.cache
-def _kernel():
-    """The C entry point of ``csrc/roi_align_block_fwd.cu``, built and
-    bound at first use."""
-    fn = load_library("roi_align_block_fwd").roi_align_block_fwd
+def _kernel(name):
+    """The C entry point of ``csrc/<name>.cu`` (``roi_align_block_fwd`` or
+    ``roi_align_block_bwd``, one signature), built and bound at first
+    use."""
+    fn = getattr(load_library(name), name)
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_float), ctypes.c_int,
@@ -62,6 +68,26 @@ def _kernel():
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name, ptrs, shapes, featmap_strides, rois, lvl, roi_valid,
+            output_size, sampling_ratio, dtype, data):
+    """One launch of the forward or backward kernel: ``ptrs`` are the
+    levels (forward) or their float32 gradient buffers (backward), ``data``
+    the output (forward) or the output gradient (backward)."""
+    n = len(ptrs)
+    oh, ow = output_size
+    B, C = shapes[0][0], shapes[0][-1]
+    rc = _kernel(name)(
+        (ctypes.c_void_p * n)(*ptrs),
+        (ctypes.c_int * n)(*[s[1] for s in shapes]),
+        (ctypes.c_int * n)(*[s[2] for s in shapes]),
+        (ctypes.c_float * n)(*[1.0 / s for s in featmap_strides]),
+        n, B, C, rois.data_ptr(), lvl.data_ptr(), roi_valid.data_ptr(),
+        rois.shape[0], oh, ow, int(sampling_ratio), _DTYPE_CODES[dtype],
+        data.data_ptr(), torch.cuda.current_stream(rois.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
@@ -102,6 +128,64 @@ def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                          "levels' device")
 
 
+def roi_align_block_backward(grad_out, shapes, featmap_strides, rois, lvl,
+                             roi_valid, sampling_ratio=2):
+    """Gradient of the block RoIAlign with respect to its levels: launches
+    the backward kernel (``roi_align_block_backward.launches`` counts its
+    launches).
+
+    Args:
+      grad_out: ``(R, oh, ow, C)`` CUDA gradient of the output (float32 or
+        bfloat16, the levels' dtype).
+      shapes: the levels' ``(B, Hl, Wl, C)`` shapes.
+      rois, lvl, roi_valid: the forward's RoIs, ``int32`` levels and bool
+        validity.
+
+    Returns one ``(B, Hl, Wl, C)`` contiguous gradient per level in
+    ``grad_out``'s dtype: summed in float32, rounded once.
+    """
+    grad_out = grad_out.contiguous()
+    bufs = [torch.zeros(s, dtype=torch.float32, device=grad_out.device)
+            for s in shapes]
+    _launch("roi_align_block_bwd", [b.data_ptr() for b in bufs], shapes,
+            featmap_strides, rois, lvl, roi_valid, tuple(grad_out.shape[1:3]),
+            sampling_ratio, grad_out.dtype, grad_out)
+    roi_align_block_backward.launches += 1
+    return [b.to(grad_out.dtype) for b in bufs]
+
+
+roi_align_block_backward.launches = 0
+
+
+class _RoIAlignBlock(torch.autograd.Function):
+    """The block RoIAlign on CUDA: forward kernel, backward kernel.  The
+    level per RoI is computed once by the caller and saved for the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, rois, lvl, roi_valid, output_size, featmap_strides,
+                sampling_ratio, *levels):
+        out = torch.empty((rois.shape[0], *output_size, levels[0].shape[-1]),
+                          dtype=levels[0].dtype, device=levels[0].device)
+        _launch("roi_align_block_fwd", [f.data_ptr() for f in levels],
+                [tuple(f.shape) for f in levels], featmap_strides, rois, lvl,
+                roi_valid, output_size, sampling_ratio, levels[0].dtype, out)
+        roi_align_block.launches += 1
+        ctx.save_for_backward(rois, lvl, roi_valid)
+        ctx.shapes = [tuple(f.shape) for f in levels]
+        ctx.strides = featmap_strides
+        ctx.sampling_ratio = sampling_ratio
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, lvl, roi_valid = ctx.saved_tensors
+        grads = roi_align_block_backward(grad_out, ctx.shapes, ctx.strides,
+                                         rois, lvl, roi_valid,
+                                         ctx.sampling_ratio)
+        return (None,) * 6 + tuple(grads)
+
+
 def roi_align_block(levels, rois, output_size, featmap_strides,
                     sampling_ratio=2, aligned=True, finest_scale=56,
                     roi_valid=None):
@@ -114,8 +198,10 @@ def roi_align_block(levels, rois, output_size, featmap_strides,
       roi_valid: optional ``(R,)`` bool; invalid rows come out as zeros.
 
     Returns ``(R, oh, ow, C)`` in the levels' dtype.  CUDA tensors go to
-    the kernel (``roi_align_block.launches`` counts its launches); CPU
-    tensors go to :func:`roi_align_block_ref`.
+    the forward kernel (``roi_align_block.launches`` counts its launches)
+    and, where the levels require a gradient, the backward kernel
+    (:func:`roi_align_block_backward`); CPU tensors go to
+    :func:`roi_align_block_ref`.
     """
     device = levels[0].device
     if device.type == "cpu":
@@ -127,29 +213,13 @@ def roi_align_block(levels, rois, output_size, featmap_strides,
     num_levels = len(featmap_strides)
     _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                   sampling_ratio)
-    oh, ow = _as_pair(output_size)
-    levels = levels[:num_levels]
-    B, C = levels[0].shape[0], levels[0].shape[-1]
-    R = rois.shape[0]
     lvl = block_levels(rois[:, 1:5], featmap_strides,
                        finest_scale).to(torch.int32)
     if roi_valid is None:
-        roi_valid = torch.ones(R, dtype=torch.bool, device=device)
-    out = torch.empty((R, oh, ow, C), dtype=levels[0].dtype, device=device)
-    rc = _kernel()(
-        (ctypes.c_void_p * num_levels)(*[f.data_ptr() for f in levels]),
-        (ctypes.c_int * num_levels)(*[f.shape[1] for f in levels]),
-        (ctypes.c_int * num_levels)(*[f.shape[2] for f in levels]),
-        (ctypes.c_float * num_levels)(*[1.0 / s for s in featmap_strides]),
-        num_levels, B, C, rois.data_ptr(), lvl.data_ptr(),
-        roi_valid.data_ptr(), R, oh, ow, int(sampling_ratio),
-        _DTYPE_CODES[levels[0].dtype], out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"roi_align_block_fwd launch failed: CUDA error "
-                           f"{rc}")
-    roi_align_block.launches += 1
-    return out
+        roi_valid = torch.ones(rois.shape[0], dtype=torch.bool, device=device)
+    return _RoIAlignBlock.apply(rois, lvl, roi_valid, _as_pair(output_size),
+                                tuple(featmap_strides), int(sampling_ratio),
+                                *levels[:num_levels])
 
 
 roi_align_block.launches = 0

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the bonai_tpu_torch serving path on one NVIDIA GPU and checks it.
+"""Drives the bonai_tpu_torch serving and training paths on one NVIDIA GPU
+and checks them.
 
 Run from the repository root, on a machine with a CUDA device and the CUDA
 toolkit:
@@ -8,21 +9,35 @@ toolkit:
 
 Phases, each of which must pass:
 
-1. build: every CUDA kernel of the path, from ``bonai_tpu_torch/csrc``, one
-   ``nvcc`` per source, started together.
-2. kernels: each kernel's wrapper at the shapes the serving path gives it
-   (the block RoIAlign forward: bbox R=6000 at 7x7, mask R=4000 at 14x14,
-   offset R=4000 at 7x7; C=256; float32 and bfloat16; pushed, border and
-   invalid RoIs) against its plain PyTorch version: max abs error, kernel
-   time (CUDA events, warm), plain time and the least time the card could
-   take (the bound).
+1. build: every CUDA kernel of the paths, from ``bonai_tpu_torch/csrc``,
+   one ``nvcc`` per source, started together.
+2. kernels: each kernel's wrapper at the shapes the paths give it, against
+   its plain PyTorch version, in float32 and bfloat16, with pushed, border
+   and invalid RoIs: max abs error, kernel time (CUDA events, warm), plain
+   time and the least time the card could take (the bound).
+   - the block RoIAlign forward at the serving shapes (bbox R=6000 at 7x7,
+     mask R=4000 at 14x14, offset R=4000 at 7x7) and at the training
+     shapes (bbox R=2048 at 7x7, mask R=512 at 14x14, offset R=512 at
+     7x7), C=256;
+   - the block RoIAlign backward at the training shapes, against autograd
+     through the plain version.
 3. serve: ``init_detector`` on ``configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py``
    at full width with seeded random weights in bfloat16; two batched
    ``simple_test`` calls at 1024^2 with B=2 and one ``inference_detector``
-   call on a random BGR image.  Launch counts are zeroed just before and
-   read just after; outputs must be finite and of the right shapes, and a
-   small float32 input must agree with the same model run through the
-   kernels' plain versions.
+   call on a random BGR image.  Outputs must be finite and of the right
+   shapes, and a small float32 input must agree with the same model run
+   through the kernels' plain versions.
+4. train: ``train_detector`` on the same config at full width, seeded
+   random float32 weights, bfloat16 autocast, the config's train settings
+   and optimizer, 1 warm-up and 5 timed steps on a synthetic padded batch
+   (B=2, 1024^2, 100 GTs, 112^2 masks, offsets within +-30 px).  Every loss
+   and gradient norm must be finite and the trainable weights must move.
+   On a small float32 input, the FPN-level gradients of the RoI branches'
+   losses through the kernels must agree with the plain path.
+
+Launch counts are zeroed just before the serve and the train runs and read
+just after: the forward kernel must launch 3 times per batch in both, the
+backward kernel 3 times per training step.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -31,6 +46,8 @@ result, without a CUDA device or outside the repository.
 
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -41,8 +58,10 @@ CONFIG = os.path.join(REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 BATCH, SIZE, C = 2, 1024, 256
-BRANCHES = (("bbox", 6000, 7), ("mask", 4000, 14), ("offset", 4000, 7))
+SERVE_BRANCHES = (("bbox", 6000, 7), ("mask", 4000, 14), ("offset", 4000, 7))
+TRAIN_BRANCHES = (("bbox", 2048, 7), ("mask", 512, 14), ("offset", 512, 7))
 STRIDES = [4, 8, 16, 32]
+TRAIN_STEPS = 6                     # 1 warm-up + 5 timed
 
 
 def _gpu_name_and_power():
@@ -67,6 +86,14 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bound_ms(nbytes, flops):
+    """The least time for ``nbytes`` of device memory traffic and
+    ``flops`` float32 operations, and which of the two sets it."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _rois(n, gen):
     """Proposal-like RoIs on a 1024^2 tile: log-uniform sizes 4..700 px,
     one in twenty wide and flat (the block rule pushes those coarser),
@@ -83,24 +110,33 @@ def _rois(n, gen):
     return torch.cat([b, boxes], 1).cuda(), valid.cuda()
 
 
-def kernel_phase():
-    """The block RoIAlign kernel against its plain version at the serving
-    shapes.  Returns its entry of the kernels line (per-batch sums over the
-    three branches, bfloat16 as the serving path runs it)."""
+class _Sums:
+    """Per-batch sums of one kernel's numbers over the three branches."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.bound_ms = self.err = 0.0
+        self.bound_by = None
+
+    def add(self, ms, plain_ms, bound, bound_by, err):
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.bound_ms += bound
+        self.err = max(self.err, err)
+        self.bound_by = bound_by
+
+
+def _forward_kernel(levels32, branches, gen, label):
+    """The block RoIAlign forward against its plain version; returns the
+    bfloat16 per-batch sums."""
     import torch
     from bonai_tpu_torch.ops.roi_align_block import (block_levels,
                                                      roi_align_block,
                                                      roi_align_block_ref)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator().manual_seed(0)
-    levels32 = [torch.randn(BATCH, SIZE // s, SIZE // s, C, generator=gen)
-                .cuda() for s in STRIDES]
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    sums = _Sums()
     for dtype in (torch.float32, torch.bfloat16):
         levels = [f.to(dtype) for f in levels32]
         level_bytes = sum(f.numel() * f.element_size() for f in levels)
-        for name, n, size in BRANCHES:
+        for name, n, size in branches:
             rois, valid = _rois(n, gen)
             args = (levels, rois, size, STRIDES)
             got = roi_align_block(*args, roi_valid=valid)
@@ -121,33 +157,99 @@ def kernel_phase():
                       + got.numel() * got.element_size())
             # 4 corners x (multiply + add) per sample and channel, valid rows
             flops = int(valid.sum()) * size * size * 4 * 4 * 2 * C
-            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-            t_ops = flops / H100_FP32_FLOPS * 1e3
-            bound = max(t_bytes, t_ops)
-            print(f"kernel roi_align_block_fwd {str(dtype)[6:]} {name} "
-                  f"R={n} {size}x{size}: max_abs_err={float(diff.max()):.3g} "
-                  f"within_tol={ok} pushed={pushed} "
-                  f"invalid={int((~valid).sum())} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
-                  f"({'bytes' if t_bytes >= t_ops else 'operations'})",
-                  flush=True)
+            bound, bound_by = _bound_ms(nbytes, flops)
+            print(f"kernel roi_align_block_fwd {label} {str(dtype)[6:]} "
+                  f"{name} R={n} {size}x{size}: "
+                  f"max_abs_err={float(diff.max()):.3g} within_tol={ok} "
+                  f"pushed={pushed} invalid={int((~valid).sum())} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
+                  f"({bound_by})", flush=True)
             if not ok:
                 raise AssertionError(f"roi_align_block_fwd disagrees with "
+                                     f"its plain version ({label}, {dtype}, "
+                                     f"{name})")
+            if dtype == torch.bfloat16:
+                sums.add(ms, plain_ms, bound, bound_by, float(diff.max()))
+    return sums
+
+
+def _backward_kernel(levels32, gen):
+    """The block RoIAlign backward at the training shapes against autograd
+    through the plain version; returns the bfloat16 per-step sums."""
+    import torch
+    from bonai_tpu_torch.ops.roi_align_block import (block_levels,
+                                                     roi_align_block_backward,
+                                                     roi_align_block_ref)
+    sums = _Sums()
+    for dtype in (torch.float32, torch.bfloat16):
+        levels = [f.to(dtype, copy=True).requires_grad_()
+                  for f in levels32]
+        shapes = [tuple(f.shape) for f in levels]
+        grad_bytes = sum(f.numel() * f.element_size() for f in levels)
+        for name, n, size in TRAIN_BRANCHES:
+            rois, valid = _rois(n, gen)
+            lvl = block_levels(rois[:, 1:5], STRIDES).to(torch.int32)
+            cot = torch.randn(n, size, size, C, generator=gen).to(
+                device="cuda", dtype=dtype)
+
+            def kernel():
+                return roi_align_block_backward(cot, shapes, STRIDES, rois,
+                                                lvl, valid)
+            got = kernel()
+            torch.cuda.synchronize()
+            out = roi_align_block_ref(levels, rois, size, STRIDES,
+                                      roi_valid=valid)
+
+            def plain():
+                return torch.autograd.grad(out, levels, cot,
+                                           retain_graph=True)
+            ref = plain()
+            ok, err = True, 0.0
+            for g, e in zip(got, ref):
+                top = float(e.float().abs().max())
+                diff = (g.float() - e.float()).abs()
+                err = max(err, float(diff.max()))
+                if dtype == torch.float32:      # 1e-4 of the level's largest
+                    ok &= float(diff.max()) <= 1e-4 * top
+                else:       # one bf16 ulp, plus float32 summation order
+                    ok &= bool((diff <= e.float().abs() * 2 ** -7
+                                + 1e-5 * top).all())
+            ms = _time_ms(kernel, 20)
+            plain_ms = _time_ms(plain, 3)
+            # the output gradient read once, the level gradients written once
+            nbytes = (cot.numel() * cot.element_size() + grad_bytes
+                      + rois.numel() * 4 + lvl.numel() * 4 + valid.numel())
+            # 4 corners x (multiply + add) per sample and channel, valid rows
+            flops = int(valid.sum()) * size * size * 4 * 4 * 2 * C
+            bound, bound_by = _bound_ms(nbytes, flops)
+            print(f"kernel roi_align_block_bwd train {str(dtype)[6:]} {name} "
+                  f"R={n} {size}x{size}: max_abs_err={err:.3g} "
+                  f"within_tol={ok} invalid={int((~valid).sum())} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
+                  f"({bound_by})", flush=True)
+            if not ok:
+                raise AssertionError(f"roi_align_block_bwd disagrees with "
                                      f"its plain version ({dtype}, {name})")
             if dtype == torch.bfloat16:
-                total["ms"] += ms
-                total["plain_ms"] += plain_ms
-                total["bound_ms"] += bound
-                total["err"] = max(total["err"], float(diff.max()))
-                total["bound_by"] = ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-    return {"name": "roi_align_block_fwd", "route": "cuda",
-            "source": "bonai_tpu_torch/csrc/roi_align_block_fwd.cu",
-            "replaces": "bonai_tpu/ops/pallas_roi_align_block.py:152",
-            "launches": None, "max_abs_err": total["err"],
-            "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
-            "library_ms": None}
+                sums.add(ms, plain_ms, bound, bound_by, err)
+            del out
+    return sums
+
+
+def kernel_phase():
+    """Both kernels against their plain versions.  Returns the per-batch
+    (per-step) bfloat16 sums: forward at the serving and at the training
+    shapes, backward at the training shapes."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    levels32 = [torch.randn(BATCH, SIZE // s, SIZE // s, C, generator=gen)
+                .cuda() for s in STRIDES]
+    fwd_serve = _forward_kernel(levels32, SERVE_BRANCHES, gen, "serve")
+    fwd_train = _forward_kernel(levels32, TRAIN_BRANCHES, gen, "train")
+    bwd = _backward_kernel(levels32, gen)
+    return fwd_serve, fwd_train, bwd
 
 
 def _check_outputs(out, b, p):
@@ -168,7 +270,7 @@ def _check_outputs(out, b, p):
 
 def serve_phase():
     """Full-width LOFT-FOA R50-FPN serving through the port's entry points.
-    Returns the launch counts of the run."""
+    Returns the forward kernel's launch count of the run."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import (inference_detector, init_detector,
@@ -257,7 +359,141 @@ def serve_phase():
             if not err <= 1e-4 * max(scale, 1.0):
                 raise AssertionError(f"small input: {head} differs from "
                                      f"the plain path by {err}")
-    return {"roi_align_block_fwd": launches}
+    return launches
+
+
+def _roi_grad_check(model):
+    """On a small float32 input, one step's RoI branches: the FPN-level
+    gradients of their losses through the kernels against the plain
+    version's backward fed the same output gradients (the heads between
+    them are the same run, so a ReLU flipped by float noise cannot differ
+    between the two)."""
+    import torch
+    from bonai_tpu_torch.core.samplers import generator_draws
+    from bonai_tpu_torch.models.detectors import two_stage
+    from bonai_tpu_torch.ops.roi_align_block import (roi_align_block,
+                                                     roi_align_block_backward,
+                                                     roi_align_block_ref)
+    from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in synthetic_batch(size=320, g=12, seed=1).items()}
+    with torch.no_grad():
+        feats = [f.detach().requires_grad_()
+                 for f in model.extract_feat(batch["image"])]
+        props, _, pvalid = model._rpn_and_proposals(
+            feats, batch["img_shape"], dict(model.train_cfg["rpn_proposal"]))
+    calls = []
+
+    def recorded(levels, rois, output_size, featmap_strides, **kw):
+        out = roi_align_block(levels, rois, output_size, featmap_strides,
+                              **kw)
+        out.retain_grad()
+        calls.append((rois, output_size, kw, out))
+        return out
+
+    fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
+    try:
+        two_stage.roi_align_block = recorded
+        losses = model._roi_forward_train(
+            feats, props, pvalid, batch,
+            generator_draws(torch.Generator(device="cuda").manual_seed(0)))
+    finally:
+        two_stage.roi_align_block = roi_align_block
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    if (roi_align_block.launches - fwd != 3
+            or roi_align_block_backward.launches - bwd != 3):
+        raise AssertionError("the RoI branches did not run both kernels")
+    levels = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
+    for rois, output_size, kw, out in calls:
+        ref = roi_align_block_ref(levels, rois, output_size, STRIDES, **kw)
+        err = float((out - ref).abs().max())
+        if not err <= 1e-4 * max(float(ref.abs().max()), 1.0):
+            raise AssertionError(f"small input: RoI features differ from "
+                                 f"the plain version by {err}")
+        ref.backward(out.grad)
+    for s, f, e in zip(STRIDES, feats, levels):
+        err = float((f.grad - e.grad).abs().max())
+        top = float(e.grad.abs().max())
+        print(f"train: small float32 input, FPN stride {s} gradient of the "
+              f"RoI losses through the kernels vs the plain version: max "
+              f"abs diff {err:.3g} (gradients up to {top:.3g})", flush=True)
+        if not err <= 1e-4 * top:
+            raise AssertionError(f"small input: the stride-{s} gradient "
+                                 f"differs from the plain path by {err}")
+    if not float(levels[0].grad.abs().max()) > 0:
+        raise AssertionError("small input: no gradient reached the FPN")
+
+
+def train_phase():
+    """Full-width LOFT-FOA R50-FPN training through ``train_detector``.
+    Returns the forward and backward kernels' launch counts of the run."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import train_detector
+    from bonai_tpu_torch.config import Config
+    from bonai_tpu_torch.models.builder import build_detector
+    from bonai_tpu_torch.ops.roi_align_block import (roi_align_block,
+                                                     roi_align_block_backward)
+    from bonai_tpu_torch.tools.profile_train import synthetic_batch
+
+    cfg = Config.fromfile(CONFIG)
+    batch = synthetic_batch()
+    work_dir = os.path.join(REPO, "build", "chip_smoke_train")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_block.launches = 0
+    roi_align_block_backward.launches = 0
+    t0 = time.time()
+    # one epoch of TRAIN_STEPS copies of the batch: no epoch checkpoint
+    # falls between the timed steps
+    model, hist = train_detector(cfg, [batch] * TRAIN_STEPS, work_dir,
+                                 seed=0, max_steps=TRAIN_STEPS,
+                                 log_interval=1)
+    torch.cuda.synchronize()
+    fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.time() - t0
+    step_ms = [h["time"] * 1e3 for h in hist]
+    print(f"train: train_detector 1024^2 B={BATCH} bf16 autocast, "
+          f"{TRAIN_STEPS} steps in {wall:.1f} s incl. set-up and the final "
+          f"checkpoint; ms per step {[round(x, 1) for x in step_ms]}; "
+          f"median of the {len(step_ms) - 1} warm steps "
+          f"{statistics.median(step_ms[1:]):.1f} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated)", flush=True)
+    keys = [k for k in hist[0] if k.startswith("loss")]
+    for h in hist:
+        print(f"train: step {h['iter']} lr {h['lr']:.3g} grad_norm "
+              f"{h['grad_norm']:.4g} " + " ".join(
+                  f"{k} {h[k]:.5g}" for k in keys), flush=True)
+    if not all(np.isfinite(h[k]) for h in hist
+               for k in keys + ["grad_norm"]):
+        raise AssertionError("a loss or the gradient norm is not finite")
+    if fwd != 3 * TRAIN_STEPS or bwd != 3 * TRAIN_STEPS:
+        raise AssertionError(f"{TRAIN_STEPS} steps launched the forward "
+                             f"kernel {fwd} and the backward kernel {bwd} "
+                             f"times; 3 each per step expected")
+    init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    init.init_weights(torch.Generator().manual_seed(0))
+    start = dict(init.named_parameters())
+    moved = frozen_moved = trainable = 0
+    for name, p in model.named_parameters():
+        changed = not torch.equal(p.detach().cpu(), start[name].detach())
+        if p.requires_grad:
+            trainable += 1
+            moved += changed
+        else:
+            frozen_moved += changed
+    print(f"train: {moved} of {trainable} trainable parameter tensors "
+          f"moved, {frozen_moved} frozen ones moved", flush=True)
+    if moved != trainable or frozen_moved:
+        raise AssertionError("the trainable weights did not all move, or "
+                             "a frozen one did")
+    shutil.rmtree(work_dir, ignore_errors=True)
+
+    _roi_grad_check(model)
+    return {"fwd": fwd, "bwd": bwd, "step_ms": statistics.median(step_ms[1:])}
 
 
 def main():
@@ -276,7 +512,7 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.time()
-    kernels = ["roi_align_block_fwd"]
+    kernels = ["roi_align_block_fwd", "roi_align_block_bwd"]
     _build.build(kernels)
     print(f"build: {len(kernels)} kernel(s) in {time.time() - t0:.1f} s",
           flush=True)
@@ -285,10 +521,31 @@ def main():
         if log.exists():
             print(log.read_text().strip(), flush=True)
 
-    entry = kernel_phase()
-    counts = serve_phase()
-    entry["launches"] = counts[entry["name"]]
-    print(json.dumps({"kernels": [entry]}))
+    fwd_serve, fwd_train, bwd = kernel_phase()
+    serve_launches = serve_phase()
+    train = train_phase()
+    print(f"train: B2 {bwd.ms:.4f} ms per step in 3 launches, "
+          f"{100 * bwd.ms / train['step_ms']:.2f} % of the "
+          f"{train['step_ms']:.1f} ms step; B1 at the training shapes "
+          f"{fwd_train.ms:.4f} ms per step", flush=True)
+    entries = [
+        {"name": "roi_align_block_fwd", "route": "cuda",
+         "source": "bonai_tpu_torch/csrc/roi_align_block_fwd.cu",
+         "replaces": "bonai_tpu/ops/pallas_roi_align_block.py:152",
+         "launches": serve_launches, "max_abs_err": fwd_serve.err,
+         "ms": fwd_serve.ms, "plain_ms": fwd_serve.plain_ms,
+         "bound_ms": fwd_serve.bound_ms, "bound_by": fwd_serve.bound_by,
+         "library_ms": None,
+         "train_launches": train["fwd"], "train_ms": fwd_train.ms,
+         "train_plain_ms": fwd_train.plain_ms,
+         "train_bound_ms": fwd_train.bound_ms},
+        {"name": "roi_align_block_bwd", "route": "cuda",
+         "source": "bonai_tpu_torch/csrc/roi_align_block_bwd.cu",
+         "replaces": "bonai_tpu/ops/pallas_roi_align_block.py:216",
+         "launches": train["bwd"], "max_abs_err": bwd.err, "ms": bwd.ms,
+         "plain_ms": bwd.plain_ms, "bound_ms": bwd.bound_ms,
+         "bound_by": bwd.bound_by, "library_ms": None}]
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

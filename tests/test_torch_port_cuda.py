@@ -6,8 +6,12 @@ machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-The block RoIAlign kernel is held to its plain version: float32 to 1e-4,
-bfloat16 to one bf16 ulp (2**-7 relative).
+The block RoIAlign forward kernel is held to its plain version: float32
+to 1e-4, bfloat16 to one bf16 ulp (2**-7 relative).  The backward kernel
+is held to autograd through the plain version: float32 to 1e-4 of each
+level's largest gradient (float32 atomics sum in a varying order),
+bfloat16 to one bf16 ulp plus 1e-5 of the level's largest gradient (both
+round once from float32 sums taken in different orders).
 """
 
 import numpy as np
@@ -83,3 +87,86 @@ def test_detector_runs_the_block_kernel():
     assert roi_align_block.launches == before + 3
     assert all(bool(torch.isfinite(v).all()) for v in out.values()
                if v.is_floating_point())
+
+
+def _level_grads(fn, feats, dtype, rois, valid, out_size, cot):
+    """Gradients of ``sum(fn(levels) * cot)`` with respect to each level."""
+    levels = [f.to(dtype, copy=True).requires_grad_() for f in feats]
+    out = fn(levels, rois, out_size, STRIDES, roi_valid=valid)
+    torch.autograd.backward(out, cot.to(dtype))
+    return out, [lv.grad for lv in levels]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size,C", [(7, 256), (14, 64)])
+def test_block_backward_kernel_matches_plain_version(dtype, out_size, C):
+    """Overlapping RoIs (repeated rows), RoIs the block rule pushes
+    coarser, border and invalid RoIs, and a few large enough for the
+    coarsest level."""
+    _need_cuda()
+    from bonai_tpu_torch.ops import (roi_align_block, roi_align_block_backward,
+                                     roi_align_block_ref)
+    feats, rois, valid = _fixture(out_size + 1, C)
+    large = torch.tensor([[0, 20, 30, 500, 470], [1, 0, 40, 511, 511],
+                          [1, -10, -10, 450, 480]], device="cuda")
+    rois = torch.cat([rois, rois[:40], large])   # the same corners twice
+    valid = torch.cat([valid, valid[:40], torch.ones(3, dtype=torch.bool,
+                                                     device="cuda")])
+    cot = torch.randn(rois.shape[0], out_size, out_size, C,
+                      generator=torch.Generator().manual_seed(0)).cuda()
+    before = roi_align_block_backward.launches
+    out, got = _level_grads(roi_align_block, feats, dtype, rois, valid,
+                            out_size, cot)
+    torch.cuda.synchronize()
+    assert roi_align_block_backward.launches == before + 1
+    assert out.grad_fn is not None
+    _, ref = _level_grads(roi_align_block_ref, feats, dtype, rois, valid,
+                          out_size, cot)
+    for g, e, s in zip(got, ref, STRIDES):
+        assert g.dtype == dtype and g.shape == e.shape and g.is_contiguous()
+        top = float(e.float().abs().max())
+        assert top > 0, f"stride {s}: no gradient reached this level"
+        diff = (g.float() - e.float()).abs()
+        if dtype == torch.float32:
+            assert float(diff.max()) <= 1e-4 * top, (s, float(diff.max()))
+        else:
+            bound = e.float().abs() * 2 ** -7 + 1e-5 * top
+            assert bool((diff <= bound).all()), (s, float(diff.max()))
+
+
+@pytest.mark.cuda
+def test_block_backward_takes_channels_last_levels():
+    """The detector hands the Function NHWC views of channels-last maps;
+    the gradient comes back in that layout and the RoIs get none."""
+    _need_cuda()
+    from bonai_tpu_torch.ops import roi_align_block
+    feats, rois, valid = _fixture(3, 64)
+    maps = [f.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last).requires_grad_() for f in feats]
+    rois.requires_grad_()
+    out = roi_align_block([m.permute(0, 2, 3, 1) for m in maps], rois, 7,
+                          STRIDES, roi_valid=valid)
+    out.float().square().sum().backward()
+    assert rois.grad is None
+    for m in maps:
+        assert m.grad.is_contiguous(memory_format=torch.channels_last)
+        assert bool(torch.isfinite(m.grad).all())
+
+
+@pytest.mark.cuda
+def test_train_step_runs_both_kernels(tmp_path):
+    """One tiny training step on the card: the three RoI branches launch
+    the forward and the backward kernel once each, and every gradient is
+    finite."""
+    _need_cuda()
+    from bonai_tpu_torch.apis import train_detector
+    from bonai_tpu_torch.ops import roi_align_block, roi_align_block_backward
+    from torch_port_common import tiny_train_cfg, train_batch
+    fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
+    model, hist = train_detector(tiny_train_cfg(), [train_batch()],
+                                 str(tmp_path), max_steps=1, log_interval=1)
+    assert roi_align_block.launches - fwd == 3
+    assert roi_align_block_backward.launches - bwd == 3
+    assert np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["grad_norm"])
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())

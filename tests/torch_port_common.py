@@ -97,3 +97,64 @@ def port_model(cfg, variables):
 
 def t(x):
     return torch.from_numpy(np.array(x))
+
+
+def tiny_train_cfg():
+    """``tiny_cfg`` with the training sizes cut so that both sampler paths
+    run: the RPN samples 64 of ~4000 anchors (top-k path), the R-CNN 64
+    slots from 32 proposals plus the GTs (fewer candidates than slots:
+    the padding path)."""
+    cfg = tiny_cfg()
+    cfg.train_cfg.rpn.sampler.num = 64
+    cfg.train_cfg.rpn_proposal.update(nms_pre=100, nms_post=32, max_num=32)
+    cfg.train_cfg.rcnn.sampler.num = 64
+    return cfg
+
+
+def train_batch(seed=0, b=2, size=128, g=6, m=112):
+    """A padded training batch in the JAX package's contract, from a numpy
+    seed: GT boxes with padded rows, 112^2 instance masks, offsets."""
+    r = np.random.RandomState(seed)
+    xy = r.uniform(0, size * 0.6, (b, g, 2))
+    wh = r.uniform(12, size * 0.4, (b, g, 2))
+    valid = np.ones((b, g), bool)
+    valid[-1, -2:] = False
+    boxes = np.concatenate([xy, np.minimum(xy + wh, size - 1)], -1)
+    boxes[~valid] = 0.0
+    img_shape = np.full((b, 2), size, np.float32)
+    img_shape[-1] = [size - 16, size - 8]       # a resized, padded image
+    return dict(
+        image=r.randn(b, size, size, 3).astype(np.float32),
+        img_shape=img_shape,
+        gt_bboxes=boxes.astype(np.float32),
+        gt_labels=np.zeros((b, g), np.int32), gt_valid=valid,
+        gt_masks=(r.rand(b, g, m, m) > 0.4).astype(np.float32),
+        gt_offsets=r.uniform(-10, 10, (b, g, 2)).astype(np.float32))
+
+
+def jax_uniforms(key, n):
+    """The ``(u_pos, u_neg)`` that ``bonai_tpu.core.samplers.random_sample``
+    draws from ``key`` for ``n`` candidates."""
+    import jax
+    k_pos, k_neg = jax.random.split(key)
+    return tuple(np.asarray(jax.random.uniform(k, (n,), minval=1e-4,
+                                               maxval=1.0))
+                 for k in (k_pos, k_neg))
+
+
+def jax_forward_train_draws(jm, variables, key, b):
+    """A draw source for the port's ``forward_train`` that hands out the
+    uniforms the JAX ``forward_train`` draws under ``rngs={"sampling":
+    key}``: the RPN's per image, then the R-CNN's per image, from the
+    splits of the module's ``sampling`` stream."""
+    import jax
+    rng = jm.apply(variables, method=lambda m: m.make_rng("sampling"),
+                   rngs={"sampling": key})
+    stages = list(jax.random.split(rng))
+
+    def draw(shape, device):
+        keys = jax.random.split(stages.pop(0), b)
+        pairs = [jax_uniforms(k, shape[-1]) for k in keys]
+        return tuple(torch.from_numpy(np.stack(u)).to(device)
+                     for u in zip(*pairs))
+    return draw
