@@ -3,6 +3,8 @@ the detector types the port implements so far."""
 
 from __future__ import annotations
 
+import os
+
 from ..registry import Registry
 from .detectors.loft import LOFT
 
@@ -19,11 +21,16 @@ def _plain(obj):
     return obj
 
 
-def build_detector(cfg, train_cfg=None, test_cfg=None):
+def build_detector(cfg, train_cfg=None, test_cfg=None, roi_align_impl=None):
     """Build the detector ``cfg['type']`` names from its config dicts.
     A type the port does not implement yet raises ``NotImplementedError``
     naming the ROADMAP.md item that ports it.  ``train_cfg`` is what
-    ``forward_train`` reads (the serving path needs only ``test_cfg``)."""
+    ``forward_train`` reads (the serving path needs only ``test_cfg``).
+
+    The RoIAlign route (``gather``, ``blocked``, ``pallas`` or ``block``)
+    is, first found: the ``BONAI_ROI_IMPL`` environment variable, the
+    ``roi_align_impl`` argument, ``cfg['roi_align_impl']`` (the JAX
+    package's precedence)."""
     cfg = _plain(dict(cfg))
     det_type = cfg.pop("type")
     if det_type not in DETECTORS:
@@ -39,4 +46,5 @@ def build_detector(cfg, train_cfg=None, test_cfg=None):
         rpn_head=cfg["rpn_head"], roi_head=cfg["roi_head"],
         train_cfg=_plain(dict(train_cfg)) if train_cfg else None,
         test_cfg=_plain(dict(test_cfg)) if test_cfg else None,
-        roi_align_impl=cfg.get("roi_align_impl"))
+        roi_align_impl=(os.environ.get("BONAI_ROI_IMPL") or roi_align_impl
+                        or cfg.get("roi_align_impl")))

@@ -30,6 +30,8 @@ from ...core.nms import multiclass_nms
 from ...core.samplers import random_sample
 from ...ops.roi_align import multilevel_roi_align
 from ...ops.roi_align_block import roi_align_block
+from ...ops.roi_align_blocked import roi_align_blocked
+from ...ops.roi_align_fused import roi_align_fused
 from ..backbones.resnet import ResNet
 from ..dense_heads.rpn_head import RPNHead, rpn_loss, rpn_proposals
 from ..losses import binary_cross_entropy, cross_entropy, l1_loss
@@ -198,26 +200,41 @@ class TwoStageDetector(nn.Module):
         return tuple(f.permute(0, 2, 3, 1) for f in feats)
 
     def _roi_align_cfg(self, extractor_cfg, feats, rois, roi_valid):
-        """RoI features for one extractor config.  ``impl='block'`` (the
-        BONAI config's ``roi_align_impl``) on CUDA tensors runs the
-        ``roi_align_block`` kernel; on CPU tensors it runs the gather-rule
-        ``multilevel_roi_align``, as the JAX package does off the TPU (the
-        two differ only for RoIs the block rule pushes coarser)."""
+        """RoI features for one extractor config, by ``impl`` (the
+        extractor's, else the detector's ``roi_align_impl``):
+
+        - ``'block'`` on CUDA tensors: the ``roi_align_block`` kernels;
+        - ``'pallas'`` on CUDA tensors: the strip kernels of
+          ``roi_align_fused``, with the extractor's ``roi_backward``
+          (``'rmw'``, the backward kernel, by default; or ``'scatter'``);
+        - ``'block'`` and ``'pallas'`` on CPU tensors: the gather-rule
+          ``multilevel_roi_align``, as the JAX package does off the TPU
+          (they differ from it only for RoIs their level rules push
+          coarser);
+        - ``'blocked'``: ``roi_align_blocked`` on both devices, as in JAX;
+        - ``'gather'`` (the default): ``multilevel_roi_align``."""
         layer = dict(extractor_cfg.get("roi_layer", {}))
         out_size = layer.get("output_size", 7)
         sr = layer.get("sampling_ratio", 0) or 2    # static grid
         strides = list(extractor_cfg.get("featmap_strides", [4, 8, 16, 32]))
         impl = extractor_cfg.get("impl", self.roi_align_impl or "gather")
-        if impl not in ("block", "gather"):
+        if impl not in ("block", "pallas", "blocked", "gather"):
             raise NotImplementedError(
-                f"roi_align_impl={impl!r} is not ported to bonai_tpu_torch "
-                f"yet (ROADMAP.md queue B)")
+                f"roi_align_impl={impl!r} is not ported to bonai_tpu_torch")
         levels = [f.contiguous() for f in feats[:len(strides)]]
-        fn = roi_align_block if (impl == "block" and levels[0].is_cuda) \
-            else multilevel_roi_align
+        extra = {}
+        if impl == "blocked":
+            fn = roi_align_blocked
+        elif impl == "block" and levels[0].is_cuda:
+            fn = roi_align_block
+        elif impl == "pallas" and levels[0].is_cuda:
+            fn = roi_align_fused
+            extra["backward"] = extractor_cfg.get("roi_backward", "rmw")
+        else:
+            fn = multilevel_roi_align
         return fn(levels, rois, out_size, strides, sampling_ratio=sr,
                   finest_scale=extractor_cfg.get("finest_scale", 56),
-                  roi_valid=roi_valid)
+                  roi_valid=roi_valid, **extra)
 
     def _grid_anchors(self, feats):
         sizes = tuple((int(f.shape[1]), int(f.shape[2])) for f in feats)

@@ -7,9 +7,12 @@ corner is a row gather from the pyramid flattened to ``(P, C)``, and the
 sums run in float32.
 
 This module is the plain version that the detector uses off the card and
-that the CUDA kernel of ``roi_align_block`` is held against.  The level
-rule is an argument of :func:`roi_align_at_levels`: the gather rule
-(:func:`map_roi_levels`) here, the block rule in ``roi_align_block``.
+that the CUDA kernels are held against.  The level rule is an argument of
+:func:`roi_align_at_levels`: the gather rule (:func:`map_roi_levels`)
+here, the block rule in ``roi_align_block``, the strip rule in
+``roi_align_fused``.  :func:`window_corner_plan` holds the border rule of
+the windowed formulations (``roi_align_strip``, ``roi_align_blocked``),
+and :func:`scatter_corners` the scatter backward.
 """
 
 from __future__ import annotations
@@ -87,6 +90,156 @@ def _as_pair(output_size):
     return tuple(output_size)
 
 
+def flatten_levels(levels):
+    """The levels as one ``(sum(B*Hl*Wl), C)`` float32 buffer, level after
+    level, each in ``(B, Hl, Wl)`` order."""
+    C = levels[0].shape[-1]
+    return torch.cat([f.reshape(-1, C) for f in levels]).float()
+
+
+def _level_samples(shapes, rois, lvl, output_size, featmap_strides,
+                   sampling_ratio, aligned):
+    """Each RoI's sample grid at the pyramid level ``lvl`` gives it.
+
+    ``shapes`` are the levels' ``(B, Hl, Wl, C)``.  Returns each RoI's
+    first row of its image at its level in the :func:`flatten_levels`
+    buffer ``base``, its level's height ``Hl`` and width ``Wl``, and its
+    sample coordinates ``ys`` ``(R, oh*sr)`` and ``xs`` ``(R, ow*sr)`` in
+    cells of that level."""
+    shapes = [tuple(s) for s in shapes[:len(featmap_strides)]]
+    B = shapes[0][0]
+    dev = rois.device
+    sizes = [B * s[1] * s[2] for s in shapes]
+    offsets = torch.tensor([0] + sizes[:-1], device=dev).cumsum(0)
+    heights = torch.tensor([s[1] for s in shapes], device=dev)
+    widths = torch.tensor([s[2] for s in shapes], device=dev)
+    inv_scale = 1.0 / torch.tensor(featmap_strides, dtype=torch.float32,
+                                   device=dev)
+    rois = rois.float()
+    bidx = rois[:, 0].long().clamp(0, B - 1)
+    Hl, Wl = heights[lvl], widths[lvl]
+    base = offsets[lvl] + bidx * Hl * Wl
+    scaled = rois[:, 1:5] * inv_scale[lvl][:, None]
+    ys, xs = _sample_coords(scaled, _as_pair(output_size),
+                            max(int(sampling_ratio), 1), aligned)
+    return base, Hl, Wl, ys, xs
+
+
+def corner_plan(shapes, rois, lvl, output_size, featmap_strides,
+                sampling_ratio=2, aligned=True, roi_valid=None):
+    """The four bilinear corners of every sample under the RoIAlign
+    border rule, each RoI at the level ``lvl`` gives it, for levels of
+    ``shapes``.
+
+    Returns the corners' rows of the :func:`flatten_levels` buffer and
+    their weights, four ``(R, oh*sr, ow*sr)`` tensors each (``i00``,
+    ``i00 + 1``, ``i00 + Wl``, ``i00 + Wl + 1``); invalid RoIs get zero
+    weights."""
+    base, Hl, Wl, ys, xs = _level_samples(
+        shapes, rois, lvl, output_size, featmap_strides, sampling_ratio,
+        aligned)
+    ys, xs = ys[:, :, None], xs[:, None, :]             # (R, ny, 1), (R, 1, nx)
+    y0, x0, weights = _bilinear_params(ys, xs, Hl.float()[:, None, None],
+                                       Wl.float()[:, None, None])
+    if roi_valid is not None:
+        gate = roi_valid.to(rois.device)[:, None, None]
+        weights = tuple(w * gate for w in weights)
+        base = torch.where(roi_valid.to(rois.device), base, 0)
+    Wrow = Wl[:, None, None]
+    i00 = base[:, None, None] + y0 * Wrow + x0           # (R, ny, nx)
+    return (i00, i00 + 1, i00 + Wrow, i00 + Wrow + 1), weights
+
+
+def window_corner_plan(shapes, rois, lvl, output_size, featmap_strides,
+                       sampling_ratio, aligned, window_start, window,
+                       weight_dtype=None):
+    """The corners of the JAX package's windowed strip formulations
+    (``pallas_roi_align.py``, ``roi_align_blocked.py``), whose border rule
+    is not RoIAlign's:
+
+    - a sample outside ``[-1, Hl]`` in y keeps full weight on its clamped
+      row (``ly = 0``) where RoIAlign counts it zero;
+    - a sample outside ``[-1, Wl]`` in x counts zero;
+    - each RoI's x window starts at ``window_start(x0min, Wl)``, ``x0min``
+      the least low corner of all its x samples (in range or not), and an
+      x corner ``window`` or more cells past that start counts zero.
+
+    ``weight_dtype`` rounds the x weights to that type (the blocked
+    formulation contracts a one-hot matrix in the feature dtype).  Returns
+    corners and weights as :func:`corner_plan` does, with no validity
+    gate."""
+    base, Hl, Wl, ys, xs = _level_samples(
+        shapes, rois, lvl, output_size, featmap_strides, sampling_ratio,
+        aligned)
+    Hf, Wf = Hl.float()[:, None], Wl.float()[:, None]
+    yc = torch.minimum(ys.clamp(min=0.0), Hf - 1.0)
+    y0 = torch.minimum(torch.floor(yc), (Hf - 2.0).clamp(min=0.0))
+    ly = torch.where((ys < -1.0) | (ys > Hf), 0.0, yc - y0)
+    xc = torch.minimum(xs.clamp(min=0.0), Wf - 1.0)
+    x0 = torch.minimum(torch.floor(xc), (Wf - 2.0).clamp(min=0.0))
+    lx = xc - x0
+    out_x = (xs < -1.0) | (xs > Wf)
+    e0 = x0 - window_start(x0.amin(dim=1), Wl)[:, None]
+    hx = torch.where(out_x | (e0 >= window), 0.0, 1.0 - lx)
+    wx = torch.where(out_x | (e0 + 1 >= window), 0.0, lx)
+    if weight_dtype is not None:
+        hx, wx = hx.to(weight_dtype).float(), wx.to(weight_dtype).float()
+    hy, ly = (1.0 - ly)[:, :, None], ly[:, :, None]
+    hx, wx = hx[:, None, :], wx[:, None, :]
+    Wrow = Wl[:, None, None]
+    y0 = y0.long()[:, :, None]
+    y1 = torch.minimum(y0 + 1, Hl[:, None, None] - 1)
+    x0 = x0.long()[:, None, :]
+    i0 = base[:, None, None] + y0 * Wrow + x0
+    i1 = base[:, None, None] + y1 * Wrow + x0
+    return (i0, i0 + 1, i1, i1 + 1), (hy * hx, hy * wx, ly * hx, ly * wx)
+
+
+def pool_corners(flat, corners, weights, output_size, sampling_ratio):
+    """``sum(weight * flat[corner])`` over each sample's corners, averaged
+    over each ``sr x sr`` bin: ``(R, oh, ow, C)`` float32.  Corners with
+    zero weight past the last row of ``flat`` read the last row."""
+    oh, ow = _as_pair(output_size)
+    sr = max(int(sampling_ratio), 1)
+    R, C = corners[0].shape[0], flat.shape[1]
+    last = flat.shape[0] - 1
+    out = flat.new_empty((R, oh, ow, C))
+    for s in range(0, R, _CHUNK):
+        e = min(s + _CHUNK, R)
+        acc = None
+        for idx, w in zip(corners, weights):
+            rows = flat[idx[s:e].clamp(max=last).reshape(-1)]
+            term = rows * w[s:e].reshape(-1, 1)
+            acc = term if acc is None else acc.add_(term)
+        acc = acc.reshape(e - s, oh, sr, ow, sr, C)
+        out[s:e] = acc.sum(dim=(2, 4)) / acc.new_tensor(float(sr * sr))
+    return out
+
+
+def scatter_corners(grad_out, num_rows, corners, weights, sampling_ratio,
+                    dtype):
+    """The transpose of :func:`pool_corners`: each output gradient,
+    divided by ``sr*sr`` and times each corner's weight, added into a
+    ``(num_rows, C)`` buffer of ``dtype`` with ``index_add_``.  The
+    products are taken in float32 and rounded to ``dtype`` before the
+    sum, which runs in ``dtype`` (the JAX package's scatter backward,
+    ``bonai_tpu/ops/roi_align.py::_bilinear_gather_bwd``)."""
+    R, oh, ow, C = grad_out.shape
+    sr = max(int(sampling_ratio), 1)
+    dflat = grad_out.new_zeros((num_rows, C), dtype=dtype)
+    last = num_rows - 1
+    for s in range(0, R, _CHUNK):
+        e = min(s + _CHUNK, R)
+        g = grad_out[s:e].float() / grad_out.new_tensor(float(sr * sr),
+                                                        dtype=torch.float32)
+        g = g[:, :, None, :, None, :].expand(e - s, oh, sr, ow, sr, C)
+        g = g.reshape(-1, C)
+        for idx, w in zip(corners, weights):
+            dflat.index_add_(0, idx[s:e].clamp(max=last).reshape(-1),
+                             (g * w[s:e].reshape(-1, 1)).to(dtype))
+    return dflat
+
+
 def roi_align_at_levels(levels, rois, lvl, output_size, featmap_strides,
                         sampling_ratio=2, aligned=True, roi_valid=None):
     """RoIAlign of each RoI at the pyramid level ``lvl`` gives it.
@@ -99,50 +252,12 @@ def roi_align_at_levels(levels, rois, lvl, output_size, featmap_strides,
 
     Returns ``(R, oh, ow, C)`` in the levels' dtype (sums in float32).
     """
-    oh, ow = _as_pair(output_size)
-    sr = max(int(sampling_ratio), 1)
     levels = list(levels[:len(featmap_strides)])
-    B, C = levels[0].shape[0], levels[0].shape[-1]
-    dev = rois.device
-    flat = torch.cat([f.reshape(-1, C) for f in levels]).float()
-    sizes = [B * f.shape[1] * f.shape[2] for f in levels]
-    offsets = torch.tensor([0] + sizes[:-1], device=dev).cumsum(0)
-    heights = torch.tensor([f.shape[1] for f in levels], device=dev)
-    widths = torch.tensor([f.shape[2] for f in levels], device=dev)
-    inv_scale = 1.0 / torch.tensor(featmap_strides, dtype=torch.float32,
-                                   device=dev)
-    R = rois.shape[0]
-    rois = rois.float()
-    bidx = rois[:, 0].long().clamp(0, B - 1)
-    Hl, Wl = heights[lvl], widths[lvl]
-    base = offsets[lvl] + bidx * Hl * Wl
-    scaled = rois[:, 1:5] * inv_scale[lvl][:, None]
-    ys, xs = _sample_coords(scaled, (oh, ow), sr, aligned)
-    ys, xs = ys[:, :, None], xs[:, None, :]             # (R, ny, 1), (R, 1, nx)
-    Hf = Hl.float()[:, None, None]
-    Wf = Wl.float()[:, None, None]
-    y0, x0, weights = _bilinear_params(ys, xs, Hf, Wf)
-    if roi_valid is not None:
-        gate = roi_valid.to(dev)[:, None, None]
-        weights = tuple(w * gate for w in weights)
-        base = torch.where(roi_valid.to(dev), base, 0)
-    Wrow = Wl[:, None, None]
-    i00 = base[:, None, None] + y0 * Wrow + x0           # (R, ny, nx)
-    corners = (i00, i00 + 1, i00 + Wrow, i00 + Wrow + 1)
-    last = flat.shape[0] - 1
-    out = flat.new_empty((R, oh, ow, C))
-    for s in range(0, R, _CHUNK):
-        e = min(s + _CHUNK, R)
-        acc = None
-        for idx, w in zip(corners, weights):
-            # zero-weight corners past a level's last row may index past
-            # the buffer; clamp them onto a real row
-            rows = flat[idx[s:e].clamp(max=last).reshape(-1)]
-            term = rows * w[s:e].reshape(-1, 1)
-            acc = term if acc is None else acc.add_(term)
-        acc = acc.reshape(e - s, oh, sr, ow, sr, C)
-        out[s:e] = acc.sum(dim=(2, 4)) / acc.new_tensor(float(sr * sr))
-    return out.to(levels[0].dtype)
+    corners, weights = corner_plan([f.shape for f in levels], rois, lvl,
+                                   output_size, featmap_strides,
+                                   sampling_ratio, aligned, roi_valid)
+    return pool_corners(flatten_levels(levels), corners, weights,
+                        output_size, sampling_ratio).to(levels[0].dtype)
 
 
 def multilevel_roi_align(levels, rois, output_size, featmap_strides,

@@ -55,9 +55,10 @@ def roi_align_block_ref(levels, rois, output_size, featmap_strides,
 
 @functools.cache
 def _kernel(name):
-    """The C entry point of ``csrc/<name>.cu`` (``roi_align_block_fwd`` or
-    ``roi_align_block_bwd``, one signature), built and bound at first
-    use."""
+    """The C entry point of ``csrc/<name>.cu``, built and bound at first
+    use.  Every RoIAlign kernel of the port has this signature (levels or
+    their gradient buffers, level table, RoIs, levels per RoI, validity,
+    output size, sampling ratio, dtype, output or its gradient, stream)."""
     fn = getattr(load_library(name), name)
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
@@ -91,17 +92,21 @@ def _launch(name, ptrs, shapes, featmap_strides, rois, lvl, roi_valid,
 
 
 def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
-                  sampling_ratio):
+                  sampling_ratio, name="roi_align_block", max_sr=None):
+    """Raises on what the kernels of ``name`` do not take."""
     if not 1 <= num_levels <= _MAX_LEVELS or len(levels) < num_levels:
-        raise ValueError(f"roi_align_block takes 1..{_MAX_LEVELS} levels, "
+        raise ValueError(f"{name} takes 1..{_MAX_LEVELS} levels, "
                          f"got {len(levels)} maps for {num_levels} strides")
     if not aligned:
-        raise ValueError("roi_align_block computes aligned=True only")
+        raise ValueError(f"{name} computes aligned=True only")
     if int(sampling_ratio) < 1:
         raise ValueError("sampling_ratio must be >= 1")
+    if max_sr is not None and int(sampling_ratio) > max_sr:
+        raise ValueError(f"{name} takes sampling_ratio <= {max_sr}, got "
+                         f"{sampling_ratio}")
     dev, dtype = levels[0].device, levels[0].dtype
     if dtype not in _DTYPE_CODES:
-        raise TypeError(f"roi_align_block takes float32 or bfloat16 "
+        raise TypeError(f"{name} takes float32 or bfloat16 "
                         f"levels, got {dtype}")
     B, C = levels[0].shape[0], levels[0].shape[-1]
     for f in levels[:num_levels]:
@@ -115,8 +120,7 @@ def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
         if f.data_ptr() % 8:
             raise ValueError("levels must be 8-byte aligned")
     if C % 2:
-        raise ValueError(f"roi_align_block needs an even channel count, "
-                         f"got {C}")
+        raise ValueError(f"{name} needs an even channel count, got {C}")
     if (rois.device != dev or rois.dtype != torch.float32 or rois.dim() != 2
             or rois.shape[1] != 5 or not rois.is_contiguous()):
         raise ValueError("rois must be a contiguous float32 (R, 5) tensor "
@@ -126,6 +130,19 @@ def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                                   or roi_valid.shape != rois.shape[:1]):
         raise ValueError("roi_valid must be a bool (R,) tensor on the "
                          "levels' device")
+
+
+def _launch_backward(name, grad_out, shapes, featmap_strides, rois, lvl,
+                     roi_valid, sampling_ratio):
+    """One launch of the backward kernel ``name`` into zeroed float32
+    buffers, one per level, each rounded once to ``grad_out``'s dtype."""
+    grad_out = grad_out.contiguous()
+    bufs = [torch.zeros(s, dtype=torch.float32, device=grad_out.device)
+            for s in shapes]
+    _launch(name, [b.data_ptr() for b in bufs], shapes, featmap_strides,
+            rois, lvl, roi_valid, tuple(grad_out.shape[1:3]), sampling_ratio,
+            grad_out.dtype, grad_out)
+    return [b.to(grad_out.dtype) for b in bufs]
 
 
 def roi_align_block_backward(grad_out, shapes, featmap_strides, rois, lvl,
@@ -144,14 +161,11 @@ def roi_align_block_backward(grad_out, shapes, featmap_strides, rois, lvl,
     Returns one ``(B, Hl, Wl, C)`` contiguous gradient per level in
     ``grad_out``'s dtype: summed in float32, rounded once.
     """
-    grad_out = grad_out.contiguous()
-    bufs = [torch.zeros(s, dtype=torch.float32, device=grad_out.device)
-            for s in shapes]
-    _launch("roi_align_block_bwd", [b.data_ptr() for b in bufs], shapes,
-            featmap_strides, rois, lvl, roi_valid, tuple(grad_out.shape[1:3]),
-            sampling_ratio, grad_out.dtype, grad_out)
+    grads = _launch_backward("roi_align_block_bwd", grad_out, shapes,
+                             featmap_strides, rois, lvl, roi_valid,
+                             sampling_ratio)
     roi_align_block_backward.launches += 1
-    return [b.to(grad_out.dtype) for b in bufs]
+    return grads
 
 
 roi_align_block_backward.launches = 0

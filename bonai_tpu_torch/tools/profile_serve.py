@@ -5,19 +5,20 @@ bfloat16, seeded random weights) and prints
 
 - each stage's time (host clock, the device synchronised at each stage's
   start and end): backbone+FPN, RPN and proposals (with its NMS), the
-  block RoIAlign kernel, the three RoI heads, the R-CNN multi-class
-  soft-NMS, and the rest;
+  RoIAlign kernel of the route (B1 for ``block``, B3 for ``pallas``), the
+  three RoI heads, the R-CNN multi-class soft-NMS, and the rest;
 - from ``torch.profiler`` over one call: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled call, and
   the kernels that take the most time.
 
 Needs a CUDA device.  Run from the repository root:
 
-    python -m bonai_tpu_torch.tools.profile_serve
+    python -m bonai_tpu_torch.tools.profile_serve [--roi-align-impl pallas]
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import time
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..apis import init_detector, prepare_batch
+from ..config import Config
 from ..models.detectors import two_stage
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
@@ -54,11 +56,12 @@ def stage_times(model, batch, reps=3):
         setattr(model, attr, _timed(name, fn, totals))
     for k, m in model.roi_head.items():
         m.forward = _timed(k, m.forward, totals)
-    saved = (two_stage.roi_align_block, two_stage.multiclass_nms)
-    two_stage.roi_align_block = _timed("roi_align_block (B1)", saved[0],
-                                       totals)
-    two_stage.multiclass_nms = _timed("rcnn multiclass soft-nms", saved[1],
-                                      totals)
+    names = {"roi_align_block": "roi_align_block (B1)",
+             "roi_align_fused": "roi_align_fused (B3)",
+             "multiclass_nms": "rcnn multiclass soft-nms"}
+    saved = {k: getattr(two_stage, k) for k in names}
+    for k, name in names.items():
+        setattr(two_stage, k, _timed(name, saved[k], totals))
     try:
         wall = 0.0
         for _ in range(reps):
@@ -72,7 +75,8 @@ def stage_times(model, batch, reps=3):
             delattr(model, attr)
         for m in model.roi_head.values():
             del m.forward
-        two_stage.roi_align_block, two_stage.multiclass_nms = saved
+        for k, fn in saved.items():
+            setattr(two_stage, k, fn)
     stages = {k: v / reps for k, v in totals.items()}
     stages["other"] = wall / reps - sum(stages.values())
     return stages, wall / reps
@@ -105,17 +109,26 @@ def profile(model, batch):
     return sum(r[0] for r in rows), rows
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Where the serving time "
+                                     "goes on the GPU.")
+    parser.add_argument("--roi-align-impl", default=None,
+                        help="RoIAlign route (default: the config's)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
-    model = init_detector(CONFIG, seed=0)
+    cfg = Config.fromfile(CONFIG)
+    if args.roi_align_impl:
+        cfg.model.roi_align_impl = args.roi_align_impl
+    model = init_detector(cfg, seed=0)
     r = np.random.RandomState(0)
     imgs = [r.randint(0, 256, (1024, 1024, 3), np.uint8) for _ in range(2)]
     batch = prepare_batch(model, imgs)[:3]
     model.simple_test(*batch)                         # warm-up
     wall = wall_ms(model, batch)
     stages, staged = stage_times(model, batch)
-    print(f"simple_test 1024^2 B=2 bf16: {wall:.1f} ms a call; stage "
+    print(f"simple_test 1024^2 B=2 bf16, roi_align_impl="
+          f"{model.roi_align_impl}: {wall:.1f} ms a call; stage "
           f"times (synchronised at each stage), {staged:.1f} ms a call:")
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {name:28s} {ms:9.2f} ms  {100 * ms / staged:5.1f} %")

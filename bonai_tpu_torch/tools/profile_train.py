@@ -10,21 +10,23 @@ and prints
 - the step time (host clock around a synchronised step, median of 5);
 - each stage's time (the device synchronised at each stage's start and
   end): backbone+FPN, the RPN head, proposals (with their NMS), the RPN
-  targets and loss, R-CNN assignment and sampling, the block RoIAlign
-  forward, the three RoI heads, mask targets, the rest of the forward,
-  clip + SGD, and what the step leaves after those (the backward, with
-  the block RoIAlign backward inside);
+  targets and loss, R-CNN assignment and sampling, the RoIAlign forward
+  of the route (B1 for ``block``, B3 for ``pallas``), the three RoI
+  heads, mask targets, the rest of the forward, clip + SGD, and what the
+  step leaves after those (the backward, with the RoIAlign backward, B2
+  or B4, inside);
 - from ``torch.profiler`` over one step: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled step, and
   the kernels that take the most time.
 
 Needs a CUDA device.  Run from the repository root:
 
-    python -m bonai_tpu_torch.tools.profile_train
+    python -m bonai_tpu_torch.tools.profile_train [--roi-align-impl pallas]
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import statistics
@@ -98,6 +100,7 @@ def stage_times(model, train_step, batch, draw, reps=3):
              "rpn_loss": "rpn targets+loss",
              "assign_and_sample_rcnn": "rcnn assign+sample",
              "roi_align_block": "roi_align_block fwd (B1)",
+             "roi_align_fused": "roi_align_fused fwd (B3)",
              "mask_targets_from_instance_masks": "mask targets"}
     saved = {k: getattr(two_stage, k) for k in names}
     for k, name in names.items():
@@ -123,12 +126,11 @@ def stage_times(model, train_step, batch, draw, reps=3):
         train_step_module.apply_gradients = saved_update
     stages = {k: v / reps for k, v in totals.items()}
     forward = stages.pop("forward")
-    stages["backward (incl. B2) + rest"] = (wall / reps - forward
-                                            - stages["clip+sgd"])
     # the forward's total holds the stages timed inside it
     stages["forward, rest"] = forward - sum(
-        v for k, v in stages.items()
-        if k not in ("clip+sgd", "backward (incl. B2) + rest"))
+        v for k, v in stages.items() if k != "clip+sgd")
+    stages["backward (incl. B2 or B4) + rest"] = (wall / reps - forward
+                                                  - stages["clip+sgd"])
     return stages, wall / reps
 
 
@@ -151,11 +153,19 @@ def profile(train_step, batch, draw):
     return sum(r[0] for r in rows), rows
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Where the training time "
+                                     "goes on the GPU.")
+    parser.add_argument("--roi-align-impl", default=None,
+                        help="RoIAlign route (default: the config's)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
-    model, _, train_step, generator = build_trainer(
-        Config.fromfile(CONFIG), torch.device("cuda"))
+    cfg = Config.fromfile(CONFIG)
+    if args.roi_align_impl:
+        cfg.model.roi_align_impl = args.roi_align_impl
+    model, _, train_step, generator = build_trainer(cfg,
+                                                    torch.device("cuda"))
     draw = generator_draws(generator)
     batch = {k: torch.as_tensor(v).cuda()
              for k, v in synthetic_batch().items()}
@@ -164,7 +174,8 @@ def main():
     wall = step_ms(train_step, batch, draw)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     stages, staged = stage_times(model, train_step, batch, draw)
-    print(f"train step 1024^2 B=2 bf16 autocast: {wall:.1f} ms (median of "
+    print(f"train step 1024^2 B=2 bf16 autocast, roi_align_impl="
+          f"{model.roi_align_impl}: {wall:.1f} ms (median of "
           f"5), peak memory {peak:.2f} GiB; stage times (synchronised at "
           f"each stage), {staged:.1f} ms a step:")
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):

@@ -14,30 +14,37 @@ Phases, each of which must pass:
 2. kernels: each kernel's wrapper at the shapes the paths give it, against
    its plain PyTorch version, in float32 and bfloat16, with pushed, border
    and invalid RoIs: max abs error, kernel time (CUDA events, warm), plain
-   time and the least time the card could take (the bound).
-   - the block RoIAlign forward at the serving shapes (bbox R=6000 at 7x7,
-     mask R=4000 at 14x14, offset R=4000 at 7x7) and at the training
-     shapes (bbox R=2048 at 7x7, mask R=512 at 14x14, offset R=512 at
-     7x7), C=256;
-   - the block RoIAlign backward at the training shapes, against autograd
-     through the plain version.
+   time and the least time the card could take (the bound).  Serving
+   shapes: bbox R=6000 at 7x7, mask R=4000 at 14x14, offset R=4000 at 7x7;
+   training shapes: bbox R=2048 at 7x7, mask R=512 at 14x14, offset R=512
+   at 7x7; C=256.  Each forward and its backward run on the same RoIs.
+   - B1, the block RoIAlign forward, and B3, the strip one
+     (``roi_align_impl='pallas'``), at the serving and training shapes;
+   - B2 and B4, their backwards, at the training shapes, against autograd
+     through the plain versions;
+   - B5, the forward-only window-64 strip RoIAlign, at the training shapes.
 3. serve: ``init_detector`` on ``configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py``
-   at full width with seeded random weights in bfloat16; two batched
+   at full width with seeded random weights in bfloat16, once with its
+   ``roi_align_impl='block'`` and once with ``'pallas'``; two batched
    ``simple_test`` calls at 1024^2 with B=2 and one ``inference_detector``
-   call on a random BGR image.  Outputs must be finite and of the right
-   shapes, and a small float32 input must agree with the same model run
-   through the kernels' plain versions.
+   call on a random BGR image each.  Outputs must be finite and of the
+   right shapes, and a small float32 input must agree with the same model
+   run through the kernels' plain versions.
 4. train: ``train_detector`` on the same config at full width, seeded
    random float32 weights, bfloat16 autocast, the config's train settings
-   and optimizer, 1 warm-up and 5 timed steps on a synthetic padded batch
-   (B=2, 1024^2, 100 GTs, 112^2 masks, offsets within +-30 px).  Every loss
-   and gradient norm must be finite and the trainable weights must move.
-   On a small float32 input, the FPN-level gradients of the RoI branches'
-   losses through the kernels must agree with the plain path.
+   and optimizer, on a synthetic padded batch (B=2, 1024^2, 100 GTs, 112^2
+   masks, offsets within +-30 px): 1 warm-up and 5 timed steps with
+   ``'block'``, 1 and 3 with ``'pallas'``.  Every loss and gradient norm
+   must be finite and the trainable weights must move.  On a small float32
+   input, the FPN-level gradients of the RoI branches' losses through the
+   kernels must agree with the plain path.
+5. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+   the entry point of B5.
 
-Launch counts are zeroed just before the serve and the train runs and read
-just after: the forward kernel must launch 3 times per batch in both, the
-backward kernel 3 times per training step.
+Every launch count is zeroed just before each serve, train and bench run
+and read just after: the route's forward kernel must launch 3 times per
+batch or step, its backward kernel 3 times per training step, no other
+kernel at all; the bench must launch B5.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -61,7 +68,6 @@ BATCH, SIZE, C = 2, 1024, 256
 SERVE_BRANCHES = (("bbox", 6000, 7), ("mask", 4000, 14), ("offset", 4000, 7))
 TRAIN_BRANCHES = (("bbox", 2048, 7), ("mask", 512, 14), ("offset", 512, 7))
 STRIDES = [4, 8, 16, 32]
-TRAIN_STEPS = 6                     # 1 warm-up + 5 timed
 
 
 def _gpu_name_and_power():
@@ -96,8 +102,8 @@ def _bound_ms(nbytes, flops):
 
 def _rois(n, gen):
     """Proposal-like RoIs on a 1024^2 tile: log-uniform sizes 4..700 px,
-    one in twenty wide and flat (the block rule pushes those coarser),
-    boxes over the border, one in ten invalid."""
+    one in twenty wide and flat (the block and strip rules push those
+    coarser), boxes over the border, one in ten invalid."""
     import torch
     c = torch.rand(n, 2, generator=gen) * SIZE
     wh = torch.exp(torch.empty(n, 2).uniform_(1.4, 6.55, generator=gen))
@@ -125,80 +131,147 @@ class _Sums:
         self.bound_by = bound_by
 
 
-def _forward_kernel(levels32, branches, gen, label):
-    """The block RoIAlign forward against its plain version; returns the
-    bfloat16 per-batch sums."""
+def _kernels():
+    """The port's RoIAlign kernels: name -> (wrapper, which counts the
+    kernel's launches; plain version of the function; level rule, or
+    ``None`` for the gather rule)."""
+    from bonai_tpu_torch.ops import (block_levels, roi_align_block,
+                                     roi_align_block_backward,
+                                     roi_align_block_ref, roi_align_fused,
+                                     roi_align_fused_backward,
+                                     roi_align_fused_ref, roi_align_strip,
+                                     roi_align_strip_ref, strip_levels)
+    return {
+        "roi_align_block_fwd": (roi_align_block, roi_align_block_ref,
+                                block_levels),
+        "roi_align_fused_fwd": (roi_align_fused, roi_align_fused_ref,
+                                strip_levels),
+        "roi_align_strip_fwd": (roi_align_strip, roi_align_strip_ref, None),
+        "roi_align_block_bwd": (roi_align_block_backward,
+                                roi_align_block_ref, block_levels),
+        "roi_align_fused_bwd": (roi_align_fused_backward,
+                                roi_align_fused_ref, strip_levels),
+    }
+
+
+def _zero_counts():
+    for fn, _, _ in _kernels().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {name: fn.launches for name, (fn, _, _) in _kernels().items()}
+
+
+def _check_counts(counts, expected, what):
+    """``counts`` must equal ``expected`` for the named kernels and be 0
+    for every other."""
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: kernel launches {counts}, expected "
+                             f"{want}")
+
+
+def _cells_read(name, shapes, rois, size, valid):
+    """The distinct level cells that forward kernel ``name`` must read for
+    these RoIs: the corners of nonzero weight of the valid RoIs' samples
+    (B5's window-cut corners have weight zero)."""
     import torch
-    from bonai_tpu_torch.ops.roi_align_block import (block_levels,
-                                                     roi_align_block,
-                                                     roi_align_block_ref)
+    from bonai_tpu_torch.ops.roi_align import corner_plan
+    from bonai_tpu_torch.ops.roi_align_strip import strip_corner_plan
+    level_rule = _kernels()[name][2]
+    if level_rule is None:
+        corners, weights = strip_corner_plan(shapes, rois, size, STRIDES)
+        weights = [w * valid[:, None, None] for w in weights]
+    else:
+        corners, weights = corner_plan(
+            shapes, rois, level_rule(rois[:, 1:5], STRIDES), size, STRIDES,
+            roi_valid=valid)
+    return int(torch.unique(torch.cat(
+        [c[w != 0] for c, w in zip(corners, weights)])).numel())
+
+
+def _forward_kernel(name, levels32, branches, seed, label):
+    """One forward kernel against its plain version; returns the bfloat16
+    per-batch sums.  ``seed`` draws the RoIs (the same seed, the same RoIs
+    for every kernel).  The bound's bytes are the level cells this run's
+    RoIs read (``_cells_read``), the RoIs and the output."""
+    import torch
+    fn, ref_fn, level_rule = _kernels()[name]
+    gen = torch.Generator().manual_seed(seed)
     sums = _Sums()
     for dtype in (torch.float32, torch.bfloat16):
         levels = [f.to(dtype) for f in levels32]
-        level_bytes = sum(f.numel() * f.element_size() for f in levels)
-        for name, n, size in branches:
+        shapes = [tuple(f.shape) for f in levels]
+        cell_bytes = C * levels[0].element_size()
+        for branch, n, size in branches:
             rois, valid = _rois(n, gen)
             args = (levels, rois, size, STRIDES)
-            got = roi_align_block(*args, roi_valid=valid)
-            torch.cuda.synchronize()
-            ref = roi_align_block_ref(*args, roi_valid=valid)
+            with torch.no_grad():
+                got = fn(*args, roi_valid=valid)
+                torch.cuda.synchronize()
+                ref = ref_fn(*args, roi_valid=valid)
             diff = (got.float() - ref.float()).abs()
             if dtype == torch.float32:
                 ok = bool((diff <= 1e-4 + 1e-4 * ref.abs()).all())
             else:       # one bf16 ulp relative
                 ok = bool((diff <= ref.float().abs() * 2 ** -7 + 1e-6).all())
-            pushed = int((block_levels(rois[:, 1:5], STRIDES)
-                          > block_levels(rois[:, 1:5], STRIDES,
-                                         window=10 ** 9)).sum())
-            ms = _time_ms(lambda: roi_align_block(*args, roi_valid=valid), 20)
-            plain_ms = _time_ms(
-                lambda: roi_align_block_ref(*args, roi_valid=valid), 3)
-            nbytes = (level_bytes + rois.numel() * 4 + valid.numel()
+            pushed = "" if level_rule is None else " pushed=%d" % int((
+                level_rule(rois[:, 1:5], STRIDES)
+                > level_rule(rois[:, 1:5], STRIDES, window=10 ** 9)).sum())
+
+            def kernel():
+                with torch.no_grad():
+                    return fn(*args, roi_valid=valid)
+
+            def plain():
+                with torch.no_grad():
+                    return ref_fn(*args, roi_valid=valid)
+            ms = _time_ms(kernel, 20)
+            plain_ms = _time_ms(plain, 3)
+            cells = _cells_read(name, shapes, rois, size, valid)
+            nbytes = (cells * cell_bytes + rois.numel() * 4 + valid.numel()
                       + got.numel() * got.element_size())
             # 4 corners x (multiply + add) per sample and channel, valid rows
             flops = int(valid.sum()) * size * size * 4 * 4 * 2 * C
             bound, bound_by = _bound_ms(nbytes, flops)
-            print(f"kernel roi_align_block_fwd {label} {str(dtype)[6:]} "
-                  f"{name} R={n} {size}x{size}: "
-                  f"max_abs_err={float(diff.max()):.3g} within_tol={ok} "
-                  f"pushed={pushed} invalid={int((~valid).sum())} "
+            print(f"kernel {name} {label} {str(dtype)[6:]} "
+                  f"{branch} R={n} {size}x{size}: "
+                  f"max_abs_err={float(diff.max()):.3g} within_tol={ok}"
+                  f"{pushed} invalid={int((~valid).sum())} "
                   f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}; {cells} cells read)", flush=True)
             if not ok:
-                raise AssertionError(f"roi_align_block_fwd disagrees with "
-                                     f"its plain version ({label}, {dtype}, "
-                                     f"{name})")
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version ({label}, {dtype}, {branch})")
             if dtype == torch.bfloat16:
                 sums.add(ms, plain_ms, bound, bound_by, float(diff.max()))
     return sums
 
 
-def _backward_kernel(levels32, gen):
-    """The block RoIAlign backward at the training shapes against autograd
-    through the plain version; returns the bfloat16 per-step sums."""
+def _backward_kernel(name, levels32, seed):
+    """One backward kernel at the training shapes against autograd through
+    the plain version; returns the bfloat16 per-step sums."""
     import torch
-    from bonai_tpu_torch.ops.roi_align_block import (block_levels,
-                                                     roi_align_block_backward,
-                                                     roi_align_block_ref)
+    fn, ref_fn, level_rule = _kernels()[name]
+    gen = torch.Generator().manual_seed(seed)
     sums = _Sums()
     for dtype in (torch.float32, torch.bfloat16):
         levels = [f.to(dtype, copy=True).requires_grad_()
                   for f in levels32]
         shapes = [tuple(f.shape) for f in levels]
         grad_bytes = sum(f.numel() * f.element_size() for f in levels)
-        for name, n, size in TRAIN_BRANCHES:
+        for branch, n, size in TRAIN_BRANCHES:
             rois, valid = _rois(n, gen)
-            lvl = block_levels(rois[:, 1:5], STRIDES).to(torch.int32)
+            lvl = level_rule(rois[:, 1:5], STRIDES).to(torch.int32)
             cot = torch.randn(n, size, size, C, generator=gen).to(
                 device="cuda", dtype=dtype)
 
             def kernel():
-                return roi_align_block_backward(cot, shapes, STRIDES, rois,
-                                                lvl, valid)
+                return fn(cot, shapes, STRIDES, rois, lvl, valid)
             got = kernel()
             torch.cuda.synchronize()
-            out = roi_align_block_ref(levels, rois, size, STRIDES,
-                                      roi_valid=valid)
+            out = ref_fn(levels, rois, size, STRIDES, roi_valid=valid)
 
             def plain():
                 return torch.autograd.grad(out, levels, cot,
@@ -222,14 +295,14 @@ def _backward_kernel(levels32, gen):
             # 4 corners x (multiply + add) per sample and channel, valid rows
             flops = int(valid.sum()) * size * size * 4 * 4 * 2 * C
             bound, bound_by = _bound_ms(nbytes, flops)
-            print(f"kernel roi_align_block_bwd train {str(dtype)[6:]} {name} "
+            print(f"kernel {name} train {str(dtype)[6:]} {branch} "
                   f"R={n} {size}x{size}: max_abs_err={err:.3g} "
                   f"within_tol={ok} invalid={int((~valid).sum())} "
                   f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
                   f"({bound_by})", flush=True)
             if not ok:
-                raise AssertionError(f"roi_align_block_bwd disagrees with "
-                                     f"its plain version ({dtype}, {name})")
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version ({dtype}, {branch})")
             if dtype == torch.bfloat16:
                 sums.add(ms, plain_ms, bound, bound_by, err)
             del out
@@ -237,19 +310,28 @@ def _backward_kernel(levels32, gen):
 
 
 def kernel_phase():
-    """Both kernels against their plain versions.  Returns the per-batch
-    (per-step) bfloat16 sums: forward at the serving and at the training
-    shapes, backward at the training shapes."""
+    """Every kernel against its plain version.  Returns the bfloat16
+    per-batch (per-step) sums by kernel: ``(name, "serve")`` and ``(name,
+    "train")`` for the forwards, ``(name, "train")`` for the backwards.
+    The forwards of one set of shapes, and the backwards, share their
+    RoIs."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     levels32 = [torch.randn(BATCH, SIZE // s, SIZE // s, C, generator=gen)
                 .cuda() for s in STRIDES]
-    fwd_serve = _forward_kernel(levels32, SERVE_BRANCHES, gen, "serve")
-    fwd_train = _forward_kernel(levels32, TRAIN_BRANCHES, gen, "train")
-    bwd = _backward_kernel(levels32, gen)
-    return fwd_serve, fwd_train, bwd
+    sums = {}
+    for name in ("roi_align_block_fwd", "roi_align_fused_fwd"):
+        sums[name, "serve"] = _forward_kernel(name, levels32, SERVE_BRANCHES,
+                                              1, "serve")
+    for name in ("roi_align_block_fwd", "roi_align_fused_fwd",
+                 "roi_align_strip_fwd"):
+        sums[name, "train"] = _forward_kernel(name, levels32, TRAIN_BRANCHES,
+                                              2, "train")
+    for name in ("roi_align_block_bwd", "roi_align_fused_bwd"):
+        sums[name, "train"] = _backward_kernel(name, levels32, 3)
+    return sums
 
 
 def _check_outputs(out, b, p):
@@ -268,20 +350,46 @@ def _check_outputs(out, b, p):
         raise AssertionError("no valid detections")
 
 
-def serve_phase():
-    """Full-width LOFT-FOA R50-FPN serving through the port's entry points.
-    Returns the forward kernel's launch count of the run."""
+# per route: the detector module's name of the wrapper, its forward and
+# backward kernels
+ROUTES = {"block": ("roi_align_block", "roi_align_block_fwd",
+                    "roi_align_block_bwd"),
+          "pallas": ("roi_align_fused", "roi_align_fused_fwd",
+                     "roi_align_fused_bwd")}
+
+
+def _config(impl):
+    from bonai_tpu_torch.config import Config
+    cfg = Config.fromfile(CONFIG)
+    cfg.model.roi_align_impl = impl
+    return cfg
+
+
+def _plain_route(impl):
+    """The plain version of route ``impl``'s wrapper, taking the wrapper's
+    arguments."""
+    ref_fn = _kernels()[ROUTES[impl][1]][1]
+
+    def plain(levels, rois, output_size, featmap_strides, backward=None,
+              **kw):
+        return ref_fn(levels, rois, output_size, featmap_strides, **kw)
+    return plain
+
+
+def serve_phase(impl):
+    """Full-width LOFT-FOA R50-FPN serving through the port's entry points
+    with ``roi_align_impl=impl``.  Returns the forward kernel's launch count
+    of the run."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import (inference_detector, init_detector,
                                       prepare_batch)
     from bonai_tpu_torch.models.detectors import two_stage
-    from bonai_tpu_torch.ops.roi_align_block import (roi_align_block,
-                                                     roi_align_block_ref)
+    attr, fwd_name, _ = ROUTES[impl]
 
     t0 = time.time()
-    model = init_detector(CONFIG, seed=0)      # cuda, bfloat16
-    print(f"serve: init_detector {time.time() - t0:.1f} s, "
+    model = init_detector(_config(impl), seed=0)      # cuda, bfloat16
+    print(f"serve ({impl}): init_detector {time.time() - t0:.1f} s, "
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"dtype {next(model.parameters()).dtype}", flush=True)
     max_per_img = model.test_cfg["rcnn"]["max_per_img"]
@@ -293,7 +401,7 @@ def serve_phase():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    roi_align_block.launches = 0
+    _zero_counts()
     times = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -302,25 +410,22 @@ def serve_phase():
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         _check_outputs(out, BATCH, max_per_img)
-    after_batches = roi_align_block.launches
+    _check_counts(_counts(), {fwd_name: 3 * 2}, f"serve ({impl}), 2 batches")
     t0 = time.perf_counter()
     bbox, segm, offsets = inference_detector(
         model, r.randint(0, 256, (512, 640, 3), np.uint8))
     single_ms = (time.perf_counter() - t0) * 1e3
-    launches = roi_align_block.launches
+    counts = _counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"serve: simple_test 1024^2 B={BATCH} ms per call "
+    print(f"serve ({impl}): simple_test 1024^2 B={BATCH} ms per call "
           f"{[round(x, 1) for x in times]}, ms per image "
           f"{[round(x / BATCH, 1) for x in times]}; valid detections "
           f"{out['det_valid'].sum(1).tolist()}", flush=True)
-    print(f"serve: inference_detector 512x640 -> 819x1024 incl. host "
-          f"paste+RLE {single_ms:.1f} ms, {len(bbox[0])} detections; "
-          f"peak memory {peak / 2 ** 30:.2f} GiB "
-          f"(max_memory_allocated)", flush=True)
-    if after_batches != 3 * 2 or launches != 3 * 3:
-        raise AssertionError(f"roi_align_block_fwd launched {after_batches} "
-                             f"times in 2 batches and {launches} in all; "
-                             f"3 per batch expected")
+    print(f"serve ({impl}): inference_detector 512x640 -> 819x1024 incl. "
+          f"host paste+RLE {single_ms:.1f} ms, {len(bbox[0])} detections; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
+          f"launches {counts}", flush=True)
+    _check_counts(counts, {fwd_name: 3 * 3}, f"serve ({impl}), 3 batches")
     if not (len(bbox[0]) == len(segm[0]) == len(offsets)
             and np.isfinite(bbox[0]).all() and np.isfinite(offsets).all()):
         raise AssertionError("inference_detector results are inconsistent")
@@ -333,6 +438,7 @@ def serve_phase():
     small = [r.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(2)]
     model.cfg.data.test.pipeline[1].img_scale = (320, 320)
     img, img_shape, _, _ = prepare_batch(model, small)
+    kernel_fn = getattr(two_stage, attr)
     with torch.inference_mode():
         feats = model.extract_feat(img)
         props, _, pvalid = model._rpn_and_proposals(
@@ -345,36 +451,45 @@ def serve_phase():
                 out = model.roi_head[head](model._roi_align_cfg(
                     getattr(model, ext), feats, rois, rvalid))
                 return out if isinstance(out, tuple) else (out,)
+            launched = kernel_fn.launches
             got = run()
+            if kernel_fn.launches != launched + 1:
+                raise AssertionError(f"small input: {head} did not run "
+                                     f"{fwd_name}")
             try:
-                two_stage.roi_align_block = roi_align_block_ref
+                setattr(two_stage, attr, _plain_route(impl))
                 ref = run()
             finally:
-                two_stage.roi_align_block = roi_align_block
+                setattr(two_stage, attr, kernel_fn)
             err = max(float((g - e).abs().max()) for g, e in zip(got, ref))
             scale = max(float(e.abs().max()) for e in ref)
-            print(f"serve: small float32 input, {head} through the kernel "
-                  f"vs its plain version: max abs diff {err:.3g} "
+            print(f"serve ({impl}): small float32 input, {head} through the "
+                  f"kernel vs its plain version: max abs diff {err:.3g} "
                   f"(outputs up to {scale:.3g})", flush=True)
             if not err <= 1e-4 * max(scale, 1.0):
                 raise AssertionError(f"small input: {head} differs from "
                                      f"the plain path by {err}")
-    return launches
+    return counts[fwd_name]
 
 
-def _roi_grad_check(model):
+def _roi_grad_check(model, impl):
     """On a small float32 input, one step's RoI branches: the FPN-level
     gradients of their losses through the kernels against the plain
     version's backward fed the same output gradients (the heads between
     them are the same run, so a ReLU flipped by float noise cannot differ
-    between the two)."""
+    between the two).  The two sum each level cell's contributions in
+    another order, so each element is held to 1e-4 of the sum of its
+    contributions' magnitudes (the plain backward of the output
+    gradients' magnitudes: the bilinear weights are not negative).  The
+    branches' contributions cancel to a net gradient far smaller than
+    that sum, which a bound on the net gradient alone ignores."""
     import torch
     from bonai_tpu_torch.core.samplers import generator_draws
     from bonai_tpu_torch.models.detectors import two_stage
-    from bonai_tpu_torch.ops.roi_align_block import (roi_align_block,
-                                                     roi_align_block_backward,
-                                                     roi_align_block_ref)
     from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    attr, fwd_name, bwd_name = ROUTES[impl]
+    kernel_fn = getattr(two_stage, attr)
+    plain = _plain_route(impl)
     batch = {k: torch.as_tensor(v).cuda()
              for k, v in synthetic_batch(size=320, g=12, seed=1).items()}
     with torch.no_grad():
@@ -385,95 +500,98 @@ def _roi_grad_check(model):
     calls = []
 
     def recorded(levels, rois, output_size, featmap_strides, **kw):
-        out = roi_align_block(levels, rois, output_size, featmap_strides,
-                              **kw)
+        out = kernel_fn(levels, rois, output_size, featmap_strides, **kw)
         out.retain_grad()
         calls.append((rois, output_size, kw, out))
         return out
 
-    fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
+    _zero_counts()
     try:
-        two_stage.roi_align_block = recorded
+        setattr(two_stage, attr, recorded)
         losses = model._roi_forward_train(
             feats, props, pvalid, batch,
             generator_draws(torch.Generator(device="cuda").manual_seed(0)))
     finally:
-        two_stage.roi_align_block = roi_align_block
+        setattr(two_stage, attr, kernel_fn)
     sum(losses.values()).backward()
     torch.cuda.synchronize()
-    if (roi_align_block.launches - fwd != 3
-            or roi_align_block_backward.launches - bwd != 3):
-        raise AssertionError("the RoI branches did not run both kernels")
+    _check_counts(_counts(), {fwd_name: 3, bwd_name: 3},
+                  f"train ({impl}), small input")
     levels = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
+    mags = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
     for rois, output_size, kw, out in calls:
-        ref = roi_align_block_ref(levels, rois, output_size, STRIDES, **kw)
+        ref = plain(levels, rois, output_size, STRIDES, **kw)
         err = float((out - ref).abs().max())
         if not err <= 1e-4 * max(float(ref.abs().max()), 1.0):
             raise AssertionError(f"small input: RoI features differ from "
                                  f"the plain version by {err}")
         ref.backward(out.grad)
-    for s, f, e in zip(STRIDES, feats, levels):
-        err = float((f.grad - e.grad).abs().max())
+        plain(mags, rois, output_size, STRIDES, **kw).backward(
+            out.grad.abs())
+    for s, f, e, m in zip(STRIDES, feats, levels, mags):
+        diff = (f.grad - e.grad).abs()
         top = float(e.grad.abs().max())
-        print(f"train: small float32 input, FPN stride {s} gradient of the "
-              f"RoI losses through the kernels vs the plain version: max "
-              f"abs diff {err:.3g} (gradients up to {top:.3g})", flush=True)
-        if not err <= 1e-4 * top:
+        ratio = float((diff / m.grad.clamp(min=1e-30)).max())
+        print(f"train ({impl}): small float32 input, FPN stride {s} "
+              f"gradient of the RoI losses through the kernels vs the plain "
+              f"version: max abs diff {float(diff.max()):.3g} (gradients up "
+              f"to {top:.3g}, sums of contribution magnitudes up to "
+              f"{float(m.grad.max()):.3g}; largest diff over its element's "
+              f"sum {ratio:.3g})", flush=True)
+        if not bool((diff <= 1e-4 * m.grad).all()):
             raise AssertionError(f"small input: the stride-{s} gradient "
-                                 f"differs from the plain path by {err}")
+                                 f"differs from the plain path by "
+                                 f"{ratio:.3g} of an element's sum")
     if not float(levels[0].grad.abs().max()) > 0:
         raise AssertionError("small input: no gradient reached the FPN")
 
 
-def train_phase():
-    """Full-width LOFT-FOA R50-FPN training through ``train_detector``.
-    Returns the forward and backward kernels' launch counts of the run."""
+def train_phase(impl, steps):
+    """Full-width LOFT-FOA R50-FPN training through ``train_detector`` with
+    ``roi_align_impl=impl`` for ``steps`` steps (1 warm-up).  Returns the
+    forward and backward kernels' launch counts of the run and the median
+    warm step time."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import train_detector
-    from bonai_tpu_torch.config import Config
     from bonai_tpu_torch.models.builder import build_detector
-    from bonai_tpu_torch.ops.roi_align_block import (roi_align_block,
-                                                     roi_align_block_backward)
     from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    _, fwd_name, bwd_name = ROUTES[impl]
 
-    cfg = Config.fromfile(CONFIG)
+    cfg = _config(impl)
     batch = synthetic_batch()
     work_dir = os.path.join(REPO, "build", "chip_smoke_train")
     shutil.rmtree(work_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    roi_align_block.launches = 0
-    roi_align_block_backward.launches = 0
+    _zero_counts()
     t0 = time.time()
-    # one epoch of TRAIN_STEPS copies of the batch: no epoch checkpoint
-    # falls between the timed steps
-    model, hist = train_detector(cfg, [batch] * TRAIN_STEPS, work_dir,
-                                 seed=0, max_steps=TRAIN_STEPS,
-                                 log_interval=1)
+    # one epoch of `steps` copies of the batch: no epoch checkpoint falls
+    # between the timed steps
+    model, hist = train_detector(cfg, [batch] * steps, work_dir, seed=0,
+                                 max_steps=steps, log_interval=1)
     torch.cuda.synchronize()
-    fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
+    counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     wall = time.time() - t0
     step_ms = [h["time"] * 1e3 for h in hist]
-    print(f"train: train_detector 1024^2 B={BATCH} bf16 autocast, "
-          f"{TRAIN_STEPS} steps in {wall:.1f} s incl. set-up and the final "
+    print(f"train ({impl}): train_detector 1024^2 B={BATCH} bf16 autocast, "
+          f"{steps} steps in {wall:.1f} s incl. set-up and the final "
           f"checkpoint; ms per step {[round(x, 1) for x in step_ms]}; "
           f"median of the {len(step_ms) - 1} warm steps "
           f"{statistics.median(step_ms[1:]):.1f} ms; peak memory "
-          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated)", flush=True)
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); launches "
+          f"{counts}", flush=True)
     keys = [k for k in hist[0] if k.startswith("loss")]
     for h in hist:
-        print(f"train: step {h['iter']} lr {h['lr']:.3g} grad_norm "
+        print(f"train ({impl}): step {h['iter']} lr {h['lr']:.3g} grad_norm "
               f"{h['grad_norm']:.4g} " + " ".join(
                   f"{k} {h[k]:.5g}" for k in keys), flush=True)
     if not all(np.isfinite(h[k]) for h in hist
                for k in keys + ["grad_norm"]):
         raise AssertionError("a loss or the gradient norm is not finite")
-    if fwd != 3 * TRAIN_STEPS or bwd != 3 * TRAIN_STEPS:
-        raise AssertionError(f"{TRAIN_STEPS} steps launched the forward "
-                             f"kernel {fwd} and the backward kernel {bwd} "
-                             f"times; 3 each per step expected")
+    _check_counts(counts, {fwd_name: 3 * steps, bwd_name: 3 * steps},
+                  f"train ({impl}), {steps} steps")
     init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
     init.init_weights(torch.Generator().manual_seed(0))
     start = dict(init.named_parameters())
@@ -485,15 +603,45 @@ def train_phase():
             moved += changed
         else:
             frozen_moved += changed
-    print(f"train: {moved} of {trainable} trainable parameter tensors "
-          f"moved, {frozen_moved} frozen ones moved", flush=True)
+    print(f"train ({impl}): {moved} of {trainable} trainable parameter "
+          f"tensors moved, {frozen_moved} frozen ones moved", flush=True)
     if moved != trainable or frozen_moved:
         raise AssertionError("the trainable weights did not all move, or "
                              "a frozen one did")
     shutil.rmtree(work_dir, ignore_errors=True)
 
-    _roi_grad_check(model)
-    return {"fwd": fwd, "bwd": bwd, "step_ms": statistics.median(step_ms[1:])}
+    _roi_grad_check(model, impl)
+    return {"fwd": counts[fwd_name], "bwd": counts[bwd_name],
+            "step_ms": statistics.median(step_ms[1:])}
+
+
+def bench_phase():
+    """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
+    count of the run."""
+    from bonai_tpu_torch.tools.bench_roi_align import main as bench
+    _zero_counts()
+    results = bench(["--iters", "3"])
+    counts = _counts()
+    print(f"bench: launches {counts}", flush=True)
+    if not counts["roi_align_strip_fwd"]:
+        raise AssertionError("bench_roi_align did not launch "
+                             "roi_align_strip_fwd")
+    for (route, branch), (fwd_ms, fwd_bwd_ms) in results.items():
+        if (fwd_bwd_ms is None) != (route == "pallas") or not fwd_ms > 0:
+            raise AssertionError(f"bench_roi_align {route} {branch}: fwd "
+                                 f"{fwd_ms} ms, fwd+bwd {fwd_bwd_ms} ms")
+    if len(results) != 4 * 3:
+        raise AssertionError(f"bench_roi_align timed {sorted(results)}")
+    return counts["roi_align_strip_fwd"]
+
+
+def _entry(name, source, replaces, path, launches, sums, **extra):
+    return {"name": name, "route": "cuda",
+            "source": f"bonai_tpu_torch/csrc/{source}",
+            "replaces": replaces, "path": path, "launches": launches,
+            "max_abs_err": sums.err, "ms": sums.ms,
+            "plain_ms": sums.plain_ms, "bound_ms": sums.bound_ms,
+            "bound_by": sums.bound_by, "library_ms": None, **extra}
 
 
 def main():
@@ -512,7 +660,7 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.time()
-    kernels = ["roi_align_block_fwd", "roi_align_block_bwd"]
+    kernels = list(_kernels())
     _build.build(kernels)
     print(f"build: {len(kernels)} kernel(s) in {time.time() - t0:.1f} s",
           flush=True)
@@ -521,30 +669,51 @@ def main():
         if log.exists():
             print(log.read_text().strip(), flush=True)
 
-    fwd_serve, fwd_train, bwd = kernel_phase()
-    serve_launches = serve_phase()
-    train = train_phase()
-    print(f"train: B2 {bwd.ms:.4f} ms per step in 3 launches, "
-          f"{100 * bwd.ms / train['step_ms']:.2f} % of the "
-          f"{train['step_ms']:.1f} ms step; B1 at the training shapes "
-          f"{fwd_train.ms:.4f} ms per step", flush=True)
+    sums = kernel_phase()
+    serve = {impl: serve_phase(impl) for impl in ("block", "pallas")}
+    train = {impl: train_phase(impl, steps)
+             for impl, steps in (("block", 6), ("pallas", 4))}
+    bench_launches = bench_phase()
+    for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
+        f_name, b_name = ROUTES[impl][1:]
+        print(f"train ({impl}): {bwd} {sums[b_name, 'train'].ms:.4f} ms per "
+              f"step in 3 launches, "
+              f"{100 * sums[b_name, 'train'].ms / train[impl]['step_ms']:.2f}"
+              f" % of the {train[impl]['step_ms']:.1f} ms step; {fwd} at the "
+              f"training shapes {sums[f_name, 'train'].ms:.4f} ms per step",
+              flush=True)
+    for what, a, b in (("serve", "roi_align_fused_fwd", "roi_align_block_fwd"),
+                       ("train", "roi_align_fused_fwd", "roi_align_block_fwd"),
+                       ("train", "roi_align_fused_bwd", "roi_align_block_bwd")):
+        print(f"compare {what}: {a} {sums[a, what].ms:.4f} ms vs {b} "
+              f"{sums[b, what].ms:.4f} ms (ratio "
+              f"{sums[a, what].ms / sums[b, what].ms:.3f}; same RoIs, "
+              f"bounds {sums[a, what].bound_ms:.4f} / "
+              f"{sums[b, what].bound_ms:.4f} ms)", flush=True)
+
+    def forward(name, source, replaces, impl):
+        return _entry(name, source, replaces, f"serve and train ({impl})",
+                      serve[impl], sums[name, "serve"],
+                      train_launches=train[impl]["fwd"],
+                      train_ms=sums[name, "train"].ms,
+                      train_plain_ms=sums[name, "train"].plain_ms,
+                      train_bound_ms=sums[name, "train"].bound_ms)
     entries = [
-        {"name": "roi_align_block_fwd", "route": "cuda",
-         "source": "bonai_tpu_torch/csrc/roi_align_block_fwd.cu",
-         "replaces": "bonai_tpu/ops/pallas_roi_align_block.py:152",
-         "launches": serve_launches, "max_abs_err": fwd_serve.err,
-         "ms": fwd_serve.ms, "plain_ms": fwd_serve.plain_ms,
-         "bound_ms": fwd_serve.bound_ms, "bound_by": fwd_serve.bound_by,
-         "library_ms": None,
-         "train_launches": train["fwd"], "train_ms": fwd_train.ms,
-         "train_plain_ms": fwd_train.plain_ms,
-         "train_bound_ms": fwd_train.bound_ms},
-        {"name": "roi_align_block_bwd", "route": "cuda",
-         "source": "bonai_tpu_torch/csrc/roi_align_block_bwd.cu",
-         "replaces": "bonai_tpu/ops/pallas_roi_align_block.py:216",
-         "launches": train["bwd"], "max_abs_err": bwd.err, "ms": bwd.ms,
-         "plain_ms": bwd.plain_ms, "bound_ms": bwd.bound_ms,
-         "bound_by": bwd.bound_by, "library_ms": None}]
+        forward("roi_align_block_fwd", "roi_align_block_fwd.cu",
+                "bonai_tpu/ops/pallas_roi_align_block.py:152", "block"),
+        _entry("roi_align_block_bwd", "roi_align_block_bwd.cu",
+               "bonai_tpu/ops/pallas_roi_align_block.py:216", "train (block)",
+               train["block"]["bwd"], sums["roi_align_block_bwd", "train"]),
+        forward("roi_align_fused_fwd", "roi_align_fused_fwd.cu",
+                "bonai_tpu/ops/pallas_roi_align_fused.py:127", "pallas"),
+        _entry("roi_align_fused_bwd", "roi_align_fused_bwd.cu",
+               "bonai_tpu/ops/pallas_roi_align_fused.py:181",
+               "train (pallas)", train["pallas"]["bwd"],
+               sums["roi_align_fused_bwd", "train"]),
+        _entry("roi_align_strip_fwd", "roi_align_strip_fwd.cu",
+               "bonai_tpu/ops/pallas_roi_align.py:113",
+               "bonai_tpu_torch.tools.bench_roi_align", bench_launches,
+               sums["roi_align_strip_fwd", "train"])]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -57,8 +57,9 @@ def _random_tree(shapes, r):
     return out
 
 
-def jax_model(cfg, seed=0):
-    """The JAX LOFT of ``cfg`` in float32 with seeded random variables.
+def jax_model(cfg, seed=0, **build_kw):
+    """The JAX LOFT of ``cfg`` in float32 with seeded random variables
+    (``build_kw``, e.g. ``roi_align_impl``, go to ``build_detector``).
 
     The class weights are set so scores spread well apart (NMS order then
     does not hang on float noise), and the box deltas are kept small so
@@ -67,7 +68,7 @@ def jax_model(cfg, seed=0):
     import jax.numpy as jnp
     from bonai_tpu.models import build_detector
     model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
-                           compute_dtype="float32")
+                           compute_dtype="float32", **build_kw)
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 64, 3)))
     r = np.random.RandomState(seed)
@@ -84,12 +85,13 @@ def jax_model(cfg, seed=0):
     return model, {"params": params, "batch_stats": stats}
 
 
-def port_model(cfg, variables):
+def port_model(cfg, variables, **build_kw):
     """The port's LOFT of ``cfg`` on the CPU in float32, carrying the JAX
-    variables."""
+    variables (``build_kw`` go to ``build_detector``)."""
     from bonai_tpu_torch.models import build_detector
     from bonai_tpu_torch.utils.weights import state_dict_from_jax
-    model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                           **build_kw)
     model.load_state_dict(state_dict_from_jax(variables["params"],
                                               variables["batch_stats"]))
     return model.eval()
