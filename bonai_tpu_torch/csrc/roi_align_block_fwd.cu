@@ -1,32 +1,53 @@
-// Multi-level RoIAlign forward with the block level rule, for Hopper (sm_90a).
+// Multi-level RoIAlign forward for Hopper (sm_90a), under the block or the
+// strip level rule.
 //
-// Replaces the TPU kernel bonai_tpu/ops/pallas_roi_align_block.py::_fwd_kernel
-// (launched by _pallas_block_fwd, entry pallas_block_roi_align).  Same
-// function, not the same layout: the TPU kernel DMAs a 40x40xC block per RoI
-// into VMEM and resolves the bilinear samples with one-hot matmuls; here each
+// Replaces the TPU kernels bonai_tpu/ops/pallas_roi_align_block.py::_fwd_kernel
+// (launched by _pallas_block_fwd, entry pallas_block_roi_align, the
+// detector's roi_align_impl='block') and, with the strip level rule,
+// bonai_tpu/ops/pallas_roi_align_fused.py::_fwd_kernel (entry
+// pallas_multilevel_roi_align, roi_align_impl='pallas').  Same function, not
+// the same layout: the TPU kernels DMA a block or strips of each RoI's level
+// into VMEM and resolve the bilinear samples with one-hot matmuls; here each
 // sample's four corners are read straight from the NHWC level.
 //
 // What it computes, per RoI r (rois[r] = [batch, x1, y1, x2, y2], image
-// coordinates) at the level lvl[r] chosen in torch by block_levels() (the
-// gather rule pushed coarser until max(w, h) spans at most 28 cells):
-//   aligned=True sample grid of (out_h*sr) x (out_w*sr) points, the RoIAlign
-//   border rule on the TRUE level size (points outside [-1, size] count zero,
-//   coordinates clamped into the map), fp32 sums, each sr x sr bin averaged,
-//   output in the feature dtype; rows with valid[r] == 0 are written as zeros.
-// The arithmetic follows ops/roi_align.py (the plain version) step by step.
+// coordinates), at the level of the wrappers' rule, which it computes
+// (LevelRule: the gather rule pushed coarser until max(w, h) spans at most
+// window - 4 cells, block, or until w does, strip) and writes to lvl_out for
+// the backward; an aligned (out_h*sr) x (out_w*sr) sample grid,
+// the RoIAlign border rule on the TRUE level size (points outside [-1, size]
+// count zero, coordinates clamped into the map), fp32 sums, each sr x sr bin
+// averaged, output in the feature dtype; rows with valid[r] == 0 are written
+// as zeros.  Every corner is read wherever it lies: the TPU kernels' windows
+// do not cut RoIs still too wide at the coarsest level (ROADMAP queue C).
 //
 // Bound: bytes.  Per RoI it writes out_h*out_w*C outputs and reads at most
-// (out_h*sr+1) x (out_w*sr+1) distinct level cells; it does ~4 multiply-adds
-// per corner read, far below the card's operation rate.  At the detector's
-// shapes (C=256, bf16) the floor is set by the output writes.
+// (out_h*sr+1) x (out_w*sr+1) distinct level cells; its multiply-adds are far
+// below the card's rate.  What keeps a kernel from it here is instructions
+// and latency: per-sample index math repeated for every channel, narrow
+// loads, few warps in flight.  The design below computes each RoI's sample
+// geometry once, moves 16-byte vectors and keeps a block's warps on
+// separate bins.
 //
-// Design: one block per (RoI, channel tile); each thread owns two adjacent
-// channels, so a warp reads 32 x 4 B (bf16) or 32 x 8 B (fp32) contiguous
-// bytes per corner and writes the same per bin.  The per-sample index math
-// is uniform across the block.  Neighbouring samples share corners, which
-// the L1/L2 caches serve; no shared memory is used.  The channel count must
-// be even and the level and output pointers 8-byte aligned (the wrapper
-// checks both).
+// Design: one block per RoI.  Its sample grid is separable, and a corner's
+// weight is the product of its two axis weights, so a bin's value is the sum,
+// over the distinct rows y and columns x that its samples have a corner of
+// nonzero weight on, of Wy(y) * Wx(x) * v(y, x), with Wy(y) the sum of the y
+// weights of the bin's sample rows on row y (the same for x), divided by
+// sr*sr.  The block first lists, per bin of each axis, those cells and
+// summed weights (at most 2*sr; from the shared geometry, in sample order)
+// in shared memory, once, then one barrier.  Each work item is then one
+// (bin, channel vector): a vector is 16 bytes where the channel count and
+// the pointers allow (8 bf16 or 4 fp32 channels), so a warp covers one bin's
+// 256 bf16 channels with 512 contiguous bytes, and the block's warps split
+// the bins.  A bin costs one vector load per (row, column) pair, 4 to 16 at
+// sr = 2 (9 where its samples' corners share rows and columns, 4 for a bin
+// inside one cell) against 16 corner reads, and the multiply-adds.  Sum
+// order: those cells in order, then times 1 / (sr*sr) (the plain version's
+// division, exactly, for sr = 2 and 4); the plain version adds the
+// per-corner products hy*hx*v one by one and reduces the samples in torch's
+// order.  Both sum in fp32, so they differ by a few fp32 ulps of the sum,
+// within 1e-4 (fp32) and one bf16 ulp (bf16).
 
 #include "roi_align_block_common.cuh"
 
@@ -34,97 +55,187 @@ namespace {
 
 using namespace roi_align_block;
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+constexpr int kThreads = 256;
+
+// One bin of an RoI along one axis: the distinct cells its sr samples have
+// a corner of nonzero weight on (rows as cell offsets y * W), with the sum
+// of those corners' axis weights, in sample order.  Returns the count.
+__device__ __forceinline__ int bin_cells(float start, float bin, int p, int sr,
+                                         int size, int scale, int* cell,
+                                         float* weight) {
+  int n = 0;
+  for (int i = 0; i < sr; ++i) {
+    const AxisSample a = axis_sample(start, bin, p * sr + i, sr, size);
+    const int ends[2] = {a.lo * scale, a.hi * scale};
+    const float ws[2] = {a.w_lo, a.w_hi};
+    for (int e = 0; e < 2; ++e) {
+      if (ws[e] == 0.f) continue;
+      int k = 0;
+      while (k < n && cell[k] != ends[e]) ++k;
+      if (k == n) {
+        cell[n] = ends[e];
+        weight[n++] = ws[e];
+      } else {
+        weight[k] += ws[e];
+      }
+    }
+  }
+  return n;
+}
+
+template <typename T, int V, int SR>
+__global__ void __launch_bounds__(kThreads)
 roi_align_block_fwd_kernel(Levels lv, int batch, int channels,
                            const float* __restrict__ rois,
-                           const int* __restrict__ lvl,
                            const uint8_t* __restrict__ valid,
-                           int out_h, int out_w, int sr,
+                           int* __restrict__ lvl_out, LevelRule rule,
+                           int out_h, int out_w, int sr_arg,
                            T* __restrict__ out) {
+  // per bin of each axis (out_h y bins, then out_w x bins): its count of
+  // cells, then up to 2 * sr cells and their weights
+  extern __shared__ int tables[];
+  const int sr = SR > 0 ? SR : sr_arg;
+  const int m = 2 * sr;
+  const int stride = 1 + 2 * m;
   const int r = blockIdx.x;
-  const int c = 2 * (blockIdx.y * blockDim.x + threadIdx.x);
-  if (c >= channels) return;
-  T* dst = out + static_cast<size_t>(r) * out_h * out_w * channels + c;
+  const float* roi = rois + 5 * r;
+  const int l = roi_level(roi, rule);
+  if (lvl_out != nullptr && threadIdx.x == 0) lvl_out[r] = l;
+
+  const int vecs = channels / V;  // channel vectors per bin
   const int bins = out_h * out_w;
-  if (!valid[r]) {
-    for (int k = 0; k < bins; ++k) store2(dst + static_cast<size_t>(k) * channels, 0.f, 0.f);
+  T* dst = out + static_cast<size_t>(r) * bins * channels;
+  if (valid != nullptr && !valid[r]) {
+    float zero[V] = {};
+    for (int it = threadIdx.x; it < bins * vecs; it += kThreads) {
+      ChannelVec<T, V>::store(dst + static_cast<size_t>(it) * V, zero);
+    }
     return;
   }
-  const int l = lvl[r];
-  const float* roi = rois + 5 * r;
   const int b = min(max(static_cast<int>(roi[0]), 0), batch - 1);
   const int H = lv.height[l];
   const int W = lv.width[l];
-  const float Hf = static_cast<float>(H);
-  const float Wf = static_cast<float>(W);
-  const T* base = static_cast<const T*>(lv.ptr[l]) +
-                  static_cast<size_t>(b) * H * W * channels + c;
   const RoiGrid g = roi_grid(roi, lv.inv_stride[l], out_h, out_w);
-  const float count = static_cast<float>(sr * sr);
-  const size_t row = static_cast<size_t>(W) * channels;
+  for (int t = threadIdx.x; t < out_h + out_w; t += kThreads) {
+    int* e = tables + t * stride;
+    e[0] = t < out_h
+               ? bin_cells(g.y1, g.bin_h, t, sr, H, W, e + 1,
+                           reinterpret_cast<float*>(e + 1 + m))
+               : bin_cells(g.x1, g.bin_w, t - out_h, sr, W, 1, e + 1,
+                           reinterpret_cast<float*>(e + 1 + m));
+  }
+  __syncthreads();
 
-  for (int ph = 0; ph < out_h; ++ph) {
-    for (int pw = 0; pw < out_w; ++pw) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int iy = 0; iy < sr; ++iy) {
-        int y0;
-        float ly;
-        if (axis_params(sample_coord(g.y1, g.bin_h, ph, iy, sr), Hf, &y0, &ly)) continue;
-        const int y1i = min(y0 + 1, H - 1);
-        for (int ix = 0; ix < sr; ++ix) {
-          int x0;
-          float lx;
-          if (axis_params(sample_coord(g.x1, g.bin_w, pw, ix, sr), Wf, &x0, &lx)) continue;
-          const int x1i = min(x0 + 1, W - 1);
-          const float hy = 1.f - ly, hx = 1.f - lx;
-          const float2 v00 = load2(base + y0 * row + static_cast<size_t>(x0) * channels);
-          const float2 v01 = load2(base + y0 * row + static_cast<size_t>(x1i) * channels);
-          const float2 v10 = load2(base + y1i * row + static_cast<size_t>(x0) * channels);
-          const float2 v11 = load2(base + y1i * row + static_cast<size_t>(x1i) * channels);
-          const float w00 = hy * hx, w01 = hy * lx, w10 = ly * hx, w11 = ly * lx;
-          a0 += w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x;
-          a1 += w00 * v00.y + w01 * v01.y + w10 * v10.y + w11 * v11.y;
+  const T* base = static_cast<const T*>(lv.ptr[l]) +
+                  static_cast<size_t>(b) * H * W * channels;
+  const float scale = 1.f / static_cast<float>(sr * sr);
+  constexpr int kM = SR > 0 ? 2 * SR : 1;  // unrolled cells per axis
+  for (int it = threadIdx.x; it < bins * vecs; it += kThreads) {
+    const int bin = it / vecs;
+    const int c = (it - bin * vecs) * V;
+    const int ph = bin / out_w;
+    const int pw = bin - ph * out_w;
+    const int* ey = tables + ph * stride;
+    const int* ex = tables + (out_h + pw) * stride;
+    const int ny = ey[0], nx = ex[0];
+    float acc[V] = {};
+    for (int i0 = 0; i0 < ny; i0 += kM) {
+      for (int j0 = 0; j0 < nx; j0 += kM) {
+#pragma unroll
+        for (int di = 0; di < kM; ++di) {
+#pragma unroll
+          for (int dj = 0; dj < kM; ++dj) {
+            const int i = i0 + di, j = j0 + dj;
+            if (i < ny && j < nx) {
+              float v[V];
+              ChannelVec<T, V>::load(base + static_cast<size_t>(ey[1 + i] + ex[1 + j]) * channels + c, v);
+              const float w = __int_as_float(ey[1 + m + i]) * __int_as_float(ex[1 + m + j]);
+#pragma unroll
+              for (int k = 0; k < V; ++k) acc[k] += w * v[k];
+            }
+          }
         }
       }
-      store2(dst + static_cast<size_t>(ph * out_w + pw) * channels, a0 / count, a1 / count);
     }
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] *= scale;
+    ChannelVec<T, V>::store(dst + static_cast<size_t>(bin) * channels + c, acc);
   }
+}
+
+template <typename T, int V>
+int launch(const Levels& lv, int batch, int channels, const float* rois,
+           int num_rois, const uint8_t* valid, int* lvl_out,
+           const LevelRule& rule, int out_h, int out_w, int sr,
+           void* out, cudaStream_t stream) {
+  const size_t smem = sizeof(int) * (out_h + out_w) * (1 + 4 * sr);
+  auto kernel = sr == 2 ? roi_align_block_fwd_kernel<T, V, 2>
+                        : roi_align_block_fwd_kernel<T, V, 0>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<num_rois, kThreads, smem, stream>>>(
+      lv, batch, channels, rois, valid, lvl_out, rule, out_h, out_w,
+      sr, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Host arrays level_ptrs/heights/widths/
-// inv_strides hold num_levels entries.  Returns the cudaGetLastError() code
-// after the launch (0 on success); launches on `stream`, does not sync.
+// inv_strides hold num_levels entries.  valid (uint8 per RoI) may be null:
+// every row is valid.  The kernel takes the level rule (strip_rule 0: block,
+// 1: strip; finest_scale; push_extent = stride0 * (window - 4) in image
+// pixels) and writes each RoI's level (int32) to lvl_out unless that is
+// null.  Returns the cudaGetLastError() code after the launch (0 on
+// success); launches on `stream`, does not sync.
 extern "C" int roi_align_block_fwd(const void* const* level_ptrs,
                                    const int* heights, const int* widths,
                                    const float* inv_strides, int num_levels,
                                    int batch, int channels, const float* rois,
-                                   const int* lvl, const uint8_t* valid,
-                                   int num_rois, int out_h, int out_w,
+                                   int num_rois, const uint8_t* valid,
+                                   int* lvl_out, int strip_rule,
+                                   int finest_scale,
+                                   float push_extent, int out_h, int out_w,
                                    int sampling_ratio, int dtype, void* out,
                                    void* stream) {
   Levels lv;
   if (!fill_levels(&lv, const_cast<void* const*>(level_ptrs), heights, widths,
-                   inv_strides, num_levels, channels, sampling_ratio, batch)) {
+                   inv_strides, num_levels, channels, sampling_ratio, batch) ||
+      out_h < 1 || out_w < 1 || finest_scale <= 0 || !(push_extent > 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_rois == 0) return 0;
-  const int pairs = channels / 2;
-  const int threads = pairs < kMaxThreads ? pairs : kMaxThreads;
-  const dim3 grid(num_rois, (pairs + threads - 1) / threads);
+  LevelRule rule;
+  // torch computes both reciprocals of host scalars on the host, in float
+  rule.inv_finest = 1.0f / static_cast<float>(finest_scale);
+  rule.push = strip_rule ? push_extent : 1.0f / push_extent;
+  rule.strip = strip_rule;
+  rule.num_levels = num_levels;
+  const void* ptrs[kMaxLevels + 1];
+  for (int i = 0; i < num_levels; ++i) ptrs[i] = level_ptrs[i];
+  ptrs[num_levels] = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int sr = sampling_ratio;
+#define ROI_ALIGN_LAUNCH(T, V)                                                \
+  launch<T, V>(lv, batch, channels, rois, num_rois, valid, lvl_out, rule,    \
+               out_h, out_w, sr, out, s)
   if (dtype == 0) {
-    roi_align_block_fwd_kernel<float><<<grid, threads, 0, s>>>(
-        lv, batch, channels, rois, lvl, valid, out_h, out_w, sampling_ratio,
-        static_cast<float*>(out));
-  } else if (dtype == 1) {
-    roi_align_block_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        lv, batch, channels, rois, lvl, valid, out_h, out_w, sampling_ratio,
-        static_cast<__nv_bfloat16*>(out));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    switch (vector_width<float>(channels, ptrs, num_levels + 1)) {
+      case 4: return ROI_ALIGN_LAUNCH(float, 4);
+      default: return ROI_ALIGN_LAUNCH(float, 2);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    switch (vector_width<__nv_bfloat16>(channels, ptrs, num_levels + 1)) {
+      case 8: return ROI_ALIGN_LAUNCH(__nv_bfloat16, 8);
+      case 4: return ROI_ALIGN_LAUNCH(__nv_bfloat16, 4);
+      default: return ROI_ALIGN_LAUNCH(__nv_bfloat16, 2);
+    }
+  }
+#undef ROI_ALIGN_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,7 @@
-// Shared by the strip RoIAlign kernels: the forward of the fused strip route
-// (roi_align_fused_fwd.cu), its backward (roi_align_fused_bwd.cu) and the
-// forward-only window-64 strip route (roi_align_strip_fwd.cu).  The level
-// table and the sample geometry come from roi_align_block_common.cuh, so the
-// strip kernels' corners and weights are the block kernels' to the bit.
+// The strip kernel of the forward-only window-64 strip route
+// (roi_align_strip_fwd.cu).  The level table and the sample geometry come
+// from roi_align_block_common.cuh, so its corners and weights are the block
+// kernels' to the bit.
 //
 // Block layout: one block per (RoI, tile of kTileChannels channels) with
 // kThreads threads.  Thread t owns channel pair t % kPairs of the tile (a
@@ -46,36 +45,30 @@ struct XWindow {
   int width;
 };
 
-// The cells that the RoI's in-range x samples read (low corner x0, high
-// corner min(x0 + 1, W - 1)), capped at max_width cells from the first.
-// `start` is the first such cell, or `first` when given (>= 0).
+// The cells from `start` to the last one that the RoI's in-range x samples
+// read (high corner min(x0 + 1, W - 1)), capped at max_width cells.
 __device__ __forceinline__ XWindow sample_window(const RoiGrid& g, float Wf,
                                                  int W, int out_w, int sr,
-                                                 int first, int max_width) {
-  int lo = INT_MAX, hi = -1;
+                                                 int start, int max_width) {
+  int hi = -1;
   for (int pw = 0; pw < out_w; ++pw) {
     for (int ix = 0; ix < sr; ++ix) {
       int x0;
       float lx;
       if (axis_params(sample_coord(g.x1, g.bin_w, pw, ix, sr), Wf, &x0, &lx)) continue;
-      lo = min(lo, x0);
       hi = max(hi, min(x0 + 1, W - 1));
     }
   }
   if (hi < 0) return XWindow{0, 0};
-  const int start = first >= 0 ? first : lo;
   return XWindow{start, min(hi - start + 1, max_width)};
 }
 
-// The strip forward of both strip routes; `Rule` says what differs:
-//   kWindow       cells staged per strip;
-//   kZeroOutsideY a sample outside [-1, H] in y counts zero (the RoIAlign
-//                 border rule) or keeps full weight on its clamped row;
-//   kCutWindow    a corner past the staged window counts zero, or is read
-//                 from device memory;
-//   window()      the RoI's staged cells.
-// A sample outside [-1, W] in x counts zero in both.  Rows with valid[r] == 0
-// are written as zeros.  Sums in float32, output in the levels' dtype.
+// The strip forward; `Rule` gives kWindow, the cells staged per strip, and
+// window(), the RoI's staged cells.  A sample outside [-1, H] in y keeps full
+// weight on its clamped row (ly = 0), a sample outside [-1, W] in x counts
+// zero, and a corner past the staged window counts zero.  Rows with
+// valid[r] == 0 are written as zeros.  Sums in float32, output in the levels'
+// dtype.
 template <typename T, class Rule>
 __global__ void __launch_bounds__(kThreads)
 strip_fwd_kernel(Levels lv, int batch, int channels,
@@ -119,10 +112,7 @@ strip_fwd_kernel(Levels lv, int batch, int channels,
     for (int iy = 0; iy < sr; ++iy) {
       int y0;
       float ly;
-      if (axis_params(sample_coord(g.y1, g.bin_h, ph, iy, sr), Hf, &y0, &ly) &&
-          Rule::kZeroOutsideY) {
-        continue;
-      }
+      axis_params(sample_coord(g.y1, g.bin_h, ph, iy, sr), Hf, &y0, &ly);
       for (int t = 0; t < 2; ++t) {
         const int y = t == 0 ? y0 : min(y0 + 1, H - 1);
         const T* src = base + y * row + static_cast<size_t>(win.start) * channels;
@@ -141,7 +131,6 @@ strip_fwd_kernel(Levels lv, int batch, int channels,
         int y0;
         float ly;
         if (axis_params(sample_coord(g.y1, g.bin_h, ph, iy, sr), Hf, &y0, &ly)) {
-          if (Rule::kZeroOutsideY) continue;
           ly = 0.f;
         }
         const int y1i = min(y0 + 1, H - 1);
@@ -159,16 +148,11 @@ strip_fwd_kernel(Levels lv, int batch, int channels,
             v01 = to_float2(s0[e1 * kPairs]);
             v10 = to_float2(s1[e0 * kPairs]);
             v11 = to_float2(s1[e1 * kPairs]);
-          } else if (Rule::kCutWindow) {
+          } else {                       // past the window: zero
             const float2 zero = make_float2(0.f, 0.f);
             v00 = e0 < win.width ? to_float2(s0[e0 * kPairs]) : zero;
             v10 = e0 < win.width ? to_float2(s1[e0 * kPairs]) : zero;
             v01 = v11 = zero;
-          } else {                       // past the window: device memory
-            v00 = load2(base + y0 * row + static_cast<size_t>(x0) * channels);
-            v01 = load2(base + y0 * row + static_cast<size_t>(x1i) * channels);
-            v10 = load2(base + y1i * row + static_cast<size_t>(x0) * channels);
-            v11 = load2(base + y1i * row + static_cast<size_t>(x1i) * channels);
           }
           const float hy = 1.f - ly, hx = 1.f - lx;
           const float w00 = hy * hx, w01 = hy * lx, w10 = ly * hx, w11 = ly * lx;

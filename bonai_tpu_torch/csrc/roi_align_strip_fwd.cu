@@ -22,11 +22,12 @@
 //     by sqrt(wh) < 56) loses its right-hand samples.
 // The sample geometry is B1's (roi_align_block_common.cuh).
 //
-// Bound: bytes, as roi_align_fused_fwd.cu: the output written once and at
-// most (out_h*sr + 1) x (out_w*sr + 1) level cells per RoI read once.
+// Bound: bytes: the output written once and at most (out_h*sr + 1) x
+// (out_w*sr + 1) level cells per RoI read once.
 //
-// Design: roi_align_fused_fwd.cu's kernel (roi_align_strip_common.cuh) with
-// 64-cell strips: 2*sr x 64 cells x 64 channels of shared memory, 32 KB bf16
+// Design: one block per (RoI, 64-channel tile), a loop over output rows
+// staging each row's 2*sr strips of 64 cells in shared memory
+// (roi_align_strip_common.cuh): 2*sr x 64 cells x 64 channels, 32 KB bf16
 // and 64 KB fp32 at sr = 2.  The channel count must be even and the level and
 // output pointers 8-byte aligned (the wrapper checks both).
 
@@ -38,8 +39,6 @@ using namespace roi_align_strip;
 
 struct StripRule {
   static constexpr int kWindow = 64;
-  static constexpr bool kZeroOutsideY = false;
-  static constexpr bool kCutWindow = true;
   static __device__ __forceinline__ XWindow window(const RoiGrid& g, float Wf,
                                                    int W, int out_w, int sr) {
     int first = INT_MAX;             // over every sample, in range or not

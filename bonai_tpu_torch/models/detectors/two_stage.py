@@ -204,9 +204,10 @@ class TwoStageDetector(nn.Module):
         extractor's, else the detector's ``roi_align_impl``):
 
         - ``'block'`` on CUDA tensors: the ``roi_align_block`` kernels;
-        - ``'pallas'`` on CUDA tensors: the strip kernels of
-          ``roi_align_fused``, with the extractor's ``roi_backward``
-          (``'rmw'``, the backward kernel, by default; or ``'scatter'``);
+        - ``'pallas'`` on CUDA tensors: ``roi_align_fused``, the same
+          kernels under the strip rule, with the extractor's
+          ``roi_backward`` (``'rmw'``, the backward kernel, by default;
+          or ``'scatter'``);
         - ``'block'`` and ``'pallas'`` on CPU tensors: the gather-rule
           ``multilevel_roi_align``, as the JAX package does off the TPU
           (they differ from it only for RoIs their level rules push

@@ -6,8 +6,11 @@ Counterpart of ``bonai_tpu.ops.pallas_roi_align_block.pallas_block_roi_align``
 and its custom VJP.  The level rule is the gather rule
 (``floor(log2(sqrt(wh)/56))``) with the block kernel's symmetric push: an
 RoI whose larger extent spans more than ``window - 4`` cells at its level
-moves coarser until it fits (``_block_plan`` there).  It is computed here
-in torch, once, and both versions read it.
+moves coarser until it fits (``_block_plan`` there).  The plain version
+takes it from :func:`block_levels`; on the card the forward kernel computes
+it itself, in the float operations torch performs for
+:func:`block_levels` there, and saves it for the backward.  The same two
+kernels compute the strip route (``roi_align_fused``) under the strip rule.
 
 ``roi_align_block`` takes the plain version only for tensors on the CPU
 (autograd differentiates it there); for CUDA tensors it goes through
@@ -25,13 +28,15 @@ import functools
 import torch
 
 from ._build import load_library
-from .roi_align import _as_pair, map_roi_levels, roi_align_at_levels
+from .roi_align import (_as_pair, _level_samples, map_roi_levels,
+                        roi_align_at_levels)
 
 _MAX_LEVELS = 4         # kMaxLevels in the CUDA source
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_WINDOW = 32            # the block rule's window: max(w, h) fits 28 cells
 
 
-def block_levels(boxes, featmap_strides, finest_scale=56, window=32):
+def block_levels(boxes, featmap_strides, finest_scale=56, window=_WINDOW):
     """Level per RoI under the block rule: the gather rule, then pushed
     coarser until ``max(w, h)`` spans at most ``window - 4`` cells."""
     num_levels = len(featmap_strides)
@@ -53,42 +58,108 @@ def roi_align_block_ref(levels, rois, output_size, featmap_strides,
                                roi_valid)
 
 
+def block_footprint(shapes, rois, lvl, output_size, featmap_strides,
+                    sampling_ratio=2):
+    """The level cells each RoI's samples can touch, at the level ``lvl``
+    gives it: ``(R, 4)`` int64 ``[y_lo, y_hi, x_lo, x_hi]``, inclusive.
+
+    The plain version of the backward kernel's tile test
+    (``axis_footprint`` in ``csrc/roi_align_block_common.cuh``): the sample
+    coordinates are monotone in the sample index and the corners monotone
+    in the coordinate, so every corner of every sample lies between the low
+    corner of the first or last sample and the high corner of the other."""
+    _, Hl, Wl, ys, xs = _level_samples(shapes, rois, lvl, output_size,
+                                       featmap_strides, sampling_ratio, True)
+
+    def axis(v, size):
+        size = size.float()[:, None]
+        ends = torch.stack([v[:, 0], v[:, -1]], 1)
+        c = torch.minimum(ends.clamp(min=0.0), size - 1.0)
+        i0 = torch.minimum(torch.floor(c), (size - 2.0).clamp(min=0.0)).long()
+        hi = torch.minimum(i0.amax(1) + 1, size[:, 0].long() - 1)
+        return i0.amin(1), hi
+    return torch.stack([*axis(ys, Hl), *axis(xs, Wl)], 1)
+
+
+_VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
+_TABLE = [ctypes.POINTER(_VOID_P), ctypes.POINTER(_INT),
+          ctypes.POINTER(_INT), ctypes.POINTER(ctypes.c_float), _INT, _INT,
+          _INT, _VOID_P, _INT, _VOID_P]
+# the C signatures of csrc/roi_align_block_{fwd,bwd}.cu: the level table,
+# batch, channels, RoIs, their count and validity, then
+_ARGTYPES = {
+    # lvl_out, strip_rule, finest_scale, push_extent, out_h, out_w,
+    # sampling_ratio, dtype, out, stream
+    "roi_align_block_fwd": _TABLE + [_VOID_P, _INT, _INT, ctypes.c_float,
+                                     _INT, _INT, _INT, _INT, _VOID_P,
+                                     _VOID_P],
+    # lvl, out_h, out_w, sampling_ratio, dtype, grad_out, stream
+    "roi_align_block_bwd": _TABLE + [_VOID_P, _INT, _INT, _INT, _INT,
+                                     _VOID_P, _VOID_P],
+}
+
+
 @functools.cache
 def _kernel(name):
     """The C entry point of ``csrc/<name>.cu``, built and bound at first
-    use.  Every RoIAlign kernel of the port has this signature (levels or
-    their gradient buffers, level table, RoIs, levels per RoI, validity,
-    output size, sampling ratio, dtype, output or its gradient, stream)."""
+    use."""
     fn = getattr(load_library(name), name)
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name, ptrs, shapes, featmap_strides, rois, lvl, roi_valid,
-            output_size, sampling_ratio, dtype, data):
-    """One launch of the forward or backward kernel: ``ptrs`` are the
-    levels (forward) or their float32 gradient buffers (backward), ``data``
-    the output (forward) or the output gradient (backward)."""
-    n = len(ptrs)
-    oh, ow = output_size
-    B, C = shapes[0][0], shapes[0][-1]
-    rc = _kernel(name)(
-        (ctypes.c_void_p * n)(*ptrs),
-        (ctypes.c_int * n)(*[s[1] for s in shapes]),
-        (ctypes.c_int * n)(*[s[2] for s in shapes]),
-        (ctypes.c_float * n)(*[1.0 / s for s in featmap_strides]),
-        n, B, C, rois.data_ptr(), lvl.data_ptr(), roi_valid.data_ptr(),
-        rois.shape[0], oh, ow, int(sampling_ratio), _DTYPE_CODES[dtype],
-        data.data_ptr(), torch.cuda.current_stream(rois.device).cuda_stream)
+@functools.lru_cache(maxsize=64)
+def _level_table(shapes, featmap_strides):
+    """The kernels' level arguments for levels of ``shapes``, built once
+    per set of shapes: heights, widths and inverse strides as ``ctypes``
+    arrays, the level count, batch and channels."""
+    n = len(shapes)
+    return ((_INT * n)(*[s[1] for s in shapes]),
+            (_INT * n)(*[s[2] for s in shapes]),
+            (ctypes.c_float * n)(*[1.0 / s for s in featmap_strides]),
+            n, shapes[0][0], shapes[0][-1])
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _call(name, tensors, shapes, featmap_strides, rois, roi_valid, *args):
+    """One call of kernel ``name`` on the current stream; raises on the
+    CUDA error it returns."""
+    heights, widths, inv, n, B, C = _level_table(shapes, featmap_strides)
+    rc = _kernel(name)((_VOID_P * n)(*[t.data_ptr() for t in tensors]),
+                       heights, widths, inv, n, B, C, rois.data_ptr(),
+                       rois.shape[0], _ptr(roi_valid), *args,
+                       torch.cuda.current_stream(rois.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def launch_forward(levels, rois, roi_valid, output_size, featmap_strides,
+                   sampling_ratio, strip_rule, finest_scale, window,
+                   want_levels=True):
+    """The forward kernel on CUDA, uncounted: ``(out, lvl)``, the
+    ``(R, oh, ow, C)`` output in the levels' dtype and each RoI's level
+    (``int32``; ``None`` unless ``want_levels``), which the kernel computes
+    under the strip rule (:func:`~.roi_align_fused.strip_levels`) or the
+    block rule (:func:`block_levels`) with ``finest_scale`` and
+    ``window``.  Arguments checked by the caller (``_check_inputs``)."""
+    shapes = tuple(tuple(f.shape) for f in levels)
+    oh, ow = output_size
+    R = rois.shape[0]
+    out = torch.empty((R, oh, ow, shapes[0][-1]), dtype=levels[0].dtype,
+                      device=rois.device)
+    lvl = (torch.empty(R, dtype=torch.int32, device=rois.device)
+           if want_levels else None)
+    if R:
+        _call("roi_align_block_fwd", levels, shapes, tuple(featmap_strides),
+              rois, roi_valid, _ptr(lvl), int(strip_rule),
+              int(finest_scale), float(featmap_strides[0]) * (window - 4),
+              oh, ow, int(sampling_ratio), _DTYPE_CODES[levels[0].dtype],
+              out.data_ptr())
+    return out, lvl
 
 
 def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
@@ -132,17 +203,28 @@ def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                          "levels' device")
 
 
-def _launch_backward(name, grad_out, shapes, featmap_strides, rois, lvl,
-                     roi_valid, sampling_ratio):
-    """One launch of the backward kernel ``name`` into zeroed float32
-    buffers, one per level, each rounded once to ``grad_out``'s dtype."""
+def launch_backward(grad_out, shapes, featmap_strides, rois, lvl,
+                    roi_valid, sampling_ratio):
+    """The backward kernel on CUDA, uncounted: one ``(B, Hl, Wl, C)``
+    gradient per level in ``grad_out``'s dtype, each written whole by the
+    kernel (no zeroing, no float32 copy, no cast)."""
+    shapes = tuple(tuple(s) for s in shapes)
+    R, oh, ow, C = grad_out.shape
+    if (grad_out.dtype not in _DTYPE_CODES or not grad_out.is_cuda
+            or C != shapes[0][-1] or R != rois.shape[0]):
+        raise ValueError("grad_out must be a float32 or bfloat16 CUDA "
+                         "(R, oh, ow, C) tensor for the forward's RoIs")
+    if (lvl.dtype != torch.int32 or lvl.shape != rois.shape[:1]
+            or lvl.device != rois.device or not lvl.is_contiguous()):
+        raise ValueError("lvl must be the forward's contiguous int32 (R,) "
+                         "levels")
     grad_out = grad_out.contiguous()
-    bufs = [torch.zeros(s, dtype=torch.float32, device=grad_out.device)
-            for s in shapes]
-    _launch(name, [b.data_ptr() for b in bufs], shapes, featmap_strides,
-            rois, lvl, roi_valid, tuple(grad_out.shape[1:3]), sampling_ratio,
-            grad_out.dtype, grad_out)
-    return [b.to(grad_out.dtype) for b in bufs]
+    grads = [torch.empty(s, dtype=grad_out.dtype, device=grad_out.device)
+             for s in shapes]
+    _call("roi_align_block_bwd", grads, shapes, tuple(featmap_strides), rois,
+          roi_valid, lvl.data_ptr(), oh, ow, int(sampling_ratio),
+          _DTYPE_CODES[grad_out.dtype], grad_out.data_ptr())
+    return grads
 
 
 def roi_align_block_backward(grad_out, shapes, featmap_strides, rois, lvl,
@@ -156,14 +238,13 @@ def roi_align_block_backward(grad_out, shapes, featmap_strides, rois, lvl,
         bfloat16, the levels' dtype).
       shapes: the levels' ``(B, Hl, Wl, C)`` shapes.
       rois, lvl, roi_valid: the forward's RoIs, ``int32`` levels and bool
-        validity.
+        validity (``None``: every row valid).
 
     Returns one ``(B, Hl, Wl, C)`` contiguous gradient per level in
     ``grad_out``'s dtype: summed in float32, rounded once.
     """
-    grads = _launch_backward("roi_align_block_bwd", grad_out, shapes,
-                             featmap_strides, rois, lvl, roi_valid,
-                             sampling_ratio)
+    grads = launch_backward(grad_out, shapes, featmap_strides, rois, lvl,
+                            roi_valid, sampling_ratio)
     roi_align_block_backward.launches += 1
     return grads
 
@@ -172,19 +253,17 @@ roi_align_block_backward.launches = 0
 
 
 class _RoIAlignBlock(torch.autograd.Function):
-    """The block RoIAlign on CUDA: forward kernel, backward kernel.  The
-    level per RoI is computed once by the caller and saved for the
-    backward."""
+    """The block RoIAlign on CUDA: the forward kernel, which computes each
+    RoI's level and saves it, and the backward kernel at those levels."""
 
     @staticmethod
-    def forward(ctx, rois, lvl, roi_valid, output_size, featmap_strides,
-                sampling_ratio, *levels):
-        out = torch.empty((rois.shape[0], *output_size, levels[0].shape[-1]),
-                          dtype=levels[0].dtype, device=levels[0].device)
-        _launch("roi_align_block_fwd", [f.data_ptr() for f in levels],
-                [tuple(f.shape) for f in levels], featmap_strides, rois, lvl,
-                roi_valid, output_size, sampling_ratio, levels[0].dtype, out)
-        roi_align_block.launches += 1
+    def forward(ctx, rois, roi_valid, output_size, featmap_strides,
+                sampling_ratio, finest_scale, *levels):
+        out, lvl = launch_forward(levels, rois, roi_valid, output_size,
+                                  featmap_strides, sampling_ratio, False,
+                                  finest_scale, _WINDOW,
+                                  any(ctx.needs_input_grad[6:]))
+        roi_align_block.launches += bool(rois.shape[0])
         ctx.save_for_backward(rois, lvl, roi_valid)
         ctx.shapes = [tuple(f.shape) for f in levels]
         ctx.strides = featmap_strides
@@ -227,13 +306,11 @@ def roi_align_block(levels, rois, output_size, featmap_strides,
     num_levels = len(featmap_strides)
     _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                   sampling_ratio)
-    lvl = block_levels(rois[:, 1:5], featmap_strides,
-                       finest_scale).to(torch.int32)
-    if roi_valid is None:
-        roi_valid = torch.ones(rois.shape[0], dtype=torch.bool, device=device)
-    return _RoIAlignBlock.apply(rois, lvl, roi_valid, _as_pair(output_size),
+    if roi_valid is not None:
+        roi_valid = roi_valid.contiguous()
+    return _RoIAlignBlock.apply(rois, roi_valid, _as_pair(output_size),
                                 tuple(featmap_strides), int(sampling_ratio),
-                                *levels[:num_levels])
+                                int(finest_scale), *levels[:num_levels])
 
 
 roi_align_block.launches = 0

@@ -1,16 +1,19 @@
 """Multi-level RoIAlign with the strip level rule, the detector's
-``roi_align_impl='pallas'``: the CUDA kernels
-(``csrc/roi_align_fused_fwd.cu`` forward, ``csrc/roi_align_fused_bwd.cu``
-backward) and their plain PyTorch version.
+``roi_align_impl='pallas'``: its plain PyTorch version, and on the card the
+block RoIAlign's kernels (``csrc/roi_align_block_fwd.cu`` forward,
+``csrc/roi_align_block_bwd.cu`` backward) under the strip rule.
 
 Counterpart of
 ``bonai_tpu.ops.pallas_roi_align_fused.pallas_multilevel_roi_align`` and
 its custom VJP.  The level rule is the gather rule
 (``floor(log2(sqrt(wh)/56))``) with the strip kernel's push: an RoI whose
 x-extent spans more than ``window - 4`` cells at its level moves coarser
-until it fits (``_plan`` there).  It is computed here in torch, once, and
-both versions read it.  The function is the RoIAlign of ``roi_align_block``
-at those levels.
+until it fits (``_plan`` there).  The function is the RoIAlign of
+``roi_align_block`` at those levels, so the port keeps one kernel pair for
+both: the forward kernel computes the strip rule itself, in the float
+operations torch performs for :func:`strip_levels` on the card, and saves
+each RoI's level for the backward.  The plain version and the CPU path take
+:func:`strip_levels`.
 
 ``chunk=`` and ``chains=`` of the JAX function are not ported: they are
 limits of the TPU (the RoI chunking keeps the scalar-prefetched plan in
@@ -19,7 +22,9 @@ nothing in what is computed.
 
 ``roi_align_fused`` takes the plain version for tensors on the CPU; for
 CUDA tensors it launches the forward kernel and, where the levels require
-a gradient, the backward kernel (``backward="rmw"``), or raises.
+a gradient, the backward kernel (``backward="rmw"``), or raises; its own
+counters (``roi_align_fused.launches``,
+``roi_align_fused_backward.launches``) count those launches.
 ``backward="scatter"`` (the JAX package's XLA scatter transpose,
 accumulating in the feature dtype) is plain torch on both devices.  The
 RoIs get no gradient.
@@ -31,9 +36,8 @@ import torch
 
 from .roi_align import (_as_pair, corner_plan, map_roi_levels,
                         roi_align_at_levels, scatter_corners)
-from .roi_align_block import _check_inputs, _launch, _launch_backward
+from .roi_align_block import _check_inputs, launch_backward, launch_forward
 
-_MAX_SR = 4             # kMaxSr in csrc/roi_align_strip_common.cuh
 _BACKWARDS = ("rmw", "scatter")
 
 
@@ -66,14 +70,13 @@ def roi_align_fused_ref(levels, rois, output_size, featmap_strides,
 def roi_align_fused_backward(grad_out, shapes, featmap_strides, rois, lvl,
                              roi_valid, sampling_ratio=2):
     """Gradient of the strip RoIAlign with respect to its levels: launches
-    the backward kernel (``roi_align_fused_backward.launches`` counts its
-    launches).  Arguments and result as
-    :func:`~.roi_align_block.roi_align_block_backward`: one ``(B, Hl, Wl,
-    C)`` gradient per level in ``grad_out``'s dtype, summed in float32 and
-    rounded once."""
-    grads = _launch_backward("roi_align_fused_bwd", grad_out, shapes,
-                             featmap_strides, rois, lvl, roi_valid,
-                             sampling_ratio)
+    the backward kernel at the strip levels
+    (``roi_align_fused_backward.launches`` counts its launches).  Arguments
+    and result as :func:`~.roi_align_block.roi_align_block_backward`: one
+    ``(B, Hl, Wl, C)`` gradient per level in ``grad_out``'s dtype, summed
+    in float32 and rounded once."""
+    grads = launch_backward(grad_out, shapes, featmap_strides, rois, lvl,
+                            roi_valid, sampling_ratio)
     roi_align_fused_backward.launches += 1
     return grads
 
@@ -98,24 +101,23 @@ def strip_scatter_backward(grad_out, shapes, featmap_strides, rois, lvl,
 
 class _RoIAlignFused(torch.autograd.Function):
     """The strip RoIAlign with a chosen backward.  On CUDA the forward
-    launches the forward kernel, and ``backward="rmw"`` the backward
-    kernel; on the CPU (``backward="scatter"`` only) the forward is the
-    plain version.  The level per RoI is computed once by the caller and
-    saved for the backward."""
+    launches the forward kernel, which computes each RoI's strip level and
+    saves it, and ``backward="rmw"`` the backward kernel at those levels;
+    on the CPU (``backward="scatter"`` only) the forward is the plain
+    version at :func:`strip_levels`' levels."""
 
     @staticmethod
-    def forward(ctx, rois, lvl, roi_valid, output_size, featmap_strides,
-                sampling_ratio, backward, *levels):
+    def forward(ctx, rois, roi_valid, output_size, featmap_strides,
+                sampling_ratio, backward, finest_scale, window, *levels):
         if levels[0].is_cuda:
-            out = torch.empty(
-                (rois.shape[0], *output_size, levels[0].shape[-1]),
-                dtype=levels[0].dtype, device=levels[0].device)
-            _launch("roi_align_fused_fwd", [f.data_ptr() for f in levels],
-                    [tuple(f.shape) for f in levels], featmap_strides, rois,
-                    lvl, roi_valid, output_size, sampling_ratio,
-                    levels[0].dtype, out)
-            roi_align_fused.launches += 1
+            out, lvl = launch_forward(levels, rois, roi_valid, output_size,
+                                      featmap_strides, sampling_ratio, True,
+                                      finest_scale, window,
+                                      any(ctx.needs_input_grad[8:]))
+            roi_align_fused.launches += bool(rois.shape[0])
         else:
+            lvl = strip_levels(rois[:, 1:5].float(), featmap_strides,
+                               finest_scale, window)
             out = roi_align_at_levels(levels, rois, lvl, output_size,
                                       featmap_strides, sampling_ratio,
                                       roi_valid=roi_valid)
@@ -133,7 +135,7 @@ class _RoIAlignFused(torch.autograd.Function):
             else strip_scatter_backward
         grads = fn(grad_out, ctx.shapes, ctx.strides, rois, lvl, roi_valid,
                    ctx.sampling_ratio)
-        return (None,) * 7 + tuple(grads)
+        return (None,) * 8 + tuple(grads)
 
 
 def roi_align_fused(levels, rois, output_size, featmap_strides,
@@ -169,16 +171,15 @@ def roi_align_fused(levels, rois, output_size, featmap_strides,
     num_levels = len(featmap_strides)
     if device.type == "cuda":
         _check_inputs(levels, rois, roi_valid, num_levels, aligned,
-                      sampling_ratio, "roi_align_fused", _MAX_SR)
+                      sampling_ratio, "roi_align_fused")
     elif not aligned:
         raise ValueError("roi_align_fused computes aligned=True only")
-    lvl = strip_levels(rois[:, 1:5].float(), featmap_strides, finest_scale,
-                       window).to(torch.int32)
-    if roi_valid is None:
-        roi_valid = torch.ones(rois.shape[0], dtype=torch.bool, device=device)
-    return _RoIAlignFused.apply(rois, lvl, roi_valid, _as_pair(output_size),
+    if roi_valid is not None:
+        roi_valid = roi_valid.contiguous()
+    return _RoIAlignFused.apply(rois, roi_valid, _as_pair(output_size),
                                 tuple(featmap_strides), int(sampling_ratio),
-                                backward, *levels[:num_levels])
+                                backward, int(finest_scale), int(window),
+                                *levels[:num_levels])
 
 
 roi_align_fused.launches = 0

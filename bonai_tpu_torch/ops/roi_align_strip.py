@@ -19,14 +19,35 @@ version, CUDA tensors to the kernel, or it raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from ._build import load_library
 from .roi_align import (_as_pair, flatten_levels, map_roi_levels,
                         pool_corners, window_corner_plan)
-from .roi_align_block import _check_inputs, _launch
+from .roi_align_block import _DTYPE_CODES, _check_inputs
 
 _MAX_SR = 4             # kMaxSr in csrc/roi_align_strip_common.cuh
 _WINDOW = 64            # kWindow of StripRule in the CUDA source
+
+
+@functools.cache
+def _kernel():
+    """The C entry point of ``csrc/roi_align_strip_fwd.cu``, built and bound
+    at first use (levels, level table, RoIs, levels per RoI, validity,
+    output size, sampling ratio, dtype, output, stream)."""
+    fn = load_library("roi_align_strip_fwd").roi_align_strip_fwd
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def strip_corner_plan(shapes, rois, output_size, featmap_strides,
@@ -93,9 +114,19 @@ def roi_align_strip(levels, rois, output_size, featmap_strides,
     levels = levels[:num_levels]
     out = torch.empty((rois.shape[0], *output_size, levels[0].shape[-1]),
                       dtype=levels[0].dtype, device=device)
-    _launch("roi_align_strip_fwd", [f.data_ptr() for f in levels],
-            [tuple(f.shape) for f in levels], featmap_strides, rois, lvl,
-            roi_valid, output_size, int(sampling_ratio), levels[0].dtype, out)
+    n, (oh, ow) = len(levels), output_size
+    rc = _kernel()(
+        (ctypes.c_void_p * n)(*[f.data_ptr() for f in levels]),
+        (ctypes.c_int * n)(*[f.shape[1] for f in levels]),
+        (ctypes.c_int * n)(*[f.shape[2] for f in levels]),
+        (ctypes.c_float * n)(*[1.0 / s for s in featmap_strides]),
+        n, levels[0].shape[0], levels[0].shape[-1], rois.data_ptr(),
+        lvl.data_ptr(), roi_valid.data_ptr(), rois.shape[0], oh, ow,
+        int(sampling_ratio), _DTYPE_CODES[levels[0].dtype], out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"roi_align_strip_fwd launch failed: CUDA error "
+                           f"{rc}")
     roi_align_strip.launches += 1
     return out
 

@@ -5,7 +5,8 @@ bfloat16, seeded random weights) and prints
 
 - each stage's time (host clock, the device synchronised at each stage's
   start and end): backbone+FPN, RPN and proposals (with its NMS), the
-  RoIAlign kernel of the route (B1 for ``block``, B3 for ``pallas``), the
+  RoIAlign kernel of the route (B1, under the block rule for ``block``
+  and under the strip rule for ``pallas``), the
   three RoI heads, the R-CNN multi-class soft-NMS, and the rest;
 - from ``torch.profiler`` over one call: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled call, and
@@ -57,7 +58,7 @@ def stage_times(model, batch, reps=3):
     for k, m in model.roi_head.items():
         m.forward = _timed(k, m.forward, totals)
     names = {"roi_align_block": "roi_align_block (B1)",
-             "roi_align_fused": "roi_align_fused (B3)",
+             "roi_align_fused": "roi_align_fused (B1, strip rule)",
              "multiclass_nms": "rcnn multiclass soft-nms"}
     saved = {k: getattr(two_stage, k) for k in names}
     for k, name in names.items():

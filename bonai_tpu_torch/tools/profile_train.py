@@ -11,10 +11,10 @@ and prints
 - each stage's time (the device synchronised at each stage's start and
   end): backbone+FPN, the RPN head, proposals (with their NMS), the RPN
   targets and loss, R-CNN assignment and sampling, the RoIAlign forward
-  of the route (B1 for ``block``, B3 for ``pallas``), the three RoI
+  of the route (B1, under the block or the strip rule), the three RoI
   heads, mask targets, the rest of the forward, clip + SGD, and what the
-  step leaves after those (the backward, with the RoIAlign backward, B2
-  or B4, inside);
+  step leaves after those (the backward, with the RoIAlign backward B2
+  inside);
 - from ``torch.profiler`` over one step: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled step, and
   the kernels that take the most time.
@@ -100,7 +100,7 @@ def stage_times(model, train_step, batch, draw, reps=3):
              "rpn_loss": "rpn targets+loss",
              "assign_and_sample_rcnn": "rcnn assign+sample",
              "roi_align_block": "roi_align_block fwd (B1)",
-             "roi_align_fused": "roi_align_fused fwd (B3)",
+             "roi_align_fused": "roi_align_fused fwd (B1, strip rule)",
              "mask_targets_from_instance_masks": "mask targets"}
     saved = {k: getattr(two_stage, k) for k in names}
     for k, name in names.items():
@@ -129,7 +129,7 @@ def stage_times(model, train_step, batch, draw, reps=3):
     # the forward's total holds the stages timed inside it
     stages["forward, rest"] = forward - sum(
         v for k, v in stages.items() if k != "clip+sgd")
-    stages["backward (incl. B2 or B4) + rest"] = (wall / reps - forward
+    stages["backward (incl. B2) + rest"] = (wall / reps - forward
                                                   - stages["clip+sgd"])
     return stages, wall / reps
 

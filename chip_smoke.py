@@ -13,15 +13,21 @@ Phases, each of which must pass:
    one ``nvcc`` per source, started together.
 2. kernels: each kernel's wrapper at the shapes the paths give it, against
    its plain PyTorch version, in float32 and bfloat16, with pushed, border
-   and invalid RoIs: max abs error, kernel time (CUDA events, warm), plain
-   time and the least time the card could take (the bound).  Serving
-   shapes: bbox R=6000 at 7x7, mask R=4000 at 14x14, offset R=4000 at 7x7;
-   training shapes: bbox R=2048 at 7x7, mask R=512 at 14x14, offset R=512
-   at 7x7; C=256.  Each forward and its backward run on the same RoIs.
-   - B1, the block RoIAlign forward, and B3, the strip one
-     (``roi_align_impl='pallas'``), at the serving and training shapes;
-   - B2 and B4, their backwards, at the training shapes, against autograd
-     through the plain versions;
+   and invalid RoIs: max abs error, the wrapper's time (CUDA events over
+   20 warm calls), the kernel's own device time over 20 such calls (CUDA
+   events around each bare C launch), plain time and the least time the card could
+   take (the bound).  Serving shapes: bbox R=6000 at 7x7, mask R=4000 at
+   14x14, offset R=4000 at 7x7; training shapes: bbox R=2048 at 7x7, mask
+   R=512 at 14x14, offset R=512 at 7x7; C=256.  Each forward and its
+   backward run on the same RoIs.
+   - B1, the RoIAlign forward kernel, under the block rule and under the
+     strip rule (B3's function, ``roi_align_impl='pallas'``), at the
+     serving and training shapes; the levels the kernel computes must
+     equal the torch rule's on every RoI, and on RoIs at the rules' edges;
+   - B2, the backward kernel, under both rules (B4's function under the
+     strip rule) at the training shapes, against autograd through the
+     plain versions; it must allocate nothing but the level gradients, in
+     the output gradient's dtype;
    - B5, the forward-only window-64 strip RoIAlign, at the training shapes.
 3. serve: ``init_detector`` on ``configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py``
    at full width with seeded random weights in bfloat16, once with its
@@ -116,25 +122,94 @@ def _rois(n, gen):
     return torch.cat([b, boxes], 1).cuda(), valid.cuda()
 
 
+def _device_ms(fn, reps, name):
+    """The device time per call of kernel ``name`` over ``reps`` calls of
+    ``fn`` (the calls ``_time_ms`` times): CUDA events recorded on the
+    stream just before and just after each bare C launch (the ``ctypes``
+    call), summed.  No profiler: a tracer left attached would slow every
+    later launch of the serve and train phases."""
+    import importlib
+    import torch
+    events = []
+
+    def timed(call):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = call(*args)
+            end.record()
+            events.append((start, end))
+            return rc
+        return run
+    if KERNELS[name][0] == "roi_align_strip_fwd":
+        module = importlib.import_module("bonai_tpu_torch.ops.roi_align_strip")
+        real = module._kernel()
+        attr, patched = "_kernel", lambda: timed(real)
+    else:
+        module = importlib.import_module("bonai_tpu_torch.ops.roi_align_block")
+        attr, patched = "_call", timed(module._call)
+    fn()
+    torch.cuda.synchronize()
+    saved = getattr(module, attr)
+    setattr(module, attr, patched)
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        setattr(module, attr, saved)
+    torch.cuda.synchronize()
+    if len(events) != reps:
+        raise AssertionError(f"{name}: {len(events)} launches in {reps} "
+                             f"calls")
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
 class _Sums:
     """Per-batch sums of one kernel's numbers over the three branches."""
 
     def __init__(self):
-        self.ms = self.plain_ms = self.bound_ms = self.err = 0.0
+        self.ms = self.device_ms = self.plain_ms = self.bound_ms = 0.0
+        self.err = 0.0
         self.bound_by = None
+        self.levels_checked = 0
 
-    def add(self, ms, plain_ms, bound, bound_by, err):
+    def add(self, ms, device_ms, plain_ms, bound, bound_by, err):
         self.ms += ms
+        self.device_ms += device_ms
         self.plain_ms += plain_ms
         self.bound_ms += bound
         self.err = max(self.err, err)
         self.bound_by = bound_by
 
 
+# per entry of ``_kernels``: the CUDA source that builds its kernel
+# (``bonai_tpu_torch/csrc/<source>.cu``), the TPU kernel it replaces, and
+# for the forwards whose kernel computes the level rule, that rule's
+# arguments of ``launch_forward`` (strip rule, window)
+KERNELS = {
+    "roi_align_block_fwd": ("roi_align_block_fwd",
+                            "bonai_tpu/ops/pallas_roi_align_block.py:152",
+                            (False, 32)),
+    "roi_align_fused_fwd": ("roi_align_block_fwd",
+                            "bonai_tpu/ops/pallas_roi_align_fused.py:127",
+                            (True, 40)),
+    "roi_align_strip_fwd": ("roi_align_strip_fwd",
+                            "bonai_tpu/ops/pallas_roi_align.py:113", None),
+    "roi_align_block_bwd": ("roi_align_block_bwd",
+                            "bonai_tpu/ops/pallas_roi_align_block.py:216",
+                            None),
+    "roi_align_fused_bwd": ("roi_align_block_bwd",
+                            "bonai_tpu/ops/pallas_roi_align_fused.py:181",
+                            None),
+}
+
+
 def _kernels():
-    """The port's RoIAlign kernels: name -> (wrapper, which counts the
+    """The port's RoIAlign wrappers: name -> (wrapper, which counts its
     kernel's launches; plain version of the function; level rule, or
-    ``None`` for the gather rule)."""
+    ``None`` for the gather rule).  The block and the strip ('fused') route
+    launch the same two kernels under their own rule and counters."""
     from bonai_tpu_torch.ops import (block_levels, roi_align_block,
                                      roi_align_block_backward,
                                      roi_align_block_ref, roi_align_fused,
@@ -152,6 +227,46 @@ def _kernels():
         "roi_align_fused_bwd": (roi_align_fused_backward,
                                 roi_align_fused_ref, strip_levels),
     }
+
+
+def _edge_rois():
+    """RoIs on the edges of the level rules, one float32 ulp below, at and
+    above: max(w, h) = 112 * 2^k (the block push), w = 144 * 2^k (the strip
+    push), sqrt(w * h) = 56 * 2^k and 56 * (2^k - 1e-6) (the gather rule),
+    from the origin and from a fractional corner."""
+    import numpy as np
+    import torch
+    rows = []
+    for k in range(-2, 6):
+        edges = [(112, "wide"), (112, "tall"), (144, "wide"), (56, "square"),
+                 (56 * (1 - 1e-6 / 2.0 ** k), "square")]
+        for edge, shape in edges:
+            e = np.float32(edge * 2.0 ** k)
+            for v in (np.nextafter(e, np.float32(0)), e,
+                      np.nextafter(e, np.float32(np.inf))):
+                w, h = {"wide": (v, v / 8), "tall": (v / 8, v),
+                        "square": (v, v)}[shape]
+                for x0, y0 in ((0.0, 0.0), (100.25, 37.5)):
+                    rows.append([len(rows) % BATCH, x0, y0,
+                                 np.float32(x0) + w, np.float32(y0) + h])
+    return torch.tensor(np.array(rows, np.float32), device="cuda")
+
+
+def _check_levels(name, levels, rois, size):
+    """The levels that forward kernel ``name`` computes for ``rois`` must
+    equal its torch rule's on the card; returns the RoIs checked."""
+    import torch
+    from bonai_tpu_torch.ops.roi_align_block import launch_forward
+    strip, window = KERNELS[name][2]
+    _, lvl = launch_forward(levels, rois, None, (size, size), STRIDES, 2,
+                            strip, 56, window)
+    want = _kernels()[name][2](rois[:, 1:5], STRIDES)
+    if not torch.equal(lvl.long(), want):
+        bad = (lvl.long() != want).nonzero()[:, 0]
+        raise AssertionError(f"{name}: the kernel's levels differ from the "
+                             f"torch rule's on {bad.numel()} RoIs, e.g. "
+                             f"{rois[bad[:4]].tolist()}")
+    return rois.shape[0]
 
 
 def _zero_counts():
@@ -219,6 +334,9 @@ def _forward_kernel(name, levels32, branches, seed, label):
             pushed = "" if level_rule is None else " pushed=%d" % int((
                 level_rule(rois[:, 1:5], STRIDES)
                 > level_rule(rois[:, 1:5], STRIDES, window=10 ** 9)).sum())
+            if KERNELS[name][2] is not None:
+                sums.levels_checked += _check_levels(name, levels, rois,
+                                                     size)
 
             def kernel():
                 with torch.no_grad():
@@ -228,6 +346,7 @@ def _forward_kernel(name, levels32, branches, seed, label):
                 with torch.no_grad():
                     return ref_fn(*args, roi_valid=valid)
             ms = _time_ms(kernel, 20)
+            device_ms = _device_ms(kernel, 20, name)
             plain_ms = _time_ms(plain, 3)
             cells = _cells_read(name, shapes, rois, size, valid)
             nbytes = (cells * cell_bytes + rois.numel() * 4 + valid.numel()
@@ -239,13 +358,15 @@ def _forward_kernel(name, levels32, branches, seed, label):
                   f"{branch} R={n} {size}x{size}: "
                   f"max_abs_err={float(diff.max()):.3g} within_tol={ok}"
                   f"{pushed} invalid={int((~valid).sum())} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
+                  f"ms={ms:.4f} device_ms={device_ms:.4f} "
+                  f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
                   f"({bound_by}; {cells} cells read)", flush=True)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version ({label}, {dtype}, {branch})")
             if dtype == torch.bfloat16:
-                sums.add(ms, plain_ms, bound, bound_by, float(diff.max()))
+                sums.add(ms, device_ms, plain_ms, bound, bound_by,
+                         float(diff.max()))
     return sums
 
 
@@ -269,8 +390,19 @@ def _backward_kernel(name, levels32, seed):
 
             def kernel():
                 return fn(cot, shapes, STRIDES, rois, lvl, valid)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
             got = kernel()
             torch.cuda.synchronize()
+            # the level gradients are all the backward allocates: no float32
+            # copy of the pyramid, no cast
+            extra = torch.cuda.max_memory_allocated() - before
+            if extra > grad_bytes + 2 ** 20 or any(
+                    g.dtype != cot.dtype for g in got):
+                raise AssertionError(f"{name} allocated {extra} bytes for "
+                                     f"{grad_bytes} bytes of {dtype} "
+                                     f"gradients")
             out = ref_fn(levels, rois, size, STRIDES, roi_valid=valid)
 
             def plain():
@@ -288,6 +420,7 @@ def _backward_kernel(name, levels32, seed):
                     ok &= bool((diff <= e.float().abs() * 2 ** -7
                                 + 1e-5 * top).all())
             ms = _time_ms(kernel, 20)
+            device_ms = _device_ms(kernel, 20, name)
             plain_ms = _time_ms(plain, 3)
             # the output gradient read once, the level gradients written once
             nbytes = (cot.numel() * cot.element_size() + grad_bytes
@@ -298,13 +431,15 @@ def _backward_kernel(name, levels32, seed):
             print(f"kernel {name} train {str(dtype)[6:]} {branch} "
                   f"R={n} {size}x{size}: max_abs_err={err:.3g} "
                   f"within_tol={ok} invalid={int((~valid).sum())} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
-                  f"({bound_by})", flush=True)
+                  f"ms={ms:.4f} device_ms={device_ms:.4f} "
+                  f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
+                  f"({bound_by}; allocated {extra} bytes for {grad_bytes} "
+                  f"bytes of level gradients)", flush=True)
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version ({dtype}, {branch})")
             if dtype == torch.bfloat16:
-                sums.add(ms, plain_ms, bound, bound_by, err)
+                sums.add(ms, device_ms, plain_ms, bound, bound_by, err)
             del out
     return sums
 
@@ -331,6 +466,13 @@ def kernel_phase():
                                               2, "train")
     for name in ("roi_align_block_bwd", "roi_align_fused_bwd"):
         sums[name, "train"] = _backward_kernel(name, levels32, 3)
+    edges = _edge_rois()
+    for name in ("roi_align_block_fwd", "roi_align_fused_fwd"):
+        checked = _check_levels(name, levels32, edges, 7) + sum(
+            sums[name, what].levels_checked for what in ("serve", "train"))
+        print(f"kernel {name}: the kernel's levels equal the torch rule's "
+              f"on {checked} RoIs ({edges.shape[0]} on the rules' edges)",
+              flush=True)
     return sums
 
 
@@ -635,13 +777,17 @@ def bench_phase():
     return counts["roi_align_strip_fwd"]
 
 
-def _entry(name, source, replaces, path, launches, sums, **extra):
-    return {"name": name, "route": "cuda",
-            "source": f"bonai_tpu_torch/csrc/{source}",
+def _entry(name, path, launches, sums, label=None, **extra):
+    """The kernels line's entry of ``KERNELS[name]`` (``label``: the name
+    it is shown under, else ``name``)."""
+    source, replaces, _ = KERNELS[name]
+    return {"name": label or name, "route": "cuda",
+            "source": f"bonai_tpu_torch/csrc/{source}.cu",
             "replaces": replaces, "path": path, "launches": launches,
             "max_abs_err": sums.err, "ms": sums.ms,
-            "plain_ms": sums.plain_ms, "bound_ms": sums.bound_ms,
-            "bound_by": sums.bound_by, "library_ms": None, **extra}
+            "device_ms": sums.device_ms, "plain_ms": sums.plain_ms,
+            "bound_ms": sums.bound_ms, "bound_by": sums.bound_by,
+            "library_ms": None, **extra}
 
 
 def main():
@@ -660,11 +806,11 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.time()
-    kernels = list(_kernels())
-    _build.build(kernels)
-    print(f"build: {len(kernels)} kernel(s) in {time.time() - t0:.1f} s",
+    sources = sorted({source for source, *_ in KERNELS.values()})
+    _build.build(sources)
+    print(f"build: {len(sources)} source(s) in {time.time() - t0:.1f} s",
           flush=True)
-    for name in kernels:
+    for name in sources:
         log = (_build.BUILD_DIR / f"{name}.ptxas.txt")
         if log.exists():
             print(log.read_text().strip(), flush=True)
@@ -691,29 +837,26 @@ def main():
               f"bounds {sums[a, what].bound_ms:.4f} / "
               f"{sums[b, what].bound_ms:.4f} ms)", flush=True)
 
-    def forward(name, source, replaces, impl):
-        return _entry(name, source, replaces, f"serve and train ({impl})",
-                      serve[impl], sums[name, "serve"],
+    def forward(name, impl, label=None):
+        return _entry(name, f"serve and train ({impl})", serve[impl],
+                      sums[name, "serve"], label,
                       train_launches=train[impl]["fwd"],
                       train_ms=sums[name, "train"].ms,
+                      train_device_ms=sums[name, "train"].device_ms,
                       train_plain_ms=sums[name, "train"].plain_ms,
                       train_bound_ms=sums[name, "train"].bound_ms)
+    # B3 and B4 (the strip route) run on B1's and B2's kernels
     entries = [
-        forward("roi_align_block_fwd", "roi_align_block_fwd.cu",
-                "bonai_tpu/ops/pallas_roi_align_block.py:152", "block"),
-        _entry("roi_align_block_bwd", "roi_align_block_bwd.cu",
-               "bonai_tpu/ops/pallas_roi_align_block.py:216", "train (block)",
-               train["block"]["bwd"], sums["roi_align_block_bwd", "train"]),
-        forward("roi_align_fused_fwd", "roi_align_fused_fwd.cu",
-                "bonai_tpu/ops/pallas_roi_align_fused.py:127", "pallas"),
-        _entry("roi_align_fused_bwd", "roi_align_fused_bwd.cu",
-               "bonai_tpu/ops/pallas_roi_align_fused.py:181",
-               "train (pallas)", train["pallas"]["bwd"],
-               sums["roi_align_fused_bwd", "train"]),
-        _entry("roi_align_strip_fwd", "roi_align_strip_fwd.cu",
-               "bonai_tpu/ops/pallas_roi_align.py:113",
-               "bonai_tpu_torch.tools.bench_roi_align", bench_launches,
-               sums["roi_align_strip_fwd", "train"])]
+        forward("roi_align_block_fwd", "block"),
+        _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
+               sums["roi_align_block_bwd", "train"]),
+        forward("roi_align_fused_fwd", "pallas",
+                "roi_align_block_fwd (strip rule)"),
+        _entry("roi_align_fused_bwd", "train (pallas)",
+               train["pallas"]["bwd"], sums["roi_align_fused_bwd", "train"],
+               "roi_align_block_bwd (strip rule)"),
+        _entry("roi_align_strip_fwd", "bonai_tpu_torch.tools.bench_roi_align",
+               bench_launches, sums["roi_align_strip_fwd", "train"])]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,15 @@ machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-The RoIAlign forward kernels (block, fused strip, window-64 strip) are
-held to their plain versions: float32 to 1e-4, bfloat16 to one bf16 ulp
-(2**-7 relative).  The backward kernels (block, fused strip) are held to
-autograd through the plain version: float32 to 1e-4 of each level's
-largest gradient (float32 atomics sum in a varying order), bfloat16 to one
-bf16 ulp plus 1e-5 of the level's largest gradient (both round once from
-float32 sums taken in different orders).
+The RoIAlign forward kernels (the block kernel under the block and the
+strip level rule, the window-64 strip kernel) are held to their plain
+versions: float32 to 1e-4, bfloat16 to one bf16 ulp (2**-7 relative).  The
+backward kernel (under both rules) is held to autograd through the plain
+version: float32 to 1e-4 of each level's largest gradient (the two sum in
+different orders), bfloat16 to one bf16 ulp plus 1e-5 of the level's
+largest gradient (both round once from float32 sums taken in different
+orders).  The levels the forward kernel computes must equal the torch
+rules' on every RoI, the rules' edges included.
 """
 
 import numpy as np
@@ -327,3 +329,215 @@ def test_fused_kernels_past_the_strip_window(dtype, out_size):
         diff = (out.float() - ref_out.float()).abs()
         assert bool((diff <= ref_out.float().abs() * 2 ** -7 + 1e-6).all())
     _check_level_grads(got, ref, dtype)
+
+
+ROUTES = {"block": ("roi_align_block", "roi_align_block_backward",
+                    "roi_align_block_ref", "block_levels"),
+          "fused": ("roi_align_fused", "roi_align_fused_backward",
+                    "roi_align_fused_ref", "strip_levels")}
+
+
+def _route(name):
+    from bonai_tpu_torch import ops
+    return [getattr(ops, n) for n in ROUTES[name]]
+
+
+def _touched(shapes, rois, valid, lvl, out_size):
+    """Per level, a bool (B, Hl, Wl) map of the cells that a corner of
+    nonzero weight of a valid RoI lands on."""
+    from bonai_tpu_torch.ops.roi_align import corner_plan
+    corners, weights = corner_plan(shapes, rois, lvl, out_size, STRIDES,
+                                   roi_valid=valid)
+    rows = torch.cat([c[w != 0] for c, w in zip(corners, weights)])
+    flat = torch.zeros(sum(s[0] * s[1] * s[2] for s in shapes),
+                       dtype=torch.bool, device=rois.device)
+    flat[rows] = True
+    sizes = [s[0] * s[1] * s[2] for s in shapes]
+    return [m.reshape(s[:3]) for m, s in zip(flat.split(sizes), shapes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "fused"])
+@pytest.mark.parametrize("n", [0, 1, 3000])
+def test_kernels_at_roi_counts(route, n):
+    """No RoI, one RoI and 3000 (more than a tile's RoI scan takes at a
+    time), float32, C=64: the forward against the plain version, the level
+    gradients against autograd through it; with no RoI every gradient is
+    exactly zero, with one only its level's is not."""
+    _need_cuda()
+    fn, bwd, ref_fn, _ = _route(route)
+    feats, rois, valid = _fixture(n + 4, 64, n=max(n, 20))
+    rois, valid = rois[:n].contiguous(), valid[:n].contiguous()
+    if n == 1:
+        valid[:] = True
+    cot = torch.randn(n, 7, 7, 64,
+                      generator=torch.Generator().manual_seed(n)).cuda()
+    before = bwd.launches
+    out, got = _level_grads(fn, feats, torch.float32, rois, valid, 7, cot)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    assert out.shape == (n, 7, 7, 64)
+    assert all(g.shape == f.shape for g, f in zip(got, feats))
+    if n == 0:
+        assert not any(bool(g.any()) for g in got)
+        return
+    ref_out, ref = _level_grads(ref_fn, feats, torch.float32, rois, valid, 7,
+                                cot)
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-4)
+    for g, e in zip(got, ref):
+        top = float(e.abs().max())
+        assert float((g - e).abs().max()) <= 1e-4 * top
+    touched = [bool(g.any()) for g in got]
+    assert touched == [bool(e.any()) for e in ref]
+    assert sum(touched) == 1 if n == 1 else sum(touched) >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "fused"])
+@pytest.mark.parametrize("sr", [1, 3])
+def test_kernels_at_other_sampling_ratios(route, sr):
+    """The kernels' general sampling-ratio path (the detector uses 2),
+    float32, out 7x7 and 14x14: forward and level gradients against the
+    plain version."""
+    _need_cuda()
+    fn, _, ref_fn, _ = _route(route)
+    feats, rois, valid = _fixture(50 + sr, 64)
+    for out_size in (7, 14):
+        cot = torch.randn(rois.shape[0], out_size, out_size, 64,
+                          generator=torch.Generator().manual_seed(sr)).cuda()
+
+        def grads(f):
+            levels = [x.clone().requires_grad_() for x in feats]
+            out = f(levels, rois, out_size, STRIDES, sampling_ratio=sr,
+                    roi_valid=valid)
+            torch.autograd.backward(out, cot)
+            return out, [x.grad for x in levels]
+        out, got = grads(fn)
+        ref_out, ref = grads(ref_fn)
+        torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-4)
+        for g, e in zip(got, ref):
+            top = float(e.abs().max())
+            assert float((g - e).abs().max()) <= 1e-4 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "fused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_all_rois_invalid(route, dtype):
+    """Every row invalid: zero outputs, and every level gradient exactly
+    zero in the levels' dtype."""
+    _need_cuda()
+    fn, _, _, _ = _route(route)
+    feats, rois, valid = _fixture(21, 64)
+    valid = torch.zeros_like(valid)
+    cot = torch.randn(rois.shape[0], 7, 7, 64,
+                      generator=torch.Generator().manual_seed(3)).cuda()
+    out, got = _level_grads(fn, feats, dtype, rois, valid, 7, cot)
+    assert out.dtype == dtype and not out.any()
+    assert all(g.dtype == dtype and not g.any() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "fused"])
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 256),
+                                     (torch.float32, 256),
+                                     (torch.bfloat16, 64),
+                                     (torch.float32, 64)])
+def test_backward_across_tile_edges(route, dtype, C):
+    """RoIs centred on the corners of the backward's 8-, 16- and 32-cell
+    tiles at every level, in sizes from a fraction of a cell to the whole
+    level: against autograd through the plain version, and every cell
+    that no corner of nonzero weight of a valid RoI lands on is exactly
+    zero."""
+    _need_cuda()
+    fn, _, ref_fn, rule = _route(route)
+    r = np.random.RandomState(C)
+    feats = [torch.from_numpy(r.randn(2, 512 // s, 512 // s, C)
+                              .astype(np.float32)).cuda() for s in STRIDES]
+    boxes = []
+    for s in STRIDES:
+        for k in (8, 16, 32):
+            for size in (0.5, 3, 9, 20, 40):
+                cx, cy = k * s * r.randint(1, max(2, 512 // (k * s)), 2)
+                w, h = size * s * r.uniform(0.7, 1.4, 2)
+                boxes.append([r.randint(0, 2), cx - w / 2, cy - h / 2,
+                              cx + w / 2, cy + h / 2])
+    rois = torch.tensor(boxes, dtype=torch.float32, device="cuda")
+    valid = torch.from_numpy(r.uniform(size=len(boxes)) > 0.15).cuda()
+    cot = torch.randn(len(boxes), 7, 7, C,
+                      generator=torch.Generator().manual_seed(5)).cuda()
+    _, got = _level_grads(fn, feats, dtype, rois, valid, 7, cot)
+    _, ref = _level_grads(ref_fn, feats, dtype, rois, valid, 7, cot)
+    _check_level_grads(got, ref, dtype)
+    touched = _touched([f.shape for f in feats], rois, valid,
+                       rule(rois[:, 1:5], STRIDES), 7)
+    for g, m in zip(got, touched):
+        assert not g[~m].any()
+        assert bool(m.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "fused"])
+def test_backward_writes_no_float32_pyramid(route):
+    """bfloat16 training shapes: the backward returns bfloat16 level
+    gradients, and allocates nothing beyond them (an earlier design zeroed a
+    float32 copy of the pyramid, twice their size, and cast it)."""
+    _need_cuda()
+    fn, bwd, _, rule = _route(route)
+    feats, rois, valid = _fixture(31, 256, n=512, S=1024)
+    shapes = [tuple(f.shape) for f in feats]
+    lvl = rule(rois[:, 1:5], STRIDES).to(torch.int32)
+    cot = torch.randn(512, 7, 7, 256, generator=torch.Generator()
+                      .manual_seed(6)).cuda().bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = bwd(cot, shapes, STRIDES, rois, lvl, valid)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    out_bytes = sum(g.numel() * g.element_size() for g in grads)
+    assert all(g.dtype == torch.bfloat16 and g.shape == s
+               for g, s in zip(grads, shapes))
+    assert extra <= out_bytes + 2 ** 20, (extra, out_bytes)
+
+
+def _edge_rois(B=2):
+    """RoIs on the edges of the level rules, one float32 ulp below, at and
+    above: max(w, h) = 112 * 2^k (the block push), w = 144 * 2^k (the strip
+    push), sqrt(w * h) = 56 * 2^k and 56 * (2^k - 1e-6) (the gather rule),
+    from the origin and from a fractional corner."""
+    rows = []
+    for k in range(-2, 6):
+        edges = [(112, "wide"), (112, "tall"), (144, "wide"), (56, "square"),
+                 (56 * (1 - 1e-6 / 2.0 ** k), "square")]
+        for edge, shape in edges:
+            e = np.float32(edge * 2.0 ** k)
+            for v in (np.nextafter(e, np.float32(0)), e,
+                      np.nextafter(e, np.float32(np.inf))):
+                w, h = {"wide": (v, v / 8), "tall": (v / 8, v),
+                        "square": (v, v)}[shape]
+                for x0, y0 in ((0.0, 0.0), (100.25, 37.5)):
+                    rows.append([len(rows) % B, x0, y0, np.float32(x0) + w,
+                                 np.float32(y0) + h])
+    return torch.tensor(np.array(rows, np.float32), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "fused"])
+def test_kernel_levels_equal_the_torch_rule(route):
+    """The level per RoI that the forward kernel computes equals the torch
+    rule's on the card (block_levels, strip_levels), on random RoIs and on
+    the rules' edges."""
+    _need_cuda()
+    from bonai_tpu_torch.ops.roi_align_block import launch_forward
+    _, _, _, rule = _route(route)
+    feats, rois, valid = _fixture(41, 64, n=2000)
+    rois = torch.cat([rois, _edge_rois()])
+    _, lvl = launch_forward(feats, rois, None, (7, 7), STRIDES, 2,
+                            route == "fused", 56, 40 if route == "fused"
+                            else 32)
+    torch.cuda.synchronize()
+    want = rule(rois[:, 1:5], STRIDES)
+    assert lvl.dtype == torch.int32
+    assert torch.equal(lvl.long(), want), rois[lvl.long() != want]
+    assert len(set(want.tolist())) == 4
