@@ -1,11 +1,10 @@
-// Shared by the RoIAlign kernels of the port: the block RoIAlign forward
-// (roi_align_block_fwd.cu) and backward (roi_align_block_bwd.cu), and the
-// window-64 strip forward (roi_align_strip_fwd.cu through
-// roi_align_strip_common.cuh).  It holds the level table, the sample geometry
-// of one RoI, the per-RoI sample tables, the level rules and the channel
-// vector loads and stores.  Every kernel takes its corners and weights from
-// here, so the backward spreads each output gradient over exactly the
-// corners, with exactly the weights, that the forward read.
+// Shared by the RoIAlign kernels of the port: the forward
+// (roi_align_block_fwd.cu, under the block, the strip and the window-64 rule)
+// and the backward (roi_align_block_bwd.cu).  It holds the level table, the
+// sample geometry of one RoI, the per-RoI sample tables, the level rules and
+// the channel vector loads and stores.  Every kernel takes its corners and
+// weights from here, so the backward spreads each output gradient over
+// exactly the corners, with exactly the weights, that the forward read.
 //
 // The geometry follows ops/roi_align.py (the plain version) step by step,
 // with plain multiplies and adds (no FMA contraction) in the coordinate math
@@ -165,7 +164,9 @@ struct AxisSample {
 };
 
 // Sample `s` (of n_cells * sr along the axis) of an RoI: cell s / sr,
-// sub-sample s % sr.
+// sub-sample s % sr.  KeepOutside: the window-64 rule's y axis, where a
+// sample outside [-1, size] keeps weight 1 on its clamped low cell (ly = 0).
+template <bool KeepOutside = false>
 __device__ __forceinline__ AxisSample axis_sample(float start, float bin,
                                                   int s, int sr, int size) {
   int i0;
@@ -175,7 +176,7 @@ __device__ __forceinline__ AxisSample axis_sample(float start, float bin,
   AxisSample a;
   a.lo = i0;
   a.hi = min(i0 + 1, size - 1);
-  a.w_lo = outside ? 0.f : 1.f - frac;
+  a.w_lo = outside ? (KeepOutside ? 1.f : 0.f) : 1.f - frac;
   a.w_hi = outside ? 0.f : frac;
   return a;
 }
@@ -196,13 +197,14 @@ __device__ __forceinline__ int2 axis_footprint(float start, float bin,
 }
 
 // The level rule of the wrappers (ops/roi_align_block.py::block_levels,
-// ops/roi_align_fused.py::strip_levels), in the float operations torch
-// performs for them on the card: the gather rule
-// floor(log2(sqrt(clamp(w*h, 0)) / finest + 1e-6)), where torch multiplies by
-// the host-rounded reciprocal of the Python scalar `finest`, then a push to
-// ceil(log2(max(need, 1e-9))) with need = max(w, h) times the reciprocal of
-// stride0 * (window - 4) (block rule, a Python scalar) or w divided by it
-// (strip rule, a device tensor); clamped to the pyramid.
+// ops/roi_align_fused.py::strip_levels, ops/roi_align.py::map_roi_levels),
+// in the float operations torch performs for them on the card: the gather
+// rule floor(log2(sqrt(clamp(w*h, 0)) / finest + 1e-6)), where torch
+// multiplies by the host-rounded reciprocal of the Python scalar `finest`,
+// then (Push) a push to ceil(log2(max(need, 1e-9))) with need = max(w, h)
+// times the reciprocal of stride0 * (window - 4) (block rule, a Python
+// scalar) or w divided by it (strip rule, a device tensor); clamped to the
+// pyramid.  Without the push it is the gather rule of the window-64 route.
 struct LevelRule {
   float inv_finest;  // 1 / finest_scale, rounded on the host
   float push;        // block: 1 / (stride0 * (window - 4)); strip: its inverse
@@ -210,6 +212,7 @@ struct LevelRule {
   int num_levels;
 };
 
+template <bool Push>
 __device__ __forceinline__ int roi_level(const float* roi,
                                          const LevelRule& rule) {
   const float w = __fsub_rn(roi[3], roi[1]);
@@ -218,6 +221,7 @@ __device__ __forceinline__ int roi_level(const float* roi,
   const float scale = sqrtf(fmaxf(__fmul_rn(w, h), 0.f));
   const float gather = fminf(fmaxf(floorf(log2f(__fadd_rn(
       __fmul_rn(scale, rule.inv_finest), static_cast<float>(1e-6)))), 0.f), top);
+  if (!Push) return static_cast<int>(gather);
   const float need = rule.strip ? __fdiv_rn(w, rule.push)
                                 : __fmul_rn(fmaxf(w, h), rule.push);
   // clamping the push to [-1, top] first leaves max(gather, push) clamped to

@@ -76,11 +76,17 @@ def _sample_coords(boxes, output_size, sampling_ratio, aligned=True):
 
 def map_roi_levels(boxes, num_levels, finest_scale=56):
     """FPN level per RoI: ``floor(log2(sqrt(w*h) / finest_scale + 1e-6))``
-    clamped to the pyramid (mmdet ``SingleRoIExtractor``)."""
+    clamped to the pyramid (mmdet ``SingleRoIExtractor``).
+
+    The division is a multiplication by the float32 reciprocal of
+    ``finest_scale`` on every device: what torch does for a division by a
+    Python number on CUDA, and what the forward kernel does.  A true
+    division on the CPU gave another level than the card on RoIs within an
+    ulp of the rule's edges."""
     w = boxes[:, 2] - boxes[:, 0]
     h = boxes[:, 3] - boxes[:, 1]
     scale = torch.sqrt((w * h).clamp(min=0.0))
-    lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))
+    lvl = torch.floor(torch.log2(scale * (1.0 / finest_scale) + 1e-6))
     return lvl.clamp(0, num_levels - 1).long()
 
 

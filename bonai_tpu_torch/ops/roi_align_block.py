@@ -10,7 +10,8 @@ moves coarser until it fits (``_block_plan`` there).  The plain version
 takes it from :func:`block_levels`; on the card the forward kernel computes
 it itself, in the float operations torch performs for
 :func:`block_levels` there, and saves it for the backward.  The same two
-kernels compute the strip route (``roi_align_fused``) under the strip rule.
+kernels compute the strip route (``roi_align_fused``) under the strip rule,
+and the forward kernel the window-64 route (``roi_align_strip``).
 
 ``roi_align_block`` takes the plain version only for tensors on the CPU
 (autograd differentiates it there); for CUDA tensors it goes through
@@ -34,6 +35,9 @@ from .roi_align import (_as_pair, _level_samples, map_roi_levels,
 _MAX_LEVELS = 4         # kMaxLevels in the CUDA source
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WINDOW = 32            # the block rule's window: max(w, h) fits 28 cells
+# the forward kernel's level_rule: block, strip, or the window-64 mode (the
+# gather rule and the window-64 border rule of ``roi_align_strip``)
+BLOCK_RULE, STRIP_RULE, WINDOW64_RULE = 0, 1, 2
 
 
 def block_levels(boxes, featmap_strides, finest_scale=56, window=_WINDOW):
@@ -88,7 +92,7 @@ _TABLE = [ctypes.POINTER(_VOID_P), ctypes.POINTER(_INT),
 # the C signatures of csrc/roi_align_block_{fwd,bwd}.cu: the level table,
 # batch, channels, RoIs, their count and validity, then
 _ARGTYPES = {
-    # lvl_out, strip_rule, finest_scale, push_extent, out_h, out_w,
+    # lvl_out, level_rule, finest_scale, push_extent, out_h, out_w,
     # sampling_ratio, dtype, out, stream
     "roi_align_block_fwd": _TABLE + [_VOID_P, _INT, _INT, ctypes.c_float,
                                      _INT, _INT, _INT, _INT, _VOID_P,
@@ -138,14 +142,17 @@ def _call(name, tensors, shapes, featmap_strides, rois, roi_valid, *args):
 
 
 def launch_forward(levels, rois, roi_valid, output_size, featmap_strides,
-                   sampling_ratio, strip_rule, finest_scale, window,
+                   sampling_ratio, level_rule, finest_scale, window,
                    want_levels=True):
     """The forward kernel on CUDA, uncounted: ``(out, lvl)``, the
     ``(R, oh, ow, C)`` output in the levels' dtype and each RoI's level
     (``int32``; ``None`` unless ``want_levels``), which the kernel computes
-    under the strip rule (:func:`~.roi_align_fused.strip_levels`) or the
-    block rule (:func:`block_levels`) with ``finest_scale`` and
-    ``window``.  Arguments checked by the caller (``_check_inputs``)."""
+    under ``level_rule``: ``BLOCK_RULE`` (:func:`block_levels`),
+    ``STRIP_RULE`` (:func:`~.roi_align_fused.strip_levels`), both with
+    ``finest_scale`` and ``window``, or ``WINDOW64_RULE`` (the gather rule
+    :func:`~.roi_align.map_roi_levels`, and the border rule of
+    :func:`~.roi_align_strip.roi_align_strip_ref`; ``window`` unused).
+    Arguments checked by the caller (``_check_inputs``)."""
     shapes = tuple(tuple(f.shape) for f in levels)
     oh, ow = output_size
     R = rois.shape[0]
@@ -155,7 +162,7 @@ def launch_forward(levels, rois, roi_valid, output_size, featmap_strides,
            if want_levels else None)
     if R:
         _call("roi_align_block_fwd", levels, shapes, tuple(featmap_strides),
-              rois, roi_valid, _ptr(lvl), int(strip_rule),
+              rois, roi_valid, _ptr(lvl), int(level_rule),
               int(finest_scale), float(featmap_strides[0]) * (window - 4),
               oh, ow, int(sampling_ratio), _DTYPE_CODES[levels[0].dtype],
               out.data_ptr())
@@ -163,7 +170,7 @@ def launch_forward(levels, rois, roi_valid, output_size, featmap_strides,
 
 
 def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
-                  sampling_ratio, name="roi_align_block", max_sr=None):
+                  sampling_ratio, name="roi_align_block"):
     """Raises on what the kernels of ``name`` do not take."""
     if not 1 <= num_levels <= _MAX_LEVELS or len(levels) < num_levels:
         raise ValueError(f"{name} takes 1..{_MAX_LEVELS} levels, "
@@ -172,9 +179,6 @@ def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
         raise ValueError(f"{name} computes aligned=True only")
     if int(sampling_ratio) < 1:
         raise ValueError("sampling_ratio must be >= 1")
-    if max_sr is not None and int(sampling_ratio) > max_sr:
-        raise ValueError(f"{name} takes sampling_ratio <= {max_sr}, got "
-                         f"{sampling_ratio}")
     dev, dtype = levels[0].device, levels[0].dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16 "
@@ -260,8 +264,8 @@ class _RoIAlignBlock(torch.autograd.Function):
     def forward(ctx, rois, roi_valid, output_size, featmap_strides,
                 sampling_ratio, finest_scale, *levels):
         out, lvl = launch_forward(levels, rois, roi_valid, output_size,
-                                  featmap_strides, sampling_ratio, False,
-                                  finest_scale, _WINDOW,
+                                  featmap_strides, sampling_ratio,
+                                  BLOCK_RULE, finest_scale, _WINDOW,
                                   any(ctx.needs_input_grad[6:]))
         roi_align_block.launches += bool(rois.shape[0])
         ctx.save_for_backward(rois, lvl, roi_valid)

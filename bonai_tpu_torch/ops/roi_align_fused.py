@@ -36,7 +36,8 @@ import torch
 
 from .roi_align import (_as_pair, corner_plan, map_roi_levels,
                         roi_align_at_levels, scatter_corners)
-from .roi_align_block import _check_inputs, launch_backward, launch_forward
+from .roi_align_block import (STRIP_RULE, _check_inputs, launch_backward,
+                              launch_forward)
 
 _BACKWARDS = ("rmw", "scatter")
 
@@ -111,8 +112,8 @@ class _RoIAlignFused(torch.autograd.Function):
                 sampling_ratio, backward, finest_scale, window, *levels):
         if levels[0].is_cuda:
             out, lvl = launch_forward(levels, rois, roi_valid, output_size,
-                                      featmap_strides, sampling_ratio, True,
-                                      finest_scale, window,
+                                      featmap_strides, sampling_ratio,
+                                      STRIP_RULE, finest_scale, window,
                                       any(ctx.needs_input_grad[8:]))
             roi_align_fused.launches += bool(rois.shape[0])
         else:

@@ -9,7 +9,7 @@ ratio 2:
 
 Routes: ``gather`` (``multilevel_roi_align``, plain PyTorch), ``blocked``
 (``roi_align_blocked``, plain PyTorch), ``pallas`` (``roi_align_strip``:
-the window-64 strip kernel, forward only) and ``fused``
+the block forward kernel in its window-64 mode, forward only) and ``fused``
 (``roi_align_fused``: the block kernels' forward and backward under the
 strip rule).  For each
 it prints the forward and the forward + backward time per call (CUDA

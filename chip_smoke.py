@@ -28,7 +28,10 @@ Phases, each of which must pass:
      strip rule) at the training shapes, against autograd through the
      plain versions; it must allocate nothing but the level gradients, in
      the output gradient's dtype;
-   - B5, the forward-only window-64 strip RoIAlign, at the training shapes.
+   - B5, the forward-only window-64 strip RoIAlign: B1's kernel in its
+     window-64 mode (the gather rule, the window cut and the y rule), at
+     the training shapes; its levels must equal ``map_roi_levels``' on
+     every RoI and on the gather rule's edges.
 3. serve: ``init_detector`` on ``configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py``
    at full width with seeded random weights in bfloat16, once with its
    ``roi_align_impl='block'`` and once with ``'pallas'``; two batched
@@ -122,14 +125,21 @@ def _rois(n, gen):
     return torch.cat([b, boxes], 1).cuda(), valid.cuda()
 
 
+def _block_module():
+    """The module ``bonai_tpu_torch.ops.roi_align_block`` (the package's
+    attribute of that name is its function)."""
+    import importlib
+    return importlib.import_module("bonai_tpu_torch.ops.roi_align_block")
+
+
 def _device_ms(fn, reps, name):
     """The device time per call of kernel ``name`` over ``reps`` calls of
     ``fn`` (the calls ``_time_ms`` times): CUDA events recorded on the
     stream just before and just after each bare C launch (the ``ctypes``
     call), summed.  No profiler: a tracer left attached would slow every
     later launch of the serve and train phases."""
-    import importlib
     import torch
+    module = _block_module()
     events = []
 
     def timed(call):
@@ -142,22 +152,15 @@ def _device_ms(fn, reps, name):
             events.append((start, end))
             return rc
         return run
-    if KERNELS[name][0] == "roi_align_strip_fwd":
-        module = importlib.import_module("bonai_tpu_torch.ops.roi_align_strip")
-        real = module._kernel()
-        attr, patched = "_kernel", lambda: timed(real)
-    else:
-        module = importlib.import_module("bonai_tpu_torch.ops.roi_align_block")
-        attr, patched = "_call", timed(module._call)
     fn()
     torch.cuda.synchronize()
-    saved = getattr(module, attr)
-    setattr(module, attr, patched)
+    saved = module._call
+    module._call = timed(saved)
     try:
         for _ in range(reps):
             fn()
     finally:
-        setattr(module, attr, saved)
+        module._call = saved
     torch.cuda.synchronize()
     if len(events) != reps:
         raise AssertionError(f"{name}: {len(events)} launches in {reps} "
@@ -185,17 +188,18 @@ class _Sums:
 
 # per entry of ``_kernels``: the CUDA source that builds its kernel
 # (``bonai_tpu_torch/csrc/<source>.cu``), the TPU kernel it replaces, and
-# for the forwards whose kernel computes the level rule, that rule's
-# arguments of ``launch_forward`` (strip rule, window)
+# for the forwards, the level rule's arguments of ``launch_forward`` (the
+# name of its ``level_rule`` in ``ops/roi_align_block.py``, window)
 KERNELS = {
     "roi_align_block_fwd": ("roi_align_block_fwd",
                             "bonai_tpu/ops/pallas_roi_align_block.py:152",
-                            (False, 32)),
+                            ("BLOCK_RULE", 32)),
     "roi_align_fused_fwd": ("roi_align_block_fwd",
                             "bonai_tpu/ops/pallas_roi_align_fused.py:127",
-                            (True, 40)),
-    "roi_align_strip_fwd": ("roi_align_strip_fwd",
-                            "bonai_tpu/ops/pallas_roi_align.py:113", None),
+                            ("STRIP_RULE", 40)),
+    "roi_align_strip_fwd": ("roi_align_block_fwd",
+                            "bonai_tpu/ops/pallas_roi_align.py:113",
+                            ("WINDOW64_RULE", 64)),
     "roi_align_block_bwd": ("roi_align_block_bwd",
                             "bonai_tpu/ops/pallas_roi_align_block.py:216",
                             None),
@@ -205,23 +209,30 @@ KERNELS = {
 }
 
 
+def _window64(name):
+    return KERNELS[name][2][0] == "WINDOW64_RULE"
+
+
 def _kernels():
     """The port's RoIAlign wrappers: name -> (wrapper, which counts its
-    kernel's launches; plain version of the function; level rule, or
-    ``None`` for the gather rule).  The block and the strip ('fused') route
-    launch the same two kernels under their own rule and counters."""
+    kernel's launches; plain version of the function; level rule).  The
+    block and the strip ('fused') route launch the same two kernels under
+    their own rule and counters, the window-64 route ('strip') the forward
+    kernel in its window-64 mode."""
     from bonai_tpu_torch.ops import (block_levels, roi_align_block,
                                      roi_align_block_backward,
                                      roi_align_block_ref, roi_align_fused,
                                      roi_align_fused_backward,
                                      roi_align_fused_ref, roi_align_strip,
                                      roi_align_strip_ref, strip_levels)
+    from bonai_tpu_torch.ops.roi_align_strip import gather_levels
     return {
         "roi_align_block_fwd": (roi_align_block, roi_align_block_ref,
                                 block_levels),
         "roi_align_fused_fwd": (roi_align_fused, roi_align_fused_ref,
                                 strip_levels),
-        "roi_align_strip_fwd": (roi_align_strip, roi_align_strip_ref, None),
+        "roi_align_strip_fwd": (roi_align_strip, roi_align_strip_ref,
+                                gather_levels),
         "roi_align_block_bwd": (roi_align_block_backward,
                                 roi_align_block_ref, block_levels),
         "roi_align_fused_bwd": (roi_align_fused_backward,
@@ -256,10 +267,10 @@ def _check_levels(name, levels, rois, size):
     """The levels that forward kernel ``name`` computes for ``rois`` must
     equal its torch rule's on the card; returns the RoIs checked."""
     import torch
-    from bonai_tpu_torch.ops.roi_align_block import launch_forward
-    strip, window = KERNELS[name][2]
-    _, lvl = launch_forward(levels, rois, None, (size, size), STRIDES, 2,
-                            strip, 56, window)
+    block = _block_module()
+    rule, window = KERNELS[name][2]
+    _, lvl = block.launch_forward(levels, rois, None, (size, size), STRIDES,
+                                  2, getattr(block, rule), 56, window)
     want = _kernels()[name][2](rois[:, 1:5], STRIDES)
     if not torch.equal(lvl.long(), want):
         bad = (lvl.long() != want).nonzero()[:, 0]
@@ -294,14 +305,13 @@ def _cells_read(name, shapes, rois, size, valid):
     import torch
     from bonai_tpu_torch.ops.roi_align import corner_plan
     from bonai_tpu_torch.ops.roi_align_strip import strip_corner_plan
-    level_rule = _kernels()[name][2]
-    if level_rule is None:
+    if _window64(name):
         corners, weights = strip_corner_plan(shapes, rois, size, STRIDES)
         weights = [w * valid[:, None, None] for w in weights]
     else:
         corners, weights = corner_plan(
-            shapes, rois, level_rule(rois[:, 1:5], STRIDES), size, STRIDES,
-            roi_valid=valid)
+            shapes, rois, _kernels()[name][2](rois[:, 1:5], STRIDES), size,
+            STRIDES, roi_valid=valid)
     return int(torch.unique(torch.cat(
         [c[w != 0] for c, w in zip(corners, weights)])).numel())
 
@@ -331,12 +341,10 @@ def _forward_kernel(name, levels32, branches, seed, label):
                 ok = bool((diff <= 1e-4 + 1e-4 * ref.abs()).all())
             else:       # one bf16 ulp relative
                 ok = bool((diff <= ref.float().abs() * 2 ** -7 + 1e-6).all())
-            pushed = "" if level_rule is None else " pushed=%d" % int((
+            pushed = "" if _window64(name) else " pushed=%d" % int((
                 level_rule(rois[:, 1:5], STRIDES)
                 > level_rule(rois[:, 1:5], STRIDES, window=10 ** 9)).sum())
-            if KERNELS[name][2] is not None:
-                sums.levels_checked += _check_levels(name, levels, rois,
-                                                     size)
+            sums.levels_checked += _check_levels(name, levels, rois, size)
 
             def kernel():
                 with torch.no_grad():
@@ -467,9 +475,10 @@ def kernel_phase():
     for name in ("roi_align_block_bwd", "roi_align_fused_bwd"):
         sums[name, "train"] = _backward_kernel(name, levels32, 3)
     edges = _edge_rois()
-    for name in ("roi_align_block_fwd", "roi_align_fused_fwd"):
+    for name in ("roi_align_block_fwd", "roi_align_fused_fwd",
+                 "roi_align_strip_fwd"):
         checked = _check_levels(name, levels32, edges, 7) + sum(
-            sums[name, what].levels_checked for what in ("serve", "train"))
+            v.levels_checked for (n, _), v in sums.items() if n == name)
         print(f"kernel {name}: the kernel's levels equal the torch rule's "
               f"on {checked} RoIs ({edges.shape[0]} on the rules' edges)",
               flush=True)
@@ -830,6 +839,7 @@ def main():
               flush=True)
     for what, a, b in (("serve", "roi_align_fused_fwd", "roi_align_block_fwd"),
                        ("train", "roi_align_fused_fwd", "roi_align_block_fwd"),
+                       ("train", "roi_align_strip_fwd", "roi_align_fused_fwd"),
                        ("train", "roi_align_fused_bwd", "roi_align_block_bwd")):
         print(f"compare {what}: {a} {sums[a, what].ms:.4f} ms vs {b} "
               f"{sums[b, what].ms:.4f} ms (ratio "
@@ -845,7 +855,7 @@ def main():
                       train_device_ms=sums[name, "train"].device_ms,
                       train_plain_ms=sums[name, "train"].plain_ms,
                       train_bound_ms=sums[name, "train"].bound_ms)
-    # B3 and B4 (the strip route) run on B1's and B2's kernels
+    # B3 and B4 (the strip route) run on B1's and B2's kernels, B5 on B1's
     entries = [
         forward("roi_align_block_fwd", "block"),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
@@ -856,7 +866,8 @@ def main():
                train["pallas"]["bwd"], sums["roi_align_fused_bwd", "train"],
                "roi_align_block_bwd (strip rule)"),
         _entry("roi_align_strip_fwd", "bonai_tpu_torch.tools.bench_roi_align",
-               bench_launches, sums["roi_align_strip_fwd", "train"])]
+               bench_launches, sums["roi_align_strip_fwd", "train"],
+               "roi_align_block_fwd (window-64 rule)")]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,9 @@ machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-The RoIAlign forward kernels (the block kernel under the block and the
-strip level rule, the window-64 strip kernel) are held to their plain
-versions: float32 to 1e-4, bfloat16 to one bf16 ulp (2**-7 relative).  The
+The RoIAlign forward kernel (under the block and the strip level rule,
+and in its window-64 mode) is held to its plain versions: float32 to 1e-4,
+bfloat16 to one bf16 ulp (2**-7 relative).  The
 backward kernel (under both rules) is held to autograd through the plain
 version: float32 to 1e-4 of each level's largest gradient (the two sum in
 different orders), bfloat16 to one bf16 ulp plus 1e-5 of the level's
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import tiny_cfg
+from torch_port_common import edge_rois, tiny_cfg
 
 STRIDES = [4, 8, 16, 32]
 
@@ -334,12 +334,25 @@ def test_fused_kernels_past_the_strip_window(dtype, out_size):
 ROUTES = {"block": ("roi_align_block", "roi_align_block_backward",
                     "roi_align_block_ref", "block_levels"),
           "fused": ("roi_align_fused", "roi_align_fused_backward",
-                    "roi_align_fused_ref", "strip_levels")}
+                    "roi_align_fused_ref", "strip_levels"),
+          "strip": ("roi_align_strip", None, "roi_align_strip_ref", None)}
 
 
 def _route(name):
+    """The route's wrapper, backward (``None``: forward only), plain
+    version and level rule."""
     from bonai_tpu_torch import ops
-    return [getattr(ops, n) for n in ROUTES[name]]
+    from bonai_tpu_torch.ops.roi_align_strip import gather_levels
+    fn, bwd, ref_fn, rule = [None if n is None else getattr(ops, n)
+                             for n in ROUTES[name]]
+    return fn, bwd, ref_fn, rule or gather_levels
+
+
+def _forward(fn, feats, dtype, rois, valid, out_size, **kw):
+    """The forward alone, for the forward-only route."""
+    with torch.no_grad():
+        return fn([f.to(dtype) for f in feats], rois, out_size, STRIDES,
+                  roi_valid=valid, **kw)
 
 
 def _touched(shapes, rois, valid, lvl, out_size):
@@ -357,19 +370,30 @@ def _touched(shapes, rois, valid, lvl, out_size):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["block", "fused"])
+@pytest.mark.parametrize("route", ["block", "fused", "strip"])
 @pytest.mark.parametrize("n", [0, 1, 3000])
 def test_kernels_at_roi_counts(route, n):
     """No RoI, one RoI and 3000 (more than a tile's RoI scan takes at a
     time), float32, C=64: the forward against the plain version, the level
     gradients against autograd through it; with no RoI every gradient is
-    exactly zero, with one only its level's is not."""
+    exactly zero, with one only its level's is not.  The forward-only
+    window-64 route: its forward, launched once where there is an RoI."""
     _need_cuda()
     fn, bwd, ref_fn, _ = _route(route)
     feats, rois, valid = _fixture(n + 4, 64, n=max(n, 20))
     rois, valid = rois[:n].contiguous(), valid[:n].contiguous()
     if n == 1:
         valid[:] = True
+    if bwd is None:
+        before = fn.launches
+        out = _forward(fn, feats, torch.float32, rois, valid, 7)
+        torch.cuda.synchronize()
+        assert fn.launches == before + bool(n)
+        assert out.shape == (n, 7, 7, 64)
+        torch.testing.assert_close(out, _forward(ref_fn, feats, torch.float32,
+                                                 rois, valid, 7),
+                                   rtol=1e-4, atol=1e-4)
+        return
     cot = torch.randn(n, 7, 7, 64,
                       generator=torch.Generator().manual_seed(n)).cuda()
     before = bwd.launches
@@ -393,16 +417,25 @@ def test_kernels_at_roi_counts(route, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["block", "fused"])
-@pytest.mark.parametrize("sr", [1, 3])
+@pytest.mark.parametrize("route", ["block", "fused", "strip"])
+@pytest.mark.parametrize("sr", [1, 3, 5])
 def test_kernels_at_other_sampling_ratios(route, sr):
-    """The kernels' general sampling-ratio path (the detector uses 2),
-    float32, out 7x7 and 14x14: forward and level gradients against the
-    plain version."""
+    """The kernels' general sampling-ratio path (the detector uses 2; the
+    window-64 route took at most 4 before its kernel became a mode of the
+    forward), float32, out 7x7 and 14x14: forward and level gradients
+    against the plain version (the window-64 route: its forward, on
+    ``_strip_fixture``'s wide, flat and border RoIs too)."""
     _need_cuda()
-    fn, _, ref_fn, _ = _route(route)
-    feats, rois, valid = _fixture(50 + sr, 64)
+    fn, bwd, ref_fn, _ = _route(route)
+    feats, rois, valid = (_fixture if bwd else _strip_fixture)(50 + sr, 64)
     for out_size in (7, 14):
+        if bwd is None:
+            torch.testing.assert_close(
+                _forward(fn, feats, torch.float32, rois, valid, out_size,
+                         sampling_ratio=sr),
+                _forward(ref_fn, feats, torch.float32, rois, valid, out_size,
+                         sampling_ratio=sr), rtol=1e-4, atol=1e-4)
+            continue
         cot = torch.randn(rois.shape[0], out_size, out_size, 64,
                           generator=torch.Generator().manual_seed(sr)).cuda()
 
@@ -421,15 +454,19 @@ def test_kernels_at_other_sampling_ratios(route, sr):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["block", "fused"])
+@pytest.mark.parametrize("route", ["block", "fused", "strip"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_all_rois_invalid(route, dtype):
     """Every row invalid: zero outputs, and every level gradient exactly
-    zero in the levels' dtype."""
+    zero in the levels' dtype (the window-64 route: its output)."""
     _need_cuda()
-    fn, _, _, _ = _route(route)
+    fn, bwd, _, _ = _route(route)
     feats, rois, valid = _fixture(21, 64)
     valid = torch.zeros_like(valid)
+    if bwd is None:
+        out = _forward(fn, feats, dtype, rois, valid, 7)
+        assert out.dtype == dtype and not out.any()
+        return
     cot = torch.randn(rois.shape[0], 7, 7, 64,
                       generator=torch.Generator().manual_seed(3)).cuda()
     out, got = _level_grads(fn, feats, dtype, rois, valid, 7, cot)
@@ -501,41 +538,24 @@ def test_backward_writes_no_float32_pyramid(route):
     assert extra <= out_bytes + 2 ** 20, (extra, out_bytes)
 
 
-def _edge_rois(B=2):
-    """RoIs on the edges of the level rules, one float32 ulp below, at and
-    above: max(w, h) = 112 * 2^k (the block push), w = 144 * 2^k (the strip
-    push), sqrt(w * h) = 56 * 2^k and 56 * (2^k - 1e-6) (the gather rule),
-    from the origin and from a fractional corner."""
-    rows = []
-    for k in range(-2, 6):
-        edges = [(112, "wide"), (112, "tall"), (144, "wide"), (56, "square"),
-                 (56 * (1 - 1e-6 / 2.0 ** k), "square")]
-        for edge, shape in edges:
-            e = np.float32(edge * 2.0 ** k)
-            for v in (np.nextafter(e, np.float32(0)), e,
-                      np.nextafter(e, np.float32(np.inf))):
-                w, h = {"wide": (v, v / 8), "tall": (v / 8, v),
-                        "square": (v, v)}[shape]
-                for x0, y0 in ((0.0, 0.0), (100.25, 37.5)):
-                    rows.append([len(rows) % B, x0, y0, np.float32(x0) + w,
-                                 np.float32(y0) + h])
-    return torch.tensor(np.array(rows, np.float32), device="cuda")
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["block", "fused"])
+@pytest.mark.parametrize("route", ["block", "fused", "strip"])
 def test_kernel_levels_equal_the_torch_rule(route):
     """The level per RoI that the forward kernel computes equals the torch
-    rule's on the card (block_levels, strip_levels), on random RoIs and on
-    the rules' edges."""
+    rule's on the card (block_levels, strip_levels, and map_roi_levels in
+    the window-64 mode), on random RoIs and on the rules' edges."""
     _need_cuda()
-    from bonai_tpu_torch.ops.roi_align_block import launch_forward
+    from bonai_tpu_torch.ops.roi_align_block import (BLOCK_RULE, STRIP_RULE,
+                                                     WINDOW64_RULE,
+                                                     launch_forward)
     _, _, _, rule = _route(route)
     feats, rois, valid = _fixture(41, 64, n=2000)
-    rois = torch.cat([rois, _edge_rois()])
+    rois = torch.cat([rois, torch.from_numpy(edge_rois()).cuda()])
+    level_rule, window = {"block": (BLOCK_RULE, 32),
+                          "fused": (STRIP_RULE, 40),
+                          "strip": (WINDOW64_RULE, 64)}[route]
     _, lvl = launch_forward(feats, rois, None, (7, 7), STRIDES, 2,
-                            route == "fused", 56, 40 if route == "fused"
-                            else 32)
+                            level_rule, 56, window)
     torch.cuda.synchronize()
     want = rule(rois[:, 1:5], STRIDES)
     assert lvl.dtype == torch.int32

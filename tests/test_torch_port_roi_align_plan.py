@@ -5,10 +5,19 @@ test: the rectangle of level cells that an RoI's samples can touch.  It
 must hold every corner of nonzero weight that ``corner_plan`` gives the
 RoI, under the block and the strip level rule, for border RoIs, pushed
 RoIs, RoIs wider than 28 cells at the coarsest level, tall RoIs that the
-strip rule keeps fine, and invalid RoIs.  The wrappers on CPU tensors take
-the plain versions, with and without ``roi_valid``, and agree with the JAX
-functions.  float32; the gradients to 2e-4, as in
-``test_torch_port_roi_align_strip.py``.
+strip rule keeps fine, and invalid RoIs.
+
+``strip_bin_lists`` is the plain version of the forward kernel's per-bin
+lists in its window-64 mode (``roi_align_strip`` on the card): pooled, they
+give ``roi_align_strip_ref`` (float32, 1e-5); the window start from the
+first and last x sample is the least ``x0`` of all samples; a list holds
+at most ``2*sr`` cells, and every corner of nonzero weight of a bin is one
+of its rows times one of its columns.  The kernel's gather rule in its
+float32 operations equals ``map_roi_levels`` on the rule's edges.
+
+The wrappers on CPU tensors take the plain versions, with and without
+``roi_valid``, and agree with the JAX functions.  float32; the gradients
+to 2e-4, as in ``test_torch_port_roi_align_strip.py``.
 """
 
 import jax
@@ -17,13 +26,19 @@ import numpy as np
 import pytest
 import torch
 
+from bonai_tpu.ops.pallas_roi_align import pallas_roi_align
 from bonai_tpu.ops.pallas_roi_align_block import pallas_block_roi_align
 from bonai_tpu.ops.pallas_roi_align_fused import pallas_multilevel_roi_align
-from bonai_tpu_torch.ops import (block_levels, roi_align_block,
-                                 roi_align_block_ref, roi_align_fused,
-                                 strip_levels)
-from bonai_tpu_torch.ops.roi_align import _level_samples, corner_plan
+from bonai_tpu_torch.ops import (block_levels, map_roi_levels,
+                                 roi_align_block, roi_align_block_ref,
+                                 roi_align_fused, roi_align_strip,
+                                 roi_align_strip_ref, strip_levels)
+from bonai_tpu_torch.ops.roi_align import (_level_samples, corner_plan,
+                                           flatten_levels)
 from bonai_tpu_torch.ops.roi_align_block import block_footprint
+from bonai_tpu_torch.ops.roi_align_strip import (strip_bin_lists,
+                                                 strip_corner_plan)
+from torch_port_common import edge_rois
 
 STRIDES = [4, 8, 16, 32]
 RULES = {"block": block_levels, "strip": strip_levels}
@@ -112,21 +127,154 @@ def test_footprint_of_an_inner_roi_is_its_corners(rule):
     assert empty.shape == (0, 4)
 
 
+def _strip_rois(seed, H=512, W=512):
+    """``_rois`` plus the window-64 rule's cases: wide, flat RoIs that the
+    gather rule keeps at level 0 although they span more than 64 cells
+    there (one across the whole image), and RoIs over the top, bottom,
+    left and right borders."""
+    rois, _ = _rois(seed, H, W)
+    extra = np.array([[8, 40, 448, 45], [-30, 200, W + 20, 204],
+                      [20, 60, 300, 63], [100, -20, 160, 30],
+                      [200, H - 10, 260, H + 30], [-40, 300, 20, 360],
+                      [W - 20, 100, W + 40, 160]], np.float32)
+    extra = np.concatenate([np.ones((len(extra), 1), np.float32), extra], 1)
+    return torch.cat([rois, torch.from_numpy(extra)])
+
+
+def _levels(seed, H=512, W=512, C=8):
+    r = np.random.RandomState(seed)
+    return [torch.from_numpy(r.randn(2, H // s, W // s, C).astype(np.float32))
+            for s in STRIDES]
+
+
+SRS = [1, 2, 3, 5]
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+@pytest.mark.parametrize("sr", SRS)
+def test_strip_lists_pool_to_the_plain_version(sr, out_size):
+    """Each bin pooled from its row and column lists (sum of Wy * Wx * v,
+    times 1 / (sr*sr), as the kernel) equals roi_align_strip_ref."""
+    levels = _levels(sr)
+    rois = _strip_rois(sr + out_size)
+    lists = strip_bin_lists([f.shape for f in levels], rois, out_size,
+                            STRIDES, sr)
+    base, _, Wl, _, _ = _level_samples([f.shape for f in levels], rois,
+                                       lists["lvl"], out_size, STRIDES, sr,
+                                       True)
+    (yc, yw, _), (xc, xw, _) = lists["y"], lists["x"]
+    idx = (base[:, None, None, None, None]
+           + yc.clamp(min=0)[:, :, None, :, None]
+           * Wl[:, None, None, None, None]
+           + xc.clamp(min=0)[:, None, :, None, :])
+    w = yw[:, :, None, :, None] * xw[:, None, :, None, :]
+    got = (w[..., None] * flatten_levels(levels)[idx]).sum((3, 4)) * (
+        1.0 / (sr * sr))
+    ref = roi_align_strip_ref(levels, rois, out_size, STRIDES, sr)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+@pytest.mark.parametrize("sr", SRS)
+def test_strip_window_start_is_the_least_x0(sr, out_size):
+    """The window start that the kernel takes from the first and the last
+    x sample equals ``min(x0.amin(), max(Wl - 64, 0))`` over all samples,
+    for RoIs flipped in x (x2 < x1) too; the fixture reaches the window cut
+    and the ``Wl - 64`` cap."""
+    shapes = [f.shape for f in _levels(0)]
+    rois = _strip_rois(2 * sr + out_size)
+    lists = strip_bin_lists(shapes, rois, out_size, STRIDES, sr)
+    _, _, Wl, _, xs = _level_samples(shapes, rois, lists["lvl"], out_size,
+                                     STRIDES, sr, True)
+    Wf = Wl.float()[:, None]
+    x0 = torch.minimum(torch.floor(torch.minimum(xs.clamp(min=0.0), Wf - 1.0)),
+                       (Wf - 2.0).clamp(min=0.0)).long()
+    least = x0.amin(1)
+    assert torch.equal(lists["start"], torch.minimum(least, (Wl - 64).clamp(
+        min=0)))
+    assert bool(((lists["lvl"] == 0) & (x0[:, -1] - lists["start"] >= 64))
+                .any())
+    assert bool((lists["start"] < least).any())
+    assert bool((rois[:, 3] < rois[:, 1]).any())
+    assert set(lists["lvl"].tolist()) == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+@pytest.mark.parametrize("sr", SRS)
+def test_strip_lists_hold_every_corner(sr, out_size):
+    """No list holds more than ``2*sr`` cells, and the distinct corners of
+    nonzero weight of each bin in ``strip_corner_plan`` are exactly its
+    rows times its columns."""
+    shapes = [f.shape for f in _levels(0)]
+    rois = _strip_rois(3 * sr + out_size)
+    lists = strip_bin_lists(shapes, rois, out_size, STRIDES, sr)
+    ny, nx = lists["y"][2], lists["x"][2]
+    assert lists["y"][0].shape[-1] == 2 * sr and int(ny.max()) <= 2 * sr
+    assert int(nx.max()) <= 2 * sr and int(nx.max()) > sr
+    corners, weights = strip_corner_plan(shapes, rois, out_size, STRIDES, sr)
+    R = rois.shape[0]
+
+    def per_bin(t):
+        return torch.stack([c.reshape(R, out_size, sr, out_size, sr)
+                            for c in t], -1).permute(0, 1, 3, 2, 4, 5).reshape(
+                                R, out_size, out_size, -1)
+    cells = torch.where(per_bin(weights) != 0, per_bin(corners), -1)
+    cells = cells.sort(-1).values
+    distinct = (cells[..., 0] >= 0).long() + (
+        (cells[..., 1:] != cells[..., :-1]) & (cells[..., 1:] >= 0)).sum(-1)
+    assert torch.equal(ny[:, :, None] * nx[:, None, :], distinct)
+
+
+def test_kernel_gather_rule_equals_map_roi_levels():
+    """The gather rule as the forward kernel computes it (``roi_level``
+    without the push, csrc/roi_align_block_common.cuh): in float32, the
+    square root of the clamped product times the reciprocal of
+    finest_scale rounded to float32, plus 1e-6, log2, floor, clamped to the
+    pyramid.  In numpy it equals ``map_roi_levels`` on the gather rule's
+    edges (sqrt(wh) = 56 * 2^k and 56 * (2^k - 1e-6), one ulp below, at and
+    above) and on random RoIs; a true division would not."""
+    boxes = np.concatenate([edge_rois(), _strip_rois(4).numpy()])[:, 1:5]
+    w, h = boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]
+    scale = np.sqrt(np.maximum(w * h, np.float32(0)))
+    inv = np.float32(1) / np.float32(56)
+
+    def level(v):
+        return np.clip(np.floor(np.log2(v + np.float32(1e-6))), 0, 3)
+    want = level(scale * inv)
+    np.testing.assert_array_equal(map_roi_levels(torch.from_numpy(boxes),
+                                                 4).numpy(), want)
+    assert set(want.tolist()) == {0, 1, 2, 3}
+    assert (level(scale / np.float32(56)) != want).any()
+
+
 def _pyramid(seed, C=8):
     r = np.random.RandomState(seed)
     return [r.randn(2, 256 // s, 256 // s, C).astype(np.float32)
             for s in STRIDES]
 
 
-@pytest.mark.parametrize("route", ["block", "fused_rmw", "fused_scatter"])
+@pytest.mark.parametrize("route", ["block", "fused_rmw", "fused_scatter",
+                                   "strip"])
 def test_cpu_wrappers_without_roi_valid_match_jax(route):
     """``roi_valid=None`` (every row valid) on the CPU: the wrappers' plain
     versions and their gradients against the JAX functions (the block and
     the strip Pallas kernels in interpret mode; ``'scatter'`` is the JAX
-    package's scatter backward)."""
+    package's scatter backward; the window-64 kernel, forward only, to 1e-4
+    relative and 1e-5 absolute as in ``test_torch_port_roi_align_strip``)."""
     feats = _pyramid(7)
     rois, _ = _rois(11, 256, 256, n=12)
     rois = rois.numpy()
+    if route == "strip":
+        ref = pallas_roi_align([jnp.asarray(f) for f in feats],
+                               jnp.asarray(rois), 7, STRIDES,
+                               sampling_ratio=2, interpret=True)
+        got = roi_align_strip([torch.from_numpy(f) for f in feats],
+                              torch.from_numpy(rois), 7, STRIDES,
+                              sampling_ratio=2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-5)
+        return
     cot = np.random.RandomState(8).randn(len(rois), 7, 7, 8).astype(
         np.float32)
     if route == "block":

@@ -281,7 +281,9 @@ def test_blocked_matches_jax(case):
     "odd_channels", "half_levels"])
 def test_wrappers_on_the_cpu(case):
     """On CPU tensors the wrappers run their plain versions (no launch);
-    they reject what the kernels do not take."""
+    they reject what the kernels do not take, and take any sampling ratio
+    from 1 up (the JAX functions do; the cap of 4 went with the strip
+    kernel that staged 2*sr rows)."""
     feats, rois, valid = _fixture(seed=3, n=8, C=8)
     levels, rois, valid = _t(feats), t(rois), t(valid)
     args = (levels, rois, 7, STRIDES)
@@ -302,15 +304,22 @@ def test_wrappers_on_the_cpu(case):
             roi_align_strip(*args)
         with torch.no_grad():
             roi_align_strip(*args)
+    elif case == "sampling_ratio_over_4":
+        for name in ("roi_align_fused", "roi_align_strip"):
+            _check_inputs(levels, rois, valid, 4, True, 5, name)
+            with pytest.raises(ValueError, match="sampling_ratio"):
+                _check_inputs(levels, rois, valid, 4, True, 0, name)
+        assert torch.equal(
+            roi_align_strip(*args, sampling_ratio=5, roi_valid=valid),
+            roi_align_strip_ref(*args, sampling_ratio=5, roi_valid=valid))
     else:
         if case == "odd_channels":
             levels = [f[..., :7].contiguous() for f in levels]
         elif case == "half_levels":
             levels = [f.half() for f in levels]
-        sr = 5 if case == "sampling_ratio_over_4" else 2
         for name in ("roi_align_fused", "roi_align_strip"):
             with pytest.raises((TypeError, ValueError), match=name):
-                _check_inputs(levels, rois, valid, 4, True, sr, name, 4)
+                _check_inputs(levels, rois, valid, 4, True, 2, name)
     assert (roi_align_fused.launches, roi_align_fused_backward.launches,
             roi_align_strip.launches) == counts
 

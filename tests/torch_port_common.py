@@ -160,3 +160,25 @@ def jax_forward_train_draws(jm, variables, key, b):
         return tuple(torch.from_numpy(np.stack(u)).to(device)
                      for u in zip(*pairs))
     return draw
+
+
+def edge_rois(B=2):
+    """``(n, 5)`` float32 RoIs on the edges of the level rules, one float32
+    ulp below, at and above: max(w, h) = 112 * 2^k (the block push),
+    w = 144 * 2^k (the strip push), sqrt(w * h) = 56 * 2^k and
+    56 * (2^k - 1e-6) (the gather rule), from the origin and from a
+    fractional corner."""
+    rows = []
+    for k in range(-2, 6):
+        edges = [(112, "wide"), (112, "tall"), (144, "wide"), (56, "square"),
+                 (56 * (1 - 1e-6 / 2.0 ** k), "square")]
+        for edge, shape in edges:
+            e = np.float32(edge * 2.0 ** k)
+            for v in (np.nextafter(e, np.float32(0)), e,
+                      np.nextafter(e, np.float32(np.inf))):
+                w, h = {"wide": (v, v / 8), "tall": (v / 8, v),
+                        "square": (v, v)}[shape]
+                for x0, y0 in ((0.0, 0.0), (100.25, 37.5)):
+                    rows.append([len(rows) % B, x0, y0, np.float32(x0) + w,
+                                 np.float32(y0) + h])
+    return np.array(rows, np.float32)
