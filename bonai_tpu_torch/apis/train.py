@@ -4,11 +4,14 @@
 ``train_detector`` builds the detector of a config with seeded random
 weights (the config's ``pretrained`` backbone is a download and is not
 fetched), the SGD optimizer and LR schedule of the config, and runs the
-train step over an iterable of padded batches: the batch contract of
+train step over the batches of the config's ``data.train`` through the
+port's loader (``datasets/builder.py``), or over an iterable of padded
+batches the caller gives: the batch contract of
 ``bonai_tpu/datasets/builder.py`` (``image`` uint8 or normalised float,
 ``img_shape``, ``gt_bboxes``, ``gt_labels``, ``gt_valid``, ``gt_masks``,
 ``gt_offsets``) as numpy arrays or tensors.  It logs ``train_log.jsonl``
-rows as the JAX loop does, checkpoints at the end of every
+rows as the JAX loop does (plus ``data_time``, the host's wait for the
+next batch), checkpoints at the end of every
 ``checkpoint_config.interval`` epochs and at the end, and resumes from a
 checkpoint.  Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"``.
@@ -26,6 +29,7 @@ import torch
 
 from ..config import Config
 from ..core.samplers import generator_draws
+from ..datasets import build_dataloader, build_dataset
 from ..engine import (build_lr_schedule, build_optimizer, load_checkpoint,
                       make_train_step, provenance_meta, save_checkpoint)
 from ..models.builder import build_detector
@@ -88,17 +92,33 @@ def build_trainer(cfg, device, seed=0, steps_per_epoch=1):
     return model, optimizer, train_step, generator
 
 
+def build_train_loader(cfg, seed=0):
+    """The loader of ``cfg.data.train``, as the JAX ``train_detector``
+    builds it on one device."""
+    data = cfg.data
+    return build_dataloader(
+        build_dataset(data.train), samples_per_gpu=data.get(
+            "samples_per_gpu", 2),
+        workers_per_gpu=data.get("workers_per_gpu", 2), seed=seed,
+        max_gt=data.get("max_gt", 256),
+        inst_mask_size=data.get("inst_mask_size", 112),
+        loader_mode=data.get("loader_mode", "thread"))
+
+
 def train_detector(cfg, batches, work_dir, seed=0, max_steps=None,
                    device=None, resume_from=None, load_from=None,
                    log_interval=None):
     """Train the detector of ``cfg`` (a path or a ``Config``).
 
     Args:
-      batches: the batches of one epoch, iterated once per epoch (a list,
-        or a loader that can be iterated again); its length is the epoch's
-        step count for the LR steps.
+      batches: ``None`` to train on ``cfg.data.train`` through the port's
+        loader (``set_epoch`` is called every epoch, as the JAX loop does);
+        or the batches of one epoch, iterated once per epoch (a list, or a
+        loader that can be iterated again; its items may be ``(batch,
+        metas)`` pairs); its length is the epoch's step count for the LR
+        steps.
       work_dir: where ``train_log.jsonl`` and ``checkpoints/`` go.
-      seed: seeds the weights and the samplers' generator.
+      seed: seeds the weights, the samplers' generator and the loader.
       max_steps: stop after this many steps in all (counting resumed ones).
       device: ``None`` means the GPU (raises without one); ``"cpu"``.
       resume_from: a checkpoint to continue from (weights, optimizer,
@@ -111,7 +131,20 @@ def train_detector(cfg, batches, work_dir, seed=0, max_steps=None,
     if isinstance(cfg, (str, os.PathLike)):
         cfg = Config.fromfile(cfg)
     os.makedirs(work_dir, exist_ok=True)
-    steps_per_epoch = len(batches)
+    own_loader = batches is None
+    if own_loader:
+        batches = build_train_loader(cfg, seed)
+    try:
+        return _train(cfg, batches, work_dir, seed, max_steps, device,
+                      resume_from, load_from, log_interval)
+    finally:
+        if own_loader:
+            batches.close()
+
+
+def _train(cfg, batches, work_dir, seed, max_steps, device, resume_from,
+           load_from, log_interval):
+    steps_per_epoch = max(len(batches), 1)
     model, optimizer, train_step, generator = build_trainer(
         cfg, device, seed, steps_per_epoch)
 
@@ -135,23 +168,34 @@ def train_detector(cfg, batches, work_dir, seed=0, max_steps=None,
     log_path = osp.join(work_dir, "train_log.jsonl")
     history = []
     t0 = time.time()
+    data_time = 0.0
 
     def save(**meta):
         return save_checkpoint(work_dir, step, model, optimizer,
                                dict(meta, **provenance), generator)
 
     for epoch in range(step // steps_per_epoch, cfg.get("total_epochs", 12)):
-        for batch in batches:
-            if max_steps is not None and step >= max_steps:
+        if hasattr(batches, "set_epoch"):
+            batches.set_epoch(epoch)
+        items = iter(batches)
+        while max_steps is None or step < max_steps:
+            t_wait = time.time()
+            item = next(items, None)
+            data_time += time.time() - t_wait
+            if item is None:
                 break
+            batch = item[0] if isinstance(item, tuple) else item
             metrics = train_step(batch, step, draw)
             step += 1
             if step % log_interval == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 dt = (time.time() - t0) / log_interval
-                t0 = time.time()
                 rec = dict(epoch=epoch + 1, iter=step, time=dt,
-                           **metrics)
+                           data_time=data_time / log_interval, **metrics)
+                t0, data_time = time.time(), 0.0
+                if getattr(batches, "truncated_samples", 0):
+                    rec["gt_truncated"] = batches.truncated_instances
+                    rec["gt_truncated_samples"] = batches.truncated_samples
                 history.append(rec)
                 logger.info("Epoch [%d] iter %d %s", epoch + 1, step,
                             " ".join(f"{k}: {v:.4f}"

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.masks import resize_bilinear
+from ...core.masks import resize_bilinear
 
 _NO_OPS = ("LoadImageFromFile", "RandomFlip", "ImageToTensor", "Collect",
            "DefaultFormatBundle")
@@ -15,8 +15,9 @@ _NO_OPS = ("LoadImageFromFile", "RandomFlip", "ImageToTensor", "Collect",
 
 class InferencePipeline:
     """Keep-ratio resize to fit ``img_scale``, BGR->RGB normalisation and
-    bottom/right zero padding to ``size_divisor``.  Reading image files
-    and test-time flips are not ported (ROADMAP.md item A3)."""
+    bottom/right zero padding to ``size_divisor``.  Test-time flips are
+    ROADMAP.md item A5; the train pipeline that reads files is
+    :mod:`.transforms`."""
 
     def __init__(self, pipeline_cfg):
         self.img_scale = None
@@ -49,7 +50,7 @@ class InferencePipeline:
                 self.size_divisor = t["size_divisor"]
             elif kind not in _NO_OPS:
                 raise NotImplementedError(
-                    f"pipeline step {kind} is not ported (ROADMAP.md A3)")
+                    f"test pipeline step {kind} is not ported (ROADMAP.md A3d)")
 
     def __call__(self, img):
         """``(H, W, 3)`` uint8 BGR image -> dict with the normalised,

@@ -7,9 +7,9 @@ trainable gradients, add weight decay, momentum (``torch.optim.SGD``
 semantics: decay enters before the momentum buffer, the buffer holds no
 LR), scale by the LR.  Here the clip is :func:`apply_gradients`' first
 step and ``torch.optim.SGD`` does the rest.  Frozen parameters (the
-backbone stem and the first ``frozen_stages`` stages, which the ResNet
-builds with ``requires_grad=False``) are not in the optimizer: no update,
-no decay, and no part of the clipped norm.
+backbone stem when ``frozen_stages >= 0`` and the first ``frozen_stages``
+stages, which the ResNet builds with ``requires_grad=False``) are not in
+the optimizer: no update, no decay, and no part of the clipped norm.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """ResNet backbone, pytorch style, with frozen BatchNorm (counterpart of
-``bonai_tpu/models/backbones/resnet.py`` for the BONAI config:
-``frozen_stages=1, norm_eval=True, style='pytorch'``).
+``bonai_tpu/models/backbones/resnet.py`` for the BONAI configs:
+``style='pytorch'``, any ``frozen_stages``; BatchNorm stays frozen over its
+stored statistics whatever ``norm_eval`` says, as in the JAX package).
 
 Module and parameter names follow mmdet v2.3 / torchvision
 (``backbone.layer1.0.conv1.weight``, ``backbone.layer1.0.downsample.1
@@ -8,6 +9,8 @@ Module and parameter names follow mmdet v2.3 / torchvision
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 import torch.nn.functional as F
@@ -23,10 +26,12 @@ ARCH_SETTINGS = {
     152: ("bottleneck", (3, 8, 36, 3)),
 }
 
+logger = logging.getLogger("bonai_tpu_torch")
+
 
 class FrozenBatchNorm2d(nn.Module):
-    """BatchNorm over stored running statistics (``norm_eval=True``): one
-    per-channel multiply-add.  The affine parameters are parameters, the
+    """BatchNorm over stored running statistics (whatever ``norm_eval``
+    says): one per-channel multiply-add.  The affine parameters are parameters, the
     statistics buffers, with ``nn.BatchNorm2d``'s names."""
 
     def __init__(self, channels, eps=1e-5):
@@ -98,10 +103,13 @@ class ResNet(nn.Module):
                  frozen_stages=1, norm_eval=True, style="pytorch",
                  base_channels=64):
         super().__init__()
-        if style != "pytorch" or not norm_eval:
+        if style != "pytorch":
             raise NotImplementedError(
-                "bonai_tpu_torch ports the pytorch-style ResNet with "
-                "norm_eval=True; other variants are ROADMAP.md item A6")
+                "bonai_tpu_torch ports the pytorch-style ResNet; other "
+                "variants are ROADMAP.md item A6")
+        if not norm_eval:
+            logger.info("ResNet(norm_eval=False): BatchNorm stays frozen over "
+                        "its stored statistics, as in the JAX package")
         block_name, stage_blocks = ARCH_SETTINGS[depth]
         block = Bottleneck if block_name == "bottleneck" else BasicBlock
         self.out_indices = tuple(out_indices)
@@ -124,10 +132,12 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             self.stages.append(f"layer{i + 1}")
             planes *= 2
-        # frozen stem + first stages: no gradient (norm_eval keeps BN fixed
-        # everywhere)
-        frozen = [self.conv1, self.bn1] + [
-            getattr(self, f"layer{i}") for i in range(1, frozen_stages + 1)]
+        # the stem (for frozen_stages >= 0) and the first frozen_stages
+        # stages get no gradient, as mmdet's _freeze_stages; BN statistics
+        # are buffers and never move
+        frozen = [self.conv1, self.bn1] if frozen_stages >= 0 else []
+        frozen += [getattr(self, f"layer{i}")
+                   for i in range(1, frozen_stages + 1)]
         for m in frozen:
             for p in m.parameters():
                 p.requires_grad_(False)

@@ -1,5 +1,6 @@
 """String-typed component registry (the port's copy of the part of
-``bonai_tpu/registry.py`` that the detector builder uses)."""
+``bonai_tpu/registry.py`` that the detector, dataset and pipeline builders
+use)."""
 
 from __future__ import annotations
 
@@ -30,3 +31,20 @@ class Registry:
             return cls
 
         return _decorator
+
+
+def build_from_cfg(cfg, registry, default_args=None):
+    """``registry[cfg['type']](**cfg_without_type, **default_args)``."""
+    if not isinstance(cfg, dict) or "type" not in cfg:
+        raise TypeError(f"cfg must be a dict with the key 'type': {cfg}")
+    args = dict(cfg)
+    obj_type = args.pop("type")
+    obj_cls = registry.get(obj_type) if isinstance(obj_type, str) \
+        else obj_type
+    if obj_cls is None:
+        raise KeyError(f"{obj_type} is not in the {registry.name} registry "
+                       f"of bonai_tpu_torch; available: "
+                       f"{sorted(registry.module_dict)}")
+    for k, v in (default_args or {}).items():
+        args.setdefault(k, v)
+    return obj_cls(**args)

@@ -1,0 +1,128 @@
+"""PNG files without cv2: ``zlib`` and numpy.
+
+:func:`write_png` writes what ``cv2.imwrite`` would for an 8-bit BGR or
+gray image (RGB or gray, non-interlaced, filter type 0 on every row);
+:func:`read_png` returns what ``cv2.imread(path, IMREAD_COLOR)`` does for an
+8-bit gray, gray+alpha, RGB or RGBA PNG, with any of the five row filters.
+Any other PNG (16-bit, palette, interlaced) raises ``NotImplementedError``
+(ROADMAP.md item A3c); so does any other file format.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}       # PNG colour type -> samples
+
+
+def _chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path, img, level=1):
+    """Write an ``(H, W)`` gray or ``(H, W, 3)`` BGR ``uint8`` image to
+    ``path`` as a PNG (channels swapped to RGB as ``cv2.imwrite`` does)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] not in (1, 3)):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    h, w = img.shape[:2]
+    color_type = 0 if img.ndim == 2 else 2
+    rows = img if img.ndim == 2 else img[..., ::-1]
+    raw = np.zeros((h, 1 + w * (1 if img.ndim == 2 else 3)), np.uint8)
+    raw[:, 1:] = rows.reshape(h, -1)                  # filter type 0
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    data = (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _paeth_row(line, prior, bpp):
+    out, prior = bytearray(line.tobytes()), prior.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        c = prior[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (out[i] + pred) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def _average_row(line, prior, bpp):
+    out, prior = bytearray(line.tobytes()), prior.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        out[i] = (out[i] + ((a + prior[i]) >> 1)) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def _unfilter(raw, h, stride, bpp):
+    """Undo the per-row filters of the decompressed ``raw`` stream."""
+    rows = np.frombuffer(raw, np.uint8)[:h * (stride + 1)].reshape(
+        h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:                                 # None
+            cur = line
+        elif kind == 1:                               # Sub: a cumsum per lane
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif kind == 2:                               # Up
+            cur = line + prior
+        elif kind == 3:                               # Average
+            cur = _average_row(line, prior, bpp)
+        elif kind == 4:                               # Paeth
+            cur = _paeth_row(line, prior, bpp)
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
+        out[y] = cur
+        prior = out[y]
+    return out
+
+
+def read_png(path):
+    """Read an 8-bit PNG as an ``(H, W, 3)`` BGR ``uint8`` array, as
+    ``cv2.imread(path, cv2.IMREAD_COLOR)`` does (gray replicated, alpha
+    dropped).  Raises ``FileNotFoundError`` for a missing file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _SIGNATURE:
+        raise NotImplementedError(
+            f"{path}: only PNG files are read without cv2 (ROADMAP.md A3c)")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or color_type not in _CHANNELS or interlace:
+        raise NotImplementedError(
+            f"{path}: PNG bit depth {depth}, colour type {color_type}, "
+            f"interlace {interlace}; only 8-bit non-interlaced gray, RGB and "
+            f"their alpha forms are read without cv2 (ROADMAP.md A3c)")
+    nch = _CHANNELS[color_type]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * nch,
+                   nch).reshape(h, w, nch)
+    if nch <= 2:                                      # gray (+ alpha)
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., 2::-1])       # RGB(A) -> BGR

@@ -47,11 +47,22 @@ Phases, each of which must pass:
    must be finite and the trainable weights must move.  On a small float32
    input, the FPN-level gradients of the RoI branches' losses through the
    kernels must agree with the plain path.
-5. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+5. data: training from files.  The port's generator writes 8 train tiles
+   of 1024^2 (seed 0: the first 8 of the acceptance set) into
+   ``build/chip_smoke_data``; the loader of
+   ``configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py`` (data paths
+   pointed there) reads them once cold (PNG decode) and once warm (the
+   decoded-image cache) in its thread mode, then twice in its process
+   mode (the first pass starts the workers);
+   ``train_detector(cfg, None, ...)`` then trains that config (its
+   ``frozen_stages=-1``, bfloat16 autocast) 6 steps from the files.  Every
+   loss must be finite, every trainable tensor (the stem and ``layer1``
+   included) must move and no BatchNorm statistic may.
+6. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
-Every launch count is zeroed just before each serve, train and bench run
-and read just after: the route's forward kernel must launch 3 times per
+Every launch count is zeroed just before each serve, train, data and bench
+run and read just after: the route's forward kernel must launch 3 times per
 batch or step, its backward kernel 3 times per training step, no other
 kernel at all; the bench must launch B5.
 
@@ -71,6 +82,9 @@ import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
+SYNTH_CONFIG = os.path.join(
+    REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py")
+DATA_DIR = os.path.join(REPO, "build", "chip_smoke_data")
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 BATCH, SIZE, C = 2, 1024, 256
@@ -766,6 +780,121 @@ def train_phase(impl, steps):
             "step_ms": statistics.median(step_ms[1:])}
 
 
+def _synth_config():
+    """The 2x synthetic recipe with its train data in ``DATA_DIR``."""
+    from bonai_tpu_torch.config import Config
+    cfg = Config.fromfile(SYNTH_CONFIG)
+    train = cfg.data.train
+    train.ann_file = os.path.join(DATA_DIR, "train", "train.json")
+    train.img_prefix = os.path.join(DATA_DIR, "train", "images") + "/"
+    train.pipeline[0].cache_dir = os.path.join(DATA_DIR, "imgcache_train")
+    return cfg
+
+
+def _loader_rates(cfg, mode):
+    """Images per second of two passes of the config's loader in ``mode``
+    (one loader: the process mode's workers start in the first pass)."""
+    from bonai_tpu_torch.apis.train import build_train_loader
+    cfg.data.loader_mode = mode
+    loader = build_train_loader(cfg)
+    rates = []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            n = sum(len(metas) for _, metas in loader)
+            rates.append(n / (time.perf_counter() - t0))
+        return rates, n
+    finally:
+        loader.close()
+        del cfg.data["loader_mode"]
+
+
+def data_phase(steps=6, tiles=8):
+    """Training from files: generate, load, train ``steps`` steps of the
+    synthetic recipe through ``train_detector(cfg, None, ...)``.  Returns
+    the forward and backward kernels' launch counts, the median warm step
+    time and the loader's rates."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import train_detector
+    from bonai_tpu_torch.models.builder import build_detector
+    from bonai_tpu_torch.tools.make_synthetic_bonai import write_split
+    _, fwd_name, bwd_name = ROUTES["block"]
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_split(DATA_DIR, "train", tiles, 0, SIZE)
+    gen_s = (time.perf_counter() - t0) / tiles
+    cfg = _synth_config()
+    (cold, warm), n = _loader_rates(cfg, "thread")
+    (start, warm_process), _ = _loader_rates(cfg, "process")
+    print(f"data: generator {gen_s:.3f} s per 1024^2 tile ({tiles} tiles, "
+          f"seed 0); loader ({cfg.data.workers_per_gpu} workers, batch "
+          f"{cfg.data.samples_per_gpu}, {n} images a pass) thread mode "
+          f"{cold:.1f} images/s cold (PNG decode), {warm:.1f} warm (cache); "
+          f"process mode {start:.1f} while its workers start, "
+          f"{warm_process:.1f} warm", flush=True)
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_files")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.time()
+    model, hist = train_detector(cfg, None, work_dir, seed=0,
+                                 max_steps=steps, log_interval=1)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.time() - t0
+    step_ms = [h["time"] * 1e3 for h in hist]
+    wait_ms = [h["data_time"] * 1e3 for h in hist]
+    median = statistics.median(step_ms[1:])
+    print(f"data: train_detector from files, {SYNTH_CONFIG[len(REPO) + 1:]} "
+          f"1024^2 B={cfg.data.samples_per_gpu} bf16 autocast, "
+          f"frozen_stages={cfg.model.backbone.frozen_stages}, {steps} steps "
+          f"in {wall:.1f} s incl. set-up and the final checkpoint; ms per "
+          f"step {[round(x, 1) for x in step_ms]}; median of the "
+          f"{len(step_ms) - 1} warm steps {median:.1f} ms; host wait for the "
+          f"next batch, ms per step {[round(x, 1) for x in wait_ms]} (median "
+          f"of the warm steps {statistics.median(wait_ms[1:]):.1f}); peak "
+          f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
+          f"launches {counts}", flush=True)
+    keys = [k for k in hist[0] if k.startswith("loss")]
+    for h in hist:
+        print(f"data: step {h['iter']} lr {h['lr']:.3g} grad_norm "
+              f"{h['grad_norm']:.4g} " + " ".join(
+                  f"{k} {h[k]:.5g}" for k in keys), flush=True)
+    if not all(np.isfinite(h[k]) for h in hist
+               for k in keys + ["grad_norm"]):
+        raise AssertionError("a loss or the gradient norm is not finite")
+    _check_counts(counts, {fwd_name: 3 * steps, bwd_name: 3 * steps},
+                  f"train from files, {steps} steps")
+    init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    init.init_weights(torch.Generator().manual_seed(0))
+    start = init.state_dict()
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    moved, still, stats_moved = [], [], []
+    for name, v in model.state_dict().items():
+        changed = not torch.equal(v.cpu(), start[name])
+        if name.endswith(("running_mean", "running_var")):
+            if changed:
+                stats_moved.append(name)
+        elif name in trainable:
+            (moved if changed else still).append(name)
+    print(f"data: {len(moved)} of {len(trainable)} trainable tensors moved "
+          f"(stem and layer1 included: "
+          f"{'backbone.conv1.weight' in moved and 'backbone.layer1.0.conv1.weight' in moved}"
+          f"), {len(stats_moved)} BatchNorm statistics moved", flush=True)
+    if still or stats_moved or len(trainable) != len(
+            list(model.parameters())):
+        raise AssertionError(f"not moved: {still[:4]}; BatchNorm statistics "
+                             f"moved: {stats_moved[:4]}")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return {"fwd": counts[fwd_name], "bwd": counts[bwd_name],
+            "step_ms": median, "cold": cold, "warm": warm}
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -828,6 +957,13 @@ def main():
     serve = {impl: serve_phase(impl) for impl in ("block", "pallas")}
     train = {impl: train_phase(impl, steps)
              for impl, steps in (("block", 6), ("pallas", 4))}
+    files = data_phase()
+    print(f"compare train: from files {files['step_ms']:.1f} ms a step vs "
+          f"the repeated synthetic batch {train['block']['step_ms']:.1f} ms "
+          f"(same route, this run); the loader gives "
+          f"{files['cold']:.1f} images/s cold, {files['warm']:.1f} warm, "
+          f"against {2e3 / files['step_ms']:.1f} images/s the step takes",
+          flush=True)
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -847,19 +983,21 @@ def main():
               f"bounds {sums[a, what].bound_ms:.4f} / "
               f"{sums[b, what].bound_ms:.4f} ms)", flush=True)
 
-    def forward(name, impl, label=None):
+    def forward(name, impl, label=None, **extra):
         return _entry(name, f"serve and train ({impl})", serve[impl],
                       sums[name, "serve"], label,
-                      train_launches=train[impl]["fwd"],
+                      train_launches=train[impl]["fwd"], **extra,
                       train_ms=sums[name, "train"].ms,
                       train_device_ms=sums[name, "train"].device_ms,
                       train_plain_ms=sums[name, "train"].plain_ms,
                       train_bound_ms=sums[name, "train"].bound_ms)
     # B3 and B4 (the strip route) run on B1's and B2's kernels, B5 on B1's
     entries = [
-        forward("roi_align_block_fwd", "block"),
+        forward("roi_align_block_fwd", "block",
+                train_from_files_launches=files["fwd"]),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
-               sums["roi_align_block_bwd", "train"]),
+               sums["roi_align_block_bwd", "train"],
+               train_from_files_launches=files["bwd"]),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

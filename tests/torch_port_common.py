@@ -10,13 +10,16 @@ import torch
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFIG = osp.join(ROOT, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
+SYNTH_CONFIG = osp.join(ROOT,
+                        "configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py")
 
 
-def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32):
-    """The LOFT-FOA R50 config at the ``_tiny_loft_model`` widths
-    (``__graft_entry__.py``): ResNet-18 at base 8, 16-channel FPN."""
+def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
+    """The LOFT-FOA R50 config (``config``) at the ``_tiny_loft_model``
+    widths (``__graft_entry__.py``): ResNet-18 at base 8, 16-channel
+    FPN."""
     from bonai_tpu_torch import Config
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(config)
     m = cfg.model
     m.backbone.update(depth=18, base_channels=8)
     m.neck.update(in_channels=[8, 16, 32, 64], out_channels=16)
@@ -101,12 +104,12 @@ def t(x):
     return torch.from_numpy(np.array(x))
 
 
-def tiny_train_cfg():
+def tiny_train_cfg(config=CONFIG):
     """``tiny_cfg`` with the training sizes cut so that both sampler paths
     run: the RPN samples 64 of ~4000 anchors (top-k path), the R-CNN 64
     slots from 32 proposals plus the GTs (fewer candidates than slots:
     the padding path)."""
-    cfg = tiny_cfg()
+    cfg = tiny_cfg(config=config)
     cfg.train_cfg.rpn.sampler.num = 64
     cfg.train_cfg.rpn_proposal.update(nms_pre=100, nms_post=32, max_num=32)
     cfg.train_cfg.rcnn.sampler.num = 64
@@ -182,3 +185,27 @@ def edge_rois(B=2):
                     rows.append([len(rows) % B, x0, y0, np.float32(x0) + w,
                                  np.float32(y0) + h])
     return np.array(rows, np.float32)
+
+
+def synth_data(out, n=4, size=128, seed=0):
+    """``n`` synthetic BONAI tiles of ``size``^2 from the port's generator
+    in ``out/train``; returns the directory ``out``."""
+    from bonai_tpu_torch.tools.make_synthetic_bonai import write_split
+    write_split(str(out), "train", n, seed, size)
+    return str(out)
+
+
+def synth_train_cfg(data_dir, size=128, max_gt=64):
+    """The 2x synthetic recipe at the tiny widths (its ``frozen_stages=-1,
+    norm_eval=False``), training on the tiles of :func:`synth_data`: the
+    train pipeline at ``img_scale=(size, size)`` (the identity), the
+    decoded-image cache under ``data_dir``."""
+    cfg = tiny_train_cfg(SYNTH_CONFIG)
+    train = cfg.data.train
+    train.ann_file = osp.join(data_dir, "train", "train.json")
+    train.img_prefix = osp.join(data_dir, "train", "images") + "/"
+    train.pipeline[0].cache_dir = osp.join(data_dir, "imgcache_train")
+    train.pipeline[2].img_scale = (size, size)
+    cfg.data.max_gt = max_gt
+    cfg.log_config.interval = 1
+    return cfg
