@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..datasets.pipelines import InferencePipeline
+from ..datasets.pipelines import build_pipeline
 from ..models.builder import build_detector
 from ..utils.weights import load_mmdet_checkpoint
 from .test import results_to_host
@@ -58,11 +58,17 @@ def init_detector(config, checkpoint=None, device=None, dtype=None, seed=0):
 
 
 def prepare_batch(model, imgs):
-    """Run the test pipeline on ``(H, W, 3)`` uint8 BGR images and stack
-    them (zero-padded to one size) for ``model.simple_test``.  Returns
-    ``(img, img_shape, scale_factor, metas)``."""
-    pipe = InferencePipeline(model.cfg.data.test["pipeline"])
-    outs = [pipe(np.asarray(im)) for im in imgs]
+    """Run the config's test pipeline, without its ``LoadImageFromFile``,
+    on ``(H, W, 3)`` uint8 BGR images and stack them (zero-padded to one
+    size) for ``model.simple_test``.  Returns ``(img, img_shape,
+    scale_factor, metas)``."""
+    pipe = build_pipeline([t for t in model.cfg.data.test["pipeline"]
+                           if t["type"] != "LoadImageFromFile"])
+    outs = []
+    for im in imgs:
+        im = np.asarray(im)
+        outs.append(pipe({"img": im, "img_shape": im.shape[:2],
+                          "ori_shape": im.shape[:2], "scale_factor": 1.0}))
     h = max(o["img"].shape[0] for o in outs)
     w = max(o["img"].shape[1] for o in outs)
     batch = np.zeros((len(outs), h, w, 3), np.float32)

@@ -3,12 +3,14 @@
 (``segmentation``), a footprint mask and box, a building box, a
 roof-to-footprint ``offset`` and optionally a building height; the config
 selects which box (``bbox_type``) and mask (``mask_type``) supervise the
-detector (the BONAI recipe: building boxes and roof masks).  Writing
-results (``results2json``, ``write_results2csv``) is ROADMAP.md item A3d.
+detector (the BONAI recipe: building boxes and roof masks).
+``results2json`` and ``write_results2csv`` write results and summaries.
 """
 
 from __future__ import annotations
 
+import csv
+import json
 import math
 import os.path as osp
 
@@ -138,3 +140,89 @@ class BONAI(CocoDataset):
             side_face_map=fname.replace("jpg", "png"),
             offset_field=fname.replace("png", "npy").replace("jpg", "npy"),
         )
+
+    # ---------------- result dumping / summaries ----------------
+
+    @staticmethod
+    def _xyxy2xywh(box):
+        x1, y1, x2, y2 = [float(v) for v in box[:4]]
+        return [x1, y1, x2 - x1, y2 - y1]
+
+    def results2json(self, results, outfile_prefix):
+        """Dump per-image result tuples to COCO-style json files.
+
+        Accepts 2/3/4-tuples ``(det, seg[, offset[, height]])`` per image
+        (reference ``bonai.py:258-301`` ``_segm2json``).  Returns the dict
+        of written files.
+        """
+        bbox_json, segm_json, offset_json = [], [], []
+        for idx, res in enumerate(results):
+            img_id = self.img_ids[idx]
+            if not isinstance(res, tuple):
+                res = (res,)
+            det = res[0]
+            seg = res[1] if len(res) > 1 else None
+            offsets = res[2] if len(res) > 2 else None
+            heights = res[3] if len(res) > 3 else None
+            for label, bboxes in enumerate(det):
+                bboxes = np.asarray(bboxes).reshape(-1, 5)
+                if seg is not None:
+                    segms, mask_score = (seg if isinstance(seg, tuple)
+                                         else (seg, None))
+                    segms = segms[label]
+                for i in range(bboxes.shape[0]):
+                    entry = dict(image_id=img_id,
+                                 bbox=self._xyxy2xywh(bboxes[i]),
+                                 score=float(bboxes[i][4]),
+                                 category_id=self.cat_ids[label])
+                    bbox_json.append(entry)
+                    if seg is not None and i < len(segms):
+                        sd = dict(entry)
+                        rle = segms[i]
+                        if isinstance(rle, dict) and isinstance(
+                                rle.get("counts"), bytes):
+                            rle = dict(rle, counts=rle["counts"].decode())
+                        sd["segmentation"] = rle
+                        if mask_score is not None:
+                            sd["score"] = float(mask_score[label][i])
+                        segm_json.append(sd)
+                    if offsets is not None and i < len(offsets):
+                        od = dict(entry)
+                        od["offset"] = [float(v) for v in offsets[i][:2]]
+                        if heights is not None and i < len(heights):
+                            od["building_height"] = float(
+                                np.asarray(heights[i]).reshape(-1)[0])
+                        offset_json.append(od)
+        files = {}
+        for name, payload in (("bbox", bbox_json), ("segm", segm_json),
+                              ("offset", offset_json)):
+            if payload or name == "bbox":
+                path = f"{outfile_prefix}.{name}.json"
+                with open(path, "w") as f:
+                    json.dump(payload, f)
+                files[name] = path
+        return files
+
+    def write_results2csv(self, results, meta_info=None):
+        """Evaluation summary CSV (reference ``bonai.py:305-328``)."""
+        seg_results = results[0]
+        meta_info = meta_info or {}
+        with open(meta_info["summary_file"], "w", newline="") as fh:
+            w = csv.writer(fh, delimiter=",")
+            w.writerow(["Meta Info"])
+            for key in ("model", "anno_file", "gt_roof_csv_file",
+                        "gt_footprint_csv_file", "vis_dir"):
+                w.writerow([key, meta_info.get(key, "")])
+            w.writerow([""])
+            for mask_type in ("roof", "footprint"):
+                if mask_type not in seg_results:
+                    continue
+                r = seg_results[mask_type]
+                w.writerow([mask_type])
+                w.writerow(["F1 Score", r.get("F1_score")])
+                w.writerow(["Precision", r.get("Precision")])
+                w.writerow(["Recall", r.get("Recall")])
+                w.writerow(["True Positive", r.get("TP")])
+                w.writerow(["False Positive", r.get("FP")])
+                w.writerow(["False Negative", r.get("FN")])
+                w.writerow([""])

@@ -103,8 +103,9 @@ class CocoDataset:
 
     def evaluate(self, results, **kwargs):
         raise NotImplementedError(
-            "dataset evaluation is not ported to bonai_tpu_torch yet "
-            "(ROADMAP.md items A3d and A8)")
+            "COCO AP, mAP and recall evaluation are ROADMAP.md item A8; "
+            "BONAI F1 and offset error are bonai_tpu_torch.tools."
+            "bonai_evaluation's")
 
     def pre_pipeline(self, results):
         """Hook for subclasses to add prefixes and field registries."""

@@ -1,8 +1,9 @@
-from .inference import InferencePipeline
 from .transforms import (PIPELINES, Collect, Compose, DefaultFormatBundle,
-                         LoadAnnotations, LoadImageFromFile, Normalize, Pad,
-                         RandomFlip, Resize, build_pipeline)
+                         ImageToTensor, LoadAnnotations, LoadImageFromFile,
+                         MultiScaleFlipAug, Normalize, Pad, RandomFlip,
+                         Resize, build_pipeline)
 
 __all__ = ["PIPELINES", "Collect", "Compose", "DefaultFormatBundle",
-           "InferencePipeline", "LoadAnnotations", "LoadImageFromFile",
-           "Normalize", "Pad", "RandomFlip", "Resize", "build_pipeline"]
+           "ImageToTensor", "LoadAnnotations", "LoadImageFromFile",
+           "MultiScaleFlipAug", "Normalize", "Pad", "RandomFlip", "Resize",
+           "build_pipeline"]

@@ -1,9 +1,10 @@
-"""The train pipeline's steps in numpy, without cv2 (counterparts of the
-steps of ``bonai_tpu/datasets/pipelines/transforms.py`` that the BONAI
-and synthetic train configs use): ``LoadImageFromFile`` (PNG through
-``utils/png.py``, with the decoded-image cache), ``LoadAnnotations``,
-``Resize``, ``RandomFlip``, ``Normalize``, ``Pad``, ``DefaultFormatBundle``
-and ``Collect``.
+"""The train and test pipelines' steps in numpy, without cv2
+(counterparts of the steps of ``bonai_tpu/datasets/pipelines/
+transforms.py`` that the BONAI and synthetic configs use):
+``LoadImageFromFile`` (PNG through ``utils/png.py``, with the
+decoded-image cache), ``LoadAnnotations``, ``Resize``, ``RandomFlip``,
+``Normalize``, ``Pad``, ``DefaultFormatBundle``, ``ImageToTensor``,
+``Collect`` and ``MultiScaleFlipAug``.
 
 Masks travel as polygons (lists of ``(K, 2)`` float32 arrays per instance
 part) until the loader packs them, so the geometric steps are exact.
@@ -112,13 +113,18 @@ class LoadAnnotations:
 
     @staticmethod
     def _polys(segmentation):
-        if isinstance(segmentation, dict) or any(
-                isinstance(part, dict) for part in segmentation):
-            raise NotImplementedError(
-                "RLE segmentations are traced into polygons by the test "
-                "CLI's contour tracer, ROADMAP.md item A3d")
+        """A COCO ``segmentation`` as polygons: an RLE (the whole
+        segmentation or one part of it) is decoded and traced into the
+        evaluator's contours, so the geometric steps stay exact."""
+        from ...evaluation.bonai_eval import masks_to_polygons
+        from ..mask_utils import decode_mask
+        if isinstance(segmentation, dict):
+            return masks_to_polygons(decode_mask(segmentation))
         out = []
         for part in segmentation:
+            if isinstance(part, dict):
+                out.extend(masks_to_polygons(decode_mask(part)))
+                continue
             arr = np.asarray(part, np.float32).reshape(-1, 2)
             if arr.shape[0] >= 3:
                 out.append(arr)
@@ -339,6 +345,17 @@ class DefaultFormatBundle:
 
 
 @PIPELINES.register_module()
+class ImageToTensor:
+    """No-op kept for config parity (the loader stacks the images)."""
+
+    def __init__(self, keys=("img",)):
+        self.keys = keys
+
+    def __call__(self, results):
+        return results
+
+
+@PIPELINES.register_module()
 class Collect:
     """Selects ``keys`` and the meta keys; a missing key is warned about
     and dropped, as in the JAX package."""
@@ -370,3 +387,44 @@ class Collect:
                 out[k] = results[k]
         out["img"] = results["img"]
         return out
+
+
+@PIPELINES.register_module()
+class MultiScaleFlipAug:
+    """The test pipeline's wrapper: runs ``transforms`` once, on the base
+    view, the first ``img_scale`` unflipped, as the JAX step does.  The
+    views it declares (:meth:`tta_cfg`) are test-time augmentation,
+    ROADMAP.md item A5."""
+
+    def __init__(self, transforms, img_scale=None, flip=False,
+                 flip_direction="horizontal", scale_factors=None):
+        self.transforms = build_pipeline(transforms)
+        scales = img_scale if isinstance(img_scale, (list, tuple)) and \
+            img_scale and isinstance(img_scale[0], (list, tuple)) \
+            else ([img_scale] if img_scale else [])
+        self.img_scales = [tuple(s) for s in scales]
+        self.img_scale = self.img_scales[0] if self.img_scales else None
+        self.flip = flip
+        self.flip_direction = (list(flip_direction)
+                               if isinstance(flip_direction, (list, tuple))
+                               else [flip_direction])
+        self.scale_factors = scale_factors
+
+    def tta_cfg(self):
+        """The declared views: relative scales, flip and directions."""
+        if self.scale_factors is not None:
+            factors = list(self.scale_factors)
+        elif len(self.img_scales) > 1:
+            base = max(s[0] * s[1] for s in self.img_scales) ** 0.5
+            factors = sorted({round((s[0] * s[1]) ** 0.5 / base, 4)
+                              for s in self.img_scales}, reverse=True)
+        else:
+            factors = [1.0]
+        return dict(scales=factors, flip=self.flip,
+                    flip_directions=self.flip_direction)
+
+    def __call__(self, results):
+        results["scale"] = tuple(self.img_scale) if self.img_scale else None
+        results["flip"] = False
+        results["flip_direction"] = None
+        return self.transforms(results)

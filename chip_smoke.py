@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the bonai_tpu_torch serving and training paths on one NVIDIA GPU
-and checks them.
+"""Drives the bonai_tpu_torch serving, training and test-and-score paths on
+one NVIDIA GPU and checks them.
 
 Run from the repository root, on a machine with a CUDA device and the CUDA
 toolkit:
@@ -57,14 +57,28 @@ Phases, each of which must pass:
    ``train_detector(cfg, None, ...)`` then trains that config (its
    ``frozen_stages=-1``, bfloat16 autocast) 6 steps from the files.  Every
    loss must be finite, every trainable tensor (the stem and ``layer1``
-   included) must move and no BatchNorm statistic may.
-6. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+   included) must move and no BatchNorm statistic may.  Its final
+   checkpoint goes on to the eval phase.
+6. eval: test and score that checkpoint.  The generator writes the first
+   val scene of the acceptance set (seed 77, 2048^2) and its four 1024^2
+   crops; the test CLI (``bonai_tpu_torch.tools.bonai_test``, ``--city
+   config``, on the card) runs the config on the first crop to a pkl
+   (``--max-images 1``: the 6-step weights leave about 1750 detections a
+   crop to trace and overlay), and the evaluation CLI scores it per crop
+   and ``--merge``d into the scene; ``run_inference`` is timed warm over
+   the four crops.  The
+   results must be well formed, P/R/F1 finite within [0, 1] and aEPE
+   finite (the weights have had 6 steps); the inference ms per tile and
+   the seconds of pkl -> records and of F1 are printed.  The planted
+   check: the crop json's own roofs as results (full-size masks, score 1,
+   the GT offsets) must score ``PLANTED``.
+7. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
-Every launch count is zeroed just before each serve, train, data and bench
-run and read just after: the route's forward kernel must launch 3 times per
-batch or step, its backward kernel 3 times per training step, no other
-kernel at all; the bench must launch B5.
+Every launch count is zeroed just before each serve, train, data, eval and
+bench run and read just after: the route's forward kernel must launch 3
+times per batch or step, its backward kernel 3 times per training step, no
+other kernel at all; the bench must launch B5.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -91,6 +105,10 @@ BATCH, SIZE, C = 2, 1024, 256
 SERVE_BRANCHES = (("bbox", 6000, 7), ("mask", 4000, 14), ("offset", 4000, 7))
 TRAIN_BRANCHES = (("bbox", 2048, 7), ("mask", 512, 14), ("offset", 512, 7))
 STRIDES = [4, 8, 16, 32]
+# TP/FP/FN of the planted check: the first val scene's crop json scored as
+# its own results (tests/test_torch_port_eval.py asserts the same counts)
+PLANTED = {"roof": (24, 1, 1), "footprint": (25, 0, 0)}
+SCORED_CROPS = 1            # of the eval phase's 4 (see eval_phase)
 
 
 def _gpu_name_and_power():
@@ -890,9 +908,172 @@ def data_phase(steps=6, tiles=8):
             list(model.parameters())):
         raise AssertionError(f"not moved: {still[:4]}; BatchNorm statistics "
                              f"moved: {stats_moved[:4]}")
-    shutil.rmtree(work_dir, ignore_errors=True)
+    from bonai_tpu_torch.engine import latest_checkpoint
     return {"fwd": counts[fwd_name], "bwd": counts[bwd_name],
-            "step_ms": median, "cold": cold, "warm": warm}
+            "step_ms": median, "cold": cold, "warm": warm,
+            "checkpoint": latest_checkpoint(work_dir), "work_dir": work_dir}
+
+
+def _planted_pkl(ann_file, path):
+    """A results pkl built from a crop json itself: per image its roofs
+    filled into full-size masks (RLE), its roof boxes with score 1 and its
+    GT offsets."""
+    import pickle
+    import numpy as np
+    from bonai_tpu_torch.datasets import mask_utils
+    with open(ann_file) as f:
+        ds = json.load(f)
+    results, names = [], []
+    for im in ds["images"]:
+        anns = [a for a in ds["annotations"] if a["image_id"] == im["id"]]
+        dets = np.array([[a["bbox"][0], a["bbox"][1],
+                          a["bbox"][0] + a["bbox"][2],
+                          a["bbox"][1] + a["bbox"][3], 1.0] for a in anns],
+                        np.float32).reshape(-1, 5)
+        rles = [mask_utils.encode_mask(mask_utils.poly_to_mask(
+            a["segmentation"], im["height"], im["width"])) for a in anns]
+        offsets = np.array([a["offset"] for a in anns],
+                           np.float32).reshape(-1, 2)
+        results.append(([dets], [rles], offsets))
+        names.append(im["file_name"])
+    with open(path, "wb") as f:
+        pickle.dump(dict(results=results, filenames=names), f)
+
+
+def _scores(summary):
+    """The evaluation CLI's summary must hold finite P/R/F1 within [0, 1]
+    and a finite aEPE (-1 when nothing matched)."""
+    import math
+    for name in ("roof", "footprint"):
+        for k in ("precision", "recall", "f1"):
+            v = summary[f"{name}_{k}"]
+            if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+                raise AssertionError(f"{name}_{k} = {v}")
+    if not math.isfinite(summary["aEPE"]):
+        raise AssertionError(f"aEPE = {summary['aEPE']}")
+    return (f"roof P/R/F1 {summary['roof_precision']:.4f}/"
+            f"{summary['roof_recall']:.4f}/{summary['roof_f1']:.4f} (TP/FP/FN "
+            f"{summary['roof_tp']}/{summary['roof_fp']}/"
+            f"{summary['roof_fn']}), "
+            f"footprint {summary['footprint_precision']:.4f}/"
+            f"{summary['footprint_recall']:.4f}/{summary['footprint_f1']:.4f} "
+            f"({summary['footprint_tp']}/{summary['footprint_fp']}/"
+            f"{summary['footprint_fn']}), aEPE {summary['aEPE']:.4f} px "
+            f"({summary['matched']} matched)")
+
+
+def eval_phase(checkpoint, work_dir):
+    """Test and score the data phase's checkpoint: the first val scene of
+    the acceptance set (seed 77, 2048^2, four 1024^2 crops) through the
+    test CLI on the card, then the evaluation CLI per crop and merged, and
+    the planted check.  Removes ``work_dir`` (the checkpoint's) at the end.
+    Returns B1's launches in the test CLI's run."""
+    import pickle
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import init_detector, run_inference
+    from bonai_tpu_torch.datasets import build_dataloader, build_dataset
+    from bonai_tpu_torch.evaluation import results_to_csv_records
+    from bonai_tpu_torch.tools import bonai_evaluation, bonai_test
+    from bonai_tpu_torch.tools.make_synthetic_bonai import write_scene_split
+    _, fwd_name, _ = ROUTES["block"]
+
+    t0 = time.perf_counter()
+    write_scene_split(DATA_DIR, "val", 1, 77, scene_size=2048, crop=SIZE)
+    gen_s = time.perf_counter() - t0
+    crops = os.path.join(DATA_DIR, "val", "val.json")
+    scenes = os.path.join(DATA_DIR, "val_originals", "val_originals.json")
+    cfg = _synth_config()
+    cfg.data.test.ann_file = crops
+    cfg.data.test.img_prefix = os.path.join(DATA_DIR, "val", "images") + "/"
+    out_dir = os.path.join(REPO, "build", "chip_smoke_eval")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg_path = os.path.join(out_dir, os.path.basename(SYNTH_CONFIG))
+    cfg.dump(cfg_path)
+    pkl = os.path.join(out_dir, "results.pkl")
+
+    # the 6-step weights leave about 1750 detections a crop at or above
+    # 0.4 (chip_smoke, PR 7): tracing and overlaying them takes about 30 s
+    # a crop on the host, so the test CLI runs and scores one crop
+    _zero_counts()
+    t0 = time.perf_counter()
+    payload = bonai_test.main([cfg_path, checkpoint, "--out", pkl,
+                               "--city", "config", "--max-images",
+                               str(SCORED_CROPS)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = _counts()
+    results, names = payload["results"], payload["filenames"]
+    batch = cfg.data.samples_per_gpu
+    batches = -(-SCORED_CROPS // batch)
+    if len(results) != SCORED_CROPS or len(names) != 4:
+        raise AssertionError(f"test CLI: {len(results)} results, "
+                             f"{len(names)} file names")
+    _check_counts(counts, {fwd_name: 3 * batches},
+                  f"test CLI, {SCORED_CROPS} of {len(names)} tiles in "
+                  f"{batches} batch(es)")
+    for res in results:
+        boxes, masks, offsets = res[0][0], res[1][0], res[2]
+        if not (boxes.shape[1:] == (5,) and len(masks) == len(boxes)
+                == len(offsets) and np.isfinite(boxes).all()
+                and np.isfinite(offsets).all()
+                and all(m["size"] == [SIZE, SIZE] for m in masks)):
+            raise AssertionError("the test CLI's results are malformed")
+    score_thr = 0.4
+    n_dets = [len(r[0][0]) for r in results]
+    n_above = sum(int((r[0][0][:, 4] >= score_thr).sum()) for r in results)
+
+    # warm: the model and the loader again, run_inference timed alone
+    model = init_detector(cfg, checkpoint, dtype=torch.bfloat16)
+    loader = build_dataloader(build_dataset(dict(cfg.data.test,
+                                                 test_mode=True)),
+                              samples_per_gpu=batch, shuffle=False,
+                              train=False)
+    t0 = time.perf_counter()
+    run_inference(model, loader, progress=False)
+    torch.cuda.synchronize()
+    infer_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+    loader.close()
+    del model
+    t0 = time.perf_counter()
+    records = results_to_csv_records(results, names, score_thr=score_thr)
+    records_s = time.perf_counter() - t0
+    print(f"eval: generator {gen_s:.1f} s for 1 val scene (seed 77, 2048^2, "
+          f"{len(names)} crops); test CLI {cli_s:.1f} s (model build, "
+          f"--max-images {SCORED_CROPS}: {batches} batch of {batch}, bf16); "
+          f"launches {counts}", flush=True)
+    print(f"eval: detections at or above score_thr {score_thr}: {n_above} "
+          f"(of {sum(n_dets)} on the {SCORED_CROPS} scored crop(s))",
+          flush=True)
+    print(f"eval: inference {infer_ms:.1f} ms per 1024^2 tile "
+          f"(run_inference warm over the {len(names)} crops: loader, "
+          f"simple_test, paste + RLE)", flush=True)
+    print(f"eval: pkl -> records {records_s:.2f} s "
+          f"({sum(map(len, records.values()))} records)", flush=True)
+
+    for what, argv in (("per crop", ["--gt-json", crops]),
+                       ("merged", ["--merge", "--gt-json", scenes])):
+        t0 = time.perf_counter()
+        summary = bonai_evaluation.main([pkl, *argv])
+        eval_s = time.perf_counter() - t0
+        print(f"eval: {what}: {_scores(summary)}; evaluation CLI "
+              f"{eval_s:.2f} s (F1 about {eval_s - records_s:.2f} s of it)",
+              flush=True)
+
+    planted = os.path.join(out_dir, "planted.pkl")
+    _planted_pkl(crops, planted)
+    summary = bonai_evaluation.main([planted, "--gt-json", crops])
+    got = {name: tuple(summary[f"{name}_{k}"] for k in ("tp", "fp", "fn"))
+           for name in ("roof", "footprint")}
+    print(f"eval: planted (the crop json's own roofs): {_scores(summary)}",
+          flush=True)
+    if got != PLANTED or summary["aEPE"] != 0.0:
+        raise AssertionError(f"planted check: {got}, aEPE {summary['aEPE']}"
+                             f", expected {PLANTED}, aEPE 0")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return counts[fwd_name]
 
 
 def bench_phase():
@@ -958,6 +1139,7 @@ def main():
     train = {impl: train_phase(impl, steps)
              for impl, steps in (("block", 6), ("pallas", 4))}
     files = data_phase()
+    test_cli_launches = eval_phase(files["checkpoint"], files["work_dir"])
     print(f"compare train: from files {files['step_ms']:.1f} ms a step vs "
           f"the repeated synthetic batch {train['block']['step_ms']:.1f} ms "
           f"(same route, this run); the loader gives "
@@ -994,7 +1176,8 @@ def main():
     # B3 and B4 (the strip route) run on B1's and B2's kernels, B5 on B1's
     entries = [
         forward("roi_align_block_fwd", "block",
-                train_from_files_launches=files["fwd"]),
+                train_from_files_launches=files["fwd"],
+                test_cli_launches=test_cli_launches),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"]),

@@ -16,18 +16,20 @@ from bonai_tpu.datasets.pipelines import build_pipeline
 from bonai_tpu_torch import Config
 from bonai_tpu_torch.apis import results_to_host
 from bonai_tpu_torch.core.masks import crop_rle
-from bonai_tpu_torch.datasets.pipelines import InferencePipeline
+from bonai_tpu_torch.datasets.pipelines import \
+    build_pipeline as port_build_pipeline
 from torch_port_common import CONFIG
 
 STD = 57.12          # the smallest std of img_norm_cfg
 
 
-def _jax_pipeline(cfg, img):
+def _pipeline(build, cfg, img):
+    """The test pipeline without ``LoadImageFromFile`` on an in-memory
+    image, as ``inference_detector`` runs it in both packages."""
     steps = [dict(s) for s in cfg.data.test.pipeline
              if s["type"] != "LoadImageFromFile"]
-    out = build_pipeline(steps)({"img": img, "img_shape": img.shape[:2],
-                                 "ori_shape": img.shape[:2],
-                                 "scale_factor": 1.0})
+    out = build(steps)({"img": img, "img_shape": img.shape[:2],
+                        "ori_shape": img.shape[:2], "scale_factor": 1.0})
     return out
 
 
@@ -35,8 +37,8 @@ def _jax_pipeline(cfg, img):
 def test_pipeline_matches_jax(shape):
     cfg = Config.fromfile(CONFIG)
     img = np.random.RandomState(0).randint(0, 256, shape + (3,), np.uint8)
-    ref = _jax_pipeline(cfg, img)
-    got = InferencePipeline(cfg.data.test.pipeline)(img)
+    ref = _pipeline(build_pipeline, cfg, img)
+    got = _pipeline(port_build_pipeline, cfg, img)
     assert got["img"].shape == ref["img"].shape
     assert tuple(got["img_shape"]) == tuple(ref["img_shape"])
     np.testing.assert_allclose(got["scale_factor"], ref["scale_factor"])

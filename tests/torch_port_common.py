@@ -209,3 +209,34 @@ def synth_train_cfg(data_dir, size=128, max_gt=64):
     cfg.data.max_gt = max_gt
     cfg.log_config.interval = 1
     return cfg
+
+
+RUN2X = osp.join(ROOT, "data", "synth_run2x")
+
+
+def run2x_records():
+    """The JAX 2x run's merged predictions
+    (``data/synth_run2x/merged_r5_{roof,footprint}.csv``) as evaluator
+    records, keyed by scene stem: the roof and footprint polygons of each
+    row, its confidence, and its offset recovered as the roof's first
+    vertex minus the footprint's."""
+    from bonai_tpu_torch.evaluation.bonai_eval import load_csv
+    roofs = load_csv(osp.join(RUN2X, "merged_r5_roof.csv"))
+    feet = load_csv(osp.join(RUN2X, "merged_r5_footprint.csv"))
+    assert roofs.keys() == feet.keys()
+    out = {}
+    for stem, rs in roofs.items():
+        fs = feet[stem]
+        assert len(rs) == len(fs)
+        out[stem] = [dict(polygon=r["polygon"],
+                          footprint_polygon=f["polygon"], score=r["score"],
+                          offset=r["polygon"][0] - f["polygon"][0])
+                     for r, f in zip(rs, fs)]
+    return out
+
+
+def stem_keys(records):
+    """Records keyed by file name -> keyed by its stem (the evaluation
+    CLI's ``--merge`` rule)."""
+    return {k.rsplit(".", 1)[0] if "." in k else k: v
+            for k, v in records.items()}
