@@ -12,9 +12,16 @@ batches the caller gives: the batch contract of
 ``gt_offsets``) as numpy arrays or tensors.  It logs ``train_log.jsonl``
 rows as the JAX loop does (plus ``data_time``, the host's wait for the
 next batch), checkpoints at the end of every
-``checkpoint_config.interval`` epochs and at the end, and resumes from a
+``checkpoint_config.interval`` epochs (keeping the newest
+``checkpoint_config.max_keep_ckpts``) and at the end, and resumes from a
 checkpoint.  Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"``.
+
+The host-RSS watchdog of the JAX loop: every log row carries the
+process's resident set (``host_rss_gb``); past ``BONAI_MAX_RSS_GB`` (100 by
+default) the loop writes a checkpoint with ``preempt_rss`` in its meta and
+exits with code 75, which ``tools/train_chunked.py`` answers by resuming
+in a fresh process.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import json
 import logging
 import os
 import os.path as osp
+import sys
 import time
 
 import torch
@@ -49,6 +57,19 @@ def _device_normalize(cfg):
         if tr.get("type") == "Normalize" and tr.get("device"):
             return dict(mean=tr["mean"], std=tr["std"])
     return None
+
+
+def _host_rss_gb():
+    """The process's resident set in GB (``VmRSS`` of
+    ``/proc/self/status``; 0.0 where that file is missing)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) / 1e6
+    except OSError:
+        pass
+    return 0.0
 
 
 def build_trainer(cfg, device, seed=0, steps_per_epoch=1):
@@ -163,16 +184,23 @@ def _train(cfg, batches, work_dir, seed, max_steps, device, resume_from,
     draw = generator_draws(generator)
     log_interval = log_interval or cfg.get("log_config", {}).get("interval",
                                                                  10)
-    ckpt_interval = cfg.get("checkpoint_config", {}).get("interval", 1)
-    provenance = provenance_meta(cfg)
+    ckpt_cfg = cfg.get("checkpoint_config", {})
+    ckpt_interval = ckpt_cfg.get("interval", 1)
+    # the reference CheckpointHook's max_keep_ckpts: -1/None keeps all
+    max_keep = ckpt_cfg.get("max_keep_ckpts")
+    if max_keep is not None and max_keep <= 0:
+        max_keep = None
+    max_rss_gb = float(os.environ.get("BONAI_MAX_RSS_GB", "100"))
+    provenance = provenance_meta(cfg, getattr(
+        getattr(batches, "dataset", None), "CLASSES", None))
     log_path = osp.join(work_dir, "train_log.jsonl")
     history = []
     t0 = time.time()
     data_time = 0.0
 
-    def save(**meta):
+    def save(max_keep=None, **meta):
         return save_checkpoint(work_dir, step, model, optimizer,
-                               dict(meta, **provenance), generator)
+                               dict(meta, **provenance), generator, max_keep)
 
     for epoch in range(step // steps_per_epoch, cfg.get("total_epochs", 12)):
         if hasattr(batches, "set_epoch"):
@@ -190,21 +218,49 @@ def _train(cfg, batches, work_dir, seed, max_steps, device, resume_from,
             if step % log_interval == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 dt = (time.time() - t0) / log_interval
-                rec = dict(epoch=epoch + 1, iter=step, time=dt,
-                           data_time=data_time / log_interval, **metrics)
+                rss = _host_rss_gb()
+                rec = dict(epoch=epoch + 1, iter=step, time=round(dt, 3),
+                           data_time=round(data_time / log_interval, 3),
+                           host_rss_gb=round(rss, 2),
+                           **{k: round(v, 4) for k, v in metrics.items()})
                 t0, data_time = time.time(), 0.0
                 if getattr(batches, "truncated_samples", 0):
                     rec["gt_truncated"] = batches.truncated_instances
                     rec["gt_truncated_samples"] = batches.truncated_samples
                 history.append(rec)
-                logger.info("Epoch [%d] iter %d %s", epoch + 1, step,
+                logger.info("Epoch [%d][%d/%d] %s", epoch + 1,
+                            step - epoch * steps_per_epoch, steps_per_epoch,
                             " ".join(f"{k}: {v:.4f}"
                                      for k, v in metrics.items()))
                 with open(log_path, "a") as f:
                     f.write(json.dumps(rec) + "\n")
+                if rss > max_rss_gb:
+                    logger.warning(
+                        "host RSS %.1f GB > BONAI_MAX_RSS_GB=%.0f; "
+                        "checkpointing and exiting 75 for a clean restart",
+                        rss, max_rss_gb)
+                    save(epoch=epoch + 1, preempt_rss=rss)
+                    _log_run_end(device)
+                    sys.exit(75)
         if max_steps is not None and step >= max_steps:
             break
         if (epoch + 1) % ckpt_interval == 0:
-            save(epoch=epoch + 1)
+            save(max_keep, epoch=epoch + 1)
     save(final=True)
+    _log_run_end(device)
     return model, history
+
+
+def _log_run_end(device):
+    """Log the card's peak memory and this process's RoIAlign kernel
+    launches (each wrapper's count; a restarted run logs its own)."""
+    if device.type != "cuda":
+        return
+    from .. import ops
+    launches = {f.__name__: f.launches for f in (
+        ops.roi_align_block, ops.roi_align_block_backward,
+        ops.roi_align_fused, ops.roi_align_fused_backward)}
+    logger.info("peak device memory %.2f GiB (max_memory_allocated); "
+                "kernel launches %s",
+                torch.cuda.max_memory_allocated(device) / 2 ** 30,
+                json.dumps(launches))

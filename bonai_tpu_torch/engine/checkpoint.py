@@ -22,9 +22,9 @@ VERSION = "0.1.0"
 _ROOT = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
 
 
-def provenance_meta(cfg=None):
-    """The package version with the git revision and the config text, as
-    mmdet checkpoints carry them."""
+def provenance_meta(cfg=None, classes=None):
+    """The package version with the git revision, the config text and the
+    dataset's classes, as mmdet checkpoints carry them."""
     try:
         git = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
                              cwd=_ROOT, capture_output=True, text=True,
@@ -35,6 +35,8 @@ def provenance_meta(cfg=None):
             else VERSION}
     if cfg is not None:
         meta["config"] = getattr(cfg, "pretty_text", str(cfg))
+    if classes is not None:
+        meta["CLASSES"] = list(classes)
     return meta
 
 
@@ -43,9 +45,16 @@ def _dir(work_dir):
 
 
 def save_checkpoint(work_dir, step, model, optimizer, meta=None,
-                    generator=None):
+                    generator=None, max_keep=None):
     """Write ``step_<step>.pth`` under ``work_dir/checkpoints``; returns its
-    path."""
+    path.
+
+    ``max_keep`` is the reference ``CheckpointHook``'s ``max_keep_ckpts``:
+    after the save, the finished checkpoints older than the newest
+    ``max_keep`` are deleted, but never the one just written (``None`` or
+    ``<= 0`` keeps all).  The train loop passes it at epoch ends only, so
+    its final and preemption checkpoints never prune.
+    """
     os.makedirs(_dir(work_dir), exist_ok=True)
     path = osp.join(_dir(work_dir), f"step_{int(step)}.pth")
     payload = {"meta": dict(meta or {}, step=int(step)),
@@ -57,7 +66,20 @@ def save_checkpoint(work_dir, step, model, optimizer, meta=None,
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+    if max_keep and max_keep > 0:
+        steps = sorted(_finished_steps(_dir(work_dir)))
+        keep = set(steps[-max_keep:]) | {int(step)}
+        for s in steps:
+            if s not in keep:
+                os.remove(osp.join(_dir(work_dir), f"step_{s}.pth"))
     return path
+
+
+def _finished_steps(root):
+    """Step numbers of the finished checkpoints under ``root`` (a save
+    killed midway leaves only its ``.tmp``)."""
+    return [int(m[1]) for f in os.listdir(root)
+            if (m := re.fullmatch(r"step_(\d+)\.pth", f))]
 
 
 def load_checkpoint(path, model, optimizer=None, generator=None):
@@ -77,6 +99,5 @@ def latest_checkpoint(work_dir):
     root = _dir(work_dir)
     if not osp.isdir(root):
         return None
-    steps = [int(m[1]) for f in os.listdir(root)
-             if (m := re.fullmatch(r"step_(\d+)\.pth", f))]
+    steps = _finished_steps(root)
     return osp.join(root, f"step_{max(steps)}.pth") if steps else None

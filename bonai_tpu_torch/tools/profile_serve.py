@@ -1,7 +1,8 @@
 """Where the serving time goes on the GPU.
 
 Runs ``simple_test`` of the LOFT-FOA R50-FPN config (1024^2, B=2,
-bfloat16, seeded random weights) and prints
+bfloat16, seeded random weights, or a trained ``.pth`` given with
+``--checkpoint``, loaded as the test CLI loads it) and prints
 
 - each stage's time (host clock, the device synchronised at each stage's
   start and end): backbone+FPN, RPN and proposals (with its NMS), the
@@ -14,7 +15,8 @@ bfloat16, seeded random weights) and prints
 
 Needs a CUDA device.  Run from the repository root:
 
-    python -m bonai_tpu_torch.tools.profile_serve [--roi-align-impl pallas]
+    python -m bonai_tpu_torch.tools.profile_serve [--roi-align-impl pallas] \
+        [--checkpoint PATH]
 """
 
 from __future__ import annotations
@@ -115,13 +117,15 @@ def main(argv=None):
                                      "goes on the GPU.")
     parser.add_argument("--roi-align-impl", default=None,
                         help="RoIAlign route (default: the config's)")
+    parser.add_argument("--checkpoint", default=None,
+                        help="mmdet .pth to load (default: random weights)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     cfg = Config.fromfile(CONFIG)
     if args.roi_align_impl:
         cfg.model.roi_align_impl = args.roi_align_impl
-    model = init_detector(cfg, seed=0)
+    model = init_detector(cfg, args.checkpoint, seed=0)
     r = np.random.RandomState(0)
     imgs = [r.randint(0, 256, (1024, 1024, 3), np.uint8) for _ in range(2)]
     batch = prepare_batch(model, imgs)[:3]
@@ -129,7 +133,8 @@ def main(argv=None):
     wall = wall_ms(model, batch)
     stages, staged = stage_times(model, batch)
     print(f"simple_test 1024^2 B=2 bf16, roi_align_impl="
-          f"{model.roi_align_impl}: {wall:.1f} ms a call; stage "
+          f"{model.roi_align_impl}, weights "
+          f"{args.checkpoint or 'random (seed 0)'}: {wall:.1f} ms a call; stage "
           f"times (synchronised at each stage), {staged:.1f} ms a call:")
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {name:28s} {ms:9.2f} ms  {100 * ms / staged:5.1f} %")

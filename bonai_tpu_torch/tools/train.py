@@ -5,12 +5,15 @@ On the card, from the repository root:
     python -m bonai_tpu_torch.tools.train \\
         configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py \\
         [--work-dir DIR] [--resume-from CKPT] [--seed N] [--max-steps N] \\
-        [--options k=v ...] [--device cpu]
+        [--options k=v ...] [--deterministic] [--device cpu]
 
 It trains on the config's ``data.train`` through the port's loader,
 writes the config, a log file, ``train_log.jsonl`` and ``checkpoints/``
 into the work dir (``work_dirs/<config name>`` by default), and runs on the
-GPU unless ``--device`` names another device.
+GPU unless ``--device`` names another device.  ``--deterministic`` runs
+under ``torch.use_deterministic_algorithms(True)``.  Past
+``BONAI_MAX_RSS_GB`` of host RSS it checkpoints and exits with code 75
+(``train_chunked`` resumes it).
 """
 
 from __future__ import annotations
@@ -48,12 +51,18 @@ def main(argv=None):
     parser.add_argument("--resume-from", default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--deterministic", action="store_true")
     parser.add_argument("--options", nargs="+", default=None,
                         help="config overrides k=v (dotted keys)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
     args = parser.parse_args(argv)
 
+    if args.deterministic:
+        # cuBLAS needs a fixed workspace before its first call
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.benchmark = False
     cfg = Config.fromfile(args.config)
     if args.options:
         cfg.merge_from_dict(parse_options(args.options))

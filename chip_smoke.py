@@ -72,13 +72,25 @@ Phases, each of which must pass:
    the seconds of pkl -> records and of F1 are printed.  The planted
    check: the crop json's own roofs as results (full-size masks, score 1,
    the GT offsets) must score ``PLANTED``.
-7. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+7. resume: chunked training through the host-RSS watchdog.  On the data
+   phase's 8 tiles (4 steps an epoch) in process loader mode, ``python -m
+   bonai_tpu_torch.tools.train_chunked`` with ``BONAI_MAX_RSS_GB`` below
+   any process's RSS trains the 2x synthetic recipe 6 steps: the train CLI
+   checkpoints and exits 75 at step 4 (its first log row, the first
+   epoch's end), the wrapper resumes it once, and it ends at step 6.  An
+   unbroken run of the same 6 steps logs every step; both run under
+   ``--deterministic``, and the chunked run's logged losses and final
+   weights must equal the unbroken run's to the bit.  ``host_rss_gb`` is
+   printed at the start and the end.
+8. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
 bench run and read just after: the route's forward kernel must launch 3
 times per batch or step, its backward kernel 3 times per training step, no
-other kernel at all; the bench must launch B5.
+other kernel at all; the bench must launch B5.  The resume phase's runs are
+processes of their own, which start from zero and log their counts; their
+sum must be 3 launches of each kernel a step.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -1076,6 +1088,116 @@ def eval_phase(checkpoint, work_dir):
     return counts[fwd_name]
 
 
+RESUME_STEPS = 6        # 4 steps an epoch over the data phase's 8 tiles
+RESUME_LOG = 4          # the watchdog checks at the first epoch's end
+
+
+def _train_cli(module, work_dir, cfg_path, *args, env=None):
+    """``python -m bonai_tpu_torch.tools.<module>`` to ``RESUME_STEPS`` steps
+    (``train_chunked`` takes the work dir as its second argument); returns
+    the finished process with its output."""
+    where = [work_dir] if module == "train_chunked" else ["--work-dir",
+                                                          work_dir]
+    proc = subprocess.run(
+        [sys.executable, "-m", f"bonai_tpu_torch.tools.{module}", cfg_path,
+         *where, "--max-steps", str(RESUME_STEPS), *args], cwd=REPO,
+        capture_output=True, text=True, env=dict(os.environ, **(env or {})))
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc
+
+
+def _run_end(proc, work_dir):
+    """The run's log rows, final checkpoint and summed kernel launches (one
+    ``kernel launches`` log line per process)."""
+    import torch
+    from bonai_tpu_torch.engine import latest_checkpoint
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ckpt = torch.load(latest_checkpoint(work_dir), map_location="cpu",
+                      weights_only=True)
+    launches = {}
+    for line in proc.stderr.splitlines():
+        if "kernel launches " in line:
+            for k, v in json.loads(line.split("kernel launches ")[1]).items():
+                launches[k] = launches.get(k, 0) + v
+    return rows, ckpt, launches
+
+
+def _max_diff(a, b):
+    return max(float((x.float() - b["state_dict"][k].float()).abs().max())
+               for k, x in a["state_dict"].items())
+
+
+def resume_phase():
+    """Chunked training through the watchdog: ``train_chunked`` with
+    ``BONAI_MAX_RSS_GB`` below any process's RSS trains the 2x synthetic
+    recipe on the data phase's 8 tiles in process loader mode; the run
+    checkpoints and exits 75 at step 4 (the first epoch's end, its first
+    log row), the wrapper resumes it once and it ends at step 6.  Its
+    logged losses and final weights must equal an unbroken run's of the
+    same steps: both run under ``--deterministic``, so to the bit.
+    Returns the summed kernel launches of the chunked run."""
+    cfg = _synth_config()
+    cfg.data.loader_mode = "process"
+    cfg.log_config.interval = RESUME_LOG
+    out = os.path.join(REPO, "build", "chip_smoke_resume")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cfg_path = os.path.join(out, os.path.basename(SYNTH_CONFIG))
+    cfg.dump(cfg_path)
+    whole_dir, chunked_dir = (os.path.join(out, d)
+                              for d in ("unbroken", "chunked"))
+    t0 = time.perf_counter()
+    whole = _train_cli("train", whole_dir, cfg_path, "--deterministic",
+                       "--options", "log_config.interval=1")
+    t1 = time.perf_counter()
+    chunked = _train_cli("train_chunked", chunked_dir, cfg_path,
+                         "--deterministic", env={"BONAI_MAX_RSS_GB": "0.001"})
+    t2 = time.perf_counter()
+    lines = chunked.stdout.splitlines()
+    restarts = sum("RSS-limit restart (rc=75)" in x for x in lines)
+    if restarts != 1 or lines[-1] != "[train_chunked] complete":
+        raise AssertionError(f"train_chunked: {restarts} restarts, last line "
+                             f"{lines[-1]!r}")
+    rows_w, ckpt_w, _ = _run_end(whole, whole_dir)
+    rows_c, ckpt_c, launches = _run_end(chunked, chunked_dir)
+    import torch
+    preempt = torch.load(os.path.join(chunked_dir, "checkpoints",
+                                      f"step_{RESUME_LOG}.pth"),
+                         map_location="cpu", weights_only=True)["meta"]
+    print(f"resume: train_chunked, {RESUME_STEPS} steps of "
+          f"{SYNTH_CONFIG[len(REPO) + 1:]} (process loader, "
+          f"--deterministic), BONAI_MAX_RSS_GB=0.001: exit 75 at step "
+          f"{preempt['step']} (the end of epoch {preempt['epoch']}), "
+          f"{restarts} restart, complete at step {ckpt_c['step']} in "
+          f"{t2 - t1:.1f} s; unbroken run {t1 - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    print(f"resume: host_rss_gb of the unbroken run at step "
+          f"{rows_w[0]['iter']} (start) {rows_w[0]['host_rss_gb']}, at step "
+          f"{rows_w[-1]['iter']} (end) {rows_w[-1]['host_rss_gb']}; the "
+          f"chunked run's first process at step {rows_c[0]['iter']} "
+          f"{rows_c[0]['host_rss_gb']} (preempt_rss "
+          f"{preempt['preempt_rss']:.3f})", flush=True)
+    keys = [k for k in rows_c[0] if k.startswith("loss")]
+    same = {r["iter"]: r for r in rows_w}
+    for rc in rows_c:
+        rw = same[rc["iter"]]
+        print(f"resume: step {rc['iter']} unbroken / chunked " + " ".join(
+            f"{k} {rw[k]:.4f}/{rc[k]:.4f}" for k in keys), flush=True)
+    diff = _max_diff(ckpt_c, ckpt_w)
+    print(f"resume: final weights, chunked vs unbroken: max abs diff {diff!r}"
+          f" over {len(ckpt_w['state_dict'])} tensors", flush=True)
+    if ([r["iter"] for r in rows_c] != [RESUME_LOG]
+            or any(rc[k] != same[rc["iter"]][k] for rc in rows_c
+                   for k in keys) or diff != 0.0
+            or not ckpt_c["step"] == ckpt_w["step"] == RESUME_STEPS):
+        raise AssertionError("the chunked run differs from the unbroken one")
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -1140,6 +1262,12 @@ def main():
              for impl, steps in (("block", 6), ("pallas", 4))}
     files = data_phase()
     test_cli_launches = eval_phase(files["checkpoint"], files["work_dir"])
+    resume_launches = resume_phase()
+    _check_counts({name: resume_launches.get(
+        fn.__name__, 0) for name, (fn, _, _) in _kernels().items()},
+        {"roi_align_block_fwd": 3 * RESUME_STEPS,
+         "roi_align_block_bwd": 3 * RESUME_STEPS},
+        f"chunked training, {RESUME_STEPS} steps in two processes")
     print(f"compare train: from files {files['step_ms']:.1f} ms a step vs "
           f"the repeated synthetic batch {train['block']['step_ms']:.1f} ms "
           f"(same route, this run); the loader gives "
@@ -1177,10 +1305,13 @@ def main():
     entries = [
         forward("roi_align_block_fwd", "block",
                 train_from_files_launches=files["fwd"],
-                test_cli_launches=test_cli_launches),
+                test_cli_launches=test_cli_launches,
+                train_chunked_launches=resume_launches["roi_align_block"]),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
-               train_from_files_launches=files["bwd"]),
+               train_from_files_launches=files["bwd"],
+               train_chunked_launches=resume_launches[
+                   "roi_align_block_backward"]),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

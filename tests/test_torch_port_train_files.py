@@ -122,6 +122,7 @@ def test_batchnorm_statistics_stay_fixed():
 
 
 def test_train_cli_from_files(tmp_path):
+    from bonai_tpu_torch.engine import build_lr_schedule
     from bonai_tpu_torch.tools.train import main
     data = synth_data(tmp_path / "data", n=4, size=128)
     synth_train_cfg(data).dump(str(tmp_path / "tiny.py"))
@@ -132,9 +133,14 @@ def test_train_cli_from_files(tmp_path):
     rows = [json.loads(r) for r in
             (wd / "train_log.jsonl").read_text().splitlines()]
     assert [r["iter"] for r in rows] == [1, 2]
+    # the row's lr is the recipe's schedule at the step, rounded to 4
+    # places as the JAX rows round it (the warm-up's first steps give 0.0)
+    schedule = build_lr_schedule(0.0025, 2, [16, 22], warmup_iters=300,
+                                 warmup_ratio=0.001)
     for r in rows:
         assert all(np.isfinite(r[k]) for k in r if k.startswith("loss"))
-        assert r["data_time"] >= 0 and r["lr"] > 0
+        assert r["data_time"] >= 0
+        assert r["lr"] == round(schedule(r["iter"] - 1), 4)
     assert (wd / "checkpoints" / "step_2.pth").exists()
     assert (wd / "tiny.py").exists() and list(wd.glob("*.log"))
     main(args + ["--max-steps", "3", "--resume-from",

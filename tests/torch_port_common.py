@@ -212,17 +212,18 @@ def synth_train_cfg(data_dir, size=128, max_gt=64):
 
 
 RUN2X = osp.join(ROOT, "data", "synth_run2x")
+TORCH_RUN2X = osp.join(ROOT, "data", "torch_run2x")
 
 
-def run2x_records():
-    """The JAX 2x run's merged predictions
-    (``data/synth_run2x/merged_r5_{roof,footprint}.csv``) as evaluator
-    records, keyed by scene stem: the roof and footprint polygons of each
-    row, its confidence, and its offset recovered as the roof's first
-    vertex minus the footprint's."""
+def run2x_records(run_dir=RUN2X, prefix="merged_r5"):
+    """A 2x run's merged predictions (``<prefix>_{roof,footprint}.csv`` in
+    ``run_dir``; by default the JAX run's, ``data/synth_run2x/
+    merged_r5_*.csv``) as evaluator records, keyed by scene stem: the roof
+    and footprint polygons of each row, its confidence, and its offset
+    recovered as the roof's first vertex minus the footprint's."""
     from bonai_tpu_torch.evaluation.bonai_eval import load_csv
-    roofs = load_csv(osp.join(RUN2X, "merged_r5_roof.csv"))
-    feet = load_csv(osp.join(RUN2X, "merged_r5_footprint.csv"))
+    roofs = load_csv(osp.join(run_dir, f"{prefix}_roof.csv"))
+    feet = load_csv(osp.join(run_dir, f"{prefix}_footprint.csv"))
     assert roofs.keys() == feet.keys()
     out = {}
     for stem, rs in roofs.items():
