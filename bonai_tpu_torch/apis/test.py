@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..core.masks import paste_mask_rle
+from ..parallel import collect_results_shards, world
 
 
 def results_to_host(device_out, metas, num_classes=1, mask_thr=0.5,
@@ -45,18 +46,35 @@ def results_to_host(device_out, metas, num_classes=1, mask_thr=0.5,
 
 
 def run_inference(model, loader, max_images=None, with_offset=True,
-                  progress=True, tta=None, mesh=None):
+                  progress=True, tta=None):
     """Run ``model.simple_test`` over the batches of a test loader (the
     port's ``build_dataloader(..., train=False, shuffle=False)``) on the
     model's device; returns the flat list of :func:`results_to_host`
     results in dataset order (reference ``single_gpu_test``), without the
-    duplicates that wrap-pad the last batch and cut to ``max_images``."""
+    duplicates that wrap-pad the last batch and cut to ``max_images``.
+
+    Sharded testing (reference ``multi_gpu_test``; the JAX function's
+    ``mesh=``): in a process group of ``W`` ranks (a rank of
+    ``parallel.launch`` or ``torchrun``), each rank passes the loader of
+    its eval shard (``build_dataloader(..., shard_id=rank,
+    num_shards=W)``: the wrap-padded interleave of the dataset) and runs
+    its images on its own card; the ranks' results are merged by
+    ``parallel.collect_results_shards`` into dataset order, which every
+    rank returns.  The process group is the port's counterpart of the
+    mesh: one process per card, where JAX shards one batch over its
+    devices from one process."""
     if tta:
         raise NotImplementedError(
             "test-time augmentation is ROADMAP.md item A5")
-    if mesh is not None:
-        raise NotImplementedError(
-            "inference over several devices is ROADMAP.md item A2b")
+    _, world_size = world()
+    num_shards = getattr(loader, "num_shards", 1)
+    if num_shards != world_size:
+        raise ValueError(f"a loader of {num_shards} shard(s) in a process "
+                         f"group of {world_size}")
+    total = len(loader.dataset)
+    if max_images is not None:
+        total = min(total, max_images)
+    per_rank = -(-total // world_size)      # shard s holds padded[s::W]
     device = next(model.parameters()).device
     results = []
     seen = 0
@@ -70,11 +88,8 @@ def run_inference(model, loader, max_images=None, with_offset=True,
             seen += img.shape[0]
             if progress:
                 print(f"\r{seen} images", end="", flush=True)
-            if max_images is not None and seen >= max_images:
+            if seen >= per_rank:
                 break
     if progress:
         print()
-    total = len(loader.dataset)
-    if max_images is not None:
-        total = min(total, max_images)
-    return results[:total]
+    return collect_results_shards(results, total)

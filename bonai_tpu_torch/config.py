@@ -226,6 +226,10 @@ class Config:
         merged = merge_dict(dict(self._cfg_dict), option_cfg)
         object.__setattr__(self, "_cfg_dict", wrap_config(merged))
 
+    def __reduce__(self):
+        # pickled for the ranks that ``parallel.launch`` spawns
+        return Config, (self._cfg_dict, self._filename, self._text)
+
     # -- mapping / attribute protocol ------------------------------------
     def __getattr__(self, name):
         return getattr(self._cfg_dict, name)

@@ -6,7 +6,10 @@ are the top ``num * pos_fraction`` candidates by ``1 + u_pos``, negatives
 fill the rest of the ``num`` slots by ``u_neg``, chosen positives rank
 first.  The uniforms are an explicit input: :func:`generator_draws` makes
 them from a ``torch.Generator``, and a test can hand in the numbers that
-``jax.random`` draws instead.
+``jax.random`` draws instead.  In a data-parallel run each rank draws from
+a generator of its own (``apis/train.py::build_trainer`` seeds rank ``r``'s
+from ``parallel.rank_seed(seed, r)``), as the JAX mesh step folds each
+shard's key with its axis index.
 """
 
 from __future__ import annotations

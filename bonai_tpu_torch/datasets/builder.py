@@ -9,6 +9,17 @@ thread (``mode='thread'``) or in a forked worker process
 (``mode='process'``): both modes give the JAX process-mode batches.  The
 workers run numpy only, never torch, so forking a process that holds a CUDA
 context is safe.
+
+Data-parallel training: the loader of rank ``r`` of ``W`` (``rank``,
+``world_size``) yields that rank's rows ``r*spg:(r+1)*spg`` of the JAX
+global batch of ``spg * W`` (the rows that ``shard_map`` gives device
+``r``), step for step.  Rank 0 draws its rows' augmentation first from
+the global batch's ``RandomState``, as the JAX loader does, so its batches
+equal the JAX rows to the bit; rank ``r > 0`` draws from
+``RandomState((seed_of_the_batch, r))`` (the JAX draws of rows past the
+first rank are not kept: they would need the earlier rows' work).  The
+``shard_id``/``num_shards`` split is the JAX multi-host split (other images
+per step) and serves the sharded evaluation.
 """
 
 from __future__ import annotations
@@ -265,7 +276,8 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size, max_gt=256, inst_mask_size=112,
                  shuffle=True, seed=0, train=True, drop_last=None,
-                 shard_id=0, num_shards=1, prefetch=2, mode="thread"):
+                 shard_id=0, num_shards=1, prefetch=2, mode="thread",
+                 rank=0, world_size=1):
         if mode not in ("thread", "process"):
             raise ValueError(f"loader mode {mode!r}")
         self.mode = mode
@@ -280,16 +292,19 @@ class DataLoader:
         self.drop_last = train if drop_last is None else drop_last
         self.shard_id = shard_id
         self.num_shards = num_shards
+        self.rank = rank
+        self.world_size = world_size
         self.prefetch = prefetch
         self.epoch = 0
         self.truncated_instances = 0
         self.truncated_samples = 0
 
     def __len__(self):
+        batch = self.batch_size * self.world_size      # the global batch
         if self.drop_last:
-            return (len(self.dataset) // self.num_shards) // self.batch_size
+            return (len(self.dataset) // self.num_shards) // batch
         per = -(-len(self.dataset) // self.num_shards)
-        return -(-per // self.batch_size)
+        return -(-per // batch)
 
     def set_epoch(self, epoch):
         self.epoch = epoch
@@ -310,11 +325,14 @@ class DataLoader:
         return padded[self.shard_id::self.num_shards]
 
     def _submit(self, ex, indices, base_seed, bi):
-        ks = [int(indices[(bi * self.batch_size + j) % max(len(indices), 1)])
+        first = (bi * self.world_size + self.rank) * self.batch_size
+        ks = [int(indices[(first + j) % max(len(indices), 1)])
               for j in range(self.batch_size)]
+        seed = base_seed + bi if self.rank == 0 else (base_seed + bi,
+                                                       self.rank)
         if self.mode == "process":
-            return ex.submit(_worker_batch, ks, base_seed + bi)
-        return ex.submit(make_batch, self.dataset, ks, base_seed + bi,
+            return ex.submit(_worker_batch, ks, seed)
+        return ex.submit(make_batch, self.dataset, ks, seed,
                          self.max_gt, self.inst_mask_size, self.train)
 
     def _executor(self):
@@ -361,12 +379,17 @@ class DataLoader:
 def build_dataloader(dataset, samples_per_gpu, workers_per_gpu=2,
                      num_devices=1, shuffle=True, seed=0, max_gt=256,
                      inst_mask_size=112, train=True, shard_id=0,
-                     num_shards=1, loader_mode="thread", **kwargs):
+                     num_shards=1, loader_mode="thread", rank=0,
+                     world_size=1, **kwargs):
     """The loader of a config's ``data``: a global batch of
     ``samples_per_gpu * num_devices``, ``max(2, workers_per_gpu)`` batches
-    built ahead, ``loader_mode`` 'thread' or 'process'."""
+    built ahead, ``loader_mode`` 'thread' or 'process'.  With
+    ``world_size > 1`` it is the loader of data-parallel rank ``rank``:
+    its ``samples_per_gpu`` rows of a global batch of ``samples_per_gpu *
+    world_size``."""
     return DataLoader(dataset, batch_size=samples_per_gpu * num_devices,
                       max_gt=max_gt, inst_mask_size=inst_mask_size,
                       shuffle=shuffle, seed=seed, train=train,
                       shard_id=shard_id, num_shards=num_shards,
-                      prefetch=max(2, workers_per_gpu), mode=loader_mode)
+                      prefetch=max(2, workers_per_gpu), mode=loader_mode,
+                      rank=rank, world_size=world_size)

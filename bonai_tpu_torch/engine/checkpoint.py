@@ -5,18 +5,23 @@
 A checkpoint is ``<work_dir>/checkpoints/step_<N>.pth`` holding ``meta``,
 the model's mmdet-keyed ``state_dict`` (which ``init_detector(checkpoint=)``
 loads as it is), the optimizer state, the step and the samplers' generator
-state.  It is written to a temporary name and renamed, so a save killed
-midway never looks finished.
+states: ``generator`` (rank 0's) and ``generators`` (every data-parallel
+rank's, by rank).  It is written to a temporary name and renamed, so a save
+killed midway never looks finished.  In a data-parallel run rank 0 writes
+it, and every rank reads it back.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import os.path as osp
 import re
 import subprocess
 
 import torch
+
+logger = logging.getLogger("bonai_tpu_torch")
 
 VERSION = "0.1.0"
 _ROOT = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
@@ -49,6 +54,11 @@ def save_checkpoint(work_dir, step, model, optimizer, meta=None,
     """Write ``step_<step>.pth`` under ``work_dir/checkpoints``; returns its
     path.
 
+    ``model`` is the detector itself (not a ``DistributedDataParallel``
+    wrapper: the keys carry no ``module.`` prefix); ``generator`` the
+    samplers' ``torch.Generator``, or the list of every rank's generator
+    state.
+
     ``max_keep`` is the reference ``CheckpointHook``'s ``max_keep_ckpts``:
     after the save, the finished checkpoints older than the newest
     ``max_keep`` are deleted, but never the one just written (``None`` or
@@ -62,7 +72,9 @@ def save_checkpoint(work_dir, step, model, optimizer, meta=None,
                               for k, v in model.state_dict().items()},
                "optimizer": optimizer.state_dict(), "step": int(step)}
     if generator is not None:
-        payload["generator"] = generator.get_state()
+        states = (list(generator) if isinstance(generator, (list, tuple))
+                  else [generator.get_state()])
+        payload.update(generator=states[0], generators=states)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -82,15 +94,28 @@ def _finished_steps(root):
             if (m := re.fullmatch(r"step_(\d+)\.pth", f))]
 
 
-def load_checkpoint(path, model, optimizer=None, generator=None):
+def load_checkpoint(path, model, optimizer=None, generator=None, rank=0):
     """Restore the model (and the optimizer and generator when given) from
-    ``path``; returns ``(step, meta)``."""
+    ``path``; returns ``(step, meta)``.
+
+    ``generator`` takes the saved state of data-parallel rank ``rank``.  A
+    checkpoint of fewer ranks holds none for it (a resume at another world
+    size, which JAX allows too): the generator is then left as it is, seeded
+    from ``(seed, rank)``, and the load says so in the log."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["state_dict"])
     if optimizer is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
-    if generator is not None and "generator" in ckpt:
-        generator.set_state(ckpt["generator"])
+    if generator is not None:
+        states = ckpt.get("generators") or (
+            [ckpt["generator"]] if "generator" in ckpt else [])
+        if rank < len(states):
+            generator.set_state(states[rank])
+        else:
+            logger.warning(
+                "%s holds the sampler state of %d rank(s), none for rank %d: "
+                "its draws restart from its seed (seed, %d)", path,
+                len(states), rank, rank)
     return int(ckpt["step"]), ckpt.get("meta", {})
 
 

@@ -1,5 +1,5 @@
-"""One training step on one device (counterpart of
-``bonai_tpu/engine/train_step.py::make_train_step`` without a mesh).
+"""One training step (counterpart of
+``bonai_tpu/engine/train_step.py::make_train_step``).
 
 The step moves the padded batch to the model's device, normalises uint8
 images there (the deferred half of the train pipeline's
@@ -7,6 +7,12 @@ images there (the deferred half of the train pipeline's
 compute dtype is given (parameters stay float32: an SGD update at the
 first warmup LR, 5e-6, vanishes in bfloat16 weights), sums the losses
 whose names do not start with ``stat_``, and then backward, clip, step.
+
+Data parallelism: the model may be a ``DistributedDataParallel`` wrapper.
+The step then calls it (the detector's ``forward`` is ``forward_train``),
+so backward leaves every rank the mean of the ranks' gradients, as the
+mesh step's ``pmean`` does; clip and SGD run after that mean, as
+``tx.update`` runs after ``pmean``, so ``grad_norm`` is the global one.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ def make_train_step(model, optimizer, lr_schedule, max_norm=None,
     """Build ``train_step(batch, step, draw) -> metrics``.
 
     Args:
-      model: a detector with ``forward_train``; its parameters stay in
+      model: a detector (its ``forward`` is ``forward_train``), or a
+        ``DistributedDataParallel`` wrapper of one; its parameters stay in
         float32.
       optimizer: from :func:`~bonai_tpu_torch.engine.optim.build_optimizer`.
       lr_schedule: ``step -> lr``.
@@ -31,9 +38,10 @@ def make_train_step(model, optimizer, lr_schedule, max_norm=None,
         the card), or ``None`` for float32.
 
     ``batch`` is a dict of arrays or tensors in the JAX package's batch
-    contract; ``draw`` the samplers' draw source.  The metrics are the
-    loss dict, ``loss`` (their sum), ``grad_norm`` (global norm of the
-    trainable gradients before clipping) as device scalars, and ``lr``.
+    contract; ``draw`` the samplers' draw source.  The metrics are this
+    rank's loss dict, ``loss`` (their sum), ``grad_norm`` (global norm of
+    the trainable gradients, averaged over the ranks, before clipping) as
+    device scalars, and ``lr``.
     """
     device = next(model.parameters()).device
     mean = std = None
@@ -52,7 +60,7 @@ def make_train_step(model, optimizer, lr_schedule, max_norm=None,
         optimizer.zero_grad(set_to_none=True)
         with torch.autocast(device.type, dtype=compute_dtype,
                             enabled=compute_dtype is not None):
-            losses = model.forward_train(batch, draw)
+            losses = model(batch, draw)
         total = sum(v.float() for k, v in losses.items()
                     if not k.startswith("stat_"))
         total.backward()

@@ -281,6 +281,12 @@ class TwoStageDetector(nn.Module):
             feats, proposals.detach(), prop_valid, batch, draw))
         return losses
 
+    def forward(self, batch, draw):
+        """:meth:`forward_train`, so that ``DistributedDataParallel``,
+        which reduces the gradients only of calls through the wrapper,
+        can wrap it."""
+        return self.forward_train(batch, draw)
+
     def _roi_forward_train(self, feats, proposals, prop_valid, batch, draw):
         rcnn = dict(self.train_cfg["rcnn"])
         _require_type(self.bbox_loss, "L1Loss", "A7")

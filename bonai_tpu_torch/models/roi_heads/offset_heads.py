@@ -1,10 +1,12 @@
-"""LOFT FOA offset head (counterpart of
-``bonai_tpu/models/roi_heads/offset_heads.py`` ``OffsetHeadExpandFeature``,
-``rotate_feature``, ``foa_offset_targets`` and ``foa_offset_fusion``).
+"""LOFT offset heads (counterpart of
+``bonai_tpu/models/roi_heads/offset_heads.py``: the plain ``OffsetHead``,
+the FOA ``OffsetHeadExpandFeature``, ``rotate_feature``,
+``foa_offset_targets`` and ``foa_offset_fusion``).
 
-Each rotation branch turns the RoI features by k*90 degrees, runs its own
-conv tower and the shared FCs; inference keeps, per axis, the largest
-magnitude over the branches with the 0-degree branch's sign.
+The plain head is four 3x3 convs, two FCs and an FC to the offset.  In the
+FOA head each rotation branch turns the RoI features by k*90 degrees, runs
+its own conv tower and the shared FCs; inference keeps, per axis, the
+largest magnitude over the branches with the 0-degree branch's sign.
 """
 
 from __future__ import annotations
@@ -26,6 +28,49 @@ def rotate_feature(x, angle_deg):
 
 def _branch_swaps_xy(angle_deg):
     return int(angle_deg) % 180 == 90
+
+
+class OffsetHead(nn.Module):
+    """``num_convs`` 3x3 convs, ``num_fcs`` FCs and ``fc_offset``, each
+    but the last followed by a ReLU (reference ``offset_head.py:23-105``;
+    rectangular offsets only: polar ones are ROADMAP.md item A5).  The
+    first FC reads the (C, H, W) flatten, as mmdet's does."""
+
+    def __init__(self, roi_feat_size=7, in_channels=256, num_convs=4,
+                 num_fcs=2, reg_num=2, conv_out_channels=256,
+                 fc_out_channels=1024):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            nn.Conv2d(in_channels if i == 0 else conv_out_channels,
+                      conv_out_channels, 3, padding=1)
+            for i in range(num_convs)])
+        flat = (conv_out_channels if num_convs else in_channels) \
+            * roi_feat_size ** 2
+        self.fcs = nn.ModuleList([
+            nn.Linear(flat if i == 0 else fc_out_channels, fc_out_channels)
+            for i in range(num_fcs)])
+        self.fc_offset = nn.Linear(fc_out_channels if num_fcs else flat,
+                                   reg_num)
+
+    def init_weights(self, gen):
+        for conv in self.convs:
+            kaiming_fan_out_(conv.weight, gen)
+            zeros_(conv.bias)
+        for fc in self.fcs:
+            fan_in_uniform_(fc.weight, gen)
+            zeros_(fc.bias)
+        normal_(self.fc_offset.weight, 0.01, gen)
+        zeros_(self.fc_offset.bias)
+
+    def forward(self, x):
+        """``(N, S, S, C)`` RoI features -> float32 ``(N, reg_num)``."""
+        t = x.permute(0, 3, 1, 2)
+        for conv in self.convs:
+            t = F.relu(conv(t))
+        t = t.flatten(1)
+        for fc in self.fcs:
+            t = F.relu(fc(t))
+        return self.fc_offset(t).float()
 
 
 class OffsetHeadExpandFeature(nn.Module):

@@ -5,7 +5,7 @@ On the card, from the repository root:
     python -m bonai_tpu_torch.tools.train \\
         configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py \\
         [--work-dir DIR] [--resume-from CKPT] [--seed N] [--max-steps N] \\
-        [--options k=v ...] [--deterministic] [--device cpu]
+        [--options k=v ...] [--deterministic] [--n-devices N] [--device cpu]
 
 It trains on the config's ``data.train`` through the port's loader,
 writes the config, a log file, ``train_log.jsonl`` and ``checkpoints/``
@@ -14,6 +14,16 @@ GPU unless ``--device`` names another device.  ``--deterministic`` runs
 under ``torch.use_deterministic_algorithms(True)``.  Past
 ``BONAI_MAX_RSS_GB`` of host RSS it checkpoints and exits with code 75
 (``train_chunked`` resumes it).
+
+``--n-devices N`` (the JAX CLI's flag: by default every visible card, or 1
+on the CPU) is ``train_detector``'s ``n_devices``: with N > 1 this process
+spawns N ranks, one per card, in a NCCL process group (gloo ranks with
+``--device cpu``), and exits 75 when the watchdog stopped them; each rank
+trains on its ``samples_per_gpu`` rows of a global batch of
+``samples_per_gpu * N``, and rank 0 writes the log and the checkpoints.
+With N = 1 it trains in this process.  Run as a rank of a process group
+(``parallel.launch(main, N, 'cuda', argv, work_dir=...)``), it trains as
+that rank, under ``DistributedDataParallel`` even in a group of one.
 """
 
 from __future__ import annotations
@@ -27,7 +37,9 @@ import time
 
 import torch
 
+from .. import parallel
 from ..apis import train_detector
+from ..apis.train import rank_logging
 from ..config import Config
 
 
@@ -51,6 +63,9 @@ def main(argv=None):
     parser.add_argument("--resume-from", default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--n-devices", type=int, default=None,
+                        help="data-parallel ranks (default: every visible "
+                             "card, or 1 on the CPU)")
     parser.add_argument("--deterministic", action="store_true")
     parser.add_argument("--options", nargs="+", default=None,
                         help="config overrides k=v (dotted keys)")
@@ -69,17 +84,14 @@ def main(argv=None):
     work_dir = args.work_dir or osp.join(
         "work_dirs", osp.splitext(osp.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    cfg.dump(osp.join(work_dir, osp.basename(args.config)))
-
+    rank, world_size = parallel.world()
+    files = []
+    if rank == 0:
+        cfg.dump(osp.join(work_dir, osp.basename(args.config)))
+        files.append(osp.join(work_dir,
+                              time.strftime("%Y%m%d_%H%M%S") + ".log"))
+    handlers = rank_logging(rank, world_size, logging.INFO, files)
     logger = logging.getLogger("bonai_tpu_torch")
-    logger.setLevel(logging.INFO)
-    fmt = logging.Formatter(
-        "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    handlers = [logging.StreamHandler(), logging.FileHandler(osp.join(
-        work_dir, time.strftime("%Y%m%d_%H%M%S") + ".log"))]
-    for h in handlers:
-        h.setFormatter(fmt)
-        logger.addHandler(h)
     try:
         logger.info("torch %s, device %s", torch.__version__,
                     args.device or (torch.cuda.get_device_name(0)
@@ -87,7 +99,8 @@ def main(argv=None):
         logger.info("Config:\n%s", cfg.pretty_text)
         train_detector(cfg, None, work_dir, seed=args.seed,
                        max_steps=args.max_steps, device=args.device,
-                       resume_from=args.resume_from)
+                       resume_from=args.resume_from,
+                       n_devices=args.n_devices)
     finally:
         for h in handlers:
             logger.removeHandler(h)

@@ -8,7 +8,10 @@ with the extra arguments, resuming from the newest checkpoint in
 ``WORK_DIR`` (``engine.checkpoint.latest_checkpoint``), at most 40 times:
 it starts again only when the run exits with 75 (the host-RSS watchdog's
 clean checkpoint-and-exit), prints ``complete`` and exits 0 when a run
-exits 0, and exits with any other code a run ends with.
+exits 0, and exits with any other code a run ends with.  The extra
+arguments go to every attempt, so ``--n-devices N`` trains data-parallel
+throughout: the train CLI exits 75 when its ranks did, each resumed rank
+takes its own sampler state from the checkpoint.
 
 It is Python rather than a shell script so that it finds the newest
 checkpoint with the package's own function in-process and runs wherever

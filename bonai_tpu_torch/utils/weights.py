@@ -6,7 +6,9 @@ mmdet-keyed ``state_dict``, and mmdet ``.pth`` checkpoints.
 back to OIHW, ``(in, out)`` Dense kernels back to ``(out, in)``, the
 flipped transposed-conv kernel back, and the first FC after RoI features
 (``shared_fc1``, offset ``fc0``) from the (H, W, C) flatten back to
-torch's (C, H, W).
+torch's (C, H, W).  The plain ``OffsetHead``'s convs (``conv<i>``) go to
+mmdet's ``roi_head.offset_head.convs.<i>``, which the JAX importer does
+not read back (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -97,8 +99,11 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
 
     for name, p in params["offset_head"].items():
         m = re.fullmatch(r"branch(\d+)_conv(\d+)", name)
+        plain = re.fullmatch(r"conv(\d+)", name)
         if m:
             layer(f"roi_head.offset_head.expand_convs.{m[1]}.{m[2]}", p)
+        elif plain:
+            layer(f"roi_head.offset_head.convs.{plain[1]}", p)
         elif name == "fc0":
             sd["roi_head.offset_head.fcs.0.weight"] = _fc_to_chw(
                 p["kernel"], roi_feat, roi_feat)

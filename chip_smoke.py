@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the bonai_tpu_torch serving, training and test-and-score paths on
-one NVIDIA GPU and checks them.
+"""Drives the bonai_tpu_torch serving, training (one card and
+data-parallel) and test-and-score paths on the NVIDIA GPUs of one machine
+(one is enough) and checks them.
 
 Run from the repository root, on a machine with a CUDA device and the CUDA
 toolkit:
@@ -82,7 +83,29 @@ Phases, each of which must pass:
    ``--deterministic``, and the chunked run's logged losses and final
    weights must equal the unbroken run's to the bit.  ``host_rss_gb`` is
    printed at the start and the end.
-8. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+8. ddp: data parallelism, every run started through
+   ``bonai_tpu_torch.parallel.launch``.  (a) The rehearsal: two gloo
+   ranks on one card (NCCL refuses two ranks on one device), each one
+   step of the train phase's config on its image of the synthetic batch,
+   float32, no autocast, deterministic, at a constant LR; the updated
+   weights of both ranks must equal a one-process step (a process of its
+   own) whose gradient is the mean of the two half-batch gradients, with
+   the same draws, within 1e-4 of each tensor's largest update.  Both
+   ranks share the card, so its step time is not a scaling figure.  (b)
+   The CLI: ``bonai_tpu_torch.tools.train.main`` with ``--n-devices
+   device_count()`` as every rank of a process group of that many ranks
+   (NCCL, one rank per card, under DDP even for one card) trains 4 steps of the 2x synthetic recipe from the data phase's tiles;
+   its step ms are printed against the data phase's (one process, no
+   DDP); then ``run_inference`` of the eval phase's four crops is sharded
+   over as many ranks and merged in dataset order.
+9. loft: LOFT with the plain ``OffsetHead``
+   (``configs/loft/loft_r50_fpn_2x_bonai.py``) at full width, seeded
+   random weights, ``'block'`` route: one serve batch (B=2, 1024^2, bf16)
+   and one ``inference_detector`` call, a small float32 input held to the
+   plain route, and 3 steps on the repeated synthetic batch (finite
+   losses, every trainable weight moves, the RoI branches' gradients
+   held to the plain route).
+10. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -90,7 +113,10 @@ bench run and read just after: the route's forward kernel must launch 3
 times per batch or step, its backward kernel 3 times per training step, no
 other kernel at all; the bench must launch B5.  The resume phase's runs are
 processes of their own, which start from zero and log their counts; their
-sum must be 3 launches of each kernel a step.
+sum must be 3 launches of each kernel a step.  The ddp phase reads every
+rank's counts: each rank launches B1 and B2 3 times a step, B1 3 times a
+test batch.  The loft phase's counts are zeroed and read like the serve
+and train phases'.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -110,6 +136,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 SYNTH_CONFIG = os.path.join(
     REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py")
+LOFT_CONFIG = os.path.join(REPO, "configs/loft/loft_r50_fpn_2x_bonai.py")
 DATA_DIR = os.path.join(REPO, "build", "chip_smoke_data")
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
@@ -553,9 +580,9 @@ ROUTES = {"block": ("roi_align_block", "roi_align_block_fwd",
                      "roi_align_fused_bwd")}
 
 
-def _config(impl):
+def _config(impl, config=CONFIG):
     from bonai_tpu_torch.config import Config
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(config)
     cfg.model.roi_align_impl = impl
     return cfg
 
@@ -571,20 +598,21 @@ def _plain_route(impl):
     return plain
 
 
-def serve_phase(impl):
-    """Full-width LOFT-FOA R50-FPN serving through the port's entry points
-    with ``roi_align_impl=impl``.  Returns the forward kernel's launch count
-    of the run."""
+def serve_phase(impl, config=CONFIG, calls=2, label=None):
+    """Full-width serving of ``config`` (LOFT-FOA R50-FPN by default)
+    through the port's entry points with ``roi_align_impl=impl``: ``calls``
+    timed batches, then one ``inference_detector`` call.  Returns the
+    forward kernel's launch count of the run."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import (inference_detector, init_detector,
                                       prepare_batch)
-    from bonai_tpu_torch.models.detectors import two_stage
-    attr, fwd_name, _ = ROUTES[impl]
+    _, fwd_name, _ = ROUTES[impl]
+    what = label or f"serve ({impl})"
 
     t0 = time.time()
-    model = init_detector(_config(impl), seed=0)      # cuda, bfloat16
-    print(f"serve ({impl}): init_detector {time.time() - t0:.1f} s, "
+    model = init_detector(_config(impl, config), seed=0)      # cuda, bfloat16
+    print(f"{what}: init_detector {time.time() - t0:.1f} s, "
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"dtype {next(model.parameters()).dtype}", flush=True)
     max_per_img = model.test_cfg["rcnn"]["max_per_img"]
@@ -598,29 +626,31 @@ def serve_phase(impl):
 
     _zero_counts()
     times = []
-    for _ in range(2):
+    for _ in range(calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model.simple_test(img, img_shape, scale)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         _check_outputs(out, BATCH, max_per_img)
-    _check_counts(_counts(), {fwd_name: 3 * 2}, f"serve ({impl}), 2 batches")
+    _check_counts(_counts(), {fwd_name: 3 * calls},
+                  f"{what}, {calls} batches")
     t0 = time.perf_counter()
     bbox, segm, offsets = inference_detector(
         model, r.randint(0, 256, (512, 640, 3), np.uint8))
     single_ms = (time.perf_counter() - t0) * 1e3
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"serve ({impl}): simple_test 1024^2 B={BATCH} ms per call "
+    print(f"{what}: simple_test 1024^2 B={BATCH} ms per call "
           f"{[round(x, 1) for x in times]}, ms per image "
           f"{[round(x / BATCH, 1) for x in times]}; valid detections "
           f"{out['det_valid'].sum(1).tolist()}", flush=True)
-    print(f"serve ({impl}): inference_detector 512x640 -> 819x1024 incl. "
+    print(f"{what}: inference_detector 512x640 -> 819x1024 incl. "
           f"host paste+RLE {single_ms:.1f} ms, {len(bbox[0])} detections; "
           f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
           f"launches {counts}", flush=True)
-    _check_counts(counts, {fwd_name: 3 * 3}, f"serve ({impl}), 3 batches")
+    _check_counts(counts, {fwd_name: 3 * (calls + 1)},
+                  f"{what}, {calls + 1} batches")
     if not (len(bbox[0]) == len(segm[0]) == len(offsets)
             and np.isfinite(bbox[0]).all() and np.isfinite(offsets).all()):
         raise AssertionError("inference_detector results are inconsistent")
@@ -628,7 +658,27 @@ def serve_phase(impl):
     # a small float32 input: the three RoI branches' head outputs on the
     # model's own proposals, through the kernel and through its plain
     # version (same level rule and arithmetic; no NMS in between, so
-    # float noise cannot reorder anything)
+    # float noise cannot reorder anything), in float32 throughout: cuDNN's
+    # TF32 convolutions would round the two runs' RoI features, which
+    # differ in their last bits, to 10-bit mantissas apart
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _small_input_check(model, impl, what, r)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return counts[fwd_name]
+
+
+def _small_input_check(model, impl, what, r):
+    """The three RoI branches' head outputs of a small float32 input on
+    the model's own proposals, through route ``impl``'s kernel and through
+    its plain version."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import prepare_batch
+    from bonai_tpu_torch.models.detectors import two_stage
+    attr, fwd_name, _ = ROUTES[impl]
     model.float()
     small = [r.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(2)]
     model.cfg.data.test.pipeline[1].img_scale = (320, 320)
@@ -658,16 +708,15 @@ def serve_phase(impl):
                 setattr(two_stage, attr, kernel_fn)
             err = max(float((g - e).abs().max()) for g, e in zip(got, ref))
             scale = max(float(e.abs().max()) for e in ref)
-            print(f"serve ({impl}): small float32 input, {head} through the "
+            print(f"{what}: small float32 input, {head} through the "
                   f"kernel vs its plain version: max abs diff {err:.3g} "
                   f"(outputs up to {scale:.3g})", flush=True)
             if not err <= 1e-4 * max(scale, 1.0):
                 raise AssertionError(f"small input: {head} differs from "
                                      f"the plain path by {err}")
-    return counts[fwd_name]
 
 
-def _roi_grad_check(model, impl):
+def _roi_grad_check(model, impl, what):
     """On a small float32 input, one step's RoI branches: the FPN-level
     gradients of their losses through the kernels against the plain
     version's backward fed the same output gradients (the heads between
@@ -711,7 +760,7 @@ def _roi_grad_check(model, impl):
     sum(losses.values()).backward()
     torch.cuda.synchronize()
     _check_counts(_counts(), {fwd_name: 3, bwd_name: 3},
-                  f"train ({impl}), small input")
+                  f"{what}, small input")
     levels = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
     mags = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
     for rois, output_size, kw, out in calls:
@@ -727,7 +776,7 @@ def _roi_grad_check(model, impl):
         diff = (f.grad - e.grad).abs()
         top = float(e.grad.abs().max())
         ratio = float((diff / m.grad.clamp(min=1e-30)).max())
-        print(f"train ({impl}): small float32 input, FPN stride {s} "
+        print(f"{what}: small float32 input, FPN stride {s} "
               f"gradient of the RoI losses through the kernels vs the plain "
               f"version: max abs diff {float(diff.max()):.3g} (gradients up "
               f"to {top:.3g}, sums of contribution magnitudes up to "
@@ -741,9 +790,10 @@ def _roi_grad_check(model, impl):
         raise AssertionError("small input: no gradient reached the FPN")
 
 
-def train_phase(impl, steps):
-    """Full-width LOFT-FOA R50-FPN training through ``train_detector`` with
-    ``roi_align_impl=impl`` for ``steps`` steps (1 warm-up).  Returns the
+def train_phase(impl, steps, config=CONFIG, label=None):
+    """Full-width training of ``config`` (LOFT-FOA R50-FPN by default)
+    through ``train_detector`` with ``roi_align_impl=impl`` for ``steps``
+    steps (1 warm-up) on one card.  Returns the
     forward and backward kernels' launch counts of the run and the median
     warm step time."""
     import numpy as np
@@ -752,8 +802,9 @@ def train_phase(impl, steps):
     from bonai_tpu_torch.models.builder import build_detector
     from bonai_tpu_torch.tools.profile_train import synthetic_batch
     _, fwd_name, bwd_name = ROUTES[impl]
+    what = label or f"train ({impl})"
 
-    cfg = _config(impl)
+    cfg = _config(impl, config)
     batch = synthetic_batch()
     work_dir = os.path.join(REPO, "build", "chip_smoke_train")
     shutil.rmtree(work_dir, ignore_errors=True)
@@ -764,13 +815,14 @@ def train_phase(impl, steps):
     # one epoch of `steps` copies of the batch: no epoch checkpoint falls
     # between the timed steps
     model, hist = train_detector(cfg, [batch] * steps, work_dir, seed=0,
-                                 max_steps=steps, log_interval=1)
+                                 max_steps=steps, log_interval=1,
+                                 n_devices=1)
     torch.cuda.synchronize()
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     wall = time.time() - t0
     step_ms = [h["time"] * 1e3 for h in hist]
-    print(f"train ({impl}): train_detector 1024^2 B={BATCH} bf16 autocast, "
+    print(f"{what}: train_detector 1024^2 B={BATCH} bf16 autocast, "
           f"{steps} steps in {wall:.1f} s incl. set-up and the final "
           f"checkpoint; ms per step {[round(x, 1) for x in step_ms]}; "
           f"median of the {len(step_ms) - 1} warm steps "
@@ -779,14 +831,14 @@ def train_phase(impl, steps):
           f"{counts}", flush=True)
     keys = [k for k in hist[0] if k.startswith("loss")]
     for h in hist:
-        print(f"train ({impl}): step {h['iter']} lr {h['lr']:.3g} grad_norm "
+        print(f"{what}: step {h['iter']} lr {h['lr']:.3g} grad_norm "
               f"{h['grad_norm']:.4g} " + " ".join(
                   f"{k} {h[k]:.5g}" for k in keys), flush=True)
     if not all(np.isfinite(h[k]) for h in hist
                for k in keys + ["grad_norm"]):
         raise AssertionError("a loss or the gradient norm is not finite")
     _check_counts(counts, {fwd_name: 3 * steps, bwd_name: 3 * steps},
-                  f"train ({impl}), {steps} steps")
+                  f"{what}, {steps} steps")
     init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
     init.init_weights(torch.Generator().manual_seed(0))
     start = dict(init.named_parameters())
@@ -798,26 +850,31 @@ def train_phase(impl, steps):
             moved += changed
         else:
             frozen_moved += changed
-    print(f"train ({impl}): {moved} of {trainable} trainable parameter "
+    print(f"{what}: {moved} of {trainable} trainable parameter "
           f"tensors moved, {frozen_moved} frozen ones moved", flush=True)
     if moved != trainable or frozen_moved:
         raise AssertionError("the trainable weights did not all move, or "
                              "a frozen one did")
     shutil.rmtree(work_dir, ignore_errors=True)
 
-    _roi_grad_check(model, impl)
+    _roi_grad_check(model, impl, what)
     return {"fwd": counts[fwd_name], "bwd": counts[bwd_name],
             "step_ms": statistics.median(step_ms[1:])}
 
 
-def _synth_config():
-    """The 2x synthetic recipe with its train data in ``DATA_DIR``."""
+def _synth_config(test=False):
+    """The 2x synthetic recipe with its train data in ``DATA_DIR`` (and
+    with ``test``, its test data the eval phase's val crops)."""
     from bonai_tpu_torch.config import Config
     cfg = Config.fromfile(SYNTH_CONFIG)
     train = cfg.data.train
     train.ann_file = os.path.join(DATA_DIR, "train", "train.json")
     train.img_prefix = os.path.join(DATA_DIR, "train", "images") + "/"
     train.pipeline[0].cache_dir = os.path.join(DATA_DIR, "imgcache_train")
+    if test:
+        cfg.data.test.ann_file = os.path.join(DATA_DIR, "val", "val.json")
+        cfg.data.test.img_prefix = os.path.join(DATA_DIR, "val",
+                                                "images") + "/"
     return cfg
 
 
@@ -872,7 +929,8 @@ def data_phase(steps=6, tiles=8):
     _zero_counts()
     t0 = time.time()
     model, hist = train_detector(cfg, None, work_dir, seed=0,
-                                 max_steps=steps, log_interval=1)
+                                 max_steps=steps, log_interval=1,
+                                 n_devices=1)
     torch.cuda.synchronize()
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
@@ -995,9 +1053,7 @@ def eval_phase(checkpoint, work_dir):
     gen_s = time.perf_counter() - t0
     crops = os.path.join(DATA_DIR, "val", "val.json")
     scenes = os.path.join(DATA_DIR, "val_originals", "val_originals.json")
-    cfg = _synth_config()
-    cfg.data.test.ann_file = crops
-    cfg.data.test.img_prefix = os.path.join(DATA_DIR, "val", "images") + "/"
+    cfg = _synth_config(test=True)
     out_dir = os.path.join(REPO, "build", "chip_smoke_eval")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
@@ -1094,13 +1150,15 @@ RESUME_LOG = 4          # the watchdog checks at the first epoch's end
 
 def _train_cli(module, work_dir, cfg_path, *args, env=None):
     """``python -m bonai_tpu_torch.tools.<module>`` to ``RESUME_STEPS`` steps
-    (``train_chunked`` takes the work dir as its second argument); returns
-    the finished process with its output."""
+    in one process, on one card of any host (``train_chunked`` takes the
+    work dir as its second argument); returns the finished process with
+    its output."""
     where = [work_dir] if module == "train_chunked" else ["--work-dir",
                                                           work_dir]
     proc = subprocess.run(
         [sys.executable, "-m", f"bonai_tpu_torch.tools.{module}", cfg_path,
-         *where, "--max-steps", str(RESUME_STEPS), *args], cwd=REPO,
+         *where, "--max-steps", str(RESUME_STEPS), "--n-devices", "1",
+         *args], cwd=REPO,
         capture_output=True, text=True, env=dict(os.environ, **(env or {})))
     if proc.returncode != 0:
         raise AssertionError(f"{module} exited {proc.returncode}:\n"
@@ -1198,6 +1256,199 @@ def resume_phase():
     return launches
 
 
+DDP_STEPS = 4           # the CLI run of the ddp phase
+
+
+def _rehearsal_config():
+    """The full-width LOFT-FOA config of the serve and train phases in
+    float32 (no autocast) at a constant LR, so that each tensor's update
+    stands far above its float32 rounding."""
+    cfg = _config("block")
+    cfg.compute_dtype = "float32"
+    cfg.lr_config = dict(policy="step", warmup=None, step=[])
+    return cfg
+
+
+def _by_kernel(launches):
+    """Wrapper launch counts (``ops.launch_counts()``) by the kernel names
+    of ``_kernels``."""
+    return {name: launches.get(fn.__name__, 0)
+            for name, (fn, _, _) in _kernels().items()}
+
+
+def _sharded_test_rank(cfg, checkpoint, out):
+    """A rank of the ddp phase's sharded test: the checkpoint in bfloat16
+    on this rank's card and its eval shard through ``run_inference``; rank
+    0 writes the merged results, and every rank's time and kernel
+    launches, to ``out``."""
+    import pickle
+    import torch
+    from bonai_tpu_torch import parallel
+    from bonai_tpu_torch.apis import init_detector, run_inference
+    from bonai_tpu_torch.datasets import build_dataloader, build_dataset
+    from bonai_tpu_torch.ops import launch_counts
+    rank, world_size = parallel.world()
+    model = init_detector(cfg, checkpoint, dtype=torch.bfloat16)
+    loader = build_dataloader(
+        build_dataset(dict(cfg.data.test, test_mode=True)),
+        samples_per_gpu=cfg.data.samples_per_gpu, shuffle=False,
+        train=False, shard_id=rank, num_shards=world_size)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_inference(model, loader, progress=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    ranks = parallel.gather_objects((ms, launched))
+    loader.close()
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(dict(results=results, ranks=ranks), f)
+
+
+# the train CLI as every rank of a process group of N cards (NCCL), so that
+# it runs under DDP even on one card
+CLI_RANKS = ("import sys; from bonai_tpu_torch import parallel; "
+             "from bonai_tpu_torch.tools.train import main; "
+             "sys.exit(parallel.launch(main, int(sys.argv[1]), 'cuda', "
+             "sys.argv[3:], work_dir=sys.argv[2]))")
+
+
+def ddp_phase(card, files_step_ms):
+    """Data parallelism through ``bonai_tpu_torch.parallel.launch``:
+
+    (a) the rehearsal: two gloo ranks on one card (NCCL refuses two ranks
+    on one device), each one step of the full-width LOFT-FOA config on
+    its image of the synthetic batch, float32, deterministic; the updated
+    weights must equal a one-process step whose gradient is the mean of
+    the two half-batch gradients, with the same draws, within 1e-4 of each
+    tensor's largest update;
+    (b) the CLI: ``tools/train.py``'s ``main`` with ``--n-devices
+    device_count()`` in each rank of a NCCL group of one rank per card
+    (under DDP even for one card) trains ``DDP_STEPS`` steps of the 2x synthetic recipe
+    from the data phase's tiles, and ``run_inference`` over the eval
+    phase's four crops is sharded over the same number of ranks.
+
+    Every rank must launch B1 and B2 3 times a step (B1 3 times a test
+    batch).  Returns the launch counts per rank of each run."""
+    import pickle
+    import numpy as np
+    import torch
+    from bonai_tpu_torch import parallel
+    from bonai_tpu_torch.apis.train import rank_launches
+    from bonai_tpu_torch.engine import latest_checkpoint
+    from bonai_tpu_torch.parallel.rehearsal import rehearse
+    from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    _, fwd_name, bwd_name = ROUTES["block"]
+    out = os.path.join(REPO, "build", "chip_smoke_ddp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+
+    # (a) two gloo ranks on one card against the mean of the halves
+    report = rehearse(_rehearsal_config(), synthetic_batch(), out,
+                      timeout=600)
+    ranks = report["ranks"]
+    counts = [_by_kernel(r["counts"]) for r in ranks]
+    for r, c in enumerate(counts):
+        _check_counts(c, {fwd_name: 3, bwd_name: 3},
+                      f"ddp rehearsal rank {r}, 1 step")
+    m = ranks[0]["metrics"]
+    print(f"ddp: rehearsal, 2 gloo ranks on one card ({card}), "
+          f"{os.path.basename(CONFIG)} full width float32, one image each: "
+          f"launch to exit {report['launch_s']:.1f} s, step ms per rank "
+          f"{[round(r['ms'], 1) for r in ranks]} (first step, cold; not a "
+          f"scaling figure: both ranks share the card); loss {m['loss']:.5g}"
+          f" grad_norm {m['grad_norm']:.5g}; weights vs the mean-of-halves "
+          f"step: largest diff {report['worst']:.3g} of a tensor's largest "
+          f"update ({report['moved']} of {report['tensors']} tensors "
+          f"moved); launches per rank {counts}", flush=True)
+
+    # (b) the CLI over every card, then sharded testing
+    n = torch.cuda.device_count()
+    cfg = _synth_config(test=True)
+    cfg_path = os.path.join(out, os.path.basename(SYNTH_CONFIG))
+    cfg.dump(cfg_path)
+    work_dir = os.path.join(out, "wd")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_RANKS, str(n), out, cfg_path,
+         "--work-dir", work_dir, "--n-devices", str(n), "--max-steps",
+         str(DDP_STEPS), "--options", "log_config.interval=1"], cwd=REPO,
+        capture_output=True, text=True)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train --n-devices {n} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    cli_counts = [_by_kernel(c) for c in rank_launches(proc.stderr)]
+    if len(cli_counts) != n or [r["iter"] for r in rows] != list(
+            range(1, DDP_STEPS + 1)):
+        raise AssertionError(f"train --n-devices {n}: launches of "
+                             f"{len(cli_counts)} ranks, rows "
+                             f"{[r['iter'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in rows):
+        raise AssertionError("train --n-devices: a loss is not finite")
+    for r, c in enumerate(cli_counts):
+        _check_counts(c, {fwd_name: 3 * DDP_STEPS, bwd_name: 3 * DDP_STEPS},
+                      f"train --n-devices {n}, rank {r}, {DDP_STEPS} steps")
+    strides = proc.stderr.count("Grad strides do not match bucket view")
+    step_ms = [r["time"] * 1e3 for r in rows]
+    print(f"ddp: train --n-devices {n} (NCCL, one rank per card, "
+          f"{card}), {DDP_STEPS} steps of the 2x synthetic recipe from "
+          f"files, global batch {cfg.data.samples_per_gpu * n}: "
+          f"{cli_s:.1f} s incl. start-up; ms per step "
+          f"{[round(x, 1) for x in step_ms]}, median of the warm steps "
+          f"{statistics.median(step_ms[1:]):.1f} against "
+          f"{files_step_ms:.1f} in the data phase (one process, no DDP); "
+          f"losses {[r['loss'] for r in rows]}; 'grad strides do not match "
+          f"bucket view' warnings: {strides}; launches per rank "
+          f"{cli_counts}", flush=True)
+
+    pkl = os.path.join(out, "sharded.pkl")
+    t0 = time.perf_counter()
+    rc = parallel.launch(_sharded_test_rank, n, "cuda", cfg,
+                         latest_checkpoint(work_dir), pkl, work_dir=out,
+                         timeout=600)
+    if rc:
+        raise AssertionError(f"the sharded test's ranks exited {rc}")
+    infer_s = time.perf_counter() - t0
+    with open(pkl, "rb") as f:
+        got = pickle.load(f)
+    results, infer = got["results"], got["ranks"]
+    if len(results) != 4 or not all(
+            np.isfinite(res[0][0]).all() and len(res[0][0]) == len(res[1][0])
+            == len(res[2]) for res in results):
+        raise AssertionError("sharded run_inference: malformed results")
+    infer_counts = [_by_kernel(c) for _, c in infer]
+    per_rank = -(-4 // n)
+    batches = -(-per_rank // cfg.data.samples_per_gpu)
+    for r, c in enumerate(infer_counts):
+        _check_counts(c, {fwd_name: 3 * batches},
+                      f"sharded run_inference, rank {r}")
+    print(f"ddp: run_inference of the 4 val crops sharded over {n} rank(s) "
+          f"({card}): {infer_s:.1f} s incl. start-up and model load; "
+          f"run_inference ms per rank {[round(t, 1) for t, _ in infer]}; "
+          f"detections per crop {[len(res[0][0]) for res in results]}; "
+          f"launches per rank {infer_counts}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return dict(rehearsal=counts, cli=cli_counts, test=infer_counts)
+
+
+def loft_phase():
+    """LOFT with the plain ``OffsetHead`` (``configs/loft/
+    loft_r50_fpn_2x_bonai.py``) at full width with seeded random weights
+    and the ``'block'`` route: serving (one batch, B=2, 1024^2, bf16, then
+    ``inference_detector``; a small float32 input against the plain
+    route), and 3 training steps on the repeated synthetic batch.  Returns
+    the launch counts."""
+    serve = serve_phase("block", LOFT_CONFIG, calls=1, label="loft serve")
+    train = train_phase("block", 3, LOFT_CONFIG, label="loft train")
+    return dict(serve=serve, train=train)
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -1274,6 +1525,8 @@ def main():
           f"{files['cold']:.1f} images/s cold, {files['warm']:.1f} warm, "
           f"against {2e3 / files['step_ms']:.1f} images/s the step takes",
           flush=True)
+    ddp = ddp_phase(card, files["step_ms"])
+    loft = loft_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -1306,12 +1559,25 @@ def main():
         forward("roi_align_block_fwd", "block",
                 train_from_files_launches=files["fwd"],
                 test_cli_launches=test_cli_launches,
-                train_chunked_launches=resume_launches["roi_align_block"]),
+                train_chunked_launches=resume_launches["roi_align_block"],
+                ddp_rehearsal_launches=[c["roi_align_block_fwd"]
+                                        for c in ddp["rehearsal"]],
+                ddp_cli_launches=[c["roi_align_block_fwd"]
+                                  for c in ddp["cli"]],
+                ddp_test_launches=[c["roi_align_block_fwd"]
+                                   for c in ddp["test"]],
+                loft_serve_launches=loft["serve"],
+                loft_train_launches=loft["train"]["fwd"]),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],
                train_chunked_launches=resume_launches[
-                   "roi_align_block_backward"]),
+                   "roi_align_block_backward"],
+               ddp_rehearsal_launches=[c["roi_align_block_bwd"]
+                                       for c in ddp["rehearsal"]],
+               ddp_cli_launches=[c["roi_align_block_bwd"]
+                                 for c in ddp["cli"]],
+               loft_train_launches=loft["train"]["bwd"]),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

@@ -14,7 +14,9 @@ version: float32 to 1e-4 of each level's largest gradient (the two sum in
 different orders), bfloat16 to one bf16 ulp plus 1e-5 of the level's
 largest gradient (both round once from float32 sums taken in different
 orders).  The levels the forward kernel computes must equal the torch
-rules' on every RoI, the rules' edges included.
+rules' on every RoI, the rules' edges included.  A two-rank data-parallel
+step (gloo, both ranks on one card) must equal the step of the mean of
+its two half-batch gradients within 1e-4 of each tensor's largest update.
 """
 
 import numpy as np
@@ -173,7 +175,8 @@ def test_train_step_runs_both_kernels(tmp_path):
     from torch_port_common import tiny_train_cfg, train_batch
     fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
     model, hist = train_detector(tiny_train_cfg(), [train_batch()],
-                                 str(tmp_path), max_steps=1, log_interval=1)
+                                 str(tmp_path), max_steps=1, log_interval=1,
+                                 n_devices=1)
     assert roi_align_block.launches - fwd == 3
     assert roi_align_block_backward.launches - bwd == 3
     assert np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["grad_norm"])
@@ -285,7 +288,7 @@ def test_train_step_pallas_route_runs_the_strip_kernels(tmp_path):
     counts = (roi_align_fused.launches, roi_align_fused_backward.launches,
               roi_align_block.launches)
     model, hist = train_detector(cfg, [train_batch()], str(tmp_path),
-                                 max_steps=1, log_interval=1)
+                                 max_steps=1, log_interval=1, n_devices=1)
     assert roi_align_fused.launches - counts[0] == 3
     assert roi_align_fused_backward.launches - counts[1] == 3
     assert roi_align_block.launches == counts[2]
@@ -561,3 +564,24 @@ def test_kernel_levels_equal_the_torch_rule(route):
     assert lvl.dtype == torch.int32
     assert torch.equal(lvl.long(), want), rois[lvl.long() != want]
     assert len(set(want.tolist())) == 4
+
+
+@pytest.mark.cuda
+def test_ddp_rehearsal_equals_the_mean_of_halves(tmp_path):
+    """Two gloo ranks on one card (NCCL refuses two ranks on one device),
+    each one step of the tiny 2x synthetic recipe in float32 on its image
+    of a batch of two: both ranks' weights equal, within 1e-4 of each
+    tensor's largest update, a one-process step whose gradient is the
+    mean of the two half-batch gradients with the same draws; each rank
+    launches B1 and B2 3 times."""
+    _need_cuda()
+    from bonai_tpu_torch.parallel.rehearsal import rehearse
+    from torch_port_common import ddp_train_cfg, train_batch
+    cfg = ddp_train_cfg()
+    cfg.compute_dtype = "float32"
+    cfg.model.roi_align_impl = "block"
+    report = rehearse(cfg, train_batch(), str(tmp_path), timeout=300)
+    assert report["worst"] <= 1e-4 and report["moved"] > 0
+    for rank in report["ranks"]:
+        assert rank["counts"]["roi_align_block"] == 3
+        assert rank["counts"]["roi_align_block_backward"] == 3

@@ -12,6 +12,7 @@ ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFIG = osp.join(ROOT, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 SYNTH_CONFIG = osp.join(ROOT,
                         "configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py")
+LOFT_CONFIG = osp.join(ROOT, "configs/loft/loft_r50_fpn_2x_bonai.py")
 
 
 def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
@@ -241,3 +242,112 @@ def stem_keys(records):
     CLI's ``--merge`` rule)."""
     return {k.rsplit(".", 1)[0] if "." in k else k: v
             for k, v in records.items()}
+
+
+# ---------------------------------------------------------------------------
+# data-parallel ranks: functions that ``bonai_tpu_torch.parallel.launch``
+# runs in its spawned processes (torch and numpy only, no JAX; inputs and
+# outputs go through files)
+# ---------------------------------------------------------------------------
+
+def ddp_train_cfg():
+    """The tiny 2x synthetic recipe (every parameter trains:
+    ``frozen_stages=-1``) at a constant LR of 0.2: large enough that each
+    tensor's update is far above its float32 rounding."""
+    cfg = tiny_train_cfg(SYNTH_CONFIG)
+    cfg.lr_config = dict(policy="step", warmup=None, step=[])
+    cfg.optimizer.lr = 0.2
+    return cfg
+
+
+def replay_draws(pairs):
+    """A draw source handing out recorded ``(u_pos, u_neg)`` numpy pairs in
+    order."""
+    pairs = iter(pairs)
+
+    def draw(shape, device):
+        u_pos, u_neg = next(pairs)
+        assert u_pos.shape == tuple(shape), (u_pos.shape, shape)
+        return (torch.from_numpy(u_pos).to(device),
+                torch.from_numpy(u_neg).to(device))
+    return draw
+
+
+def ddp_step_rank(inputs, out_dir):
+    """A rank of the data-parallel step test: ``build_trainer`` of
+    :func:`ddp_train_cfg` in the process group (DDP), then for each global
+    batch ``batch/<s>/*`` of ``inputs`` (an ``.npz``) in turn, one step
+    (step 0) from its weights ``sd/*`` and a fresh momentum, with this
+    rank's recorded draws ``draw/<rank>/<s>/<i>/{pos,neg}``.  Writes each
+    step's metrics (mean over the ranks) and weights to
+    ``out_dir/rank<r>.npz``."""
+    from bonai_tpu_torch import parallel
+    from bonai_tpu_torch.apis.train import build_trainer, rank_rows
+    torch.set_num_threads(1)
+    rank, world_size = parallel.world()
+    d = np.load(inputs)
+    model, optimizer, train_step, _ = build_trainer(ddp_train_cfg(),
+                                                    torch.device("cpu"))
+    start = {k[3:]: torch.from_numpy(d[k]) for k in d.files
+             if k.startswith("sd/")}
+    out = {}
+    steps = sorted({int(k.split("/")[1]) for k in d.files
+                    if k.startswith("batch/")})
+    for s in steps:
+        batch = {k.split("/")[2]: d[k] for k in d.files
+                 if k.startswith(f"batch/{s}/")}
+        draws = [(d[f"draw/{rank}/{s}/{i}/pos"], d[f"draw/{rank}/{s}/{i}/neg"])
+                 for i in range(2)]
+        model.load_state_dict(start)
+        optimizer.state.clear()
+        metrics = train_step(rank_rows(batch, rank, world_size), 0,
+                             replay_draws(draws))
+        for k, v in parallel.mean_over_ranks(metrics).items():
+            out[f"metrics/{s}/{k}"] = np.float64(v)
+        for k, v in model.state_dict().items():
+            out[f"sd/{s}/{k}"] = v.numpy().copy()
+    np.savez(osp.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def infer_rank(cfg, checkpoint, out):
+    """A rank of the sharded-inference test: the checkpoint's model on the
+    CPU in float32, this rank's eval shard of ``cfg.data.test``,
+    ``run_inference``; rank 0 pickles the merged results to ``out``."""
+    import pickle
+    from bonai_tpu_torch import parallel
+    from bonai_tpu_torch.apis import init_detector, run_inference
+    from bonai_tpu_torch.datasets import build_dataloader, build_dataset
+    torch.set_num_threads(1)
+    rank, world_size = parallel.world()
+    model = init_detector(cfg, checkpoint, device="cpu", dtype=torch.float32)
+    loader = build_dataloader(
+        build_dataset(dict(cfg.data.test, test_mode=True)),
+        samples_per_gpu=2, shuffle=False, train=False, shard_id=rank,
+        num_shards=world_size)
+    results = run_inference(model, loader, progress=False)
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(results, f)
+
+
+def exit_rank(codes):
+    """A rank that joins the group's first collective and exits with
+    ``codes[rank]``."""
+    import sys
+    from bonai_tpu_torch import parallel
+    rank, _ = parallel.world()
+    parallel.gather_objects(rank)
+    sys.exit(codes[rank])
+
+
+def ballast_train_rank(cfg, work_dir, ballast_gb):
+    """A rank of ``train_detector`` on the CPU whose rank 1 first holds
+    ``ballast_gb`` GB more host memory (written, so resident) than rank
+    0."""
+    from bonai_tpu_torch import parallel
+    from bonai_tpu_torch.apis import train_detector
+    torch.set_num_threads(1)
+    rank, _ = parallel.world()
+    ballast = np.ones(int(ballast_gb * 1e9) // 8) if rank == 1 else None
+    train_detector(cfg, None, work_dir, device="cpu")
+    del ballast
