@@ -17,6 +17,13 @@ next batch), checkpoints at the end of every
 checkpoint.  Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"``.
 
+Dynamic R-CNN's host schedule, as the JAX loop runs it
+(:class:`DynamicRCNNSchedule`): each batch carries the current R-CNN IoU
+threshold and SmoothL1 beta, the step's ``stat_dyn_*`` statistics are kept
+(and not logged), and every ``update_iter_interval`` steps the threshold
+and beta follow them.  The schedule is not checkpointed: a resumed run
+starts it again from the initial values, as the JAX loop does.
+
 The host-RSS watchdog of the JAX loop: every log row carries the
 process's resident set (``host_rss_gb``); past ``BONAI_MAX_RSS_GB`` (100 by
 default) the loop writes a checkpoint with ``preempt_rss`` in its meta and
@@ -44,6 +51,7 @@ import re
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
@@ -85,6 +93,64 @@ def _host_rss_gb():
     except OSError:
         pass
     return 0.0
+
+
+BETA_EPS = 1e-15        # mmdetection's ``dynamic_roi_head.py`` EPS
+
+
+class DynamicRCNNSchedule:
+    """Dynamic R-CNN's host-side schedule of the R-CNN IoU threshold and
+    SmoothL1 beta (counterpart of ``bonai_tpu/apis/train.py:181-250``;
+    reference ``dynamic_roi_head.py:103-150``).
+
+    :meth:`feed` adds ``dyn_iou_thr`` and ``dyn_beta`` (float32) to a
+    batch; :meth:`update` takes ``stat_dyn_iou`` and ``stat_dyn_beta`` out
+    of a step's metrics (device scalars, read only at an update), and
+    every ``update_iter_interval`` steps sets the threshold to
+    ``max(initial_iou, mean of the IoU statistics)`` and beta to
+    ``min(initial_beta, median of the beta statistics >= 0)``.  Beta is
+    kept when there is no such statistic, and, as mmdetection keeps it,
+    when their median is below ``1e-15``: the GTs among the positives have
+    zero targets, so the median is often 0, and the JAX loop's beta of 0
+    makes the SmoothL1 gradient NaN (ROADMAP.md queue C).  In a process
+    group every rank's statistics are the global batch's
+    (``models/detectors/two_stage.py::dynamic_rcnn_stats``), so the ranks
+    stay on one schedule."""
+
+    def __init__(self, dyn_cfg):
+        self.initial_iou = float(dyn_cfg.get("initial_iou", 0.4))
+        self.initial_beta = float(dyn_cfg.get("initial_beta", 1.0))
+        self.interval = int(dyn_cfg.get("update_iter_interval", 100))
+        self.iou_thr, self.beta = self.initial_iou, self.initial_beta
+        self.iou_hist, self.beta_hist = [], []
+
+    @classmethod
+    def of(cls, cfg):
+        """The schedule of ``cfg``'s ``train_cfg.rcnn.dynamic_rcnn``, or
+        ``None``."""
+        rcnn = (cfg.get("train_cfg") or {}).get("rcnn")
+        dyn = rcnn.get("dynamic_rcnn") if isinstance(rcnn, dict) else None
+        return cls(dyn) if dyn else None
+
+    def feed(self, batch):
+        return dict(batch, dyn_iou_thr=np.float32(self.iou_thr),
+                    dyn_beta=np.float32(self.beta))
+
+    def update(self, metrics):
+        """Take the step's statistics out of ``metrics``; at the interval,
+        update the threshold and beta."""
+        self.iou_hist.append(metrics.pop("stat_dyn_iou"))
+        self.beta_hist.append(metrics.pop("stat_dyn_beta"))
+        if len(self.iou_hist) < self.interval:
+            return
+        ious = [float(x) for x in self.iou_hist]
+        betas = [v for v in (float(x) for x in self.beta_hist) if v >= 0]
+        self.iou_thr = max(self.initial_iou, float(np.mean(ious)))
+        if betas and np.median(betas) >= BETA_EPS:
+            self.beta = min(self.initial_beta, float(np.median(betas)))
+        self.iou_hist, self.beta_hist = [], []
+        logger.info("dynamic-rcnn update: iou_thr=%.3f beta=%.3f",
+                    self.iou_thr, self.beta)
 
 
 def optimizer_cfg(cfg, world_size=1):
@@ -333,6 +399,7 @@ def _train(cfg, batches, work_dir, seed, max_steps, device, resume_from,
         logger.info("loaded weights from %s", load_from)
 
     draw = generator_draws(generator)
+    dynamic = DynamicRCNNSchedule.of(cfg)
     log_interval = log_interval or cfg.get("log_config", {}).get("interval",
                                                                  10)
     ckpt_cfg = cfg.get("checkpoint_config", {})
@@ -367,8 +434,12 @@ def _train(cfg, batches, work_dir, seed, max_steps, device, resume_from,
             if item is None:
                 break
             batch = item[0] if isinstance(item, tuple) else item
+            if dynamic:
+                batch = dynamic.feed(batch)
             metrics = train_step(batch, step, draw)
             step += 1
+            if dynamic:
+                dynamic.update(metrics)
             if step % log_interval == 0:
                 metrics = parallel.mean_over_ranks(metrics)
                 dt = (time.time() - t0) / log_interval

@@ -1,15 +1,29 @@
 """Detector builder (counterpart of ``bonai_tpu/models/builder.py``) for
-the detector types the port implements so far."""
+the detector types the port implements so far, mapped as the JAX package
+maps them (``MaskScoringRCNN`` is a ``MaskRCNN`` whose ``mask_iou_head``
+is not ported yet)."""
 
 from __future__ import annotations
 
 import os
 
 from ..registry import Registry
+from .detectors.cascade_rcnn import CascadeRCNN
 from .detectors.loft import LOFT
+from .detectors.two_stage import (DynamicRCNN, FasterRCNN, MaskRCNN,
+                                  TwoStageDetector)
 
 DETECTORS = Registry("detector")
-DETECTORS.register_module()(LOFT)
+for _cls in (LOFT, FasterRCNN, MaskRCNN, TwoStageDetector, CascadeRCNN,
+             DynamicRCNN):
+    DETECTORS.register_module()(_cls)
+DETECTORS.register_module(name="MaskScoringRCNN")(MaskRCNN)
+
+# the JAX package's other detector types, by the ROADMAP.md item that ports
+# them
+_SINGLE_STAGE = ("RetinaNet", "FCOS", "ATSS", "FSAF", "GFL", "FOVEA",
+                 "FoveaBox", "FreeAnchor", "RepPointsDetector", "SSD",
+                 "CornerNet", "NASFCOS")
 
 
 def _plain(obj):
@@ -34,9 +48,11 @@ def build_detector(cfg, train_cfg=None, test_cfg=None, roi_align_impl=None):
     cfg = _plain(dict(cfg))
     det_type = cfg.pop("type")
     if det_type not in DETECTORS:
+        item = "A6" if det_type in _SINGLE_STAGE else "A7"
         raise NotImplementedError(
             f"detector type {det_type!r} is not ported to bonai_tpu_torch "
-            f"yet (ROADMAP.md item A7; ported: {sorted(DETECTORS.module_dict)})")
+            f"yet (ROADMAP.md item {item}; ported: "
+            f"{sorted(DETECTORS.module_dict)})")
     if cfg.get("rpn_head") is None or cfg.get("roi_head") is None:
         raise NotImplementedError(
             "detectors without an RPN or RoI head are not ported yet "

@@ -1,13 +1,17 @@
-"""Two-stage detector trunk (counterpart of
+"""Two-stage detector trunk: Faster R-CNN, Mask R-CNN, Dynamic R-CNN and
+the base of LOFT and Cascade R-CNN (counterpart of
 ``bonai_tpu/models/detectors/two_stage.py``: ``boxes_to_rois``,
 ``assign_rcnn``, ``assign_and_sample_rcnn``, ``extract_feat``,
 ``_roi_align_cfg``, ``_rpn_and_proposals``, ``forward_train``,
 ``_roi_forward_train``, ``_mask_forward_train``, ``simple_test``,
-``_rcnn_simple_test``).
+``_rcnn_simple_test``, ``FasterRCNN``, ``MaskRCNN``, ``DynamicRCNN``).
 
-Training is the plain path of the JAX package: random sampling, the
-L1 box loss, no Dynamic R-CNN, PISA or hard mining (their options raise,
-naming the ROADMAP.md item that ports them).
+Training is the random-sampling path of the JAX package, with its box
+loss: L1 for an ``L1Loss`` or a ``SmoothL1Loss`` config (the JAX package
+keeps both on its inline L1 path, ROADMAP.md queue C), SmoothL1 at the
+batch's beta under Dynamic R-CNN.  The mask branch is optional
+(``with_mask``).  PISA, hard mining and the other samplers and losses
+raise, naming the ROADMAP.md item that ports them.
 
 Public layouts are the JAX package's: images ``(B, H, W, 3)``, FPN levels
 ``(B, H, W, C)`` (NHWC views of channels-last NCHW maps, no copy), RoI
@@ -32,9 +36,11 @@ from ...ops.roi_align import multilevel_roi_align
 from ...ops.roi_align_block import roi_align_block
 from ...ops.roi_align_blocked import roi_align_blocked
 from ...ops.roi_align_fused import roi_align_fused
+from ...parallel import gather_cat
 from ..backbones.resnet import ResNet
 from ..dense_heads.rpn_head import RPNHead, rpn_loss, rpn_proposals
-from ..losses import binary_cross_entropy, cross_entropy, l1_loss
+from ..losses import (binary_cross_entropy, cross_entropy, l1_loss,
+                      smooth_l1_loss)
 from ..necks.fpn import FPN
 from ..roi_heads.bbox_head import Shared2FCBBoxHead, bbox_targets
 from ..roi_heads.mask_head import FCNMaskHead
@@ -69,10 +75,16 @@ def assign_rcnn(proposals, proposal_valid, gt_bboxes, gt_valid,
 
 
 def assign_and_sample_rcnn(draw, proposals, proposal_valid, gt_bboxes,
-                           gt_valid, assigner_cfg, sampler_cfg):
+                           gt_valid, assigner_cfg, sampler_cfg,
+                           dyn_iou_topk=None):
     """Assign and randomly sample the second-stage candidates of a batch.
     Returns the sampler's result (``(B, num)`` each) and the sampled boxes
-    ``(B, num, 4)``."""
+    ``(B, num, 4)``.
+
+    With ``dyn_iou_topk`` (Dynamic R-CNN) the result also holds
+    ``stat_kth_iou`` ``(B,)``: each image's ``dyn_iou_topk``-th largest
+    proposal IoU, the GTs' own matches excluded (the reference records it
+    before the GTs join the candidates)."""
     stype = sampler_cfg.get("type", "RandomSampler")
     if stype != "RandomSampler":
         raise NotImplementedError(f"{stype} is not ported to bonai_tpu_torch "
@@ -81,14 +93,41 @@ def assign_and_sample_rcnn(draw, proposals, proposal_valid, gt_bboxes,
         raise NotImplementedError("add_gt_as_proposals=False is not ported "
                                   "to bonai_tpu_torch yet (ROADMAP.md item "
                                   "A7)")
-    cand, _, assigned, _ = assign_rcnn(proposals, proposal_valid, gt_bboxes,
-                                       gt_valid, assigner_cfg)
+    cand, _, assigned, max_ov = assign_rcnn(proposals, proposal_valid,
+                                            gt_bboxes, gt_valid, assigner_cfg)
     u_pos, u_neg = draw(assigned.shape, assigned.device)
     res = random_sample(assigned, sampler_cfg.get("num", 512),
                         sampler_cfg.get("pos_fraction", 0.25), u_pos, u_neg,
                         sampler_cfg.get("neg_pos_ub", -1))
+    if dyn_iou_topk is not None:
+        prop_ov = torch.where(proposal_valid, max_ov[:, gt_bboxes.shape[1]:],
+                              max_ov.new_tensor(0.0))
+        k = min(int(dyn_iou_topk), prop_ov.shape[1])
+        res["stat_kth_iou"] = torch.topk(prop_ov, k, dim=1).values[:, -1]
     sampled = cand.gather(1, res["inds"][..., None].expand(-1, -1, 4))
     return res, sampled
+
+
+def dynamic_rcnn_stats(kth_iou, bbox_targets, is_pos, beta_topk):
+    """Dynamic R-CNN's batch statistics (reference
+    ``dynamic_roi_head.py:73-80, 118-126``): ``stat_dyn_iou``, the mean of
+    the images' ``kth_iou``, and ``stat_dyn_beta``, the ``(beta_topk *
+    B)``-th smallest mean ``|dx|, |dy|`` target over the positives of the
+    batch's ``B`` images, or -1 without a positive.
+
+    In a process group both are over the global batch on every rank: the
+    mean over every rank's images, and the order statistic of the union of
+    the ranks' positives (``B`` the global count of images)."""
+    tgt_xy = bbox_targets.reshape(-1, 4)[:, :2].abs().mean(dim=1)
+    masked = gather_cat(torch.where(is_pos.reshape(-1), tgt_xy,
+                                    tgt_xy.new_tensor(float("inf"))))
+    kth_iou = gather_cat(kth_iou)
+    order = torch.sort(masked).values
+    npos = torch.isfinite(order).sum()
+    kth = order[(npos.clamp(max=int(beta_topk) * kth_iou.shape[0]) - 1)
+                .clamp(min=0)]
+    return {"stat_dyn_iou": kth_iou.mean(),
+            "stat_dyn_beta": torch.where(npos > 0, kth, kth.new_tensor(-1.0))}
 
 
 def _gather_rows(x, idx):
@@ -119,8 +158,40 @@ def _require_type(cfg, expected, item):
             f"{item})")
 
 
+def _refuse_roi_keys(cfg):
+    """Mask Scoring's IoU head and the C4 shared head: a detector type the
+    port builds (``MaskScoringRCNN`` builds as ``MaskRCNN``, a C4 config is
+    a ``FasterRCNN``) could carry them, so they raise."""
+    unported = [k for k in ("mask_iou_head", "shared_head")
+                if cfg.get(k) is not None]
+    if unported:
+        raise NotImplementedError(
+            f"roi_head parts {unported} are not ported to bonai_tpu_torch "
+            f"yet (ROADMAP.md item A7)")
+
+
+def _bbox_head(cfg, reg_class_agnostic=False):
+    """A ``Shared2FCBBoxHead`` of config ``cfg`` (``reg_class_agnostic``:
+    the default when the config does not say), and its coder's config.
+    Its ``loss_bbox`` may be ``L1Loss`` or ``SmoothL1Loss``: the JAX
+    package computes L1 for both (ROADMAP.md queue C)."""
+    bh = dict(cfg)
+    _require_type(bh, "Shared2FCBBoxHead", "A7")
+    loss = dict(bh.get("loss_bbox") or {}).get("type", "L1Loss")
+    if loss not in ("L1Loss", "SmoothL1Loss"):
+        raise NotImplementedError(f"loss_bbox {loss} is not ported to "
+                                  f"bonai_tpu_torch yet (ROADMAP.md item A7)")
+    coder = dict(bh.get("bbox_coder", {}))
+    _require_type(coder, "DeltaXYWHBBoxCoder", "A7")
+    return Shared2FCBBoxHead(
+        bh.get("num_classes", 1), bh.get("in_channels", 256),
+        bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
+        bh.get("reg_class_agnostic", reg_class_agnostic)), coder
+
+
 class TwoStageDetector(nn.Module):
-    """FPN two-stage trunk: ResNet + FPN + RPN + bbox and mask heads."""
+    """FPN two-stage trunk: ResNet + FPN + RPN + a box head and an optional
+    mask head."""
 
     def __init__(self, backbone, neck, rpn_head, roi_head, train_cfg=None,
                  test_cfg=None, roi_align_impl=None):
@@ -155,22 +226,27 @@ class TwoStageDetector(nn.Module):
         self._setup_roi_head(dict(roi_head))
 
     def _setup_roi_head(self, cfg):
-        bh = dict(cfg["bbox_head"])
-        _require_type(bh, "Shared2FCBBoxHead", "A7")
-        self.bbox_loss = dict(bh.get("loss_bbox", {}))
-        self.bbox_coder = dict(bh.get("bbox_coder", {}))
-        _require_type(self.bbox_coder, "DeltaXYWHBBoxCoder", "A7")
-        self.roi_head["bbox_head"] = Shared2FCBBoxHead(
-            bh.get("num_classes", 1), bh.get("in_channels", 256),
-            bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
-            bh.get("reg_class_agnostic", False))
+        _refuse_roi_keys(cfg)
+        self.roi_head["bbox_head"], self.bbox_coder = _bbox_head(
+            cfg["bbox_head"])
         self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
+        self._setup_mask_head(cfg)
+
+    def _setup_mask_head(self, cfg):
+        """The optional FCN mask head and its extractor (a Faster R-CNN
+        config has neither)."""
+        if cfg.get("mask_head") is None:
+            return
         mh = dict(cfg["mask_head"])
         _require_type(mh, "FCNMaskHead", "A7")
         self.roi_head["mask_head"] = FCNMaskHead(
             mh.get("num_convs", 4), mh.get("in_channels", 256),
             mh.get("conv_out_channels", 256), mh.get("num_classes", 1))
         self.mask_extractor_cfg = self._extractor(cfg["mask_roi_extractor"])
+
+    @property
+    def with_mask(self):
+        return "mask_head" in self.roi_head
 
     @staticmethod
     def _extractor(cfg):
@@ -288,47 +364,56 @@ class TwoStageDetector(nn.Module):
         return self.forward_train(batch, draw)
 
     def _roi_forward_train(self, feats, proposals, prop_valid, batch, draw):
+        """The R-CNN losses of one batch.  Under Dynamic R-CNN
+        (``train_cfg.rcnn.dynamic_rcnn``) the assigner's thresholds are the
+        batch's ``dyn_iou_thr`` (the config's without one), the box loss is
+        SmoothL1 at the batch's ``dyn_beta`` (the config's
+        ``initial_beta`` without one), and the dict holds the batch's
+        ``stat_dyn_iou`` and ``stat_dyn_beta``
+        (:func:`dynamic_rcnn_stats`)."""
         rcnn = dict(self.train_cfg["rcnn"])
-        _require_type(self.bbox_loss, "L1Loss", "A7")
-        unported = sorted(k for k in ("dynamic_rcnn", "isr", "carl")
-                          if rcnn.get(k))
+        unported = sorted(k for k in ("isr", "carl") if rcnn.get(k))
         if unported:
             raise NotImplementedError(f"train_cfg.rcnn options {unported} "
                                       f"are not ported to bonai_tpu_torch "
                                       f"yet (ROADMAP.md item A7)")
+        dyn = rcnn.get("dynamic_rcnn")
+        assigner_cfg = dict(rcnn["assigner"])
+        if dyn is not None and "dyn_iou_thr" in batch:
+            thr = batch["dyn_iou_thr"]
+            assigner_cfg.update(pos_iou_thr=thr, neg_iou_thr=thr,
+                                min_pos_iou=thr)
         sampler_cfg = dict(rcnn["sampler"])
         num = sampler_cfg.get("num", 512)
         num_pos = int(num * sampler_cfg.get("pos_fraction", 0.25))
-        gt_bboxes = batch["gt_bboxes"]
-        b = gt_bboxes.shape[0]
         res, sampled = assign_and_sample_rcnn(
-            draw, proposals, prop_valid, gt_bboxes, batch["gt_valid"],
-            dict(rcnn["assigner"]), sampler_cfg)
+            draw, proposals, prop_valid, batch["gt_bboxes"],
+            batch["gt_valid"], assigner_cfg, sampler_cfg,
+            dyn_iou_topk=None if dyn is None else dyn.get("iou_topk", 75))
         head = self.roi_head["bbox_head"]
+        st = self._bbox_stage(head, self.bbox_coder, feats, sampled, res,
+                              batch)
         nc = head.fc_cls.out_features - 1
-        labels, label_w, bbox_t, bbox_w = bbox_targets(
-            sampled, res, gt_bboxes, batch["gt_labels"], nc,
-            tuple(self.bbox_coder.get("target_means", (0.,) * 4)),
-            tuple(self.bbox_coder.get("target_stds", (1.,) * 4)))
-        rois, roi_valid = boxes_to_rois(sampled, res["valid"])
-        cls_score, bbox_pred = head(self._roi_align_cfg(
-            self.bbox_extractor_cfg, feats, rois, roi_valid))
-        n_tot = b * num
-        labels = labels.reshape(n_tot)
-        label_w = label_w.reshape(n_tot)
+        n_tot = st["labels"].shape[0]
         if head.fc_reg.out_features == 4:       # class-agnostic or one class
-            pred4 = bbox_pred[:, :4]
+            pred4 = st["bbox_pred"][:, :4]
         else:
-            pred4 = bbox_pred.reshape(n_tot, nc, 4).gather(
-                1, labels.clamp(0, nc - 1)[:, None, None].expand(-1, 1, 4)
-            )[:, 0]
-        losses = {
-            "loss_cls": cross_entropy(
-                cls_score, labels, label_w,
-                avg_factor=(label_w > 0).sum().float().clamp(min=1.0)),
-            "loss_bbox": l1_loss(pred4, bbox_t.reshape(n_tot, 4),
-                                 bbox_w.reshape(n_tot, 4),
-                                 avg_factor=float(n_tot))}
+            pred4 = st["bbox_pred"].reshape(n_tot, nc, 4).gather(
+                1, st["labels"].clamp(0, nc - 1)[:, None, None]
+                .expand(-1, 1, 4))[:, 0]
+        if dyn is None:
+            loss_bbox = l1_loss(pred4, st["bbox_t"], st["bbox_w"],
+                                avg_factor=float(n_tot))
+        else:
+            loss_bbox = smooth_l1_loss(
+                pred4, st["bbox_t"],
+                batch.get("dyn_beta", dyn.get("initial_beta", 1.0)),
+                st["bbox_w"], avg_factor=float(n_tot))
+        losses = {"loss_cls": st["loss_cls"], "loss_bbox": loss_bbox}
+        if dyn is not None:
+            losses.update(dynamic_rcnn_stats(
+                res["stat_kth_iou"], st["bbox_t"], st["labels"] < nc,
+                dyn.get("beta_topk", 10)))
         # the mask and extra branches take the positive slots (the sampler
         # ranks the positives first)
         pos_boxes = sampled[:, :num_pos]
@@ -341,8 +426,30 @@ class TwoStageDetector(nn.Module):
                                                 pos_gt))
         return losses
 
+    def _bbox_stage(self, head, coder, feats, sampled, res, batch):
+        """One box head on the sampled boxes ``(B, num, 4)`` of a batch:
+        the targets of ``coder`` (flattened to ``B*num`` rows), the head's
+        deltas, the classification loss and the RoIs."""
+        nc = head.fc_cls.out_features - 1
+        labels, label_w, bbox_t, bbox_w = bbox_targets(
+            sampled, res, batch["gt_bboxes"], batch["gt_labels"], nc,
+            tuple(coder.get("target_means", (0.,) * 4)),
+            tuple(coder.get("target_stds", (1.,) * 4)))
+        rois, roi_valid = boxes_to_rois(sampled, res["valid"])
+        cls_score, bbox_pred = head(self._roi_align_cfg(
+            self.bbox_extractor_cfg, feats, rois, roi_valid))
+        labels, label_w = labels.reshape(-1), label_w.reshape(-1)
+        return {"labels": labels, "bbox_t": bbox_t.reshape(-1, 4),
+                "bbox_w": bbox_w.reshape(-1, 4), "bbox_pred": bbox_pred,
+                "rois": rois,
+                "loss_cls": cross_entropy(
+                    cls_score, labels, label_w,
+                    avg_factor=(label_w > 0).sum().float().clamp(min=1.0))}
+
     def _mask_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
                             pos_gt):
+        if not self.with_mask:
+            return {}
         mask_size = rcnn.get("mask_size", 28)
         rois, roi_valid = boxes_to_rois(pos_boxes, pos_is_pos)
         logits = self.roi_head["mask_head"](self._roi_align_cfg(
@@ -366,8 +473,8 @@ class TwoStageDetector(nn.Module):
         with ``img_shape`` ``(B, 2)`` (resized h, w) and ``scale_factor``
         ``(B,)``.  Returns padded, fixed-shape results: ``det_bboxes``
         ``(B, P, 4)`` in original-image pixels, ``det_scores``,
-        ``det_labels``, ``det_valid``, ``mask_probs`` ``(B, P, 28, 28)``
-        and the extra branches' outputs."""
+        ``det_labels``, ``det_valid``, with a mask head ``mask_probs``
+        ``(B, P, 28, 28)``, and the extra branches' outputs."""
         dtype = next(self.parameters()).dtype
         feats = self.extract_feat(img.to(dtype))
         proposals, _, prop_valid = self._rpn_and_proposals(
@@ -393,15 +500,23 @@ class TwoStageDetector(nn.Module):
             boxes, scores, rcnn.get("score_thr", 0.05),
             dict(rcnn.get("nms", dict(type="nms", iou_threshold=0.5))),
             rcnn.get("max_per_img", 100), valid=prop_valid)
+        return self._detections_out(feats, det_boxes, det_scores, det_labels,
+                                    det_valid, img_shape, scale_factor)
+
+    def _detections_out(self, feats, det_boxes, det_scores, det_labels,
+                        det_valid, img_shape, scale_factor):
+        """The detections in original-image pixels, with the mask and extra
+        branches run on their scale-space boxes."""
+        b = det_boxes.shape[0]
         sf = scale_factor.float()[:, None, None]
         out = {"det_bboxes": det_boxes / sf, "det_scores": det_scores,
                "det_labels": det_labels, "det_valid": det_valid}
-        # the mask and extra branches read scale-space boxes
-        rois, roi_valid = boxes_to_rois(det_boxes, det_valid)
-        logits = self.roi_head["mask_head"](self._roi_align_cfg(
-            self.mask_extractor_cfg, feats, rois, roi_valid))
-        out["mask_probs"] = torch.sigmoid(logits[:, 0]).reshape(
-            b, -1, *logits.shape[2:])
+        if self.with_mask:
+            rois, roi_valid = boxes_to_rois(det_boxes, det_valid)
+            logits = self.roi_head["mask_head"](self._roi_align_cfg(
+                self.mask_extractor_cfg, feats, rois, roi_valid))
+            out["mask_probs"] = torch.sigmoid(logits[:, 0]).reshape(
+                b, -1, *logits.shape[2:])
         out.update(self._extra_simple_test(feats, det_boxes, det_valid,
                                            img_shape, scale_factor))
         return out
@@ -409,3 +524,21 @@ class TwoStageDetector(nn.Module):
     def _extra_simple_test(self, feats, det_boxes, det_valid, img_shape,
                            scale_factor):
         return {}
+
+
+class FasterRCNN(TwoStageDetector):
+    """Faster R-CNN: the trunk without a mask head (reference
+    ``mmdet/models/detectors/faster_rcnn.py``)."""
+
+
+class MaskRCNN(TwoStageDetector):
+    """Mask R-CNN: the trunk with its mask head (reference
+    ``mmdet/models/detectors/mask_rcnn.py``)."""
+
+
+class DynamicRCNN(TwoStageDetector):
+    """Dynamic R-CNN (reference ``mmdet/models/detectors/dynamic_rcnn.py``
+    and ``roi_heads/dynamic_roi_head.py``): a Faster R-CNN whose R-CNN IoU
+    threshold and SmoothL1 beta follow the proposals' quality.  The step
+    computes the statistics (``train_cfg.rcnn.dynamic_rcnn``); the host
+    schedule in ``apis/train.py`` feeds the thresholds back."""

@@ -12,9 +12,11 @@ the gradients).
   dataset order (:func:`merge_shards` on the host);
 - :func:`rank_seed` is the seed of rank ``r``'s draws (rank 0 keeps the
   run's seed, so one rank draws what a one-process run draws);
-- :func:`world`, :func:`gather_objects`, :func:`mean_over_ranks` and
-  :func:`max_over_ranks` are the few collectives the train and test loops
-  use; outside a process group they act on this process alone.
+- :func:`world`, :func:`gather_objects`, :func:`gather_cat`,
+  :func:`mean_over_ranks` and :func:`max_over_ranks` are the few
+  collectives the train and test loops (and Dynamic R-CNN's batch
+  statistics) use; outside a process group they act on this process
+  alone.
 
 ``parallel.rehearsal`` holds a DDP step to one process's step on the mean
 of the ranks' gradients (chip_smoke's ddp phase and the card tests).
@@ -180,6 +182,19 @@ def gather_objects(obj):
     out = [None] * n
     dist.all_gather_object(out, obj)
     return out
+
+
+def gather_cat(tensor):
+    """Every rank's ``tensor`` (the same shape on each) concatenated along
+    dimension 0 in rank order, on every rank, on ``tensor``'s device;
+    ``tensor`` itself outside a process group.  No gradient flows."""
+    _, n = world()
+    if n == 1:
+        return tensor
+    local = tensor.detach().to(_collective_device()).contiguous()
+    out = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(out, local)
+    return torch.cat(out).to(tensor.device)
 
 
 def _reduce(values, op):

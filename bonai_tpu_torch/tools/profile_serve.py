@@ -1,22 +1,25 @@
 """Where the serving time goes on the GPU.
 
-Runs ``simple_test`` of the LOFT-FOA R50-FPN config (1024^2, B=2,
-bfloat16, seeded random weights, or a trained ``.pth`` given with
-``--checkpoint``, loaded as the test CLI loads it) and prints
+Runs ``simple_test`` of a config (``--config``: the LOFT-FOA R50-FPN
+config by default, or another detector the port builds, such as the Mask,
+Cascade Mask or Dynamic R-CNN BONAI baselines; 1024^2, B=2, bfloat16,
+seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
+loaded as the test CLI loads it) and prints
 
 - each stage's time (host clock, the device synchronised at each stage's
   start and end): backbone+FPN, RPN and proposals (with its NMS), the
   RoIAlign kernel of the route (B1, under the block rule for ``block``
-  and under the strip rule for ``pallas``), the
-  three RoI heads, the R-CNN multi-class soft-NMS, and the rest;
+  and under the strip rule for ``pallas``), each RoI head (a cascade's
+  stage by stage), the R-CNN multi-class NMS (soft-NMS in the LOFT
+  configs), and the rest;
 - from ``torch.profiler`` over one call: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled call, and
   the kernels that take the most time.
 
 Needs a CUDA device.  Run from the repository root:
 
-    python -m bonai_tpu_torch.tools.profile_serve [--roi-align-impl pallas] \
-        [--checkpoint PATH]
+    python -m bonai_tpu_torch.tools.profile_serve [--config CONFIG] \
+        [--roi-align-impl pallas] [--checkpoint PATH]
 """
 
 from __future__ import annotations
@@ -31,10 +34,40 @@ import torch
 
 from ..apis import init_detector, prepare_batch
 from ..config import Config
-from ..models.detectors import two_stage
+from ..models.detectors import cascade_rcnn, two_stage
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
+# the detector modules whose functions the stages patch
+DETECTOR_MODULES = (two_stage, cascade_rcnn)
+
+
+def roi_heads(model):
+    """``(name, module)`` of every RoI head: a cascade's stage heads one by
+    one (``bbox_head.<i>``)."""
+    for name, m in model.roi_head.items():
+        if isinstance(m, torch.nn.ModuleList):
+            yield from ((f"{name}.{i}", h) for i, h in enumerate(m))
+        else:
+            yield name, m
+
+
+def patch_functions(names, totals):
+    """Time each function ``names`` keys in every detector module that
+    uses it; returns what :func:`restore_functions` puts back."""
+    saved = []
+    for mod in DETECTOR_MODULES:
+        for k, name in names.items():
+            if hasattr(mod, k):
+                fn = getattr(mod, k)
+                saved.append((mod, k, fn))
+                setattr(mod, k, _timed(name, fn, totals))
+    return saved
+
+
+def restore_functions(saved):
+    for mod, k, fn in saved:
+        setattr(mod, k, fn)
 
 
 def _timed(name, fn, totals):
@@ -57,14 +90,14 @@ def stage_times(model, batch, reps=3):
     }
     for attr, (name, fn) in patched.items():
         setattr(model, attr, _timed(name, fn, totals))
-    for k, m in model.roi_head.items():
+    heads = dict(roi_heads(model))
+    for k, m in heads.items():
         m.forward = _timed(k, m.forward, totals)
-    names = {"roi_align_block": "roi_align_block (B1)",
-             "roi_align_fused": "roi_align_fused (B1, strip rule)",
-             "multiclass_nms": "rcnn multiclass soft-nms"}
-    saved = {k: getattr(two_stage, k) for k in names}
-    for k, name in names.items():
-        setattr(two_stage, k, _timed(name, saved[k], totals))
+    nms = dict(model.test_cfg["rcnn"].get("nms", {})).get("type", "nms")
+    saved = patch_functions(
+        {"roi_align_block": "roi_align_block (B1)",
+         "roi_align_fused": "roi_align_fused (B1, strip rule)",
+         "multiclass_nms": f"rcnn multiclass {nms}"}, totals)
     try:
         wall = 0.0
         for _ in range(reps):
@@ -76,10 +109,9 @@ def stage_times(model, batch, reps=3):
     finally:
         for attr in patched:
             delattr(model, attr)
-        for m in model.roi_head.values():
+        for m in heads.values():
             del m.forward
-        for k, fn in saved.items():
-            setattr(two_stage, k, fn)
+        restore_functions(saved)
     stages = {k: v / reps for k, v in totals.items()}
     stages["other"] = wall / reps - sum(stages.values())
     return stages, wall / reps
@@ -115,6 +147,8 @@ def profile(model, batch):
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Where the serving time "
                                      "goes on the GPU.")
+    parser.add_argument("--config", default=CONFIG,
+                        help="detector config (default: LOFT-FOA R50-FPN)")
     parser.add_argument("--roi-align-impl", default=None,
                         help="RoIAlign route (default: the config's)")
     parser.add_argument("--checkpoint", default=None,
@@ -122,7 +156,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(args.config)
     if args.roi_align_impl:
         cfg.model.roi_align_impl = args.roi_align_impl
     model = init_detector(cfg, args.checkpoint, seed=0)
@@ -132,7 +166,8 @@ def main(argv=None):
     model.simple_test(*batch)                         # warm-up
     wall = wall_ms(model, batch)
     stages, staged = stage_times(model, batch)
-    print(f"simple_test 1024^2 B=2 bf16, roi_align_impl="
+    print(f"{os.path.basename(args.config)}: "
+          f"simple_test 1024^2 B=2 bf16, roi_align_impl="
           f"{model.roi_align_impl}, weights "
           f"{args.checkpoint or 'random (seed 0)'}: {wall:.1f} ms a call; stage "
           f"times (synchronised at each stage), {staged:.1f} ms a call:")

@@ -1,6 +1,8 @@
 """Where the training time goes on the GPU.
 
-Builds the LOFT-FOA R50-FPN config for training with ``train_detector``'s
+Builds a config (``--config``: the LOFT-FOA R50-FPN config by default, or
+another detector the port builds, such as the Mask, Cascade Mask or
+Dynamic R-CNN BONAI baselines) for training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
 config's SGD and schedule), takes a few steps on the synthetic padded
 batch of
@@ -11,17 +13,18 @@ and prints
 - each stage's time (the device synchronised at each stage's start and
   end): backbone+FPN, the RPN head, proposals (with their NMS), the RPN
   targets and loss, R-CNN assignment and sampling, the RoIAlign forward
-  of the route (B1, under the block or the strip rule), the three RoI
-  heads, mask targets, the rest of the forward, clip + SGD, and what the
-  step leaves after those (the backward, with the RoIAlign backward B2
-  inside);
+  of the route (B1, under the block or the strip rule), each RoI head (a
+  cascade's stage by stage), mask targets, the rest of the forward, clip
+  + SGD, and what the step leaves after those (the backward, with the
+  RoIAlign backward B2 inside);
 - from ``torch.profiler`` over one step: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled step, and
   the kernels that take the most time.
 
 Needs a CUDA device.  Run from the repository root:
 
-    python -m bonai_tpu_torch.tools.profile_train [--roi-align-impl pallas]
+    python -m bonai_tpu_torch.tools.profile_train [--config CONFIG] \
+        [--roi-align-impl pallas]
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from ..apis.train import build_trainer
 from ..config import Config
 from ..core.samplers import generator_draws
 from ..engine import train_step as train_step_module
-from ..models.detectors import two_stage
+from .profile_serve import patch_functions, restore_functions, roi_heads
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
@@ -93,18 +96,16 @@ def stage_times(model, train_step, batch, draw, reps=3):
     patched = {"extract_feat": "backbone+fpn", "forward_train": "forward"}
     for attr, name in patched.items():
         setattr(model, attr, _timed(name, getattr(model, attr), totals))
-    heads = {"rpn_head": model.rpn_head, **model.roi_head}
+    heads = {"rpn_head": model.rpn_head, **dict(roi_heads(model))}
     for name, m in heads.items():
         m.forward = _timed(name, m.forward, totals)
-    names = {"rpn_proposals": "proposals (NMS)",
-             "rpn_loss": "rpn targets+loss",
-             "assign_and_sample_rcnn": "rcnn assign+sample",
-             "roi_align_block": "roi_align_block fwd (B1)",
-             "roi_align_fused": "roi_align_fused fwd (B1, strip rule)",
-             "mask_targets_from_instance_masks": "mask targets"}
-    saved = {k: getattr(two_stage, k) for k in names}
-    for k, name in names.items():
-        setattr(two_stage, k, _timed(name, saved[k], totals))
+    saved = patch_functions(
+        {"rpn_proposals": "proposals (NMS)",
+         "rpn_loss": "rpn targets+loss",
+         "assign_and_sample_rcnn": "rcnn assign+sample",
+         "roi_align_block": "roi_align_block fwd (B1)",
+         "roi_align_fused": "roi_align_fused fwd (B1, strip rule)",
+         "mask_targets_from_instance_masks": "mask targets"}, totals)
     saved_update = train_step_module.apply_gradients
     train_step_module.apply_gradients = _timed("clip+sgd", saved_update,
                                                totals)
@@ -121,8 +122,7 @@ def stage_times(model, train_step, batch, draw, reps=3):
             delattr(model, attr)
         for m in heads.values():
             del m.forward
-        for k, fn in saved.items():
-            setattr(two_stage, k, fn)
+        restore_functions(saved)
         train_step_module.apply_gradients = saved_update
     stages = {k: v / reps for k, v in totals.items()}
     forward = stages.pop("forward")
@@ -156,12 +156,14 @@ def profile(train_step, batch, draw):
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Where the training time "
                                      "goes on the GPU.")
+    parser.add_argument("--config", default=CONFIG,
+                        help="detector config (default: LOFT-FOA R50-FPN)")
     parser.add_argument("--roi-align-impl", default=None,
                         help="RoIAlign route (default: the config's)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(args.config)
     if args.roi_align_impl:
         cfg.model.roi_align_impl = args.roi_align_impl
     model, _, train_step, generator = build_trainer(cfg,
@@ -174,7 +176,8 @@ def main(argv=None):
     wall = step_ms(train_step, batch, draw)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     stages, staged = stage_times(model, train_step, batch, draw)
-    print(f"train step 1024^2 B=2 bf16 autocast, roi_align_impl="
+    print(f"{os.path.basename(args.config)}: "
+          f"train step 1024^2 B=2 bf16 autocast, roi_align_impl="
           f"{model.roi_align_impl}: {wall:.1f} ms (median of "
           f"5), peak memory {peak:.2f} GiB; stage times (synchronised at "
           f"each stage), {staged:.1f} ms a step:")

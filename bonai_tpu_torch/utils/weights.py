@@ -9,6 +9,12 @@ flipped transposed-conv kernel back, and the first FC after RoI features
 torch's (C, H, W).  The plain ``OffsetHead``'s convs (``conv<i>``) go to
 mmdet's ``roi_head.offset_head.convs.<i>``, which the JAX importer does
 not read back (ROADMAP.md queue C).
+
+The detector may be LOFT, Faster, Mask or Dynamic R-CNN (the heads it has
+of ``bbox_head``, ``mask_head`` and ``offset_head``), or Cascade R-CNN,
+whose stage heads ``bbox_head_<i>`` go to mmdet's
+``roi_head.bbox_head.<i>``; the JAX importer reads the single
+``bbox_head`` only (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -42,8 +48,9 @@ def _fc_to_chw(w, h, ww):
 
 
 def state_dict_from_jax(params, batch_stats, roi_feat=7):
-    """Flax ``params``/``batch_stats`` of the JAX LOFT (numpy leaves) ->
-    the port's ``state_dict`` (mmdet v2.3 keys, CPU float32 tensors)."""
+    """Flax ``params``/``batch_stats`` of a JAX two-stage detector (numpy
+    leaves) -> the port's ``state_dict`` (mmdet v2.3 keys, CPU float32
+    tensors)."""
     sd = {}
 
     def layer(key, p, weight=_conv):
@@ -80,16 +87,19 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
     for name, p in params["rpn_head"].items():
         layer(f"rpn_head.{name}", p)
 
-    bh = params["bbox_head"]
-    sd["roi_head.bbox_head.shared_fcs.0.weight"] = _fc_to_chw(
-        bh["shared_fc1"]["kernel"], roi_feat, roi_feat)
-    sd["roi_head.bbox_head.shared_fcs.0.bias"] = np.asarray(
-        bh["shared_fc1"]["bias"])
-    layer("roi_head.bbox_head.shared_fcs.1", bh["shared_fc2"], _fc)
-    layer("roi_head.bbox_head.fc_cls", bh["fc_cls"], _fc)
-    layer("roi_head.bbox_head.fc_reg", bh["fc_reg"], _fc)
+    for name, bh in params.items():
+        m = re.fullmatch(r"bbox_head(?:_(\d+))?", name)
+        if not m:
+            continue
+        key = "roi_head.bbox_head" + ("" if m[1] is None else f".{m[1]}")
+        sd[f"{key}.shared_fcs.0.weight"] = _fc_to_chw(
+            bh["shared_fc1"]["kernel"], roi_feat, roi_feat)
+        sd[f"{key}.shared_fcs.0.bias"] = np.asarray(bh["shared_fc1"]["bias"])
+        layer(f"{key}.shared_fcs.1", bh["shared_fc2"], _fc)
+        layer(f"{key}.fc_cls", bh["fc_cls"], _fc)
+        layer(f"{key}.fc_reg", bh["fc_reg"], _fc)
 
-    for name, p in params["mask_head"].items():
+    for name, p in params.get("mask_head", {}).items():
         if name == "upsample":
             layer("roi_head.mask_head.upsample", p, _deconv)
         elif name == "conv_logits":
@@ -97,7 +107,7 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         else:
             layer(f"roi_head.mask_head.convs.{name[len('conv'):]}.conv", p)
 
-    for name, p in params["offset_head"].items():
+    for name, p in params.get("offset_head", {}).items():
         m = re.fullmatch(r"branch(\d+)_conv(\d+)", name)
         plain = re.fullmatch(r"conv(\d+)", name)
         if m:
@@ -117,6 +127,8 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
 
 
 def load_mmdet_checkpoint(path):
-    """The ``state_dict`` of an mmdet ``.pth`` checkpoint, as it is."""
+    """The ``state_dict`` of an mmdet ``.pth`` checkpoint, as it is: its
+    keys are the port's (a cascade's stage heads under
+    ``roi_head.bbox_head.<i>``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return ckpt.get("state_dict", ckpt)

@@ -105,7 +105,20 @@ Phases, each of which must pass:
    plain route, and 3 steps on the repeated synthetic batch (finite
    losses, every trainable weight moves, the RoI branches' gradients
    held to the plain route).
-10. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+10. rcnn: the R-CNN baselines on BONAI, each at full width with seeded
+   random weights and ``roi_align_impl='block'`` (the config's key):
+   ``configs/mask_rcnn/mask_rcnn_r50_fpn_2x_bonai.py``,
+   ``configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_bonai.py`` and
+   ``configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_bonai.py``, as the loft
+   phase runs its config: one serve batch and one ``inference_detector``
+   call (the results carry the model's heads: boxes and masks, or boxes
+   alone), the small float32 input held to the plain route, and training
+   on the repeated synthetic batch (6 steps of Mask R-CNN, 3 of the
+   others).  The Mask R-CNN's 6-step checkpoint goes through the test CLI
+   on the card (one of the eval phase's val crops; a pkl of ``(bbox,
+   segm)`` 2-tuples) and the evaluation CLI, which prints roof and
+   footprint F1.
+11. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -115,8 +128,10 @@ other kernel at all; the bench must launch B5.  The resume phase's runs are
 processes of their own, which start from zero and log their counts; their
 sum must be 3 launches of each kernel a step.  The ddp phase reads every
 rank's counts: each rank launches B1 and B2 3 times a step, B1 3 times a
-test batch.  The loft phase's counts are zeroed and read like the serve
-and train phases'.
+test batch.  The loft and rcnn phases' counts are zeroed and read like the
+serve and train phases', at one launch of each kernel per RoI call a batch
+or step makes: 3 for LOFT, 2 for Mask R-CNN (box and mask), 4 for Cascade
+Mask R-CNN (three box stages and the mask), 1 for Dynamic R-CNN.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -137,6 +152,12 @@ CONFIG = os.path.join(REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 SYNTH_CONFIG = os.path.join(
     REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py")
 LOFT_CONFIG = os.path.join(REPO, "configs/loft/loft_r50_fpn_2x_bonai.py")
+# the R-CNN baselines on BONAI (the rcnn phase): label, config, train steps
+RCNN_CONFIGS = (
+    ("mask_rcnn", "configs/mask_rcnn/mask_rcnn_r50_fpn_2x_bonai.py", 6),
+    ("cascade", "configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_bonai.py",
+     3),
+    ("dynamic", "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_bonai.py", 3))
 DATA_DIR = os.path.join(REPO, "build", "chip_smoke_data")
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
@@ -556,11 +577,32 @@ def kernel_phase():
     return sums
 
 
-def _check_outputs(out, b, p):
+def _branches(model):
+    """``(extractor config, RoI head)`` of each RoIAlign call a batch makes:
+    the box head (a cascade's every stage), then the mask and offset heads
+    the model has."""
+    import torch
+    bbox = model.roi_head["bbox_head"]
+    out = [(model.bbox_extractor_cfg, h) for h in (
+        bbox if isinstance(bbox, torch.nn.ModuleList) else [bbox])]
+    for head, ext in (("mask_head", "mask_extractor_cfg"),
+                      ("offset_head", "offset_extractor_cfg")):
+        if head in model.roi_head:
+            out.append((getattr(model, ext), model.roi_head[head]))
+    return out
+
+
+def _check_outputs(out, b, p, model):
     import torch
     shapes = {"det_bboxes": (b, p, 4), "det_scores": (b, p),
-              "det_labels": (b, p), "det_valid": (b, p),
-              "mask_probs": (b, p, 28, 28), "offsets": (b, p, 2)}
+              "det_labels": (b, p), "det_valid": (b, p)}
+    if "mask_head" in model.roi_head:
+        shapes["mask_probs"] = (b, p, 28, 28)
+    if "offset_head" in model.roi_head:
+        shapes["offsets"] = (b, p, 2)
+    if set(out) != set(shapes):
+        raise AssertionError(f"outputs {sorted(out)}, expected "
+                             f"{sorted(shapes)}")
     for key, shape in shapes.items():
         if tuple(out[key].shape) != shape:
             raise AssertionError(f"{key}: shape {tuple(out[key].shape)}, "
@@ -602,7 +644,7 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None):
     """Full-width serving of ``config`` (LOFT-FOA R50-FPN by default)
     through the port's entry points with ``roi_align_impl=impl``: ``calls``
     timed batches, then one ``inference_detector`` call.  Returns the
-    forward kernel's launch count of the run."""
+    forward kernel's launch count of the run and its ms per call."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import (inference_detector, init_detector,
@@ -616,6 +658,7 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None):
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"dtype {next(model.parameters()).dtype}", flush=True)
     max_per_img = model.test_cfg["rcnn"]["max_per_img"]
+    n_roi = len(_branches(model))
     r = np.random.RandomState(0)
     imgs = [r.randint(0, 256, (SIZE, SIZE, 3), np.uint8)
             for _ in range(BATCH)]
@@ -632,13 +675,14 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None):
         out = model.simple_test(img, img_shape, scale)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        _check_outputs(out, BATCH, max_per_img)
-    _check_counts(_counts(), {fwd_name: 3 * calls},
+        _check_outputs(out, BATCH, max_per_img, model)
+    _check_counts(_counts(), {fwd_name: n_roi * calls},
                   f"{what}, {calls} batches")
     t0 = time.perf_counter()
-    bbox, segm, offsets = inference_detector(
-        model, r.randint(0, 256, (512, 640, 3), np.uint8))
+    res = inference_detector(model, r.randint(0, 256, (512, 640, 3),
+                                              np.uint8))
     single_ms = (time.perf_counter() - t0) * 1e3
+    bbox = res[0] if isinstance(res, tuple) else res
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"{what}: simple_test 1024^2 B={BATCH} ms per call "
@@ -649,10 +693,17 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None):
           f"host paste+RLE {single_ms:.1f} ms, {len(bbox[0])} detections; "
           f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
           f"launches {counts}", flush=True)
-    _check_counts(counts, {fwd_name: 3 * (calls + 1)},
+    _check_counts(counts, {fwd_name: n_roi * (calls + 1)},
                   f"{what}, {calls + 1} batches")
-    if not (len(bbox[0]) == len(segm[0]) == len(offsets)
-            and np.isfinite(bbox[0]).all() and np.isfinite(offsets).all()):
+    # (bbox, segm, offsets), (bbox, segm) or bbox alone
+    parts = len(res) if isinstance(res, tuple) else 1
+    if parts != 1 + ("mask_head" in model.roi_head) + (
+            "offset_head" in model.roi_head):
+        raise AssertionError(f"inference_detector gave {parts} parts")
+    if not (np.isfinite(bbox[0]).all()
+            and (parts < 2 or len(res[1][0]) == len(bbox[0]))
+            and (parts < 3 or (len(res[2]) == len(bbox[0])
+                               and np.isfinite(res[2]).all()))):
         raise AssertionError("inference_detector results are inconsistent")
 
     # a small float32 input: the three RoI branches' head outputs on the
@@ -667,13 +718,13 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None):
         _small_input_check(model, impl, what, r)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    return counts[fwd_name]
+    return counts[fwd_name], statistics.median(times)
 
 
 def _small_input_check(model, impl, what, r):
-    """The three RoI branches' head outputs of a small float32 input on
-    the model's own proposals, through route ``impl``'s kernel and through
-    its plain version."""
+    """The RoI heads' outputs of a small float32 input on the model's own
+    proposals, through route ``impl``'s kernel and through its plain
+    version."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import prepare_batch
@@ -689,12 +740,11 @@ def _small_input_check(model, impl, what, r):
         props, _, pvalid = model._rpn_and_proposals(
             feats, img_shape, dict(model.test_cfg["rpn"]))
         rois, rvalid = two_stage.boxes_to_rois(props, pvalid)
-        for ext, head in (("bbox_extractor_cfg", "bbox_head"),
-                          ("mask_extractor_cfg", "mask_head"),
-                          ("offset_extractor_cfg", "offset_head")):
+        for i, (ext, module) in enumerate(_branches(model)):
+            head = f"RoI call {i} ({type(module).__name__})"
+
             def run():
-                out = model.roi_head[head](model._roi_align_cfg(
-                    getattr(model, ext), feats, rois, rvalid))
+                out = module(model._roi_align_cfg(ext, feats, rois, rvalid))
                 return out if isinstance(out, tuple) else (out,)
             launched = kernel_fn.launches
             got = run()
@@ -749,6 +799,7 @@ def _roi_grad_check(model, impl, what):
         calls.append((rois, output_size, kw, out))
         return out
 
+    n_roi = len(_branches(model))
     _zero_counts()
     try:
         setattr(two_stage, attr, recorded)
@@ -757,9 +808,9 @@ def _roi_grad_check(model, impl, what):
             generator_draws(torch.Generator(device="cuda").manual_seed(0)))
     finally:
         setattr(two_stage, attr, kernel_fn)
-    sum(losses.values()).backward()
+    sum(v for k, v in losses.items() if not k.startswith("stat_")).backward()
     torch.cuda.synchronize()
-    _check_counts(_counts(), {fwd_name: 3, bwd_name: 3},
+    _check_counts(_counts(), {fwd_name: n_roi, bwd_name: n_roi},
                   f"{what}, small input")
     levels = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
     mags = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
@@ -790,12 +841,13 @@ def _roi_grad_check(model, impl, what):
         raise AssertionError("small input: no gradient reached the FPN")
 
 
-def train_phase(impl, steps, config=CONFIG, label=None):
+def train_phase(impl, steps, config=CONFIG, label=None, keep=False):
     """Full-width training of ``config`` (LOFT-FOA R50-FPN by default)
     through ``train_detector`` with ``roi_align_impl=impl`` for ``steps``
-    steps (1 warm-up) on one card.  Returns the
-    forward and backward kernels' launch counts of the run and the median
-    warm step time."""
+    steps (1 warm-up) on one card.  Returns the forward and backward
+    kernels' launch counts of the run, the median warm step time, the
+    peak memory, and with ``keep`` the final checkpoint, whose work
+    directory the caller removes."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import train_detector
@@ -806,7 +858,8 @@ def train_phase(impl, steps, config=CONFIG, label=None):
 
     cfg = _config(impl, config)
     batch = synthetic_batch()
-    work_dir = os.path.join(REPO, "build", "chip_smoke_train")
+    work_dir = os.path.join(REPO, "build", "chip_smoke_train" + (
+        f"_{label.split()[0]}" if keep else ""))
     shutil.rmtree(work_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -829,7 +882,7 @@ def train_phase(impl, steps, config=CONFIG, label=None):
           f"{statistics.median(step_ms[1:]):.1f} ms; peak memory "
           f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); launches "
           f"{counts}", flush=True)
-    keys = [k for k in hist[0] if k.startswith("loss")]
+    keys = [k for k in hist[0] if k.split(".")[-1].startswith("loss")]
     for h in hist:
         print(f"{what}: step {h['iter']} lr {h['lr']:.3g} grad_norm "
               f"{h['grad_norm']:.4g} " + " ".join(
@@ -837,7 +890,8 @@ def train_phase(impl, steps, config=CONFIG, label=None):
     if not all(np.isfinite(h[k]) for h in hist
                for k in keys + ["grad_norm"]):
         raise AssertionError("a loss or the gradient norm is not finite")
-    _check_counts(counts, {fwd_name: 3 * steps, bwd_name: 3 * steps},
+    n_roi = len(_branches(model))
+    _check_counts(counts, {fwd_name: n_roi * steps, bwd_name: n_roi * steps},
                   f"{what}, {steps} steps")
     init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
     init.init_weights(torch.Generator().manual_seed(0))
@@ -855,11 +909,17 @@ def train_phase(impl, steps, config=CONFIG, label=None):
     if moved != trainable or frozen_moved:
         raise AssertionError("the trainable weights did not all move, or "
                              "a frozen one did")
-    shutil.rmtree(work_dir, ignore_errors=True)
+    out = {"fwd": counts[fwd_name], "bwd": counts[bwd_name],
+           "step_ms": statistics.median(step_ms[1:]),
+           "peak_gib": peak / 2 ** 30}
+    if keep:
+        from bonai_tpu_torch.engine import latest_checkpoint
+        out.update(checkpoint=latest_checkpoint(work_dir), work_dir=work_dir)
+    else:
+        shutil.rmtree(work_dir, ignore_errors=True)
 
     _roi_grad_check(model, impl, what)
-    return {"fwd": counts[fwd_name], "bwd": counts[bwd_name],
-            "step_ms": statistics.median(step_ms[1:])}
+    return out
 
 
 def _synth_config(test=False):
@@ -948,7 +1008,7 @@ def data_phase(steps=6, tiles=8):
           f"of the warm steps {statistics.median(wait_ms[1:]):.1f}); peak "
           f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
           f"launches {counts}", flush=True)
-    keys = [k for k in hist[0] if k.startswith("loss")]
+    keys = [k for k in hist[0] if k.split(".")[-1].startswith("loss")]
     for h in hist:
         print(f"data: step {h['iter']} lr {h['lr']:.3g} grad_norm "
               f"{h['grad_norm']:.4g} " + " ".join(
@@ -1444,9 +1504,91 @@ def loft_phase():
     ``inference_detector``; a small float32 input against the plain
     route), and 3 training steps on the repeated synthetic batch.  Returns
     the launch counts."""
-    serve = serve_phase("block", LOFT_CONFIG, calls=1, label="loft serve")
+    serve, _ = serve_phase("block", LOFT_CONFIG, calls=1, label="loft serve")
     train = train_phase("block", 3, LOFT_CONFIG, label="loft train")
     return dict(serve=serve, train=train)
+
+
+def rcnn_phase():
+    """The R-CNN baselines on BONAI (``RCNN_CONFIGS``: Mask R-CNN, Cascade
+    Mask R-CNN, Dynamic R-CNN) at full width with seeded random weights and
+    the ``'block'`` route: one serve batch (B=2, 1024^2, bf16) and one
+    ``inference_detector`` call, a small float32 input held to the plain
+    route, and training on the repeated synthetic batch (6 steps of Mask
+    R-CNN, 3 of the others; the RoI branches' gradients held to the plain
+    route).  Then the test and evaluation CLIs on the Mask R-CNN's 6-step
+    checkpoint, on the first of the eval phase's val crops.  Returns each
+    config's launch counts and times."""
+    out = {}
+    for label, config, steps in RCNN_CONFIGS:
+        config = os.path.join(REPO, config)
+        serve, serve_ms = serve_phase("block", config, calls=1,
+                                      label=f"{label} serve")
+        train = train_phase("block", steps, config, label=f"{label} train",
+                            keep=label == "mask_rcnn")
+        out[label] = dict(serve=serve, serve_ms=serve_ms, train=train)
+    train = out["mask_rcnn"]["train"]
+    out["mask_rcnn"]["test_cli"] = rcnn_eval(
+        os.path.join(REPO, RCNN_CONFIGS[0][1]), train["checkpoint"],
+        train["work_dir"])
+    for label, r in out.items():
+        print(f"rcnn {label}: serve {r['serve_ms']:.1f} ms a B=2 call, B1 "
+              f"{r['serve']} launches; train median step "
+              f"{r['train']['step_ms']:.1f} ms, peak "
+              f"{r['train']['peak_gib']:.2f} GiB, B1 {r['train']['fwd']} / "
+              f"B2 {r['train']['bwd']} launches", flush=True)
+    return out
+
+
+def rcnn_eval(config, checkpoint, work_dir):
+    """The test CLI on the card with ``config`` and ``checkpoint`` on the
+    first of the eval phase's val crops (a 2-tuple pkl: boxes and roof
+    masks, no offsets), then the evaluation CLI on it.  Removes
+    ``work_dir`` (the checkpoint's) at the end.  Returns B1's launches in
+    the test CLI's run."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.tools import bonai_evaluation, bonai_test
+    _, fwd_name, _ = ROUTES["block"]
+    crops = os.path.join(DATA_DIR, "val", "val.json")
+    cfg = _config("block", config)
+    cfg.data.test.update(ann_file=crops, img_prefix=os.path.join(
+        DATA_DIR, "val", "images") + "/")
+    out_dir = os.path.join(REPO, "build", "chip_smoke_rcnn_eval")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg_path = os.path.join(out_dir, os.path.basename(config))
+    cfg.dump(cfg_path)
+    pkl = os.path.join(out_dir, "results.pkl")
+    _zero_counts()
+    t0 = time.perf_counter()
+    payload = bonai_test.main([cfg_path, checkpoint, "--out", pkl, "--city",
+                               "config", "--max-images", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = _counts()
+    _check_counts(counts, {fwd_name: 2}, "rcnn test CLI, 1 batch")
+    results = payload["results"]
+    if len(results) != 1:
+        raise AssertionError(f"rcnn test CLI: {len(results)} results")
+    for res in results:
+        if not (isinstance(res, tuple) and len(res) == 2
+                and res[0][0].shape[1:] == (5,)
+                and len(res[1][0]) == len(res[0][0])
+                and np.isfinite(res[0][0]).all()
+                and all(m["size"] == [SIZE, SIZE] for m in res[1][0])):
+            raise AssertionError("the rcnn test CLI's results are not "
+                                 "(bbox, segm) 2-tuples")
+    t0 = time.perf_counter()
+    summary = bonai_evaluation.main([pkl, "--gt-json", crops])
+    eval_s = time.perf_counter() - t0
+    print(f"rcnn mask_rcnn eval: test CLI {cli_s:.1f} s (model build, 1 of "
+          f"{len(payload['filenames'])} crops, bf16), "
+          f"{len(results[0][0][0])} detections; evaluation CLI {eval_s:.1f} "
+          f"s: {_scores(summary)}; launches {counts}", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return counts[fwd_name]
 
 
 def bench_phase():
@@ -1508,7 +1650,7 @@ def main():
             print(log.read_text().strip(), flush=True)
 
     sums = kernel_phase()
-    serve = {impl: serve_phase(impl) for impl in ("block", "pallas")}
+    serve = {impl: serve_phase(impl)[0] for impl in ("block", "pallas")}
     train = {impl: train_phase(impl, steps)
              for impl, steps in (("block", 6), ("pallas", 4))}
     files = data_phase()
@@ -1527,6 +1669,7 @@ def main():
           flush=True)
     ddp = ddp_phase(card, files["step_ms"])
     loft = loft_phase()
+    rcnn = rcnn_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -1567,7 +1710,13 @@ def main():
                 ddp_test_launches=[c["roi_align_block_fwd"]
                                    for c in ddp["test"]],
                 loft_serve_launches=loft["serve"],
-                loft_train_launches=loft["train"]["fwd"]),
+                loft_train_launches=loft["train"]["fwd"],
+                **{f"rcnn_{k}_serve_launches": r["serve"]
+                   for k, r in rcnn.items()},
+                **{f"rcnn_{k}_train_launches": r["train"]["fwd"]
+                   for k, r in rcnn.items()},
+                rcnn_mask_rcnn_test_cli_launches=rcnn["mask_rcnn"][
+                    "test_cli"]),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],
@@ -1577,7 +1726,9 @@ def main():
                                        for c in ddp["rehearsal"]],
                ddp_cli_launches=[c["roi_align_block_bwd"]
                                  for c in ddp["cli"]],
-               loft_train_launches=loft["train"]["bwd"]),
+               loft_train_launches=loft["train"]["bwd"],
+               **{f"rcnn_{k}_train_launches": r["train"]["bwd"]
+                  for k, r in rcnn.items()}),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

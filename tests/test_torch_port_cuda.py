@@ -14,7 +14,10 @@ version: float32 to 1e-4 of each level's largest gradient (the two sum in
 different orders), bfloat16 to one bf16 ulp plus 1e-5 of the level's
 largest gradient (both round once from float32 sums taken in different
 orders).  The levels the forward kernel computes must equal the torch
-rules' on every RoI, the rules' edges included.  A two-rank data-parallel
+rules' on every RoI, the rules' edges included.  The R-CNN baselines
+(Mask, Cascade Mask and Dynamic R-CNN at tiny widths, ``'block'`` route)
+launch the forward kernel once per RoI call of a serve batch and both
+kernels once per RoI call of a training step.  A two-rank data-parallel
 step (gloo, both ranks on one card) must equal the step of the mean of
 its two half-batch gradients within 1e-4 of each tensor's largest update.
 """
@@ -179,6 +182,65 @@ def test_train_step_runs_both_kernels(tmp_path):
                                  n_devices=1)
     assert roi_align_block.launches - fwd == 3
     assert roi_align_block_backward.launches - bwd == 3
+    assert np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["grad_norm"])
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+# the R-CNN baselines: config, RoIAlign calls a batch or step makes
+RCNN = {"mask_rcnn": ("MASK_RCNN_CONFIG", 2),
+        "cascade": ("CASCADE_CONFIG", 4),
+        "dynamic": ("DYNAMIC_CONFIG", 1)}
+
+
+def _rcnn_cfg(family, train=False):
+    import torch_port_common as tpc
+    config, calls = RCNN[family]
+    cfg = (tpc.tiny_train_cfg if train else tpc.tiny_cfg)(
+        config=getattr(tpc, config))
+    cfg.model.roi_align_impl = "block"
+    return cfg, calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(RCNN))
+def test_rcnn_serve_batch_runs_the_block_kernel(family):
+    """One serve batch of each R-CNN baseline: one forward launch per RoI
+    call (box stages and mask), finite outputs, a mask only where the
+    model has a mask head."""
+    _need_cuda()
+    from bonai_tpu_torch.apis import init_detector, prepare_batch
+    from bonai_tpu_torch.ops import roi_align_block
+    cfg, calls = _rcnn_cfg(family)
+    cfg.data.test.pipeline[1].img_scale = (128, 128)
+    model = init_detector(cfg, device="cuda", dtype=torch.float32)
+    r = np.random.RandomState(0)
+    img, shape, scale, _ = prepare_batch(
+        model, [r.randint(0, 255, (100, 128, 3), np.uint8)] * 2)
+    before = roi_align_block.launches
+    out = model.simple_test(img, shape, scale)
+    torch.cuda.synchronize()
+    assert roi_align_block.launches == before + calls
+    assert ("mask_probs" in out) == (family != "dynamic")
+    assert "offsets" not in out
+    assert all(bool(torch.isfinite(v).all()) for v in out.values()
+               if v.is_floating_point())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(RCNN))
+def test_rcnn_train_step_runs_both_kernels(family, tmp_path):
+    """One tiny training step of each R-CNN baseline on the card: both
+    kernels once per RoI call, finite losses and weights."""
+    _need_cuda()
+    from bonai_tpu_torch.apis import train_detector
+    from bonai_tpu_torch.ops import roi_align_block, roi_align_block_backward
+    from torch_port_common import train_batch
+    cfg, calls = _rcnn_cfg(family, train=True)
+    fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
+    model, hist = train_detector(cfg, [train_batch()], str(tmp_path),
+                                 max_steps=1, log_interval=1, n_devices=1)
+    assert roi_align_block.launches - fwd == calls
+    assert roi_align_block_backward.launches - bwd == calls
     assert np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["grad_norm"])
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
 

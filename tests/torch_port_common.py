@@ -1,7 +1,7 @@
 """Shared fixtures of the ``test_torch_port_*`` parity tests: the flagship
-LOFT-FOA config cut to tiny widths, the JAX model with seeded random
-variables, and the port's model carrying the same weights through
-``state_dict_from_jax``."""
+LOFT-FOA config (or another two-stage BONAI config) cut to tiny widths,
+the JAX model with seeded random variables, and the port's model carrying
+the same weights through ``state_dict_from_jax``."""
 
 import os.path as osp
 
@@ -13,12 +13,24 @@ CONFIG = osp.join(ROOT, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 SYNTH_CONFIG = osp.join(ROOT,
                         "configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py")
 LOFT_CONFIG = osp.join(ROOT, "configs/loft/loft_r50_fpn_2x_bonai.py")
+MASK_RCNN_CONFIG = osp.join(ROOT,
+                            "configs/mask_rcnn/mask_rcnn_r50_fpn_2x_bonai.py")
+CASCADE_CONFIG = osp.join(
+    ROOT, "configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_bonai.py")
+DYNAMIC_CONFIG = osp.join(
+    ROOT, "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_bonai.py")
+
+
+def _each(x):
+    """A per-stage config list as it is; one config as a list of one."""
+    return x if isinstance(x, (list, tuple)) else [x]
 
 
 def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
-    """The LOFT-FOA R50 config (``config``) at the ``_tiny_loft_model``
-    widths (``__graft_entry__.py``): ResNet-18 at base 8, 16-channel
-    FPN."""
+    """The LOFT-FOA R50 config (``config``; or another two-stage config:
+    its heads that are there, a cascade's every stage) at the
+    ``_tiny_loft_model`` widths (``__graft_entry__.py``): ResNet-18 at
+    base 8, 16-channel FPN."""
     from bonai_tpu_torch import Config
     cfg = Config.fromfile(config)
     m = cfg.model
@@ -28,11 +40,16 @@ def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
     rh = m.roi_head
     for k in ("bbox_roi_extractor", "mask_roi_extractor",
               "offset_roi_extractor"):
-        rh[k].out_channels = 16
-    rh.bbox_head.update(in_channels=16, fc_out_channels=32)
-    rh.mask_head.update(num_convs=1, in_channels=16, conv_out_channels=16)
-    rh.offset_head.update(in_channels=16, num_convs=2, fc_out_channels=32,
-                          conv_out_channels=16)
+        if rh.get(k) is not None:
+            rh[k].out_channels = 16
+    for head in _each(rh.bbox_head):
+        head.update(in_channels=16, fc_out_channels=32)
+    if rh.get("mask_head") is not None:
+        rh.mask_head.update(num_convs=1, in_channels=16,
+                            conv_out_channels=16)
+    if rh.get("offset_head") is not None:
+        rh.offset_head.update(in_channels=16, num_convs=2,
+                              fc_out_channels=32, conv_out_channels=16)
     cfg.test_cfg.rpn.update(nms_pre=nms_pre, nms_post=max_num,
                             max_num=max_num)
     cfg.test_cfg.rcnn.max_per_img = max_per_img
@@ -79,13 +96,16 @@ def jax_model(cfg, seed=0, **build_kw):
     params = _random_tree(shapes["params"], r)
     stats = _random_tree(shapes["batch_stats"], r)
     params["rpn_head"]["rpn_reg"]["kernel"] *= 0.1
-    params["bbox_head"]["fc_reg"]["kernel"] *= 0.1
-    # foreground logit = -background logit: softmax scores spread over
-    # (0, 1) instead of collapsing onto one class
-    fc_cls = params["bbox_head"]["fc_cls"]
-    fg = fc_cls["kernel"][:, :1]
-    fc_cls["kernel"] = np.concatenate([fg, -fg], axis=1)
-    fc_cls["bias"] = np.zeros_like(fc_cls["bias"])
+    for name in params:                 # bbox_head, or a cascade's stages
+        if not name.startswith("bbox_head"):
+            continue
+        params[name]["fc_reg"]["kernel"] *= 0.1
+        # foreground logit = -background logit: softmax scores spread over
+        # (0, 1) instead of collapsing onto one class
+        fc_cls = params[name]["fc_cls"]
+        fg = fc_cls["kernel"][:, :1]
+        fc_cls["kernel"] = np.concatenate([fg, -fg], axis=1)
+        fc_cls["bias"] = np.zeros_like(fc_cls["bias"])
     return model, {"params": params, "batch_stats": stats}
 
 
@@ -113,7 +133,8 @@ def tiny_train_cfg(config=CONFIG):
     cfg = tiny_cfg(config=config)
     cfg.train_cfg.rpn.sampler.num = 64
     cfg.train_cfg.rpn_proposal.update(nms_pre=100, nms_post=32, max_num=32)
-    cfg.train_cfg.rcnn.sampler.num = 64
+    for stage in _each(cfg.train_cfg.rcnn):
+        stage.sampler.num = 64
     return cfg
 
 
@@ -148,19 +169,24 @@ def jax_uniforms(key, n):
                  for k in (k_pos, k_neg))
 
 
-def jax_forward_train_draws(jm, variables, key, b):
+def jax_forward_train_draws(jm, variables, key, b, cascade=False):
     """A draw source for the port's ``forward_train`` that hands out the
     uniforms the JAX ``forward_train`` draws under ``rngs={"sampling":
     key}``: the RPN's per image, then the R-CNN's per image, from the
-    splits of the module's ``sampling`` stream."""
+    splits of the module's ``sampling`` stream.  With ``cascade``, the
+    R-CNN's are stage ``i``'s at call ``i + 1``: the splits of the R-CNN
+    key folded with ``i`` (``bonai_tpu/models/detectors/
+    cascade_rcnn.py``)."""
     import jax
     rng = jm.apply(variables, method=lambda m: m.make_rng("sampling"),
                    rngs={"sampling": key})
-    stages = list(jax.random.split(rng))
+    rpn, rcnn = jax.random.split(rng)
+    keys = iter([rpn] + ([jax.random.fold_in(rcnn, i) for i in range(8)]
+                         if cascade else [rcnn]))
 
     def draw(shape, device):
-        keys = jax.random.split(stages.pop(0), b)
-        pairs = [jax_uniforms(k, shape[-1]) for k in keys]
+        pairs = [jax_uniforms(k, shape[-1])
+                 for k in jax.random.split(next(keys), b)]
         return tuple(torch.from_numpy(np.stack(u)).to(device)
                      for u in zip(*pairs))
     return draw
@@ -273,9 +299,10 @@ def replay_draws(pairs):
     return draw
 
 
-def ddp_step_rank(inputs, out_dir):
-    """A rank of the data-parallel step test: ``build_trainer`` of
-    :func:`ddp_train_cfg` in the process group (DDP), then for each global
+def ddp_step_rank(inputs, out_dir, cfg=None):
+    """A rank of the data-parallel step test: ``build_trainer`` of ``cfg``
+    (:func:`ddp_train_cfg` by default) in the process group (DDP), then for
+    each global
     batch ``batch/<s>/*`` of ``inputs`` (an ``.npz``) in turn, one step
     (step 0) from its weights ``sd/*`` and a fresh momentum, with this
     rank's recorded draws ``draw/<rank>/<s>/<i>/{pos,neg}``.  Writes each
@@ -286,7 +313,7 @@ def ddp_step_rank(inputs, out_dir):
     torch.set_num_threads(1)
     rank, world_size = parallel.world()
     d = np.load(inputs)
-    model, optimizer, train_step, _ = build_trainer(ddp_train_cfg(),
+    model, optimizer, train_step, _ = build_trainer(cfg or ddp_train_cfg(),
                                                     torch.device("cpu"))
     start = {k[3:]: torch.from_numpy(d[k]) for k in d.files
              if k.startswith("sd/")}
