@@ -4,10 +4,13 @@ per-image results in the reference layout (counterparts of
 
 from __future__ import annotations
 
+import os.path as osp
+
 import numpy as np
 import torch
 
 from ..core.masks import paste_mask_rle
+from ..datasets import build_dataloader, build_dataset
 from ..parallel import collect_results_shards, world
 
 
@@ -93,3 +96,29 @@ def run_inference(model, loader, max_images=None, with_offset=True,
     if progress:
         print()
     return collect_results_shards(results, total)
+
+
+def test_split(cfg, checkpoint, test_cfg=None, device=None, max_images=None):
+    """Inference over a test split, as the test CLIs run it: the model of
+    ``cfg`` with the weights of ``checkpoint`` (a ``.pth``: the port's own
+    ``step_N.pth`` or an mmdet v2.3 checkpoint) in the config's
+    ``compute_dtype`` (bfloat16 by default) on ``device``, over the
+    dataset of ``test_cfg`` (by default ``cfg.data.test``) in test mode.
+    Returns ``(dataset, results)``."""
+    from .inference import init_detector, resolve_device   # imports us
+    if osp.isdir(checkpoint):
+        raise ValueError(
+            f"{checkpoint} is a directory (a JAX checkpoint?): the port "
+            "reads .pth checkpoints only")
+    dataset = build_dataset(dict(test_cfg or cfg.data.test, test_mode=True))
+    loader = build_dataloader(
+        dataset, samples_per_gpu=cfg.data.get("samples_per_gpu", 2),
+        shuffle=False, train=False)
+    model = init_detector(cfg, checkpoint, device=resolve_device(device),
+                          dtype=getattr(torch, cfg.get("compute_dtype",
+                                                       "bfloat16")))
+    try:
+        results = run_inference(model, loader, max_images=max_images)
+    finally:
+        loader.close()
+    return dataset, results

@@ -205,9 +205,14 @@ def build_trainer(cfg, device, seed=0, steps_per_epoch=1):
     grad_clip = dict(cfg.get("optimizer_config", {}).get("grad_clip") or {})
     forward = model
     if dist.is_initialized():
+        # a backbone that stops the gradient behind trained parameters
+        # (HRNet's conv2/bn2 at frozen_stages >= 1) leaves them out of the
+        # graph: DDP must look for them, and apply_gradients zeroes them
         forward = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda"
-            else None, broadcast_buffers=False)
+            else None, broadcast_buffers=False,
+            find_unused_parameters=getattr(model.backbone, "stops_gradient",
+                                           False))
     compute_dtype = None
     if device.type == "cuda" and cfg.get("compute_dtype",
                                          "bfloat16") != "float32":

@@ -101,11 +101,39 @@ class CocoDataset:
             offsets=np.zeros((len(bboxes), 2), np.float32),
         )
 
-    def evaluate(self, results, **kwargs):
-        raise NotImplementedError(
-            "COCO AP, mAP and recall evaluation are ROADMAP.md item A8; "
-            "BONAI F1 and offset error are bonai_tpu_torch.tools."
-            "bonai_evaluation's")
+    def evaluate(self, results, metric="bbox", iou_thr=0.5,
+                 proposal_nums=(100, 300, 1000)):
+        """COCO AP for ``'bbox'`` and ``'segm'``, VOC ``'mAP'`` at
+        ``iou_thr`` and proposal ``'recall'`` (``AR@N`` for each of
+        ``proposal_nums``) of ``results`` (the JAX package's method).
+        BONAI F1 and offset error are
+        ``bonai_tpu_torch.tools.bonai_evaluation``'s."""
+        metrics = [metric] if isinstance(metric, str) else list(metric)
+        out = {}
+        coco_kinds = [m for m in metrics if m in ("bbox", "segm")]
+        if coco_kinds:
+            from ..evaluation.coco_eval import evaluate_coco
+            out.update(evaluate_coco(self, results,
+                                     metric_types=coco_kinds))
+        if "mAP" in metrics:
+            from ..evaluation.mean_ap import eval_map
+            anns = [self.get_ann_info(i) for i in range(len(results))]
+            dets = [r[0] if isinstance(r, tuple) else r for r in results]
+            mean_ap, _ = eval_map(dets, anns, iou_thr=iou_thr)
+            out["mAP"] = mean_ap
+        if "recall" in metrics or "proposal_fast" in metrics:
+            from ..evaluation.mean_ap import eval_recalls
+            gts = [self.get_ann_info(i)["bboxes"]
+                   for i in range(len(results))]
+            props = []
+            for r in results:
+                dets = r[0] if isinstance(r, tuple) else r
+                props.append(np.concatenate(
+                    [np.asarray(d).reshape(-1, 5) for d in dets], axis=0))
+            rec = eval_recalls(gts, props, proposal_nums, (iou_thr,))
+            for i, n in enumerate(proposal_nums):
+                out[f"AR@{n}"] = float(rec[i, 0])
+        return out
 
     def pre_pipeline(self, results):
         """Hook for subclasses to add prefixes and field registries."""

@@ -25,8 +25,27 @@ from ...utils.png import read_png
 
 PIPELINES = Registry("pipeline")
 
+# the JAX package's other transforms, by the ROADMAP.md item that ports them
+UNPORTED = {
+    **dict.fromkeys(("OffsetTransform", "RandomRotate", "Pointobb2RBBox"),
+                    "item A5"),
+    **dict.fromkeys(("PhotoMetricDistortion", "Expand", "MinIoURandomCrop",
+                     "RandomCrop", "RandomCenterCropPad", "AutoAugment"),
+                    "item A6"),
+    **dict.fromkeys(("LoadProposals", "SegRescale"), "item A7"),
+    "Corrupt": "item A8",
+    **dict.fromkeys(("InstaBoost", "Albu"),
+                    "not queued: it wraps a package (instaboostfast, "
+                    "albumentations) that neither machine has"),
+}
+
 
 def build_pipeline(cfgs):
+    for c in cfgs:
+        if c.get("type") in UNPORTED:
+            raise NotImplementedError(
+                f"transform {c['type']} is not ported to bonai_tpu_torch "
+                f"(ROADMAP.md {UNPORTED[c['type']]})")
     return Compose([build_from_cfg(c, PIPELINES) for c in cfgs])
 
 

@@ -63,10 +63,15 @@ def build_optimizer(model, optimizer_cfg):
 def apply_gradients(optimizer, lr, max_norm=None):
     """One update from the gradients the parameters hold: clip them to
     ``max_norm`` by their global norm (when it is given and binds), set the
-    LR, step.  Returns the global norm before clipping (a device scalar;
-    no host sync)."""
-    params = [p for g in optimizer.param_groups for p in g["params"]
-              if p.grad is not None]
+    LR, step.  A trainable parameter that got no gradient (HRNet's
+    ``conv2``/``bn2`` behind the gradient stop of ``frozen_stages``) takes
+    a zero one, so that weight decay and momentum move it as the JAX step
+    does.  Returns the global norm before clipping (a device scalar; no
+    host sync)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
     norm = torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))

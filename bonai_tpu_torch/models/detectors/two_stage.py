@@ -37,11 +37,13 @@ from ...ops.roi_align_block import roi_align_block
 from ...ops.roi_align_blocked import roi_align_blocked
 from ...ops.roi_align_fused import roi_align_fused
 from ...parallel import gather_cat
+from ..backbones.hrnet import HRNet
 from ..backbones.resnet import ResNet
 from ..dense_heads.rpn_head import RPNHead, rpn_loss, rpn_proposals
 from ..losses import (binary_cross_entropy, cross_entropy, l1_loss,
                       smooth_l1_loss)
 from ..necks.fpn import FPN
+from ..necks.hrfpn import HRFPN
 from ..roi_heads.bbox_head import Shared2FCBBoxHead, bbox_targets
 from ..roi_heads.mask_head import FCNMaskHead
 
@@ -158,6 +160,33 @@ def _require_type(cfg, expected, item):
             f"{item})")
 
 
+def _build_backbone(cfg):
+    """A ``ResNet`` or an ``HRNet``; other backbones raise A6."""
+    if dict(cfg).get("type") == "HRNet":
+        return HRNet(**_kwargs(cfg, "backbone", (
+            "extra", "frozen_stages", "norm_eval"), "A6"))
+    _require_type(cfg, "ResNet", "A6")
+    return ResNet(**_kwargs(cfg, "backbone", (
+        "depth", "num_stages", "out_indices", "frozen_stages", "norm_eval",
+        "style", "base_channels"), "A6"))
+
+
+def _build_neck(cfg):
+    """An ``FPN`` or an ``HRFPN``.  A list of necks (Libra R-CNN's ``[FPN,
+    BFP]``, which the JAX package chains) raises A7, other necks A6."""
+    if isinstance(cfg, (list, tuple)):
+        raise NotImplementedError(
+            f"chained necks {[dict(c).get('type') for c in cfg]} are not "
+            f"ported to bonai_tpu_torch yet (ROADMAP.md item A7)")
+    if dict(cfg).get("type") == "HRFPN":
+        return HRFPN(**_kwargs(cfg, "neck", (
+            "in_channels", "out_channels", "num_outs"), "A6"))
+    _require_type(cfg, "FPN", "A6")
+    return FPN(**_kwargs(cfg, "neck", (
+        "in_channels", "out_channels", "num_outs", "start_level",
+        "add_extra_convs"), "A6"))
+
+
 def _refuse_roi_keys(cfg):
     """Mask Scoring's IoU head and the C4 shared head: a detector type the
     port builds (``MaskScoringRCNN`` builds as ``MaskRCNN``, a C4 config is
@@ -190,8 +219,8 @@ def _bbox_head(cfg, reg_class_agnostic=False):
 
 
 class TwoStageDetector(nn.Module):
-    """FPN two-stage trunk: ResNet + FPN + RPN + a box head and an optional
-    mask head."""
+    """FPN two-stage trunk: ResNet + FPN or HRNet + HRFPN, RPN, a box head
+    and an optional mask head."""
 
     def __init__(self, backbone, neck, rpn_head, roi_head, train_cfg=None,
                  test_cfg=None, roi_align_impl=None):
@@ -199,15 +228,8 @@ class TwoStageDetector(nn.Module):
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
         self.roi_align_impl = roi_align_impl
-        _require_type(backbone, "ResNet", "A6")
-        self.backbone = ResNet(**_kwargs(
-            backbone, "backbone", ("depth", "num_stages", "out_indices",
-                                   "frozen_stages", "norm_eval", "style",
-                                   "base_channels"), "A6"))
-        _require_type(neck, "FPN", "A6")
-        self.neck = FPN(**_kwargs(neck, "neck", (
-            "in_channels", "out_channels", "num_outs", "start_level",
-            "add_extra_convs"), "A6"))
+        self.backbone = _build_backbone(backbone)
+        self.neck = _build_neck(neck)
         rh = dict(rpn_head)
         _require_type(rh, "RPNHead", "A6")
         ag = dict(rh.get("anchor_generator", {}))

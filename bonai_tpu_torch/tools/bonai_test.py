@@ -11,24 +11,19 @@ On the card, from the repository root:
 ``--city config`` keeps the config's ``data.test``; any other city reads
 ``<data_root>coco/bonai_<city>_test.json`` and ``<data_root>test/images/``.
 ``CHECKPOINT`` is a ``.pth``: the port's own ``step_N.pth`` or an mmdet
-v2.3 checkpoint.  The model computes in the config's ``compute_dtype``
-(bfloat16 by default).  The pkl holds ``dict(results=..., filenames=...)``
-in numpy arrays, lists, dicts and Python scalars only, so that the JAX
-package's evaluation CLI reads it too.
+v2.3 checkpoint, run as ``apis.test.test_split`` runs it.  The pkl holds
+``dict(results=..., filenames=...)`` in numpy arrays, lists, dicts and
+Python scalars only, so that the JAX package's evaluation CLI reads it
+too.
 """
 
 from __future__ import annotations
 
 import argparse
-import os.path as osp
 import pickle
 
-import torch
-
-from ..apis import init_detector, run_inference
-from ..apis.inference import resolve_device
+from ..apis.test import test_split
 from ..config import Config
-from ..datasets import build_dataloader, build_dataset
 
 
 def main(argv=None):
@@ -43,11 +38,6 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
     args = parser.parse_args(argv)
-    if osp.isdir(args.checkpoint):
-        raise ValueError(
-            f"{args.checkpoint} is a directory (a JAX checkpoint?): the "
-            "port reads .pth checkpoints only")
-
     cfg = Config.fromfile(args.config)
     # the shanghai+xian test set (reference bonai_test.py:108-113);
     # --city config keeps the config's data.test
@@ -56,22 +46,11 @@ def main(argv=None):
     if args.city != "config":
         test_cfg["ann_file"] = data_root + f"coco/bonai_{args.city}_test.json"
         test_cfg["img_prefix"] = data_root + "test/images/"
-    test_cfg["test_mode"] = True
     if args.nms_score is not None:
         cfg.test_cfg.rcnn.nms.iou_threshold = args.nms_score
-
-    device = resolve_device(args.device)
-    dataset = build_dataset(test_cfg)
-    loader = build_dataloader(
-        dataset, samples_per_gpu=cfg.data.get("samples_per_gpu", 2),
-        shuffle=False, train=False)
-    model = init_detector(cfg, args.checkpoint, device=device,
-                          dtype=getattr(torch, cfg.get("compute_dtype",
-                                                       "bfloat16")))
-    try:
-        results = run_inference(model, loader, max_images=args.max_images)
-    finally:
-        loader.close()
+    dataset, results = test_split(cfg, args.checkpoint, test_cfg,
+                                  device=args.device,
+                                  max_images=args.max_images)
     payload = dict(results=results,
                    filenames=[d["filename"] for d in dataset.data_infos])
     with open(args.out, "wb") as f:

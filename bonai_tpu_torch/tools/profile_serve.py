@@ -2,12 +2,14 @@
 
 Runs ``simple_test`` of a config (``--config``: the LOFT-FOA R50-FPN
 config by default, or another detector the port builds, such as the Mask,
-Cascade Mask or Dynamic R-CNN BONAI baselines; 1024^2, B=2, bfloat16,
+Cascade Mask or Dynamic R-CNN BONAI baselines or LOFT-FOA on HRNet-W32 +
+HRFPN; 1024^2, B=2, bfloat16,
 seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
 loaded as the test CLI loads it) and prints
 
 - each stage's time (host clock, the device synchronised at each stage's
-  start and end): backbone+FPN, RPN and proposals (with its NMS), the
+  start and end): the backbone and the neck (named with their types:
+  ResNet and FPN, or HRNet and HRFPN), RPN and proposals (with its NMS), the
   RoIAlign kernel of the route (B1, under the block rule for ``block``
   and under the strip rule for ``pallas``), each RoI head (a cascade's
   stage by stage), the R-CNN multi-class NMS (soft-NMS in the LOFT
@@ -52,6 +54,13 @@ def roi_heads(model):
             yield name, m
 
 
+def trunk(model):
+    """The backbone and the neck, named with their types (``backbone
+    (HRNet)``)."""
+    return {f"{k} ({type(m).__name__})": m
+            for k, m in (("backbone", model.backbone), ("neck", model.neck))}
+
+
 def patch_functions(names, totals):
     """Time each function ``names`` keys in every detector module that
     uses it; returns what :func:`restore_functions` puts back."""
@@ -85,12 +94,11 @@ def stage_times(model, batch, reps=3):
     """Mean over ``reps`` calls: ``{stage: ms}`` and the total ms a call."""
     totals = collections.defaultdict(float)
     patched = {
-        "extract_feat": ("backbone+fpn", model.extract_feat),
         "_rpn_and_proposals": ("rpn+proposals", model._rpn_and_proposals),
     }
     for attr, (name, fn) in patched.items():
         setattr(model, attr, _timed(name, fn, totals))
-    heads = dict(roi_heads(model))
+    heads = {**trunk(model), **dict(roi_heads(model))}
     for k, m in heads.items():
         m.forward = _timed(k, m.forward, totals)
     nms = dict(model.test_cfg["rcnn"].get("nms", {})).get("type", "nms")

@@ -2,7 +2,8 @@
 
 Builds a config (``--config``: the LOFT-FOA R50-FPN config by default, or
 another detector the port builds, such as the Mask, Cascade Mask or
-Dynamic R-CNN BONAI baselines) for training with ``train_detector``'s
+Dynamic R-CNN BONAI baselines or LOFT-FOA on HRNet-W32 + HRFPN) for
+training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
 config's SGD and schedule), takes a few steps on the synthetic padded
 batch of
@@ -11,8 +12,8 @@ and prints
 
 - the step time (host clock around a synchronised step, median of 5);
 - each stage's time (the device synchronised at each stage's start and
-  end): backbone+FPN, the RPN head, proposals (with their NMS), the RPN
-  targets and loss, R-CNN assignment and sampling, the RoIAlign forward
+  end): the backbone and the neck (named with their types), the RPN
+  head, proposals (with their NMS), the RPN targets and loss, R-CNN assignment and sampling, the RoIAlign forward
   of the route (B1, under the block or the strip rule), each RoI head (a
   cascade's stage by stage), mask targets, the rest of the forward, clip
   + SGD, and what the step leaves after those (the backward, with the
@@ -42,7 +43,8 @@ from ..apis.train import build_trainer
 from ..config import Config
 from ..core.samplers import generator_draws
 from ..engine import train_step as train_step_module
-from .profile_serve import patch_functions, restore_functions, roi_heads
+from .profile_serve import (patch_functions, restore_functions, roi_heads,
+                            trunk)
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
@@ -93,10 +95,11 @@ def stage_times(model, train_step, batch, draw, reps=3):
     The backward is what the step's total leaves after the forward and
     the update."""
     totals = collections.defaultdict(float)
-    patched = {"extract_feat": "backbone+fpn", "forward_train": "forward"}
+    patched = {"forward_train": "forward"}
     for attr, name in patched.items():
         setattr(model, attr, _timed(name, getattr(model, attr), totals))
-    heads = {"rpn_head": model.rpn_head, **dict(roi_heads(model))}
+    heads = {**trunk(model), "rpn_head": model.rpn_head,
+             **dict(roi_heads(model))}
     for name, m in heads.items():
         m.forward = _timed(name, m.forward, totals)
     saved = patch_functions(

@@ -14,7 +14,9 @@ The detector may be LOFT, Faster, Mask or Dynamic R-CNN (the heads it has
 of ``bbox_head``, ``mask_head`` and ``offset_head``), or Cascade R-CNN,
 whose stage heads ``bbox_head_<i>`` go to mmdet's
 ``roi_head.bbox_head.<i>``; the JAX importer reads the single
-``bbox_head`` only (ROADMAP.md queue C).
+``bbox_head`` only (ROADMAP.md queue C).  The backbone may be the ResNet
+or HRNet (mmdet's HRNet keys, ``hrnet.py``), the neck FPN or HRFPN; the
+JAX importer reads no HRNet or HRFPN variable.
 """
 
 from __future__ import annotations
@@ -64,26 +66,49 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         sd[f"{key}.running_mean"] = np.asarray(s["mean"])
         sd[f"{key}.running_var"] = np.asarray(s["var"])
 
-    bk, bs = params["backbone"], batch_stats["backbone"]
-    layer("backbone.conv1", bk["conv1"])
-    norm("backbone.bn1", bk["bn1"], bs["bn1"])
-    for name, blk in bk.items():
-        m = re.fullmatch(r"layer(\d+)_(\d+)", name)
-        if not m:
-            continue
-        base = f"backbone.layer{m[1]}.{m[2]}"
+    def block(base, blk, stats):
+        """A residual block's convs and norms (``ds_*``: its downsample)."""
         for sub, p in blk.items():
             if sub == "ds_conv":
                 layer(f"{base}.downsample.0", p)
             elif sub == "ds_bn":
-                norm(f"{base}.downsample.1", p, bs[name][sub])
+                norm(f"{base}.downsample.1", p, stats[sub])
             elif sub.startswith("bn"):
-                norm(f"{base}.{sub}", p, bs[name][sub])
+                norm(f"{base}.{sub}", p, stats[sub])
             else:
                 layer(f"{base}.{sub}", p)
+
+    bk, bs = params["backbone"], batch_stats["backbone"]
+    for name, p in bk.items():
+        stem = re.fullmatch(r"(conv|bn)(\d)", name)
+        res = re.fullmatch(r"layer(\d+)_(\d+)", name)
+        trans = re.fullmatch(r"t(\d)_(\d+)", name)
+        hr = re.fullmatch(r"stage(\d)_module(\d+)", name)
+        if stem and stem[1] == "conv":
+            layer(f"backbone.{name}", p)
+        elif stem:
+            norm(f"backbone.{name}", p, bs[name])
+        elif res:
+            block(f"backbone.layer{res[1]}.{res[2]}", p, bs[name])
+        elif trans:
+            # HRNet's transition into stage s: a new branch (past the
+            # previous stage's) is mmdet's Sequential of one conv-BN-ReLU
+            s, b = int(trans[1]), int(trans[2])
+            key = f"backbone.transition{s - 1}.{b}" + (
+                ".0" if b >= _hr_branches(bk, s - 1) else "")
+            layer(f"{key}.0", p)
+            norm(f"{key}.1", bk[f"{name}_bn"], bs[f"{name}_bn"])
+        elif hr:
+            _hr_module(f"backbone.stage{hr[1]}.{hr[2]}", p, bs[name],
+                       layer, norm, block)
     for name, p in params["neck"].items():
-        kind, i = name.rsplit("_", 1)
-        layer(f"neck.{kind}_convs.{i}.conv", p)
+        if name == "reduction":                         # HRFPN
+            layer("neck.reduction_conv.conv", p)
+        elif name.startswith("fpn_conv") and name[8:].isdigit():
+            layer(f"neck.fpn_convs.{name[8:]}.conv", p)
+        else:                                           # FPN
+            kind, i = name.rsplit("_", 1)
+            layer(f"neck.{kind}_convs.{i}.conv", p)
     for name, p in params["rpn_head"].items():
         layer(f"rpn_head.{name}", p)
 
@@ -124,6 +149,35 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             layer(f"roi_head.offset_head.fcs.{name[len('fc'):]}", p, _fc)
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in sd.items()}
+
+
+def _hr_branches(bk, s):
+    """The number of branches of HRNet stage ``s`` (1 for ``layer1``)."""
+    if s == 1:
+        return 1
+    return sum(re.fullmatch(r"branch\d+_block0", k) is not None
+               for k in bk[f"stage{s}_module0"])
+
+
+def _hr_module(base, mod, stats, layer, norm, block):
+    """An HRNet module's variables: ``branch<b>_block<i>`` ->
+    ``branches.<b>.<i>``; ``fuse<i>_<j>_conv|bn`` (from a coarser branch)
+    -> ``fuse_layers.<i>.<j>.0|1``; ``fuse<i>_<j>_down<k>[_bn]`` (from a
+    finer one) -> ``fuse_layers.<i>.<j>.<k>.0|1``."""
+    for name, p in mod.items():
+        br = re.fullmatch(r"branch(\d+)_block(\d+)", name)
+        fuse = re.fullmatch(r"fuse(\d+)_(\d+)_(conv|bn|down(\d+)(_bn)?)",
+                            name)
+        if br:
+            block(f"{base}.branches.{br[1]}.{br[2]}", p, stats[name])
+            continue
+        key = f"{base}.fuse_layers.{fuse[1]}.{fuse[2]}"
+        if fuse[4] is not None:
+            key += f".{fuse[4]}"
+        if fuse[3] == "bn" or fuse[5]:
+            norm(f"{key}.1", p, stats[name])
+        else:
+            layer(f"{key}.0", p)
 
 
 def load_mmdet_checkpoint(path):

@@ -117,8 +117,27 @@ Phases, each of which must pass:
    others).  The Mask R-CNN's 6-step checkpoint goes through the test CLI
    on the card (one of the eval phase's val crops; a pkl of ``(bbox,
    segm)`` 2-tuples) and the evaluation CLI, which prints roof and
-   footprint F1.
-11. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+   footprint F1.  COCO-style scoring: the Mask R-CNN's and the Dynamic
+   R-CNN's checkpoints through the generic test CLI
+   (``bonai_tpu_torch.tools.test``, ``--eval bbox segm`` and ``--eval
+   bbox``) on that crop, with the AP keys and the seconds taken; the
+   planted check: the four crops' own GTs as results (score 1, full-size
+   RLE masks) must score ``bbox_mAP == segm_mAP == 1.0`` and VOC ``mAP ==
+   1.0`` through ``CocoDataset.evaluate``.
+11. hrnet: LOFT-FOA on HRNet-W32 + HRFPN
+   (``configs/hrnet/loft_foa_hrnetv2p_w32_2x_bonai.py``) at full width,
+   seeded random weights whose backbone BatchNorm statistics are those of
+   a random batch (identity statistics let the fuse sums grow to head
+   outputs of about 5e8), ``'block'``, as the loft phase runs its config:
+   one serve batch and one ``inference_detector`` call, the small float32
+   input held to the plain route, 3 steps on the repeated synthetic batch
+   at the config's base LR, without its warmup (exactly ``conv2``/``bn2``,
+   behind the gradient stop after ``layer1``, get no gradient, in this
+   phase alone; they move by weight decay alone, which the warmup's LRs
+   would leave under a float32 ulp, and bn2's zero bias stays 0), the RoI
+   branches' gradients held to the plain route; then the backbone + neck
+   time of a serve batch beside R50 + FPN's.
+12. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -128,10 +147,11 @@ other kernel at all; the bench must launch B5.  The resume phase's runs are
 processes of their own, which start from zero and log their counts; their
 sum must be 3 launches of each kernel a step.  The ddp phase reads every
 rank's counts: each rank launches B1 and B2 3 times a step, B1 3 times a
-test batch.  The loft and rcnn phases' counts are zeroed and read like the
-serve and train phases', at one launch of each kernel per RoI call a batch
-or step makes: 3 for LOFT, 2 for Mask R-CNN (box and mask), 4 for Cascade
-Mask R-CNN (three box stages and the mask), 1 for Dynamic R-CNN.
+test batch.  The loft, hrnet and rcnn phases' counts are zeroed and read
+like the serve and train phases', at one launch of each kernel per RoI
+call a batch or step makes: 3 for LOFT (on either backbone), 2 for Mask
+R-CNN (box and mask), 4 for Cascade Mask R-CNN (three box stages and the
+mask), 1 for Dynamic R-CNN.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -152,12 +172,17 @@ CONFIG = os.path.join(REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 SYNTH_CONFIG = os.path.join(
     REPO, "configs/loft_foa/loft_foa_r50_fpn_2x_synth_bonai.py")
 LOFT_CONFIG = os.path.join(REPO, "configs/loft/loft_r50_fpn_2x_bonai.py")
+HRNET_CONFIG = os.path.join(REPO,
+                            "configs/hrnet/loft_foa_hrnetv2p_w32_2x_bonai.py")
 # the R-CNN baselines on BONAI (the rcnn phase): label, config, train steps
 RCNN_CONFIGS = (
     ("mask_rcnn", "configs/mask_rcnn/mask_rcnn_r50_fpn_2x_bonai.py", 6),
     ("cascade", "configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_bonai.py",
      3),
     ("dynamic", "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_bonai.py", 3))
+# the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
+# and the RoI calls of a batch
+COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1)}
 DATA_DIR = os.path.join(REPO, "build", "chip_smoke_data")
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
@@ -640,11 +665,12 @@ def _plain_route(impl):
     return plain
 
 
-def serve_phase(impl, config=CONFIG, calls=2, label=None):
+def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None):
     """Full-width serving of ``config`` (LOFT-FOA R50-FPN by default)
-    through the port's entry points with ``roi_align_impl=impl``: ``calls``
-    timed batches, then one ``inference_detector`` call.  Returns the
-    forward kernel's launch count of the run and its ms per call."""
+    through the port's entry points with ``roi_align_impl=impl``, seeded
+    random weights or those of ``checkpoint``: ``calls`` timed batches,
+    then one ``inference_detector`` call.  Returns the forward kernel's
+    launch count of the run and its ms per call."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import (inference_detector, init_detector,
@@ -653,7 +679,8 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None):
     what = label or f"serve ({impl})"
 
     t0 = time.time()
-    model = init_detector(_config(impl, config), seed=0)      # cuda, bfloat16
+    model = init_detector(_config(impl, config), checkpoint,  # cuda, bf16
+                          seed=0)
     print(f"{what}: init_detector {time.time() - t0:.1f} s, "
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"dtype {next(model.parameters()).dtype}", flush=True)
@@ -841,36 +868,62 @@ def _roi_grad_check(model, impl, what):
         raise AssertionError("small input: no gradient reached the FPN")
 
 
-def train_phase(impl, steps, config=CONFIG, label=None, keep=False):
+def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
+                warmup=True, load_from=None):
     """Full-width training of ``config`` (LOFT-FOA R50-FPN by default)
     through ``train_detector`` with ``roi_align_impl=impl`` for ``steps``
-    steps (1 warm-up) on one card.  Returns the forward and backward
-    kernels' launch counts of the run, the median warm step time, the
-    peak memory, and with ``keep`` the final checkpoint, whose work
-    directory the caller removes."""
+    steps (1 warm-up) on one card, from seeded random weights or those of
+    ``load_from``, with the config's LR warmup or, without ``warmup``, at
+    its base LR.  Every trainable tensor must get a gradient in some step,
+    but for those behind HRNet's gradient stop after ``layer1``
+    (``conv2``/``bn2``), which must get none, and every one must move.
+    Returns the forward and backward kernels' launch counts of the run,
+    the median warm step time, the peak memory, and with ``keep`` the
+    final checkpoint, whose work directory the caller removes."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import train_detector
+    from bonai_tpu_torch.engine import train_step as train_step_module
     from bonai_tpu_torch.models.builder import build_detector
     from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    from bonai_tpu_torch.utils.weights import load_mmdet_checkpoint
     _, fwd_name, bwd_name = ROUTES[impl]
     what = label or f"train ({impl})"
 
     cfg = _config(impl, config)
+    if not warmup:
+        cfg.lr_config.warmup = None
     batch = synthetic_batch()
     work_dir = os.path.join(REPO, "build", "chip_smoke_train" + (
         f"_{label.split()[0]}" if keep else ""))
     shutil.rmtree(work_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # which parameters had a nonzero gradient in some step (on the card,
+    # no host read in the step)
+    params, grad_seen = [], [None]
+    update = train_step_module.apply_gradients
+
+    def recording(optimizer, lr, max_norm=None):
+        norm = update(optimizer, lr, max_norm)
+        params[:] = [p for g in optimizer.param_groups for p in g["params"]]
+        norms = torch.stack(torch._foreach_norm([p.grad for p in params]))
+        grad_seen[0] = norms if grad_seen[0] is None else torch.maximum(
+            grad_seen[0], norms)
+        return norm
     _zero_counts()
     t0 = time.time()
     # one epoch of `steps` copies of the batch: no epoch checkpoint falls
     # between the timed steps
-    model, hist = train_detector(cfg, [batch] * steps, work_dir, seed=0,
-                                 max_steps=steps, log_interval=1,
-                                 n_devices=1)
+    train_step_module.apply_gradients = recording
+    try:
+        model, hist = train_detector(cfg, [batch] * steps, work_dir, seed=0,
+                                     max_steps=steps, log_interval=1,
+                                     n_devices=1, load_from=load_from)
+    finally:
+        train_step_module.apply_gradients = update
     torch.cuda.synchronize()
+    grad_seen[0] = (grad_seen[0] > 0).tolist()
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     wall = time.time() - t0
@@ -895,20 +948,51 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False):
                   f"{what}, {steps} steps")
     init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
     init.init_weights(torch.Generator().manual_seed(0))
+    if load_from:
+        init.load_state_dict(load_mmdet_checkpoint(load_from))
     start = dict(init.named_parameters())
+    # the trainable tensors without a gradient in any step: exactly those
+    # upstream of HRNet's gradient stop after layer1, which weight decay
+    # and momentum alone move, as in the JAX step; none in other models
+    names = {id(p): n for n, p in model.named_parameters()}
+    no_grad = {names[id(p)] for p, seen in zip(params, grad_seen[0])
+               if not seen}
+    behind_stop = {f"backbone.{n}" for n, p in
+                   model.backbone.named_parameters()
+                   if p.requires_grad and n.split(".")[0] in ("conv2", "bn2")
+                   } if getattr(model.backbone, "stops_gradient",
+                                False) else set()
+    print(f"{what}: trainable tensors without a gradient in any step: "
+          f"{sorted(no_grad) or 'none'}", flush=True)
+    if no_grad != behind_stop:
+        raise AssertionError(f"trainable tensors without a gradient in any "
+                             f"step: {sorted(no_grad)}, expected "
+                             f"{sorted(behind_stop)}")
     moved = frozen_moved = trainable = 0
+    held = []
     for name, p in model.named_parameters():
         changed = not torch.equal(p.detach().cpu(), start[name].detach())
-        if p.requires_grad:
-            trainable += 1
-            moved += changed
-        else:
+        if not p.requires_grad:
             frozen_moved += changed
-    print(f"{what}: {moved} of {trainable} trainable parameter "
-          f"tensors moved, {frozen_moved} frozen ones moved", flush=True)
+            continue
+        trainable += 1
+        # weight decay alone scales bn2's bias, 0 at the start, by 0
+        if name == "backbone.bn2.bias" and name in no_grad \
+                and not start[name].any():
+            moved += not changed
+            held.append(name)
+        else:
+            moved += changed
+    print(f"{what}: {moved} of {trainable} trainable parameter tensors "
+          f"moved, or held at 0 without a gradient: {held or 'none'}; "
+          f"{frozen_moved} frozen ones moved", flush=True)
     if moved != trainable or frozen_moved:
-        raise AssertionError("the trainable weights did not all move, or "
-                             "a frozen one did")
+        stuck = [n for n, p in model.named_parameters() if p.requires_grad
+                 and n not in held and torch.equal(p.detach().cpu(),
+                                                   start[n].detach())]
+        raise AssertionError(f"the trainable weights did not all move "
+                             f"({stuck[:8]}, or {held} moved), or a frozen "
+                             f"one did")
     out = {"fwd": counts[fwd_name], "bwd": counts[bwd_name],
            "step_ms": statistics.median(step_ms[1:]),
            "peak_gib": peak / 2 ** 30}
@@ -1509,6 +1593,106 @@ def loft_phase():
     return dict(serve=serve, train=train)
 
 
+def _trunk_ms(models, reps=5):
+    """Backbone + neck ms of a 1024^2 B=2 bfloat16 batch for each of
+    ``models`` (label -> model), timed in turns (a, b, b, a), the median of
+    ``reps`` synchronised calls each."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import prepare_batch
+    r = np.random.RandomState(0)
+    imgs = [r.randint(0, 256, (SIZE, SIZE, 3), np.uint8)
+            for _ in range(BATCH)]
+    times = {k: [] for k in models}
+    order = list(models) + list(models)[::-1]
+    with torch.inference_mode():
+        for label in order:
+            model = models[label]
+            img = prepare_batch(model, imgs)[0].to(
+                next(model.parameters()).dtype)
+            model.extract_feat(img)
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.extract_feat(img)
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _calibrated_weights(config, path):
+    """Seeded random weights of ``config`` (``init_weights``, seed 0) with
+    the stored statistics of every backbone BatchNorm set to those of its
+    input on a random 1024^2 B=2 batch, so that each one's output has unit
+    variance, as a trained network's has.  With identity statistics
+    HRNet's fuse sums grow from module to module, to head outputs of about
+    5e8.  Saves them to ``path`` as an mmdet ``.pth``."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import init_detector, prepare_batch
+    from bonai_tpu_torch.models.backbones.resnet import FrozenBatchNorm2d
+    model = init_detector(_config("block", config), seed=0,
+                          dtype=torch.float32)
+    r = np.random.RandomState(0)
+    img = prepare_batch(model, [r.randint(0, 256, (SIZE, SIZE, 3), np.uint8)
+                                for _ in range(BATCH)])[0]
+
+    def calibrate(bn, args):
+        bn.running_mean.copy_(args[0].mean((0, 2, 3)))
+        bn.running_var.copy_(args[0].var((0, 2, 3)))
+    hooks = [m.register_forward_pre_hook(calibrate)
+             for m in model.backbone.modules()
+             if isinstance(m, FrozenBatchNorm2d)]
+    with torch.no_grad():
+        model.extract_feat(img)
+    for h in hooks:
+        h.remove()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"state_dict": {k: v.cpu() for k, v in
+                               model.state_dict().items()}}, path)
+    print(f"calibrated the {len(hooks)} backbone BatchNorms of "
+          f"{os.path.basename(config)} on a random batch", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def hrnet_phase(r50_serve_ms, r50_step_ms):
+    """LOFT-FOA on HRNet-W32 + HRFPN (``configs/hrnet/
+    loft_foa_hrnetv2p_w32_2x_bonai.py``) at full width with seeded random
+    weights (``_calibrated_weights``) and the ``'block'`` route: serving
+    (one batch, B=2, 1024^2, bf16, then ``inference_detector``; a small
+    float32 input against the plain route), 3 training steps on the
+    repeated synthetic batch, and the backbone + neck time of a serve
+    batch beside LOFT-FOA R50-FPN's (``r50_*``: the serve and train
+    phases' numbers of this run).  Returns the launch counts."""
+    import torch
+    from bonai_tpu_torch.apis import init_detector
+    weights = os.path.join(REPO, "build", "chip_smoke_hrnet", "init.pth")
+    _calibrated_weights(HRNET_CONFIG, weights)
+    serve, serve_ms = serve_phase("block", HRNET_CONFIG, calls=1,
+                                  label="hrnet serve", checkpoint=weights)
+    # at the base LR: the warmup's first LRs (5e-6 to 2e-5) times the
+    # weight decay (1e-4) move conv2/bn2 by less than a float32 ulp
+    train = train_phase("block", 3, HRNET_CONFIG, label="hrnet train",
+                        warmup=False, load_from=weights)
+    shutil.rmtree(os.path.dirname(weights), ignore_errors=True)
+    models = {"HRNet-W32 + HRFPN": init_detector(_config("block",
+                                                         HRNET_CONFIG)),
+              "R50 + FPN": init_detector(_config("block"))}
+    trunk = _trunk_ms(models)
+    del models
+    torch.cuda.empty_cache()
+    print(f"hrnet: serve {serve_ms:.1f} ms a B=2 call (LOFT-FOA R50-FPN "
+          f"{r50_serve_ms:.1f} in this run); train median step "
+          f"{train['step_ms']:.1f} ms (R50 {r50_step_ms:.1f}), peak "
+          f"{train['peak_gib']:.2f} GiB; backbone + neck of a 1024^2 B=2 "
+          f"bf16 batch " + ", ".join(f"{k} {v:.2f} ms"
+                                      for k, v in trunk.items())
+          + f"; B1 {serve} launches serving, B1 {train['fwd']} / B2 "
+          f"{train['bwd']} training", flush=True)
+    return dict(serve=serve, train=train)
+
+
 def rcnn_phase():
     """The R-CNN baselines on BONAI (``RCNN_CONFIGS``: Mask R-CNN, Cascade
     Mask R-CNN, Dynamic R-CNN) at full width with seeded random weights and
@@ -1525,8 +1709,15 @@ def rcnn_phase():
         serve, serve_ms = serve_phase("block", config, calls=1,
                                       label=f"{label} serve")
         train = train_phase("block", steps, config, label=f"{label} train",
-                            keep=label == "mask_rcnn")
+                            keep=label in COCO_SCORED)
         out[label] = dict(serve=serve, serve_ms=serve_ms, train=train)
+    for label, config, _ in RCNN_CONFIGS:
+        if label in COCO_SCORED:
+            out[label]["coco_cli"] = rcnn_coco(
+                label, os.path.join(REPO, config),
+                out[label]["train"]["checkpoint"])
+    coco_planted(os.path.join(REPO, RCNN_CONFIGS[0][1]))
+    shutil.rmtree(out["dynamic"]["train"]["work_dir"], ignore_errors=True)
     train = out["mask_rcnn"]["train"]
     out["mask_rcnn"]["test_cli"] = rcnn_eval(
         os.path.join(REPO, RCNN_CONFIGS[0][1]), train["checkpoint"],
@@ -1540,6 +1731,93 @@ def rcnn_phase():
     return out
 
 
+def _crop_test_cfg(config):
+    """``config`` with the ``'block'`` route and the eval phase's four val
+    crops as its test set."""
+    cfg = _config("block", config)
+    cfg.data.test.update(
+        ann_file=os.path.join(DATA_DIR, "val", "val.json"),
+        img_prefix=os.path.join(DATA_DIR, "val", "images") + "/")
+    return cfg
+
+
+def rcnn_coco(label, config, checkpoint):
+    """COCO-style scoring of an R-CNN baseline's checkpoint: the generic
+    test CLI (``bonai_tpu_torch.tools.test``) on the card with ``--eval``
+    of ``COCO_SCORED[label]`` on the first of the eval phase's val crops.
+    Returns the forward kernel's launches in the run."""
+    import math
+    import torch
+    from bonai_tpu_torch.config import Config
+    from bonai_tpu_torch.datasets import build_dataset
+    from bonai_tpu_torch.evaluation import evaluate_coco
+    from bonai_tpu_torch.tools import test as test_cli
+    _, fwd_name, _ = ROUTES["block"]
+    kinds, calls = COCO_SCORED[label]
+    out_dir = os.path.join(REPO, "build", "chip_smoke_coco")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg_path = os.path.join(out_dir, os.path.basename(config))
+    _crop_test_cfg(config).dump(cfg_path)
+    _zero_counts()
+    t0 = time.perf_counter()
+    results, metrics = test_cli.main([
+        cfg_path, checkpoint, "--out", os.path.join(out_dir, "r.pkl"),
+        "--eval", *kinds, "--max-images", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = _counts()
+    _check_counts(counts, {fwd_name: calls}, f"{label} COCO test CLI, "
+                  "1 batch")
+    ds = build_dataset(dict(Config.fromfile(cfg_path).data.test,
+                            test_mode=True))
+    t0 = time.perf_counter()
+    if evaluate_coco(ds, results, metric_types=kinds) != metrics:
+        raise AssertionError(f"{label} COCO scoring is not repeatable")
+    score_s = time.perf_counter() - t0
+    keys = [f"{k}_mAP{s}" for k in kinds for s in ("", "_50", "_75")]
+    if len(results) != 1 or list(metrics) != keys or not all(
+            math.isfinite(v) and (0.0 <= v <= 1.0 or v == -1.0)
+            for v in metrics.values()):
+        raise AssertionError(f"{label} COCO scoring: {len(results)} results, "
+                             f"metrics {metrics}")
+    boxes = results[0][0] if isinstance(results[0], tuple) else results[0]
+    print(f"rcnn {label} coco: tools.test --eval {' '.join(kinds)} on 1 of "
+          f"4 val crops, {len(boxes[0])} detections, {cli_s:.1f} s (model "
+          f"build, test, scoring; the scoring alone {score_s:.2f} s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+          + f"; launches {counts}", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return counts[fwd_name]
+
+
+def coco_planted(config):
+    """The COCO planted check: the four val crops' own GTs as results
+    (score 1, full-size RLE masks) must score ``bbox_mAP == segm_mAP ==
+    1.0`` and VOC ``mAP == 1.0`` through ``CocoDataset.evaluate``."""
+    import numpy as np
+    from bonai_tpu_torch.datasets import build_dataset, mask_utils
+    cfg = _crop_test_cfg(config)
+    ds = build_dataset(dict(cfg.data.test, test_mode=True))
+    results = []
+    for i, info in enumerate(ds.data_infos):
+        ann = ds.get_ann_info(i)
+        dets = np.concatenate([ann["bboxes"], np.ones(
+            (len(ann["bboxes"]), 1), np.float32)], 1)
+        results.append(([dets], [[mask_utils.encode_mask(
+            mask_utils.poly_to_mask(m, info["height"], info["width"]))
+            for m in ann["masks"]]]))
+    t0 = time.perf_counter()
+    got = ds.evaluate(results, metric=["bbox", "segm", "mAP", "recall"])
+    eval_s = time.perf_counter() - t0
+    print(f"coco planted ({len(results)} crops, "
+          f"{sum(len(r[0][0]) for r in results)} GTs): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in got.items())
+          + f"; {eval_s:.2f} s", flush=True)
+    if not got["bbox_mAP"] == got["segm_mAP"] == got["mAP"] == 1.0:
+        raise AssertionError(f"COCO planted check: {got}")
+
+
 def rcnn_eval(config, checkpoint, work_dir):
     """The test CLI on the card with ``config`` and ``checkpoint`` on the
     first of the eval phase's val crops (a 2-tuple pkl: boxes and roof
@@ -1550,10 +1828,8 @@ def rcnn_eval(config, checkpoint, work_dir):
     import torch
     from bonai_tpu_torch.tools import bonai_evaluation, bonai_test
     _, fwd_name, _ = ROUTES["block"]
-    crops = os.path.join(DATA_DIR, "val", "val.json")
-    cfg = _config("block", config)
-    cfg.data.test.update(ann_file=crops, img_prefix=os.path.join(
-        DATA_DIR, "val", "images") + "/")
+    cfg = _crop_test_cfg(config)
+    crops = cfg.data.test.ann_file
     out_dir = os.path.join(REPO, "build", "chip_smoke_rcnn_eval")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
@@ -1650,7 +1926,8 @@ def main():
             print(log.read_text().strip(), flush=True)
 
     sums = kernel_phase()
-    serve = {impl: serve_phase(impl)[0] for impl in ("block", "pallas")}
+    serve_runs = {impl: serve_phase(impl) for impl in ("block", "pallas")}
+    serve = {impl: run[0] for impl, run in serve_runs.items()}
     train = {impl: train_phase(impl, steps)
              for impl, steps in (("block", 6), ("pallas", 4))}
     files = data_phase()
@@ -1669,6 +1946,7 @@ def main():
           flush=True)
     ddp = ddp_phase(card, files["step_ms"])
     loft = loft_phase()
+    hrnet = hrnet_phase(serve_runs["block"][1], train["block"]["step_ms"])
     rcnn = rcnn_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
@@ -1711,12 +1989,16 @@ def main():
                                    for c in ddp["test"]],
                 loft_serve_launches=loft["serve"],
                 loft_train_launches=loft["train"]["fwd"],
+                hrnet_serve_launches=hrnet["serve"],
+                hrnet_train_launches=hrnet["train"]["fwd"],
                 **{f"rcnn_{k}_serve_launches": r["serve"]
                    for k, r in rcnn.items()},
                 **{f"rcnn_{k}_train_launches": r["train"]["fwd"]
                    for k, r in rcnn.items()},
                 rcnn_mask_rcnn_test_cli_launches=rcnn["mask_rcnn"][
-                    "test_cli"]),
+                    "test_cli"],
+                **{f"rcnn_{k}_coco_cli_launches": rcnn[k]["coco_cli"]
+                   for k in COCO_SCORED}),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],
@@ -1727,6 +2009,7 @@ def main():
                ddp_cli_launches=[c["roi_align_block_bwd"]
                                  for c in ddp["cli"]],
                loft_train_launches=loft["train"]["bwd"],
+               hrnet_train_launches=hrnet["train"]["bwd"],
                **{f"rcnn_{k}_train_launches": r["train"]["bwd"]
                   for k, r in rcnn.items()}),
         forward("roi_align_fused_fwd", "pallas",

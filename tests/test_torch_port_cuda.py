@@ -17,7 +17,8 @@ orders).  The levels the forward kernel computes must equal the torch
 rules' on every RoI, the rules' edges included.  The R-CNN baselines
 (Mask, Cascade Mask and Dynamic R-CNN at tiny widths, ``'block'`` route)
 launch the forward kernel once per RoI call of a serve batch and both
-kernels once per RoI call of a training step.  A two-rank data-parallel
+kernels once per RoI call of a training step, as does LOFT-FOA on HRNet +
+HRFPN.  A two-rank data-parallel
 step (gloo, both ranks on one card) must equal the step of the mean of
 its two half-batch gradients within 1e-4 of each tensor's largest update.
 """
@@ -243,6 +244,48 @@ def test_rcnn_train_step_runs_both_kernels(family, tmp_path):
     assert roi_align_block_backward.launches - bwd == calls
     assert np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["grad_norm"])
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+@pytest.mark.cuda
+def test_hrnet_loft_runs_the_block_kernels(tmp_path):
+    """LOFT-FOA on HRNet + HRFPN at tiny widths on the card, ``'block'``:
+    a serve batch launches the forward kernel once per RoI call (box, mask,
+    offset), a training step both kernels as often; finite outputs, losses
+    and weights, and ``conv2`` (behind the gradient stop) moved by weight
+    decay."""
+    _need_cuda()
+    import torch_port_common as tpc
+    from bonai_tpu_torch.apis import (init_detector, prepare_batch,
+                                      train_detector)
+    from bonai_tpu_torch.ops import roi_align_block, roi_align_block_backward
+    cfg = tpc.tiny_cfg(config=tpc.HRNET_CONFIG)
+    cfg.data.test.pipeline[1].img_scale = (128, 128)
+    model = init_detector(cfg, device="cuda", dtype=torch.float32)
+    r = np.random.RandomState(0)
+    img, shape, scale, _ = prepare_batch(
+        model, [r.randint(0, 255, (100, 128, 3), np.uint8)] * 2)
+    before = roi_align_block.launches
+    out = model.simple_test(img, shape, scale)
+    torch.cuda.synchronize()
+    assert roi_align_block.launches == before + 3
+    assert {"mask_probs", "offsets"} <= set(out)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values()
+               if v.is_floating_point())
+    cfg = tpc.tiny_train_cfg(tpc.HRNET_CONFIG)
+    # the base LR: the warmup's first LR times the weight decay would move
+    # conv2 by less than a float32 ulp
+    cfg.lr_config.warmup = None
+    fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
+    model, hist = train_detector(cfg, [tpc.train_batch()], str(tmp_path),
+                                 max_steps=1, log_interval=1, n_devices=1)
+    assert roi_align_block.launches - fwd == 3
+    assert roi_align_block_backward.launches - bwd == 3
+    assert np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["grad_norm"])
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    init = init_detector(cfg, device="cuda", dtype=torch.float32, seed=0)
+    assert not torch.equal(model.backbone.conv2.weight,
+                           init.backbone.conv2.weight)
+    assert torch.equal(model.backbone.conv1.weight, init.backbone.conv1.weight)
 
 
 def _strip_fixture(seed, C, n=300, B=2, S=512):

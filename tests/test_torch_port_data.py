@@ -97,13 +97,46 @@ def test_loader_matches_jax_process_loader(datasets, mode):
         want._pool.shutdown()
 
 
-def test_not_ported_parts_raise(datasets):
-    from bonai_tpu_torch.datasets.pipelines import LoadAnnotations
-    port, _ = datasets
+def test_not_ported_parts_raise():
+    from bonai_tpu_torch.datasets.pipelines import (LoadAnnotations,
+                                                    build_pipeline)
     with pytest.raises(NotImplementedError, match="A7"):
         build_dataset(dict(type="ClassBalancedDataset", dataset={},
                            oversample_thr=0.1))
     with pytest.raises(NotImplementedError, match="A5"):
         LoadAnnotations(with_edge=True)
+    # COCO evaluation is ported (test_torch_port_coco_eval.py); the
+    # robustness benchmark's Corrupt transform is still A8
     with pytest.raises(NotImplementedError, match="A8"):
-        port.evaluate([])
+        build_pipeline([dict(type="Corrupt", corruption="gaussian_noise")])
+
+
+UNPORTED_TRANSFORMS = {
+    "OffsetTransform": "A5", "RandomRotate": "A5", "Pointobb2RBBox": "A5",
+    "PhotoMetricDistortion": "A6", "Expand": "A6", "MinIoURandomCrop": "A6",
+    "RandomCrop": "A6", "RandomCenterCropPad": "A6", "AutoAugment": "A6",
+    "LoadProposals": "A7", "SegRescale": "A7", "Corrupt": "A8",
+    "InstaBoost": "not queued", "Albu": "not queued"}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED_TRANSFORMS))
+def test_unported_transforms_name_their_item(name):
+    """Each transform of the JAX registry that the port does not register
+    raises ``NotImplementedError`` naming the ROADMAP.md item that ports it
+    (``InstaBoost`` and ``Albu``: not queued); a name no registry knows
+    keeps the registry's ``KeyError``."""
+    from bonai_tpu.datasets.pipelines.transforms import PIPELINES as JAX_REG
+    from bonai_tpu_torch.datasets.pipelines import build_pipeline
+    from bonai_tpu_torch.datasets.pipelines.transforms import PIPELINES
+    assert name in JAX_REG and name not in PIPELINES
+    assert set(UNPORTED_TRANSFORMS) == set(JAX_REG.module_dict) - set(
+        PIPELINES.module_dict)
+    item = UNPORTED_TRANSFORMS[name]
+    match = "not queued" if item == "not queued" else f"ROADMAP.md item {item}"
+    with pytest.raises(NotImplementedError, match=match):
+        build_pipeline([dict(type="LoadImageFromFile"), dict(type=name)])
+    with pytest.raises(NotImplementedError, match=match):
+        build_pipeline([dict(type="MultiScaleFlipAug", img_scale=(64, 64),
+                             transforms=[dict(type=name)])])
+    with pytest.raises(KeyError, match="NoSuchTransform"):
+        build_pipeline([dict(type="NoSuchTransform")])

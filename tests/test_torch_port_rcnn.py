@@ -104,14 +104,21 @@ def test_configs_build_at_full_width(name):
     (dict(type="RetinaNet"), "A6"), (dict(type="FCOS"), "A6"),
     (dict(type="MaskScoringRCNN", mask_iou_head=dict(num_convs=4)), "A7"),
     (dict(loss_bbox=dict(type="BalancedL1Loss")), "A7"),
-    (dict(loss_bbox=dict(type="GIoULoss")), "A7")],
+    (dict(loss_bbox=dict(type="GIoULoss")), "A7"),
+    (dict(config="libra_rcnn/libra_faster_rcnn_r50_fpn_1x_bonai.py"), "A7")],
     ids=lambda x: x if isinstance(x, str) else "-".join(
         str(v.get("type", v)) if isinstance(v, dict) else str(v)
         for v in x.values()))
 def test_unported_types_name_their_item(change, item):
+    """A detector, head or loss type the port does not build, or a whole
+    config (Libra R-CNN's chained ``[FPN, BFP]`` neck)."""
+    from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
-    cfg = family_cfg("mask_rcnn")
     change = dict(change)
+    if "config" in change:
+        cfg = Config.fromfile(osp.join(ROOT, "configs", change.pop("config")))
+    else:
+        cfg = family_cfg("mask_rcnn")
     if "type" in change:
         cfg.model.type = change.pop("type")
     if "mask_iou_head" in change:

@@ -21,6 +21,20 @@ DYNAMIC_CONFIG = osp.join(
     ROOT, "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_bonai.py")
 
 
+HRNET_CONFIG = osp.join(ROOT, "configs/hrnet/loft_foa_hrnetv2p_w32_2x_bonai.py")
+# HRNet at tiny widths: one module of one block a stage, branches of 8, 16,
+# 32 and 64 channels
+TINY_HRNET_EXTRA = dict(
+    stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK",
+                num_blocks=(1,), num_channels=(8,)),
+    stage2=dict(num_modules=1, num_branches=2, block="BASIC",
+                num_blocks=(1, 1), num_channels=(8, 16)),
+    stage3=dict(num_modules=1, num_branches=3, block="BASIC",
+                num_blocks=(1, 1, 1), num_channels=(8, 16, 32)),
+    stage4=dict(num_modules=1, num_branches=4, block="BASIC",
+                num_blocks=(1, 1, 1, 1), num_channels=(8, 16, 32, 64)))
+
+
 def _each(x):
     """A per-stage config list as it is; one config as a list of one."""
     return x if isinstance(x, (list, tuple)) else [x]
@@ -30,11 +44,15 @@ def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
     """The LOFT-FOA R50 config (``config``; or another two-stage config:
     its heads that are there, a cascade's every stage) at the
     ``_tiny_loft_model`` widths (``__graft_entry__.py``): ResNet-18 at
-    base 8, 16-channel FPN."""
+    base 8, 16-channel FPN; or an HRNet config's backbone at
+    ``TINY_HRNET_EXTRA`` and a 16-channel HRFPN."""
     from bonai_tpu_torch import Config
     cfg = Config.fromfile(config)
     m = cfg.model
-    m.backbone.update(depth=18, base_channels=8)
+    if m.backbone.type == "HRNet":
+        m.backbone.extra = TINY_HRNET_EXTRA
+    else:
+        m.backbone.update(depth=18, base_channels=8)
     m.neck.update(in_channels=[8, 16, 32, 64], out_channels=16)
     m.rpn_head.update(in_channels=16, feat_channels=16)
     rh = m.roi_head
