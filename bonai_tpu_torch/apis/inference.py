@@ -84,13 +84,29 @@ def prepare_batch(model, imgs):
     return torch.from_numpy(batch).to(device), img_shape, scale, metas
 
 
-def inference_detector(model, imgs):
+def inference_detector(model, imgs, proposals=None):
     """Detect on one ``(H, W, 3)`` uint8 BGR image or a list of them (one
-    batched ``simple_test``).  Returns the per-image result tuple(s) of
+    batched ``simple_test``).  A Fast R-CNN takes ``proposals``: an ``(N,
+    4|5)`` array an image in its pixels (a list of them for a list of
+    images).  Returns the per-image result tuple(s) of
     :func:`results_to_host`."""
     single = isinstance(imgs, np.ndarray)
     img, img_shape, scale, metas = prepare_batch(
         model, [imgs] if single else imgs)
-    results = results_to_host(model.simple_test(img, img_shape, scale),
-                              metas)
+    if model.has_rpn:
+        out = model.simple_test(img, img_shape, scale)
+    else:
+        if proposals is None:
+            raise ValueError("a detector without an RPN needs proposals")
+        props = [proposals] if single else proposals
+        n = max(len(p) for p in props)
+        boxes = torch.zeros((len(props), n, 4), dtype=torch.float32)
+        valid = torch.zeros((len(props), n), dtype=torch.bool)
+        for i, p in enumerate(props):
+            p = torch.as_tensor(np.asarray(p, np.float32)[:, :4])
+            boxes[i, :len(p)] = p * scale[i].cpu()
+            valid[i, :len(p)] = True
+        out = model.simple_test(img, img_shape, scale, boxes.to(img.device),
+                                valid.to(img.device))
+    results = results_to_host(out, metas)
     return results[0] if single else results

@@ -20,12 +20,16 @@ def results_to_host(device_out, metas, num_classes=1, mask_thr=0.5,
     ``(bbox_results, segm_results[, offsets])``: ``bbox_results`` is a
     per-class list of ``(n, 5)`` float32 arrays, ``segm_results`` per-class
     lists of COCO RLE dicts (masks pasted into the original image of
-    ``metas[i]['ori_shape']``), ``offsets`` an ``(n, 2)`` float32 array."""
+    ``metas[i]['ori_shape']``), ``offsets`` an ``(n, 2)`` float32 array.
+    With Mask Scoring's ``mask_scores`` the segm entry is the pair
+    ``(segm_results, per-class (n,) float32 mask scores)``, as in the JAX
+    package."""
     host = {k: v.float().cpu().numpy() if v.is_floating_point()
             else v.cpu().numpy() for k, v in device_out.items()}
     boxes, scores = host["det_bboxes"], host["det_scores"]
     labels, valid = host["det_labels"], host["det_valid"].astype(bool)
     masks = host.get("mask_probs")
+    mask_scores = host.get("mask_scores")
     offsets = host.get("offsets")
     results = []
     for i in range(boxes.shape[0]):
@@ -39,9 +43,13 @@ def results_to_host(device_out, metas, num_classes=1, mask_thr=0.5,
         out = [bbox_results]
         if masks is not None:
             mp = masks[i][v]
-            out.append([[paste_mask_rle(m, b, oh, ow, mask_thr)
-                         for m, b in zip(mp[lb == c], bx[lb == c])]
-                        for c in range(num_classes)])
+            segm = [[paste_mask_rle(m, b, oh, ow, mask_thr)
+                     for m, b in zip(mp[lb == c], bx[lb == c])]
+                    for c in range(num_classes)]
+            if mask_scores is not None:
+                ms = mask_scores[i][v].astype(np.float32)
+                segm = (segm, [ms[lb == c] for c in range(num_classes)])
+            out.append(segm)
         if with_offset and offsets is not None:
             out.append(offsets[i][v].astype(np.float32))
         results.append(tuple(out) if len(out) > 1 else bbox_results)
@@ -55,6 +63,8 @@ def run_inference(model, loader, max_images=None, with_offset=True,
     model's device; returns the flat list of :func:`results_to_host`
     results in dataset order (reference ``single_gpu_test``), without the
     duplicates that wrap-pad the last batch and cut to ``max_images``.
+    A Fast R-CNN tests on the batch's proposals (the test pipeline's
+    ``LoadProposals``; the JAX loop passes none, ROADMAP.md queue C).
 
     Sharded testing (reference ``multi_gpu_test``; the JAX function's
     ``mesh=``): in a process group of ``W`` ranks (a rank of
@@ -85,7 +95,17 @@ def run_inference(model, loader, max_images=None, with_offset=True,
         for batch, metas in loader:
             img, shp, sf = (torch.as_tensor(batch[k]).to(device)
                             for k in ("image", "img_shape", "scale_factor"))
-            out = model.simple_test(img, shp, sf)
+            if model.has_rpn:
+                out = model.simple_test(img, shp, sf)
+            elif "proposals" not in batch:
+                raise ValueError(
+                    "a detector without an RPN tests on proposals: give "
+                    "the test pipeline LoadProposals and its split a "
+                    "proposal_file (datasets.proposals.fast_rcnn_config)")
+            else:
+                out = model.simple_test(img, shp, sf, *(
+                    torch.as_tensor(batch[k]).to(device)
+                    for k in ("proposals", "proposals_valid")))
             results.extend(results_to_host(out, metas,
                                            with_offset=with_offset))
             seen += img.shape[0]

@@ -159,6 +159,19 @@ def rasterize_instance_mask(polys, bbox, size):
     return mask
 
 
+def _pack_proposals(result):
+    """A Fast R-CNN sample's proposals padded to ``_num_max_proposals``
+    (2000 by default) and their validity."""
+    cap = int(result.get("_num_max_proposals", 2000))
+    props = np.asarray(result["proposals"], np.float32).reshape(-1, 4)
+    pp = np.zeros((cap, 4), np.float32)
+    pv = np.zeros((cap,), bool)
+    k = min(len(props), cap)
+    pp[:k] = props[:k]
+    pv[:k] = True
+    return {"proposals": pp, "proposals_valid": pv}
+
+
 def pack_sample(result, max_gt, inst_mask_size, train=True):
     """Pipeline output -> fixed-shape numpy sample (the batch contract).
     The image stays ``uint8`` when the pipeline normalises on the card.
@@ -175,7 +188,11 @@ def pack_sample(result, max_gt, inst_mask_size, train=True):
         "img_shape": np.asarray([h, w], np.float32),
         "scale_factor": np.float32(sf),
     }
+    if "proposals" in result:
+        out.update(_pack_proposals(result))
     if not train:
+        # proposals in test mode too: a Fast R-CNN tests on them (the JAX
+        # package packs them for training only, ROADMAP.md queue C)
         return out, result.get("img_metas", {})
     boxes = result.get("gt_bboxes", np.zeros((0, 4), np.float32))
     labels = result.get("gt_labels", np.zeros((0,), np.int64))
@@ -215,16 +232,6 @@ def pack_sample(result, max_gt, inst_mask_size, train=True):
         out["gt_building_heights"] = gh
     if "gt_angle" in result:
         out["gt_angle"] = np.float32(result["gt_angle"])
-    if "proposals" in result:
-        cap = int(result.get("_num_max_proposals", 2000))
-        props = np.asarray(result["proposals"], np.float32).reshape(-1, 4)
-        pp = np.zeros((cap, 4), np.float32)
-        pv = np.zeros((cap,), bool)
-        k = min(len(props), cap)
-        pp[:k] = props[:k]
-        pv[:k] = True
-        out["proposals"] = pp
-        out["proposals_valid"] = pv
     metas = dict(result.get("img_metas", {}))
     if n_truncated:
         # dropped GTs become false background for the losses: never silent

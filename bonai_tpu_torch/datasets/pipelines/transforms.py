@@ -2,7 +2,8 @@
 (counterparts of the steps of ``bonai_tpu/datasets/pipelines/
 transforms.py`` that the BONAI and synthetic configs use):
 ``LoadImageFromFile`` (PNG through ``utils/png.py``, with the
-decoded-image cache), ``LoadAnnotations``, ``Resize``, ``RandomFlip``,
+decoded-image cache), ``LoadAnnotations``, ``LoadProposals``, ``Resize``,
+``RandomFlip``,
 ``Normalize``, ``Pad``, ``DefaultFormatBundle``, ``ImageToTensor``,
 ``Collect`` and ``MultiScaleFlipAug``.
 
@@ -32,7 +33,7 @@ UNPORTED = {
     **dict.fromkeys(("PhotoMetricDistortion", "Expand", "MinIoURandomCrop",
                      "RandomCrop", "RandomCenterCropPad", "AutoAugment"),
                     "item A6"),
-    **dict.fromkeys(("LoadProposals", "SegRescale"), "item A7"),
+    "SegRescale": "item A7",
     "Corrupt": "item A8",
     **dict.fromkeys(("InstaBoost", "Albu"),
                     "not queued: it wraps a package (instaboostfast, "
@@ -174,6 +175,32 @@ class LoadAnnotations:
         if self.with_only_footprint_flag:
             results["gt_only_footprint_flag"] = np.float32(
                 ann.get("only_footprint_flag", 0.0))
+        return results
+
+
+@PIPELINES.register_module()
+class LoadProposals:
+    """Fast R-CNN's precomputed proposals: the dataset's
+    ``results['proposals']`` (from its ``proposal_file``), an ``(N, 4|5)``
+    array an image in the original image's pixels, cut to the first
+    ``num_max_proposals`` and to its boxes.  ``Resize`` and
+    ``RandomFlip`` then move them with the GT boxes; the loader pads them
+    to ``num_max_proposals`` (2000 without one)."""
+
+    def __init__(self, num_max_proposals=None):
+        self.num_max_proposals = num_max_proposals
+
+    def __call__(self, results):
+        props = np.asarray(results.get("proposals", np.zeros((0, 4))),
+                           np.float32)
+        if props.ndim != 2 or props.shape[1] not in (4, 5):
+            raise AssertionError(
+                f"proposals should be (N, 4|5), got {props.shape}")
+        props = props[:, :4]
+        if self.num_max_proposals is not None:
+            props = props[:self.num_max_proposals]
+            results["_num_max_proposals"] = int(self.num_max_proposals)
+        results["proposals"] = props
         return results
 
 

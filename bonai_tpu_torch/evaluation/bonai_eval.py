@@ -29,6 +29,7 @@ import numpy as np
 
 from ..datasets.mask_utils import decode_mask
 from ..utils.raster import contour_area, fill_poly, find_external_contours
+from .coco_eval import split_segm
 from .polygon import PreparedPolygon, intersection_area
 
 
@@ -102,6 +103,7 @@ def results_to_csv_records(results, filenames, score_thr=0.4, min_area=500,
             offsets = res[2] if len(res) > 2 else None
         else:
             bbox_r, segm_r, offsets = res, None, None
+        segm_r, _ = split_segm(segm_r)        # Mask Scoring's pair
         recs = []
         dets = np.asarray(bbox_r[0], np.float32).reshape(-1, 5)
         for j in range(len(dets)):

@@ -213,11 +213,22 @@ def per_image_records(dataset, results, cls, metric="bbox",
     return out
 
 
+def split_segm(segm_r):
+    """A result's segm entry -> ``(per-class RLE lists, per-class mask
+    scores or None)``: Mask Scoring's entry is the pair of both."""
+    if isinstance(segm_r, tuple) and len(segm_r) == 2:
+        return segm_r
+    return segm_r, None
+
+
 def evaluate_coco(dataset, results, metric_types=("bbox",), max_dets=100):
     """Evaluate result tuples against a CocoDataset.
 
     ``results[i]`` is either bbox_results (per-class list of (n,5)) or a
-    tuple ``(bbox_results, segm_results[, offsets])``.
+    tuple ``(bbox_results, segm_results[, offsets])``.  Mask Scoring's
+    segm entry ``(segm_results, per-class mask scores)`` scores ``segm``
+    by the mask scores, as mmdetection does (the JAX function reads the
+    pair as the per-class list: ROADMAP.md queue C).
     """
     num_classes = len(dataset.CLASSES)
     metrics = {}
@@ -231,11 +242,14 @@ def evaluate_coco(dataset, results, metric_types=("bbox",), max_dets=100):
                     segm_r = res[1] if len(res) > 1 else None
                 else:
                     bbox_r, segm_r = res, None
+                segm_r, mask_scores = split_segm(segm_r)
                 ann = dataset.get_ann_info(i)
                 sel = ann["labels"] == c
                 gt_boxes = ann["bboxes"][sel]
                 dets = np.asarray(bbox_r[c], np.float32).reshape(-1, 5)
                 scores = dets[:, 4]
+                if metric == "segm" and mask_scores is not None:
+                    scores = np.asarray(mask_scores[c], np.float32)
                 # coco_ap reads the first max_dets rows only
                 if metric == "bbox":
                     ious = _bbox_iou_np(dets[:max_dets, :4], gt_boxes)

@@ -1,7 +1,7 @@
 """Detector builder (counterpart of ``bonai_tpu/models/builder.py``) for
 the detector types the port implements so far, mapped as the JAX package
-maps them (``MaskScoringRCNN`` is a ``MaskRCNN`` whose ``mask_iou_head``
-is not ported yet)."""
+maps them (``MaskScoringRCNN`` is a ``MaskRCNN`` with a
+``mask_iou_head``)."""
 
 from __future__ import annotations
 
@@ -10,12 +10,12 @@ import os
 from ..registry import Registry
 from .detectors.cascade_rcnn import CascadeRCNN
 from .detectors.loft import LOFT
-from .detectors.two_stage import (DynamicRCNN, FasterRCNN, MaskRCNN,
-                                  TwoStageDetector)
+from .detectors.two_stage import (RPN, DynamicRCNN, FastRCNN, FasterRCNN,
+                                  MaskRCNN, TwoStageDetector)
 
 DETECTORS = Registry("detector")
 for _cls in (LOFT, FasterRCNN, MaskRCNN, TwoStageDetector, CascadeRCNN,
-             DynamicRCNN):
+             DynamicRCNN, RPN, FastRCNN):
     DETECTORS.register_module()(_cls)
 DETECTORS.register_module(name="MaskScoringRCNN")(MaskRCNN)
 
@@ -53,13 +53,16 @@ def build_detector(cfg, train_cfg=None, test_cfg=None, roi_align_impl=None):
             f"detector type {det_type!r} is not ported to bonai_tpu_torch "
             f"yet (ROADMAP.md item {item}; ported: "
             f"{sorted(DETECTORS.module_dict)})")
-    if cfg.get("rpn_head") is None or cfg.get("roi_head") is None:
+    # the RPN has no RoI head and Fast R-CNN no RPN; another detector
+    # without either is a C4 or single-stage layout
+    if (cfg.get("rpn_head") is None and det_type != "FastRCNN") or (
+            cfg.get("roi_head") is None and det_type != "RPN"):
         raise NotImplementedError(
             "detectors without an RPN or RoI head are not ported yet "
             "(ROADMAP.md item A7)")
     return DETECTORS.get(det_type)(
         backbone=cfg["backbone"], neck=cfg["neck"],
-        rpn_head=cfg["rpn_head"], roi_head=cfg["roi_head"],
+        rpn_head=cfg.get("rpn_head"), roi_head=cfg.get("roi_head"),
         train_cfg=_plain(dict(train_cfg)) if train_cfg else None,
         test_cfg=_plain(dict(test_cfg)) if test_cfg else None,
         roi_align_impl=(os.environ.get("BONAI_ROI_IMPL") or roi_align_impl

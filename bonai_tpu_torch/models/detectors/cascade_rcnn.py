@@ -39,7 +39,7 @@ def _img_hw(img_shape):
 class CascadeRCNN(TwoStageDetector):
 
     def _setup_roi_head(self, cfg):
-        _refuse_roi_keys(cfg)
+        _refuse_roi_keys(cfg, cascade=True)
         heads = cfg["bbox_head"]
         if isinstance(heads, dict):
             heads = [heads] * cfg.get("num_stages", 3)
@@ -48,9 +48,9 @@ class CascadeRCNN(TwoStageDetector):
             "stage_loss_weights", [1.0, 0.5, 0.25][:self.num_stages]))
         built = [_bbox_head(dict(h, bbox_coder=h.get("bbox_coder", dict(
             target_means=[0.] * 4, target_stds=[0.1, 0.1, 0.2, 0.2]))),
-            reg_class_agnostic=True) for h in heads]
-        self.roi_head["bbox_head"] = nn.ModuleList(h for h, _ in built)
-        self.bbox_coders = [c for _, c in built]
+            reg_class_agnostic=True, cascade=True) for h in heads]
+        self.roi_head["bbox_head"] = nn.ModuleList(h for h, _, _ in built)
+        self.bbox_coders = [c for _, c, _ in built]
         self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
         self._setup_mask_head(cfg)
 

@@ -1,17 +1,21 @@
-"""Two-stage detector trunk: Faster R-CNN, Mask R-CNN, Dynamic R-CNN and
-the base of LOFT and Cascade R-CNN (counterpart of
+"""Two-stage detector trunk: Faster R-CNN, Mask R-CNN, Dynamic R-CNN,
+Libra R-CNN, Double-Head R-CNN, Mask Scoring R-CNN, the RPN-only detector,
+Fast R-CNN, and the base of LOFT and Cascade R-CNN (counterpart of
 ``bonai_tpu/models/detectors/two_stage.py``: ``boxes_to_rois``,
 ``assign_rcnn``, ``assign_and_sample_rcnn``, ``extract_feat``,
-``_roi_align_cfg``, ``_rpn_and_proposals``, ``forward_train``,
-``_roi_forward_train``, ``_mask_forward_train``, ``simple_test``,
-``_rcnn_simple_test``, ``FasterRCNN``, ``MaskRCNN``, ``DynamicRCNN``).
+``_roi_align_cfg``, ``_bbox_head_forward``, ``_rpn_and_proposals``,
+``forward_train``, ``_roi_forward_train``, ``_mask_forward_train``,
+``simple_test``, ``_rcnn_simple_test``, ``FasterRCNN``, ``MaskRCNN``,
+``DynamicRCNN``, ``RPN``, ``FastRCNN``).
 
-Training is the random-sampling path of the JAX package, with its box
-loss: L1 for an ``L1Loss`` or a ``SmoothL1Loss`` config (the JAX package
-keeps both on its inline L1 path, ROADMAP.md queue C), SmoothL1 at the
-batch's beta under Dynamic R-CNN.  The mask branch is optional
-(``with_mask``).  PISA, hard mining and the other samplers and losses
-raise, naming the ROADMAP.md item that ports them.
+Training is the random- or IoU-balanced-sampling path of the JAX package,
+with its box loss: L1 for an ``L1Loss`` or a ``SmoothL1Loss`` config (the
+JAX package keeps both on its inline L1 path, ROADMAP.md queue C),
+``BalancedL1Loss`` as configured, SmoothL1 at the batch's beta under
+Dynamic R-CNN.  The mask branch is optional (``with_mask``), and with it
+Mask Scoring's IoU head.  The neck may be an FPN followed by Libra's BFP
+(mmdet's ``neck.0``, ``neck.1``).  PISA, hard mining and the other
+samplers and losses raise, naming the ROADMAP.md item that ports them.
 
 Public layouts are the JAX package's: images ``(B, H, W, 3)``, FPN levels
 ``(B, H, W, C)`` (NHWC views of channels-last NCHW maps, no copy), RoI
@@ -31,7 +35,7 @@ from ...core.assigners import max_iou_assign
 from ...core.boxes import clip_boxes, delta2bbox
 from ...core.masks import mask_targets_from_instance_masks
 from ...core.nms import multiclass_nms
-from ...core.samplers import random_sample
+from ...core.samplers import iou_balanced_neg_sample, random_sample
 from ...ops.roi_align import multilevel_roi_align
 from ...ops.roi_align_block import roi_align_block
 from ...ops.roi_align_blocked import roi_align_blocked
@@ -40,12 +44,14 @@ from ...parallel import gather_cat
 from ..backbones.hrnet import HRNet
 from ..backbones.resnet import ResNet
 from ..dense_heads.rpn_head import RPNHead, rpn_loss, rpn_proposals
-from ..losses import (binary_cross_entropy, cross_entropy, l1_loss,
-                      smooth_l1_loss)
+from ..losses import (balanced_l1_loss, binary_cross_entropy, cross_entropy,
+                      l1_loss, mse_loss, smooth_l1_loss)
+from ..necks.bfp import BFP
 from ..necks.fpn import FPN
 from ..necks.hrfpn import HRFPN
-from ..roi_heads.bbox_head import Shared2FCBBoxHead, bbox_targets
-from ..roi_heads.mask_head import FCNMaskHead
+from ..roi_heads.bbox_head import (DoubleConvFCBBoxHead, Shared2FCBBoxHead,
+                                   bbox_targets, scale_rois)
+from ..roi_heads.mask_head import FCNMaskHead, MaskIoUHead, mask_iou_targets
 
 
 def boxes_to_rois(boxes, valid):
@@ -76,31 +82,48 @@ def assign_rcnn(proposals, proposal_valid, gt_bboxes, gt_valid,
     return cand, cand_valid, assigned, max_ov
 
 
-def assign_and_sample_rcnn(draw, proposals, proposal_valid, gt_bboxes,
-                           gt_valid, assigner_cfg, sampler_cfg,
-                           dyn_iou_topk=None):
-    """Assign and randomly sample the second-stage candidates of a batch.
-    Returns the sampler's result (``(B, num)`` each) and the sampled boxes
-    ``(B, num, 4)``.
-
-    With ``dyn_iou_topk`` (Dynamic R-CNN) the result also holds
-    ``stat_kth_iou`` ``(B,)``: each image's ``dyn_iou_topk``-th largest
-    proposal IoU, the GTs' own matches excluded (the reference records it
-    before the GTs join the candidates)."""
+def _check_sampler(sampler_cfg):
+    """The R-CNN sampler's type, ``RandomSampler`` or Libra's
+    ``IoUBalancedNegSampler``; the others raise A7."""
     stype = sampler_cfg.get("type", "RandomSampler")
-    if stype != "RandomSampler":
+    if stype not in ("RandomSampler", "IoUBalancedNegSampler"):
         raise NotImplementedError(f"{stype} is not ported to bonai_tpu_torch "
                                   f"yet (ROADMAP.md item A7)")
     if not sampler_cfg.get("add_gt_as_proposals", True):
         raise NotImplementedError("add_gt_as_proposals=False is not ported "
                                   "to bonai_tpu_torch yet (ROADMAP.md item "
                                   "A7)")
+    return stype
+
+
+def assign_and_sample_rcnn(draw, proposals, proposal_valid, gt_bboxes,
+                           gt_valid, assigner_cfg, sampler_cfg,
+                           dyn_iou_topk=None):
+    """Assign and sample the second-stage candidates of a batch, randomly
+    (``draw`` called for two streams) or IoU-balanced (three).  Returns the
+    sampler's result (``(B, num)`` each) and the sampled boxes ``(B, num,
+    4)``.
+
+    With ``dyn_iou_topk`` (Dynamic R-CNN) the result also holds
+    ``stat_kth_iou`` ``(B,)``: each image's ``dyn_iou_topk``-th largest
+    proposal IoU, the GTs' own matches excluded (the reference records it
+    before the GTs join the candidates)."""
+    stype = _check_sampler(sampler_cfg)
     cand, _, assigned, max_ov = assign_rcnn(proposals, proposal_valid,
                                             gt_bboxes, gt_valid, assigner_cfg)
-    u_pos, u_neg = draw(assigned.shape, assigned.device)
-    res = random_sample(assigned, sampler_cfg.get("num", 512),
-                        sampler_cfg.get("pos_fraction", 0.25), u_pos, u_neg,
-                        sampler_cfg.get("neg_pos_ub", -1))
+    num = sampler_cfg.get("num", 512)
+    pos_fraction = sampler_cfg.get("pos_fraction", 0.25)
+    if stype == "IoUBalancedNegSampler":
+        u_pos, u_neg, u_fill = draw(assigned.shape, assigned.device, 3)
+        res = iou_balanced_neg_sample(
+            assigned, max_ov, num, pos_fraction, u_pos, u_neg, u_fill,
+            floor_thr=sampler_cfg.get("floor_thr", -1),
+            floor_fraction=sampler_cfg.get("floor_fraction", 0.0),
+            num_bins=sampler_cfg.get("num_bins", 3))
+    else:
+        u_pos, u_neg = draw(assigned.shape, assigned.device)
+        res = random_sample(assigned, num, pos_fraction, u_pos, u_neg,
+                            sampler_cfg.get("neg_pos_ub", -1))
     if dyn_iou_topk is not None:
         prop_ov = torch.where(proposal_valid, max_ov[:, gt_bboxes.shape[1]:],
                               max_ov.new_tensor(0.0))
@@ -172,12 +195,19 @@ def _build_backbone(cfg):
 
 
 def _build_neck(cfg):
-    """An ``FPN`` or an ``HRFPN``.  A list of necks (Libra R-CNN's ``[FPN,
-    BFP]``, which the JAX package chains) raises A7, other necks A6."""
+    """An ``FPN`` or an ``HRFPN``, or a chain of necks: Libra R-CNN's
+    ``[FPN, BFP]`` (an ``nn.Sequential``: mmdet's ``neck.0``, ``neck.1``);
+    another chain raises A7, other necks A6."""
     if isinstance(cfg, (list, tuple)):
-        raise NotImplementedError(
-            f"chained necks {[dict(c).get('type') for c in cfg]} are not "
-            f"ported to bonai_tpu_torch yet (ROADMAP.md item A7)")
+        types = [dict(c).get("type") for c in cfg]
+        if len(cfg) < 2 or types[0] != "FPN" or any(
+                t != "BFP" for t in types[1:]):
+            raise NotImplementedError(
+                f"chained necks {types} are not ported to bonai_tpu_torch "
+                f"yet (ROADMAP.md item A7)")
+        return nn.Sequential(_build_neck(cfg[0]), *(BFP(**_kwargs(
+            c, "BFP", ("in_channels", "num_levels", "refine_level",
+                       "refine_type"), "A7")) for c in cfg[1:]))
     if dict(cfg).get("type") == "HRFPN":
         return HRFPN(**_kwargs(cfg, "neck", (
             "in_channels", "out_channels", "num_outs"), "A6"))
@@ -187,40 +217,67 @@ def _build_neck(cfg):
         "add_extra_convs"), "A6"))
 
 
-def _refuse_roi_keys(cfg):
-    """Mask Scoring's IoU head and the C4 shared head: a detector type the
-    port builds (``MaskScoringRCNN`` builds as ``MaskRCNN``, a C4 config is
-    a ``FasterRCNN``) could carry them, so they raise."""
+def _refuse_roi_keys(cfg, cascade=False):
+    """The C4 shared head, and a cascade's Mask Scoring IoU head: a
+    detector type the port builds (a C4 config is a ``FasterRCNN``) could
+    carry them, so they raise."""
     unported = [k for k in ("mask_iou_head", "shared_head")
-                if cfg.get(k) is not None]
+                if cfg.get(k) is not None
+                and (cascade or k == "shared_head")]
     if unported:
         raise NotImplementedError(
             f"roi_head parts {unported} are not ported to bonai_tpu_torch "
             f"yet (ROADMAP.md item A7)")
 
 
-def _bbox_head(cfg, reg_class_agnostic=False):
-    """A ``Shared2FCBBoxHead`` of config ``cfg`` (``reg_class_agnostic``:
-    the default when the config does not say), and its coder's config.
-    Its ``loss_bbox`` may be ``L1Loss`` or ``SmoothL1Loss``: the JAX
-    package computes L1 for both (ROADMAP.md queue C)."""
+def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
+    """The box head of config ``cfg`` (``reg_class_agnostic``: the default
+    when the config does not say), its coder's config and its
+    ``loss_bbox`` config.  A ``Shared2FCBBoxHead`` or, but for a cascade's
+    stage, Double-Head's ``DoubleConvFCBBoxHead``.  Its ``loss_bbox`` may
+    be ``L1Loss`` or ``SmoothL1Loss`` (the JAX package computes L1 for
+    both, ROADMAP.md queue C) or, but for a cascade's stage, Libra's
+    ``BalancedL1Loss`` on the deltas."""
     bh = dict(cfg)
-    _require_type(bh, "Shared2FCBBoxHead", "A7")
-    loss = dict(bh.get("loss_bbox") or {}).get("type", "L1Loss")
-    if loss not in ("L1Loss", "SmoothL1Loss"):
-        raise NotImplementedError(f"loss_bbox {loss} is not ported to "
-                                  f"bonai_tpu_torch yet (ROADMAP.md item A7)")
+    heads, losses = ("Shared2FCBBoxHead",), ("L1Loss", "SmoothL1Loss")
+    if not cascade:
+        heads += ("DoubleConvFCBBoxHead",)
+        losses += ("BalancedL1Loss",)
+    htype = bh.get("type", "Shared2FCBBoxHead")
+    if htype not in heads:
+        raise NotImplementedError(f"{htype} is not ported to bonai_tpu_torch "
+                                  f"yet (ROADMAP.md item A7)")
+    loss = dict(bh.get("loss_bbox") or {})
+    if loss.get("type", "L1Loss") not in losses:
+        raise NotImplementedError(f"loss_bbox {loss['type']} is not ported "
+                                  f"to bonai_tpu_torch yet (ROADMAP.md item "
+                                  f"A7)")
+    if bh.get("reg_decoded_bbox", False):
+        raise NotImplementedError("reg_decoded_bbox=True is not ported to "
+                                  "bonai_tpu_torch yet (ROADMAP.md item A7)")
     coder = dict(bh.get("bbox_coder", {}))
     _require_type(coder, "DeltaXYWHBBoxCoder", "A7")
-    return Shared2FCBBoxHead(
-        bh.get("num_classes", 1), bh.get("in_channels", 256),
-        bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
-        bh.get("reg_class_agnostic", reg_class_agnostic)), coder
+    agnostic = bh.get("reg_class_agnostic", reg_class_agnostic)
+    if htype == "DoubleConvFCBBoxHead":
+        head = DoubleConvFCBBoxHead(
+            bh.get("num_classes", 1), bh.get("num_convs", 4),
+            bh.get("num_fcs", 2), bh.get("in_channels", 256),
+            bh.get("conv_out_channels", 1024),
+            bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
+            agnostic)
+    else:
+        head = Shared2FCBBoxHead(
+            bh.get("num_classes", 1), bh.get("in_channels", 256),
+            bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
+            agnostic)
+    return head, coder, loss
 
 
 class TwoStageDetector(nn.Module):
-    """FPN two-stage trunk: ResNet + FPN or HRNet + HRFPN, RPN, a box head
-    and an optional mask head."""
+    """FPN two-stage trunk: ResNet + FPN (+ BFP) or HRNet + HRFPN, RPN, a
+    box head and an optional mask head."""
+
+    has_rpn = True          # Fast R-CNN: proposals come with the batch
 
     def __init__(self, backbone, neck, rpn_head, roi_head, train_cfg=None,
                  test_cfg=None, roi_align_impl=None):
@@ -230,7 +287,18 @@ class TwoStageDetector(nn.Module):
         self.roi_align_impl = roi_align_impl
         self.backbone = _build_backbone(backbone)
         self.neck = _build_neck(neck)
-        rh = dict(rpn_head)
+        self._anchors = {}
+        if self.has_rpn:
+            self._setup_rpn(dict(rpn_head))
+        self.roi_head = nn.ModuleDict()
+        if roi_head is not None:
+            self._setup_roi_head(dict(roi_head))
+            rcnn = (train_cfg or {}).get("rcnn")
+            for stage in (rcnn if isinstance(rcnn, (list, tuple))
+                          else [rcnn] if rcnn else []):
+                _check_sampler(dict(dict(stage).get("sampler", {})))
+
+    def _setup_rpn(self, rh):
         _require_type(rh, "RPNHead", "A6")
         ag = dict(rh.get("anchor_generator", {}))
         _require_type(ag, "AnchorGenerator", "A6")
@@ -243,20 +311,25 @@ class TwoStageDetector(nn.Module):
             rh.get("in_channels", 256), rh.get("feat_channels", 256),
             len(ag.get("ratios", [0.5, 1.0, 2.0]))
             * len(ag.get("scales", [8])))
-        self._anchors = {}
-        self.roi_head = nn.ModuleDict()
-        self._setup_roi_head(dict(roi_head))
 
     def _setup_roi_head(self, cfg):
+        """The box head (Double-Head's: its reg RoIs scaled by
+        ``reg_roi_scale_factor``), its extractor and loss, and the mask
+        branch."""
         _refuse_roi_keys(cfg)
-        self.roi_head["bbox_head"], self.bbox_coder = _bbox_head(
+        self.roi_head["bbox_head"], self.bbox_coder, loss = _bbox_head(
             cfg["bbox_head"])
+        self.bbox_loss_cfg = loss if loss.get("type") == "BalancedL1Loss" \
+            else None
+        self.reg_roi_scale_factor = cfg.get("reg_roi_scale_factor", 1.3) \
+            if isinstance(self.roi_head["bbox_head"],
+                          DoubleConvFCBBoxHead) else None
         self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
         self._setup_mask_head(cfg)
 
     def _setup_mask_head(self, cfg):
         """The optional FCN mask head and its extractor (a Faster R-CNN
-        config has neither)."""
+        config has neither), and Mask Scoring's IoU head."""
         if cfg.get("mask_head") is None:
             return
         mh = dict(cfg["mask_head"])
@@ -265,6 +338,18 @@ class TwoStageDetector(nn.Module):
             mh.get("num_convs", 4), mh.get("in_channels", 256),
             mh.get("conv_out_channels", 256), mh.get("num_classes", 1))
         self.mask_extractor_cfg = self._extractor(cfg["mask_roi_extractor"])
+        if cfg.get("mask_iou_head") is None:
+            return
+        mi = dict(cfg["mask_iou_head"])
+        _require_type(mi, "MaskIoUHead", "A7")
+        self.roi_head["mask_iou_head"] = MaskIoUHead(
+            mi.get("num_convs", 4), mi.get("num_fcs", 2),
+            mi.get("in_channels", 256), mi.get("conv_out_channels", 256),
+            mi.get("fc_out_channels", 1024), mi.get("num_classes", 1),
+            dict(self.mask_extractor_cfg.get("roi_layer", {})).get(
+                "output_size", 14))
+        self.mask_iou_loss_weight = dict(mi.get("loss_iou") or {}).get(
+            "loss_weight", 0.5)
 
     @property
     def with_mask(self):
@@ -334,6 +419,18 @@ class TwoStageDetector(nn.Module):
         return fn(levels, rois, out_size, strides, sampling_ratio=sr,
                   finest_scale=extractor_cfg.get("finest_scale", 56),
                   roi_valid=roi_valid, **extra)
+
+    def _bbox_head_forward(self, head, feats, rois, roi_valid):
+        """``head`` on its RoI features: one RoIAlign call, or two for
+        Double-Head (the reg branch's on the RoIs scaled about their
+        centres by ``reg_roi_scale_factor``, not clipped)."""
+        x = self._roi_align_cfg(self.bbox_extractor_cfg, feats, rois,
+                                roi_valid)
+        if not isinstance(head, DoubleConvFCBBoxHead):
+            return head(x)
+        return head(x, self._roi_align_cfg(
+            self.bbox_extractor_cfg, feats,
+            scale_rois(rois, self.reg_roi_scale_factor), roi_valid))
 
     def _grid_anchors(self, feats):
         sizes = tuple((int(f.shape[1]), int(f.shape[2])) for f in feats)
@@ -423,7 +520,13 @@ class TwoStageDetector(nn.Module):
             pred4 = st["bbox_pred"].reshape(n_tot, nc, 4).gather(
                 1, st["labels"].clamp(0, nc - 1)[:, None, None]
                 .expand(-1, 1, 4))[:, 0]
-        if dyn is None:
+        if dyn is None and self.bbox_loss_cfg is not None:
+            lc = dict(self.bbox_loss_cfg)
+            lc.pop("type")
+            lc.pop("reduction", None)
+            loss_bbox = balanced_l1_loss(pred4, st["bbox_t"], st["bbox_w"],
+                                         avg_factor=float(n_tot), **lc)
+        elif dyn is None:
             loss_bbox = l1_loss(pred4, st["bbox_t"], st["bbox_w"],
                                 avg_factor=float(n_tot))
         else:
@@ -458,8 +561,8 @@ class TwoStageDetector(nn.Module):
             tuple(coder.get("target_means", (0.,) * 4)),
             tuple(coder.get("target_stds", (1.,) * 4)))
         rois, roi_valid = boxes_to_rois(sampled, res["valid"])
-        cls_score, bbox_pred = head(self._roi_align_cfg(
-            self.bbox_extractor_cfg, feats, rois, roi_valid))
+        cls_score, bbox_pred = self._bbox_head_forward(head, feats, rois,
+                                                       roi_valid)
         labels, label_w = labels.reshape(-1), label_w.reshape(-1)
         return {"labels": labels, "bbox_t": bbox_t.reshape(-1, 4),
                 "bbox_w": bbox_w.reshape(-1, 4), "bbox_pred": bbox_pred,
@@ -474,15 +577,30 @@ class TwoStageDetector(nn.Module):
             return {}
         mask_size = rcnn.get("mask_size", 28)
         rois, roi_valid = boxes_to_rois(pos_boxes, pos_is_pos)
-        logits = self.roi_head["mask_head"](self._roi_align_cfg(
-            self.mask_extractor_cfg, feats, rois, roi_valid))[:, 0]
+        mask_feats = self._roi_align_cfg(self.mask_extractor_cfg, feats,
+                                         rois, roi_valid)
+        mask_logits = self.roi_head["mask_head"](mask_feats)
+        logits = mask_logits[:, 0]
+        gt_boxes = _gather_rows(batch["gt_bboxes"], pos_gt)
+        gt_masks = _gather_rows(batch["gt_masks"], pos_gt)
         targets = mask_targets_from_instance_masks(
-            rois[:, 1:5], _gather_rows(batch["gt_bboxes"], pos_gt),
-            _gather_rows(batch["gt_masks"], pos_gt), mask_size)
+            rois[:, 1:5], gt_boxes, gt_masks, mask_size)
         w = roi_valid.float()[:, None, None]
-        return {"loss_mask": binary_cross_entropy(
+        losses = {"loss_mask": binary_cross_entropy(
             logits, targets, w.expand_as(logits),
             avg_factor=(w.sum() * mask_size * mask_size).clamp(min=1.0))}
+        if "mask_iou_head" in self.roi_head:
+            # Mask Scoring: MSE on the positives with a nonzero target; the
+            # IoU head's input keeps its gradient, the targets have none
+            iou_pred = self.roi_head["mask_iou_head"](mask_feats,
+                                                      mask_logits)[:, 0]
+            iou_t = mask_iou_targets(
+                logits.detach(), targets, rois[:, 1:5], gt_boxes, gt_masks,
+                rcnn.get("mask_thr_binary", 0.5))
+            wi = roi_valid.float() * (iou_t > 0).float()
+            losses["loss_mask_iou"] = self.mask_iou_loss_weight * mse_loss(
+                iou_pred, iou_t, wi, avg_factor=wi.sum().clamp(min=1.0))
+        return losses
 
     def _extra_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
                              pos_gt):
@@ -509,8 +627,8 @@ class TwoStageDetector(nn.Module):
         rcnn = dict(self.test_cfg["rcnn"])
         b, n = proposals.shape[:2]
         rois, roi_valid = boxes_to_rois(proposals, prop_valid)
-        cls_score, bbox_pred = self.roi_head["bbox_head"](self._roi_align_cfg(
-            self.bbox_extractor_cfg, feats, rois, roi_valid))
+        cls_score, bbox_pred = self._bbox_head_forward(
+            self.roi_head["bbox_head"], feats, rois, roi_valid)
         scores = torch.softmax(cls_score, dim=-1).reshape(b, n, -1)
         boxes = delta2bbox(proposals, bbox_pred.reshape(b, n, -1),
                            self.bbox_coder.get("target_means", (0.,) * 4),
@@ -528,17 +646,26 @@ class TwoStageDetector(nn.Module):
     def _detections_out(self, feats, det_boxes, det_scores, det_labels,
                         det_valid, img_shape, scale_factor):
         """The detections in original-image pixels, with the mask and extra
-        branches run on their scale-space boxes."""
+        branches run on their scale-space boxes.  Mask Scoring's
+        ``mask_scores`` are the detection scores times the predicted IoU
+        of each detection's class."""
         b = det_boxes.shape[0]
         sf = scale_factor.float()[:, None, None]
         out = {"det_bboxes": det_boxes / sf, "det_scores": det_scores,
                "det_labels": det_labels, "det_valid": det_valid}
         if self.with_mask:
             rois, roi_valid = boxes_to_rois(det_boxes, det_valid)
-            logits = self.roi_head["mask_head"](self._roi_align_cfg(
-                self.mask_extractor_cfg, feats, rois, roi_valid))
+            mask_feats = self._roi_align_cfg(self.mask_extractor_cfg, feats,
+                                             rois, roi_valid)
+            logits = self.roi_head["mask_head"](mask_feats)
             out["mask_probs"] = torch.sigmoid(logits[:, 0]).reshape(
                 b, -1, *logits.shape[2:])
+            if "mask_iou_head" in self.roi_head:
+                iou = self.roi_head["mask_iou_head"](mask_feats, logits)
+                sel = iou.gather(1, det_labels.reshape(-1, 1).long().clamp(
+                    0, iou.shape[1] - 1))
+                out["mask_scores"] = det_scores * sel.reshape(
+                    det_scores.shape)
         out.update(self._extra_simple_test(feats, det_boxes, det_valid,
                                            img_shape, scale_factor))
         return out
@@ -564,3 +691,69 @@ class DynamicRCNN(TwoStageDetector):
     threshold and SmoothL1 beta follow the proposals' quality.  The step
     computes the statistics (``train_cfg.rcnn.dynamic_rcnn``); the host
     schedule in ``apis/train.py`` feeds the thresholds back."""
+
+
+class RPN(TwoStageDetector):
+    """The RPN-only detector (reference ``mmdet/models/detectors/rpn.py``;
+    ``roi_head=None``): its proposals are its detections, scored by
+    ``AR@N``."""
+
+    def forward_train(self, batch, draw):
+        """The RPN losses; ``draw`` is called once (the JAX detector hands
+        ``rpn_loss`` its ``sampling`` key unsplit)."""
+        feats = self.extract_feat(batch["image"])
+        cls_scores, bbox_preds = self.rpn_head(
+            [f.permute(0, 3, 1, 2) for f in feats])
+        return rpn_loss(cls_scores, bbox_preds,
+                        torch.cat(self._grid_anchors(feats)),
+                        batch["gt_bboxes"], batch["gt_valid"], draw,
+                        dict(self.train_cfg["rpn"]))
+
+    @torch.inference_mode()
+    def simple_test(self, img, img_shape, scale_factor):
+        """The test proposals as detections: ``det_bboxes`` ``(B, P, 4)``
+        in original-image pixels, their scores, labels 0, validity."""
+        dtype = next(self.parameters()).dtype
+        feats = self.extract_feat(img.to(dtype))
+        props, scores, valid = self._rpn_and_proposals(
+            feats, img_shape, dict(self.test_cfg.get("rpn", {})))
+        return {"det_bboxes": props / scale_factor.float()[:, None, None],
+                "det_scores": scores,
+                "det_labels": torch.zeros(scores.shape, dtype=torch.int32,
+                                          device=scores.device),
+                "det_valid": valid}
+
+
+class FastRCNN(TwoStageDetector):
+    """Fast R-CNN (reference ``mmdet/models/detectors/fast_rcnn.py``): the
+    second stage on proposals that come with the batch (``proposals``
+    ``(B, N, 4)`` in the resized image, ``proposals_valid`` ``(B, N)``).
+    It has no RPN head, whatever its config says (the JAX detector builds
+    one from the BONAI config's base and never runs it)."""
+
+    has_rpn = False
+
+    def forward_train(self, batch, draw):
+        """The R-CNN losses on the batch's proposals; ``draw`` is called for
+        the R-CNN only (the JAX detector's ``sampling`` key, unsplit)."""
+        feats = self.extract_feat(batch["image"])
+        proposals = batch["proposals"].float()
+        valid = batch.get("proposals_valid")
+        if valid is None:
+            valid = torch.ones(proposals.shape[:2], dtype=torch.bool,
+                               device=proposals.device)
+        return self._roi_forward_train(feats, proposals, valid, batch, draw)
+
+    @torch.inference_mode()
+    def simple_test(self, img, img_shape, scale_factor, proposals,
+                    proposals_valid=None):
+        """:meth:`TwoStageDetector.simple_test` on the given proposals."""
+        dtype = next(self.parameters()).dtype
+        feats = self.extract_feat(img.to(dtype))
+        proposals = proposals.float()
+        if proposals_valid is None:
+            proposals_valid = torch.ones(proposals.shape[:2],
+                                         dtype=torch.bool,
+                                         device=proposals.device)
+        return self._rcnn_simple_test(feats, proposals, proposals_valid,
+                                      img_shape, scale_factor)

@@ -1,16 +1,20 @@
-"""FCN mask head (counterpart of ``bonai_tpu/models/roi_heads/mask_head.py``
-``FCNMaskHead``): ``num_convs`` 3x3 convs, a 2x deconv, 1x1 logits."""
+"""FCN mask head, and Mask Scoring R-CNN's mask-IoU head and its targets
+(counterparts of ``bonai_tpu/models/roi_heads/mask_head.py``:
+``FCNMaskHead``, ``MaskIoUHead``, ``mask_iou_targets``)."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..init import kaiming_fan_out_, zeros_
+from ..init import fan_in_uniform_, kaiming_fan_out_, normal_, zeros_
 from ..necks.fpn import ConvModule
 
 
 class FCNMaskHead(nn.Module):
+    """``num_convs`` 3x3 convs, a 2x deconv, 1x1 logits."""
+
     def __init__(self, num_convs=4, in_channels=256, conv_out_channels=256,
                  num_classes=1):
         super().__init__()
@@ -35,3 +39,78 @@ class FCNMaskHead(nn.Module):
             x = F.relu(conv(x))
         x = F.relu(self.upsample(x))
         return self.conv_logits(x).float()
+
+
+class MaskIoUHead(nn.Module):
+    """Mask Scoring R-CNN's head: the IoU of each predicted mask with its
+    GT, per class, from the RoI's mask features concatenated with the 2x2
+    max-pooled largest mask logit (the JAX package's input; mmdetection
+    pools the sigmoid of the label's logit: ROADMAP.md queue C), through
+    ``num_convs`` 3x3 convs (the last at stride 2) and ``num_fcs`` FCs.
+    Keys are mmdet's (``convs.<i>.conv``, ``fcs.<i>``, ``fc_mask_iou``)."""
+
+    def __init__(self, num_convs=4, num_fcs=2, in_channels=256,
+                 conv_out_channels=256, fc_out_channels=1024, num_classes=1,
+                 roi_feat_size=14):
+        super().__init__()
+        self.convs = nn.ModuleList()
+        for i in range(num_convs):
+            conv = ConvModule(in_channels + 1 if i == 0 else conv_out_channels,
+                              conv_out_channels, 3)
+            if i == num_convs - 1:
+                conv.conv.stride = (2, 2)
+            self.convs.append(conv)
+        pooled = (roi_feat_size // 2) ** 2
+        self.fcs = nn.ModuleList(
+            nn.Linear(conv_out_channels * pooled if i == 0
+                      else fc_out_channels, fc_out_channels)
+            for i in range(num_fcs))
+        self.fc_mask_iou = nn.Linear(fc_out_channels, num_classes)
+
+    def init_weights(self, gen):
+        for conv in self.convs:
+            kaiming_fan_out_(conv.conv.weight, gen)
+            zeros_(conv.conv.bias)
+        for fc in self.fcs:
+            fan_in_uniform_(fc.weight, gen)
+            zeros_(fc.bias)
+        normal_(self.fc_mask_iou.weight, 0.01, gen)
+        zeros_(self.fc_mask_iou.bias)
+
+    def forward(self, mask_feat, mask_logits):
+        """``(N, S, S, C)`` mask RoI features and ``(N, K, 2S, 2S)`` mask
+        logits -> float32 ``(N, K)`` predicted IoUs."""
+        x = mask_feat.permute(0, 3, 1, 2)
+        pred = F.max_pool2d(mask_logits.max(dim=1, keepdim=True).values, 2, 2)
+        x = torch.cat([x, pred.to(x.dtype)], dim=1)
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        x = x.flatten(1)
+        for fc in self.fcs:
+            x = F.relu(fc(x))
+        return self.fc_mask_iou(x).float()
+
+
+def mask_iou_targets(mask_logits, targets, pos_boxes, matched_gt_boxes,
+                     matched_inst_masks, mask_thr=0.5):
+    """``(P,)`` mask-IoU targets: the IoU of each binarised predicted mask
+    ``(P, S, S)`` (logits) with its whole GT instance.  The overlap is
+    counted on the proposal's grid against the mask ``targets`` ``(P, S,
+    S)``; the GT's full area, outside the proposal too, is its
+    instance-local mask's mean ``(P, M, M)`` times its box's area, in
+    grid cells of the proposal ``pos_boxes`` ``(P, 4)``."""
+    s = targets.shape[-1]
+    with torch.autocast(mask_logits.device.type, enabled=False):
+        pred = (torch.sigmoid(mask_logits.float()) > mask_thr).float()
+        targets = targets.float()
+        overlap = (pred * targets).sum(dim=(-1, -2))
+        pred_area = pred.sum(dim=(-1, -2))
+        boxes, gt = pos_boxes.float(), matched_gt_boxes.float()
+        pw = (boxes[:, 2] - boxes[:, 0]).clamp(min=1e-6)
+        ph = (boxes[:, 3] - boxes[:, 1]).clamp(min=1e-6)
+        cell = (pw / s) * (ph / s)
+        gw = (gt[:, 2] - gt[:, 0]).clamp(min=0.0)
+        gh = (gt[:, 3] - gt[:, 1]).clamp(min=0.0)
+        full = matched_inst_masks.float().mean(dim=(-1, -2)) * gw * gh
+        gt_cells = full / cell.clamp(min=1e-6)
+        return overlap / (pred_area + gt_cells - overlap).clamp(min=1e-6)

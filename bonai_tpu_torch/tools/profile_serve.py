@@ -2,8 +2,10 @@
 
 Runs ``simple_test`` of a config (``--config``: the LOFT-FOA R50-FPN
 config by default, or another detector the port builds, such as the Mask,
-Cascade Mask or Dynamic R-CNN BONAI baselines or LOFT-FOA on HRNet-W32 +
-HRFPN; 1024^2, B=2, bfloat16,
+Cascade Mask, Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI
+baselines, the RPN, Fast R-CNN (on 2000 synthetic proposals an image,
+``profile_train.synthetic_proposals``) or LOFT-FOA on HRNet-W32 + HRFPN;
+1024^2, B=2, bfloat16,
 seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
 loaded as the test CLI loads it) and prints
 
@@ -101,7 +103,8 @@ def stage_times(model, batch, reps=3):
     heads = {**trunk(model), **dict(roi_heads(model))}
     for k, m in heads.items():
         m.forward = _timed(k, m.forward, totals)
-    nms = dict(model.test_cfg["rcnn"].get("nms", {})).get("type", "nms")
+    nms = dict(model.test_cfg.get("rcnn", {}).get("nms", {})).get("type",
+                                                                  "nms")
     saved = patch_functions(
         {"roi_align_block": "roi_align_block (B1)",
          "roi_align_fused": "roi_align_fused (B1, strip rule)",
@@ -171,6 +174,11 @@ def main(argv=None):
     r = np.random.RandomState(0)
     imgs = [r.randint(0, 256, (1024, 1024, 3), np.uint8) for _ in range(2)]
     batch = prepare_batch(model, imgs)[:3]
+    if not model.has_rpn:
+        from .profile_train import synthetic_batch
+        synth = synthetic_batch(proposals=2000)
+        batch = (*batch, *(torch.as_tensor(synth[k]).cuda()
+                           for k in ("proposals", "proposals_valid")))
     model.simple_test(*batch)                         # warm-up
     wall = wall_ms(model, batch)
     stages, staged = stage_times(model, batch)

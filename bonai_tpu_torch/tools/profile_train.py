@@ -1,14 +1,16 @@
 """Where the training time goes on the GPU.
 
 Builds a config (``--config``: the LOFT-FOA R50-FPN config by default, or
-another detector the port builds, such as the Mask, Cascade Mask or
-Dynamic R-CNN BONAI baselines or LOFT-FOA on HRNet-W32 + HRFPN) for
+another detector the port builds, such as the Mask, Cascade Mask,
+Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI baselines, the
+RPN, Fast R-CNN or LOFT-FOA on HRNet-W32 + HRFPN) for
 training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
 config's SGD and schedule), takes a few steps on the synthetic padded
 batch of
-:func:`synthetic_batch` (1024^2, B=2, 100 GTs) under bfloat16 autocast,
-and prints
+:func:`synthetic_batch` (1024^2, B=2, 100 GTs; for a Fast R-CNN with
+2000 proposals an image, :func:`synthetic_proposals`) under bfloat16
+autocast, and prints
 
 - the step time (host clock around a synchronised step, median of 5);
 - each stage's time (the device synchronised at each stage's start and
@@ -50,14 +52,37 @@ CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 
 
-def synthetic_batch(batch=2, size=1024, g=100, m=112, seed=0):
+def synthetic_proposals(gt_bboxes, gt_valid, n=2000, size=1024, seed=0):
+    """Fast R-CNN's proposals for the GTs ``(B, G, 4)`` of a ``size``^2
+    batch, from a numpy seed: each image's valid GT boxes jittered by up
+    to a tenth of their size, then random boxes inside the image whose
+    sides are log-uniform on 8..``0.9 size`` px (so that every pyramid
+    level gets RoIs), the last image's last eighth padding.  Returns
+    ``(B, n, 4)`` float32 proposals and their ``(B, n)`` validity."""
+    r = np.random.RandomState(seed)
+    b = gt_bboxes.shape[0]
+    wh = np.exp(r.uniform(np.log(8.0), np.log(size * 0.9), (b, n, 2)))
+    xy = r.uniform(0.0, 1.0, (b, n, 2)) * (size - 1 - wh)
+    props = np.concatenate([xy, xy + wh], -1)
+    for i in range(b):
+        gts = np.asarray(gt_bboxes[i])[np.asarray(gt_valid[i])][:n]
+        span = np.tile(gts[:, 2:] - gts[:, :2], 2)       # w, h, w, h
+        props[i, :len(gts)] = gts + r.uniform(-0.1, 0.1, gts.shape) * span
+    valid = np.ones((b, n), bool)
+    valid[-1, n - n // 8:] = False
+    props[~valid] = 0.0
+    return props.astype(np.float32), valid
+
+
+def synthetic_batch(batch=2, size=1024, g=100, m=112, seed=0, proposals=0):
     """The padded batch of ``bench.py``'s training benchmark, from a numpy
     seed: normalised float images, ``g`` GT boxes of 10..``size/5`` px,
-    random ``m``^2 instance masks, offsets within +-30 px."""
+    random ``m``^2 instance masks, offsets within +-30 px; with
+    ``proposals``, that many of :func:`synthetic_proposals` an image."""
     r = np.random.RandomState(seed)
     xy1 = r.uniform(0, size * 0.6, (batch, g, 2)).astype(np.float32)
     wh = r.uniform(10, size * 0.2, (batch, g, 2)).astype(np.float32)
-    return {
+    out = {
         "image": r.randn(batch, size, size, 3).astype(np.float32),
         "img_shape": np.full((batch, 2), float(size), np.float32),
         "gt_bboxes": np.concatenate([xy1, np.minimum(xy1 + wh, size - 1)],
@@ -66,6 +91,10 @@ def synthetic_batch(batch=2, size=1024, g=100, m=112, seed=0):
         "gt_valid": np.ones((batch, g), bool),
         "gt_masks": (r.rand(batch, g, m, m) > 0.4).astype(np.uint8),
         "gt_offsets": r.uniform(-30, 30, (batch, g, 2)).astype(np.float32)}
+    if proposals:
+        out["proposals"], out["proposals_valid"] = synthetic_proposals(
+            out["gt_bboxes"], out["gt_valid"], proposals, size, seed)
+    return out
 
 
 def _timed(name, fn, totals):
@@ -98,7 +127,8 @@ def stage_times(model, train_step, batch, draw, reps=3):
     patched = {"forward_train": "forward"}
     for attr, name in patched.items():
         setattr(model, attr, _timed(name, getattr(model, attr), totals))
-    heads = {**trunk(model), "rpn_head": model.rpn_head,
+    heads = {**trunk(model), **({"rpn_head": model.rpn_head}
+                                if model.has_rpn else {}),
              **dict(roi_heads(model))}
     for name, m in heads.items():
         m.forward = _timed(name, m.forward, totals)
@@ -172,8 +202,8 @@ def main(argv=None):
     model, _, train_step, generator = build_trainer(cfg,
                                                     torch.device("cuda"))
     draw = generator_draws(generator)
-    batch = {k: torch.as_tensor(v).cuda()
-             for k, v in synthetic_batch().items()}
+    batch = {k: torch.as_tensor(v).cuda() for k, v in synthetic_batch(
+        proposals=0 if model.has_rpn else 2000).items()}
     train_step(batch, 0, draw)                          # warm-up
     torch.cuda.reset_peak_memory_stats()
     wall = step_ms(train_step, batch, draw)

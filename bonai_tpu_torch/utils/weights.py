@@ -17,6 +17,14 @@ whose stage heads ``bbox_head_<i>`` go to mmdet's
 ``bbox_head`` only (ROADMAP.md queue C).  The backbone may be the ResNet
 or HRNet (mmdet's HRNet keys, ``hrnet.py``), the neck FPN or HRFPN; the
 JAX importer reads no HRNet or HRFPN variable.
+
+Libra R-CNN's chained neck goes to ``neck.0.*`` (the FPN) and
+``neck.1.refine.*`` (the BFP's ``neck_extra0``), Double-Head's box head to
+``roi_head.bbox_head.{res_block,conv_branch,fc_branch,fc_cls,fc_reg}``,
+Mask Scoring's IoU head to ``roi_head.mask_iou_head.{convs.<i>.conv,
+fcs.<i>,fc_mask_iou}``; an RPN-only model has no ``roi_head.*``, a Fast
+R-CNN no ``rpn_head.*``.  The JAX importer reads none of the BFP, the
+double head or the IoU head (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -101,15 +109,28 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         elif hr:
             _hr_module(f"backbone.stage{hr[1]}.{hr[2]}", p, bs[name],
                        layer, norm, block)
+    # a chained neck shows by its BFP's variables (one without a refine
+    # has none, and reads as a plain FPN)
+    chained = "neck_extra0" in params
+    neck = "neck.0" if chained else "neck"
     for name, p in params["neck"].items():
         if name == "reduction":                         # HRFPN
-            layer("neck.reduction_conv.conv", p)
+            layer(f"{neck}.reduction_conv.conv", p)
         elif name.startswith("fpn_conv") and name[8:].isdigit():
-            layer(f"neck.fpn_convs.{name[8:]}.conv", p)
+            layer(f"{neck}.fpn_convs.{name[8:]}.conv", p)
         else:                                           # FPN
             kind, i = name.rsplit("_", 1)
-            layer(f"neck.{kind}_convs.{i}.conv", p)
-    for name, p in params["rpn_head"].items():
+            layer(f"{neck}.{kind}_convs.{i}.conv", p)
+    j = 0
+    while f"neck_extra{j}" in params:                   # Libra's BFP
+        refine = params[f"neck_extra{j}"]["refine"]
+        j += 1
+        if "kernel" in refine:                          # refine_type conv
+            layer(f"neck.{j}.refine.conv", refine)
+        else:                                           # non_local
+            for sub, p in refine.items():
+                layer(f"neck.{j}.refine.{sub}.conv", p)
+    for name, p in params.get("rpn_head", {}).items():
         layer(f"rpn_head.{name}", p)
 
     for name, bh in params.items():
@@ -117,12 +138,29 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         if not m:
             continue
         key = "roi_head.bbox_head" + ("" if m[1] is None else f".{m[1]}")
+        if "fc_branch_0" in bh:                         # Double-Head
+            _double_head(key, bh, batch_stats[name], roi_feat, sd, layer,
+                         norm, block)
+            continue
         sd[f"{key}.shared_fcs.0.weight"] = _fc_to_chw(
             bh["shared_fc1"]["kernel"], roi_feat, roi_feat)
         sd[f"{key}.shared_fcs.0.bias"] = np.asarray(bh["shared_fc1"]["bias"])
         layer(f"{key}.shared_fcs.1", bh["shared_fc2"], _fc)
         layer(f"{key}.fc_cls", bh["fc_cls"], _fc)
         layer(f"{key}.fc_reg", bh["fc_reg"], _fc)
+
+    for name, p in params.get("mask_iou_head", {}).items():
+        key = "roi_head.mask_iou_head"
+        if name == "fc0":               # on the convs' (S, S, C) output
+            c = np.shape(params["mask_iou_head"]["conv0"]["kernel"])[-1]
+            side = int(round((np.shape(p["kernel"])[0] / c) ** 0.5))
+            sd[f"{key}.fcs.0.weight"] = _fc_to_chw(p["kernel"], side, side)
+            sd[f"{key}.fcs.0.bias"] = np.asarray(p["bias"])
+        elif name.startswith("fc"):
+            layer(f"{key}.{'fcs.' + name[2:] if name[2:].isdigit() else name}",
+                  p, _fc)
+        else:
+            layer(f"{key}.convs.{name[len('conv'):]}.conv", p)
 
     for name, p in params.get("mask_head", {}).items():
         if name == "upsample":
@@ -149,6 +187,32 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             layer(f"roi_head.offset_head.fcs.{name[len('fc'):]}", p, _fc)
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in sd.items()}
+
+
+def _double_head(key, bh, stats, roi_feat, sd, layer, norm, block):
+    """Double-Head's box head: ``res_{conv,bn}{1,2}`` and ``res_ds_*`` ->
+    ``res_block.{conv1,conv2,conv_identity}.{conv,bn}``,
+    ``conv_branch_<i>`` -> ``conv_branch.<i>`` (bottlenecks),
+    ``fc_branch_<i>`` -> ``fc_branch.<i>``."""
+    for jax_name, sub in (("res_conv1", "conv1.conv"),
+                          ("res_conv2", "conv2.conv"),
+                          ("res_ds_conv", "conv_identity.conv")):
+        layer(f"{key}.res_block.{sub}", bh[jax_name])
+    for jax_name, sub in (("res_bn1", "conv1.bn"), ("res_bn2", "conv2.bn"),
+                          ("res_ds_bn", "conv_identity.bn")):
+        norm(f"{key}.res_block.{sub}", bh[jax_name], stats[jax_name])
+    for name, p in bh.items():
+        m = re.fullmatch(r"(conv|fc)_branch_(\d+)", name)
+        if m and m[1] == "conv":
+            block(f"{key}.conv_branch.{m[2]}", p, stats[name])
+        elif m and m[2] == "0":
+            sd[f"{key}.fc_branch.0.weight"] = _fc_to_chw(
+                p["kernel"], roi_feat, roi_feat)
+            sd[f"{key}.fc_branch.0.bias"] = np.asarray(p["bias"])
+        elif m:
+            layer(f"{key}.fc_branch.{m[2]}", p, _fc)
+    layer(f"{key}.fc_cls", bh["fc_cls"], _fc)
+    layer(f"{key}.fc_reg", bh["fc_reg"], _fc)
 
 
 def _hr_branches(bk, s):

@@ -137,7 +137,26 @@ Phases, each of which must pass:
    would leave under a float32 ulp, and bn2's zero bias stays 0), the RoI
    branches' gradients held to the plain route; then the backbone + neck
    time of a serve batch beside R50 + FPN's.
-12. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+12. rcnn2: the rest of the R-CNN family on BONAI, as the rcnn phase runs
+   its configs (3 steps each; Libra's at the base LR, without the
+   warmup, so that its non-local block's ``theta``/``phi``/``g``, whose
+   first gradient comes in step 2 behind the zero ``conv_out``, move):
+   ``configs/libra_rcnn/libra_faster_rcnn_r50_fpn_1x_bonai.py``,
+   ``configs/double_heads/dh_faster_rcnn_r50_fpn_1x_bonai.py`` (with the
+   count of its 1.3x-scaled reg RoIs past the tile and their widest level
+   footprint against the JAX block kernel's 40-cell window),
+   ``configs/ms_rcnn/ms_rcnn_r50_fpn_1x_bonai.py`` (``mask_scores`` in
+   the outputs, the pair in the results; its checkpoint through the test
+   CLI with ``--eval bbox segm``), ``configs/rpn/rpn_r50_fpn_1x_bonai.py``
+   (no kernel may launch) and ``configs/fast_rcnn/
+   fast_rcnn_r50_fpn_1x_bonai.py`` (serve and train batches with 2000
+   proposals an image around the synthetic GTs).  Then the file chain:
+   the RPN's checkpoint through the test CLI on the data phase's 8 tiles
+   and the eval phase's 4 crops, ``AR@100/300/1000`` of the first crop,
+   both pkls made proposal files, the Fast R-CNN trained 3 steps from
+   them by ``train_detector`` and scored by the test CLI with ``--eval
+   bbox`` on the first crop from its file.
+13. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -151,7 +170,11 @@ test batch.  The loft, hrnet and rcnn phases' counts are zeroed and read
 like the serve and train phases', at one launch of each kernel per RoI
 call a batch or step makes: 3 for LOFT (on either backbone), 2 for Mask
 R-CNN (box and mask), 4 for Cascade Mask R-CNN (three box stages and the
-mask), 1 for Dynamic R-CNN.
+mask), 1 for Dynamic R-CNN, 1 for Libra R-CNN, 2 for Double-Head (the
+cls RoIs and the scaled reg RoIs), 2 for Mask Scoring R-CNN (box and
+mask; the IoU head reuses the mask features), 1 for Fast R-CNN, 0 for the
+RPN; the file chain's RPN test runs launch nothing, its Fast R-CNN
+launches B1 and B2 once a training step and B1 once a test batch.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -182,7 +205,19 @@ RCNN_CONFIGS = (
     ("dynamic", "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_bonai.py", 3))
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
-COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1)}
+COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
+               "mask_scoring": (("bbox", "segm"), 2)}
+# the rest of the R-CNN family on BONAI (the rcnn2 phase): label, config,
+# the RoIAlign calls of a batch or step
+RCNN2_CONFIGS = (
+    ("libra", "configs/libra_rcnn/libra_faster_rcnn_r50_fpn_1x_bonai.py", 1),
+    ("double_head",
+     "configs/double_heads/dh_faster_rcnn_r50_fpn_1x_bonai.py", 2),
+    ("mask_scoring", "configs/ms_rcnn/ms_rcnn_r50_fpn_1x_bonai.py", 2),
+    ("rpn", "configs/rpn/rpn_r50_fpn_1x_bonai.py", 0),
+    ("fast_rcnn", "configs/fast_rcnn/fast_rcnn_r50_fpn_1x_bonai.py", 1))
+RCNN2_STEPS = 3
+JAX_BLOCK_CELLS = 40        # the JAX block kernel's padded window
 DATA_DIR = os.path.join(REPO, "build", "chip_smoke_data")
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores
@@ -603,18 +638,64 @@ def kernel_phase():
 
 
 def _branches(model):
-    """``(extractor config, RoI head)`` of each RoIAlign call a batch makes:
-    the box head (a cascade's every stage), then the mask and offset heads
-    the model has."""
+    """Each RoI branch of a batch: ``(name, run, calls)``, where ``run(feats,
+    rois, valid)`` gives the branch's head outputs (a tuple) from its
+    ``calls`` RoIAlign calls: the box head (a cascade's every stage;
+    Double-Head's two calls, its reg RoIs scaled), then the mask head (with
+    Mask Scoring's IoU head on the same RoI features) and the offset head
+    the model has.  The RPN-only detector has none."""
     import torch
+    if "bbox_head" not in model.roi_head:
+        return []
     bbox = model.roi_head["bbox_head"]
-    out = [(model.bbox_extractor_cfg, h) for h in (
-        bbox if isinstance(bbox, torch.nn.ModuleList) else [bbox])]
-    for head, ext in (("mask_head", "mask_extractor_cfg"),
-                      ("offset_head", "offset_extractor_cfg")):
-        if head in model.roi_head:
-            out.append((getattr(model, ext), model.roi_head[head]))
+    double = getattr(model, "reg_roi_scale_factor", None) is not None
+    out = [(type(h).__name__,
+            lambda f, r, v, h=h: model._bbox_head_forward(h, f, r, v),
+            2 if double else 1)
+           for h in (bbox if isinstance(bbox, torch.nn.ModuleList)
+                     else [bbox])]
+    if "mask_head" in model.roi_head:
+        def mask(f, r, v):
+            x = model._roi_align_cfg(model.mask_extractor_cfg, f, r, v)
+            logits = model.roi_head["mask_head"](x)
+            if "mask_iou_head" not in model.roi_head:
+                return (logits,)
+            return logits, model.roi_head["mask_iou_head"](x, logits)
+        out.append(("mask head" + (" + IoU head" if "mask_iou_head" in
+                                   model.roi_head else ""), mask, 1))
+    if "offset_head" in model.roi_head:
+        out.append(("OffsetHead", lambda f, r, v: (model.roi_head[
+            "offset_head"](model._roi_align_cfg(model.offset_extractor_cfg,
+                                                f, r, v)),), 1))
     return out
+
+
+def _roi_calls(model):
+    """The RoIAlign calls a batch or step of ``model`` makes."""
+    return sum(calls for _, _, calls in _branches(model))
+
+
+def _max_dets(model):
+    """Detections a serve call pads to: the R-CNN's ``max_per_img``, the
+    RPN-only detector's proposals."""
+    if "bbox_head" in model.roi_head:
+        return model.test_cfg["rcnn"]["max_per_img"]
+    return model.test_cfg["rpn"]["max_num"]
+
+
+def _serve_proposals(model, img):
+    """A Fast R-CNN's proposals for a serve batch ``img``: 2000 an image
+    around the synthetic batch's GTs, on the card; none for a detector
+    with an RPN."""
+    import torch
+    if model.has_rpn:
+        return ()
+    from bonai_tpu_torch.tools.profile_train import (synthetic_batch,
+                                                     synthetic_proposals)
+    b = synthetic_batch(batch=img.shape[0], size=int(img.shape[1]), m=1)
+    return tuple(torch.as_tensor(x).to(img.device) for x in
+                 synthetic_proposals(b["gt_bboxes"], b["gt_valid"], 2000,
+                                     int(img.shape[1])))
 
 
 def _check_outputs(out, b, p, model):
@@ -623,6 +704,8 @@ def _check_outputs(out, b, p, model):
               "det_labels": (b, p), "det_valid": (b, p)}
     if "mask_head" in model.roi_head:
         shapes["mask_probs"] = (b, p, 28, 28)
+    if "mask_iou_head" in model.roi_head:
+        shapes["mask_scores"] = (b, p)
     if "offset_head" in model.roi_head:
         shapes["offsets"] = (b, p, 2)
     if set(out) != set(shapes):
@@ -665,16 +748,19 @@ def _plain_route(impl):
     return plain
 
 
-def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None):
+def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None,
+                inspect=None):
     """Full-width serving of ``config`` (LOFT-FOA R50-FPN by default)
     through the port's entry points with ``roi_align_impl=impl``, seeded
     random weights or those of ``checkpoint``: ``calls`` timed batches,
-    then one ``inference_detector`` call.  Returns the forward kernel's
-    launch count of the run and its ms per call."""
+    then one ``inference_detector`` call (``inspect(model, img, img_shape,
+    scale)`` after them).  Returns the forward kernel's launch count of the
+    run and its ms per call."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import (inference_detector, init_detector,
                                       prepare_batch)
+    from bonai_tpu_torch.evaluation.coco_eval import split_segm
     _, fwd_name, _ = ROUTES[impl]
     what = label or f"serve ({impl})"
 
@@ -684,13 +770,14 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None):
     print(f"{what}: init_detector {time.time() - t0:.1f} s, "
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"dtype {next(model.parameters()).dtype}", flush=True)
-    max_per_img = model.test_cfg["rcnn"]["max_per_img"]
-    n_roi = len(_branches(model))
+    max_per_img = _max_dets(model)
+    n_roi = _roi_calls(model)
     r = np.random.RandomState(0)
     imgs = [r.randint(0, 256, (SIZE, SIZE, 3), np.uint8)
             for _ in range(BATCH)]
     img, img_shape, scale, _ = prepare_batch(model, imgs)
-    model.simple_test(img, img_shape, scale)           # warm-up
+    props = _serve_proposals(model, img)
+    model.simple_test(img, img_shape, scale, *props)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -699,15 +786,21 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None):
     for _ in range(calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = model.simple_test(img, img_shape, scale)
+        out = model.simple_test(img, img_shape, scale, *props)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         _check_outputs(out, BATCH, max_per_img, model)
     _check_counts(_counts(), {fwd_name: n_roi * calls},
                   f"{what}, {calls} batches")
+    proposals = None
+    if not model.has_rpn:       # 2000 random boxes in the image's pixels
+        from bonai_tpu_torch.tools.profile_train import synthetic_proposals
+        proposals = synthetic_proposals(np.zeros((1, 0, 4)),
+                                        np.zeros((1, 0), bool), 2000,
+                                        512)[0][0]
     t0 = time.perf_counter()
     res = inference_detector(model, r.randint(0, 256, (512, 640, 3),
-                                              np.uint8))
+                                              np.uint8), proposals=proposals)
     single_ms = (time.perf_counter() - t0) * 1e3
     bbox = res[0] if isinstance(res, tuple) else res
     counts = _counts()
@@ -722,13 +815,23 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None):
           f"launches {counts}", flush=True)
     _check_counts(counts, {fwd_name: n_roi * (calls + 1)},
                   f"{what}, {calls + 1} batches")
-    # (bbox, segm, offsets), (bbox, segm) or bbox alone
+    if inspect is not None:
+        inspect(model, img, img_shape, scale)
+    # (bbox, segm, offsets), (bbox, segm) or bbox alone; Mask Scoring's
+    # segm the pair of masks and mask scores
     parts = len(res) if isinstance(res, tuple) else 1
     if parts != 1 + ("mask_head" in model.roi_head) + (
             "offset_head" in model.roi_head):
         raise AssertionError(f"inference_detector gave {parts} parts")
+    segm, mask_scores = split_segm(res[1]) if parts > 1 else (None, None)
+    if (mask_scores is None) == ("mask_iou_head" in model.roi_head):
+        raise AssertionError("inference_detector: mask scores where the "
+                             "model has no IoU head, or none where it has")
     if not (np.isfinite(bbox[0]).all()
-            and (parts < 2 or len(res[1][0]) == len(bbox[0]))
+            and (parts < 2 or len(segm[0]) == len(bbox[0]))
+            and (mask_scores is None or (
+                len(mask_scores[0]) == len(bbox[0])
+                and np.isfinite(mask_scores[0]).all()))
             and (parts < 3 or (len(res[2]) == len(bbox[0])
                                and np.isfinite(res[2]).all()))):
         raise AssertionError("inference_detector results are inconsistent")
@@ -762,22 +865,32 @@ def _small_input_check(model, impl, what, r):
     model.cfg.data.test.pipeline[1].img_scale = (320, 320)
     img, img_shape, _, _ = prepare_batch(model, small)
     kernel_fn = getattr(two_stage, attr)
+    if not _branches(model):
+        print(f"{what}: no RoI branch, no small-input check", flush=True)
+        return
     with torch.inference_mode():
         feats = model.extract_feat(img)
-        props, _, pvalid = model._rpn_and_proposals(
-            feats, img_shape, dict(model.test_cfg["rpn"]))
+        if model.has_rpn:
+            props, _, pvalid = model._rpn_and_proposals(
+                feats, img_shape, dict(model.test_cfg["rpn"]))
+        else:
+            from bonai_tpu_torch.tools.profile_train import (
+                synthetic_proposals)
+            props, pvalid = (torch.as_tensor(x).cuda() for x in
+                             synthetic_proposals(np.zeros((2, 0, 4)),
+                                                 np.zeros((2, 0), bool),
+                                                 500, 320))
         rois, rvalid = two_stage.boxes_to_rois(props, pvalid)
-        for i, (ext, module) in enumerate(_branches(model)):
-            head = f"RoI call {i} ({type(module).__name__})"
+        for i, (name, branch, calls) in enumerate(_branches(model)):
+            head = f"RoI branch {i} ({name})"
 
             def run():
-                out = module(model._roi_align_cfg(ext, feats, rois, rvalid))
-                return out if isinstance(out, tuple) else (out,)
+                return branch(feats, rois, rvalid)
             launched = kernel_fn.launches
             got = run()
-            if kernel_fn.launches != launched + 1:
+            if kernel_fn.launches != launched + calls:
                 raise AssertionError(f"small input: {head} did not run "
-                                     f"{fwd_name}")
+                                     f"{fwd_name} {calls} time(s)")
             try:
                 setattr(two_stage, attr, _plain_route(impl))
                 ref = run()
@@ -811,13 +924,22 @@ def _roi_grad_check(model, impl, what):
     attr, fwd_name, bwd_name = ROUTES[impl]
     kernel_fn = getattr(two_stage, attr)
     plain = _plain_route(impl)
-    batch = {k: torch.as_tensor(v).cuda()
-             for k, v in synthetic_batch(size=320, g=12, seed=1).items()}
+    n_roi = _roi_calls(model)
+    if not n_roi:
+        print(f"{what}: no RoI branch, no gradient check", flush=True)
+        return
+    batch = {k: torch.as_tensor(v).cuda() for k, v in synthetic_batch(
+        size=320, g=12, seed=1, proposals=0 if model.has_rpn else 500)
+        .items()}
     with torch.no_grad():
         feats = [f.detach().requires_grad_()
                  for f in model.extract_feat(batch["image"])]
-        props, _, pvalid = model._rpn_and_proposals(
-            feats, batch["img_shape"], dict(model.train_cfg["rpn_proposal"]))
+        if model.has_rpn:
+            props, _, pvalid = model._rpn_and_proposals(
+                feats, batch["img_shape"],
+                dict(model.train_cfg["rpn_proposal"]))
+        else:
+            props, pvalid = batch["proposals"], batch["proposals_valid"]
     calls = []
 
     def recorded(levels, rois, output_size, featmap_strides, **kw):
@@ -826,7 +948,6 @@ def _roi_grad_check(model, impl, what):
         calls.append((rois, output_size, kw, out))
         return out
 
-    n_roi = len(_branches(model))
     _zero_counts()
     try:
         setattr(two_stage, attr, recorded)
@@ -893,7 +1014,8 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     cfg = _config(impl, config)
     if not warmup:
         cfg.lr_config.warmup = None
-    batch = synthetic_batch()
+    batch = synthetic_batch(proposals=2000 if cfg.model.type == "FastRCNN"
+                            else 0)
     work_dir = os.path.join(REPO, "build", "chip_smoke_train" + (
         f"_{label.split()[0]}" if keep else ""))
     shutil.rmtree(work_dir, ignore_errors=True)
@@ -943,7 +1065,7 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     if not all(np.isfinite(h[k]) for h in hist
                for k in keys + ["grad_norm"]):
         raise AssertionError("a loss or the gradient norm is not finite")
-    n_roi = len(_branches(model))
+    n_roi = _roi_calls(model)
     _check_counts(counts, {fwd_name: n_roi * steps, bwd_name: n_roi * steps},
                   f"{what}, {steps} steps")
     init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
@@ -962,12 +1084,17 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
                    if p.requires_grad and n.split(".")[0] in ("conv2", "bn2")
                    } if getattr(model.backbone, "stops_gradient",
                                 False) else set()
+    # the bias of the non-local block's phi shifts every pairwise logit of
+    # a softmax row alike: its gradient is 0 but for float noise
+    noise_only = {n for n in names.values()
+                  if n.endswith("refine.phi.conv.bias")}
     print(f"{what}: trainable tensors without a gradient in any step: "
           f"{sorted(no_grad) or 'none'}", flush=True)
-    if no_grad != behind_stop:
+    if not behind_stop <= no_grad <= behind_stop | noise_only:
         raise AssertionError(f"trainable tensors without a gradient in any "
                              f"step: {sorted(no_grad)}, expected "
-                             f"{sorted(behind_stop)}")
+                             f"{sorted(behind_stop)} (and maybe "
+                             f"{sorted(noise_only)})")
     moved = frozen_moved = trainable = 0
     held = []
     for name, p in model.named_parameters():
@@ -976,8 +1103,9 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
             frozen_moved += changed
             continue
         trainable += 1
-        # weight decay alone scales bn2's bias, 0 at the start, by 0
-        if name == "backbone.bn2.bias" and name in no_grad \
+        # weight decay alone scales a bias without a gradient (bn2's, or
+        # phi's), 0 at the start, by 0
+        if name in no_grad and name.endswith("bias") \
                 and not start[name].any():
             moved += not changed
             held.append(name)
@@ -1867,6 +1995,208 @@ def rcnn_eval(config, checkpoint, work_dir):
     return counts[fwd_name]
 
 
+def _dh_reg_rois(model, img, img_shape, scale):
+    """Double-Head's reg RoIs of a serve batch (its proposals scaled by
+    ``reg_roi_scale_factor``, not clipped): how many reach past the tile,
+    and the widest level footprint of any of them (``block_footprint``,
+    the backward kernel's tile test: the samples clip to the level first)
+    against the JAX block kernel's 40-cell window, past which it zeroes
+    samples.  Returns the counts."""
+    import torch
+    from bonai_tpu_torch.models.detectors import two_stage
+    from bonai_tpu_torch.models.roi_heads.bbox_head import scale_rois
+    from bonai_tpu_torch.ops.roi_align_block import (block_footprint,
+                                                     block_levels)
+    with torch.inference_mode():
+        feats = model.extract_feat(img.to(next(model.parameters()).dtype))
+        props, _, valid = model._rpn_and_proposals(
+            feats, img_shape, dict(model.test_cfg["rpn"]))
+        rois, rvalid = two_stage.boxes_to_rois(props.float(), valid)
+        rois = scale_rois(rois, model.reg_roi_scale_factor)[rvalid]
+        ext = torch.maximum(rois[:, 3] - rois[:, 1], rois[:, 4] - rois[:, 2])
+        lvl = block_levels(rois[:, 1:5], STRIDES)
+        foot = block_footprint([f.shape for f in feats[:len(STRIDES)]],
+                               rois, lvl, 7, STRIDES)
+        span = torch.maximum(foot[:, 1] - foot[:, 0], foot[:, 3] - foot[:, 2])
+    out = {"reg_rois": int(rois.shape[0]),
+           "past_tile": int((ext > SIZE).sum()),
+           "past_push": int((ext > STRIDES[-1] * 28).sum()),
+           "max_extent_px": float(ext.max()),
+           "max_footprint_cells": int(span.max()) + 1}
+    print(f"double_head serve: {out['reg_rois']} reg RoIs (scaled 1.3), "
+          f"{out['past_push']} wider than the block rule's push (28 cells "
+          f"at stride 32), {out['past_tile']} wider than the {SIZE} px "
+          f"tile, the widest {out['max_extent_px']:.1f} px; widest level "
+          f"footprint {out['max_footprint_cells']} cells against the JAX "
+          f"kernel's {JAX_BLOCK_CELLS}-cell window", flush=True)
+    if out["max_footprint_cells"] > JAX_BLOCK_CELLS:
+        print("double_head serve: a reg RoI's samples reach past the JAX "
+              "block kernel's window", flush=True)
+    return out
+
+
+def rcnn2_phase():
+    """The rest of the R-CNN family on BONAI (``RCNN2_CONFIGS``: Libra,
+    Double-Head and Mask Scoring R-CNN, the RPN-only detector, Fast R-CNN)
+    at full width with seeded random weights and the ``'block'`` route, as
+    the rcnn phase runs its configs: one serve batch and one
+    ``inference_detector`` call (Fast R-CNN's on 2000 synthetic proposals
+    an image), the small float32 input held to the plain route, and
+    ``RCNN2_STEPS`` training steps on the repeated synthetic batch (the RoI
+    branches' gradients held to the plain route).  Libra trains at the
+    base LR: its non-local block's ``conv_out`` starts at zero, so its
+    ``theta``/``phi``/``g`` get their first gradient in step 2, which the
+    warmup's LRs would leave under a float32 ulp.  Then the file chain
+    (:func:`rcnn2_files`) and the Mask Scoring checkpoint through the
+    test CLI with ``--eval bbox segm``.  Returns each config's launch
+    counts and times."""
+    out = {}
+    for label, config, calls in RCNN2_CONFIGS:
+        config = os.path.join(REPO, config)
+        window = {}
+        serve, serve_ms = serve_phase(
+            "block", config, calls=1, label=f"{label} serve",
+            inspect=(lambda *a: window.update(_dh_reg_rois(*a)))
+            if label == "double_head" else None)
+        train = train_phase("block", RCNN2_STEPS, config,
+                            label=f"{label} train",
+                            keep=label in ("rpn", "mask_scoring"),
+                            warmup=label != "libra")
+        if serve != 2 * calls or not (
+                train["fwd"] == train["bwd"] == RCNN2_STEPS * calls):
+            raise AssertionError(f"{label}: B1 {serve} launches serving, "
+                                 f"{train['fwd']} / B2 {train['bwd']} "
+                                 f"training; expected {calls} a batch or "
+                                 f"step")
+        out[label] = dict(serve=serve, serve_ms=serve_ms, train=train,
+                          window=window)
+    out["mask_scoring"]["coco_cli"] = rcnn_coco(
+        "mask_scoring", os.path.join(REPO, RCNN2_CONFIGS[2][1]),
+        out["mask_scoring"]["train"]["checkpoint"])
+    shutil.rmtree(out["mask_scoring"]["train"]["work_dir"],
+                  ignore_errors=True)
+    out["files"] = rcnn2_files(out["rpn"]["train"]["checkpoint"])
+    shutil.rmtree(out["rpn"]["train"]["work_dir"], ignore_errors=True)
+    for label, r in out.items():
+        if label == "files":
+            continue
+        print(f"rcnn2 {label}: serve {r['serve_ms']:.1f} ms a B=2 call, B1 "
+              f"{r['serve']} launches; train median step "
+              f"{r['train']['step_ms']:.1f} ms, peak "
+              f"{r['train']['peak_gib']:.2f} GiB, B1 {r['train']['fwd']} / "
+              f"B2 {r['train']['bwd']} launches", flush=True)
+    return out
+
+
+def _test_cli(cfg_path, checkpoint, *args):
+    """The generic test CLI on the card; returns its results and metrics,
+    the seconds taken and the launch counts of the run."""
+    import torch
+    from bonai_tpu_torch.tools import test as test_cli
+    _zero_counts()
+    t0 = time.perf_counter()
+    results, metrics = test_cli.main([cfg_path, checkpoint, *args])
+    torch.cuda.synchronize()
+    return results, metrics, time.perf_counter() - t0, _counts()
+
+
+def rcnn2_files(rpn_checkpoint):
+    """The RPN -> proposal file -> Fast R-CNN chain on the data and eval
+    phases' tiles.  The RPN's checkpoint through the test CLI on the 8
+    train tiles (test mode) and on the 4 val crops (no kernel may launch);
+    ``AR@100/300/1000`` of the first crop through
+    ``CocoDataset.evaluate``; both pkls made proposal files
+    (``datasets.proposals``); ``train_detector`` trains the Fast R-CNN
+    config ``RCNN2_STEPS`` steps from the files (``LoadProposals(2000)``,
+    the train tiles' file; B1 and B2 once a step); the test CLI scores it
+    with ``--eval bbox`` on the first crop from the crops' file (given with
+    ``--options``; B1 once).  Returns the launch counts."""
+    import math
+    import torch
+    from bonai_tpu_torch.apis import train_detector
+    from bonai_tpu_torch.datasets import build_dataset
+    from bonai_tpu_torch.datasets.proposals import (fast_rcnn_config,
+                                                    write_proposal_file)
+    from bonai_tpu_torch.engine import latest_checkpoint
+    _, fwd_name, bwd_name = ROUTES["block"]
+    out_dir = os.path.join(REPO, "build", "chip_smoke_files")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rpn_config = os.path.join(REPO, RCNN2_CONFIGS[3][1])
+    fast_config = os.path.join(REPO, RCNN2_CONFIGS[4][1])
+    train_json = os.path.join(DATA_DIR, "train", "train.json")
+    train_images = os.path.join(DATA_DIR, "train", "images") + "/"
+    counts = {}
+    props = {}
+    for split in ("train", "crops"):
+        cfg = _crop_test_cfg(rpn_config)
+        if split == "train":
+            cfg.data.test.update(ann_file=train_json, img_prefix=train_images)
+        cfg_path = os.path.join(out_dir, f"rpn_{split}.py")
+        cfg.dump(cfg_path)
+        pkl = os.path.join(out_dir, f"rpn_{split}.pkl")
+        results, _, secs, counts[f"rpn_{split}"] = _test_cli(
+            cfg_path, rpn_checkpoint, "--out", pkl)
+        _check_counts(counts[f"rpn_{split}"], {}, f"rpn test CLI, {split}")
+        props[split] = os.path.join(out_dir, f"proposals_{split}.pkl")
+        n = [len(p) for p in write_proposal_file(pkl, props[split])]
+        print(f"rcnn2 files: rpn test CLI on the {len(results)} {split} "
+              f"tiles, {secs:.1f} s; proposals an image {n}", flush=True)
+        if split == "crops":
+            ds = build_dataset(dict(cfg.data.test, test_mode=True))
+            recall = ds.evaluate(results[:1], metric="recall",
+                                 proposal_nums=(100, 300, 1000))
+            print("rcnn2 files: rpn on the first val crop: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in recall.items()), flush=True)
+            if not all(0.0 <= v <= 1.0 for v in recall.values()):
+                raise AssertionError(f"rpn recall {recall}")
+
+    cfg = _config("block", fast_config)
+    cfg.data.train.update(ann_file=train_json, img_prefix=train_images)
+    cfg.data.test.update(
+        ann_file=os.path.join(DATA_DIR, "val", "val.json"),
+        img_prefix=os.path.join(DATA_DIR, "val", "images") + "/")
+    fast_rcnn_config(cfg, props["train"], num_max_proposals=2000)
+    cfg_path = os.path.join(out_dir, "fast_rcnn_files.py")
+    cfg.dump(cfg_path)
+    work_dir = os.path.join(out_dir, "wd_fast")
+    _zero_counts()
+    t0 = time.time()
+    _, hist = train_detector(cfg, None, work_dir, seed=0,
+                             max_steps=RCNN2_STEPS, log_interval=1,
+                             n_devices=1)
+    torch.cuda.synchronize()
+    counts["fast_train"] = _counts()
+    _check_counts(counts["fast_train"], {fwd_name: RCNN2_STEPS,
+                                         bwd_name: RCNN2_STEPS},
+                  f"fast_rcnn from files, {RCNN2_STEPS} steps")
+    losses = [{k: v for k, v in h.items() if k.startswith("loss")}
+              for h in hist]
+    print(f"rcnn2 files: fast_rcnn train_detector from the files, "
+          f"{RCNN2_STEPS} steps in {time.time() - t0:.1f} s incl. set-up; "
+          f"ms per step {[round(h['time'] * 1e3, 1) for h in hist]}; "
+          f"losses {losses}; launches {counts['fast_train']}", flush=True)
+    if not all(math.isfinite(v) for h in losses for v in h.values()):
+        raise AssertionError(f"fast_rcnn from files: losses {losses}")
+    results, metrics, secs, counts["fast_test"] = _test_cli(
+        cfg_path, latest_checkpoint(work_dir), "--eval", "bbox",
+        "--max-images", "1", "--options",
+        f"data.test.proposal_file={props['crops']}")
+    _check_counts(counts["fast_test"], {fwd_name: 1},
+                  "fast_rcnn test CLI, 1 batch")
+    if len(results) != 1 or not all(0.0 <= v <= 1.0 or v == -1.0
+                                    for v in metrics.values()):
+        raise AssertionError(f"fast_rcnn test CLI: {len(results)} results, "
+                             f"{metrics}")
+    print(f"rcnn2 files: fast_rcnn test CLI --eval bbox on the first val "
+          f"crop from its proposal file, {len(results[0][0])} detections, "
+          f"{secs:.1f} s: " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in metrics.items())
+          + f"; launches {counts['fast_test']}", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {k: (c[fwd_name], c[bwd_name]) for k, c in counts.items()}
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -1948,6 +2278,7 @@ def main():
     loft = loft_phase()
     hrnet = hrnet_phase(serve_runs["block"][1], train["block"]["step_ms"])
     rcnn = rcnn_phase()
+    rcnn2 = rcnn2_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -1998,7 +2329,16 @@ def main():
                 rcnn_mask_rcnn_test_cli_launches=rcnn["mask_rcnn"][
                     "test_cli"],
                 **{f"rcnn_{k}_coco_cli_launches": rcnn[k]["coco_cli"]
-                   for k in COCO_SCORED}),
+                   for k in COCO_SCORED if k in rcnn},
+                **{f"rcnn2_{k}_serve_launches": rcnn2[k]["serve"]
+                   for k, _, _ in RCNN2_CONFIGS},
+                **{f"rcnn2_{k}_train_launches": rcnn2[k]["train"]["fwd"]
+                   for k, _, _ in RCNN2_CONFIGS},
+                rcnn2_mask_scoring_coco_cli_launches=rcnn2["mask_scoring"][
+                    "coco_cli"],
+                **{f"rcnn2_files_{k}_launches": fwd
+                   for k, (fwd, _) in rcnn2["files"].items()},
+                rcnn2_double_head_reg_rois=rcnn2["double_head"]["window"]),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],
@@ -2011,7 +2351,11 @@ def main():
                loft_train_launches=loft["train"]["bwd"],
                hrnet_train_launches=hrnet["train"]["bwd"],
                **{f"rcnn_{k}_train_launches": r["train"]["bwd"]
-                  for k, r in rcnn.items()}),
+                  for k, r in rcnn.items()},
+               **{f"rcnn2_{k}_train_launches": rcnn2[k]["train"]["bwd"]
+                  for k, _, _ in RCNN2_CONFIGS},
+               rcnn2_files_fast_train_launches=rcnn2["files"][
+                   "fast_train"][1]),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

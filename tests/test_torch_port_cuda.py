@@ -15,10 +15,11 @@ different orders), bfloat16 to one bf16 ulp plus 1e-5 of the level's
 largest gradient (both round once from float32 sums taken in different
 orders).  The levels the forward kernel computes must equal the torch
 rules' on every RoI, the rules' edges included.  The R-CNN baselines
-(Mask, Cascade Mask and Dynamic R-CNN at tiny widths, ``'block'`` route)
-launch the forward kernel once per RoI call of a serve batch and both
-kernels once per RoI call of a training step, as does LOFT-FOA on HRNet +
-HRFPN.  A two-rank data-parallel
+(Mask, Cascade Mask, Dynamic, Libra, Double-Head and Mask Scoring R-CNN,
+the RPN and Fast R-CNN at tiny widths, ``'block'`` route) launch the
+forward kernel once per RoI call of a serve batch and both kernels once
+per RoI call of a training step (the RPN none), as does LOFT-FOA on
+HRNet + HRFPN.  A two-rank data-parallel
 step (gloo, both ranks on one card) must equal the step of the mean of
 its two half-batch gradients within 1e-4 of each tensor's largest update.
 """
@@ -187,17 +188,22 @@ def test_train_step_runs_both_kernels(tmp_path):
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
 
 
-# the R-CNN baselines: config, RoIAlign calls a batch or step makes
+# the R-CNN baselines: config (a torch_port_common name, or a key of its
+# A7_CONFIGS), RoIAlign calls a batch or step makes
 RCNN = {"mask_rcnn": ("MASK_RCNN_CONFIG", 2),
         "cascade": ("CASCADE_CONFIG", 4),
-        "dynamic": ("DYNAMIC_CONFIG", 1)}
+        "dynamic": ("DYNAMIC_CONFIG", 1),
+        "libra": ("libra", 1), "double_head": ("double_head", 2),
+        "mask_scoring": ("mask_scoring", 2), "rpn": ("rpn", 0),
+        "fast_rcnn": ("fast_rcnn", 1)}
+MASKED = {"mask_rcnn", "cascade", "mask_scoring"}
 
 
 def _rcnn_cfg(family, train=False):
     import torch_port_common as tpc
     config, calls = RCNN[family]
     cfg = (tpc.tiny_train_cfg if train else tpc.tiny_cfg)(
-        config=getattr(tpc, config))
+        config=tpc.A7_CONFIGS.get(config) or getattr(tpc, config))
     cfg.model.roi_align_impl = "block"
     return cfg, calls
 
@@ -206,22 +212,31 @@ def _rcnn_cfg(family, train=False):
 @pytest.mark.parametrize("family", sorted(RCNN))
 def test_rcnn_serve_batch_runs_the_block_kernel(family):
     """One serve batch of each R-CNN baseline: one forward launch per RoI
-    call (box stages and mask), finite outputs, a mask only where the
-    model has a mask head."""
+    call (box stages, Double-Head's two, mask; none for the RPN), finite
+    outputs, a mask only where the model has a mask head (and Mask
+    Scoring's mask scores); Fast R-CNN on given proposals."""
     _need_cuda()
     from bonai_tpu_torch.apis import init_detector, prepare_batch
     from bonai_tpu_torch.ops import roi_align_block
+    from bonai_tpu_torch.tools.profile_train import synthetic_proposals
+    from torch_port_common import train_batch
     cfg, calls = _rcnn_cfg(family)
     cfg.data.test.pipeline[1].img_scale = (128, 128)
     model = init_detector(cfg, device="cuda", dtype=torch.float32)
     r = np.random.RandomState(0)
     img, shape, scale, _ = prepare_batch(
         model, [r.randint(0, 255, (100, 128, 3), np.uint8)] * 2)
+    props = ()
+    if not model.has_rpn:
+        gt = train_batch()
+        props = tuple(torch.from_numpy(x).cuda() for x in synthetic_proposals(
+            gt["gt_bboxes"], gt["gt_valid"], 48, 128))
     before = roi_align_block.launches
-    out = model.simple_test(img, shape, scale)
+    out = model.simple_test(img, shape, scale, *props)
     torch.cuda.synchronize()
     assert roi_align_block.launches == before + calls
-    assert ("mask_probs" in out) == (family != "dynamic")
+    assert ("mask_probs" in out) == (family in MASKED)
+    assert ("mask_scores" in out) == (family == "mask_scoring")
     assert "offsets" not in out
     assert all(bool(torch.isfinite(v).all()) for v in out.values()
                if v.is_floating_point())
@@ -231,14 +246,20 @@ def test_rcnn_serve_batch_runs_the_block_kernel(family):
 @pytest.mark.parametrize("family", sorted(RCNN))
 def test_rcnn_train_step_runs_both_kernels(family, tmp_path):
     """One tiny training step of each R-CNN baseline on the card: both
-    kernels once per RoI call, finite losses and weights."""
+    kernels once per RoI call (none for the RPN), finite losses and
+    weights."""
     _need_cuda()
     from bonai_tpu_torch.apis import train_detector
     from bonai_tpu_torch.ops import roi_align_block, roi_align_block_backward
+    from bonai_tpu_torch.tools.profile_train import synthetic_proposals
     from torch_port_common import train_batch
     cfg, calls = _rcnn_cfg(family, train=True)
+    batch = train_batch()
+    if family == "fast_rcnn":
+        batch["proposals"], batch["proposals_valid"] = synthetic_proposals(
+            batch["gt_bboxes"], batch["gt_valid"], 48, 128, seed=1)
     fwd, bwd = roi_align_block.launches, roi_align_block_backward.launches
-    model, hist = train_detector(cfg, [train_batch()], str(tmp_path),
+    model, hist = train_detector(cfg, [batch], str(tmp_path),
                                  max_steps=1, log_interval=1, n_devices=1)
     assert roi_align_block.launches - fwd == calls
     assert roi_align_block_backward.launches - bwd == calls

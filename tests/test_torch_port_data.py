@@ -115,7 +115,7 @@ UNPORTED_TRANSFORMS = {
     "OffsetTransform": "A5", "RandomRotate": "A5", "Pointobb2RBBox": "A5",
     "PhotoMetricDistortion": "A6", "Expand": "A6", "MinIoURandomCrop": "A6",
     "RandomCrop": "A6", "RandomCenterCropPad": "A6", "AutoAugment": "A6",
-    "LoadProposals": "A7", "SegRescale": "A7", "Corrupt": "A8",
+    "SegRescale": "A7", "Corrupt": "A8",
     "InstaBoost": "not queued", "Albu": "not queued"}
 
 

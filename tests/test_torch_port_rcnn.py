@@ -100,18 +100,20 @@ def test_configs_build_at_full_width(name):
 @pytest.mark.parametrize("change,item", [
     (dict(type="HybridTaskCascade"), "A7"), (dict(type="HTC"), "A7"),
     (dict(type="GridRCNN"), "A7"), (dict(type="PointRend"), "A7"),
-    (dict(type="RPN"), "A7"), (dict(type="FastRCNN"), "A7"),
+    (dict(sampler=dict(type="OHEMSampler", num=512)), "A7"),
+    (dict(reg_decoded_bbox=True), "A7"),
     (dict(type="RetinaNet"), "A6"), (dict(type="FCOS"), "A6"),
-    (dict(type="MaskScoringRCNN", mask_iou_head=dict(num_convs=4)), "A7"),
-    (dict(loss_bbox=dict(type="BalancedL1Loss")), "A7"),
+    (dict(neck=[dict(type="FPN"), dict(type="PAFPN")]), "A7"),
+    (dict(config="grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_bonai.py"), "A7"),
     (dict(loss_bbox=dict(type="GIoULoss")), "A7"),
-    (dict(config="libra_rcnn/libra_faster_rcnn_r50_fpn_1x_bonai.py"), "A7")],
+    (dict(config="point_rend/point_rend_r50_fpn_2x_bonai.py"), "A7")],
     ids=lambda x: x if isinstance(x, str) else "-".join(
-        str(v.get("type", v)) if isinstance(v, dict) else str(v)
-        for v in x.values()))
+        str(v.get("type", v)) if isinstance(v, dict)
+        else "+".join(c["type"] for c in v) if isinstance(v, list)
+        else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
-    """A detector, head or loss type the port does not build, or a whole
-    config (Libra R-CNN's chained ``[FPN, BFP]`` neck)."""
+    """A detector, head, sampler, loss or neck chain the port does not
+    build, or a whole config (Grid R-CNN's, PointRend's)."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     change = dict(change)
@@ -121,8 +123,10 @@ def test_unported_types_name_their_item(change, item):
         cfg = family_cfg("mask_rcnn")
     if "type" in change:
         cfg.model.type = change.pop("type")
-    if "mask_iou_head" in change:
-        cfg.model.roi_head.mask_iou_head = change.pop("mask_iou_head")
+    if "sampler" in change:
+        cfg.train_cfg.rcnn.sampler = change.pop("sampler")
+    if "neck" in change:
+        cfg.model.neck = change.pop("neck")
     cfg.model.roi_head.bbox_head.update(change)
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md item {item}"):

@@ -19,6 +19,13 @@ CASCADE_CONFIG = osp.join(
     ROOT, "configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_bonai.py")
 DYNAMIC_CONFIG = osp.join(
     ROOT, "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_bonai.py")
+# the rest of the R-CNN family on BONAI
+A7_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
+    "libra": "libra_rcnn/libra_faster_rcnn_r50_fpn_1x_bonai.py",
+    "double_head": "double_heads/dh_faster_rcnn_r50_fpn_1x_bonai.py",
+    "mask_scoring": "ms_rcnn/ms_rcnn_r50_fpn_1x_bonai.py",
+    "rpn": "rpn/rpn_r50_fpn_1x_bonai.py",
+    "fast_rcnn": "fast_rcnn/fast_rcnn_r50_fpn_1x_bonai.py"}.items()}
 
 
 HRNET_CONFIG = osp.join(ROOT, "configs/hrnet/loft_foa_hrnetv2p_w32_2x_bonai.py")
@@ -53,24 +60,46 @@ def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
         m.backbone.extra = TINY_HRNET_EXTRA
     else:
         m.backbone.update(depth=18, base_channels=8)
-    m.neck.update(in_channels=[8, 16, 32, 64], out_channels=16)
-    m.rpn_head.update(in_channels=16, feat_channels=16)
-    rh = m.roi_head
+    necks = _each(m.neck)
+    necks[0].update(in_channels=[8, 16, 32, 64], out_channels=16)
+    for neck in necks[1:]:                      # Libra's BFP
+        neck.in_channels = 16
+    if m.get("rpn_head") is not None:
+        m.rpn_head.update(in_channels=16, feat_channels=16)
+    rh = m.get("roi_head") or {}                # the RPN has none
     for k in ("bbox_roi_extractor", "mask_roi_extractor",
               "offset_roi_extractor"):
         if rh.get(k) is not None:
             rh[k].out_channels = 16
-    for head in _each(rh.bbox_head):
+    for head in _each(rh.get("bbox_head", [])):
         head.update(in_channels=16, fc_out_channels=32)
+        if head.get("type") == "DoubleConvFCBBoxHead":
+            head.update(conv_out_channels=32, num_convs=2)
     if rh.get("mask_head") is not None:
         rh.mask_head.update(num_convs=1, in_channels=16,
                             conv_out_channels=16)
+    if rh.get("mask_iou_head") is not None:
+        rh.mask_iou_head.update(num_convs=2, in_channels=16,
+                                conv_out_channels=16, fc_out_channels=32)
     if rh.get("offset_head") is not None:
         rh.offset_head.update(in_channels=16, num_convs=2,
                               fc_out_channels=32, conv_out_channels=16)
-    cfg.test_cfg.rpn.update(nms_pre=nms_pre, nms_post=max_num,
-                            max_num=max_num)
-    cfg.test_cfg.rcnn.max_per_img = max_per_img
+    if cfg.test_cfg.get("rpn") is not None:
+        cfg.test_cfg.rpn.update(nms_pre=nms_pre, nms_post=max_num,
+                                max_num=max_num)
+    if cfg.test_cfg.get("rcnn") is not None:
+        cfg.test_cfg.rcnn.max_per_img = max_per_img
+    return cfg
+
+
+def a7_cfg(family, train=False):
+    """The tiny config of an ``A7_CONFIGS`` family (the training sizes of
+    :func:`tiny_train_cfg` with ``train``).  Fast R-CNN's is built without
+    the RPN head that its BONAI config inherits: the port builds none, and
+    without it the JAX detector has none either."""
+    cfg = (tiny_train_cfg if train else tiny_cfg)(config=A7_CONFIGS[family])
+    if family == "fast_rcnn":
+        cfg.model.rpn_head = None
     return cfg
 
 
@@ -113,7 +142,8 @@ def jax_model(cfg, seed=0, **build_kw):
     r = np.random.RandomState(seed)
     params = _random_tree(shapes["params"], r)
     stats = _random_tree(shapes["batch_stats"], r)
-    params["rpn_head"]["rpn_reg"]["kernel"] *= 0.1
+    if "rpn_head" in params:                    # Fast R-CNN has none
+        params["rpn_head"]["rpn_reg"]["kernel"] *= 0.1
     for name in params:                 # bbox_head, or a cascade's stages
         if not name.startswith("bbox_head"):
             continue
@@ -177,36 +207,40 @@ def train_batch(seed=0, b=2, size=128, g=6, m=112):
         gt_offsets=r.uniform(-10, 10, (b, g, 2)).astype(np.float32))
 
 
-def jax_uniforms(key, n):
-    """The ``(u_pos, u_neg)`` that ``bonai_tpu.core.samplers.random_sample``
-    draws from ``key`` for ``n`` candidates."""
+def jax_uniforms(key, n, streams=2):
+    """The uniforms that ``bonai_tpu.core.samplers.random_sample`` (two
+    streams: ``u_pos``, ``u_neg``) or ``iou_balanced_neg_sample`` (three:
+    and ``u_fill``) draws from ``key`` for ``n`` candidates."""
     import jax
-    k_pos, k_neg = jax.random.split(key)
     return tuple(np.asarray(jax.random.uniform(k, (n,), minval=1e-4,
                                                maxval=1.0))
-                 for k in (k_pos, k_neg))
+                 for k in jax.random.split(key, streams))
 
 
-def jax_forward_train_draws(jm, variables, key, b, cascade=False):
+def jax_forward_train_draws(jm, variables, key, b, cascade=False,
+                            unsplit=False):
     """A draw source for the port's ``forward_train`` that hands out the
     uniforms the JAX ``forward_train`` draws under ``rngs={"sampling":
     key}``: the RPN's per image, then the R-CNN's per image, from the
-    splits of the module's ``sampling`` stream.  With ``cascade``, the
-    R-CNN's are stage ``i``'s at call ``i + 1``: the splits of the R-CNN
-    key folded with ``i`` (``bonai_tpu/models/detectors/
-    cascade_rcnn.py``)."""
+    splits of the module's ``sampling`` stream (as many streams as the
+    port's sampler asks for).  With ``cascade``, the R-CNN's are stage
+    ``i``'s at call ``i + 1``: the splits of the R-CNN key folded with
+    ``i`` (``bonai_tpu/models/detectors/cascade_rcnn.py``).  With
+    ``unsplit`` (the RPN-only detector and Fast R-CNN, which sample once),
+    the one call's are the splits of the stream itself."""
     import jax
     rng = jm.apply(variables, method=lambda m: m.make_rng("sampling"),
                    rngs={"sampling": key})
     rpn, rcnn = jax.random.split(rng)
-    keys = iter([rpn] + ([jax.random.fold_in(rcnn, i) for i in range(8)]
-                         if cascade else [rcnn]))
+    keys = iter([rng] if unsplit else [rpn] + (
+        [jax.random.fold_in(rcnn, i) for i in range(8)] if cascade
+        else [rcnn]))
 
-    def draw(shape, device):
-        pairs = [jax_uniforms(k, shape[-1])
-                 for k in jax.random.split(next(keys), b)]
+    def draw(shape, device, n=2):
+        per_image = [jax_uniforms(k, shape[-1], n)
+                     for k in jax.random.split(next(keys), b)]
         return tuple(torch.from_numpy(np.stack(u)).to(device)
-                     for u in zip(*pairs))
+                     for u in zip(*per_image))
     return draw
 
 
