@@ -21,15 +21,32 @@ UNIFORM_LOW = 1e-4          # the JAX sampler's ``minval``
 
 
 def generator_draws(generator=None):
-    """A draw source for the samplers: ``draw(shape, device, n=2)``
-    returns ``n`` uniforms on ``[1e-4, 1)`` of ``shape`` (``(u_pos,
-    u_neg)`` for :func:`random_sample`, ``(u_pos, u_neg, u_fill)`` for
-    :func:`iou_balanced_neg_sample`), from ``generator`` (which must live
-    on ``device``)."""
+    """A draw source, from ``generator`` (which must live on ``device``):
+
+    - ``draw(shape, device, n=2)``, the samplers': ``n`` uniforms on
+      ``[1e-4, 1)`` of ``shape`` (``(u_pos, u_neg)`` for
+      :func:`random_sample`, ``(u_pos, u_neg, u_fill)`` for
+      :func:`iou_balanced_neg_sample`);
+    - ``draw.offsets(shape, device, amplitude)``, Grid R-CNN's jitter:
+      uniforms on ``[-amplitude, amplitude)`` of ``shape`` ``(B, P, 4)``;
+    - ``draw.points(shapes, device)``, PointRend's training points: one
+      tensor of uniforms on ``[0, 1)`` for each shape.
+
+    A test hands in a source of the same calls that returns the numbers
+    ``jax.random`` draws instead."""
     def draw(shape, device, n=2):
         u = torch.rand((n, *shape), generator=generator, device=device)
         u = UNIFORM_LOW + (1.0 - UNIFORM_LOW) * u
         return tuple(u)
+
+    def offsets(shape, device, amplitude):
+        u = torch.rand(shape, generator=generator, device=device)
+        return (2.0 * u - 1.0) * amplitude
+
+    def points(shapes, device):
+        return tuple(torch.rand(s, generator=generator, device=device)
+                     for s in shapes)
+    draw.offsets, draw.points = offsets, points
     return draw
 
 

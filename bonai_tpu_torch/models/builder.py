@@ -9,13 +9,15 @@ import os
 
 from ..registry import Registry
 from .detectors.cascade_rcnn import CascadeRCNN
+from .detectors.grid_rcnn import GridRCNN
 from .detectors.loft import LOFT
+from .detectors.point_rend import PointRend
 from .detectors.two_stage import (RPN, DynamicRCNN, FastRCNN, FasterRCNN,
                                   MaskRCNN, TwoStageDetector)
 
 DETECTORS = Registry("detector")
 for _cls in (LOFT, FasterRCNN, MaskRCNN, TwoStageDetector, CascadeRCNN,
-             DynamicRCNN, RPN, FastRCNN):
+             DynamicRCNN, RPN, FastRCNN, GridRCNN, PointRend):
     DETECTORS.register_module()(_cls)
 DETECTORS.register_module(name="MaskScoringRCNN")(MaskRCNN)
 

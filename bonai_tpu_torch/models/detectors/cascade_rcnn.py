@@ -97,7 +97,8 @@ class CascadeRCNN(TwoStageDetector):
                       * sampler.get("pos_fraction", 0.25))
         losses.update(self._mask_forward_train(
             feats, batch, rcnn, sampled[:, :num_pos],
-            res["is_pos"][:, :num_pos], res["pos_gt_inds"][:, :num_pos]))
+            res["is_pos"][:, :num_pos], res["pos_gt_inds"][:, :num_pos],
+            draw))
         return losses
 
     def _rcnn_simple_test(self, feats, proposals, prop_valid, img_shape,

@@ -64,7 +64,7 @@ class LOFT(TwoStageDetector):
             pred, target, self.offset_loss.get("beta", 1.0), weight)
 
     def _extra_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
-                             pos_gt):
+                             pos_gt, draw):
         """Offset loss of the positive RoIs, padded rows weighted 0: every
         FOA branch against the GT offset turned by its angle, or the plain
         head against the encoded GT offset."""

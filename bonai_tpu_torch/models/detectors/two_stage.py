@@ -1,12 +1,12 @@
 """Two-stage detector trunk: Faster R-CNN, Mask R-CNN, Dynamic R-CNN,
 Libra R-CNN, Double-Head R-CNN, Mask Scoring R-CNN, the RPN-only detector,
-Fast R-CNN, and the base of LOFT and Cascade R-CNN (counterpart of
-``bonai_tpu/models/detectors/two_stage.py``: ``boxes_to_rois``,
-``assign_rcnn``, ``assign_and_sample_rcnn``, ``extract_feat``,
-``_roi_align_cfg``, ``_bbox_head_forward``, ``_rpn_and_proposals``,
-``forward_train``, ``_roi_forward_train``, ``_mask_forward_train``,
-``simple_test``, ``_rcnn_simple_test``, ``FasterRCNN``, ``MaskRCNN``,
-``DynamicRCNN``, ``RPN``, ``FastRCNN``).
+Fast R-CNN, and the base of LOFT, Cascade R-CNN, Grid R-CNN and PointRend
+(counterpart of ``bonai_tpu/models/detectors/two_stage.py``:
+``boxes_to_rois``, ``assign_rcnn``, ``assign_and_sample_rcnn``,
+``extract_feat``, ``_roi_align_cfg``, ``_bbox_head_forward``,
+``_rpn_and_proposals``, ``forward_train``, ``_roi_forward_train``,
+``_mask_forward_train``, ``simple_test``, ``_rcnn_simple_test``,
+``FasterRCNN``, ``MaskRCNN``, ``DynamicRCNN``, ``RPN``, ``FastRCNN``).
 
 Training is the random- or IoU-balanced-sampling path of the JAX package,
 with its box loss: L1 for an ``L1Loss`` or a ``SmoothL1Loss`` config (the
@@ -14,8 +14,12 @@ JAX package keeps both on its inline L1 path, ROADMAP.md queue C),
 ``BalancedL1Loss`` as configured, SmoothL1 at the batch's beta under
 Dynamic R-CNN.  The mask branch is optional (``with_mask``), and with it
 Mask Scoring's IoU head.  The neck may be an FPN followed by Libra's BFP
-(mmdet's ``neck.0``, ``neck.1``).  PISA, hard mining and the other
-samplers and losses raise, naming the ROADMAP.md item that ports them.
+(mmdet's ``neck.0``, ``neck.1``).  A box head may classify only
+(``with_reg=False``: no ``loss_bbox``), the mask head may be PointRend's
+coarse head, and a mask extractor the single-level
+``GenericRoIExtractor`` (plain RoIAlign at every listed level, fused).
+PISA, hard mining and the other samplers and losses raise, naming the
+ROADMAP.md item that ports them.
 
 Public layouts are the JAX package's: images ``(B, H, W, 3)``, FPN levels
 ``(B, H, W, C)`` (NHWC views of channels-last NCHW maps, no copy), RoI
@@ -36,7 +40,7 @@ from ...core.boxes import clip_boxes, delta2bbox
 from ...core.masks import mask_targets_from_instance_masks
 from ...core.nms import multiclass_nms
 from ...core.samplers import iou_balanced_neg_sample, random_sample
-from ...ops.roi_align import multilevel_roi_align
+from ...ops.roi_align import multilevel_roi_align, roi_align_at_levels
 from ...ops.roi_align_block import roi_align_block
 from ...ops.roi_align_blocked import roi_align_blocked
 from ...ops.roi_align_fused import roi_align_fused
@@ -52,6 +56,7 @@ from ..necks.hrfpn import HRFPN
 from ..roi_heads.bbox_head import (DoubleConvFCBBoxHead, Shared2FCBBoxHead,
                                    bbox_targets, scale_rois)
 from ..roi_heads.mask_head import FCNMaskHead, MaskIoUHead, mask_iou_targets
+from ..roi_heads.point_head import CoarseMaskHead
 
 
 def boxes_to_rois(boxes, valid):
@@ -269,7 +274,7 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
         head = Shared2FCBBoxHead(
             bh.get("num_classes", 1), bh.get("in_channels", 256),
             bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
-            agnostic)
+            agnostic, bh.get("with_reg", True))
     return head, coder, loss
 
 
@@ -328,15 +333,23 @@ class TwoStageDetector(nn.Module):
         self._setup_mask_head(cfg)
 
     def _setup_mask_head(self, cfg):
-        """The optional FCN mask head and its extractor (a Faster R-CNN
-        config has neither), and Mask Scoring's IoU head."""
+        """The optional mask head (FCN, or PointRend's coarse head) and its
+        extractor (a Faster R-CNN config has neither), and Mask Scoring's
+        IoU head."""
         if cfg.get("mask_head") is None:
             return
         mh = dict(cfg["mask_head"])
-        _require_type(mh, "FCNMaskHead", "A7")
-        self.roi_head["mask_head"] = FCNMaskHead(
-            mh.get("num_convs", 4), mh.get("in_channels", 256),
-            mh.get("conv_out_channels", 256), mh.get("num_classes", 1))
+        if mh.get("type") == "CoarseMaskHead":
+            self.roi_head["mask_head"] = CoarseMaskHead(
+                mh.get("num_convs", 0), mh.get("num_fcs", 2),
+                mh.get("in_channels", 256), mh.get("conv_out_channels", 256),
+                mh.get("fc_out_channels", 1024), mh.get("num_classes", 1),
+                mh.get("roi_feat_size", 14))
+        else:
+            _require_type(mh, "FCNMaskHead", "A7")
+            self.roi_head["mask_head"] = FCNMaskHead(
+                mh.get("num_convs", 4), mh.get("in_channels", 256),
+                mh.get("conv_out_channels", 256), mh.get("num_classes", 1))
         self.mask_extractor_cfg = self._extractor(cfg["mask_roi_extractor"])
         if cfg.get("mask_iou_head") is None:
             return
@@ -357,9 +370,27 @@ class TwoStageDetector(nn.Module):
 
     @staticmethod
     def _extractor(cfg):
+        """A ``SingleRoIExtractor`` with ``RoIAlign``, or a
+        ``GenericRoIExtractor`` with ``RoIAlign`` or ``SimpleRoIAlign``
+        (sampled 2x2 a bin as the JAX package samples both, where mmcv's
+        ``SimpleRoIAlign`` takes each bin's centre: ROADMAP.md queue C) and
+        without GRoIE's ``pre_cfg``/``post_cfg``; others raise A7."""
         cfg = dict(cfg)
-        _require_type(cfg, "SingleRoIExtractor", "A7")
-        _require_type(cfg.get("roi_layer", {}), "RoIAlign", "A7")
+        layers = ("RoIAlign",)
+        if cfg.get("type") == "GenericRoIExtractor":
+            groie = sorted(k for k in ("pre_cfg", "post_cfg") if cfg.get(k))
+            if groie:
+                raise NotImplementedError(
+                    f"GenericRoIExtractor options {groie} (GRoIE) are not "
+                    f"ported to bonai_tpu_torch yet (ROADMAP.md item A7)")
+            layers += ("SimpleRoIAlign",)
+        else:
+            _require_type(cfg, "SingleRoIExtractor", "A7")
+        layer = dict(cfg.get("roi_layer", {})).get("type", "RoIAlign")
+        if layer not in layers:
+            raise NotImplementedError(f"{layer} is not ported to "
+                                      f"bonai_tpu_torch yet (ROADMAP.md item "
+                                      f"A7)")
         return cfg
 
     def init_weights(self, gen):
@@ -396,11 +427,24 @@ class TwoStageDetector(nn.Module):
           (they differ from it only for RoIs their level rules push
           coarser);
         - ``'blocked'``: ``roi_align_blocked`` on both devices, as in JAX;
-        - ``'gather'`` (the default): ``multilevel_roi_align``."""
+        - ``'gather'`` (the default): ``multilevel_roi_align``.
+
+        A ``GenericRoIExtractor`` pools every RoI from every listed level
+        with the plain ``roi_align_at_levels`` (the JAX package runs it in
+        XLA, with no Pallas kernel) and fuses the levels by its
+        ``aggregation`` (``sum`` or ``concat``), whatever the route."""
         layer = dict(extractor_cfg.get("roi_layer", {}))
         out_size = layer.get("output_size", 7)
         sr = layer.get("sampling_ratio", 0) or 2    # static grid
         strides = list(extractor_cfg.get("featmap_strides", [4, 8, 16, 32]))
+        if extractor_cfg.get("type") == "GenericRoIExtractor":
+            lvl = torch.zeros(rois.shape[0], dtype=torch.long,
+                              device=rois.device)
+            outs = [roi_align_at_levels([f], rois, lvl, out_size, [s], sr,
+                                        roi_valid=roi_valid)
+                    for f, s in zip(feats, strides)]
+            return sum(outs) if extractor_cfg.get(
+                "aggregation", "sum") == "sum" else torch.cat(outs, -1)
         impl = extractor_cfg.get("impl", self.roi_align_impl or "gather")
         if impl not in ("block", "pallas", "blocked", "gather"):
             raise NotImplementedError(
@@ -513,28 +557,9 @@ class TwoStageDetector(nn.Module):
         st = self._bbox_stage(head, self.bbox_coder, feats, sampled, res,
                               batch)
         nc = head.fc_cls.out_features - 1
-        n_tot = st["labels"].shape[0]
-        if head.fc_reg.out_features == 4:       # class-agnostic or one class
-            pred4 = st["bbox_pred"][:, :4]
-        else:
-            pred4 = st["bbox_pred"].reshape(n_tot, nc, 4).gather(
-                1, st["labels"].clamp(0, nc - 1)[:, None, None]
-                .expand(-1, 1, 4))[:, 0]
-        if dyn is None and self.bbox_loss_cfg is not None:
-            lc = dict(self.bbox_loss_cfg)
-            lc.pop("type")
-            lc.pop("reduction", None)
-            loss_bbox = balanced_l1_loss(pred4, st["bbox_t"], st["bbox_w"],
-                                         avg_factor=float(n_tot), **lc)
-        elif dyn is None:
-            loss_bbox = l1_loss(pred4, st["bbox_t"], st["bbox_w"],
-                                avg_factor=float(n_tot))
-        else:
-            loss_bbox = smooth_l1_loss(
-                pred4, st["bbox_t"],
-                batch.get("dyn_beta", dyn.get("initial_beta", 1.0)),
-                st["bbox_w"], avg_factor=float(n_tot))
-        losses = {"loss_cls": st["loss_cls"], "loss_bbox": loss_bbox}
+        losses = {"loss_cls": st["loss_cls"]}
+        if head.fc_reg is not None:             # Grid R-CNN's head has none
+            losses["loss_bbox"] = self._bbox_loss(st, nc, dyn, batch)
         if dyn is not None:
             losses.update(dynamic_rcnn_stats(
                 res["stat_kth_iou"], st["bbox_t"], st["labels"] < nc,
@@ -545,11 +570,35 @@ class TwoStageDetector(nn.Module):
         pos_is_pos = res["is_pos"][:, :num_pos]
         pos_gt = res["pos_gt_inds"][:, :num_pos]
         losses.update(self._mask_forward_train(feats, batch, rcnn, pos_boxes,
-                                               pos_is_pos, pos_gt))
+                                               pos_is_pos, pos_gt, draw))
         losses.update(self._extra_forward_train(feats, batch, rcnn,
                                                 pos_boxes, pos_is_pos,
-                                                pos_gt))
+                                                pos_gt, draw))
         return losses
+
+    def _bbox_loss(self, st, nc, dyn, batch):
+        """The box loss of a ``_bbox_stage`` result: the configured one,
+        or SmoothL1 at the batch's beta under Dynamic R-CNN."""
+        n_tot = st["labels"].shape[0]
+        if st["bbox_pred"].shape[1] == 4:       # class-agnostic or one class
+            pred4 = st["bbox_pred"][:, :4]
+        else:
+            pred4 = st["bbox_pred"].reshape(n_tot, nc, 4).gather(
+                1, st["labels"].clamp(0, nc - 1)[:, None, None]
+                .expand(-1, 1, 4))[:, 0]
+        if dyn is None and self.bbox_loss_cfg is not None:
+            lc = dict(self.bbox_loss_cfg)
+            lc.pop("type")
+            lc.pop("reduction", None)
+            return balanced_l1_loss(pred4, st["bbox_t"], st["bbox_w"],
+                                    avg_factor=float(n_tot), **lc)
+        if dyn is None:
+            return l1_loss(pred4, st["bbox_t"], st["bbox_w"],
+                           avg_factor=float(n_tot))
+        return smooth_l1_loss(
+            pred4, st["bbox_t"],
+            batch.get("dyn_beta", dyn.get("initial_beta", 1.0)),
+            st["bbox_w"], avg_factor=float(n_tot))
 
     def _bbox_stage(self, head, coder, feats, sampled, res, batch):
         """One box head on the sampled boxes ``(B, num, 4)`` of a batch:
@@ -572,7 +621,10 @@ class TwoStageDetector(nn.Module):
                     avg_factor=(label_w > 0).sum().float().clamp(min=1.0))}
 
     def _mask_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
-                            pos_gt):
+                            pos_gt, draw):
+        """The mask losses on the positive slots ``(B, P)``: the mask head's
+        at ``train_cfg.rcnn.mask_size``, Mask Scoring's IoU loss, and
+        :meth:`_mask_refine_train`'s."""
         if not self.with_mask:
             return {}
         mask_size = rcnn.get("mask_size", 28)
@@ -600,10 +652,18 @@ class TwoStageDetector(nn.Module):
             wi = roi_valid.float() * (iou_t > 0).float()
             losses["loss_mask_iou"] = self.mask_iou_loss_weight * mse_loss(
                 iou_pred, iou_t, wi, avg_factor=wi.sum().clamp(min=1.0))
+        losses.update(self._mask_refine_train(feats, rcnn, rois, roi_valid,
+                                              mask_logits, gt_boxes,
+                                              gt_masks, draw))
         return losses
 
+    def _mask_refine_train(self, feats, rcnn, rois, roi_valid, mask_logits,
+                           gt_boxes, gt_masks, draw):
+        """Losses of a refinement of the mask logits (PointRend's)."""
+        return {}
+
     def _extra_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
-                             pos_gt):
+                             pos_gt, draw):
         return {}
 
     # ---------------- inference ----------------
@@ -658,8 +718,8 @@ class TwoStageDetector(nn.Module):
             mask_feats = self._roi_align_cfg(self.mask_extractor_cfg, feats,
                                              rois, roi_valid)
             logits = self.roi_head["mask_head"](mask_feats)
-            out["mask_probs"] = torch.sigmoid(logits[:, 0]).reshape(
-                b, -1, *logits.shape[2:])
+            probs = self._mask_probs(feats, rois, logits)
+            out["mask_probs"] = probs.reshape(b, -1, *probs.shape[1:])
             if "mask_iou_head" in self.roi_head:
                 iou = self.roi_head["mask_iou_head"](mask_feats, logits)
                 sel = iou.gather(1, det_labels.reshape(-1, 1).long().clamp(
@@ -669,6 +729,11 @@ class TwoStageDetector(nn.Module):
         out.update(self._extra_simple_test(feats, det_boxes, det_valid,
                                            img_shape, scale_factor))
         return out
+
+    def _mask_probs(self, feats, rois, logits):
+        """The mask probabilities ``(N, H, W)`` of the detections' mask
+        logits ``(N, K, H, W)`` (PointRend refines them)."""
+        return torch.sigmoid(logits[:, 0])
 
     def _extra_simple_test(self, feats, det_boxes, det_valid, img_shape,
                            scale_factor):

@@ -15,9 +15,10 @@ class ConvModule(nn.Module):
     """mmcv ``ConvModule`` without norm or activation: holds ``.conv`` so
     mmdet keys (``neck.lateral_convs.0.conv.weight``) load as they are."""
 
-    def __init__(self, cin, cout, kernel):
+    def __init__(self, cin, cout, kernel, stride=1, padding=None):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
+        self.conv = nn.Conv2d(cin, cout, kernel, stride,
+                              kernel // 2 if padding is None else padding)
 
     def forward(self, x):
         return self.conv(x)

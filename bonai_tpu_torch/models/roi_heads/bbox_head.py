@@ -1,5 +1,6 @@
 """Box heads and their training targets (counterpart of
-``bonai_tpu/models/roi_heads/bbox_head.py``: ``Shared2FCBBoxHead``,
+``bonai_tpu/models/roi_heads/bbox_head.py``: ``Shared2FCBBoxHead``, with
+Grid R-CNN's classification-only ``with_reg=False``,
 Double-Head R-CNN's ``DoubleConvFCBBoxHead`` and ``scale_rois``, and
 ``bbox_targets_single``, batched over images here).  v2.3 labels:
 foreground 0..C-1, background C (the last softmax column)."""
@@ -37,24 +38,30 @@ def bbox_targets(sampled_boxes, sample_res, gt_bboxes, gt_labels,
 
 
 class Shared2FCBBoxHead(nn.Module):
+    """Two shared FCs, then the class logits and, ``with_reg``, the box
+    deltas.  Without ``fc_reg`` (Grid R-CNN) the deltas are zeros of the
+    same width, which decode to the proposal itself."""
+
     def __init__(self, num_classes=1, in_channels=256, fc_out_channels=1024,
-                 roi_feat_size=7, reg_class_agnostic=False):
+                 roi_feat_size=7, reg_class_agnostic=False, with_reg=True):
         super().__init__()
         self.shared_fcs = nn.ModuleList([
             nn.Linear(in_channels * roi_feat_size ** 2, fc_out_channels),
             nn.Linear(fc_out_channels, fc_out_channels)])
         self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
-        self.fc_reg = nn.Linear(fc_out_channels,
-                                4 if reg_class_agnostic else 4 * num_classes)
+        self.reg_dim = 4 if reg_class_agnostic else 4 * num_classes
+        self.fc_reg = nn.Linear(fc_out_channels, self.reg_dim) \
+            if with_reg else None
 
     def init_weights(self, gen):
         for fc in self.shared_fcs:
             xavier_uniform_(fc.weight, gen)
             zeros_(fc.bias)
         normal_(self.fc_cls.weight, 0.01, gen)
-        normal_(self.fc_reg.weight, 0.001, gen)
         zeros_(self.fc_cls.bias)
-        zeros_(self.fc_reg.bias)
+        if self.fc_reg is not None:
+            normal_(self.fc_reg.weight, 0.001, gen)
+            zeros_(self.fc_reg.bias)
 
     def forward(self, x):
         """``(N, S, S, C)`` RoI features -> float32 ``(N, C+1)`` class
@@ -62,6 +69,9 @@ class Shared2FCBBoxHead(nn.Module):
         x = x.permute(0, 3, 1, 2).flatten(1)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
+        if self.fc_reg is None:
+            return self.fc_cls(x).float(), x.new_zeros(
+                (x.shape[0], self.reg_dim), dtype=torch.float32)
         return self.fc_cls(x).float(), self.fc_reg(x).float()
 
 

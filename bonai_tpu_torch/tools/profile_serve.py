@@ -3,8 +3,9 @@
 Runs ``simple_test`` of a config (``--config``: the LOFT-FOA R50-FPN
 config by default, or another detector the port builds, such as the Mask,
 Cascade Mask, Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI
-baselines, the RPN, Fast R-CNN (on 2000 synthetic proposals an image,
-``profile_train.synthetic_proposals``) or LOFT-FOA on HRNet-W32 + HRFPN;
+baselines, Grid R-CNN, PointRend, the RPN, Fast R-CNN (on 2000 synthetic
+proposals an image, ``profile_train.synthetic_proposals``) or LOFT-FOA on
+HRNet-W32 + HRFPN;
 1024^2, B=2, bfloat16,
 seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
 loaded as the test CLI loads it) and prints
@@ -13,9 +14,11 @@ loaded as the test CLI loads it) and prints
   start and end): the backbone and the neck (named with their types:
   ResNet and FPN, or HRNet and HRFPN), RPN and proposals (with its NMS), the
   RoIAlign kernel of the route (B1, under the block rule for ``block``
-  and under the strip rule for ``pallas``), each RoI head (a cascade's
-  stage by stage), the R-CNN multi-class NMS (soft-NMS in the LOFT
-  configs), and the rest;
+  and under the strip rule for ``pallas``), the plain RoIAlign of a
+  ``GenericRoIExtractor`` (PointRend's mask branch), each RoI head (a
+  cascade's stage by stage), Grid R-CNN's vote, PointRend's uncertain
+  cells and point features, the R-CNN multi-class NMS (soft-NMS in the
+  LOFT configs), and the rest;
 - from ``torch.profiler`` over one call: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled call, and
   the kernels that take the most time.
@@ -38,12 +41,12 @@ import torch
 
 from ..apis import init_detector, prepare_batch
 from ..config import Config
-from ..models.detectors import cascade_rcnn, two_stage
+from ..models.detectors import cascade_rcnn, grid_rcnn, point_rend, two_stage
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 # the detector modules whose functions the stages patch
-DETECTOR_MODULES = (two_stage, cascade_rcnn)
+DETECTOR_MODULES = (two_stage, cascade_rcnn, grid_rcnn, point_rend)
 
 
 def roi_heads(model):
@@ -108,6 +111,10 @@ def stage_times(model, batch, reps=3):
     saved = patch_functions(
         {"roi_align_block": "roi_align_block (B1)",
          "roi_align_fused": "roi_align_fused (B1, strip rule)",
+         "roi_align_at_levels": "RoIAlign, plain (generic extractor)",
+         "grid_decode_boxes": "grid vote",
+         "uncertainty_points_test": "uncertain cells (sort)",
+         "fine_grained_point_feats": "point features",
          "multiclass_nms": f"rcnn multiclass {nms}"}, totals)
     try:
         wall = 0.0

@@ -2,8 +2,8 @@
 
 Builds a config (``--config``: the LOFT-FOA R50-FPN config by default, or
 another detector the port builds, such as the Mask, Cascade Mask,
-Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI baselines, the
-RPN, Fast R-CNN or LOFT-FOA on HRNet-W32 + HRFPN) for
+Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI baselines, Grid
+R-CNN, PointRend, the RPN, Fast R-CNN or LOFT-FOA on HRNet-W32 + HRFPN) for
 training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
 config's SGD and schedule), takes a few steps on the synthetic padded
@@ -16,8 +16,10 @@ autocast, and prints
 - each stage's time (the device synchronised at each stage's start and
   end): the backbone and the neck (named with their types), the RPN
   head, proposals (with their NMS), the RPN targets and loss, R-CNN assignment and sampling, the RoIAlign forward
-  of the route (B1, under the block or the strip rule), each RoI head (a
-  cascade's stage by stage), mask targets, the rest of the forward, clip
+  of the route (B1, under the block or the strip rule), the plain RoIAlign
+  of a ``GenericRoIExtractor``, each RoI head (a cascade's stage by
+  stage), mask, grid and point targets, PointRend's training points and
+  point features, the rest of the forward, clip
   + SGD, and what the step leaves after those (the backward, with the
   RoIAlign backward B2 inside);
 - from ``torch.profiler`` over one step: the summed CUDA kernel time, the
@@ -138,7 +140,12 @@ def stage_times(model, train_step, batch, draw, reps=3):
          "assign_and_sample_rcnn": "rcnn assign+sample",
          "roi_align_block": "roi_align_block fwd (B1)",
          "roi_align_fused": "roi_align_fused fwd (B1, strip rule)",
-         "mask_targets_from_instance_masks": "mask targets"}, totals)
+         "roi_align_at_levels": "RoIAlign, plain (generic extractor)",
+         "mask_targets_from_instance_masks": "mask targets",
+         "grid_targets": "grid targets",
+         "uncertainty_points_train": "training points",
+         "fine_grained_point_feats": "point features",
+         "point_targets_from_instance_masks": "point targets"}, totals)
     saved_update = train_step_module.apply_gradients
     train_step_module.apply_gradients = _timed("clip+sgd", saved_update,
                                                totals)

@@ -25,6 +25,15 @@ Mask Scoring's IoU head to ``roi_head.mask_iou_head.{convs.<i>.conv,
 fcs.<i>,fc_mask_iou}``; an RPN-only model has no ``roi_head.*``, a Fast
 R-CNN no ``rpn_head.*``.  The JAX importer reads none of the BFP, the
 double head or the IoU head (ROADMAP.md queue C).
+
+Grid R-CNN's box head has no ``fc_reg`` and its grid head goes to
+``roi_head.grid_head.{convs.<i>.{conv,gn},forder_trans.<i>.<j>.{0,1},
+sorder_trans.<i>.<j>.{0,1},deconv1,norm1,deconv2}``, the per-point JAX
+deconvs concatenated into the grouped ones; PointRend's coarse head to
+``roi_head.mask_head.{convs.<i>.conv,downsample_conv.conv,fcs.<i>,
+fc_logits}`` and its point head to ``roi_head.point_head.{fcs.<i>.conv,
+fc_logits}`` (``Conv1d`` weights ``(out, in, 1)``).  The JAX importer
+raises ``KeyError`` on both detectors (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -46,6 +55,10 @@ def _deconv(w):
 
 def _fc(w):
     return np.transpose(np.asarray(w), (1, 0))               # (in,out)->(out,in)
+
+
+def _conv1d(w):
+    return _fc(w)[..., None]                                 # -> (out, in, 1)
 
 
 def _fc_to_chw(w, h, ww):
@@ -147,7 +160,14 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         sd[f"{key}.shared_fcs.0.bias"] = np.asarray(bh["shared_fc1"]["bias"])
         layer(f"{key}.shared_fcs.1", bh["shared_fc2"], _fc)
         layer(f"{key}.fc_cls", bh["fc_cls"], _fc)
-        layer(f"{key}.fc_reg", bh["fc_reg"], _fc)
+        if "fc_reg" in bh:                              # not Grid R-CNN's
+            layer(f"{key}.fc_reg", bh["fc_reg"], _fc)
+    if "grid_head" in params:
+        _grid_head("roi_head.grid_head", params["grid_head"], sd, layer)
+    for name, p in params.get("point_head", {}).items():
+        layer(f"roi_head.point_head."
+              f"{'fc_logits' if name == 'fc_logits' else f'fcs.{name[2:]}.conv'}",
+              p, _conv1d)
 
     for name, p in params.get("mask_iou_head", {}).items():
         key = "roi_head.mask_iou_head"
@@ -162,8 +182,11 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         else:
             layer(f"{key}.convs.{name[len('conv'):]}.conv", p)
 
-    for name, p in params.get("mask_head", {}).items():
-        if name == "upsample":
+    mask_head = params.get("mask_head", {})
+    for name, p in mask_head.items():
+        if "fc_logits" in mask_head:                    # PointRend's coarse
+            _coarse_head("roi_head.mask_head", mask_head, name, p, sd, layer)
+        elif name == "upsample":
             layer("roi_head.mask_head.upsample", p, _deconv)
         elif name == "conv_logits":
             layer("roi_head.mask_head.conv_logits", p)
@@ -187,6 +210,60 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             layer(f"roi_head.offset_head.fcs.{name[len('fc'):]}", p, _fc)
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in sd.items()}
+
+
+def _grid_head(key, gh, sd, layer):
+    """Grid R-CNN's head: ``conv<i>``/``gn<i>`` -> ``convs.<i>.conv|gn``,
+    ``fo|so_<i>_<j>_dw|pw`` -> ``forder|sorder_trans.<i>.<j>.0|1``, the
+    per-point ``deconv1_<i>``/``deconv2_<i>`` concatenated (flipped) into
+    ``deconv1``/``deconv2``, ``deconv_gn`` -> ``norm1``."""
+    for name, p in gh.items():
+        conv = re.fullmatch(r"(conv|gn)(\d+)", name)
+        trans = re.fullmatch(r"(fo|so)_(\d+)_(\d+)_(dw|pw)", name)
+        if conv and conv[1] == "conv":
+            layer(f"{key}.convs.{conv[2]}.conv", p)
+        elif conv:
+            sd[f"{key}.convs.{conv[2]}.gn.weight"] = np.asarray(p["scale"])
+            sd[f"{key}.convs.{conv[2]}.gn.bias"] = np.asarray(p["bias"])
+        elif trans:
+            order = "forder" if trans[1] == "fo" else "sorder"
+            layer(f"{key}.{order}_trans.{trans[2]}.{trans[3]}."
+                  f"{0 if trans[4] == 'dw' else 1}", p)
+    g = sum(name.startswith("deconv1_") for name in gh)
+    for d in ("deconv1", "deconv2"):
+        parts = [gh[f"{d}_{i}"] for i in range(g)]
+        sd[f"{key}.{d}.weight"] = np.concatenate(
+            [_deconv(p["kernel"]) for p in parts])
+        sd[f"{key}.{d}.bias"] = np.concatenate(
+            [np.asarray(p["bias"]) for p in parts])
+    sd[f"{key}.norm1.weight"] = np.asarray(gh["deconv_gn"]["scale"])
+    sd[f"{key}.norm1.bias"] = np.asarray(gh["deconv_gn"]["bias"])
+
+
+def _coarse_head(key, mh, name, p, sd, layer):
+    """One variable of PointRend's coarse head: ``conv<i>``,
+    ``downsample_conv``, ``fc<i>`` (``fc0`` on the downsampled (S, S, C)
+    features), ``fc_logits`` (its (S, S, K) outputs to torch's (K, S,
+    S))."""
+    if name == "downsample_conv" or name.startswith("conv"):
+        layer(f"{key}.{'convs.' + name[4:] if name != 'downsample_conv' else name}"
+              ".conv", p)
+    elif name == "fc0":
+        c = np.shape(mh["downsample_conv"]["kernel"])[-1]
+        side = int(round((np.shape(p["kernel"])[0] / c) ** 0.5))
+        sd[f"{key}.fcs.0.weight"] = _fc_to_chw(p["kernel"], side, side)
+        sd[f"{key}.fcs.0.bias"] = np.asarray(p["bias"])
+    elif name == "fc_logits":
+        side = int(round((np.shape(mh["fc0"]["kernel"])[0] / np.shape(
+            mh["downsample_conv"]["kernel"])[-1]) ** 0.5))
+        w = np.asarray(p["kernel"])                          # (in, S*S*K)
+        k = w.shape[1] // (side * side)
+        sd[f"{key}.fc_logits.weight"] = w.reshape(
+            -1, side, side, k).transpose(3, 1, 2, 0).reshape(-1, w.shape[0])
+        sd[f"{key}.fc_logits.bias"] = np.asarray(p["bias"]).reshape(
+            side, side, k).transpose(2, 0, 1).reshape(-1)
+    else:
+        layer(f"{key}.fcs.{name[2:]}", p, _fc)
 
 
 def _double_head(key, bh, stats, roi_feat, sd, layer, norm, block):

@@ -156,7 +156,15 @@ Phases, each of which must pass:
    both pkls made proposal files, the Fast R-CNN trained 3 steps from
    them by ``train_detector`` and scored by the test CLI with ``--eval
    bbox`` on the first crop from its file.
-13. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+13. rcnn3: Grid R-CNN (``configs/grid_rcnn/
+   grid_rcnn_r50_fpn_gn-head_2x_bonai.py``: a box head without ``fc_reg``,
+   the grid head at 14^2 on the detections and on the jittered positives)
+   and PointRend (``configs/point_rend/point_rend_r50_fpn_2x_bonai.py``:
+   the coarse head behind the single-level ``GenericRoIExtractor``, the
+   point head, 224^2 masks after five subdivision steps), as the rcnn
+   phase runs its configs, 3 steps each; each checkpoint through the test
+   CLI, ``--eval bbox`` and ``--eval bbox segm``.
+14. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -173,8 +181,10 @@ R-CNN (box and mask), 4 for Cascade Mask R-CNN (three box stages and the
 mask), 1 for Dynamic R-CNN, 1 for Libra R-CNN, 2 for Double-Head (the
 cls RoIs and the scaled reg RoIs), 2 for Mask Scoring R-CNN (box and
 mask; the IoU head reuses the mask features), 1 for Fast R-CNN, 0 for the
-RPN; the file chain's RPN test runs launch nothing, its Fast R-CNN
-launches B1 and B2 once a training step and B1 once a test batch.
+RPN, 2 for Grid R-CNN (box and grid), 1 for PointRend (box; its mask
+extractor is the plain RoIAlign); the file chain's RPN test runs launch
+nothing, its Fast R-CNN launches B1 and B2 once a training step and B1
+once a test batch.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -206,7 +216,8 @@ RCNN_CONFIGS = (
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
-               "mask_scoring": (("bbox", "segm"), 2)}
+               "mask_scoring": (("bbox", "segm"), 2), "grid": (("bbox",), 2),
+               "point_rend": (("bbox", "segm"), 1)}
 # the rest of the R-CNN family on BONAI (the rcnn2 phase): label, config,
 # the RoIAlign calls of a batch or step
 RCNN2_CONFIGS = (
@@ -217,6 +228,12 @@ RCNN2_CONFIGS = (
     ("rpn", "configs/rpn/rpn_r50_fpn_1x_bonai.py", 0),
     ("fast_rcnn", "configs/fast_rcnn/fast_rcnn_r50_fpn_1x_bonai.py", 1))
 RCNN2_STEPS = 3
+# Grid R-CNN and PointRend (the rcnn3 phase): label, config, the RoIAlign
+# kernel calls of a batch or step
+RCNN3_CONFIGS = (
+    ("grid", "configs/grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_bonai.py", 2),
+    ("point_rend", "configs/point_rend/point_rend_r50_fpn_2x_bonai.py", 1))
+RCNN3_STEPS = 3
 JAX_BLOCK_CELLS = 40        # the JAX block kernel's padded window
 DATA_DIR = os.path.join(REPO, "build", "chip_smoke_data")
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
@@ -640,10 +657,12 @@ def kernel_phase():
 def _branches(model):
     """Each RoI branch of a batch: ``(name, run, calls)``, where ``run(feats,
     rois, valid)`` gives the branch's head outputs (a tuple) from its
-    ``calls`` RoIAlign calls: the box head (a cascade's every stage;
+    ``calls`` RoIAlign kernel calls: the box head (a cascade's every stage;
     Double-Head's two calls, its reg RoIs scaled), then the mask head (with
-    Mask Scoring's IoU head on the same RoI features) and the offset head
-    the model has.  The RPN-only detector has none."""
+    Mask Scoring's IoU head on the same RoI features; no kernel call behind
+    PointRend's single-level ``GenericRoIExtractor``, the plain RoIAlign),
+    Grid R-CNN's grid head and the offset head the model has.  The
+    RPN-only detector has none."""
     import torch
     if "bbox_head" not in model.roi_head:
         return []
@@ -661,8 +680,15 @@ def _branches(model):
             if "mask_iou_head" not in model.roi_head:
                 return (logits,)
             return logits, model.roi_head["mask_iou_head"](x, logits)
+        generic = model.mask_extractor_cfg.get("type") == \
+            "GenericRoIExtractor"
         out.append(("mask head" + (" + IoU head" if "mask_iou_head" in
-                                   model.roi_head else ""), mask, 1))
+                                   model.roi_head else ""), mask,
+                    0 if generic else 1))
+    if "grid_head" in model.roi_head:
+        out.append(("GridHead", lambda f, r, v: (model.roi_head["grid_head"](
+            model._roi_align_cfg(model.grid_extractor_cfg, f, r, v))[
+                "fused"],), 1))
     if "offset_head" in model.roi_head:
         out.append(("OffsetHead", lambda f, r, v: (model.roi_head[
             "offset_head"](model._roi_align_cfg(model.offset_extractor_cfg,
@@ -698,12 +724,22 @@ def _serve_proposals(model, img):
                                      int(img.shape[1])))
 
 
+def _mask_side(model):
+    """The side of a serve call's masks: 28 (FCN head), or PointRend's
+    coarse side doubled at each subdivision step (224)."""
+    if "point_head" not in model.roi_head:
+        return 28
+    tc = model.test_cfg["rcnn"]
+    return model.roi_head["mask_head"].output_size * tc.get(
+        "scale_factor", 2) ** tc.get("subdivision_steps", 5)
+
+
 def _check_outputs(out, b, p, model):
     import torch
     shapes = {"det_bboxes": (b, p, 4), "det_scores": (b, p),
               "det_labels": (b, p), "det_valid": (b, p)}
     if "mask_head" in model.roi_head:
-        shapes["mask_probs"] = (b, p, 28, 28)
+        shapes["mask_probs"] = (b, p, _mask_side(model), _mask_side(model))
     if "mask_iou_head" in model.roi_head:
         shapes["mask_scores"] = (b, p)
     if "offset_head" in model.roi_head:
@@ -755,7 +791,8 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None,
     random weights or those of ``checkpoint``: ``calls`` timed batches,
     then one ``inference_detector`` call (``inspect(model, img, img_shape,
     scale)`` after them).  Returns the forward kernel's launch count of the
-    run and its ms per call."""
+    run, its ms per call and the peak device memory of the batches and the
+    ``inference_detector`` call in GiB."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import (inference_detector, init_detector,
@@ -848,7 +885,7 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None,
         _small_input_check(model, impl, what, r)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    return counts[fwd_name], statistics.median(times)
+    return counts[fwd_name], statistics.median(times), peak / 2 ** 30
 
 
 def _small_input_check(model, impl, what, r):
@@ -940,10 +977,15 @@ def _roi_grad_check(model, impl, what):
                 dict(model.train_cfg["rpn_proposal"]))
         else:
             props, pvalid = batch["proposals"], batch["proposals_valid"]
+    # the levels that collect the gradient go to the kernel calls alone;
+    # the heads' other uses of the levels (PointRend's single-level
+    # extractor and point features) see them as constants
+    const = [f.detach() for f in feats]
     calls = []
 
     def recorded(levels, rois, output_size, featmap_strides, **kw):
-        out = kernel_fn(levels, rois, output_size, featmap_strides, **kw)
+        out = kernel_fn([f.contiguous() for f in feats[:len(levels)]], rois,
+                        output_size, featmap_strides, **kw)
         out.retain_grad()
         calls.append((rois, output_size, kw, out))
         return out
@@ -952,7 +994,7 @@ def _roi_grad_check(model, impl, what):
     try:
         setattr(two_stage, attr, recorded)
         losses = model._roi_forward_train(
-            feats, props, pvalid, batch,
+            const, props, pvalid, batch,
             generator_draws(torch.Generator(device="cuda").manual_seed(0)))
     finally:
         setattr(two_stage, attr, kernel_fn)
@@ -1716,7 +1758,8 @@ def loft_phase():
     ``inference_detector``; a small float32 input against the plain
     route), and 3 training steps on the repeated synthetic batch.  Returns
     the launch counts."""
-    serve, _ = serve_phase("block", LOFT_CONFIG, calls=1, label="loft serve")
+    serve, _, _ = serve_phase("block", LOFT_CONFIG, calls=1,
+                              label="loft serve")
     train = train_phase("block", 3, LOFT_CONFIG, label="loft train")
     return dict(serve=serve, train=train)
 
@@ -1797,7 +1840,7 @@ def hrnet_phase(r50_serve_ms, r50_step_ms):
     from bonai_tpu_torch.apis import init_detector
     weights = os.path.join(REPO, "build", "chip_smoke_hrnet", "init.pth")
     _calibrated_weights(HRNET_CONFIG, weights)
-    serve, serve_ms = serve_phase("block", HRNET_CONFIG, calls=1,
+    serve, serve_ms, _ = serve_phase("block", HRNET_CONFIG, calls=1,
                                   label="hrnet serve", checkpoint=weights)
     # at the base LR: the warmup's first LRs (5e-6 to 2e-5) times the
     # weight decay (1e-4) move conv2/bn2 by less than a float32 ulp
@@ -1834,7 +1877,7 @@ def rcnn_phase():
     out = {}
     for label, config, steps in RCNN_CONFIGS:
         config = os.path.join(REPO, config)
-        serve, serve_ms = serve_phase("block", config, calls=1,
+        serve, serve_ms, _ = serve_phase("block", config, calls=1,
                                       label=f"{label} serve")
         train = train_phase("block", steps, config, label=f"{label} train",
                             keep=label in COCO_SCORED)
@@ -2054,7 +2097,7 @@ def rcnn2_phase():
     for label, config, calls in RCNN2_CONFIGS:
         config = os.path.join(REPO, config)
         window = {}
-        serve, serve_ms = serve_phase(
+        serve, serve_ms, _ = serve_phase(
             "block", config, calls=1, label=f"{label} serve",
             inspect=(lambda *a: window.update(_dh_reg_rois(*a)))
             if label == "double_head" else None)
@@ -2085,6 +2128,50 @@ def rcnn2_phase():
               f"{r['train']['step_ms']:.1f} ms, peak "
               f"{r['train']['peak_gib']:.2f} GiB, B1 {r['train']['fwd']} / "
               f"B2 {r['train']['bwd']} launches", flush=True)
+    return out
+
+
+def rcnn3_phase():
+    """Grid R-CNN and PointRend (``RCNN3_CONFIGS``) at full width with
+    seeded random weights and the ``'block'`` route, as the rcnn phase runs
+    its configs: one serve batch and one ``inference_detector`` call
+    (PointRend's 224^2 masks pasted on the host), the small float32 input
+    held to the plain route (Grid R-CNN's grid call at 14^2 among the
+    branches), ``RCNN3_STEPS`` training steps on the repeated synthetic
+    batch (the RoI branches' gradients held to the plain route, the grid
+    call's on the jittered positives), then each checkpoint through the
+    test CLI on the first val crop, scored COCO-style (Grid R-CNN ``--eval
+    bbox``, PointRend ``--eval bbox segm``).  Grid R-CNN trains at the base
+    LR: at the warmup's first LRs its GroupNorm weights, 1 at the start,
+    and other grid-head tensors move by less than a float32 ulp in 3
+    steps.  Returns each config's launch counts, times and peak
+    memory."""
+    out = {}
+    for label, config, calls in RCNN3_CONFIGS:
+        config = os.path.join(REPO, config)
+        serve, serve_ms, serve_peak = serve_phase(
+            "block", config, calls=1, label=f"{label} serve")
+        train = train_phase("block", RCNN3_STEPS, config,
+                            label=f"{label} train", keep=True,
+                            warmup=label != "grid")
+        if serve != 2 * calls or not (
+                train["fwd"] == train["bwd"] == RCNN3_STEPS * calls):
+            raise AssertionError(f"{label}: B1 {serve} launches serving, "
+                                 f"{train['fwd']} / B2 {train['bwd']} "
+                                 f"training; expected {calls} a batch or "
+                                 f"step")
+        coco = rcnn_coco(label, config, train["checkpoint"])
+        shutil.rmtree(train["work_dir"], ignore_errors=True)
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=coco)
+    for label, r in out.items():
+        print(f"rcnn3 {label}: serve {r['serve_ms']:.1f} ms a B=2 call, peak "
+              f"{r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} launches; "
+              f"train median step {r['train']['step_ms']:.1f} ms, peak "
+              f"{r['train']['peak_gib']:.2f} GiB, B1 {r['train']['fwd']} / "
+              f"B2 {r['train']['bwd']} launches; test CLI B1 "
+              f"{r['coco_cli']} launches", flush=True)
     return out
 
 
@@ -2279,6 +2366,7 @@ def main():
     hrnet = hrnet_phase(serve_runs["block"][1], train["block"]["step_ms"])
     rcnn = rcnn_phase()
     rcnn2 = rcnn2_phase()
+    rcnn3 = rcnn3_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -2338,7 +2426,11 @@ def main():
                     "coco_cli"],
                 **{f"rcnn2_files_{k}_launches": fwd
                    for k, (fwd, _) in rcnn2["files"].items()},
-                rcnn2_double_head_reg_rois=rcnn2["double_head"]["window"]),
+                rcnn2_double_head_reg_rois=rcnn2["double_head"]["window"],
+                **{f"rcnn3_{k}_{what}_launches": n for k, r in rcnn3.items()
+                   for what, n in (("serve", r["serve"]),
+                                   ("train", r["train"]["fwd"]),
+                                   ("coco_cli", r["coco_cli"]))}),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],
@@ -2355,7 +2447,9 @@ def main():
                **{f"rcnn2_{k}_train_launches": rcnn2[k]["train"]["bwd"]
                   for k, _, _ in RCNN2_CONFIGS},
                rcnn2_files_fast_train_launches=rcnn2["files"][
-                   "fast_train"][1]),
+                   "fast_train"][1],
+               **{f"rcnn3_{k}_train_launches": r["train"]["bwd"]
+                  for k, r in rcnn3.items()}),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

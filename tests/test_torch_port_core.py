@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_common  # noqa: F401  (one torch thread a process)
+
 from bonai_tpu.core import anchors as jax_anchors
 from bonai_tpu.core import boxes as jax_boxes
 from bonai_tpu_torch.core import anchors, boxes, nms

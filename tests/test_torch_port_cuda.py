@@ -195,8 +195,9 @@ RCNN = {"mask_rcnn": ("MASK_RCNN_CONFIG", 2),
         "dynamic": ("DYNAMIC_CONFIG", 1),
         "libra": ("libra", 1), "double_head": ("double_head", 2),
         "mask_scoring": ("mask_scoring", 2), "rpn": ("rpn", 0),
-        "fast_rcnn": ("fast_rcnn", 1)}
-MASKED = {"mask_rcnn", "cascade", "mask_scoring"}
+        "fast_rcnn": ("fast_rcnn", 1), "grid": ("grid", 2),
+        "point_rend": ("point_rend", 1)}
+MASKED = {"mask_rcnn", "cascade", "mask_scoring", "point_rend"}
 
 
 def _rcnn_cfg(family, train=False):
@@ -212,9 +213,11 @@ def _rcnn_cfg(family, train=False):
 @pytest.mark.parametrize("family", sorted(RCNN))
 def test_rcnn_serve_batch_runs_the_block_kernel(family):
     """One serve batch of each R-CNN baseline: one forward launch per RoI
-    call (box stages, Double-Head's two, mask; none for the RPN), finite
-    outputs, a mask only where the model has a mask head (and Mask
-    Scoring's mask scores); Fast R-CNN on given proposals."""
+    call (box stages, Double-Head's two, mask, Grid R-CNN's grid; none for
+    the RPN, none for PointRend's mask, whose single-level extractor is the
+    plain RoIAlign), finite outputs, a mask only where the model has a mask
+    head (and Mask Scoring's mask scores); Fast R-CNN on given
+    proposals."""
     _need_cuda()
     from bonai_tpu_torch.apis import init_detector, prepare_batch
     from bonai_tpu_torch.ops import roi_align_block

@@ -125,3 +125,30 @@ def test_state_dict_from_jax_inverts_the_importer():
     for path, leaf in got:
         np.testing.assert_array_equal(np.asarray(leaf), ref[path],
                                       err_msg=jax.tree_util.keystr(path))
+
+
+def test_port_imports_nothing_of_the_jax_side():
+    """Every module of ``bonai_tpu_torch/`` and ``chip_smoke.py`` imports
+    no ``jax``, ``flax``, ``cv2`` or ``bonai_tpu``, neither at the top of
+    a file nor inside a function (the port runs on a machine that has
+    none of them)."""
+    import ast
+    import os.path as osp
+    from pathlib import Path
+    from torch_port_common import ROOT
+    banned = {"jax", "flax", "cv2", "bonai_tpu"}
+    files = sorted(Path(ROOT, "bonai_tpu_torch").rglob("*.py"))
+    files.append(Path(ROOT, "chip_smoke.py"))
+    assert len(files) > 50
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{osp.relpath(path, ROOT)}:{node.lineno} {name}"
+                      for name in names if name.split(".")[0] in banned]
+    assert not found, found

@@ -99,21 +99,27 @@ def test_configs_build_at_full_width(name):
 
 @pytest.mark.parametrize("change,item", [
     (dict(type="HybridTaskCascade"), "A7"), (dict(type="HTC"), "A7"),
-    (dict(type="GridRCNN"), "A7"), (dict(type="PointRend"), "A7"),
+    (dict(config="htc/htc_r50_fpn_1x_bonai.py"), "A7"),
+    (dict(sampler=dict(type="ScoreHLRSampler", num=512)), "A7"),
     (dict(sampler=dict(type="OHEMSampler", num=512)), "A7"),
     (dict(reg_decoded_bbox=True), "A7"),
     (dict(type="RetinaNet"), "A6"), (dict(type="FCOS"), "A6"),
     (dict(neck=[dict(type="FPN"), dict(type="PAFPN")]), "A7"),
-    (dict(config="grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_bonai.py"), "A7"),
+    (dict(extractor=dict(
+        type="GenericRoIExtractor", aggregation="sum",
+        roi_layer=dict(type="RoIAlign", output_size=7, sampling_ratio=2),
+        out_channels=16, featmap_strides=[4, 8, 16, 32],
+        pre_cfg=dict(type="ConvModule", in_channels=16, out_channels=16,
+                     kernel_size=5, padding=2, inplace=False))), "A7"),
     (dict(loss_bbox=dict(type="GIoULoss")), "A7"),
-    (dict(config="point_rend/point_rend_r50_fpn_2x_bonai.py"), "A7")],
+    (dict(config="dcn/mask_rcnn_r50_fpn_dconv_c3-c5_1x_bonai.py"), "A6")],
     ids=lambda x: x if isinstance(x, str) else "-".join(
         str(v.get("type", v)) if isinstance(v, dict)
         else "+".join(c["type"] for c in v) if isinstance(v, list)
         else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
-    """A detector, head, sampler, loss or neck chain the port does not
-    build, or a whole config (Grid R-CNN's, PointRend's)."""
+    """A detector, head, sampler, loss, neck chain or GRoIE extractor the
+    port does not build, or a whole config (HTC's, the DCN Mask R-CNN's)."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     change = dict(change)
@@ -127,7 +133,10 @@ def test_unported_types_name_their_item(change, item):
         cfg.train_cfg.rcnn.sampler = change.pop("sampler")
     if "neck" in change:
         cfg.model.neck = change.pop("neck")
-    cfg.model.roi_head.bbox_head.update(change)
+    if "extractor" in change:
+        cfg.model.roi_head.bbox_roi_extractor = change.pop("extractor")
+    if change:
+        cfg.model.roi_head.bbox_head.update(change)
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md item {item}"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_common  # noqa: F401  (one torch thread a process)
+
 from bonai_tpu.ops.pallas_roi_align_block import (_block_plan,
                                                   pallas_block_roi_align,
                                                   prepare_block_levels)

@@ -3,10 +3,19 @@ LOFT-FOA config (or another two-stage BONAI config) cut to tiny widths,
 the JAX model with seeded random variables, and the port's model carrying
 the same weights through ``state_dict_from_jax``."""
 
+import os
 import os.path as osp
 
 import numpy as np
 import torch
+
+# One intra-op thread in each test process and in the processes the tests
+# start: the tier-1 command runs six pytest workers at once, and PyTorch's
+# OpenMP threads, one per core in every worker, busy-wait against each
+# other (on an 8-core host, six concurrent runs of a six-step tiny
+# training took 172 s each, against 2.5 s with one thread each).
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFIG = osp.join(ROOT, "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
@@ -25,7 +34,9 @@ A7_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
     "double_head": "double_heads/dh_faster_rcnn_r50_fpn_1x_bonai.py",
     "mask_scoring": "ms_rcnn/ms_rcnn_r50_fpn_1x_bonai.py",
     "rpn": "rpn/rpn_r50_fpn_1x_bonai.py",
-    "fast_rcnn": "fast_rcnn/fast_rcnn_r50_fpn_1x_bonai.py"}.items()}
+    "fast_rcnn": "fast_rcnn/fast_rcnn_r50_fpn_1x_bonai.py",
+    "grid": "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_bonai.py",
+    "point_rend": "point_rend/point_rend_r50_fpn_2x_bonai.py"}.items()}
 
 
 HRNET_CONFIG = osp.join(ROOT, "configs/hrnet/loft_foa_hrnetv2p_w32_2x_bonai.py")
@@ -52,7 +63,9 @@ def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
     its heads that are there, a cascade's every stage) at the
     ``_tiny_loft_model`` widths (``__graft_entry__.py``): ResNet-18 at
     base 8, 16-channel FPN; or an HRNet config's backbone at
-    ``TINY_HRNET_EXTRA`` and a 16-channel HRFPN."""
+    ``TINY_HRNET_EXTRA`` and a 16-channel HRFPN.  Grid R-CNN's grid head
+    takes two convs at 8 channels a point, PointRend's coarse head one conv
+    and 32-channel FCs, its point head 16 channels."""
     from bonai_tpu_torch import Config
     cfg = Config.fromfile(config)
     m = cfg.model
@@ -68,7 +81,7 @@ def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
         m.rpn_head.update(in_channels=16, feat_channels=16)
     rh = m.get("roi_head") or {}                # the RPN has none
     for k in ("bbox_roi_extractor", "mask_roi_extractor",
-              "offset_roi_extractor"):
+              "offset_roi_extractor", "grid_roi_extractor"):
         if rh.get(k) is not None:
             rh[k].out_channels = 16
     for head in _each(rh.get("bbox_head", [])):
@@ -78,6 +91,13 @@ def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
     if rh.get("mask_head") is not None:
         rh.mask_head.update(num_convs=1, in_channels=16,
                             conv_out_channels=16)
+        if rh.mask_head.get("type") == "CoarseMaskHead":
+            rh.mask_head.fc_out_channels = 32
+    if rh.get("grid_head") is not None:
+        rh.grid_head.update(in_channels=16, point_feat_channels=8,
+                            num_convs=2)
+    if rh.get("point_head") is not None:
+        rh.point_head.update(in_channels=16, fc_channels=16)
     if rh.get("mask_iou_head") is not None:
         rh.mask_iou_head.update(num_convs=2, in_channels=16,
                                 conv_out_channels=16, fc_out_channels=32)
@@ -147,7 +167,8 @@ def jax_model(cfg, seed=0, **build_kw):
     for name in params:                 # bbox_head, or a cascade's stages
         if not name.startswith("bbox_head"):
             continue
-        params[name]["fc_reg"]["kernel"] *= 0.1
+        if "fc_reg" in params[name]:           # not Grid R-CNN's
+            params[name]["fc_reg"]["kernel"] *= 0.1
         # foreground logit = -background logit: softmax scores spread over
         # (0, 1) instead of collapsing onto one class
         fc_cls = params[name]["fc_cls"]
@@ -220,17 +241,25 @@ def jax_uniforms(key, n, streams=2):
 def jax_forward_train_draws(jm, variables, key, b, cascade=False,
                             unsplit=False):
     """A draw source for the port's ``forward_train`` that hands out the
-    uniforms the JAX ``forward_train`` draws under ``rngs={"sampling":
-    key}``: the RPN's per image, then the R-CNN's per image, from the
-    splits of the module's ``sampling`` stream (as many streams as the
-    port's sampler asks for).  With ``cascade``, the R-CNN's are stage
-    ``i``'s at call ``i + 1``: the splits of the R-CNN key folded with
-    ``i`` (``bonai_tpu/models/detectors/cascade_rcnn.py``).  With
-    ``unsplit`` (the RPN-only detector and Fast R-CNN, which sample once),
-    the one call's are the splits of the stream itself."""
+    numbers the JAX ``forward_train`` draws under ``rngs={"sampling":
+    key}``.  ``draw(shape, device, n)``: the RPN's uniforms per image, then
+    the R-CNN's per image, from the splits of the module's first
+    ``sampling`` key (as many streams as the port's sampler asks for).
+    With ``cascade``, the R-CNN's are stage ``i``'s at call ``i + 1``: the
+    splits of the R-CNN key folded with ``i``
+    (``bonai_tpu/models/detectors/cascade_rcnn.py``).  With ``unsplit``
+    (the RPN-only detector and Fast R-CNN, which sample once), the one
+    call's are the splits of the key itself.
+
+    The module's second ``sampling`` key gives ``draw.offsets(shape,
+    device, amplitude)``, Grid R-CNN's jitter: split per image, each
+    image's ``jax.random.uniform(k, shape[1:], -amplitude, amplitude)``;
+    and ``draw.points(shapes, device)``, PointRend's points: the uniforms
+    of the key's two splits (``r1``, ``r2``) of the two shapes."""
     import jax
-    rng = jm.apply(variables, method=lambda m: m.make_rng("sampling"),
-                   rngs={"sampling": key})
+    rng, second = jm.apply(
+        variables, rngs={"sampling": key},
+        method=lambda m: (m.make_rng("sampling"), m.make_rng("sampling")))
     rpn, rcnn = jax.random.split(rng)
     keys = iter([rng] if unsplit else [rpn] + (
         [jax.random.fold_in(rcnn, i) for i in range(8)] if cascade
@@ -241,6 +270,17 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
                      for k in jax.random.split(next(keys), b)]
         return tuple(torch.from_numpy(np.stack(u)).to(device)
                      for u in zip(*per_image))
+
+    def offsets(shape, device, amplitude):
+        return torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
+            k, shape[1:], minval=-amplitude, maxval=amplitude))
+            for k in jax.random.split(second, shape[0])])).to(device)
+
+    def points(shapes, device):
+        return tuple(torch.from_numpy(np.array(jax.random.uniform(k, s)))
+                     .to(device)
+                     for k, s in zip(jax.random.split(second), shapes))
+    draw.offsets, draw.points = offsets, points
     return draw
 
 
