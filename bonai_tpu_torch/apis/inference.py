@@ -17,7 +17,7 @@ import torch
 from ..config import Config
 from ..datasets.pipelines import build_pipeline
 from ..models.builder import build_detector
-from ..utils.weights import load_mmdet_checkpoint
+from ..utils.weights import load_mmdet_checkpoint, mmdet_state_dict
 from .test import results_to_host
 
 
@@ -48,9 +48,8 @@ def init_detector(config, checkpoint=None, device=None, dtype=None, seed=0):
                            config.get("test_cfg"))
     model.init_weights(torch.Generator().manual_seed(seed))
     if checkpoint:
-        sd = load_mmdet_checkpoint(checkpoint)
-        model.load_state_dict({k: v for k, v in sd.items()
-                               if not k.endswith("num_batches_tracked")})
+        model.load_state_dict(mmdet_state_dict(
+            model, load_mmdet_checkpoint(checkpoint)))
     model.to(device=device, dtype=dtype or torch.bfloat16)
     model.to(memory_format=torch.channels_last).eval()
     model.cfg = config
@@ -93,7 +92,7 @@ def inference_detector(model, imgs, proposals=None):
     single = isinstance(imgs, np.ndarray)
     img, img_shape, scale, metas = prepare_batch(
         model, [imgs] if single else imgs)
-    if model.has_rpn:
+    if not model.takes_proposals:
         out = model.simple_test(img, img_shape, scale)
     else:
         if proposals is None:

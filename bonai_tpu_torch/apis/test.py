@@ -95,7 +95,7 @@ def run_inference(model, loader, max_images=None, with_offset=True,
         for batch, metas in loader:
             img, shp, sf = (torch.as_tensor(batch[k]).to(device)
                             for k in ("image", "img_shape", "scale_factor"))
-            if model.has_rpn:
+            if not model.takes_proposals:
                 out = model.simple_test(img, shp, sf)
             elif "proposals" not in batch:
                 raise ValueError(

@@ -64,7 +64,7 @@ from ..engine import (build_lr_schedule, build_optimizer, latest_checkpoint,
                       load_checkpoint, make_train_step, provenance_meta,
                       save_checkpoint)
 from ..models.builder import build_detector
-from ..utils.weights import load_mmdet_checkpoint
+from ..utils.weights import load_mmdet_checkpoint, mmdet_state_dict
 from .inference import resolve_device
 
 logger = logging.getLogger("bonai_tpu_torch")
@@ -398,9 +398,8 @@ def _train(cfg, batches, work_dir, seed, max_steps, device, resume_from,
                                   rank)
         logger.info("resumed from %s at step %d", resume_from, step)
     elif load_from:
-        model.load_state_dict({k: v for k, v in
-                               load_mmdet_checkpoint(load_from).items()
-                               if not k.endswith("num_batches_tracked")})
+        model.load_state_dict(mmdet_state_dict(
+            model, load_mmdet_checkpoint(load_from)))
         logger.info("loaded weights from %s", load_from)
 
     draw = generator_draws(generator)

@@ -1,5 +1,5 @@
-"""Max-IoU assignment on padded, batched boxes (counterpart of
-``bonai_tpu/core/assigners.py::max_iou_assign``).
+"""Max-IoU and ATSS assignment on padded, batched boxes (counterparts of
+``bonai_tpu/core/assigners.py::max_iou_assign`` and ``atss_assign``).
 
 GT boxes come padded to a fixed count with a validity mask; every leading
 dimension is a batch dimension.  The low-quality match compares IoUs for
@@ -49,3 +49,59 @@ def max_iou_assign(boxes, gt_bboxes, gt_valid, pos_iou_thr, neg_iou_thr,
         max_overlaps = torch.where(box_valid, max_overlaps,
                                    max_overlaps.new_tensor(-1.0))
     return assigned, max_overlaps
+
+
+def atss_assign(anchors, num_level_anchors, gt_bboxes, gt_valid, topk=9):
+    """Adaptive Training Sample Selection of a batch.
+
+    Per GT and pyramid level the ``topk`` anchors whose centres lie
+    nearest the GT's centre are candidates (exact ties to the lower
+    anchor index, as ``jax.lax.top_k`` breaks them: one stable sort); a
+    GT's IoU threshold is the mean plus the standard deviation (``ddof =
+    1``) of its candidates' IoUs; a candidate at or above it whose centre
+    lies inside the GT (by more than 0.01 px) is positive; an anchor
+    positive for several GTs takes the one of highest IoU (the first of
+    equals).
+
+    Args:
+      anchors: ``(A, 4)``, the levels' anchors concatenated;
+        ``num_level_anchors`` their counts a level.
+      gt_bboxes: ``(B, G, 4)`` padded GT boxes; ``gt_valid`` ``(B, G)``.
+
+    Returns ``assigned`` ``(B, A)`` int64 (0 negative, ``i + 1`` GT ``i``)
+    and the IoU of the assigned GT (0 for negatives).
+    """
+    overlaps = bbox_overlaps(anchors, gt_bboxes)               # (B, A, G)
+    valid = gt_valid[:, None, :]
+    overlaps = torch.where(valid, overlaps, overlaps.new_tensor(-1.0))
+    acx = (anchors[:, 0] + anchors[:, 2]) * 0.5
+    acy = (anchors[:, 1] + anchors[:, 3]) * 0.5
+    gcx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+    gcy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+    dist = torch.sqrt((acx[:, None] - gcx[:, None, :]) ** 2
+                      + (acy[:, None] - gcy[:, None, :]) ** 2)
+    cand = torch.zeros_like(overlaps, dtype=torch.bool)
+    start = 0
+    for n in num_level_anchors:
+        k = min(int(topk), int(n))
+        d = dist[:, start:start + n].transpose(1, 2)           # (B, G, n)
+        idx = torch.sort(d, dim=-1, stable=True).indices[..., :k]
+        cand[:, start:start + n] = torch.zeros_like(d, dtype=torch.bool) \
+            .scatter_(2, idx, True).transpose(1, 2)
+        start += n
+    cand = cand & valid
+    zero = overlaps.new_tensor(0.0)
+    k_eff = cand.sum(dim=1).float().clamp(min=1.0)             # (B, G)
+    mean = torch.where(cand, overlaps, zero).sum(dim=1) / k_eff
+    var = torch.where(cand, (overlaps - mean[:, None]) ** 2, zero).sum(
+        dim=1) / (k_eff - 1.0).clamp(min=1.0)
+    thr = mean + torch.sqrt(var)
+    x1, y1, x2, y2 = (gt_bboxes[:, None, :, i] for i in range(4))
+    inside = torch.minimum(
+        torch.minimum(acx[:, None] - x1, x2 - acx[:, None]),
+        torch.minimum(acy[:, None] - y1, y2 - acy[:, None])) > 0.01
+    is_pos = cand & (overlaps >= thr[:, None]) & inside
+    ov = torch.where(is_pos, overlaps, overlaps.new_tensor(-1e8))
+    max_ov, arg = ov.max(dim=-1)                # the first maximum
+    assigned = torch.where(max_ov > -1e7, arg + 1, 0)
+    return assigned, torch.where(assigned > 0, max_ov, zero)

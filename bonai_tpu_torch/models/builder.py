@@ -1,7 +1,9 @@
 """Detector builder (counterpart of ``bonai_tpu/models/builder.py``) for
 the detector types the port implements so far, mapped as the JAX package
 maps them (``MaskScoringRCNN`` is a ``MaskRCNN`` with a
-``mask_iou_head``)."""
+``mask_iou_head``).  A config with a ``bbox_head`` and neither an
+``rpn_head`` nor a ``roi_head`` is a single-stage layout, as the JAX
+builder reads it."""
 
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from .detectors.cascade_rcnn import CascadeRCNN
 from .detectors.grid_rcnn import GridRCNN
 from .detectors.loft import LOFT
 from .detectors.point_rend import PointRend
+from .detectors.single_stage import (ATSS, FCOS, GFL, FreeAnchor, RetinaNet,
+                                     SingleStageDetector)
 from .detectors.two_stage import (RPN, DynamicRCNN, FastRCNN, FasterRCNN,
                                   MaskRCNN, TwoStageDetector)
 
@@ -20,12 +24,13 @@ for _cls in (LOFT, FasterRCNN, MaskRCNN, TwoStageDetector, CascadeRCNN,
              DynamicRCNN, RPN, FastRCNN, GridRCNN, PointRend):
     DETECTORS.register_module()(_cls)
 DETECTORS.register_module(name="MaskScoringRCNN")(MaskRCNN)
+for _cls in (RetinaNet, FreeAnchor, ATSS, GFL, FCOS):
+    DETECTORS.register_module()(_cls)
 
-# the JAX package's other detector types, by the ROADMAP.md item that ports
-# them
-_SINGLE_STAGE = ("RetinaNet", "FCOS", "ATSS", "FSAF", "GFL", "FOVEA",
-                 "FoveaBox", "FreeAnchor", "RepPointsDetector", "SSD",
-                 "CornerNet", "NASFCOS")
+# the JAX package's other single-stage types, which ROADMAP.md item A6
+# ports (its other detector types are item A7's)
+_UNPORTED_SINGLE_STAGE = ("FSAF", "FOVEA", "FoveaBox", "RepPointsDetector",
+                          "SSD", "CornerNet", "NASFCOS")
 
 
 def _plain(obj):
@@ -43,29 +48,49 @@ def build_detector(cfg, train_cfg=None, test_cfg=None, roi_align_impl=None):
     naming the ROADMAP.md item that ports it.  ``train_cfg`` is what
     ``forward_train`` reads (the serving path needs only ``test_cfg``).
 
-    The RoIAlign route (``gather``, ``blocked``, ``pallas`` or ``block``)
-    is, first found: the ``BONAI_ROI_IMPL`` environment variable, the
+    A single-stage type given a two-stage layout, or the reverse, raises
+    ``ValueError``.  The RoIAlign route (``gather``, ``blocked``,
+    ``pallas`` or ``block``; two-stage detectors only, as in the JAX
+    package) is, first found: the ``BONAI_ROI_IMPL`` environment variable, the
     ``roi_align_impl`` argument, ``cfg['roi_align_impl']`` (the JAX
     package's precedence)."""
     cfg = _plain(dict(cfg))
     det_type = cfg.pop("type")
     if det_type not in DETECTORS:
-        item = "A6" if det_type in _SINGLE_STAGE else "A7"
+        item = "A6" if det_type in _UNPORTED_SINGLE_STAGE else "A7"
         raise NotImplementedError(
             f"detector type {det_type!r} is not ported to bonai_tpu_torch "
             f"yet (ROADMAP.md item {item}; ported: "
             f"{sorted(DETECTORS.module_dict)})")
+    train_cfg = _plain(dict(train_cfg)) if train_cfg else None
+    test_cfg = _plain(dict(test_cfg)) if test_cfg else None
+    two_stage_layout = cfg.get("rpn_head") is not None \
+        or cfg.get("roi_head") is not None
+    cls = DETECTORS.get(det_type)
+    if issubclass(cls, SingleStageDetector):
+        if two_stage_layout or cfg.get("bbox_head") is None:
+            raise ValueError(
+                f"{det_type} is a single-stage detector: its config needs a "
+                f"bbox_head and no rpn_head or roi_head")
+        return cls(
+            backbone=cfg["backbone"], neck=cfg["neck"],
+            bbox_head=cfg["bbox_head"], train_cfg=train_cfg,
+            test_cfg=test_cfg)
+    if not two_stage_layout:
+        raise ValueError(
+            f"{det_type} is a two-stage detector: its config needs an "
+            f"rpn_head or a roi_head (a lone bbox_head is a single-stage "
+            f"layout)")
     # the RPN has no RoI head and Fast R-CNN no RPN; another detector
-    # without either is a C4 or single-stage layout
+    # without either is a C4 layout
     if (cfg.get("rpn_head") is None and det_type != "FastRCNN") or (
             cfg.get("roi_head") is None and det_type != "RPN"):
         raise NotImplementedError(
             "detectors without an RPN or RoI head are not ported yet "
             "(ROADMAP.md item A7)")
-    return DETECTORS.get(det_type)(
+    return cls(
         backbone=cfg["backbone"], neck=cfg["neck"],
         rpn_head=cfg.get("rpn_head"), roi_head=cfg.get("roi_head"),
-        train_cfg=_plain(dict(train_cfg)) if train_cfg else None,
-        test_cfg=_plain(dict(test_cfg)) if test_cfg else None,
+        train_cfg=train_cfg, test_cfg=test_cfg,
         roi_align_impl=(os.environ.get("BONAI_ROI_IMPL") or roi_align_impl
                         or cfg.get("roi_align_impl")))

@@ -1,0 +1,323 @@
+"""The dense single-stage detectors: RetinaNet (with GHM-C/GHM-R losses or
+PISA), FreeAnchor, ATSS, GFL and FCOS (counterparts of the classes of
+``bonai_tpu/models/detectors/single_stage.py``).
+
+Each is a ResNet + FPN trunk and one dense head over the FPN levels, with
+the port's detector contract: ``forward_train(batch, draw)`` (the batch
+contract of the two-stage detectors; none of these samples, so ``draw`` is
+never called), ``simple_test(img, img_shape, scale_factor)`` with the same
+padded output dict, and mmdet v2.3 keys (``backbone``, ``neck``,
+``bbox_head``).  The options the JAX detectors read are ported; others
+raise, naming the ROADMAP.md item that ports them: Guided Anchoring's
+``GARetinaHead``, ``RetinaSepBNHead``, ``LegacyAnchorGenerator``, other
+losses, and FCOS's ``dcn_on_last_conv``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...core.anchors import AnchorGenerator
+from ..dense_heads.atss_head import ATSSHead, atss_bboxes, atss_loss
+from ..dense_heads.fcos_head import (INF, FCOSHead, fcos_bboxes, fcos_loss,
+                                     fcos_points)
+from ..dense_heads.free_anchor_head import free_anchor_loss
+from ..dense_heads.gfl_head import GFLHead, gfl_bboxes, gfl_loss
+from ..dense_heads.retina_head import RetinaHead, retina_bboxes, retina_loss
+from .two_stage import _build_backbone, _build_neck
+
+
+def _unported(what):
+    return NotImplementedError(f"{what} is not ported to bonai_tpu_torch "
+                               f"yet (ROADMAP.md item A6)")
+
+
+def _anchor_generator(bh, default):
+    """The head's ``AnchorGenerator`` (``default`` when the config gives
+    none); ``LegacyAnchorGenerator`` raises A6."""
+    ag = dict(bh.get("anchor_generator", default))
+    atype = ag.pop("type", "AnchorGenerator")
+    if atype != "AnchorGenerator":
+        raise _unported(atype)
+    return AnchorGenerator(**ag)
+
+
+RETINA_ANCHORS = dict(octave_base_scale=4, scales_per_octave=3,
+                      ratios=[0.5, 1.0, 2.0], strides=[8, 16, 32, 64, 128])
+ATSS_ANCHORS = dict(ratios=[1.0], octave_base_scale=8, scales_per_octave=1,
+                    strides=[8, 16, 32, 64, 128])
+
+
+class SingleStageDetector(nn.Module):
+    """ResNet + FPN and a dense head; subclasses set up the head and its
+    loss and decode."""
+
+    takes_proposals = False
+
+    def __init__(self, backbone, neck, bbox_head, train_cfg=None,
+                 test_cfg=None):
+        super().__init__()
+        self.train_cfg = dict(train_cfg or {})
+        self.test_cfg = dict(test_cfg or {})
+        self.backbone = _build_backbone(backbone)
+        self.neck = _build_neck(neck)
+        nk = dict(neck[0] if isinstance(neck, (list, tuple)) else neck)
+        self.num_levels = nk.get("num_outs", 5)
+        self._geometry = {}
+        bh = dict(bbox_head)
+        self.num_classes = bh.get("num_classes", 80)
+        lc = dict(bh.get("loss_cls", {}))
+        self.focal_gamma = lc.get("gamma", 2.0)
+        self.focal_alpha = lc.get("alpha", 0.25)
+        self._setup_head(bh)
+
+    def _setup_head(self, bh):
+        raise NotImplementedError
+
+    def init_weights(self, gen):
+        """Seeded random weights from the ``torch.Generator`` ``gen``."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "init_weights"):
+                m.init_weights(gen)
+
+    def extract_feat(self, img):
+        """``(B, H, W, 3)`` image -> tuple of NCHW FPN levels (channels-last
+        on the card; contiguous NCHW on the CPU, see
+        ``TwoStageDetector.extract_feat``)."""
+        x = img.permute(0, 3, 1, 2)
+        if not x.is_cuda:
+            x = x.contiguous()
+        return self.neck(self.backbone(x))
+
+    def _cached(self, feats, make):
+        """``make(sizes)``'s numpy arrays (anchors or points, per level) on
+        the levels' device, built once per feature-map size."""
+        sizes = tuple((int(f.shape[2]), int(f.shape[3])) for f in feats)
+        key = (sizes, feats[0].device)
+        if key not in self._geometry:
+            self._geometry[key] = [torch.from_numpy(a).to(feats[0].device)
+                                   for a in make(sizes)]
+        return self._geometry[key]
+
+    def _anchors(self, feats):
+        return self._cached(feats, self.anchor_generator.grid_anchors)
+
+    def forward(self, batch, draw=None):
+        """:meth:`forward_train`, for ``DistributedDataParallel``."""
+        return self.forward_train(batch, draw)
+
+    def forward_train(self, batch, draw=None):
+        """The loss dict of one padded batch (the two-stage detectors'
+        batch contract; ``gt_masks``/``gt_offsets`` are not read)."""
+        feats = self.extract_feat(batch["image"])
+        return self._loss(self.bbox_head(feats), feats, batch)
+
+    @torch.inference_mode()
+    def simple_test(self, img, img_shape, scale_factor):
+        """Batched inference on ``(B, H, W, 3)`` normalised, padded images:
+        ``det_bboxes`` ``(B, P, 4)`` in original-image pixels,
+        ``det_scores``, ``det_labels``, ``det_valid``."""
+        dtype = next(self.parameters()).dtype
+        feats = self.extract_feat(img.to(dtype))
+        boxes, scores, labels, valid = self._decode(
+            self.bbox_head(feats), feats, img_shape)
+        return {"det_bboxes": boxes / scale_factor.float()[:, None, None],
+                "det_scores": scores, "det_labels": labels,
+                "det_valid": valid}
+
+
+class RetinaNet(SingleStageDetector):
+    """RetinaNet: focal + L1 losses over all anchors, GHM-C/GHM-R losses
+    in their place (``configs/ghm``), and PISA's ISR-P and CARL with
+    ``train_cfg.isr``/``carl`` (``configs/pisa``)."""
+
+    def _setup_head(self, bh):
+        htype = bh.get("type", "RetinaHead")
+        if htype != "RetinaHead":       # GARetinaHead, RetinaSepBNHead
+            raise _unported(htype)
+        self.anchor_generator = _anchor_generator(bh, RETINA_ANCHORS)
+        self.bbox_head = RetinaHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
+            len(self.anchor_generator.base_anchors[0]))
+        # the JAX detector computes L1 for an L1Loss or a SmoothL1Loss
+        # config (ROADMAP.md queue C)
+        lc = dict(bh.get("loss_cls", {}))
+        lb = dict(bh.get("loss_bbox", {}))
+        if lc.get("type", "FocalLoss") not in ("FocalLoss", "GHMC"):
+            raise _unported(f"loss_cls {lc['type']}")
+        if lb.get("type", "L1Loss") not in ("L1Loss", "SmoothL1Loss",
+                                            "GHMR"):
+            raise _unported(f"loss_bbox {lb['type']}")
+        self.loss_cls_cfg = lc if lc.get("type") == "GHMC" else None
+        self.loss_bbox_cfg = lb if lb.get("type") == "GHMR" else None
+
+    def _loss(self, outs, feats, batch):
+        pisa = {k: self.train_cfg[k] for k in ("isr", "carl")
+                if self.train_cfg.get(k)} or None
+        return retina_loss(*outs, torch.cat(self._anchors(feats)),
+                           batch["gt_bboxes"], batch["gt_valid"],
+                           batch["gt_labels"], self.num_classes,
+                           self.train_cfg, gamma=self.focal_gamma,
+                           alpha=self.focal_alpha,
+                           loss_cls_cfg=self.loss_cls_cfg,
+                           loss_bbox_cfg=self.loss_bbox_cfg, pisa_cfg=pisa)
+
+    def _decode(self, outs, feats, img_shape):
+        return retina_bboxes(*outs, self._anchors(feats), img_shape,
+                             self.num_classes, self.test_cfg)
+
+
+class FreeAnchor(SingleStageDetector):
+    """FreeAnchor: RetinaNet's head and anchors with the learning-to-match
+    loss."""
+
+    def _setup_head(self, bh):
+        self.anchor_generator = _anchor_generator(bh, RETINA_ANCHORS)
+        self.bbox_head = RetinaHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
+            len(self.anchor_generator.base_anchors[0]))
+        bc = dict(bh.get("bbox_coder", {}))
+        lb = dict(bh.get("loss_bbox", {}))
+        self.loss_kw = dict(
+            target_means=tuple(bc.get("target_means", (0.,) * 4)),
+            target_stds=tuple(bc.get("target_stds", (1.,) * 4)),
+            pre_anchor_topk=bh.get("pre_anchor_topk", 50),
+            bbox_thr=bh.get("bbox_thr", 0.6), gamma=bh.get("gamma", 2.0),
+            alpha=bh.get("alpha", 0.5), bbox_beta=lb.get("beta", 0.11),
+            loss_bbox_weight=lb.get("loss_weight", 0.75))
+
+    def _loss(self, outs, feats, batch):
+        return free_anchor_loss(*outs, torch.cat(self._anchors(feats)),
+                                batch["gt_bboxes"], batch["gt_valid"],
+                                batch["gt_labels"], self.num_classes,
+                                **self.loss_kw)
+
+    def _decode(self, outs, feats, img_shape):
+        cfg = dict(self.test_cfg)
+        cfg.setdefault("bbox_std", self.loss_kw["target_stds"])
+        return retina_bboxes(*outs, self._anchors(feats), img_shape,
+                             self.num_classes, cfg)
+
+
+class ATSS(SingleStageDetector):
+    """ATSS: GN towers, deltas on one anchor a cell, centerness, adaptive
+    sample selection."""
+
+    def _setup_head(self, bh):
+        self.anchor_generator = _anchor_generator(bh, ATSS_ANCHORS)
+        self.bbox_head = ATSSHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
+            self.num_levels)
+        bc = dict(bh.get("bbox_coder", {}))
+        self.coder = (tuple(bc.get("target_means", (0.,) * 4)),
+                      tuple(bc.get("target_stds", (0.1, 0.1, 0.2, 0.2))))
+        self.topk = dict(self.train_cfg.get("assigner", {})).get("topk", 9)
+        self.loss_bbox_weight = dict(bh.get("loss_bbox", {})).get(
+            "loss_weight", 2.0)
+
+    def _loss(self, outs, feats, batch):
+        anchors = self._anchors(feats)
+        return atss_loss(*outs, torch.cat(anchors),
+                         [len(a) for a in anchors], batch["gt_bboxes"],
+                         batch["gt_valid"], batch["gt_labels"],
+                         self.num_classes, topk=self.topk,
+                         target_means=self.coder[0],
+                         target_stds=self.coder[1], gamma=self.focal_gamma,
+                         alpha=self.focal_alpha,
+                         loss_bbox_weight=self.loss_bbox_weight)
+
+    def _decode(self, outs, feats, img_shape):
+        return atss_bboxes(*outs, self._anchors(feats), img_shape,
+                           self.num_classes, self.test_cfg, *self.coder)
+
+
+class GFL(SingleStageDetector):
+    """GFL: ATSS's towers and assignment, side distributions, QFL, GIoU
+    and DFL."""
+
+    def _setup_head(self, bh):
+        self.anchor_generator = _anchor_generator(bh, ATSS_ANCHORS)
+        self.strides = [s[0] for s in self.anchor_generator.strides]
+        self.reg_max = bh.get("reg_max", 16)
+        self.bbox_head = GFLHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
+            self.reg_max, self.num_levels)
+        weight = {k: dict(bh.get(k, {})).get("loss_weight", w)
+                  for k, w in (("loss_cls", 1.0), ("loss_bbox", 2.0),
+                               ("loss_dfl", 0.25))}
+        self.loss_kw = dict(
+            reg_max=self.reg_max,
+            topk=dict(self.train_cfg.get("assigner", {})).get("topk", 9),
+            qfl_beta=dict(bh.get("loss_cls", {})).get("beta", 2.0),
+            loss_cls_weight=weight["loss_cls"],
+            loss_bbox_weight=weight["loss_bbox"],
+            loss_dfl_weight=weight["loss_dfl"])
+
+    def _loss(self, outs, feats, batch):
+        anchors = self._anchors(feats)
+        strides = torch.cat([torch.full((len(a),), float(s),
+                                        device=a.device)
+                             for a, s in zip(anchors, self.strides)])
+        return gfl_loss(*outs, torch.cat(anchors), strides,
+                        [len(a) for a in anchors], batch["gt_bboxes"],
+                        batch["gt_valid"], batch["gt_labels"],
+                        self.num_classes, **self.loss_kw)
+
+    def _decode(self, outs, feats, img_shape):
+        return gfl_bboxes(*outs, self._anchors(feats), self.strides,
+                          img_shape, self.num_classes, self.test_cfg,
+                          reg_max=self.reg_max)
+
+
+class FCOS(SingleStageDetector):
+    """FCOS: points instead of anchors, with its centre-sampling,
+    ``norm_on_bbox``, ``centerness_on_reg`` and GIoU options."""
+
+    def _setup_head(self, bh):
+        if bh.get("dcn_on_last_conv", False):
+            raise _unported("FCOS dcn_on_last_conv=True (deformable convs)")
+        self.strides = tuple(bh.get("strides", (8, 16, 32, 64, 128)))
+        self.regress_ranges = tuple(tuple(r) for r in bh.get(
+            "regress_ranges", ((-1, 64), (64, 128), (128, 256), (256, 512),
+                               (512, INF))))
+        self.center_sample_radius = float(bh.get(
+            "center_sample_radius", 1.5)) if bh.get("center_sampling",
+                                                    False) else 0.0
+        self.bbox_loss_mode = "giou" if dict(bh.get("loss_bbox", {})).get(
+            "type") == "GIoULoss" else "iou"
+        self.bbox_head = FCOSHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
+            self.num_levels, bh.get("centerness_on_reg", False),
+            bool(bh.get("norm_on_bbox", False)), self.strides,
+            use_gn="norm_cfg" not in bh or dict(
+                bh.get("norm_cfg") or {}).get("type") == "GN")
+
+    def _points(self, feats):
+        return self._cached(feats, lambda sizes: fcos_points(sizes,
+                                                             self.strides))
+
+    def _loss(self, outs, feats, batch):
+        points = self._points(feats)
+        ranges = torch.cat([torch.tensor(r, dtype=torch.float32,
+                                         device=p.device).expand(len(p), 2)
+                            for p, r in zip(points, self.regress_ranges)])
+        strides = torch.cat([torch.full((len(p),), float(s),
+                                        device=p.device)
+                             for p, s in zip(points, self.strides)])
+        return fcos_loss(*outs, torch.cat(points), ranges,
+                         batch["gt_bboxes"], batch["gt_valid"],
+                         batch["gt_labels"], self.num_classes,
+                         gamma=self.focal_gamma, alpha=self.focal_alpha,
+                         strides=strides,
+                         center_sample_radius=self.center_sample_radius,
+                         bbox_loss_mode=self.bbox_loss_mode)
+
+    def _decode(self, outs, feats, img_shape):
+        return fcos_bboxes(*outs, self._points(feats), img_shape,
+                           self.num_classes, self.test_cfg)

@@ -219,7 +219,8 @@ def _build_neck(cfg):
     _require_type(cfg, "FPN", "A6")
     return FPN(**_kwargs(cfg, "neck", (
         "in_channels", "out_channels", "num_outs", "start_level",
-        "add_extra_convs"), "A6"))
+        "end_level", "add_extra_convs", "extra_convs_on_inputs",
+        "relu_before_extra_convs"), "A6"))
 
 
 def _refuse_roi_keys(cfg, cascade=False):
@@ -283,6 +284,12 @@ class TwoStageDetector(nn.Module):
     box head and an optional mask head."""
 
     has_rpn = True          # Fast R-CNN: proposals come with the batch
+
+    @property
+    def takes_proposals(self):
+        """Whether ``simple_test`` takes the proposals as inputs (Fast
+        R-CNN's)."""
+        return not self.has_rpn
 
     def __init__(self, backbone, neck, rpn_head, roi_head, train_cfg=None,
                  test_cfg=None, roi_align_impl=None):

@@ -4,8 +4,9 @@ Runs ``simple_test`` of a config (``--config``: the LOFT-FOA R50-FPN
 config by default, or another detector the port builds, such as the Mask,
 Cascade Mask, Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI
 baselines, Grid R-CNN, PointRend, the RPN, Fast R-CNN (on 2000 synthetic
-proposals an image, ``profile_train.synthetic_proposals``) or LOFT-FOA on
-HRNet-W32 + HRFPN;
+proposals an image, ``profile_train.synthetic_proposals``), LOFT-FOA on
+HRNet-W32 + HRFPN, or a dense single-stage detector: RetinaNet, its GHM
+and PISA configs, FreeAnchor, ATSS, GFL, FCOS;
 1024^2, B=2, bfloat16,
 seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
 loaded as the test CLI loads it) and prints
@@ -18,7 +19,10 @@ loaded as the test CLI loads it) and prints
   ``GenericRoIExtractor`` (PointRend's mask branch), each RoI head (a
   cascade's stage by stage), Grid R-CNN's vote, PointRend's uncertain
   cells and point features, the R-CNN multi-class NMS (soft-NMS in the
-  LOFT configs), and the rest;
+  LOFT configs), and the rest; for a dense single-stage detector the
+  backbone and the neck, the head (its towers and output convs over the
+  levels), the anchors or points, the decode (per-level top-k, boxes) and
+  the multi-class NMS;
 - from ``torch.profiler`` over one call: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled call, and
   the kernels that take the most time.
@@ -41,12 +45,27 @@ import torch
 
 from ..apis import init_detector, prepare_batch
 from ..config import Config
-from ..models.detectors import cascade_rcnn, grid_rcnn, point_rend, two_stage
+from ..models.dense_heads import retina_head
+from ..models.detectors import (cascade_rcnn, grid_rcnn, point_rend,
+                                single_stage, two_stage)
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 # the detector modules whose functions the stages patch
 DETECTOR_MODULES = (two_stage, cascade_rcnn, grid_rcnn, point_rend)
+# the dense detectors' decodes (in the detector module) and their NMS (in
+# the head module whose helper calls it)
+DENSE_DECODES = ("retina_bboxes", "atss_bboxes", "gfl_bboxes",
+                 "fcos_bboxes")
+
+
+def is_dense(model):
+    return isinstance(model, single_stage.SingleStageDetector)
+
+
+def geometry_attr(model):
+    """The dense detector's method that gives its anchors or points."""
+    return "_points" if isinstance(model, single_stage.FCOS) else "_anchors"
 
 
 def roi_heads(model):
@@ -66,11 +85,11 @@ def trunk(model):
             for k, m in (("backbone", model.backbone), ("neck", model.neck))}
 
 
-def patch_functions(names, totals):
-    """Time each function ``names`` keys in every detector module that
-    uses it; returns what :func:`restore_functions` puts back."""
+def patch_functions(names, totals, modules=DETECTOR_MODULES):
+    """Time each function ``names`` keys in every module of ``modules``
+    that uses it; returns what :func:`restore_functions` puts back."""
     saved = []
-    for mod in DETECTOR_MODULES:
+    for mod in modules:
         for k, name in names.items():
             if hasattr(mod, k):
                 fn = getattr(mod, k)
@@ -95,8 +114,50 @@ def _timed(name, fn, totals):
     return wrapper
 
 
+def _timed_calls(model, batch, reps):
+    """The wall ms of ``reps`` synchronised ``simple_test`` calls."""
+    wall = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.simple_test(*batch)
+        torch.cuda.synchronize()
+        wall += (time.perf_counter() - t0) * 1e3
+    return wall
+
+
+def dense_stage_times(model, batch, reps=3):
+    """:func:`stage_times` of a dense single-stage detector: the trunk,
+    the head, the anchors or points, the decode and the NMS."""
+    totals = collections.defaultdict(float)
+    geometry = geometry_attr(model)
+    setattr(model, geometry, _timed("anchors or points",
+                                    getattr(model, geometry), totals))
+    heads = {**trunk(model), "head (towers + outputs)": model.bbox_head}
+    for k, m in heads.items():
+        m.forward = _timed(k, m.forward, totals)
+    saved = patch_functions(dict.fromkeys(DENSE_DECODES, "decode+nms"),
+                            totals, (single_stage,))
+    saved += patch_functions({"multiclass_nms": "multiclass nms"}, totals,
+                             (retina_head,))
+    try:
+        wall = _timed_calls(model, batch, reps)
+    finally:
+        delattr(model, geometry)
+        for m in heads.values():
+            del m.forward
+        restore_functions(saved)
+    stages = {k: v / reps for k, v in totals.items()}
+    stages["decode (top-k, boxes)"] = stages.pop("decode+nms") \
+        - stages["multiclass nms"]
+    stages["other"] = wall / reps - sum(stages.values())
+    return stages, wall / reps
+
+
 def stage_times(model, batch, reps=3):
     """Mean over ``reps`` calls: ``{stage: ms}`` and the total ms a call."""
+    if is_dense(model):
+        return dense_stage_times(model, batch, reps)
     totals = collections.defaultdict(float)
     patched = {
         "_rpn_and_proposals": ("rpn+proposals", model._rpn_and_proposals),
@@ -117,13 +178,7 @@ def stage_times(model, batch, reps=3):
          "fine_grained_point_feats": "point features",
          "multiclass_nms": f"rcnn multiclass {nms}"}, totals)
     try:
-        wall = 0.0
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.simple_test(*batch)
-            torch.cuda.synchronize()
-            wall += (time.perf_counter() - t0) * 1e3
+        wall = _timed_calls(model, batch, reps)
     finally:
         for attr in patched:
             delattr(model, attr)
@@ -181,7 +236,7 @@ def main(argv=None):
     r = np.random.RandomState(0)
     imgs = [r.randint(0, 256, (1024, 1024, 3), np.uint8) for _ in range(2)]
     batch = prepare_batch(model, imgs)[:3]
-    if not model.has_rpn:
+    if model.takes_proposals:
         from .profile_train import synthetic_batch
         synth = synthetic_batch(proposals=2000)
         batch = (*batch, *(torch.as_tensor(synth[k]).cuda()
@@ -189,9 +244,10 @@ def main(argv=None):
     model.simple_test(*batch)                         # warm-up
     wall = wall_ms(model, batch)
     stages, staged = stage_times(model, batch)
-    print(f"{os.path.basename(args.config)}: "
-          f"simple_test 1024^2 B=2 bf16, roi_align_impl="
-          f"{model.roi_align_impl}, weights "
+    print(f"{os.path.basename(args.config)}: simple_test of two 1024^2 "
+          f"images at the test scale, {tuple(batch[0].shape[1:3])}, bf16, "
+          f"roi_align_impl="
+          f"{getattr(model, 'roi_align_impl', None)}, weights "
           f"{args.checkpoint or 'random (seed 0)'}: {wall:.1f} ms a call; stage "
           f"times (synchronised at each stage), {staged:.1f} ms a call:")
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):

@@ -3,7 +3,9 @@
 Builds a config (``--config``: the LOFT-FOA R50-FPN config by default, or
 another detector the port builds, such as the Mask, Cascade Mask,
 Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI baselines, Grid
-R-CNN, PointRend, the RPN, Fast R-CNN or LOFT-FOA on HRNet-W32 + HRFPN) for
+R-CNN, PointRend, the RPN, Fast R-CNN, LOFT-FOA on HRNet-W32 + HRFPN, or
+a dense single-stage detector: RetinaNet, its GHM and PISA configs,
+FreeAnchor, ATSS, GFL, FCOS) for
 training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
 config's SGD and schedule), takes a few steps on the synthetic padded
@@ -21,7 +23,11 @@ autocast, and prints
   stage), mask, grid and point targets, PointRend's training points and
   point features, the rest of the forward, clip
   + SGD, and what the step leaves after those (the backward, with the
-  RoIAlign backward B2 inside);
+  RoIAlign backward B2 inside); for a dense single-stage detector the
+  backbone and the neck, the head (towers and outputs), the anchors or
+  points, the targets (the assignment: max-IoU, ATSS or FCOS's; FreeAnchor
+  matches inside its loss), the loss, the rest of the forward, clip +
+  SGD and the backward;
 - from ``torch.profiler`` over one step: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled step, and
   the kernels that take the most time.
@@ -47,8 +53,16 @@ from ..apis.train import build_trainer
 from ..config import Config
 from ..core.samplers import generator_draws
 from ..engine import train_step as train_step_module
-from .profile_serve import (patch_functions, restore_functions, roi_heads,
-                            trunk)
+from ..models.dense_heads import atss_head, fcos_head, gfl_head, retina_head
+from ..models.detectors import single_stage
+from .profile_serve import (geometry_attr, is_dense, patch_functions,
+                            restore_functions, roi_heads, trunk)
+
+# the dense detectors' losses (in the detector module) and the target
+# functions they call (in the head modules)
+DENSE_LOSSES = ("retina_loss", "free_anchor_loss", "atss_loss", "gfl_loss",
+                "fcos_loss")
+DENSE_TARGETS = ("retina_targets", "atss_targets", "fcos_targets")
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
@@ -121,31 +135,47 @@ def step_ms(train_step, batch, draw, reps=5):
     return statistics.median(times)
 
 
+def _patch_stages(model, totals):
+    """Time the stages of ``model``'s step; returns the patched methods
+    and modules and what :func:`restore_functions` puts back."""
+    patched = {"forward_train": "forward"}
+    if is_dense(model):
+        patched[geometry_attr(model)] = "anchors or points"
+        heads = {**trunk(model), "head (towers + outputs)": model.bbox_head}
+        saved = patch_functions(dict.fromkeys(DENSE_LOSSES, "loss+targets"),
+                                totals, (single_stage,))
+        saved += patch_functions(dict.fromkeys(DENSE_TARGETS, "targets"),
+                                 totals, (retina_head, atss_head, gfl_head,
+                                          fcos_head))
+    else:
+        heads = {**trunk(model), **({"rpn_head": model.rpn_head}
+                                    if model.has_rpn else {}),
+                 **dict(roi_heads(model))}
+        saved = patch_functions(
+            {"rpn_proposals": "proposals (NMS)",
+             "rpn_loss": "rpn targets+loss",
+             "assign_and_sample_rcnn": "rcnn assign+sample",
+             "roi_align_block": "roi_align_block fwd (B1)",
+             "roi_align_fused": "roi_align_fused fwd (B1, strip rule)",
+             "roi_align_at_levels": "RoIAlign, plain (generic extractor)",
+             "mask_targets_from_instance_masks": "mask targets",
+             "grid_targets": "grid targets",
+             "uncertainty_points_train": "training points",
+             "fine_grained_point_feats": "point features",
+             "point_targets_from_instance_masks": "point targets"}, totals)
+    for attr, name in patched.items():
+        setattr(model, attr, _timed(name, getattr(model, attr), totals))
+    for name, m in heads.items():
+        m.forward = _timed(name, m.forward, totals)
+    return patched, heads, saved
+
+
 def stage_times(model, train_step, batch, draw, reps=3):
     """Mean over ``reps`` steps: ``{stage: ms}`` and the total ms a step.
     The backward is what the step's total leaves after the forward and
     the update."""
     totals = collections.defaultdict(float)
-    patched = {"forward_train": "forward"}
-    for attr, name in patched.items():
-        setattr(model, attr, _timed(name, getattr(model, attr), totals))
-    heads = {**trunk(model), **({"rpn_head": model.rpn_head}
-                                if model.has_rpn else {}),
-             **dict(roi_heads(model))}
-    for name, m in heads.items():
-        m.forward = _timed(name, m.forward, totals)
-    saved = patch_functions(
-        {"rpn_proposals": "proposals (NMS)",
-         "rpn_loss": "rpn targets+loss",
-         "assign_and_sample_rcnn": "rcnn assign+sample",
-         "roi_align_block": "roi_align_block fwd (B1)",
-         "roi_align_fused": "roi_align_fused fwd (B1, strip rule)",
-         "roi_align_at_levels": "RoIAlign, plain (generic extractor)",
-         "mask_targets_from_instance_masks": "mask targets",
-         "grid_targets": "grid targets",
-         "uncertainty_points_train": "training points",
-         "fine_grained_point_feats": "point features",
-         "point_targets_from_instance_masks": "point targets"}, totals)
+    patched, heads, saved = _patch_stages(model, totals)
     saved_update = train_step_module.apply_gradients
     train_step_module.apply_gradients = _timed("clip+sgd", saved_update,
                                                totals)
@@ -165,6 +195,9 @@ def stage_times(model, train_step, batch, draw, reps=3):
         restore_functions(saved)
         train_step_module.apply_gradients = saved_update
     stages = {k: v / reps for k, v in totals.items()}
+    if "loss+targets" in stages:
+        stages["loss"] = stages.pop("loss+targets") - stages.get("targets",
+                                                                 0.0)
     forward = stages.pop("forward")
     # the forward's total holds the stages timed inside it
     stages["forward, rest"] = forward - sum(
@@ -210,7 +243,7 @@ def main(argv=None):
                                                     torch.device("cuda"))
     draw = generator_draws(generator)
     batch = {k: torch.as_tensor(v).cuda() for k, v in synthetic_batch(
-        proposals=0 if model.has_rpn else 2000).items()}
+        proposals=2000 if model.takes_proposals else 0).items()}
     train_step(batch, 0, draw)                          # warm-up
     torch.cuda.reset_peak_memory_stats()
     wall = step_ms(train_step, batch, draw)
@@ -218,9 +251,9 @@ def main(argv=None):
     stages, staged = stage_times(model, train_step, batch, draw)
     print(f"{os.path.basename(args.config)}: "
           f"train step 1024^2 B=2 bf16 autocast, roi_align_impl="
-          f"{model.roi_align_impl}: {wall:.1f} ms (median of "
-          f"5), peak memory {peak:.2f} GiB; stage times (synchronised at "
-          f"each stage), {staged:.1f} ms a step:")
+          f"{getattr(model, 'roi_align_impl', None)}: {wall:.1f} ms "
+          f"(median of 5), peak memory {peak:.2f} GiB; stage times "
+          f"(synchronised at each stage), {staged:.1f} ms a step:")
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {name:28s} {ms:9.2f} ms  {100 * ms / staged:5.1f} %")
     kernels, rows = profile(train_step, batch, draw)

@@ -26,6 +26,17 @@ fcs.<i>,fc_mask_iou}``; an RPN-only model has no ``roi_head.*``, a Fast
 R-CNN no ``rpn_head.*``.  The JAX importer reads none of the BFP, the
 double head or the IoU head (ROADMAP.md queue C).
 
+The dense single-stage detectors (RetinaNet, FreeAnchor, ATSS, GFL,
+FCOS) have a ``bbox_head`` of mmdet's dense-head keys (``cls_convs.<i>.
+{conv,gn}``, ``reg_convs.<i>``, ``retina_{cls,reg}``, ``atss_{cls,reg,
+centerness}``, ``gfl_{cls,reg}``, ``fcos_{cls,reg,centerness}``,
+``scales.<l>.scale``) and no ``rpn_head``/``roi_head``; an FPN's extra
+convs (flax ``extra_<i>``) are mmdet's ``neck.fpn_convs.<n>`` after its
+output convs.  The JAX importer reads ``rpn_head.*`` unconditionally and
+raises ``KeyError`` on such a checkpoint (ROADMAP.md queue C).  The GN
+towers' convs keep the bias they have in the JAX package, which mmdet's
+convs before a norm lack: :func:`mmdet_state_dict` gives them a zero one.
+
 Grid R-CNN's box head has no ``fc_reg`` and its grid head goes to
 ``roi_head.grid_head.{convs.<i>.{conv,gn},forder_trans.<i>.<j>.{0,1},
 sorder_trans.<i>.<j>.{0,1},deconv1,norm1,deconv2}``, the per-point JAX
@@ -126,11 +137,14 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
     # has none, and reads as a plain FPN)
     chained = "neck_extra0" in params
     neck = "neck.0" if chained else "neck"
+    used = sum(name.startswith("lateral_") for name in params["neck"])
     for name, p in params["neck"].items():
         if name == "reduction":                         # HRFPN
             layer(f"{neck}.reduction_conv.conv", p)
         elif name.startswith("fpn_conv") and name[8:].isdigit():
             layer(f"{neck}.fpn_convs.{name[8:]}.conv", p)
+        elif name.startswith("extra_"):                 # FPN's extra convs
+            layer(f"{neck}.fpn_convs.{used + int(name[6:])}.conv", p)
         else:                                           # FPN
             kind, i = name.rsplit("_", 1)
             layer(f"{neck}.{kind}_convs.{i}.conv", p)
@@ -149,6 +163,9 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
     for name, bh in params.items():
         m = re.fullmatch(r"bbox_head(?:_(\d+))?", name)
         if not m:
+            continue
+        if name == "bbox_head" and DENSE_OUTPUTS.keys() & bh.keys():
+            _dense_head(bh, sd, layer)
             continue
         key = "roi_head.bbox_head" + ("" if m[1] is None else f".{m[1]}")
         if "fc_branch_0" in bh:                         # Double-Head
@@ -208,8 +225,38 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             layer("roi_head.offset_head.fc_offset", p, _fc)
         else:
             layer(f"roi_head.offset_head.fcs.{name[len('fc'):]}", p, _fc)
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    # np.array, not np.ascontiguousarray: the latter makes the scales'
+    # 0-d arrays 1-d
+    return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+# the dense heads' output convs: flax name -> mmdet name
+DENSE_OUTPUTS = {"retina_cls": "retina_cls", "retina_reg": "retina_reg",
+                 "atss_cls": "atss_cls", "atss_reg": "atss_reg",
+                 "atss_centerness": "atss_centerness", "gfl_cls": "gfl_cls",
+                 "gfl_reg": "gfl_reg", "conv_cls": "fcos_cls",
+                 "conv_reg": "fcos_reg", "conv_centerness": "fcos_centerness"}
+
+
+def _dense_head(bh, sd, layer):
+    """A single-stage detector's dense head: ``cls|reg_conv<i>`` and
+    ``cls|reg_gn<i>`` -> ``bbox_head.cls|reg_convs.<i>.conv|gn``, the
+    output convs by :data:`DENSE_OUTPUTS`, ``scale<l>`` ->
+    ``bbox_head.scales.<l>.scale``."""
+    for name, p in bh.items():
+        tower = re.fullmatch(r"(cls|reg)_(conv|gn)(\d+)", name)
+        scale = re.fullmatch(r"scale(\d+)", name)
+        if tower and tower[2] == "conv":
+            layer(f"bbox_head.{tower[1]}_convs.{tower[3]}.conv", p)
+        elif tower:
+            key = f"bbox_head.{tower[1]}_convs.{tower[3]}.gn"
+            sd[f"{key}.weight"] = np.asarray(p["scale"])
+            sd[f"{key}.bias"] = np.asarray(p["bias"])
+        elif scale:
+            sd[f"bbox_head.scales.{scale[1]}.scale"] = np.asarray(p)
+        else:
+            layer(f"bbox_head.{DENSE_OUTPUTS[name]}", p)
 
 
 def _grid_head(key, gh, sd, layer):
@@ -327,3 +374,20 @@ def load_mmdet_checkpoint(path):
     ``roi_head.bbox_head.<i>``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return ckpt.get("state_dict", ckpt)
+
+
+def mmdet_state_dict(model, sd):
+    """``sd`` (an mmdet ``state_dict``) ready for ``model.load_state_dict``:
+    without the ``num_batches_tracked`` counters, and with a zero bias for
+    each conv of a conv-GroupNorm module of ``model`` (``<m>.conv.bias``
+    beside ``<m>.gn.weight``) that ``sd`` lacks: mmdet's conv before a
+    norm has none, the port's, as the JAX package's, has one."""
+    sd = {k: v for k, v in sd.items()
+          if not k.endswith("num_batches_tracked")}
+    for key, v in model.state_dict().items():
+        base = key[:-len(".conv.bias")]
+        if key.endswith(".conv.bias") and key not in sd \
+                and f"{base}.gn.weight" in sd:
+            sd[key] = torch.zeros_like(v)
+    return sd
+

@@ -164,7 +164,24 @@ Phases, each of which must pass:
    point head, 224^2 masks after five subdivision steps), as the rcnn
    phase runs its configs, 3 steps each; each checkpoint through the test
    CLI, ``--eval bbox`` and ``--eval bbox segm``.
-14. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+14. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
+   R50-FPN on its COCO config and on the GHM and PISA configs, which keep
+   COCO's 80 classes, and FreeAnchor, ATSS, GFL and FCOS on BONAI), each
+   at full width with seeded random weights: one serve batch (B=2,
+   1024^2, bf16; the COCO configs' test scale set to 1024^2) timed twice
+   and one ``inference_detector`` call; the batch once more with
+   ``score_thr=0``, which must fill every image's ``max_per_img``
+   detections (the focal-loss prior, 0.01, keeps random weights under
+   the configs' 0.05); the head outputs of a small float32 input on the
+   card and on the CPU, which must agree within 1e-4 of each output's
+   largest value with TF32 off; 3 training steps at the base LR on the
+   repeated synthetic batch, its first 8 GTs an image widened to reach
+   every pyramid level (finite losses, every trainable tensor moves; the
+   COCO configs, whose schedule has no gradient clip, with their
+   warmup);
+   the BONAI configs' checkpoints through the test CLI with ``--eval
+   bbox`` on the first val crop (``score_thr=0``).  No kernel may launch.
+15. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -184,7 +201,7 @@ mask; the IoU head reuses the mask features), 1 for Fast R-CNN, 0 for the
 RPN, 2 for Grid R-CNN (box and grid), 1 for PointRend (box; its mask
 extractor is the plain RoIAlign); the file chain's RPN test runs launch
 nothing, its Fast R-CNN launches B1 and B2 once a training step and B1
-once a test batch.
+once a test batch; the dense phase's runs launch nothing.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -213,11 +230,26 @@ RCNN_CONFIGS = (
     ("cascade", "configs/cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_bonai.py",
      3),
     ("dynamic", "configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_bonai.py", 3))
+# the dense single-stage detectors (the dense phase): label, config, and
+# whether its checkpoint is scored on the eval phase's val crop (the BONAI
+# configs; the GHM and PISA configs keep their COCO base's 80 classes)
+DENSE_CONFIGS = (
+    ("retinanet", "configs/retinanet/retinanet_r50_fpn_1x_coco.py", False),
+    ("ghm", "configs/ghm/retinanet_ghm_r50_fpn_1x_bonai.py", False),
+    ("pisa", "configs/pisa/pisa_retinanet_r50_fpn_1x_bonai.py", False),
+    ("free_anchor",
+     "configs/free_anchor/retinanet_free_anchor_r50_fpn_1x_bonai.py", True),
+    ("atss", "configs/atss/atss_r50_fpn_1x_bonai.py", True),
+    ("gfl", "configs/gfl/gfl_r50_fpn_1x_bonai.py", True),
+    ("fcos", "configs/fcos/fcos_r50_fpn_1x_bonai.py", True))
+DENSE_STEPS = 3
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
                "mask_scoring": (("bbox", "segm"), 2), "grid": (("bbox",), 2),
-               "point_rend": (("bbox", "segm"), 1)}
+               "point_rend": (("bbox", "segm"), 1),
+               **{label: (("bbox",), 0) for label, _, scored in DENSE_CONFIGS
+                  if scored}}
 # the rest of the R-CNN family on BONAI (the rcnn2 phase): label, config,
 # the RoIAlign calls of a batch or step
 RCNN2_CONFIGS = (
@@ -664,8 +696,8 @@ def _branches(model):
     Grid R-CNN's grid head and the offset head the model has.  The
     RPN-only detector has none."""
     import torch
-    if "bbox_head" not in model.roi_head:
-        return []
+    if "bbox_head" not in getattr(model, "roi_head", {}):
+        return []                       # the RPN, a dense detector
     bbox = model.roi_head["bbox_head"]
     double = getattr(model, "reg_roi_scale_factor", None) is not None
     out = [(type(h).__name__,
@@ -714,7 +746,7 @@ def _serve_proposals(model, img):
     around the synthetic batch's GTs, on the card; none for a detector
     with an RPN."""
     import torch
-    if model.has_rpn:
+    if not model.takes_proposals:
         return ()
     from bonai_tpu_torch.tools.profile_train import (synthetic_batch,
                                                      synthetic_proposals)
@@ -734,15 +766,19 @@ def _mask_side(model):
         "scale_factor", 2) ** tc.get("subdivision_steps", 5)
 
 
-def _check_outputs(out, b, p, model):
+def _check_outputs(out, b, p, model, need_detections=True):
+    """``simple_test``'s outputs: the keys of ``model``'s heads, their
+    shapes, finite values and, with ``need_detections``, a valid
+    detection."""
     import torch
     shapes = {"det_bboxes": (b, p, 4), "det_scores": (b, p),
               "det_labels": (b, p), "det_valid": (b, p)}
-    if "mask_head" in model.roi_head:
+    roi_head = getattr(model, "roi_head", {})   # none in a dense detector
+    if "mask_head" in roi_head:
         shapes["mask_probs"] = (b, p, _mask_side(model), _mask_side(model))
-    if "mask_iou_head" in model.roi_head:
+    if "mask_iou_head" in roi_head:
         shapes["mask_scores"] = (b, p)
-    if "offset_head" in model.roi_head:
+    if "offset_head" in roi_head:
         shapes["offsets"] = (b, p, 2)
     if set(out) != set(shapes):
         raise AssertionError(f"outputs {sorted(out)}, expected "
@@ -754,7 +790,7 @@ def _check_outputs(out, b, p, model):
         if out[key].is_floating_point() and not bool(
                 torch.isfinite(out[key]).all()):
             raise AssertionError(f"{key} has non-finite values")
-    if not int(out["det_valid"].sum()):
+    if need_detections and not int(out["det_valid"].sum()):
         raise AssertionError("no valid detections")
 
 
@@ -830,7 +866,7 @@ def serve_phase(impl, config=CONFIG, calls=2, label=None, checkpoint=None,
     _check_counts(_counts(), {fwd_name: n_roi * calls},
                   f"{what}, {calls} batches")
     proposals = None
-    if not model.has_rpn:       # 2000 random boxes in the image's pixels
+    if model.takes_proposals:   # 2000 random boxes in the image's pixels
         from bonai_tpu_torch.tools.profile_train import synthetic_proposals
         proposals = synthetic_proposals(np.zeros((1, 0, 4)),
                                         np.zeros((1, 0), bool), 2000,
@@ -907,7 +943,7 @@ def _small_input_check(model, impl, what, r):
         return
     with torch.inference_mode():
         feats = model.extract_feat(img)
-        if model.has_rpn:
+        if not model.takes_proposals:
             props, _, pvalid = model._rpn_and_proposals(
                 feats, img_shape, dict(model.test_cfg["rpn"]))
         else:
@@ -966,12 +1002,13 @@ def _roi_grad_check(model, impl, what):
         print(f"{what}: no RoI branch, no gradient check", flush=True)
         return
     batch = {k: torch.as_tensor(v).cuda() for k, v in synthetic_batch(
-        size=320, g=12, seed=1, proposals=0 if model.has_rpn else 500)
+        size=320, g=12, seed=1, proposals=500 if model.takes_proposals
+        else 0)
         .items()}
     with torch.no_grad():
         feats = [f.detach().requires_grad_()
                  for f in model.extract_feat(batch["image"])]
-        if model.has_rpn:
+        if not model.takes_proposals:
             props, _, pvalid = model._rpn_and_proposals(
                 feats, batch["img_shape"],
                 dict(model.train_cfg["rpn_proposal"]))
@@ -1032,12 +1069,14 @@ def _roi_grad_check(model, impl, what):
 
 
 def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
-                warmup=True, load_from=None):
+                warmup=True, load_from=None, batch=None):
     """Full-width training of ``config`` (LOFT-FOA R50-FPN by default)
     through ``train_detector`` with ``roi_align_impl=impl`` for ``steps``
     steps (1 warm-up) on one card, from seeded random weights or those of
     ``load_from``, with the config's LR warmup or, without ``warmup``, at
-    its base LR.  Every trainable tensor must get a gradient in some step,
+    its base LR, on ``batch`` (by default the synthetic batch of
+    ``profile_train``).  Every trainable tensor must get a gradient in
+    some step,
     but for those behind HRNet's gradient stop after ``layer1``
     (``conv2``/``bn2``), which must get none, and every one must move.
     Returns the forward and backward kernels' launch counts of the run,
@@ -1056,8 +1095,9 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     cfg = _config(impl, config)
     if not warmup:
         cfg.lr_config.warmup = None
-    batch = synthetic_batch(proposals=2000 if cfg.model.type == "FastRCNN"
-                            else 0)
+    if batch is None:
+        batch = synthetic_batch(proposals=2000 if cfg.model.type
+                                == "FastRCNN" else 0)
     work_dir = os.path.join(REPO, "build", "chip_smoke_train" + (
         f"_{label.split()[0]}" if keep else ""))
     shutil.rmtree(work_dir, ignore_errors=True)
@@ -1099,7 +1139,9 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
           f"{statistics.median(step_ms[1:]):.1f} ms; peak memory "
           f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); launches "
           f"{counts}", flush=True)
-    keys = [k for k in hist[0] if k.split(".")[-1].startswith("loss")]
+    # the losses (FreeAnchor's are positive_ and negative_bag_loss)
+    keys = [k for k in hist[0] if k.split(".")[-1].startswith("loss")
+            or k.endswith("_loss")]
     for h in hist:
         print(f"{what}: step {h['iter']} lr {h['lr']:.3g} grad_norm "
               f"{h['grad_norm']:.4g} " + " ".join(
@@ -1912,11 +1954,12 @@ def _crop_test_cfg(config):
     return cfg
 
 
-def rcnn_coco(label, config, checkpoint):
-    """COCO-style scoring of an R-CNN baseline's checkpoint: the generic
-    test CLI (``bonai_tpu_torch.tools.test``) on the card with ``--eval``
-    of ``COCO_SCORED[label]`` on the first of the eval phase's val crops.
-    Returns the forward kernel's launches in the run."""
+def rcnn_coco(label, config, checkpoint, options=()):
+    """COCO-style scoring of a checkpoint: the generic test CLI
+    (``bonai_tpu_torch.tools.test``) on the card with ``--eval`` of
+    ``COCO_SCORED[label]`` on the first of the eval phase's val crops (and
+    the config overrides ``options``, ``key=value``).  Returns the forward
+    kernel's launches in the run."""
     import math
     import torch
     from bonai_tpu_torch.config import Config
@@ -1934,7 +1977,8 @@ def rcnn_coco(label, config, checkpoint):
     t0 = time.perf_counter()
     results, metrics = test_cli.main([
         cfg_path, checkpoint, "--out", os.path.join(out_dir, "r.pkl"),
-        "--eval", *kinds, "--max-images", "1"])
+        "--eval", *kinds, "--max-images", "1"]
+        + (["--options", *options] if options else []))
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     counts = _counts()
@@ -1953,7 +1997,7 @@ def rcnn_coco(label, config, checkpoint):
         raise AssertionError(f"{label} COCO scoring: {len(results)} results, "
                              f"metrics {metrics}")
     boxes = results[0][0] if isinstance(results[0], tuple) else results[0]
-    print(f"rcnn {label} coco: tools.test --eval {' '.join(kinds)} on 1 of "
+    print(f"{label} coco: tools.test --eval {' '.join(kinds)} on 1 of "
           f"4 val crops, {len(boxes[0])} detections, {cli_s:.1f} s (model "
           f"build, test, scoring; the scoring alone {score_s:.2f} s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
@@ -2284,6 +2328,185 @@ def rcnn2_files(rpn_checkpoint):
     return {k: (c[fwd_name], c[bwd_name]) for k, c in counts.items()}
 
 
+def _dense_config(config):
+    """A dense detector's config with its test scale at ``SIZE``^2 (the
+    COCO configs' is 1333x800)."""
+    from bonai_tpu_torch.config import Config
+    cfg = Config.fromfile(config)
+    cfg.data.test.pipeline[1].img_scale = (SIZE, SIZE)
+    return cfg
+
+
+def _dense_cpu_check(model, what, r):
+    """The head outputs of a small float32 input (two 256x320 images) on
+    the card and on the CPU, from the same weights, with TF32 off: each
+    output (logits, deltas or distances, centerness) must agree within
+    1e-4 of its largest value over the levels."""
+    import copy
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import prepare_batch
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model.float()
+        cpu = copy.deepcopy(model).cpu().to(
+            memory_format=torch.contiguous_format)
+        small = [r.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(2)]
+        model.cfg.data.test.pipeline[1].img_scale = (320, 320)
+        img, _, _, _ = prepare_batch(model, small)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got = model.bbox_head(model.extract_feat(img))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = cpu.bbox_head(cpu.extract_feat(img.cpu()))
+        t2 = time.perf_counter()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(g, w))
+        top = max(float(b.abs().max()) for b in w)
+        print(f"{what}: small float32 input ({tuple(img.shape[1:3])}), "
+              f"head output {i} on the card vs the CPU: max abs diff "
+              f"{err:.3g} (outputs up to {top:.3g}); card "
+              f"{(t1 - t0) * 1e3:.1f} ms, CPU {(t2 - t1) * 1e3:.1f} ms",
+              flush=True)
+        if not err <= 1e-4 * top:
+            raise AssertionError(f"{what}: head output {i} differs between "
+                                 f"the card and the CPU by {err}")
+
+
+def dense_serve(label, config, calls=2):
+    """Full-width serving of a dense detector through the port's entry
+    points (seeded random weights, bfloat16): ``calls`` timed batches and
+    one ``inference_detector`` call at the config's thresholds, one batch
+    with ``score_thr=0``, then :func:`_dense_cpu_check`.  No kernel may
+    launch.  Returns the forward kernel's launches (0), the median ms a
+    batch and the peak GiB."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import (inference_detector, init_detector,
+                                      prepare_batch)
+    what = f"{label} serve"
+    t0 = time.time()
+    model = init_detector(_dense_config(config), seed=0)    # cuda, bf16
+    print(f"{what}: init_detector {time.time() - t0:.1f} s, "
+          f"{type(model).__name__}, {model.num_classes} classes, "
+          f"{sum(p.numel() for p in model.parameters())} parameters",
+          flush=True)
+    max_per_img = model.test_cfg.get("max_per_img", 100)
+    r = np.random.RandomState(0)
+    imgs = [r.randint(0, 256, (SIZE, SIZE, 3), np.uint8)
+            for _ in range(BATCH)]
+    img, img_shape, scale, _ = prepare_batch(model, imgs)
+    if tuple(img.shape[1:3]) != (SIZE, SIZE):
+        raise AssertionError(f"{what}: input {tuple(img.shape)}")
+    model.simple_test(img, img_shape, scale)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.simple_test(img, img_shape, scale)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _check_outputs(out, BATCH, max_per_img, model,
+                       need_detections=False)
+    t0 = time.perf_counter()
+    res = inference_detector(model, r.randint(0, 256, (512, 640, 3),
+                                              np.uint8))
+    single_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (isinstance(res, list) and len(res) == 1
+            and res[0].shape[1:] == (5,) and np.isfinite(res[0]).all()):
+        raise AssertionError(f"{what}: inference_detector gave {res}")
+    thr = model.test_cfg.get("score_thr", 0.05)
+    model.test_cfg["score_thr"] = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    every = model.simple_test(img, img_shape, scale)
+    torch.cuda.synchronize()
+    every_ms = (time.perf_counter() - t0) * 1e3
+    model.test_cfg["score_thr"] = thr
+    _check_outputs(every, BATCH, max_per_img, model)
+    counts = _counts()
+    _check_counts(counts, {}, f"{what}, {calls + 2} batches")
+    n_every = every["det_valid"].sum(1).tolist()
+    print(f"{what}: simple_test 1024^2 B={BATCH} bf16 ms per call "
+          f"{[round(x, 1) for x in times]}; valid detections at score_thr "
+          f"{thr} {out['det_valid'].sum(1).tolist()}; at 0 {n_every} "
+          f"({every_ms:.1f} ms); inference_detector 512x640 "
+          f"{single_ms:.1f} ms, {len(res[0])} class-0 detections; peak "
+          f"memory {peak:.2f} GiB (max_memory_allocated); launches {counts}",
+          flush=True)
+    if n_every != [max_per_img] * BATCH:
+        raise AssertionError(f"{what}: {n_every} detections at score_thr 0")
+    _dense_cpu_check(model, what, r)
+    return counts[ROUTES["block"][1]], statistics.median(times), peak
+
+
+def _dense_batch():
+    """The synthetic training batch with its first 8 GTs an image made
+    256..1000 px wide and high (log-uniform, seed 1): its objects then
+    reach every pyramid level's targets (the batch's own 10..204 px boxes
+    stop at stride 32), so every level's learnable scale gets a
+    gradient."""
+    import numpy as np
+    from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    batch = synthetic_batch()
+    r = np.random.RandomState(1)
+    wh = np.exp(r.uniform(np.log(256), np.log(1000), (BATCH, 8, 2)))
+    xy = r.uniform(0, 1, (BATCH, 8, 2)) * (SIZE - 1 - wh)
+    batch["gt_bboxes"][:, :8] = np.concatenate([xy, xy + wh], -1)
+    return batch
+
+
+def dense_phase():
+    """The dense single-stage detectors (``DENSE_CONFIGS``) at full width
+    with seeded random weights: :func:`dense_serve`, then ``DENSE_STEPS``
+    training steps on the repeated synthetic batch of :func:`_dense_batch`
+    (at the base LR where the config's schedule clips the gradient, the
+    BONAI schedule: at the warmup's first LRs the GN weights, 1 at the
+    start, move by less than a float32 ulp; with the warmup where it does
+    not, RetinaNet's COCO schedule, which the GHM and PISA configs keep:
+    at its base LR without a clip they diverge from random weights), and
+    the BONAI configs' checkpoints through
+    the test CLI (``--eval bbox``, ``score_thr=0``).  Returns each
+    config's launch counts, times and peak memory."""
+    from bonai_tpu_torch.config import Config
+    out = {}
+    for label, config, scored in DENSE_CONFIGS:
+        config = os.path.join(REPO, config)
+        serve, serve_ms, serve_peak = dense_serve(label, config)
+        clip = dict(Config.fromfile(config).get("optimizer_config") or {}
+                    ).get("grad_clip")
+        train = train_phase("block", DENSE_STEPS, config,
+                            label=f"{label} train", keep=scored,
+                            warmup=not clip, batch=_dense_batch())
+        coco = None
+        if scored:
+            coco = rcnn_coco(label, config, train["checkpoint"],
+                             options=["test_cfg.score_thr=0.0"])
+            shutil.rmtree(train["work_dir"], ignore_errors=True)
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=coco)
+    for label, r in out.items():
+        print(f"dense {label}: serve {r['serve_ms']:.1f} ms a B=2 call, peak "
+              f"{r['serve_peak_gib']:.2f} GiB; train median step "
+              f"{r['train']['step_ms']:.1f} ms, peak "
+              f"{r['train']['peak_gib']:.2f} GiB; launches B1 serving "
+              f"{r['serve']}, B1 / B2 training {r['train']['fwd']} / "
+              f"{r['train']['bwd']}" + (f", B1 test CLI {r['coco_cli']}"
+                                        if r["coco_cli"] is not None
+                                        else ""),
+              flush=True)
+    return out
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -2367,6 +2590,7 @@ def main():
     rcnn = rcnn_phase()
     rcnn2 = rcnn2_phase()
     rcnn3 = rcnn3_phase()
+    dense = dense_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -2430,7 +2654,12 @@ def main():
                 **{f"rcnn3_{k}_{what}_launches": n for k, r in rcnn3.items()
                    for what, n in (("serve", r["serve"]),
                                    ("train", r["train"]["fwd"]),
-                                   ("coco_cli", r["coco_cli"]))}),
+                                   ("coco_cli", r["coco_cli"]))},
+                **{f"dense_{k}_{what}_launches": n for k, r in dense.items()
+                   for what, n in (("serve", r["serve"]),
+                                   ("train", r["train"]["fwd"]),
+                                   ("coco_cli", r["coco_cli"]))
+                   if n is not None}),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],
@@ -2449,7 +2678,9 @@ def main():
                rcnn2_files_fast_train_launches=rcnn2["files"][
                    "fast_train"][1],
                **{f"rcnn3_{k}_train_launches": r["train"]["bwd"]
-                  for k, r in rcnn3.items()}),
+                  for k, r in rcnn3.items()},
+               **{f"dense_{k}_train_launches": r["train"]["bwd"]
+                  for k, r in dense.items()}),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

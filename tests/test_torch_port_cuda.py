@@ -19,7 +19,9 @@ rules' on every RoI, the rules' edges included.  The R-CNN baselines
 the RPN and Fast R-CNN at tiny widths, ``'block'`` route) launch the
 forward kernel once per RoI call of a serve batch and both kernels once
 per RoI call of a training step (the RPN none), as does LOFT-FOA on
-HRNet + HRFPN.  A two-rank data-parallel
+HRNet + HRFPN.  The dense single-stage detectors (RetinaNet with its GHM
+and PISA losses, FreeAnchor, ATSS, GFL, FCOS) launch no kernel, and their
+head outputs on the card equal the CPU's.  A two-rank data-parallel
 step (gloo, both ranks on one card) must equal the step of the mean of
 its two half-batch gradients within 1e-4 of each tensor's largest update.
 """
@@ -230,7 +232,7 @@ def test_rcnn_serve_batch_runs_the_block_kernel(family):
     img, shape, scale, _ = prepare_batch(
         model, [r.randint(0, 255, (100, 128, 3), np.uint8)] * 2)
     props = ()
-    if not model.has_rpn:
+    if model.takes_proposals:
         gt = train_batch()
         props = tuple(torch.from_numpy(x).cuda() for x in synthetic_proposals(
             gt["gt_bboxes"], gt["gt_valid"], 48, 128))
@@ -310,6 +312,57 @@ def test_hrnet_loft_runs_the_block_kernels(tmp_path):
     assert not torch.equal(model.backbone.conv2.weight,
                            init.backbone.conv2.weight)
     assert torch.equal(model.backbone.conv1.weight, init.backbone.conv1.weight)
+
+
+DENSE = ("retinanet", "ghm", "pisa", "free_anchor", "atss", "gfl", "fcos")
+
+
+def _launches():
+    from bonai_tpu_torch.ops import (roi_align_block,
+                                     roi_align_block_backward)
+    return roi_align_block.launches, roi_align_block_backward.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", DENSE)
+def test_dense_detector_on_the_card(family, tmp_path):
+    """Each dense single-stage detector at tiny widths on the card (float32,
+    TF32 off): a serve batch's head outputs equal the same model's on the
+    CPU within 1e-4 of the largest, its detections are finite, one
+    training step gives finite losses and weights, and no RoIAlign kernel
+    launches in either."""
+    _need_cuda()
+    import torch_port_common as tpc
+    from bonai_tpu_torch.apis import (init_detector, prepare_batch,
+                                      train_detector)
+    cfg = tpc.dense_cfg(family)
+    cfg.data.test.pipeline[1].img_scale = (160, 160)
+    model = init_detector(cfg, device="cuda", dtype=torch.float32)
+    cpu = init_detector(cfg, device="cpu", dtype=torch.float32)
+    r = np.random.RandomState(0)
+    img, shape, scale, _ = prepare_batch(
+        model, [r.randint(0, 255, (120, 160, 3), np.uint8)] * 2)
+    before = _launches()
+    with torch.no_grad():
+        outs = model.bbox_head(model.extract_feat(img))
+        want = cpu.bbox_head(cpu.extract_feat(img.cpu()))
+    for got_kind, want_kind in zip(outs, want):
+        for g, w in zip(got_kind, want_kind):
+            top = float(w.abs().max())
+            assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(top, 1.0)
+    out = model.simple_test(img, shape, scale)
+    torch.cuda.synchronize()
+    assert set(out) == {"det_bboxes", "det_scores", "det_labels",
+                        "det_valid"}
+    assert all(bool(torch.isfinite(v).all()) for v in out.values()
+               if v.is_floating_point())
+    cfg.lr_config.warmup = None
+    model, hist = train_detector(cfg, [tpc.train_batch(size=160)],
+                                 str(tmp_path), max_steps=1, log_interval=1,
+                                 n_devices=1)
+    assert _launches() == before
+    assert np.isfinite(hist[0]["loss"]) and np.isfinite(hist[0]["grad_norm"])
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
 
 
 def _strip_fixture(seed, C, n=300, B=2, S=512):

@@ -103,7 +103,11 @@ def test_configs_build_at_full_width(name):
     (dict(sampler=dict(type="ScoreHLRSampler", num=512)), "A7"),
     (dict(sampler=dict(type="OHEMSampler", num=512)), "A7"),
     (dict(reg_decoded_bbox=True), "A7"),
-    (dict(type="RetinaNet"), "A6"), (dict(type="FCOS"), "A6"),
+    (dict(type="FSAF"), "A6"), (dict(type="SSD"), "A6"),
+    (dict(config="fcos/fcos_r50_fpn_1x_bonai.py", dcn_on_last_conv=True),
+     "A6"),
+    (dict(config="retinanet/retinanet_r50_fpn_1x_coco.py",
+          bbox_head=dict(type="RetinaSepBNHead")), "A6"),
     (dict(neck=[dict(type="FPN"), dict(type="PAFPN")]), "A7"),
     (dict(extractor=dict(
         type="GenericRoIExtractor", aggregation="sum",
@@ -119,7 +123,9 @@ def test_configs_build_at_full_width(name):
         else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
     """A detector, head, sampler, loss, neck chain or GRoIE extractor the
-    port does not build, or a whole config (HTC's, the DCN Mask R-CNN's)."""
+    port does not build, or a whole config (HTC's, the DCN Mask R-CNN's);
+    a single-stage config's head option (FCOS's deformable last conv,
+    NAS-FPN's ``RetinaSepBNHead``)."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     change = dict(change)
@@ -135,8 +141,11 @@ def test_unported_types_name_their_item(change, item):
         cfg.model.neck = change.pop("neck")
     if "extractor" in change:
         cfg.model.roi_head.bbox_roi_extractor = change.pop("extractor")
+    if "bbox_head" in change:
+        cfg.model.bbox_head.update(change.pop("bbox_head"))
     if change:
-        cfg.model.roi_head.bbox_head.update(change)
+        (cfg.model.get("bbox_head") or cfg.model.roi_head.bbox_head).update(
+            change)
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md item {item}"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)

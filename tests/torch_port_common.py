@@ -39,6 +39,16 @@ A7_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
     "point_rend": "point_rend/point_rend_r50_fpn_2x_bonai.py"}.items()}
 
 
+# the dense single-stage detectors
+DENSE_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
+    "retinanet": "retinanet/retinanet_r50_fpn_1x_coco.py",
+    "ghm": "ghm/retinanet_ghm_r50_fpn_1x_bonai.py",
+    "pisa": "pisa/pisa_retinanet_r50_fpn_1x_bonai.py",
+    "free_anchor": "free_anchor/retinanet_free_anchor_r50_fpn_1x_bonai.py",
+    "atss": "atss/atss_r50_fpn_1x_bonai.py",
+    "gfl": "gfl/gfl_r50_fpn_1x_bonai.py",
+    "fcos": "fcos/fcos_r50_fpn_1x_bonai.py"}.items()}
+
 HRNET_CONFIG = osp.join(ROOT, "configs/hrnet/loft_foa_hrnetv2p_w32_2x_bonai.py")
 # HRNet at tiny widths: one module of one block a stage, branches of 8, 16,
 # 32 and 64 channels
@@ -112,6 +122,26 @@ def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
     return cfg
 
 
+def dense_cfg(family, num_classes=3):
+    """The config of a ``DENSE_CONFIGS`` family at the tiny widths:
+    ResNet-18 at base 8, a 16-channel FPN (the config's ``start_level=1``,
+    extra convs and 5 outputs), two 64-channel tower convs (two channels
+    to each of GroupNorm's 32 groups: one alone would be normalised over
+    a single element on a 1x1 level, rounding noise magnified a
+    thousandfold), ``nms_pre`` 100 and 32 detections an image.  The
+    RetinaNet-family configs (COCO's 80 classes) take ``num_classes``."""
+    from bonai_tpu_torch import Config
+    cfg = Config.fromfile(DENSE_CONFIGS[family])
+    m = cfg.model
+    m.backbone.update(depth=18, base_channels=8)
+    m.neck.update(in_channels=[8, 16, 32, 64], out_channels=16)
+    m.bbox_head.update(in_channels=16, feat_channels=64, stacked_convs=2)
+    if m.bbox_head.num_classes == 80:
+        m.bbox_head.num_classes = num_classes
+    cfg.test_cfg.update(nms_pre=100, max_per_img=32)
+    return cfg
+
+
 def a7_cfg(family, train=False):
     """The tiny config of an ``A7_CONFIGS`` family (the training sizes of
     :func:`tiny_train_cfg` with ``train``).  Fast R-CNN's is built without
@@ -165,8 +195,8 @@ def jax_model(cfg, seed=0, **build_kw):
     if "rpn_head" in params:                    # Fast R-CNN has none
         params["rpn_head"]["rpn_reg"]["kernel"] *= 0.1
     for name in params:                 # bbox_head, or a cascade's stages
-        if not name.startswith("bbox_head"):
-            continue
+        if not name.startswith("bbox_head") or "fc_cls" not in params[name]:
+            continue                    # a single-stage detector's dense head
         if "fc_reg" in params[name]:           # not Grid R-CNN's
             params[name]["fc_reg"]["kernel"] *= 0.1
         # foreground logit = -background logit: softmax scores spread over
