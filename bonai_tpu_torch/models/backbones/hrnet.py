@@ -112,6 +112,7 @@ class HRNet(nn.Module):
         self.frozen_stages = frozen_stages
         # conv2/bn2 train behind the gradient stop after layer1
         self.stops_gradient = frozen_stages >= 1
+        self.behind_stop = ("conv2", "bn2") if self.stops_gradient else ()
         self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)

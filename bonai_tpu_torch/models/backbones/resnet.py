@@ -1,21 +1,47 @@
-"""ResNet backbone, pytorch style, with frozen BatchNorm (counterpart of
+"""ResNet backbones with frozen BatchNorm (counterpart of
 ``bonai_tpu/models/backbones/resnet.py`` for the BONAI configs:
 ``style='pytorch'``, any ``frozen_stages``; BatchNorm stays frozen over its
 stored statistics whatever ``norm_eval`` says, as in the JAX package).
 
-Module and parameter names follow mmdet v2.3 / torchvision
+- ``ResNet``, with the options of the BONAI trunk variants: a deformable
+  ``conv2`` (``dcn``, ``stage_with_dcn``: DCNv2 or, with ``type='DCN'``,
+  v1), the ``plugins`` of GCNet and empirical attention (a
+  ``ContextBlock``, ``GeneralizedAttention`` or ``NonLocal2d`` after
+  ``conv1``, ``conv2`` or ``conv3`` of the stages listed), and the deep
+  stem of three 3x3 convs (``deep_stem``).
+- ``Res2Net`` (``Bottle2neck``: the 3x3 conv split into ``scales - 1``
+  convs over channel groups with cumulative mixing; the deep stem and the
+  average-pool shortcut by default).
+- ``RegNet``: RegNetX's grouped bottlenecks, widths from the quantised
+  linear rule (``stage_plan``), a 32-channel 3x3/2 stem and no max-pool.
+
+Module and parameter names follow mmdet v2.3 / mmcv / torchvision
 (``backbone.layer1.0.conv1.weight``, ``backbone.layer1.0.downsample.1
-.running_var``), so their checkpoints load as they are.
+.running_var``, ``layer2.0.conv2.conv_offset.weight``,
+``layer2.0.context_block.conv_mask.weight``, ``stem.3.weight``,
+``layer1.0.convs.2.weight``), so their checkpoints load as they are.
+
+Frozen stages are the JAX package's: the stem (``conv1``/``bn1``) when
+``frozen_stages >= 0`` and ``layer1..frozen_stages`` are not trained; the
+JAX gradient stops after the stem's max-pool and after each frozen stage.
+The deep stem is named ``stem`` (JAX ``stem_conv<i>``/``stem_bn<i>``),
+which the JAX frozen mask does not match: it stays trained behind the
+gradient stop, moved by weight decay and momentum alone
+(``behind_stop``; ROADMAP.md queue C), as HRNet's ``conv2``/``bn2``.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import layers
+from ...ops.deform_conv import DeformConv2dPack, ModulatedDeformConv2dPack
 from ..init import kaiming_fan_out_
 
 ARCH_SETTINGS = {
@@ -75,25 +101,133 @@ class BasicBlock(nn.Module):
         return F.relu(self.bn2(self.conv2(out)) + identity)
 
 
+# a plugin type (a class of ops/layers.py) -> mmcv's name for it
+# (``_abbr_``)
+PLUGINS = {"ContextBlock": "context_block",
+           "GeneralizedAttention": "gen_attention_block",
+           "NonLocal2d": "nonlocal_block"}
+POSITIONS = ("after_conv1", "after_conv2", "after_conv3")
+
+
+def stage_plugins(plugins, stage):
+    """mmdet's plugin specs (``dict(cfg=dict(type=...), stages=...,
+    position=...)``) that apply to ``stage``, as ``(type, kwargs,
+    position, postfix)``."""
+    out = []
+    for spec in plugins or ():
+        spec = dict(spec)
+        stages = spec.get("stages")
+        if stages is not None and not stages[stage]:
+            continue
+        cfg = dict(spec["cfg"])
+        ptype = cfg.pop("type")
+        position = spec.get("position", "after_conv3")
+        if ptype not in PLUGINS or position not in POSITIONS:
+            raise NotImplementedError(
+                f"plugin {ptype} at {position} is not ported to "
+                f"bonai_tpu_torch yet (ROADMAP.md item A6)")
+        out.append((ptype, cfg, position, cfg.pop("postfix", "")))
+    return out
+
+
+def _dcn_conv(dcn, planes, stride):
+    """The deformable ``conv2`` of a ``dcn`` config: ``'DCNv2'`` (the
+    default) or ``'DCN'``, with its ``deform_groups``; mmdet's
+    ``fallback_on_stride`` is read and ignored, as the JAX package does."""
+    dcn = dict(dcn)
+    extra = sorted(set(dcn) - {"type", "deform_groups",
+                               "fallback_on_stride"})
+    dtype = dcn.get("type", "DCNv2")
+    if extra or dtype not in ("DCN", "DCNv2"):
+        raise NotImplementedError(
+            f"dcn {dtype} with {extra} is not ported to bonai_tpu_torch yet "
+            f"(ROADMAP.md item A6)")
+    cls = DeformConv2dPack if dtype == "DCN" else ModulatedDeformConv2dPack
+    return cls(planes, planes, 3, stride, 1,
+               deform_groups=int(dcn.get("deform_groups", 1)))
+
+
 class Bottleneck(nn.Module):
-    """Pytorch style: the stride sits on the 3x3 conv2."""
+    """Pytorch style: the stride sits on the 3x3 conv2, which ``dcn``
+    makes deformable; ``plugins`` (``stage_plugins``' tuples) run after
+    their conv's BN (and ReLU)."""
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 dcn=None, plugins=()):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 1)
         self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3, stride)
+        self.conv2 = _conv(planes, planes, 3, stride) if dcn is None \
+            else _dcn_conv(dcn, planes, stride)
         self.bn2 = FrozenBatchNorm2d(planes)
         self.conv3 = _conv(planes, planes * 4, 1)
+        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.downsample = downsample
+        self.plugin_names = {p: [] for p in POSITIONS}
+        for ptype, kwargs, position, postfix in plugins:
+            name = PLUGINS[ptype] + postfix
+            if hasattr(self, name):
+                raise ValueError(f"two plugins named {name} in one block")
+            channels = planes * 4 if position == "after_conv3" else planes
+            self.add_module(name, getattr(layers, ptype)(channels,
+                                                         **kwargs))
+            self.plugin_names[position].append(name)
+
+    def _plugins(self, x, position):
+        for name in self.plugin_names[position]:
+            x = getattr(self, name)(x)
+        return x
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self._plugins(F.relu(self.bn1(self.conv1(x))), "after_conv1")
+        out = self._plugins(F.relu(self.bn2(self.conv2(out))),
+                            "after_conv2")
+        out = self._plugins(self.bn3(self.conv3(out)), "after_conv3")
+        return F.relu(out + identity)
+
+
+class Bottle2neck(nn.Module):
+    """Res2Net's block (JAX ``Bottle2neck``): ``conv1`` to ``scales``
+    groups of ``width`` channels; ``convs.<i>``/``bns.<i>`` over group
+    ``i`` plus the previous one's output (each group alone on a stage's
+    first block, ``stage_type='stage'``); the last group passes as it is,
+    or through a 3x3 average pool (zeros counted) on a strided first
+    block; ``conv3`` back to ``planes * 4``."""
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 scales=4, base_width=26, base_channels=64,
+                 stage_type="normal"):
+        super().__init__()
+        self.width = width = int(math.floor(planes * (base_width
+                                                      / base_channels)))
+        self.stage = stage_type == "stage"
+        self.pool = self.stage and stride != 1
+        self.stride = stride
+        self.conv1 = _conv(inplanes, width * scales, 1)
+        self.bn1 = FrozenBatchNorm2d(width * scales)
+        self.convs = nn.ModuleList([_conv(width, width, 3, stride)
+                                    for _ in range(scales - 1)])
+        self.bns = nn.ModuleList([FrozenBatchNorm2d(width)
+                                  for _ in range(scales - 1)])
+        self.conv3 = _conv(width * scales, planes * 4, 1)
         self.bn3 = FrozenBatchNorm2d(planes * 4)
         self.downsample = downsample
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        return F.relu(self.bn3(self.conv3(out)) + identity)
+        spx = torch.split(F.relu(self.bn1(self.conv1(x))), self.width, 1)
+        outs, sp = [], None
+        for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
+            sp = F.relu(bn(conv(spx[i] if i == 0 or self.stage
+                                else sp + spx[i])))
+            outs.append(sp)
+        outs.append(F.avg_pool2d(spx[-1], 3, self.stride, 1) if self.pool
+                    else spx[-1])
+        out = self.bn3(self.conv3(torch.cat(outs, 1)))
+        return F.relu(out + identity)
 
 
 class ResNet(nn.Module):
@@ -101,7 +235,9 @@ class ResNet(nn.Module):
 
     def __init__(self, depth=50, num_stages=4, out_indices=(0, 1, 2, 3),
                  frozen_stages=1, norm_eval=True, style="pytorch",
-                 base_channels=64):
+                 base_channels=64, dcn=None,
+                 stage_with_dcn=(False, False, False, False), plugins=None,
+                 deep_stem=False):
         super().__init__()
         if style != "pytorch":
             raise NotImplementedError(
@@ -111,10 +247,23 @@ class ResNet(nn.Module):
             logger.info("ResNet(norm_eval=False): BatchNorm stays frozen over "
                         "its stored statistics, as in the JAX package")
         block_name, stage_blocks = ARCH_SETTINGS[depth]
-        block = Bottleneck if block_name == "bottleneck" else BasicBlock
+        block = self.block_type(block_name)
+        if block is BasicBlock and (dcn is not None or plugins):
+            raise NotImplementedError(
+                "dcn and plugins on a BasicBlock ResNet are not ported to "
+                "bonai_tpu_torch (mmdet has none; ROADMAP.md item A6)")
         self.out_indices = tuple(out_indices)
-        self.conv1 = nn.Conv2d(3, base_channels, 7, 2, 3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(base_channels)
+        self.frozen_stages = frozen_stages
+        if deep_stem:
+            half = base_channels // 2
+            self.stem = nn.Sequential(*[
+                m for cin, cout, st in ((3, half, 2), (half, half, 1),
+                                        (half, base_channels, 1))
+                for m in (_conv(cin, cout, 3, st), FrozenBatchNorm2d(cout),
+                          nn.ReLU())])
+        else:
+            self.conv1 = nn.Conv2d(3, base_channels, 7, 2, 3, bias=False)
+            self.bn1 = FrozenBatchNorm2d(base_channels)
         inplanes, planes = base_channels, base_channels
         self.stages = []
         for i in range(num_stages):
@@ -124,17 +273,205 @@ class ResNet(nn.Module):
                 ds = None
                 if b == 0 and (stride != 1
                                or inplanes != planes * block.expansion):
-                    ds = _downsample(inplanes, planes * block.expansion,
-                                     stride)
-                blocks.append(block(inplanes, planes,
-                                    stride if b == 0 else 1, ds))
+                    ds = self.shortcut(inplanes, planes * block.expansion,
+                                       stride)
+                blocks.append(self.make_block(
+                    block, inplanes, planes, stride if b == 0 else 1, ds,
+                    dcn=dcn if dcn is not None and stage_with_dcn[i]
+                    else None, plugins=stage_plugins(plugins, i)))
                 inplanes = planes * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             self.stages.append(f"layer{i + 1}")
             planes *= 2
         # the stem (for frozen_stages >= 0) and the first frozen_stages
         # stages get no gradient, as mmdet's _freeze_stages; BN statistics
-        # are buffers and never move
+        # are buffers and never move.  A deep stem stays trained behind
+        # the gradient stop after the max-pool, as in the JAX package
+        frozen = [self.conv1, self.bn1] if frozen_stages >= 0 \
+            and not deep_stem else []
+        frozen += [getattr(self, f"layer{i}")
+                   for i in range(1, frozen_stages + 1)]
+        for m in frozen:
+            for p in m.parameters():
+                p.requires_grad_(False)
+        self.behind_stop = ("stem",) if deep_stem and frozen_stages >= 0 \
+            else ()
+        self.stops_gradient = bool(self.behind_stop)
+
+    @staticmethod
+    def block_type(block_name):
+        return Bottleneck if block_name == "bottleneck" else BasicBlock
+
+    @staticmethod
+    def shortcut(cin, cout, stride):
+        return _downsample(cin, cout, stride)
+
+    @staticmethod
+    def make_block(block, inplanes, planes, stride, ds, dcn, plugins):
+        if block is BasicBlock:
+            return block(inplanes, planes, stride, ds)
+        return block(inplanes, planes, stride, ds, dcn=dcn, plugins=plugins)
+
+    def init_weights(self, gen):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                kaiming_fan_out_(m.weight, gen)
+
+    def forward(self, x):
+        if hasattr(self, "stem"):
+            x = self.stem(x)
+        else:
+            x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        if self.stops_gradient:
+            x = x.detach()
+        outs = []
+        for i, name in enumerate(self.stages):
+            x = getattr(self, name)(x)
+            if self.stops_gradient and i < self.frozen_stages:
+                x = x.detach()
+            if i in self.out_indices:
+                outs.append(x)
+        return tuple(outs)
+
+
+class Res2Net(ResNet):
+    """ResNet of ``Bottle2neck`` blocks (mmdet's ``Res2Net``): ``scales``
+    groups of ``planes * base_width / 64`` channels, the deep stem and,
+    with ``avg_down``, the strided shortcut as a ``stride`` x ``stride``
+    average pool (floor mode, as the JAX package) before its 1x1 conv.
+    The shortcut is mmdet's ``Sequential(pool, conv, BN)`` whatever the
+    stride (keys ``downsample.1``/``.2``; an identity in the pool's place
+    at stride 1 or without ``avg_down``)."""
+
+    def __init__(self, depth=50, scales=4, base_width=26, deep_stem=True,
+                 avg_down=True, **kwargs):
+        self.scales, self.base_width, self.avg_down = scales, base_width, \
+            avg_down
+        if ARCH_SETTINGS[depth][0] != "bottleneck":
+            raise NotImplementedError(
+                f"Res2Net depth {depth}: Res2Net has bottlenecks only")
+        self.base_channels = kwargs.get("base_channels", 64)
+        super().__init__(depth=depth, deep_stem=deep_stem, **kwargs)
+
+    @staticmethod
+    def block_type(block_name):
+        return Bottle2neck
+
+    def shortcut(self, cin, cout, stride):
+        pool = self.avg_down and stride != 1
+        return nn.Sequential(
+            nn.AvgPool2d(stride, stride) if pool else nn.Identity(),
+            _conv(cin, cout, 1, 1 if pool else stride),
+            FrozenBatchNorm2d(cout))
+
+    def make_block(self, block, inplanes, planes, stride, ds, dcn, plugins):
+        if dcn is not None or plugins:
+            raise NotImplementedError(
+                "dcn and plugins on Res2Net are not ported to "
+                "bonai_tpu_torch (the JAX package ignores them; ROADMAP.md "
+                "item A6)")
+        return Bottle2neck(inplanes, planes, stride, ds, self.scales,
+                           self.base_width, self.base_channels,
+                           "stage" if ds is not None else "normal")
+
+
+class RegNetBlock(nn.Module):
+    """RegNetX's bottleneck (expansion 1): 1x1 to the bottleneck width, a
+    grouped 3x3 (stride here), 1x1 to the stage width."""
+
+    def __init__(self, inplanes, width, bottleneck_width, groups, stride=1,
+                 downsample=None):
+        super().__init__()
+        self.conv1 = _conv(inplanes, bottleneck_width, 1)
+        self.bn1 = FrozenBatchNorm2d(bottleneck_width)
+        self.conv2 = nn.Conv2d(bottleneck_width, bottleneck_width, 3, stride,
+                               1, groups=groups, bias=False)
+        self.bn2 = FrozenBatchNorm2d(bottleneck_width)
+        self.conv3 = _conv(bottleneck_width, width, 1)
+        self.bn3 = FrozenBatchNorm2d(width)
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        return F.relu(self.bn3(self.conv3(out)) + identity)
+
+
+class RegNet(nn.Module):
+    """RegNetX (JAX ``RegNet``; mmdet's ``RegNet``): ``arch`` one of
+    ``ARCH_SETTINGS`` or a dict of ``w0, wa, wm, group_w, depth,
+    bot_mul``; a ``stem_channels`` 3x3/2 stem (``conv1``/``bn1``), no
+    max-pool, every stage's first block at stride 2.  Returns the outputs
+    of the stages in ``out_indices`` (NCHW)."""
+
+    ARCH_SETTINGS = {
+        "regnetx_400mf": dict(w0=24, wa=24.48, wm=2.54, group_w=16,
+                              depth=22, bot_mul=1.0),
+        "regnetx_800mf": dict(w0=56, wa=35.73, wm=2.28, group_w=16,
+                              depth=16, bot_mul=1.0),
+        "regnetx_1.6gf": dict(w0=80, wa=34.01, wm=2.25, group_w=24,
+                              depth=18, bot_mul=1.0),
+        "regnetx_3.2gf": dict(w0=88, wa=26.31, wm=2.25, group_w=48,
+                              depth=25, bot_mul=1.0),
+        "regnetx_4.0gf": dict(w0=96, wa=38.65, wm=2.43, group_w=40,
+                              depth=23, bot_mul=1.0),
+        "regnetx_6.4gf": dict(w0=184, wa=60.83, wm=2.07, group_w=56,
+                              depth=17, bot_mul=1.0),
+        "regnetx_8.0gf": dict(w0=80, wa=49.56, wm=2.88, group_w=120,
+                              depth=23, bot_mul=1.0),
+        "regnetx_12gf": dict(w0=168, wa=73.36, wm=2.37, group_w=112,
+                             depth=19, bot_mul=1.0),
+    }
+
+    @staticmethod
+    def stage_plan(cfg, divisor=8):
+        """Per stage ``(widths, blocks, bottleneck widths, groups)`` from
+        the RegNet rule: ``w_j = w0 + wa * j`` snapped to powers of ``wm``
+        and to multiples of ``divisor``, runs of equal widths as stages,
+        each bottleneck width a multiple of its group width."""
+        w_cont = np.arange(cfg["depth"]) * cfg["wa"] + cfg["w0"]
+        ks = np.round(np.log(w_cont / cfg["w0"]) / np.log(cfg["wm"]))
+        widths = cfg["w0"] * np.power(cfg["wm"], ks)
+        widths = (np.round(widths / divisor) * divisor).astype(int)
+        stage_w, stage_b = [], []
+        for w in widths:
+            if not stage_w or stage_w[-1] != w:
+                stage_w.append(int(w))
+                stage_b.append(1)
+            else:
+                stage_b[-1] += 1
+        bw, groups = [], []
+        for w in stage_w:
+            wb = int(w * cfg["bot_mul"])
+            g = min(cfg["group_w"], wb)
+            wb = int(round(wb / g) * g)
+            bw.append(wb)
+            groups.append(wb // g)
+        stage_w = [int(round(b / cfg["bot_mul"])) for b in bw]
+        return stage_w, stage_b, bw, groups
+
+    def __init__(self, arch="regnetx_3.2gf", out_indices=(0, 1, 2, 3),
+                 frozen_stages=-1, stem_channels=32):
+        super().__init__()
+        cfg = dict(self.ARCH_SETTINGS[arch]) if isinstance(arch, str) \
+            else dict(arch)
+        stage_w, stage_b, bw, groups = self.stage_plan(cfg)
+        self.out_indices = tuple(out_indices)
+        self.conv1 = _conv(3, stem_channels, 3, 2)
+        self.bn1 = FrozenBatchNorm2d(stem_channels)
+        self.stages = []
+        cin = stem_channels
+        for s, (w, n, b, g) in enumerate(zip(stage_w, stage_b, bw, groups)):
+            blocks = []
+            for i in range(n):
+                ds = _downsample(cin, w, 2) if i == 0 else None
+                blocks.append(RegNetBlock(cin, w, b, g, 2 if i == 0 else 1,
+                                          ds))
+                cin = w
+            self.add_module(f"layer{s + 1}", nn.Sequential(*blocks))
+            self.stages.append(f"layer{s + 1}")
         frozen = [self.conv1, self.bn1] if frozen_stages >= 0 else []
         frozen += [getattr(self, f"layer{i}")
                    for i in range(1, frozen_stages + 1)]
@@ -149,7 +486,6 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
         outs = []
         for i, name in enumerate(self.stages):
             x = getattr(self, name)(x)

@@ -13,8 +13,10 @@ with its box loss: L1 for an ``L1Loss`` or a ``SmoothL1Loss`` config (the
 JAX package keeps both on its inline L1 path, ROADMAP.md queue C),
 ``BalancedL1Loss`` as configured, SmoothL1 at the batch's beta under
 Dynamic R-CNN.  The mask branch is optional (``with_mask``), and with it
-Mask Scoring's IoU head.  The neck may be an FPN followed by Libra's BFP
-(mmdet's ``neck.0``, ``neck.1``).  A box head may classify only
+Mask Scoring's IoU head.  The backbone may be a ResNet (with DCN and
+plugins), a Res2Net, a RegNet or an HRNet; the neck an FPN followed by
+Libra's BFP (mmdet's ``neck.0``, ``neck.1``), a PAFPN or an HRFPN.  A box
+head may classify only
 (``with_reg=False``: no ``loss_bbox``), the mask head may be PointRend's
 coarse head, and a mask extractor the single-level
 ``GenericRoIExtractor`` (plain RoIAlign at every listed level, fused).
@@ -46,13 +48,14 @@ from ...ops.roi_align_blocked import roi_align_blocked
 from ...ops.roi_align_fused import roi_align_fused
 from ...parallel import gather_cat
 from ..backbones.hrnet import HRNet
-from ..backbones.resnet import ResNet
+from ..backbones.resnet import RegNet, Res2Net, ResNet
 from ..dense_heads.rpn_head import RPNHead, rpn_loss, rpn_proposals
 from ..losses import (balanced_l1_loss, binary_cross_entropy, cross_entropy,
                       l1_loss, mse_loss, smooth_l1_loss)
 from ..necks.bfp import BFP
 from ..necks.fpn import FPN
 from ..necks.hrfpn import HRFPN
+from ..necks.pafpn import PAFPN
 from ..roi_heads.bbox_head import (DoubleConvFCBBoxHead, Shared2FCBBoxHead,
                                    bbox_targets, scale_rois)
 from ..roi_heads.mask_head import FCNMaskHead, MaskIoUHead, mask_iou_targets
@@ -188,21 +191,40 @@ def _require_type(cfg, expected, item):
             f"{item})")
 
 
+RESNET_KEYS = ("depth", "num_stages", "out_indices", "frozen_stages",
+               "norm_eval", "style", "base_channels", "dcn", "stage_with_dcn",
+               "plugins", "deep_stem")
+
+
 def _build_backbone(cfg):
-    """A ``ResNet`` or an ``HRNet``; other backbones raise A6."""
-    if dict(cfg).get("type") == "HRNet":
+    """A ``ResNet`` (with its DCN and plugin options), a ``Res2Net``, a
+    ``RegNet`` or an ``HRNet``; other backbones and options raise A6.
+    RegNet takes the base ResNet's ``depth``, ``num_stages``,
+    ``norm_eval`` and ``style`` that a merged config carries, and ignores
+    them, as the JAX builder does."""
+    cfg = dict(cfg)
+    btype = cfg.get("type", "ResNet")
+    if btype == "HRNet":
         return HRNet(**_kwargs(cfg, "backbone", (
             "extra", "frozen_stages", "norm_eval"), "A6"))
+    if btype == "RegNet":
+        kw = _kwargs(cfg, "backbone", (
+            "arch", "out_indices", "frozen_stages", "depth", "num_stages",
+            "norm_eval", "style"), "A6")
+        for k in ("depth", "num_stages", "norm_eval", "style"):
+            kw.pop(k, None)
+        return RegNet(**kw)
+    if btype == "Res2Net":
+        return Res2Net(**_kwargs(cfg, "backbone", RESNET_KEYS + (
+            "scales", "base_width", "avg_down"), "A6"))
     _require_type(cfg, "ResNet", "A6")
-    return ResNet(**_kwargs(cfg, "backbone", (
-        "depth", "num_stages", "out_indices", "frozen_stages", "norm_eval",
-        "style", "base_channels"), "A6"))
+    return ResNet(**_kwargs(cfg, "backbone", RESNET_KEYS, "A6"))
 
 
 def _build_neck(cfg):
-    """An ``FPN`` or an ``HRFPN``, or a chain of necks: Libra R-CNN's
-    ``[FPN, BFP]`` (an ``nn.Sequential``: mmdet's ``neck.0``, ``neck.1``);
-    another chain raises A7, other necks A6."""
+    """An ``FPN``, a ``PAFPN`` or an ``HRFPN``, or a chain of necks:
+    Libra R-CNN's ``[FPN, BFP]`` (an ``nn.Sequential``: mmdet's
+    ``neck.0``, ``neck.1``); another chain raises A7, other necks A6."""
     if isinstance(cfg, (list, tuple)):
         types = [dict(c).get("type") for c in cfg]
         if len(cfg) < 2 or types[0] != "FPN" or any(
@@ -216,6 +238,10 @@ def _build_neck(cfg):
     if dict(cfg).get("type") == "HRFPN":
         return HRFPN(**_kwargs(cfg, "neck", (
             "in_channels", "out_channels", "num_outs"), "A6"))
+    if dict(cfg).get("type") == "PAFPN":
+        return PAFPN(**_kwargs(cfg, "neck", (
+            "in_channels", "out_channels", "num_outs", "start_level",
+            "add_extra_convs"), "A6"))
     _require_type(cfg, "FPN", "A6")
     return FPN(**_kwargs(cfg, "neck", (
         "in_channels", "out_channels", "num_outs", "start_level",
@@ -280,8 +306,9 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
 
 
 class TwoStageDetector(nn.Module):
-    """FPN two-stage trunk: ResNet + FPN (+ BFP) or HRNet + HRFPN, RPN, a
-    box head and an optional mask head."""
+    """FPN two-stage trunk: ResNet (DCN, plugins), Res2Net or RegNet + FPN
+    (+ BFP) or PAFPN, or HRNet + HRFPN; RPN, a box head and an optional
+    mask head."""
 
     has_rpn = True          # Fast R-CNN: proposals come with the batch
 

@@ -39,6 +39,17 @@ def fan_in_uniform_(w, gen):
     uniform_(w, math.sqrt(3.0 / _fans(w)[0]), gen)
 
 
+def lecun_normal_(w, gen):
+    """flax's default kernel init: a normal truncated at two standard
+    deviations, scaled to variance ``1 / fan_in``, drawn by the inverse
+    CDF."""
+    std = math.sqrt(1.0 / _fans(w)[0]) / .87962566103423978
+    lo = 0.5 * (1.0 + math.erf(-math.sqrt(2.0)))        # Phi(-2)
+    u = torch.rand(w.shape, generator=gen) * (1.0 - 2.0 * lo) + lo
+    with torch.no_grad():
+        w.copy_(torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0) * std)
+
+
 def zeros_(t):
     with torch.no_grad():
         t.zero_()

@@ -5,15 +5,20 @@ config by default, or another detector the port builds, such as the Mask,
 Cascade Mask, Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI
 baselines, Grid R-CNN, PointRend, the RPN, Fast R-CNN (on 2000 synthetic
 proposals an image, ``profile_train.synthetic_proposals``), LOFT-FOA on
-HRNet-W32 + HRFPN, or a dense single-stage detector: RetinaNet, its GHM
-and PISA configs, FreeAnchor, ATSS, GFL, FCOS;
+HRNet-W32 + HRFPN, the trunk variants (the DCNv2, GCNet, Res2Net and
+RegNetX-3.2GF Mask R-CNNs, the generalized-attention and PAFPN Faster
+R-CNNs), or a dense single-stage detector: RetinaNet, its GHM and PISA
+configs, FreeAnchor, ATSS, GFL, FCOS;
 1024^2, B=2, bfloat16,
 seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
 loaded as the test CLI loads it) and prints
 
 - each stage's time (host clock, the device synchronised at each stage's
   start and end): the backbone and the neck (named with their types:
-  ResNet and FPN, or HRNet and HRFPN), RPN and proposals (with its NMS), the
+  ResNet, Res2Net, RegNet or HRNet, and FPN, PAFPN or HRFPN), the
+  backbone's deformable sampling and attention blocks apart from it
+  (``backbone: DCN sampling``, ``backbone: ContextBlock``, ...), RPN and
+  proposals (with its NMS), the
   RoIAlign kernel of the route (B1, under the block rule for ``block``
   and under the strip rule for ``pallas``), the plain RoIAlign of a
   ``GenericRoIExtractor`` (PointRend's mask branch), each RoI head (a
@@ -48,6 +53,7 @@ from ..config import Config
 from ..models.dense_heads import retina_head
 from ..models.detectors import (cascade_rcnn, grid_rcnn, point_rend,
                                 single_stage, two_stage)
+from ..ops import deform_conv, layers
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
@@ -83,6 +89,46 @@ def trunk(model):
     (HRNet)``)."""
     return {f"{k} ({type(m).__name__})": m
             for k, m in (("backbone", model.backbone), ("neck", model.neck))}
+
+
+def patch_backbone_parts(model, totals):
+    """Time the backbone's deformable sampling (the forward, and in a
+    training step the backward, of ``ops/deform_conv.py``'s sampling
+    function) and its attention blocks (``ContextBlock``,
+    ``GeneralizedAttention``, ``NonLocal2d``) as stages of their own,
+    ``backbone: <part>``; :func:`split_backbone` takes them out of the
+    backbone's (and the backward's) time.  Returns what
+    :func:`restore_backbone_parts` puts back."""
+    blocks = [m for m in model.backbone.modules()
+              if isinstance(m, (layers.ContextBlock,
+                                layers.GeneralizedAttention,
+                                layers.NonLocal2d))]
+    for m in blocks:
+        m.forward = _timed(f"backbone: {type(m).__name__}", m.forward,
+                           totals)
+    sample = deform_conv._DeformSample
+    saved = {k: sample.__dict__[k] for k in ("forward", "backward")}
+    for k, fn in saved.items():
+        setattr(sample, k, staticmethod(_timed(
+            f"backbone: DCN sampling, {k}", fn.__func__, totals)))
+    return blocks, saved
+
+
+def restore_backbone_parts(saved):
+    blocks, fns = saved
+    for m in blocks:
+        del m.forward
+    for k, fn in fns.items():
+        setattr(deform_conv._DeformSample, k, fn)
+
+
+def split_backbone(model, stages, backward=None):
+    """Take the backbone parts' forward times out of the backbone's stage
+    and their backward times out of stage ``backward``."""
+    key = f"backbone ({type(model.backbone).__name__})"
+    for k, v in stages.items():
+        if k.startswith("backbone: "):
+            stages[backward if k.endswith("backward") else key] -= v
 
 
 def patch_functions(names, totals, modules=DETECTOR_MODULES):
@@ -140,6 +186,7 @@ def dense_stage_times(model, batch, reps=3):
                             totals, (single_stage,))
     saved += patch_functions({"multiclass_nms": "multiclass nms"}, totals,
                              (retina_head,))
+    parts = patch_backbone_parts(model, totals)
     try:
         wall = _timed_calls(model, batch, reps)
     finally:
@@ -147,7 +194,9 @@ def dense_stage_times(model, batch, reps=3):
         for m in heads.values():
             del m.forward
         restore_functions(saved)
+        restore_backbone_parts(parts)
     stages = {k: v / reps for k, v in totals.items()}
+    split_backbone(model, stages)
     stages["decode (top-k, boxes)"] = stages.pop("decode+nms") \
         - stages["multiclass nms"]
     stages["other"] = wall / reps - sum(stages.values())
@@ -177,6 +226,7 @@ def stage_times(model, batch, reps=3):
          "uncertainty_points_test": "uncertain cells (sort)",
          "fine_grained_point_feats": "point features",
          "multiclass_nms": f"rcnn multiclass {nms}"}, totals)
+    parts = patch_backbone_parts(model, totals)
     try:
         wall = _timed_calls(model, batch, reps)
     finally:
@@ -185,7 +235,9 @@ def stage_times(model, batch, reps=3):
         for m in heads.values():
             del m.forward
         restore_functions(saved)
+        restore_backbone_parts(parts)
     stages = {k: v / reps for k, v in totals.items()}
+    split_backbone(model, stages)
     stages["other"] = wall / reps - sum(stages.values())
     return stages, wall / reps
 

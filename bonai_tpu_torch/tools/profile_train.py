@@ -3,8 +3,9 @@
 Builds a config (``--config``: the LOFT-FOA R50-FPN config by default, or
 another detector the port builds, such as the Mask, Cascade Mask,
 Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI baselines, Grid
-R-CNN, PointRend, the RPN, Fast R-CNN, LOFT-FOA on HRNet-W32 + HRFPN, or
-a dense single-stage detector: RetinaNet, its GHM and PISA configs,
+R-CNN, PointRend, the RPN, Fast R-CNN, LOFT-FOA on HRNet-W32 + HRFPN,
+the trunk variants (DCNv2, GCNet, Res2Net, RegNetX-3.2GF, generalized
+attention, PAFPN), or a dense single-stage detector: RetinaNet, its GHM and PISA configs,
 FreeAnchor, ATSS, GFL, FCOS) for
 training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
@@ -16,7 +17,10 @@ autocast, and prints
 
 - the step time (host clock around a synchronised step, median of 5);
 - each stage's time (the device synchronised at each stage's start and
-  end): the backbone and the neck (named with their types), the RPN
+  end): the backbone and the neck (named with their types), the
+  backbone's deformable sampling (its forward, and its backward apart
+  from the rest of the backward) and attention blocks apart from the
+  backbone, the RPN
   head, proposals (with their NMS), the RPN targets and loss, R-CNN assignment and sampling, the RoIAlign forward
   of the route (B1, under the block or the strip rule), the plain RoIAlign
   of a ``GenericRoIExtractor``, each RoI head (a cascade's stage by
@@ -55,8 +59,10 @@ from ..core.samplers import generator_draws
 from ..engine import train_step as train_step_module
 from ..models.dense_heads import atss_head, fcos_head, gfl_head, retina_head
 from ..models.detectors import single_stage
-from .profile_serve import (geometry_attr, is_dense, patch_functions,
-                            restore_functions, roi_heads, trunk)
+from .profile_serve import (geometry_attr, is_dense, patch_backbone_parts,
+                            patch_functions, restore_backbone_parts,
+                            restore_functions, roi_heads, split_backbone,
+                            trunk)
 
 # the dense detectors' losses (in the detector module) and the target
 # functions they call (in the head modules)
@@ -167,7 +173,7 @@ def _patch_stages(model, totals):
         setattr(model, attr, _timed(name, getattr(model, attr), totals))
     for name, m in heads.items():
         m.forward = _timed(name, m.forward, totals)
-    return patched, heads, saved
+    return patched, heads, saved, patch_backbone_parts(model, totals)
 
 
 def stage_times(model, train_step, batch, draw, reps=3):
@@ -175,7 +181,7 @@ def stage_times(model, train_step, batch, draw, reps=3):
     The backward is what the step's total leaves after the forward and
     the update."""
     totals = collections.defaultdict(float)
-    patched, heads, saved = _patch_stages(model, totals)
+    patched, heads, saved, parts = _patch_stages(model, totals)
     saved_update = train_step_module.apply_gradients
     train_step_module.apply_gradients = _timed("clip+sgd", saved_update,
                                                totals)
@@ -193,17 +199,20 @@ def stage_times(model, train_step, batch, draw, reps=3):
         for m in heads.values():
             del m.forward
         restore_functions(saved)
+        restore_backbone_parts(parts)
         train_step_module.apply_gradients = saved_update
     stages = {k: v / reps for k, v in totals.items()}
     if "loss+targets" in stages:
         stages["loss"] = stages.pop("loss+targets") - stages.get("targets",
                                                                  0.0)
     forward = stages.pop("forward")
+    backward = "backward (incl. B2) + rest"
+    stages[backward] = wall / reps - forward - stages["clip+sgd"]
+    split_backbone(model, stages, backward)
     # the forward's total holds the stages timed inside it
     stages["forward, rest"] = forward - sum(
-        v for k, v in stages.items() if k != "clip+sgd")
-    stages["backward (incl. B2) + rest"] = (wall / reps - forward
-                                                  - stages["clip+sgd"])
+        v for k, v in stages.items() if k not in ("clip+sgd", backward)
+        and not k.endswith("backward"))
     return stages, wall / reps
 
 

@@ -37,6 +37,20 @@ raises ``KeyError`` on such a checkpoint (ROADMAP.md queue C).  The GN
 towers' convs keep the bias they have in the JAX package, which mmdet's
 convs before a norm lack: :func:`mmdet_state_dict` gives them a zero one.
 
+The trunk variants: a deformable ``conv2`` keeps mmcv's
+``layer<s>.<b>.conv2.weight`` and adds ``conv2.conv_offset.{weight,
+bias}``; Res2Net's deep stem (flax ``stem_conv<i>``/``stem_bn<i>``) goes
+to ``backbone.stem.{0,1,3,4,6,7}``, its split convs ``conv2_<i>``/
+``bn2_<i>`` to ``convs.<i>``/``bns.<i>`` and its shortcut to mmdet's
+``Res2Layer`` keys ``downsample.1``/``.2``; RegNet's keys are ResNet's; a
+plugin (flax ``after_conv<k>_plugin<i>``) goes under mmcv's name,
+``context_block``, ``gen_attention_block`` or ``nonlocal_block`` (see
+:func:`_plugin`); PAFPN's ``downsample_<i>``/``pafpn_<i>`` to
+``neck.downsample_convs.<i>.conv``/``neck.pafpn_convs.<i>.conv``.  The
+JAX importer raises ``KeyError`` on a Res2Net checkpoint, reads a RegNet
+one whole, and leaves DCN's ``conv_offset``, the plugins and PAFPN's
+bottom-up convs at their initial values (ROADMAP.md queue C).
+
 Grid R-CNN's box head has no ``fc_reg`` and its grid head goes to
 ``roi_head.grid_head.{convs.<i>.{conv,gn},forder_trans.<i>.<j>.{0,1},
 sorder_trans.<i>.<j>.{0,1},deconv1,norm1,deconv2}``, the per-point JAX
@@ -99,20 +113,37 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         sd[f"{key}.running_var"] = np.asarray(s["var"])
 
     def block(base, blk, stats):
-        """A residual block's convs and norms (``ds_*``: its downsample)."""
+        """A residual block's convs and norms (``ds_*``: its downsample;
+        a Res2Net block's ``conv2_<i>``/``bn2_<i>`` and pooled shortcut,
+        ``downsample.1``/``.2``), a deformable ``conv2``'s
+        ``conv_offset`` and the block's plugins."""
+        res2 = "conv2_0" in blk
+        ds = (1, 2) if res2 else (0, 1)
         for sub, p in blk.items():
+            split = re.fullmatch(r"(conv|bn)2_(\d+)", sub)
             if sub == "ds_conv":
-                layer(f"{base}.downsample.0", p)
+                layer(f"{base}.downsample.{ds[0]}", p)
             elif sub == "ds_bn":
-                norm(f"{base}.downsample.1", p, stats[sub])
+                norm(f"{base}.downsample.{ds[1]}", p, stats[sub])
+            elif split:
+                key = f"{base}.{split[1]}s.{split[2]}"
+                if split[1] == "bn":
+                    norm(key, p, stats[sub])
+                else:
+                    layer(key, p)
+            elif re.fullmatch(r"after_conv\d_plugin\d+", sub):
+                _plugin(base, blk, sub, sd, layer)
             elif sub.startswith("bn"):
                 norm(f"{base}.{sub}", p, stats[sub])
             else:
                 layer(f"{base}.{sub}", p)
+                if "conv_offset" in p:                  # DCN's conv2
+                    layer(f"{base}.{sub}.conv_offset", p["conv_offset"])
 
     bk, bs = params["backbone"], batch_stats["backbone"]
     for name, p in bk.items():
         stem = re.fullmatch(r"(conv|bn)(\d)", name)
+        deep = re.fullmatch(r"stem_(conv|bn)(\d)", name)   # Res2Net's stem
         res = re.fullmatch(r"layer(\d+)_(\d+)", name)
         trans = re.fullmatch(r"t(\d)_(\d+)", name)
         hr = re.fullmatch(r"stage(\d)_module(\d+)", name)
@@ -120,6 +151,12 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             layer(f"backbone.{name}", p)
         elif stem:
             norm(f"backbone.{name}", p, bs[name])
+        elif deep:
+            key = f"backbone.stem.{3 * int(deep[2]) + (deep[1] == 'bn')}"
+            if deep[1] == "conv":
+                layer(key, p)
+            else:
+                norm(key, p, bs[name])
         elif res:
             block(f"backbone.layer{res[1]}.{res[2]}", p, bs[name])
         elif trans:
@@ -229,6 +266,51 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
     # 0-d arrays 1-d
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+# a JAX plugin's variables -> mmcv's plugin name (``_abbr_``): the
+# attention block by its value conv, the non-local block by its theta
+def _plugin_abbr(p):
+    if "value_conv" in p:
+        return "gen_attention_block"
+    return "nonlocal_block" if "theta" in p else "context_block"
+
+
+def _plugin(base, blk, name, sd, layer):
+    """A ResNet plugin of a JAX block (``after_conv<k>_plugin<i>``) under
+    mmcv's name: a ``ContextBlock``'s ``conv_mask`` and
+    ``channel_{add,mul}_conv{1,2}``/``_ln`` -> ``context_block.conv_mask``
+    and ``channel_{add,mul}_conv.{0,3,1}`` (LayerNorm weights ``(planes,
+    1, 1)``); a ``GeneralizedAttention``'s convs as they are,
+    ``appr_geom_x|y`` -> ``appr_geom_fc_x|y``, ``key_content_bias`` ->
+    ``appr_bias`` and ``geom_bias`` flattened ``(heads * dk,)``; a
+    ``NonLocal2d``'s ``g``, ``theta``, ``phi``, ``conv_out`` ->
+    ``nonlocal_block.<n>.conv``.  Two plugins of one type in a block
+    would share mmcv's name: they raise."""
+    abbr = _plugin_abbr(blk[name])
+    if sum(re.fullmatch(r"after_conv\d_plugin\d+", k) is not None
+           and _plugin_abbr(v) == abbr for k, v in blk.items()) > 1:
+        raise ValueError(f"{base}: two {abbr} plugins in one block")
+    key = f"{base}.{abbr}"
+    for sub, p in blk[name].items():
+        fusion = re.fullmatch(r"(channel_(?:add|mul))_(conv1|conv2|ln)", sub)
+        if fusion:
+            idx = {"conv1": 0, "ln": 1, "conv2": 3}[fusion[2]]
+            if fusion[2] == "ln":
+                for k, v in (("weight", p["scale"]), ("bias", p["bias"])):
+                    sd[f"{key}.{fusion[1]}_conv.{idx}.{k}"] = np.asarray(
+                        v).reshape(-1, 1, 1)
+            else:
+                layer(f"{key}.{fusion[1]}_conv.{idx}", p)
+        elif sub in ("key_content_bias", "geom_bias"):
+            sd[f"{key}.{'appr_bias' if sub[0] == 'k' else sub}"] = \
+                np.asarray(p).reshape(-1)
+        elif sub in ("appr_geom_x", "appr_geom_y"):
+            layer(f"{key}.appr_geom_fc_{sub[-1]}", p, _fc)
+        elif abbr == "nonlocal_block":
+            layer(f"{key}.{sub}.conv", p)
+        else:
+            layer(f"{key}.{sub}", p)
 
 
 # the dense heads' output convs: flax name -> mmdet name
@@ -381,9 +463,36 @@ def mmdet_state_dict(model, sd):
     without the ``num_batches_tracked`` counters, and with a zero bias for
     each conv of a conv-GroupNorm module of ``model`` (``<m>.conv.bias``
     beside ``<m>.gn.weight``) that ``sd`` lacks: mmdet's conv before a
-    norm has none, the port's, as the JAX package's, has one."""
+    norm has none, the port's, as the JAX package's, has one.
+
+    An mmcv ``GeneralizedAttention``'s ``gamma`` folds into its
+    ``proj_conv`` (the port's block has none), and its one ``query_conv``
+    also fills the port's ``geom_query_conv``.  Its per-head position
+    projections ``appr_geom_fc_x|y`` do not fit the JAX block's, shared by
+    the heads: such a checkpoint raises ``ValueError`` (ROADMAP.md queue
+    C)."""
     sd = {k: v for k, v in sd.items()
           if not k.endswith("num_batches_tracked")}
+    own = model.state_dict()
+    for key in [k for k in sd if re.fullmatch(r"(.*\.)?gamma", k)
+                and k[:-len("gamma")] + "proj_conv.weight" in own]:
+        # mmcv's attention block scales proj_conv's output by gamma
+        base, gamma = key[:-len("gamma")], sd.pop(key)
+        for k in ("proj_conv.weight", "proj_conv.bias"):
+            sd[base + k] = sd[base + k] * gamma.reshape(())
+    for key, v in own.items():
+        base = key[:-len("geom_query_conv.weight")]
+        if re.fullmatch(r"(.*\.)?geom_query_conv\.weight", key) \
+                and key not in sd and f"{base}query_conv.weight" in sd:
+            # mmcv's block reads one query conv for both terms
+            sd[key] = sd[f"{base}query_conv.weight"].clone()
+        if "appr_geom_fc_" in key and key in sd \
+                and sd[key].shape != v.shape:
+            raise ValueError(
+                f"{key}: mmcv's per-head position projection "
+                f"{tuple(sd[key].shape)} cannot hold the JAX block's "
+                f"projection shared by the heads {tuple(v.shape)} "
+                f"(ROADMAP.md queue C)")
     for key, v in model.state_dict().items():
         base = key[:-len(".conv.bias")]
         if key.endswith(".conv.bias") and key not in sd \

@@ -164,7 +164,26 @@ Phases, each of which must pass:
    point head, 224^2 masks after five subdivision steps), as the rcnn
    phase runs its configs, 3 steps each; each checkpoint through the test
    CLI, ``--eval bbox`` and ``--eval bbox segm``.
-14. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
+14. trunks: the R-CNN trunk variants (``TRUNK_CONFIGS``): the DCNv2
+   (c3-c5), GCNet (context blocks after conv3 of c3-c5), Res2Net-50 and
+   RegNetX-3.2GF Mask R-CNNs and the generalized-attention (after conv2
+   of c4-c5) and PAFPN Faster R-CNNs, each at full width with seeded
+   random weights under ``'block'`` (the attention and PAFPN configs
+   default to the plain gather route; Res2Net's and PAFPN's backbone
+   BatchNorm statistics calibrated as the hrnet phase's), as the rcnn
+   phase runs its configs: one serve batch and one ``inference_detector``
+   call; the FPN
+   levels of a small float32 input on the card against a float64 run on
+   the CPU (the deformable sampling and attention blocks inside), within
+   1e-4 of each level's largest value, or twice the CPU's own float32
+   rounding where that is larger, with TF32 off, and its RoI branches
+   held to the plain route; 3 steps on the repeated synthetic batch (at
+   the base LR but PAFPN's, so that the zero-initialised plugin convs'
+   inputs and Res2Net's stem visibly move; the stem, behind the gradient
+   stop after the max-pool, gets no gradient and moves by weight decay
+   alone, its zero BN biases not at all); each checkpoint through the
+   test CLI with ``--eval bbox`` (and ``segm`` for the Mask R-CNNs).
+15. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
    R50-FPN on its COCO config and on the GHM and PISA configs, which keep
    COCO's 80 classes, and FreeAnchor, ATSS, GFL and FCOS on BONAI), each
    at full width with seeded random weights: one serve batch (B=2,
@@ -181,7 +200,7 @@ Phases, each of which must pass:
    warmup);
    the BONAI configs' checkpoints through the test CLI with ``--eval
    bbox`` on the first val crop (``score_thr=0``).  No kernel may launch.
-15. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+16. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -199,7 +218,8 @@ mask), 1 for Dynamic R-CNN, 1 for Libra R-CNN, 2 for Double-Head (the
 cls RoIs and the scaled reg RoIs), 2 for Mask Scoring R-CNN (box and
 mask; the IoU head reuses the mask features), 1 for Fast R-CNN, 0 for the
 RPN, 2 for Grid R-CNN (box and grid), 1 for PointRend (box; its mask
-extractor is the plain RoIAlign); the file chain's RPN test runs launch
+extractor is the plain RoIAlign), 2 for the trunk variants' Mask R-CNNs
+and 1 for their Faster R-CNNs; the file chain's RPN test runs launch
 nothing, its Fast R-CNN launches B1 and B2 once a training step and B1
 once a test batch; the dense phase's runs launch nothing.
 
@@ -243,13 +263,41 @@ DENSE_CONFIGS = (
     ("gfl", "configs/gfl/gfl_r50_fpn_1x_bonai.py", True),
     ("fcos", "configs/fcos/fcos_r50_fpn_1x_bonai.py", True))
 DENSE_STEPS = 3
+# the R-CNN trunk variants (the trunks phase): label, config, the RoIAlign
+# kernel calls of a batch or step, whether it trains with its warmup (the
+# BONAI schedules train at the base LR, clip 35: at the warmup's first
+# LRs the zero-initialised plugin convs and their inputs, and Res2Net's
+# decay-only stem, move by less than a float32 ulp in 3 steps; PAFPN's
+# COCO schedule, unclipped, keeps its warmup), and whether its weights
+# get calibrated BatchNorm statistics (``_calibrated_weights``: with
+# identity statistics Res2Net's c5 reaches 3e3 on a 256^2 input, against
+# R50's 231, and its boxes leave no detection; PAFPN's 80-class head
+# saturates, and its RoI losses' stride-16 gradients of the small input
+# fall to 1e-27, into float32's subnormal range, where the gradient
+# check's relative bound cannot hold)
+TRUNK_CONFIGS = (
+    ("dcn", "configs/dcn/mask_rcnn_r50_fpn_dconv_c3-c5_1x_bonai.py", 2,
+     False, False),
+    ("gcnet", "configs/gcnet/mask_rcnn_r50_fpn_r4_gcb_c3-c5_1x_bonai.py", 2,
+     False, False),
+    ("attention", "configs/empirical_attention/"
+     "faster_rcnn_r50_fpn_attention_1111_1x_bonai.py", 1, False, False),
+    ("res2net", "configs/res2net/mask_rcnn_r2_50_fpn_2x_bonai.py", 2, False,
+     True),
+    ("regnet", "configs/regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_bonai.py", 2,
+     False, False),
+    ("pafpn", "configs/pafpn/faster_rcnn_r50_pafpn_1x_bonai.py", 1, True,
+     True))
+TRUNK_STEPS = 3
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
                "mask_scoring": (("bbox", "segm"), 2), "grid": (("bbox",), 2),
                "point_rend": (("bbox", "segm"), 1),
                **{label: (("bbox",), 0) for label, _, scored in DENSE_CONFIGS
-                  if scored}}
+                  if scored},
+               **{label: (("bbox", "segm") if calls == 2 else ("bbox",),
+                          calls) for label, _, calls, *_ in TRUNK_CONFIGS}}
 # the rest of the R-CNN family on BONAI (the rcnn2 phase): label, config,
 # the RoIAlign calls of a batch or step
 RCNN2_CONFIGS = (
@@ -1077,8 +1125,9 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     its base LR, on ``batch`` (by default the synthetic batch of
     ``profile_train``).  Every trainable tensor must get a gradient in
     some step,
-    but for those behind HRNet's gradient stop after ``layer1``
-    (``conv2``/``bn2``), which must get none, and every one must move.
+    but for those behind a backbone's gradient stop (``behind_stop``:
+    HRNet's ``conv2``/``bn2`` after ``layer1``, Res2Net's deep stem after
+    the max-pool), which must get none, and every one must move.
     Returns the forward and backward kernels' launch counts of the run,
     the median warm step time, the peak memory, and with ``keep`` the
     final checkpoint, whose work directory the caller removes."""
@@ -1158,20 +1207,21 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
         init.load_state_dict(load_mmdet_checkpoint(load_from))
     start = dict(init.named_parameters())
     # the trainable tensors without a gradient in any step: exactly those
-    # upstream of HRNet's gradient stop after layer1, which weight decay
+    # upstream of a backbone's gradient stop (HRNet's conv2/bn2 after
+    # layer1, Res2Net's deep stem after the max-pool), which weight decay
     # and momentum alone move, as in the JAX step; none in other models
     names = {id(p): n for n, p in model.named_parameters()}
     no_grad = {names[id(p)] for p, seen in zip(params, grad_seen[0])
                if not seen}
     behind_stop = {f"backbone.{n}" for n, p in
                    model.backbone.named_parameters()
-                   if p.requires_grad and n.split(".")[0] in ("conv2", "bn2")
-                   } if getattr(model.backbone, "stops_gradient",
-                                False) else set()
-    # the bias of the non-local block's phi shifts every pairwise logit of
-    # a softmax row alike: its gradient is 0 but for float noise
+                   if p.requires_grad and n.split(".")[0]
+                   in getattr(model.backbone, "behind_stop", ())}
+    # the bias of the non-local block's phi, and of a context block's
+    # pooling conv, shifts every logit of a softmax row alike: its
+    # gradient is 0 but for float noise
     noise_only = {n for n in names.values()
-                  if n.endswith("refine.phi.conv.bias")}
+                  if n.endswith(("refine.phi.conv.bias", "conv_mask.bias"))}
     print(f"{what}: trainable tensors without a gradient in any step: "
           f"{sorted(no_grad) or 'none'}", flush=True)
     if not behind_stop <= no_grad <= behind_stop | noise_only:
@@ -2219,6 +2269,105 @@ def rcnn3_phase():
     return out
 
 
+def _trunk_cpu_check(model, what, r):
+    """The FPN levels of a small float32 input (two 256x320 images) on the
+    card, from the same weights as a float64 run on the CPU (float32
+    where the port computes in float32: the sampling weights and the
+    softmaxes), with TF32 off: the backbone's deformable sampling and
+    attention blocks (plain PyTorch on both devices) inside.  Each level
+    must agree within 1e-4
+    of its largest value, or within twice the float32 rounding that a
+    float32 run on the CPU shows against the float64 one where that is
+    larger (Res2Net with calibrated statistics: 9e-5 of the largest)."""
+    import copy
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import prepare_batch
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model.float()
+        cpu = copy.deepcopy(model).cpu().to(
+            memory_format=torch.contiguous_format)
+        small = [r.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(2)]
+        model.cfg.data.test.pipeline[1].img_scale = (320, 320)
+        img = prepare_batch(model, small)[0]
+        with torch.inference_mode():
+            got = model.extract_feat(img)
+            cpu32 = cpu.extract_feat(img.cpu())
+            want = cpu.double().extract_feat(img.cpu().double())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    for i, (g, c, w) in enumerate(zip(got, cpu32, want)):
+        err = float((g.cpu().double() - w).abs().max())
+        noise = float((c.double() - w).abs().max())
+        top = float(w.abs().max())
+        print(f"{what}: small float32 input ({tuple(img.shape[1:3])}), FPN "
+              f"level {i} on the card vs float64 on the CPU: max abs diff "
+              f"{err:.3g} (float32 on the CPU {noise:.3g}; values up to "
+              f"{top:.3g})", flush=True)
+        if not err <= max(1e-4 * top, 2 * noise):
+            raise AssertionError(f"{what}: FPN level {i} differs between the "
+                                 f"card and the CPU by {err}")
+
+
+def trunks_phase():
+    """The R-CNN trunk variants (``TRUNK_CONFIGS``: the DCNv2, GCNet,
+    Res2Net and RegNetX-3.2GF Mask R-CNNs, the generalized-attention and
+    PAFPN Faster R-CNNs) at full width with seeded random weights and the
+    ``'block'`` route, as the rcnn phase runs its configs: one serve batch
+    and one ``inference_detector`` call, the FPN levels of a small float32
+    input on the card held to the CPU (``_trunk_cpu_check``) and its RoI
+    branches to the plain route, ``TRUNK_STEPS`` training steps on the
+    repeated synthetic batch (every trainable tensor moves; Res2Net's
+    stem, behind the gradient stop, by weight decay alone; Res2Net and
+    PAFPN from weights with calibrated BatchNorm statistics), then each
+    checkpoint through the test CLI on the first val crop (``--eval bbox``,
+    and ``segm`` for the Mask R-CNNs).  Returns each config's launch
+    counts, times and peak memory."""
+    import numpy as np
+    out = {}
+    for label, config, calls, warmup, calibrate in TRUNK_CONFIGS:
+        config = os.path.join(REPO, config)
+        weights = None
+        if calibrate:
+            weights = os.path.join(REPO, "build", "chip_smoke_trunks",
+                                   "init.pth")
+            _calibrated_weights(config, weights)
+        serve, serve_ms, serve_peak = serve_phase(
+            "block", config, calls=1, label=f"{label} serve",
+            checkpoint=weights,
+            inspect=lambda model, *_: _trunk_cpu_check(
+                model, f"{label} serve", np.random.RandomState(1)))
+        train = train_phase("block", TRUNK_STEPS, config,
+                            label=f"{label} train", keep=True,
+                            warmup=warmup, load_from=weights)
+        if weights:
+            shutil.rmtree(os.path.dirname(weights), ignore_errors=True)
+        if serve != 2 * calls or not (
+                train["fwd"] == train["bwd"] == TRUNK_STEPS * calls):
+            raise AssertionError(f"{label}: B1 {serve} launches serving, "
+                                 f"{train['fwd']} / B2 {train['bwd']} "
+                                 f"training; expected {calls} a batch or "
+                                 f"step")
+        coco = rcnn_coco(label, config, train["checkpoint"])
+        shutil.rmtree(train["work_dir"], ignore_errors=True)
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=coco)
+    for label, r in out.items():
+        print(f"trunks {label}: serve {r['serve_ms']:.1f} ms a B=2 call, "
+              f"peak {r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} "
+              f"launches; train median step {r['train']['step_ms']:.1f} ms, "
+              f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
+              f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches; test "
+              f"CLI B1 {r['coco_cli']} launches", flush=True)
+    return out
+
+
 def _test_cli(cfg_path, checkpoint, *args):
     """The generic test CLI on the card; returns its results and metrics,
     the seconds taken and the launch counts of the run."""
@@ -2590,6 +2739,7 @@ def main():
     rcnn = rcnn_phase()
     rcnn2 = rcnn2_phase()
     rcnn3 = rcnn3_phase()
+    trunks = trunks_phase()
     dense = dense_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
@@ -2651,7 +2801,9 @@ def main():
                 **{f"rcnn2_files_{k}_launches": fwd
                    for k, (fwd, _) in rcnn2["files"].items()},
                 rcnn2_double_head_reg_rois=rcnn2["double_head"]["window"],
-                **{f"rcnn3_{k}_{what}_launches": n for k, r in rcnn3.items()
+                **{f"{phase}_{k}_{what}_launches": n
+                   for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks))
+                   for k, r in runs.items()
                    for what, n in (("serve", r["serve"]),
                                    ("train", r["train"]["fwd"]),
                                    ("coco_cli", r["coco_cli"]))},
@@ -2677,8 +2829,9 @@ def main():
                   for k, _, _ in RCNN2_CONFIGS},
                rcnn2_files_fast_train_launches=rcnn2["files"][
                    "fast_train"][1],
-               **{f"rcnn3_{k}_train_launches": r["train"]["bwd"]
-                  for k, r in rcnn3.items()},
+               **{f"{phase}_{k}_train_launches": r["train"]["bwd"]
+                  for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks))
+                  for k, r in runs.items()},
                **{f"dense_{k}_train_launches": r["train"]["bwd"]
                   for k, r in dense.items()}),
         forward("roi_align_fused_fwd", "pallas",

@@ -231,7 +231,7 @@ def test_the_config_builds_and_trains_what_jax_trains(models):
 def test_other_backbones_and_neck_options_name_their_item():
     from bonai_tpu_torch.models import build_detector
     cfg = tiny_cfg(config=HRNET_CONFIG)
-    cfg.model.backbone.type = "RegNet"
+    cfg.model.backbone.type = "HourglassNet"
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
     cfg = tiny_cfg(config=HRNET_CONFIG)

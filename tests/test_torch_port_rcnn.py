@@ -116,14 +116,14 @@ def test_configs_build_at_full_width(name):
         pre_cfg=dict(type="ConvModule", in_channels=16, out_channels=16,
                      kernel_size=5, padding=2, inplace=False))), "A7"),
     (dict(loss_bbox=dict(type="GIoULoss")), "A7"),
-    (dict(config="dcn/mask_rcnn_r50_fpn_dconv_c3-c5_1x_bonai.py"), "A6")],
+    (dict(config="detectors/detectors_cascade_rcnn_r50_1x_bonai.py"), "A6")],
     ids=lambda x: x if isinstance(x, str) else "-".join(
         str(v.get("type", v)) if isinstance(v, dict)
         else "+".join(c["type"] for c in v) if isinstance(v, list)
         else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
     """A detector, head, sampler, loss, neck chain or GRoIE extractor the
-    port does not build, or a whole config (HTC's, the DCN Mask R-CNN's);
+    port does not build, or a whole config (HTC's, DetectoRS's);
     a single-stage config's head option (FCOS's deformable last conv,
     NAS-FPN's ``RetinaSepBNHead``)."""
     from bonai_tpu_torch import Config

@@ -63,6 +63,20 @@ TINY_HRNET_EXTRA = dict(
                 num_blocks=(1, 1, 1, 1), num_channels=(8, 16, 32, 64)))
 
 
+# the R-CNN trunk variants on BONAI
+TRUNK_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
+    "dcn": "dcn/mask_rcnn_r50_fpn_dconv_c3-c5_1x_bonai.py",
+    "gcnet": "gcnet/mask_rcnn_r50_fpn_r4_gcb_c3-c5_1x_bonai.py",
+    "attention":
+        "empirical_attention/faster_rcnn_r50_fpn_attention_1111_1x_bonai.py",
+    "res2net": "res2net/mask_rcnn_r2_50_fpn_2x_bonai.py",
+    "regnet": "regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_bonai.py",
+    "pafpn": "pafpn/faster_rcnn_r50_pafpn_1x_bonai.py"}.items()}
+# a RegNetX at tiny widths: stages of 8, 16, 32 and 64 channels (1, 1, 2
+# and 2 blocks), group widths 8
+TINY_REGNET = dict(w0=8, wa=12, wm=2, group_w=8, depth=6, bot_mul=1.0)
+
+
 def _each(x):
     """A per-stage config list as it is; one config as a list of one."""
     return x if isinstance(x, (list, tuple)) else [x]
@@ -150,6 +164,29 @@ def a7_cfg(family, train=False):
     cfg = (tiny_train_cfg if train else tiny_cfg)(config=A7_CONFIGS[family])
     if family == "fast_rcnn":
         cfg.model.rpn_head = None
+    return cfg
+
+
+def trunk_cfg(family, train=False):
+    """The config of a ``TRUNK_CONFIGS`` family at tiny widths (the
+    training sizes of :func:`tiny_train_cfg` with ``train``): its trunk
+    as the config has it, but ResNet-50 at base 8 (Res2Net at
+    ``base_width`` 4), or RegNet at ``TINY_REGNET``; the heads of
+    :func:`tiny_cfg`, with one class (the attention and PAFPN configs
+    keep their COCO base's 80; :func:`jax_model` sets one foreground
+    logit)."""
+    cfg = (tiny_train_cfg if train else tiny_cfg)(
+        config=TRUNK_CONFIGS[family])
+    cfg.model.roi_head.bbox_head.num_classes = 1
+    bk, neck = cfg.model.backbone, cfg.model.neck
+    if bk.type == "RegNet":
+        bk.pop("base_channels")
+        bk.arch = TINY_REGNET
+        return cfg
+    bk.depth = 50
+    neck.in_channels = [32, 64, 128, 256]
+    if bk.type == "Res2Net":
+        bk.base_width = 4
     return cfg
 
 
