@@ -168,6 +168,16 @@ def optimizer_cfg(cfg, world_size=1):
     return opt_cfg
 
 
+def may_leave_unused(model):
+    """Whether a training step of ``model`` can leave trained parameters
+    out of its graph: those behind a gradient stop (``stops_gradient``:
+    HRNet's ``conv2``/``bn2`` at ``frozen_stages >= 1``, Res2Net's deep
+    stem, the stem and frozen stages of DetectoRS's RFP backbone copy), or
+    HTC's semantic logits on a batch without ``gt_semantic_seg``."""
+    return any(getattr(m, "stops_gradient", False) for m in model.modules()) \
+        or "semantic_head" in getattr(model, "roi_head", {})
+
+
 def build_trainer(cfg, device, seed=0, steps_per_epoch=1):
     """The detector of ``cfg`` with seeded random float32 weights on
     ``device`` (channels-last on the card) in train mode, its SGD optimizer
@@ -205,14 +215,12 @@ def build_trainer(cfg, device, seed=0, steps_per_epoch=1):
     grad_clip = dict(cfg.get("optimizer_config", {}).get("grad_clip") or {})
     forward = model
     if dist.is_initialized():
-        # a backbone that stops the gradient behind trained parameters
-        # (HRNet's conv2/bn2 at frozen_stages >= 1) leaves them out of the
-        # graph: DDP must look for them, and apply_gradients zeroes them
+        # parameters a step can leave out of the graph: DDP must look for
+        # them, and apply_gradients zeroes them
         forward = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda"
             else None, broadcast_buffers=False,
-            find_unused_parameters=getattr(model.backbone, "stops_gradient",
-                                           False))
+            find_unused_parameters=may_leave_unused(model))
     compute_dtype = None
     if device.type == "cuda" and cfg.get("compute_dtype",
                                          "bfloat16") != "float32":

@@ -14,6 +14,14 @@ stored statistics whatever ``norm_eval`` says, as in the JAX package).
   average-pool shortcut by default).
 - ``RegNet``: RegNetX's grouped bottlenecks, widths from the quantised
   linear rule (``stage_plan``), a 32-channel 3x3/2 stem and no max-pool.
+- DetectoRS's ResNet (``DetectoRS_ResNet``): ``conv2`` a switchable atrous
+  conv (``sac``, ``stage_with_sac``; ``ops/saconv.py``), the input image
+  returned ahead of the stages' outputs (``output_img``, for the RFP), and
+  with ``rfp_inplanes`` (the RFP's backbone copy) a zero-initialised 1x1
+  ``rfp_conv`` in the first block of every stage past the first, adding
+  the RFP feature after the residual sum.  ``conv_cfg=dict(type=
+  'ConvAWS')`` leaves the other convs plain, as in the JAX package
+  (ROADMAP.md queue C).
 
 Module and parameter names follow mmdet v2.3 / mmcv / torchvision
 (``backbone.layer1.0.conv1.weight``, ``backbone.layer1.0.downsample.1
@@ -28,6 +36,9 @@ The deep stem is named ``stem`` (JAX ``stem_conv<i>``/``stem_bn<i>``),
 which the JAX frozen mask does not match: it stays trained behind the
 gradient stop, moved by weight decay and momentum alone
 (``behind_stop``; ROADMAP.md queue C), as HRNet's ``conv2``/``bn2``.
+The RFP's backbone copy, outside ``backbone``, is not frozen either: its
+stem and frozen stages stay trained behind the gradient stops
+(``train_behind_stops``).
 """
 
 from __future__ import annotations
@@ -42,7 +53,8 @@ from torch import nn
 
 from ...ops import layers
 from ...ops.deform_conv import DeformConv2dPack, ModulatedDeformConv2dPack
-from ..init import kaiming_fan_out_
+from ...ops.saconv import SAConv2d
+from ..init import kaiming_fan_out_, zeros_
 
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -147,19 +159,39 @@ def _dcn_conv(dcn, planes, stride):
                deform_groups=int(dcn.get("deform_groups", 1)))
 
 
+def _check_sac(sac):
+    """A ``sac`` config: ``SAC`` without ``use_deform`` (the JAX package
+    ignores it; ROADMAP.md item A6)."""
+    sac = dict(sac)
+    if sac.get("type", "SAC") != "SAC" or sac.get("use_deform", False) \
+            or set(sac) - {"type", "use_deform"}:
+        raise NotImplementedError(
+            f"sac {sac} is not ported to bonai_tpu_torch yet (the deformable "
+            f"SAC; ROADMAP.md item A6)")
+
+
 class Bottleneck(nn.Module):
     """Pytorch style: the stride sits on the 3x3 conv2, which ``dcn``
-    makes deformable; ``plugins`` (``stage_plugins``' tuples) run after
-    their conv's BN (and ReLU)."""
+    makes deformable and ``sac`` switchable-atrous; ``plugins``
+    (``stage_plugins``' tuples) run after their conv's BN (and ReLU);
+    with ``rfp_inplanes`` an ``rfp_conv`` adds the RFP feature after the
+    residual sum."""
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 dcn=None, plugins=()):
+                 dcn=None, plugins=(), sac=False, rfp_inplanes=None):
         super().__init__()
+        if dcn is not None and sac:
+            raise NotImplementedError(
+                "dcn and sac in one stage are not ported to bonai_tpu_torch "
+                "(the JAX package ignores sac there; ROADMAP.md item A6)")
         self.conv1 = _conv(inplanes, planes, 1)
         self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3, stride) if dcn is None \
-            else _dcn_conv(dcn, planes, stride)
+        if sac:
+            self.conv2 = SAConv2d(planes, planes, 3, stride)
+        else:
+            self.conv2 = _conv(planes, planes, 3, stride) if dcn is None \
+                else _dcn_conv(dcn, planes, stride)
         self.bn2 = FrozenBatchNorm2d(planes)
         self.conv3 = _conv(planes, planes * 4, 1)
         self.bn3 = FrozenBatchNorm2d(planes * 4)
@@ -173,19 +205,24 @@ class Bottleneck(nn.Module):
             self.add_module(name, getattr(layers, ptype)(channels,
                                                          **kwargs))
             self.plugin_names[position].append(name)
+        if rfp_inplanes:
+            self.rfp_conv = nn.Conv2d(rfp_inplanes, planes * 4, 1)
 
     def _plugins(self, x, position):
         for name in self.plugin_names[position]:
             x = getattr(self, name)(x)
         return x
 
-    def forward(self, x):
+    def forward(self, x, rfp_feat=None):
         identity = x if self.downsample is None else self.downsample(x)
         out = self._plugins(F.relu(self.bn1(self.conv1(x))), "after_conv1")
         out = self._plugins(F.relu(self.bn2(self.conv2(out))),
                             "after_conv2")
         out = self._plugins(self.bn3(self.conv3(out)), "after_conv3")
-        return F.relu(out + identity)
+        out = out + identity
+        if rfp_feat is not None:
+            out = out + self.rfp_conv(rfp_feat)
+        return F.relu(out)
 
 
 class Bottle2neck(nn.Module):
@@ -231,14 +268,23 @@ class Bottle2neck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns the outputs of the stages in ``out_indices`` (NCHW)."""
+    """Returns the outputs of the stages in ``out_indices`` (NCHW), after
+    the input with ``output_img``."""
 
     def __init__(self, depth=50, num_stages=4, out_indices=(0, 1, 2, 3),
                  frozen_stages=1, norm_eval=True, style="pytorch",
                  base_channels=64, dcn=None,
                  stage_with_dcn=(False, False, False, False), plugins=None,
-                 deep_stem=False):
+                 deep_stem=False, sac=None,
+                 stage_with_sac=(False, False, False, False),
+                 output_img=False, rfp_inplanes=None, conv_cfg=None):
         super().__init__()
+        if dict(conv_cfg or {}).get("type", "ConvAWS") != "ConvAWS":
+            raise NotImplementedError(
+                f"conv_cfg {conv_cfg} is not ported to bonai_tpu_torch yet "
+                f"(ROADMAP.md item A6)")
+        if sac is not None:
+            _check_sac(sac)
         if style != "pytorch":
             raise NotImplementedError(
                 "bonai_tpu_torch ports the pytorch-style ResNet; other "
@@ -248,12 +294,19 @@ class ResNet(nn.Module):
                         "its stored statistics, as in the JAX package")
         block_name, stage_blocks = ARCH_SETTINGS[depth]
         block = self.block_type(block_name)
+        sac_stages = [bool(sac) and bool(w) for w in stage_with_sac]
+        if block is not Bottleneck and (any(sac_stages) or rfp_inplanes):
+            raise NotImplementedError(
+                f"sac and the RFP on {type(self).__name__} depth {depth} are "
+                f"not ported to bonai_tpu_torch (the JAX package ignores "
+                f"them; ROADMAP.md item A6)")
         if block is BasicBlock and (dcn is not None or plugins):
             raise NotImplementedError(
                 "dcn and plugins on a BasicBlock ResNet are not ported to "
                 "bonai_tpu_torch (mmdet has none; ROADMAP.md item A6)")
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
+        self.output_img = output_img
         if deep_stem:
             half = base_channels // 2
             self.stem = nn.Sequential(*[
@@ -278,7 +331,10 @@ class ResNet(nn.Module):
                 blocks.append(self.make_block(
                     block, inplanes, planes, stride if b == 0 else 1, ds,
                     dcn=dcn if dcn is not None and stage_with_dcn[i]
-                    else None, plugins=stage_plugins(plugins, i)))
+                    else None, plugins=stage_plugins(plugins, i),
+                    sac=sac_stages[i],
+                    rfp_inplanes=rfp_inplanes if b == 0 and i > 0
+                    else None))
                 inplanes = planes * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             self.stages.append(f"layer{i + 1}")
@@ -298,6 +354,19 @@ class ResNet(nn.Module):
             else ()
         self.stops_gradient = bool(self.behind_stop)
 
+    def train_behind_stops(self):
+        """Train the stem and the frozen stages behind the gradient stops
+        (the JAX frozen mask matches ``backbone`` alone: the RFP's copy
+        keeps them trained, moved by weight decay and momentum only)."""
+        names = ["conv1", "bn1"] if self.frozen_stages >= 0 and not hasattr(
+            self, "stem") else []
+        names += [f"layer{i}" for i in range(1, self.frozen_stages + 1)]
+        for n in names:
+            for p in getattr(self, n).parameters():
+                p.requires_grad_(True)
+        self.behind_stop += tuple(names)
+        self.stops_gradient = bool(self.behind_stop)
+
     @staticmethod
     def block_type(block_name):
         return Bottleneck if block_name == "bottleneck" else BasicBlock
@@ -307,17 +376,28 @@ class ResNet(nn.Module):
         return _downsample(cin, cout, stride)
 
     @staticmethod
-    def make_block(block, inplanes, planes, stride, ds, dcn, plugins):
+    def make_block(block, inplanes, planes, stride, ds, dcn, plugins, sac,
+                   rfp_inplanes):
         if block is BasicBlock:
             return block(inplanes, planes, stride, ds)
-        return block(inplanes, planes, stride, ds, dcn=dcn, plugins=plugins)
+        return block(inplanes, planes, stride, ds, dcn=dcn, plugins=plugins,
+                     sac=sac, rfp_inplanes=rfp_inplanes)
 
     def init_weights(self, gen):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 kaiming_fan_out_(m.weight, gen)
+        for m in self.modules():        # their own init over the above
+            if isinstance(m, SAConv2d):
+                m.init_weights(gen)
+            if hasattr(m, "rfp_conv"):
+                zeros_(m.rfp_conv.weight)
+                zeros_(m.rfp_conv.bias)
 
-    def forward(self, x):
+    def forward(self, x, rfp_feats=None):
+        """``rfp_feats``: the RFP's features, the one of stage ``i`` into
+        its first block for every stage past the first."""
+        img = x
         if hasattr(self, "stem"):
             x = self.stem(x)
         else:
@@ -327,12 +407,18 @@ class ResNet(nn.Module):
             x = x.detach()
         outs = []
         for i, name in enumerate(self.stages):
-            x = getattr(self, name)(x)
+            layer = getattr(self, name)
+            if rfp_feats is not None and i > 0:
+                x = layer[0](x, rfp_feats[i])
+                for block in layer[1:]:
+                    x = block(x)
+            else:
+                x = layer(x)
             if self.stops_gradient and i < self.frozen_stages:
                 x = x.detach()
             if i in self.out_indices:
                 outs.append(x)
-        return tuple(outs)
+        return (img, *outs) if self.output_img else tuple(outs)
 
 
 class Res2Net(ResNet):
@@ -365,7 +451,8 @@ class Res2Net(ResNet):
             _conv(cin, cout, 1, 1 if pool else stride),
             FrozenBatchNorm2d(cout))
 
-    def make_block(self, block, inplanes, planes, stride, ds, dcn, plugins):
+    def make_block(self, block, inplanes, planes, stride, ds, dcn, plugins,
+                   sac, rfp_inplanes):
         if dcn is not None or plugins:
             raise NotImplementedError(
                 "dcn and plugins on Res2Net are not ported to "

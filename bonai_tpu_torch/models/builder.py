@@ -1,9 +1,10 @@
 """Detector builder (counterpart of ``bonai_tpu/models/builder.py``) for
 the detector types the port implements so far, mapped as the JAX package
 maps them (``MaskScoringRCNN`` is a ``MaskRCNN`` with a
-``mask_iou_head``).  A config with a ``bbox_head`` and neither an
-``rpn_head`` nor a ``roi_head`` is a single-stage layout, as the JAX
-builder reads it."""
+``mask_iou_head``, ``HybridTaskCascade`` an ``HTC``, DetectoRS a
+``CascadeRCNN`` with its backbone and neck).  A config with a
+``bbox_head`` and neither an ``rpn_head`` nor a ``roi_head`` is a
+single-stage layout, as the JAX builder reads it."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import os
 from ..registry import Registry
 from .detectors.cascade_rcnn import CascadeRCNN
 from .detectors.grid_rcnn import GridRCNN
+from .detectors.htc import HTC
 from .detectors.loft import LOFT
 from .detectors.point_rend import PointRend
 from .detectors.single_stage import (ATSS, FCOS, GFL, FreeAnchor, RetinaNet,
@@ -21,9 +23,10 @@ from .detectors.two_stage import (RPN, DynamicRCNN, FastRCNN, FasterRCNN,
 
 DETECTORS = Registry("detector")
 for _cls in (LOFT, FasterRCNN, MaskRCNN, TwoStageDetector, CascadeRCNN,
-             DynamicRCNN, RPN, FastRCNN, GridRCNN, PointRend):
+             DynamicRCNN, RPN, FastRCNN, GridRCNN, PointRend, HTC):
     DETECTORS.register_module()(_cls)
 DETECTORS.register_module(name="MaskScoringRCNN")(MaskRCNN)
+DETECTORS.register_module(name="HybridTaskCascade")(HTC)
 for _cls in (RetinaNet, FreeAnchor, ATSS, GFL, FCOS):
     DETECTORS.register_module()(_cls)
 

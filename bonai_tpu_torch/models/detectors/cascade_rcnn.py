@@ -102,17 +102,19 @@ class CascadeRCNN(TwoStageDetector):
         return losses
 
     def _rcnn_simple_test(self, feats, proposals, prop_valid, img_shape,
-                          scale_factor):
+                          scale_factor, **head_kw):
         """Every stage on the boxes of the one before; the class scores
-        averaged over the stages, the last stage's boxes, plain NMS."""
+        averaged over the stages, the last stage's boxes, plain NMS.
+        ``head_kw`` go to :meth:`_bbox_head_forward` and
+        :meth:`_detections_out` (HTC's semantic feature)."""
         rcnn = dict(self.test_cfg["rcnn"])
         b = proposals.shape[0]
         cur = proposals
         scores = 0.0
         for i, head in enumerate(self.roi_head["bbox_head"]):
             rois, roi_valid = boxes_to_rois(cur, prop_valid)
-            cls_score, bbox_pred = head(self._roi_align_cfg(
-                self.bbox_extractor_cfg, feats, rois, roi_valid))
+            cls_score, bbox_pred = self._bbox_head_forward(
+                head, feats, rois, roi_valid, **head_kw)
             scores = scores + torch.softmax(cls_score, dim=-1)
             cur = self._decode(i, rois, bbox_pred, img_shape, b)
         scores = (scores / self.num_stages).reshape(b, cur.shape[1], -1)
@@ -121,4 +123,5 @@ class CascadeRCNN(TwoStageDetector):
             dict(rcnn.get("nms", dict(type="nms", iou_threshold=0.5))),
             rcnn.get("max_per_img", 100), valid=prop_valid)
         return self._detections_out(feats, det_boxes, det_scores, det_labels,
-                                    det_valid, img_shape, scale_factor)
+                                    det_valid, img_shape, scale_factor,
+                                    **head_kw)

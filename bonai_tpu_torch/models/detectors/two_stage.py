@@ -56,6 +56,7 @@ from ..necks.bfp import BFP
 from ..necks.fpn import FPN
 from ..necks.hrfpn import HRFPN
 from ..necks.pafpn import PAFPN
+from ..necks.rfp import RFP
 from ..roi_heads.bbox_head import (DoubleConvFCBBoxHead, Shared2FCBBoxHead,
                                    bbox_targets, scale_rois)
 from ..roi_heads.mask_head import FCNMaskHead, MaskIoUHead, mask_iou_targets
@@ -193,15 +194,16 @@ def _require_type(cfg, expected, item):
 
 RESNET_KEYS = ("depth", "num_stages", "out_indices", "frozen_stages",
                "norm_eval", "style", "base_channels", "dcn", "stage_with_dcn",
-               "plugins", "deep_stem")
+               "plugins", "deep_stem", "sac", "stage_with_sac", "output_img",
+               "conv_cfg")
 
 
 def _build_backbone(cfg):
-    """A ``ResNet`` (with its DCN and plugin options), a ``Res2Net``, a
-    ``RegNet`` or an ``HRNet``; other backbones and options raise A6.
-    RegNet takes the base ResNet's ``depth``, ``num_stages``,
-    ``norm_eval`` and ``style`` that a merged config carries, and ignores
-    them, as the JAX builder does."""
+    """A ``ResNet`` or ``DetectoRS_ResNet`` (with the DCN, plugin, SAC and
+    ``output_img`` options), a ``Res2Net``, a ``RegNet`` or an ``HRNet``;
+    other backbones and options raise A6.  RegNet takes the base ResNet's
+    ``depth``, ``num_stages``, ``norm_eval`` and ``style`` that a merged
+    config carries, and ignores them, as the JAX builder does."""
     cfg = dict(cfg)
     btype = cfg.get("type", "ResNet")
     if btype == "HRNet":
@@ -217,12 +219,14 @@ def _build_backbone(cfg):
     if btype == "Res2Net":
         return Res2Net(**_kwargs(cfg, "backbone", RESNET_KEYS + (
             "scales", "base_width", "avg_down"), "A6"))
-    _require_type(cfg, "ResNet", "A6")
+    if btype != "DetectoRS_ResNet":
+        _require_type(cfg, "ResNet", "A6")
     return ResNet(**_kwargs(cfg, "backbone", RESNET_KEYS, "A6"))
 
 
 def _build_neck(cfg):
-    """An ``FPN``, a ``PAFPN`` or an ``HRFPN``, or a chain of necks:
+    """An ``FPN``, a ``PAFPN``, an ``HRFPN`` or DetectoRS's ``RFP``, or a
+    chain of necks:
     Libra R-CNN's ``[FPN, BFP]`` (an ``nn.Sequential``: mmdet's
     ``neck.0``, ``neck.1``); another chain raises A7, other necks A6."""
     if isinstance(cfg, (list, tuple)):
@@ -238,6 +242,10 @@ def _build_neck(cfg):
     if dict(cfg).get("type") == "HRFPN":
         return HRFPN(**_kwargs(cfg, "neck", (
             "in_channels", "out_channels", "num_outs"), "A6"))
+    if dict(cfg).get("type") == "RFP":
+        return RFP(**_kwargs(cfg, "neck", (
+            "in_channels", "out_channels", "num_outs", "rfp_steps",
+            "rfp_backbone", "aspp_out_channels", "aspp_dilations"), "A6"))
     if dict(cfg).get("type") == "PAFPN":
         return PAFPN(**_kwargs(cfg, "neck", (
             "in_channels", "out_channels", "num_outs", "start_level",
@@ -634,10 +642,12 @@ class TwoStageDetector(nn.Module):
             batch.get("dyn_beta", dyn.get("initial_beta", 1.0)),
             st["bbox_w"], avg_factor=float(n_tot))
 
-    def _bbox_stage(self, head, coder, feats, sampled, res, batch):
+    def _bbox_stage(self, head, coder, feats, sampled, res, batch,
+                    **head_kw):
         """One box head on the sampled boxes ``(B, num, 4)`` of a batch:
         the targets of ``coder`` (flattened to ``B*num`` rows), the head's
-        deltas, the classification loss and the RoIs."""
+        deltas, the classification loss and the RoIs.  ``head_kw`` go to
+        :meth:`_bbox_head_forward` (HTC's semantic feature)."""
         nc = head.fc_cls.out_features - 1
         labels, label_w, bbox_t, bbox_w = bbox_targets(
             sampled, res, batch["gt_bboxes"], batch["gt_labels"], nc,
@@ -645,7 +655,7 @@ class TwoStageDetector(nn.Module):
             tuple(coder.get("target_stds", (1.,) * 4)))
         rois, roi_valid = boxes_to_rois(sampled, res["valid"])
         cls_score, bbox_pred = self._bbox_head_forward(head, feats, rois,
-                                                       roi_valid)
+                                                       roi_valid, **head_kw)
         labels, label_w = labels.reshape(-1), label_w.reshape(-1)
         return {"labels": labels, "bbox_t": bbox_t.reshape(-1, 4),
                 "bbox_w": bbox_w.reshape(-1, 4), "bbox_pred": bbox_pred,

@@ -1,6 +1,8 @@
-"""FCN mask head, and Mask Scoring R-CNN's mask-IoU head and its targets
-(counterparts of ``bonai_tpu/models/roi_heads/mask_head.py``:
-``FCNMaskHead``, ``MaskIoUHead``, ``mask_iou_targets``)."""
+"""FCN mask head, HTC's mask head and semantic head, and Mask Scoring
+R-CNN's mask-IoU head and its targets (counterparts of
+``bonai_tpu/models/roi_heads/mask_head.py``: ``FCNMaskHead``,
+``HTCMaskHead``, ``FusedSemanticHead``, ``MaskIoUHead``,
+``mask_iou_targets``)."""
 
 from __future__ import annotations
 
@@ -39,6 +41,94 @@ class FCNMaskHead(nn.Module):
             x = F.relu(conv(x))
         x = F.relu(self.upsample(x))
         return self.conv_logits(x).float()
+
+
+class HTCMaskHead(FCNMaskHead):
+    """HTC's mask head: with ``with_conv_res`` (every stage but the first)
+    a 1x1 ``conv_res`` adds the previous stage's mask feature into the RoI
+    features before the convs, without mmdet's ReLU after it, as in the
+    JAX package (ROADMAP.md queue C)."""
+
+    def __init__(self, num_convs=4, in_channels=256, conv_out_channels=256,
+                 num_classes=1, with_conv_res=True):
+        super().__init__(num_convs, in_channels, conv_out_channels,
+                         num_classes)
+        if with_conv_res:
+            self.conv_res = ConvModule(conv_out_channels, conv_out_channels,
+                                       1)
+
+    def forward(self, x, res_feat=None, return_logits=True):
+        """``(N, S, S, C)`` RoI features and the previous stage's ``(N, C,
+        S, S)`` feature or ``None`` -> the float32 ``(N, K, 2S, 2S)`` mask
+        logits, or with ``return_logits=False`` this stage's feature for
+        the next."""
+        x = x.permute(0, 3, 1, 2)
+        if res_feat is not None:
+            x = x + self.conv_res(res_feat)
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        if not return_logits:
+            return x
+        return self.conv_logits(F.relu(self.upsample(x))).float()
+
+
+def resize_bilinear(x, size):
+    """``(N, C, H, W)`` -> ``(N, C, *size)`` as ``jax.image.resize(...,
+    'bilinear')`` resizes: half-pixel centres, and a triangle kernel
+    widened by the scale along an axis that shrinks (antialiasing, which
+    ``F.interpolate`` applies only when asked)."""
+    if tuple(x.shape[-2:]) == tuple(size):
+        return x
+    if size[0] >= x.shape[-2] and size[1] >= x.shape[-1]:
+        return F.interpolate(x, size=tuple(size), mode="bilinear",
+                             align_corners=False)
+    # the antialiased kernel in float32 whatever the input's dtype
+    return F.interpolate(x.float(), size=tuple(size), mode="bilinear",
+                         align_corners=False, antialias=True).to(x.dtype)
+
+
+class FusedSemanticHead(nn.Module):
+    """HTC's semantic branch: a 1x1 ``lateral_convs.<i>`` on each of the
+    first ``num_ins`` levels, resized onto level ``fusion_level`` and
+    summed, ``num_convs`` 3x3 convs with ReLU, then ``conv_logits``
+    (segmentation logits) and ``conv_embedding`` with ReLU (the feature
+    fused into the RoI features).  As in the JAX package the laterals
+    have no ReLU and resize after the conv, half-pixel and antialiased,
+    where mmdet resizes the level first with ``align_corners=True``
+    (ROADMAP.md queue C)."""
+
+    def __init__(self, num_ins=5, fusion_level=1, num_convs=4,
+                 in_channels=256, conv_out_channels=256, num_classes=183):
+        super().__init__()
+        self.fusion_level = fusion_level
+        self.lateral_convs = nn.ModuleList(
+            ConvModule(in_channels, in_channels, 1) for _ in range(num_ins))
+        self.convs = nn.ModuleList(
+            ConvModule(in_channels if i == 0 else conv_out_channels,
+                       conv_out_channels, 3) for i in range(num_convs))
+        self.conv_embedding = ConvModule(conv_out_channels,
+                                         conv_out_channels, 1)
+        self.conv_logits = nn.Conv2d(conv_out_channels, num_classes, 1)
+
+    def init_weights(self, gen):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                kaiming_fan_out_(m.weight, gen)
+                zeros_(m.bias)
+
+    def forward(self, feats):
+        """NHWC levels -> float32 ``(B, K, H, W)`` logits and the ``(B, H,
+        W, C)`` embedding (an NHWC view), at level ``fusion_level``."""
+        levels = [f.permute(0, 3, 1, 2) for f in feats]
+        x = self.lateral_convs[self.fusion_level](levels[self.fusion_level])
+        size = tuple(x.shape[-2:])
+        for i, conv in enumerate(self.lateral_convs):
+            if i != self.fusion_level:
+                x = x + resize_bilinear(conv(levels[i]), size)
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        embedding = F.relu(self.conv_embedding(x))
+        return self.conv_logits(x).float(), embedding.permute(0, 2, 3, 1)
 
 
 class MaskIoUHead(nn.Module):

@@ -12,7 +12,8 @@ that the CUDA kernels are held against.  The level rule is an argument of
 here, the block rule in ``roi_align_block``, the strip rule in
 ``roi_align_fused``.  :func:`window_corner_plan` holds the border rule of
 the windowed formulations (``roi_align_strip``, ``roi_align_blocked``),
-and :func:`scatter_corners` the scatter backward.
+and :func:`scatter_corners` the scatter backward.  :func:`roi_align` is the
+single-level RoIAlign (HTC's semantic fusion), plain on every device.
 """
 
 from __future__ import annotations
@@ -277,3 +278,28 @@ def multilevel_roi_align(levels, rois, output_size, featmap_strides,
     return roi_align_at_levels(levels, rois, lvl, output_size,
                                featmap_strides, sampling_ratio, aligned,
                                roi_valid)
+
+
+def roi_align(features, rois, output_size, spatial_scale=1.0,
+              sampling_ratio=2, aligned=True):
+    """Single-level RoIAlign (counterpart of
+    ``bonai_tpu.ops.roi_align.roi_align``).
+
+    Args:
+      features: ``(B, H, W, C)`` NHWC map.
+      rois: ``(R, 5)`` ``[batch_idx, x1, y1, x2, y2]`` in image coords.
+      spatial_scale: the map's stride reciprocal.
+
+    Returns ``(R, oh, ow, C)`` in the map's dtype (sums in float32)."""
+    B, H, W, C = features.shape
+    sr = max(int(sampling_ratio), 1)
+    rois = rois.float()
+    ys, xs = _sample_coords(rois[:, 1:5] * spatial_scale,
+                            _as_pair(output_size), sr, aligned)
+    size = torch.tensor([float(H), float(W)], device=rois.device)
+    y0, x0, weights = _bilinear_params(ys[:, :, None], xs[:, None, :],
+                                       size[0], size[1])
+    i00 = (rois[:, 0].long() * (H * W))[:, None, None] + y0 * W + x0
+    corners = (i00, i00 + 1, i00 + W, i00 + W + 1)
+    return pool_corners(features.reshape(-1, C).float(), corners, weights,
+                        output_size, sr).to(features.dtype)

@@ -7,22 +7,27 @@ baselines, Grid R-CNN, PointRend, the RPN, Fast R-CNN (on 2000 synthetic
 proposals an image, ``profile_train.synthetic_proposals``), LOFT-FOA on
 HRNet-W32 + HRFPN, the trunk variants (the DCNv2, GCNet, Res2Net and
 RegNetX-3.2GF Mask R-CNNs, the generalized-attention and PAFPN Faster
-R-CNNs), or a dense single-stage detector: RetinaNet, its GHM and PISA
-configs, FreeAnchor, ATSS, GFL, FCOS;
+R-CNNs), HTC, DetectoRS, or a dense single-stage detector: RetinaNet, its
+GHM and PISA configs, FreeAnchor, ATSS, GFL, FCOS;
 1024^2, B=2, bfloat16,
 seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
 loaded as the test CLI loads it) and prints
 
 - each stage's time (host clock, the device synchronised at each stage's
   start and end): the backbone and the neck (named with their types:
-  ResNet, Res2Net, RegNet or HRNet, and FPN, PAFPN or HRFPN), the
-  backbone's deformable sampling and attention blocks apart from it
-  (``backbone: DCN sampling``, ``backbone: ContextBlock``, ...), RPN and
+  ResNet, Res2Net, RegNet or HRNet, and FPN, PAFPN, HRFPN or RFP), the
+  backbone's deformable sampling, attention blocks and switchable atrous
+  convs apart from it (``backbone: DCN sampling``, ``backbone:
+  ContextBlock``, ``backbone: SAC``, ...), the RFP's steps apart from the
+  neck (``neck: RFP step (ASPP + backbone copy)``), RPN and
   proposals (with its NMS), the
   RoIAlign kernel of the route (B1, under the block rule for ``block``
   and under the strip rule for ``pallas``), the plain RoIAlign of a
   ``GenericRoIExtractor`` (PointRend's mask branch), each RoI head (a
-  cascade's stage by stage), Grid R-CNN's vote, PointRend's uncertain
+  cascade's stage by stage; HTC's semantic head, and its mask heads'
+  calls for the next stage's feature as the ``mask info-flow chain``),
+  HTC's semantic fusion (the plain single-level RoIAlign), Grid R-CNN's
+  vote, PointRend's uncertain
   cells and point features, the R-CNN multi-class NMS (soft-NMS in the
   LOFT configs), and the rest; for a dense single-stage detector the
   backbone and the neck, the head (its towers and output convs over the
@@ -51,14 +56,21 @@ import torch
 from ..apis import init_detector, prepare_batch
 from ..config import Config
 from ..models.dense_heads import retina_head
-from ..models.detectors import (cascade_rcnn, grid_rcnn, point_rend,
+from ..models.detectors import (cascade_rcnn, grid_rcnn, htc, point_rend,
                                 single_stage, two_stage)
+from ..models.necks.rfp import RFP
+from ..models.roi_heads.mask_head import HTCMaskHead
 from ..ops import deform_conv, layers
+from ..ops.saconv import SAConv2d
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
 # the detector modules whose functions the stages patch
-DETECTOR_MODULES = (two_stage, cascade_rcnn, grid_rcnn, point_rend)
+DETECTOR_MODULES = (two_stage, cascade_rcnn, grid_rcnn, point_rend, htc)
+# HTC's stage names
+SEMANTIC_FUSION = "semantic fusion, plain RoIAlign"
+INFO_FLOW = "mask info-flow chain"
+RFP_STEP = "neck: RFP step (ASPP + backbone copy)"
 # the dense detectors' decodes (in the detector module) and their NMS (in
 # the head module whose helper calls it)
 DENSE_DECODES = ("retina_bboxes", "atss_bboxes", "gfl_bboxes",
@@ -76,12 +88,30 @@ def geometry_attr(model):
 
 def roi_heads(model):
     """``(name, module)`` of every RoI head: a cascade's stage heads one by
-    one (``bbox_head.<i>``)."""
+    one (``bbox_head.<i>``), HTC's semantic head as ``semantic head``."""
     for name, m in model.roi_head.items():
         if isinstance(m, torch.nn.ModuleList):
             yield from ((f"{name}.{i}", h) for i, h in enumerate(m))
         else:
-            yield name, m
+            yield name.replace("semantic_head", "semantic head"), m
+
+
+def time_heads(heads, totals):
+    """Time each head's forward under its name; an HTC mask head's calls
+    that give the next stage's feature (``return_logits=False``) under
+    :data:`INFO_FLOW`."""
+    for name, m in heads.items():
+        m.forward = _timed(name, m.forward, totals)
+        if isinstance(m, HTCMaskHead):
+            m.forward = _chain_timed(m.forward, _timed(INFO_FLOW, type(
+                m).forward.__get__(m), totals))
+
+
+def _chain_timed(logits, chain):
+    def forward(x, res_feat=None, return_logits=True):
+        return (logits if return_logits else chain)(x, res_feat,
+                                                     return_logits)
+    return forward
 
 
 def trunk(model):
@@ -94,18 +124,25 @@ def trunk(model):
 def patch_backbone_parts(model, totals):
     """Time the backbone's deformable sampling (the forward, and in a
     training step the backward, of ``ops/deform_conv.py``'s sampling
-    function) and its attention blocks (``ContextBlock``,
-    ``GeneralizedAttention``, ``NonLocal2d``) as stages of their own,
-    ``backbone: <part>``; :func:`split_backbone` takes them out of the
-    backbone's (and the backward's) time.  Returns what
+    function), its attention blocks (``ContextBlock``,
+    ``GeneralizedAttention``, ``NonLocal2d``) and its switchable atrous
+    convs (``backbone: SAC``) as stages of their own, ``backbone:
+    <part>``, and the RFP's ASPP and backbone copies as :data:`RFP_STEP`;
+    :func:`split_backbone` takes them out of the backbone's or the neck's
+    (and the backward's) time.  Returns what
     :func:`restore_backbone_parts` puts back."""
-    blocks = [m for m in model.backbone.modules()
+    blocks = [(m, f"backbone: {type(m).__name__}")
+              for m in model.backbone.modules()
               if isinstance(m, (layers.ContextBlock,
                                 layers.GeneralizedAttention,
                                 layers.NonLocal2d))]
-    for m in blocks:
-        m.forward = _timed(f"backbone: {type(m).__name__}", m.forward,
-                           totals)
+    blocks += [(m, "backbone: SAC") for m in model.backbone.modules()
+               if isinstance(m, SAConv2d)]
+    if isinstance(model.neck, RFP):
+        blocks += [(m, RFP_STEP) for m in (model.neck.rfp_aspp,
+                                           *model.neck.rfp_modules)]
+    for m, name in blocks:
+        m.forward = _timed(name, m.forward, totals)
     sample = deform_conv._DeformSample
     saved = {k: sample.__dict__[k] for k in ("forward", "backward")}
     for k, fn in saved.items():
@@ -116,19 +153,23 @@ def patch_backbone_parts(model, totals):
 
 def restore_backbone_parts(saved):
     blocks, fns = saved
-    for m in blocks:
+    for m, _ in blocks:
         del m.forward
     for k, fn in fns.items():
         setattr(deform_conv._DeformSample, k, fn)
 
 
 def split_backbone(model, stages, backward=None):
-    """Take the backbone parts' forward times out of the backbone's stage
-    and their backward times out of stage ``backward``."""
+    """Take the backbone parts' forward times out of the backbone's stage,
+    the RFP's steps out of the neck's, and their backward times out of
+    stage ``backward``."""
     key = f"backbone ({type(model.backbone).__name__})"
+    neck = f"neck ({type(model.neck).__name__})"
     for k, v in stages.items():
         if k.startswith("backbone: "):
             stages[backward if k.endswith("backward") else key] -= v
+        elif k.startswith("neck: "):
+            stages[neck] -= v
 
 
 def patch_functions(names, totals, modules=DETECTOR_MODULES):
@@ -214,8 +255,7 @@ def stage_times(model, batch, reps=3):
     for attr, (name, fn) in patched.items():
         setattr(model, attr, _timed(name, fn, totals))
     heads = {**trunk(model), **dict(roi_heads(model))}
-    for k, m in heads.items():
-        m.forward = _timed(k, m.forward, totals)
+    time_heads(heads, totals)
     nms = dict(model.test_cfg.get("rcnn", {}).get("nms", {})).get("type",
                                                                   "nms")
     saved = patch_functions(
@@ -225,6 +265,7 @@ def stage_times(model, batch, reps=3):
          "grid_decode_boxes": "grid vote",
          "uncertainty_points_test": "uncertain cells (sort)",
          "fine_grained_point_feats": "point features",
+         "roi_align": SEMANTIC_FUSION,
          "multiclass_nms": f"rcnn multiclass {nms}"}, totals)
     parts = patch_backbone_parts(model, totals)
     try:

@@ -5,7 +5,9 @@ another detector the port builds, such as the Mask, Cascade Mask,
 Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI baselines, Grid
 R-CNN, PointRend, the RPN, Fast R-CNN, LOFT-FOA on HRNet-W32 + HRFPN,
 the trunk variants (DCNv2, GCNet, Res2Net, RegNetX-3.2GF, generalized
-attention, PAFPN), or a dense single-stage detector: RetinaNet, its GHM and PISA configs,
+attention, PAFPN), HTC (its batch with a ``gt_semantic_seg`` planted from
+the GT masks, so that the semantic loss runs), DetectoRS, or a dense
+single-stage detector: RetinaNet, its GHM and PISA configs,
 FreeAnchor, ATSS, GFL, FCOS) for
 training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
@@ -19,12 +21,13 @@ autocast, and prints
 - each stage's time (the device synchronised at each stage's start and
   end): the backbone and the neck (named with their types), the
   backbone's deformable sampling (its forward, and its backward apart
-  from the rest of the backward) and attention blocks apart from the
-  backbone, the RPN
+  from the rest of the backward), attention blocks and SAC convs apart
+  from the backbone, the RFP's steps apart from the neck, the RPN
   head, proposals (with their NMS), the RPN targets and loss, R-CNN assignment and sampling, the RoIAlign forward
   of the route (B1, under the block or the strip rule), the plain RoIAlign
   of a ``GenericRoIExtractor``, each RoI head (a cascade's stage by
-  stage), mask, grid and point targets, PointRend's training points and
+  stage; HTC's semantic head and mask info-flow chain), HTC's semantic
+  fusion, mask, grid and point targets, PointRend's training points and
   point features, the rest of the forward, clip
   + SGD, and what the step leaves after those (the backward, with the
   RoIAlign backward B2 inside); for a dense single-stage detector the
@@ -59,10 +62,10 @@ from ..core.samplers import generator_draws
 from ..engine import train_step as train_step_module
 from ..models.dense_heads import atss_head, fcos_head, gfl_head, retina_head
 from ..models.detectors import single_stage
-from .profile_serve import (geometry_attr, is_dense, patch_backbone_parts,
-                            patch_functions, restore_backbone_parts,
-                            restore_functions, roi_heads, split_backbone,
-                            trunk)
+from .profile_serve import (SEMANTIC_FUSION, geometry_attr, is_dense,
+                            patch_backbone_parts, patch_functions,
+                            restore_backbone_parts, restore_functions,
+                            roi_heads, split_backbone, time_heads, trunk)
 
 # the dense detectors' losses (in the detector module) and the target
 # functions they call (in the head modules)
@@ -96,11 +99,35 @@ def synthetic_proposals(gt_bboxes, gt_valid, n=2000, size=1024, seed=0):
     return props.astype(np.float32), valid
 
 
-def synthetic_batch(batch=2, size=1024, g=100, m=112, seed=0, proposals=0):
+def semantic_seg(gt_bboxes, gt_valid, gt_masks, size, stride=8):
+    """HTC's ``gt_semantic_seg`` ``(B, size / stride, size / stride)``
+    planted from a batch's GTs: class 1 (the BONAI semantic head's roof)
+    on the cells whose centres fall on a valid GT's instance mask, 0
+    elsewhere."""
+    s = size // stride
+    out = np.zeros((gt_bboxes.shape[0], s, s), np.int32)
+    centres = (np.arange(s) + 0.5) * stride
+    for i in range(len(out)):
+        for box, mask in zip(gt_bboxes[i][gt_valid[i]],
+                             gt_masks[i][gt_valid[i]]):
+            m = mask.shape[-1]
+            ys = np.floor((centres - box[1]) / max(box[3] - box[1], 1e-6)
+                          * m).astype(int)
+            xs = np.floor((centres - box[0]) / max(box[2] - box[0], 1e-6)
+                          * m).astype(int)
+            iy, ix = np.nonzero((ys >= 0) & (ys < m))[0], np.nonzero(
+                (xs >= 0) & (xs < m))[0]
+            out[i][np.ix_(iy, ix)] |= mask[np.ix_(ys[iy], xs[ix])] > 0
+    return out
+
+
+def synthetic_batch(batch=2, size=1024, g=100, m=112, seed=0, proposals=0,
+                    semantic=False):
     """The padded batch of ``bench.py``'s training benchmark, from a numpy
     seed: normalised float images, ``g`` GT boxes of 10..``size/5`` px,
     random ``m``^2 instance masks, offsets within +-30 px; with
-    ``proposals``, that many of :func:`synthetic_proposals` an image."""
+    ``proposals``, that many of :func:`synthetic_proposals` an image; with
+    ``semantic``, HTC's :func:`semantic_seg` at stride 8."""
     r = np.random.RandomState(seed)
     xy1 = r.uniform(0, size * 0.6, (batch, g, 2)).astype(np.float32)
     wh = r.uniform(10, size * 0.2, (batch, g, 2)).astype(np.float32)
@@ -116,6 +143,9 @@ def synthetic_batch(batch=2, size=1024, g=100, m=112, seed=0, proposals=0):
     if proposals:
         out["proposals"], out["proposals_valid"] = synthetic_proposals(
             out["gt_bboxes"], out["gt_valid"], proposals, size, seed)
+    if semantic:
+        out["gt_semantic_seg"] = semantic_seg(
+            out["gt_bboxes"], out["gt_valid"], out["gt_masks"], size)
     return out
 
 
@@ -168,11 +198,11 @@ def _patch_stages(model, totals):
              "grid_targets": "grid targets",
              "uncertainty_points_train": "training points",
              "fine_grained_point_feats": "point features",
-             "point_targets_from_instance_masks": "point targets"}, totals)
+             "point_targets_from_instance_masks": "point targets",
+             "roi_align": SEMANTIC_FUSION}, totals)
     for attr, name in patched.items():
         setattr(model, attr, _timed(name, getattr(model, attr), totals))
-    for name, m in heads.items():
-        m.forward = _timed(name, m.forward, totals)
+    time_heads(heads, totals)
     return patched, heads, saved, patch_backbone_parts(model, totals)
 
 
@@ -252,7 +282,8 @@ def main(argv=None):
                                                     torch.device("cuda"))
     draw = generator_draws(generator)
     batch = {k: torch.as_tensor(v).cuda() for k, v in synthetic_batch(
-        proposals=2000 if model.takes_proposals else 0).items()}
+        proposals=2000 if model.takes_proposals else 0,
+        semantic="semantic_head" in getattr(model, "roi_head", {})).items()}
     train_step(batch, 0, draw)                          # warm-up
     torch.cuda.reset_peak_memory_stats()
     wall = step_ms(train_step, batch, draw)

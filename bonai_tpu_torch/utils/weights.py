@@ -59,6 +59,18 @@ deconvs concatenated into the grouped ones; PointRend's coarse head to
 fc_logits}`` and its point head to ``roi_head.point_head.{fcs.<i>.conv,
 fc_logits}`` (``Conv1d`` weights ``(out, in, 1)``).  The JAX importer
 raises ``KeyError`` on both detectors (ROADMAP.md queue C).
+
+HTC's stage mask heads ``mask_head_<i>`` go to ``roi_head.mask_head.<i>.
+{convs.<j>.conv,conv_res.conv,upsample,conv_logits}`` and its semantic
+head to ``roi_head.semantic_head.{lateral_convs.<i>.conv,convs.<j>.conv,
+conv_embedding.conv,conv_logits}``.  DetectoRS's SAC ``conv2`` keeps
+mmcv's ``weight`` and adds ``weight_gamma``/``weight_beta`` ``(out, 1, 1,
+1)``, ``weight_diff``, ``switch``, ``pre_context`` and ``post_context``;
+its RFP's FPN (flax ``neck/fpn``) goes to ``neck.{lateral,fpn}_convs``,
+the backbone copy ``rfp_backbone<s>`` to ``neck.rfp_modules.<s - 1>``
+(with ``layer<k>.0.rfp_conv``), the ASPP to ``neck.rfp_aspp.aspp.<i>``
+and the gate to ``neck.rfp_weight``.  The JAX importer reads none of
+these (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -139,43 +151,33 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
                 layer(f"{base}.{sub}", p)
                 if "conv_offset" in p:                  # DCN's conv2
                     layer(f"{base}.{sub}.conv_offset", p["conv_offset"])
+                if "weight_diff" in p:                  # SAC's conv2
+                    _sac(f"{base}.{sub}", p, sd, layer)
 
-    bk, bs = params["backbone"], batch_stats["backbone"]
-    for name, p in bk.items():
-        stem = re.fullmatch(r"(conv|bn)(\d)", name)
-        deep = re.fullmatch(r"stem_(conv|bn)(\d)", name)   # Res2Net's stem
-        res = re.fullmatch(r"layer(\d+)_(\d+)", name)
-        trans = re.fullmatch(r"t(\d)_(\d+)", name)
-        hr = re.fullmatch(r"stage(\d)_module(\d+)", name)
-        if stem and stem[1] == "conv":
-            layer(f"backbone.{name}", p)
-        elif stem:
-            norm(f"backbone.{name}", p, bs[name])
-        elif deep:
-            key = f"backbone.stem.{3 * int(deep[2]) + (deep[1] == 'bn')}"
-            if deep[1] == "conv":
-                layer(key, p)
-            else:
-                norm(key, p, bs[name])
-        elif res:
-            block(f"backbone.layer{res[1]}.{res[2]}", p, bs[name])
-        elif trans:
-            # HRNet's transition into stage s: a new branch (past the
-            # previous stage's) is mmdet's Sequential of one conv-BN-ReLU
-            s, b = int(trans[1]), int(trans[2])
-            key = f"backbone.transition{s - 1}.{b}" + (
-                ".0" if b >= _hr_branches(bk, s - 1) else "")
-            layer(f"{key}.0", p)
-            norm(f"{key}.1", bk[f"{name}_bn"], bs[f"{name}_bn"])
-        elif hr:
-            _hr_module(f"backbone.stage{hr[1]}.{hr[2]}", p, bs[name],
-                       layer, norm, block)
+    def backbone(prefix, bk, bs):
+        for name, p in bk.items():
+            _backbone_var(prefix, name, p, bk, bs, layer, norm, block)
+
+    backbone("backbone", params["backbone"], batch_stats["backbone"])
     # a chained neck shows by its BFP's variables (one without a refine
     # has none, and reads as a plain FPN)
     chained = "neck_extra0" in params
     neck = "neck.0" if chained else "neck"
-    used = sum(name.startswith("lateral_") for name in params["neck"])
-    for name, p in params["neck"].items():
+    nk = params["neck"]
+    if "fpn" in nk:                                     # DetectoRS's RFP
+        for name, p in nk.items():
+            step = re.fullmatch(r"rfp_backbone(\d+)", name)
+            if step:
+                backbone(f"neck.rfp_modules.{int(step[1]) - 1}", p,
+                         batch_stats["neck"][name])
+            elif name == "rfp_aspp":
+                for sub, q in p.items():
+                    layer(f"neck.rfp_aspp.aspp.{sub[len('aspp'):]}", q)
+            elif name == "rfp_weight":
+                layer("neck.rfp_weight", p)
+        nk = nk["fpn"]
+    used = sum(name.startswith("lateral_") for name in nk)
+    for name, p in nk.items():
         if name == "reduction":                         # HRFPN
             layer(f"{neck}.reduction_conv.conv", p)
         elif name.startswith("fpn_conv") and name[8:].isdigit():
@@ -236,16 +238,32 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         else:
             layer(f"{key}.convs.{name[len('conv'):]}.conv", p)
 
-    mask_head = params.get("mask_head", {})
-    for name, p in mask_head.items():
-        if "fc_logits" in mask_head:                    # PointRend's coarse
-            _coarse_head("roi_head.mask_head", mask_head, name, p, sd, layer)
-        elif name == "upsample":
-            layer("roi_head.mask_head.upsample", p, _deconv)
-        elif name == "conv_logits":
-            layer("roi_head.mask_head.conv_logits", p)
+    for head, mask_head in params.items():
+        m = re.fullmatch(r"mask_head(?:_(\d+))?", head)   # HTC's stages
+        if not m:
+            continue
+        key = "roi_head.mask_head" + ("" if m[1] is None else f".{m[1]}")
+        for name, p in mask_head.items():
+            if "fc_logits" in mask_head:                # PointRend's coarse
+                _coarse_head(key, mask_head, name, p, sd, layer)
+            elif name == "upsample":
+                layer(f"{key}.upsample", p, _deconv)
+            elif name == "conv_logits":
+                layer(f"{key}.conv_logits", p)
+            elif name == "conv_res":
+                layer(f"{key}.conv_res.conv", p)
+            else:
+                layer(f"{key}.convs.{name[len('conv'):]}.conv", p)
+    for name, p in params.get("semantic_head", {}).items():
+        key = "roi_head.semantic_head"
+        if name == "conv_logits":
+            layer(f"{key}.conv_logits", p)
+        elif name.startswith("lateral"):
+            layer(f"{key}.lateral_convs.{name[len('lateral'):]}.conv", p)
+        elif name == "conv_embedding":
+            layer(f"{key}.conv_embedding.conv", p)
         else:
-            layer(f"roi_head.mask_head.convs.{name[len('conv'):]}.conv", p)
+            layer(f"{key}.convs.{name[len('conv'):]}.conv", p)
 
     for name, p in params.get("offset_head", {}).items():
         m = re.fullmatch(r"branch(\d+)_conv(\d+)", name)
@@ -266,6 +284,52 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
     # 0-d arrays 1-d
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+def _backbone_var(prefix, name, p, bk, bs, layer, norm, block):
+    """One top-level variable ``name`` of a JAX backbone tree ``bk`` under
+    the port's module ``prefix``: a ResNet's stem and blocks, Res2Net's
+    deep stem, HRNet's transitions and modules."""
+    stem = re.fullmatch(r"(conv|bn)(\d)", name)
+    deep = re.fullmatch(r"stem_(conv|bn)(\d)", name)     # Res2Net's stem
+    res = re.fullmatch(r"layer(\d+)_(\d+)", name)
+    trans = re.fullmatch(r"t(\d)_(\d+)", name)
+    hr = re.fullmatch(r"stage(\d)_module(\d+)", name)
+    if stem and stem[1] == "conv":
+        layer(f"{prefix}.{name}", p)
+    elif stem:
+        norm(f"{prefix}.{name}", p, bs[name])
+    elif deep:
+        key = f"{prefix}.stem.{3 * int(deep[2]) + (deep[1] == 'bn')}"
+        if deep[1] == "conv":
+            layer(key, p)
+        else:
+            norm(key, p, bs[name])
+    elif res:
+        block(f"{prefix}.layer{res[1]}.{res[2]}", p, bs[name])
+    elif trans:
+        # HRNet's transition into stage s: a new branch (past the previous
+        # stage's) is mmdet's Sequential of one conv-BN-ReLU
+        s, b = int(trans[1]), int(trans[2])
+        key = f"{prefix}.transition{s - 1}.{b}" + (
+            ".0" if b >= _hr_branches(bk, s - 1) else "")
+        layer(f"{key}.0", p)
+        norm(f"{key}.1", bk[f"{name}_bn"], bs[f"{name}_bn"])
+    elif hr:
+        _hr_module(f"{prefix}.stage{hr[1]}.{hr[2]}", p, bs[name], layer,
+                   norm, block)
+
+
+def _sac(key, p, sd, layer):
+    """The rest of a JAX ``SAConv2d`` (its ``kernel`` is ``weight``):
+    ``weight_diff`` as a conv weight, ``weight_gamma``/``weight_beta``
+    ``(1, 1, 1, out)`` -> mmcv's ``(out, 1, 1, 1)``, the ``switch``,
+    ``pre_context`` and ``post_context`` convs."""
+    sd[f"{key}.weight_diff"] = _conv(p["weight_diff"])
+    for k in ("weight_gamma", "weight_beta"):
+        sd[f"{key}.{k}"] = np.asarray(p[k]).reshape(-1, 1, 1, 1)
+    for k in ("switch", "pre_context", "post_context"):
+        layer(f"{key}.{k}", p[k])
 
 
 # a JAX plugin's variables -> mmcv's plugin name (``_abbr_``): the
@@ -458,6 +522,17 @@ def load_mmdet_checkpoint(path):
     return ckpt.get("state_dict", ckpt)
 
 
+def fold_aws(weight, gamma, beta):
+    """The plain conv weight of an mmcv ``ConvAWS2d``: ``weight``
+    standardised per output channel (the square root of its unbiased
+    variance plus 1e-5), times ``gamma`` plus ``beta`` (``(out, 1, 1,
+    1)``)."""
+    flat = weight.reshape(weight.shape[0], -1)
+    mean = flat.mean(dim=1).reshape(-1, 1, 1, 1)
+    std = torch.sqrt(flat.var(dim=1) + 1e-5).reshape(-1, 1, 1, 1)
+    return gamma * ((weight - mean) / std) + beta
+
+
 def mmdet_state_dict(model, sd):
     """``sd`` (an mmdet ``state_dict``) ready for ``model.load_state_dict``:
     without the ``num_batches_tracked`` counters, and with a zero bias for
@@ -470,10 +545,20 @@ def mmdet_state_dict(model, sd):
     also fills the port's ``geom_query_conv``.  Its per-head position
     projections ``appr_geom_fc_x|y`` do not fit the JAX block's, shared by
     the heads: such a checkpoint raises ``ValueError`` (ROADMAP.md queue
-    C)."""
+    C).
+
+    DetectoRS's ``ConvAWS`` convs carry ``weight_gamma``/``weight_beta``
+    (mmcv's buffers); where the port's conv is a plain one (every conv
+    outside SAC, as in the JAX package) mmcv's standardisation folds into
+    its weight (:func:`fold_aws`)."""
     sd = {k: v for k, v in sd.items()
           if not k.endswith("num_batches_tracked")}
     own = model.state_dict()
+    for key in [k for k in sd if k.endswith(".weight_gamma")
+                and k not in own]:
+        base = key[:-len("weight_gamma")]
+        sd[base + "weight"] = fold_aws(sd[base + "weight"], sd.pop(key),
+                                       sd.pop(base + "weight_beta"))
     for key in [k for k in sd if re.fullmatch(r"(.*\.)?gamma", k)
                 and k[:-len("gamma")] + "proj_conv.weight" in own]:
         # mmcv's attention block scales proj_conv's output by gamma

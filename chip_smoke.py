@@ -183,7 +183,24 @@ Phases, each of which must pass:
    stop after the max-pool, gets no gradient and moves by weight decay
    alone, its zero BN biases not at all); each checkpoint through the
    test CLI with ``--eval bbox`` (and ``segm`` for the Mask R-CNNs).
-15. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
+15. cascades: the last two mask-producing cascades (``CASCADE_CONFIGS``):
+   HTC (``configs/htc/htc_r50_fpn_1x_bonai.py``: a mask head at every
+   stage with the info-flow chain, interleaved mask sampling, the semantic
+   head fused into every RoI feature) and DetectoRS
+   (``configs/detectors/detectors_cascade_rcnn_r50_1x_bonai.py``: SAC in
+   c3-c5, the RFP's second step through a backbone copy), each at full
+   width with seeded random weights whose BatchNorm statistics are
+   calibrated (DetectoRS's copy's too) under ``'block'``, as the trunks
+   phase runs its configs: one serve batch and one ``inference_detector``
+   call; the FPN levels (after the RFP step) and HTC's semantic embedding
+   of a small float32 input on the card against float64 on the CPU, and
+   the RoI branches against the plain route; 3 steps on the repeated
+   synthetic batch (HTC's with a ``gt_semantic_seg`` planted from the GT
+   masks; DetectoRS at the base LR, so that the RFP copy's stem and
+   ``layer1``, behind its gradient stops, visibly move by weight decay
+   alone); each checkpoint through the test CLI with ``--eval bbox
+   segm``.
+16. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
    R50-FPN on its COCO config and on the GHM and PISA configs, which keep
    COCO's 80 classes, and FreeAnchor, ATSS, GFL and FCOS on BONAI), each
    at full width with seeded random weights: one serve batch (B=2,
@@ -200,7 +217,7 @@ Phases, each of which must pass:
    warmup);
    the BONAI configs' checkpoints through the test CLI with ``--eval
    bbox`` on the first val crop (``score_thr=0``).  No kernel may launch.
-16. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+17. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -219,9 +236,11 @@ cls RoIs and the scaled reg RoIs), 2 for Mask Scoring R-CNN (box and
 mask; the IoU head reuses the mask features), 1 for Fast R-CNN, 0 for the
 RPN, 2 for Grid R-CNN (box and grid), 1 for PointRend (box; its mask
 extractor is the plain RoIAlign), 2 for the trunk variants' Mask R-CNNs
-and 1 for their Faster R-CNNs; the file chain's RPN test runs launch
-nothing, its Fast R-CNN launches B1 and B2 once a training step and B1
-once a test batch; the dense phase's runs launch nothing.
+and 1 for their Faster R-CNNs, 6 for HTC (three box and three mask
+stages; its semantic fusion's RoIAlign is the plain one) and 4 for
+DetectoRS (three box stages and the mask); the file chain's RPN test runs
+launch nothing, its Fast R-CNN launches B1 and B2 once a training step and
+B1 once a test batch; the dense phase's runs launch nothing.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -289,6 +308,21 @@ TRUNK_CONFIGS = (
     ("pafpn", "configs/pafpn/faster_rcnn_r50_pafpn_1x_bonai.py", 1, True,
      True))
 TRUNK_STEPS = 3
+# the last two mask-producing cascades (the cascades phase): label, config,
+# the RoIAlign kernel calls of a batch or step (HTC: 3 box stages and 3
+# mask stages; DetectoRS: 3 box stages and the mask), whether it trains
+# with its warmup (DetectoRS at the base LR: at the warmup's first LRs
+# weight decay moves the RFP copy's stem and layer1, behind its gradient
+# stops, by less than a float32 ulp in 3 steps; from random weights its
+# losses grow by orders of magnitude a step there, finite: each SAC conv's
+# weight_beta, a constant added to every weight element, moves the output
+# by the sum of its input window).  Both from weights with calibrated
+# BatchNorm statistics, DetectoRS's backbone copy's too.
+CASCADE_CONFIGS = (
+    ("htc", "configs/htc/htc_r50_fpn_1x_bonai.py", 6, True),
+    ("detectors", "configs/detectors/detectors_cascade_rcnn_r50_1x_bonai.py",
+     4, False))
+CASCADE_STEPS = 3
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
@@ -297,7 +331,9 @@ COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
                **{label: (("bbox",), 0) for label, _, scored in DENSE_CONFIGS
                   if scored},
                **{label: (("bbox", "segm") if calls == 2 else ("bbox",),
-                          calls) for label, _, calls, *_ in TRUNK_CONFIGS}}
+                          calls) for label, _, calls, *_ in TRUNK_CONFIGS},
+               **{label: (("bbox", "segm"), calls)
+                  for label, _, calls, _ in CASCADE_CONFIGS}}
 # the rest of the R-CNN family on BONAI (the rcnn2 phase): label, config,
 # the RoIAlign calls of a batch or step
 RCNN2_CONFIGS = (
@@ -741,11 +777,22 @@ def _branches(model):
     Double-Head's two calls, its reg RoIs scaled), then the mask head (with
     Mask Scoring's IoU head on the same RoI features; no kernel call behind
     PointRend's single-level ``GenericRoIExtractor``, the plain RoIAlign),
-    Grid R-CNN's grid head and the offset head the model has.  The
-    RPN-only detector has none."""
+    Grid R-CNN's grid head and the offset head the model has.  HTC's
+    every box stage and mask stage (its info-flow chain inside) each take
+    the semantic embedding.  The RPN-only detector has none."""
     import torch
     if "bbox_head" not in getattr(model, "roi_head", {}):
         return []                       # the RPN, a dense detector
+    if hasattr(model, "mask_stage"):    # HTC
+        def sem(f):
+            return model.semantic(f)[1]
+        return [(f"HTC box stage {i}",
+                 lambda f, r, v, h=h: model._bbox_head_forward(
+                     h, f, r, v, sem_feat=sem(f)), 1)
+                for i, h in enumerate(model.roi_head["bbox_head"])] + [
+            (f"HTC mask stage {i}",
+             lambda f, r, v, i=i: (model.mask_stage(i, f, r, v, sem(f)),), 1)
+            for i in range(model.num_stages)]
     bbox = model.roi_head["bbox_head"]
     double = getattr(model, "reg_roi_scale_factor", None) is not None
     out = [(type(h).__name__,
@@ -1127,7 +1174,8 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     some step,
     but for those behind a backbone's gradient stop (``behind_stop``:
     HRNet's ``conv2``/``bn2`` after ``layer1``, Res2Net's deep stem after
-    the max-pool), which must get none, and every one must move.
+    the max-pool, the stem and ``layer1`` of DetectoRS's RFP backbone
+    copy), which must get none, and every one must move.
     Returns the forward and backward kernels' launch counts of the run,
     the median warm step time, the peak memory, and with ``keep`` the
     final checkpoint, whose work directory the caller removes."""
@@ -1208,15 +1256,16 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     start = dict(init.named_parameters())
     # the trainable tensors without a gradient in any step: exactly those
     # upstream of a backbone's gradient stop (HRNet's conv2/bn2 after
-    # layer1, Res2Net's deep stem after the max-pool), which weight decay
-    # and momentum alone move, as in the JAX step; none in other models
+    # layer1, Res2Net's deep stem after the max-pool, the RFP copy's stem
+    # and layer1), which weight decay and momentum alone move, as in the
+    # JAX step; none in other models
     names = {id(p): n for n, p in model.named_parameters()}
     no_grad = {names[id(p)] for p, seen in zip(params, grad_seen[0])
                if not seen}
-    behind_stop = {f"backbone.{n}" for n, p in
-                   model.backbone.named_parameters()
-                   if p.requires_grad and n.split(".")[0]
-                   in getattr(model.backbone, "behind_stop", ())}
+    behind_stop = {f"{prefix}.{n}" for prefix, m in model.named_modules()
+                   for n, p in m.named_parameters()
+                   if getattr(m, "behind_stop", ()) and p.requires_grad
+                   and n.split(".")[0] in m.behind_stop}
     # the bias of the non-local block's phi, and of a context block's
     # pooling conv, shifts every logit of a softmax row alike: its
     # gradient is 0 but for float noise
@@ -1885,9 +1934,10 @@ def _trunk_ms(models, reps=5):
 
 def _calibrated_weights(config, path):
     """Seeded random weights of ``config`` (``init_weights``, seed 0) with
-    the stored statistics of every backbone BatchNorm set to those of its
-    input on a random 1024^2 B=2 batch, so that each one's output has unit
-    variance, as a trained network's has.  With identity statistics
+    the stored statistics of every BatchNorm of the backbone and the neck
+    (DetectoRS's backbone copy) set to those of its input on a random
+    1024^2 B=2 batch, so that each one's output has unit variance, as a
+    trained network's has.  With identity statistics
     HRNet's fuse sums grow from module to module, to head outputs of about
     5e8.  Saves them to ``path`` as an mmdet ``.pth``."""
     import numpy as np
@@ -1904,8 +1954,8 @@ def _calibrated_weights(config, path):
         bn.running_mean.copy_(args[0].mean((0, 2, 3)))
         bn.running_var.copy_(args[0].var((0, 2, 3)))
     hooks = [m.register_forward_pre_hook(calibrate)
-             for m in model.backbone.modules()
-             if isinstance(m, FrozenBatchNorm2d)]
+             for part in (model.backbone, model.neck)
+             for m in part.modules() if isinstance(m, FrozenBatchNorm2d)]
     with torch.no_grad():
         model.extract_feat(img)
     for h in hooks:
@@ -1913,7 +1963,7 @@ def _calibrated_weights(config, path):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({"state_dict": {k: v.cpu() for k, v in
                                model.state_dict().items()}}, path)
-    print(f"calibrated the {len(hooks)} backbone BatchNorms of "
+    print(f"calibrated the {len(hooks)} backbone and neck BatchNorms of "
           f"{os.path.basename(config)} on a random batch", flush=True)
     del model
     torch.cuda.empty_cache()
@@ -2272,10 +2322,11 @@ def rcnn3_phase():
 def _trunk_cpu_check(model, what, r):
     """The FPN levels of a small float32 input (two 256x320 images) on the
     card, from the same weights as a float64 run on the CPU (float32
-    where the port computes in float32: the sampling weights and the
-    softmaxes), with TF32 off: the backbone's deformable sampling and
-    attention blocks (plain PyTorch on both devices) inside.  Each level
-    must agree within 1e-4
+    where the port computes in float32: the sampling weights, the
+    softmaxes and HTC's antialiased resize), with TF32 off: the
+    backbone's deformable sampling, attention blocks and SAC convs and
+    the RFP (plain PyTorch on both devices) inside, and HTC's semantic
+    embedding after them.  Each level must agree within 1e-4
     of its largest value, or within twice the float32 rounding that a
     float32 run on the CPU shows against the float64 one where that is
     larger (Res2Net with calibrated statistics: 9e-5 of the largest)."""
@@ -2294,10 +2345,15 @@ def _trunk_cpu_check(model, what, r):
         small = [r.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(2)]
         model.cfg.data.test.pipeline[1].img_scale = (320, 320)
         img = prepare_batch(model, small)[0]
+        def outputs(m, x):
+            feats = m.extract_feat(x)
+            if hasattr(m, "semantic"):          # HTC's semantic embedding
+                feats += (m.semantic(feats)[1],)
+            return feats
         with torch.inference_mode():
-            got = model.extract_feat(img)
-            cpu32 = cpu.extract_feat(img.cpu())
-            want = cpu.double().extract_feat(img.cpu().double())
+            got = outputs(model, img)
+            cpu32 = outputs(cpu, img.cpu())
+            want = outputs(cpu.double(), img.cpu().double())
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
@@ -2305,13 +2361,15 @@ def _trunk_cpu_check(model, what, r):
         err = float((g.cpu().double() - w).abs().max())
         noise = float((c.double() - w).abs().max())
         top = float(w.abs().max())
-        print(f"{what}: small float32 input ({tuple(img.shape[1:3])}), FPN "
-              f"level {i} on the card vs float64 on the CPU: max abs diff "
+        level = f"FPN level {i}" if i < len(got) - hasattr(
+            model, "semantic") else "semantic embedding"
+        print(f"{what}: small float32 input ({tuple(img.shape[1:3])}), "
+              f"{level} on the card vs float64 on the CPU: max abs diff "
               f"{err:.3g} (float32 on the CPU {noise:.3g}; values up to "
               f"{top:.3g})", flush=True)
         if not err <= max(1e-4 * top, 2 * noise):
-            raise AssertionError(f"{what}: FPN level {i} differs between the "
-                                 f"card and the CPU by {err}")
+            raise AssertionError(f"{what}: {level} differs between the card "
+                                 f"and the CPU by {err}")
 
 
 def trunks_phase():
@@ -2360,6 +2418,60 @@ def trunks_phase():
                           coco_cli=coco)
     for label, r in out.items():
         print(f"trunks {label}: serve {r['serve_ms']:.1f} ms a B=2 call, "
+              f"peak {r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} "
+              f"launches; train median step {r['train']['step_ms']:.1f} ms, "
+              f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
+              f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches; test "
+              f"CLI B1 {r['coco_cli']} launches", flush=True)
+    return out
+
+
+def cascades_phase():
+    """HTC and DetectoRS (``CASCADE_CONFIGS``) at full width with seeded
+    random weights whose BatchNorm statistics are calibrated
+    (``_calibrated_weights``, DetectoRS's RFP backbone copy too) and the
+    ``'block'`` route, as the trunks phase runs its configs: one serve
+    batch and one ``inference_detector`` call, the FPN levels (after the
+    RFP step) and HTC's semantic embedding of a small float32 input on the
+    card held to the CPU (``_trunk_cpu_check``) and the RoI branches to
+    the plain route, ``CASCADE_STEPS`` training steps on the repeated
+    synthetic batch (HTC's with a ``gt_semantic_seg`` planted from the GT
+    masks, so that its semantic loss trains; every trainable tensor moves,
+    the RFP copy's stem and ``layer1`` by weight decay alone), then each
+    checkpoint through the test CLI with ``--eval bbox segm`` on the first
+    val crop.  Returns each config's launch counts, times and peak
+    memory."""
+    import numpy as np
+    from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    out = {}
+    for label, config, calls, warmup in CASCADE_CONFIGS:
+        config = os.path.join(REPO, config)
+        weights = os.path.join(REPO, "build", "chip_smoke_cascades",
+                               "init.pth")
+        _calibrated_weights(config, weights)
+        serve, serve_ms, serve_peak = serve_phase(
+            "block", config, calls=1, label=f"{label} serve",
+            checkpoint=weights,
+            inspect=lambda model, *_: _trunk_cpu_check(
+                model, f"{label} serve", np.random.RandomState(1)))
+        train = train_phase("block", CASCADE_STEPS, config,
+                            label=f"{label} train", keep=True,
+                            warmup=warmup, load_from=weights,
+                            batch=synthetic_batch(semantic=label == "htc"))
+        shutil.rmtree(os.path.dirname(weights), ignore_errors=True)
+        if serve != 2 * calls or not (
+                train["fwd"] == train["bwd"] == CASCADE_STEPS * calls):
+            raise AssertionError(f"{label}: B1 {serve} launches serving, "
+                                 f"{train['fwd']} / B2 {train['bwd']} "
+                                 f"training; expected {calls} a batch or "
+                                 f"step")
+        coco = rcnn_coco(label, config, train["checkpoint"])
+        shutil.rmtree(train["work_dir"], ignore_errors=True)
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=coco)
+    for label, r in out.items():
+        print(f"cascades {label}: serve {r['serve_ms']:.1f} ms a B=2 call, "
               f"peak {r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} "
               f"launches; train median step {r['train']['step_ms']:.1f} ms, "
               f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
@@ -2740,6 +2852,7 @@ def main():
     rcnn2 = rcnn2_phase()
     rcnn3 = rcnn3_phase()
     trunks = trunks_phase()
+    cascades = cascades_phase()
     dense = dense_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
@@ -2802,7 +2915,8 @@ def main():
                    for k, (fwd, _) in rcnn2["files"].items()},
                 rcnn2_double_head_reg_rois=rcnn2["double_head"]["window"],
                 **{f"{phase}_{k}_{what}_launches": n
-                   for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks))
+                   for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
+                                       ("cascades", cascades))
                    for k, r in runs.items()
                    for what, n in (("serve", r["serve"]),
                                    ("train", r["train"]["fwd"]),
@@ -2830,7 +2944,8 @@ def main():
                rcnn2_files_fast_train_launches=rcnn2["files"][
                    "fast_train"][1],
                **{f"{phase}_{k}_train_launches": r["train"]["bwd"]
-                  for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks))
+                  for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
+                                      ("cascades", cascades))
                   for k, r in runs.items()},
                **{f"dense_{k}_train_launches": r["train"]["bwd"]
                   for k, r in dense.items()}),

@@ -557,10 +557,10 @@ def test_jax_importer_on_the_trunk_checkpoints():
                 assert read, k
 
 
-def test_bonai_configs_build_29_of_39():
+def test_bonai_configs_build_31_of_39():
     """Every detector config of BONAI builds (on the meta device) or raises
-    ``NotImplementedError`` naming the ROADMAP.md item that ports it: 29
-    build, 10 raise."""
+    ``NotImplementedError`` naming the ROADMAP.md item that ports it: 31
+    build, 8 raise."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     built, raised = [], {}
@@ -577,20 +577,25 @@ def test_bonai_configs_build_29_of_39():
         except NotImplementedError as e:
             raised[name.split("/")[0]] = re.search(
                 r"ROADMAP.md item (A\d)", str(e))[1]
-    assert len(built) == 29
+    assert len(built) == 31
     assert {osp.relpath(p, osp.join(ROOT, "configs"))
-            for p in TRUNK_CONFIGS.values()} <= set(built)
-    assert raised == {"htc": "A7", "fsaf": "A6", "foveabox": "A6",
-                      "nas_fpn": "A6", "nas_fcos": "A6", "ssd": "A6",
-                      "reppoints": "A6", "cornernet": "A6",
-                      "detectors": "A6", "guided_anchoring": "A6"}
+            for p in TRUNK_CONFIGS.values()} | {
+        "htc/htc_r50_fpn_1x_bonai.py",
+        "detectors/detectors_cascade_rcnn_r50_1x_bonai.py"} <= set(built)
+    assert raised == {"fsaf": "A6", "foveabox": "A6", "nas_fpn": "A6",
+                      "nas_fcos": "A6", "ssd": "A6", "reppoints": "A6",
+                      "cornernet": "A6", "guided_anchoring": "A6"}
 
 
 @pytest.mark.parametrize("change", [
     dict(type="ResNeXt"), dict(groups=32), dict(style="caffe"),
     dict(norm_cfg=dict(type="GN", num_groups=32)),
-    dict(conv_cfg=dict(type="ConvWS")), dict(sac=dict(type="SAC")),
-    dict(output_img=True), dict(type="DetectoRS_ResNet"),
+    dict(conv_cfg=dict(type="ConvWS")),
+    dict(sac=dict(type="SAC", use_deform=True),
+         stage_with_sac=(False, True, True, True)),
+    dict(base="res2net", sac=dict(type="SAC"),
+         stage_with_sac=(False, True, True, True)),
+    dict(neck=dict(type="RFP", rfp_backbone=dict(depth=18))),
     dict(type="HourglassNet"), dict(type="SSDVGG"),
     dict(dcn=dict(type="DCNv3"), stage_with_dcn=(True,) * 4),
     dict(plugins=[dict(cfg=dict(type="GeneralizedAttention"),
@@ -613,3 +618,25 @@ def test_unported_trunk_options_name_a6(change):
     cfg.model.backbone.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(sac=dict(type="SAC"), stage_with_sac=(False, True, True, True)),
+    dict(output_img=True), dict(type="DetectoRS_ResNet")],
+    ids=["sac", "output_img", "DetectoRS_ResNet"])
+def test_detectors_trunk_options_build(change):
+    """DetectoRS's backbone options, which raised A6 before its port:
+    SAC's ``conv2`` in the stages listed, the image ahead of the stages'
+    outputs, the ``DetectoRS_ResNet`` type (a ResNet)."""
+    from bonai_tpu_torch.models import build_detector
+    from bonai_tpu_torch.ops.saconv import SAConv2d
+    cfg = trunk_cfg("gcnet")
+    cfg.model.backbone.update(change)
+    model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    bk = model.backbone
+    sac = [n for n, m in bk.named_modules() if isinstance(m, SAConv2d)]
+    assert len(sac) == (13 if "sac" in change else 0)
+    assert all(not n.startswith("layer1.") for n in sac)
+    with torch.no_grad():
+        outs = bk(torch.zeros(1, 3, 64, 64))
+    assert len(outs) == 4 + change.get("output_img", False)

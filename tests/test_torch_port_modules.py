@@ -140,6 +140,10 @@ def test_port_imports_nothing_of_the_jax_side():
     files = sorted(Path(ROOT, "bonai_tpu_torch").rglob("*.py"))
     files.append(Path(ROOT, "chip_smoke.py"))
     assert len(files) > 50
+    assert {"bonai_tpu_torch/ops/saconv.py",
+            "bonai_tpu_torch/models/necks/rfp.py",
+            "bonai_tpu_torch/models/detectors/htc.py"} <= {
+        osp.relpath(p, ROOT) for p in files}
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

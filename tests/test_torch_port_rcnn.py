@@ -98,8 +98,9 @@ def test_configs_build_at_full_width(name):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(type="HybridTaskCascade"), "A7"), (dict(type="HTC"), "A7"),
-    (dict(config="htc/htc_r50_fpn_1x_bonai.py"), "A7"),
+    (dict(type="RepPointsDetector"), "A6"), (dict(type="CornerNet"), "A6"),
+    (dict(config="htc/htc_r50_fpn_1x_bonai.py",
+          mask_head=dict(type="CoarseMaskHead")), "A7"),
     (dict(sampler=dict(type="ScoreHLRSampler", num=512)), "A7"),
     (dict(sampler=dict(type="OHEMSampler", num=512)), "A7"),
     (dict(reg_decoded_bbox=True), "A7"),
@@ -116,16 +117,17 @@ def test_configs_build_at_full_width(name):
         pre_cfg=dict(type="ConvModule", in_channels=16, out_channels=16,
                      kernel_size=5, padding=2, inplace=False))), "A7"),
     (dict(loss_bbox=dict(type="GIoULoss")), "A7"),
-    (dict(config="detectors/detectors_cascade_rcnn_r50_1x_bonai.py"), "A6")],
+    (dict(config="detectors/detectors_cascade_rcnn_r50_1x_bonai.py",
+          sac=dict(type="SAC", use_deform=True)), "A6")],
     ids=lambda x: x if isinstance(x, str) else "-".join(
         str(v.get("type", v)) if isinstance(v, dict)
         else "+".join(c["type"] for c in v) if isinstance(v, list)
         else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
     """A detector, head, sampler, loss, neck chain or GRoIE extractor the
-    port does not build, or a whole config (HTC's, DetectoRS's);
-    a single-stage config's head option (FCOS's deformable last conv,
-    NAS-FPN's ``RetinaSepBNHead``)."""
+    port does not build; an option of a config it builds (HTC's mask head
+    type, DetectoRS's deformable SAC); a single-stage config's head
+    option (FCOS's deformable last conv, NAS-FPN's ``RetinaSepBNHead``)."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     change = dict(change)
@@ -143,6 +145,10 @@ def test_unported_types_name_their_item(change, item):
         cfg.model.roi_head.bbox_roi_extractor = change.pop("extractor")
     if "bbox_head" in change:
         cfg.model.bbox_head.update(change.pop("bbox_head"))
+    if "mask_head" in change:
+        cfg.model.roi_head.mask_head.update(change.pop("mask_head"))
+    if "sac" in change:
+        cfg.model.backbone.sac = change.pop("sac")
     if change:
         (cfg.model.get("bbox_head") or cfg.model.roi_head.bbox_head).update(
             change)

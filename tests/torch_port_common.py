@@ -76,6 +76,11 @@ TRUNK_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
 # and 2 blocks), group widths 8
 TINY_REGNET = dict(w0=8, wa=12, wm=2, group_w=8, depth=6, bot_mul=1.0)
 
+# the last two mask-producing cascades on BONAI
+HTC_CONFIG = osp.join(ROOT, "configs/htc/htc_r50_fpn_1x_bonai.py")
+DETECTORS_CONFIG = osp.join(
+    ROOT, "configs/detectors/detectors_cascade_rcnn_r50_1x_bonai.py")
+
 
 def _each(x):
     """A per-stage config list as it is; one config as a list of one."""
@@ -190,6 +195,34 @@ def trunk_cfg(family, train=False):
     return cfg
 
 
+def htc_cfg(train=False, **roi_head):
+    """HTC's BONAI config at the tiny widths of :func:`tiny_cfg` (the
+    training sizes of :func:`tiny_train_cfg` with ``train``): ResNet-18 at
+    base 8, a 16-channel FPN, one-conv mask heads and a one-conv semantic
+    head of 16 channels; ``roi_head`` options (``interleaved``,
+    ``mask_info_flow``) set on its RoI head."""
+    cfg = (tiny_train_cfg if train else tiny_cfg)(config=HTC_CONFIG)
+    rh = cfg.model.roi_head
+    rh.semantic_roi_extractor.out_channels = 16
+    rh.semantic_head.update(in_channels=16, conv_out_channels=16,
+                            num_convs=1)
+    rh.update(roi_head)
+    return cfg
+
+
+def detectors_cfg(train=False):
+    """DetectoRS's BONAI config at tiny widths (the training sizes of
+    :func:`tiny_train_cfg` with ``train``): both ResNets at depth 50 and
+    base 8 (SAC and the RFP need bottlenecks), a 16-channel RFP whose ASPP
+    gives 4 channels a dilation, the heads of :func:`tiny_cfg`."""
+    cfg = (tiny_train_cfg if train else tiny_cfg)(config=DETECTORS_CONFIG)
+    cfg.model.backbone.depth = 50
+    neck = cfg.model.neck
+    neck.update(in_channels=[32, 64, 128, 256], aspp_out_channels=4)
+    neck.rfp_backbone.update(depth=50, base_channels=8)
+    return cfg
+
+
 def _random_tree(shapes, r):
     """Seeded numpy values for every leaf of a flax variable tree: LeCun
     normal kernels, random biases and BatchNorm affine and statistics (so
@@ -274,9 +307,11 @@ def tiny_train_cfg(config=CONFIG):
     return cfg
 
 
-def train_batch(seed=0, b=2, size=128, g=6, m=112):
+def train_batch(seed=0, b=2, size=128, g=6, m=112, semantic=None):
     """A padded training batch in the JAX package's contract, from a numpy
-    seed: GT boxes with padded rows, 112^2 instance masks, offsets."""
+    seed: GT boxes with padded rows, 112^2 instance masks, offsets; with
+    ``semantic`` (a stride) HTC's ``gt_semantic_seg`` at ``size /
+    semantic``, random labels of its four classes."""
     r = np.random.RandomState(seed)
     xy = r.uniform(0, size * 0.6, (b, g, 2))
     wh = r.uniform(12, size * 0.4, (b, g, 2))
@@ -286,8 +321,10 @@ def train_batch(seed=0, b=2, size=128, g=6, m=112):
     boxes[~valid] = 0.0
     img_shape = np.full((b, 2), size, np.float32)
     img_shape[-1] = [size - 16, size - 8]       # a resized, padded image
+    extra = {} if semantic is None else dict(gt_semantic_seg=r.randint(
+        0, 4, (b, size // semantic, size // semantic)).astype(np.int32))
     return dict(
-        image=r.randn(b, size, size, 3).astype(np.float32),
+        **extra, image=r.randn(b, size, size, 3).astype(np.float32),
         img_shape=img_shape,
         gt_bboxes=boxes.astype(np.float32),
         gt_labels=np.zeros((b, g), np.int32), gt_valid=valid,
@@ -306,7 +343,7 @@ def jax_uniforms(key, n, streams=2):
 
 
 def jax_forward_train_draws(jm, variables, key, b, cascade=False,
-                            unsplit=False):
+                            unsplit=False, htc=False):
     """A draw source for the port's ``forward_train`` that hands out the
     numbers the JAX ``forward_train`` draws under ``rngs={"sampling":
     key}``.  ``draw(shape, device, n)``: the RPN's uniforms per image, then
@@ -314,7 +351,10 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
     ``sampling`` key (as many streams as the port's sampler asks for).
     With ``cascade``, the R-CNN's are stage ``i``'s at call ``i + 1``: the
     splits of the R-CNN key folded with ``i``
-    (``bonai_tpu/models/detectors/cascade_rcnn.py``).  With ``unsplit``
+    (``bonai_tpu/models/detectors/cascade_rcnn.py``).  With ``htc``, each
+    stage's box draw is followed by its interleaved mask draw, from the
+    R-CNN key folded with ``100 + i`` (``bonai_tpu/models/detectors/
+    htc.py``).  With ``unsplit``
     (the RPN-only detector and Fast R-CNN, which sample once), the one
     call's are the splits of the key itself.
 
@@ -328,9 +368,13 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
         variables, rngs={"sampling": key},
         method=lambda m: (m.make_rng("sampling"), m.make_rng("sampling")))
     rpn, rcnn = jax.random.split(rng)
-    keys = iter([rng] if unsplit else [rpn] + (
-        [jax.random.fold_in(rcnn, i) for i in range(8)] if cascade
-        else [rcnn]))
+    if htc:
+        stages = [jax.random.fold_in(rcnn, i + k) for i in range(8)
+                  for k in (0, 100)]
+    else:
+        stages = [jax.random.fold_in(rcnn, i) for i in range(8)] \
+            if cascade else [rcnn]
+    keys = iter([rng] if unsplit else [rpn] + stages)
 
     def draw(shape, device, n=2):
         per_image = [jax_uniforms(k, shape[-1], n)
