@@ -15,18 +15,22 @@ from .boxes import bbox_overlaps
 
 
 def max_iou_assign(boxes, gt_bboxes, gt_valid, pos_iou_thr, neg_iou_thr,
-                   min_pos_iou=0., match_low_quality=True, box_valid=None):
+                   min_pos_iou=0., match_low_quality=True, box_valid=None,
+                   overlaps=None):
     """Assign each box to -1 (ignore), 0 (negative) or ``i + 1`` (GT ``i``).
 
     Args:
       boxes: ``(..., N, 4)`` candidates (anchors or proposals).
       gt_bboxes: ``(..., G, 4)`` padded GT boxes; ``gt_valid`` ``(..., G)``.
       box_valid: optional ``(..., N)`` bool; invalid boxes are ignored.
+      overlaps: optional precomputed ``(..., N, G)`` IoUs (Guided
+        Anchoring's best over each cell's approximate anchors).
 
     Returns ``assigned`` ``(..., N)`` int64 and ``max_overlaps``
     ``(..., N)``.  With no valid GT every box is negative.
     """
-    overlaps = bbox_overlaps(boxes, gt_bboxes)
+    if overlaps is None:
+        overlaps = bbox_overlaps(boxes, gt_bboxes)
     overlaps = torch.where(gt_valid[..., None, :], overlaps,
                            overlaps.new_tensor(-1.0))
     max_overlaps = overlaps.amax(dim=-1)

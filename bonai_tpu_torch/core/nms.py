@@ -9,6 +9,8 @@ serves all images (and, in the RPN, all pyramid levels) at once:
   (one IoU matrix), then an in-tile fixpoint iteration reproduces the
   sequential greedy result exactly.  The host waits on the device once per
   fixpoint trip, a few trips per tile.
+- ``batched_nms`` keeps boxes of different levels or classes apart by
+  shifting each group's coordinates, then runs ``nms``.
 - ``soft_nms`` picks the top score and decays its neighbours, slot by
   slot.  A row stops once no score reaches ``min_score`` (the early exit);
   the loop checks that every 16 slots, and slots past a row's exit leave
@@ -74,6 +76,17 @@ def nms(boxes, scores, iou_threshold, valid=None, tile_size=256):
         keep[:, start:end] = alive
     out = torch.zeros_like(keep).scatter_(1, order, keep)
     return out.reshape(batch_shape + (n,))
+
+
+def batched_nms(boxes, scores, idxs, iou_threshold, valid=None,
+                tile_size=256):
+    """:func:`nms` in which boxes of different ``idxs`` (``(..., N)``: a
+    level or a class) never suppress each other: each problem's boxes are
+    shifted by ``idxs`` times one more than its largest coordinate."""
+    max_coord = boxes.flatten(-2).amax(-1) + 1.0
+    shifted = boxes + (idxs.to(boxes.dtype) * max_coord[..., None])[..., None]
+    return nms(shifted, scores, iou_threshold, valid=valid,
+               tile_size=tile_size)
 
 
 def soft_nms(boxes, scores, iou_threshold=0.3, sigma=0.5, min_score=1e-3,

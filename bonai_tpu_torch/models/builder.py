@@ -16,7 +16,8 @@ from .detectors.grid_rcnn import GridRCNN
 from .detectors.htc import HTC
 from .detectors.loft import LOFT
 from .detectors.point_rend import PointRend
-from .detectors.single_stage import (ATSS, FCOS, GFL, FreeAnchor, RetinaNet,
+from .detectors.single_stage import (ATSS, FCOS, FSAF, GFL, FoveaBox,
+                                     FreeAnchor, RepPointsDetector, RetinaNet,
                                      SingleStageDetector)
 from .detectors.two_stage import (RPN, DynamicRCNN, FastRCNN, FasterRCNN,
                                   MaskRCNN, TwoStageDetector)
@@ -27,13 +28,14 @@ for _cls in (LOFT, FasterRCNN, MaskRCNN, TwoStageDetector, CascadeRCNN,
     DETECTORS.register_module()(_cls)
 DETECTORS.register_module(name="MaskScoringRCNN")(MaskRCNN)
 DETECTORS.register_module(name="HybridTaskCascade")(HTC)
-for _cls in (RetinaNet, FreeAnchor, ATSS, GFL, FCOS):
+for _cls in (RetinaNet, FreeAnchor, ATSS, GFL, FCOS, FSAF, FoveaBox,
+             RepPointsDetector):
     DETECTORS.register_module()(_cls)
+DETECTORS.register_module(name="FOVEA")(FoveaBox)
 
 # the JAX package's other single-stage types, which ROADMAP.md item A6
 # ports (its other detector types are item A7's)
-_UNPORTED_SINGLE_STAGE = ("FSAF", "FOVEA", "FoveaBox", "RepPointsDetector",
-                          "SSD", "CornerNet", "NASFCOS")
+_UNPORTED_SINGLE_STAGE = ("SSD", "CornerNet", "NASFCOS")
 
 
 def _plain(obj):

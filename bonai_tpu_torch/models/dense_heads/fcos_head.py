@@ -10,7 +10,10 @@ never win.  The reg branch is ``exp(scale * x)`` or, with
 ``norm_on_bbox``, ``relu(scale * x) * stride``: pixel distances for
 training and test alike.  Keys are mmdetection v2.3's
 (``bbox_head.cls_convs.<i>.{conv,gn}``, ``fcos_cls``, ``fcos_reg``,
-``fcos_centerness``, ``scales.<l>.scale``).
+``fcos_centerness``, ``scales.<l>.scale``).  With ``dcn_on_last_conv``
+each tower's last conv is a modulated deformable conv (mmcv's
+``ModulatedDeformConv2dPack``, no bias: ``cls_convs.<n>.conv.weight`` and
+``.conv.conv_offset``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.deform_conv import ModulatedDeformConv2dPack
 from ..losses import (GIoULoss, IoULoss, binary_cross_entropy,
                       sigmoid_focal_loss)
 from .atss_head import _centerness
@@ -34,12 +38,13 @@ class FCOSHead(nn.Module):
     """cls and reg towers of ``stacked_convs`` conv-GN(32)-ReLUs (conv-ReLUs
     without ``use_gn``), then 3x3 convs to ``C`` logits, 4 distances and
     1 centerness logit (on the cls tower, or the reg tower with
-    ``centerness_on_reg``); outputs float32."""
+    ``centerness_on_reg``); outputs float32.  ``dcn_on_last_conv`` makes
+    each tower's last conv a modulated deformable one."""
 
     def __init__(self, num_classes=1, in_channels=256, feat_channels=256,
                  stacked_convs=4, num_levels=5, centerness_on_reg=False,
                  norm_on_bbox=False, strides=(8, 16, 32, 64, 128),
-                 use_gn=True):
+                 use_gn=True, dcn_on_last_conv=False):
         super().__init__()
         self.num_classes = num_classes
         self.centerness_on_reg = centerness_on_reg
@@ -48,6 +53,11 @@ class FCOSHead(nn.Module):
         self.cls_convs, self.reg_convs = towers(in_channels, feat_channels,
                                                 stacked_convs,
                                                 32 if use_gn else None)
+        if dcn_on_last_conv:
+            for tower in (self.cls_convs, self.reg_convs):
+                tower[-1].conv = ModulatedDeformConv2dPack(
+                    in_channels if stacked_convs == 1 else feat_channels,
+                    feat_channels)
         self.fcos_cls = nn.Conv2d(feat_channels, num_classes, 3, padding=1)
         self.fcos_reg = nn.Conv2d(feat_channels, 4, 3, padding=1)
         self.fcos_centerness = nn.Conv2d(feat_channels, 1, 3, padding=1)

@@ -75,7 +75,8 @@ def init_towers(head, gen, kaiming):
                 kaiming_fan_out_(m.conv.weight, gen)
             else:
                 normal_(m.conv.weight, 0.01, gen)
-            zeros_(m.conv.bias)
+            if m.conv.bias is not None:     # a deformable conv has none
+                zeros_(m.conv.bias)
             if m.gn is not None:
                 nn.init.ones_(m.gn.weight)
                 zeros_(m.gn.bias)

@@ -116,7 +116,8 @@ def _flatten(cls_scores, bbox_preds):
 
 def rpn_targets(anchors, gt_bboxes, gt_valid, u_pos, u_neg, assigner_cfg,
                 sampler_cfg):
-    """RPN targets of a batch over the flattened ``(N, 4)`` anchors.
+    """RPN targets of a batch over the flattened ``(N, 4)`` anchors, or
+    each image's own ``(B, N, 4)`` (Guided Anchoring's).
 
     ``gt_bboxes`` ``(B, G, 4)``, ``gt_valid`` ``(B, G)``; ``u_pos``/
     ``u_neg`` ``(B, N)`` the sampler's uniforms.  Returns ``labels``,
@@ -141,7 +142,9 @@ def rpn_targets(anchors, gt_bboxes, gt_valid, u_pos, u_neg, assigner_cfg,
     label_weights = anchors.new_zeros((b, n)).scatter_add_(1, inds, valid)
     matched = gt_bboxes.gather(
         1, res["pos_gt_inds"][..., None].expand(-1, -1, 4))
-    deltas = bbox2delta(anchors[inds], matched)
+    sampled = anchors[inds] if anchors.dim() == 2 else anchors.gather(
+        1, inds[..., None].expand(-1, -1, 4))
+    deltas = bbox2delta(sampled, matched)
     idx4 = inds[..., None].expand(-1, -1, 4)
     w = pos[..., None]
     bbox_targets = anchors.new_zeros((b, n, 4)).scatter_add_(1, idx4,

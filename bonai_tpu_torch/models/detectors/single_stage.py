@@ -1,5 +1,6 @@
 """The dense single-stage detectors: RetinaNet (with GHM-C/GHM-R losses or
-PISA), FreeAnchor, ATSS, GFL and FCOS (counterparts of the classes of
+PISA), FreeAnchor, ATSS, GFL, FCOS (with ``dcn_on_last_conv``), FSAF,
+FoveaBox and RepPoints (counterparts of the classes of
 ``bonai_tpu/models/detectors/single_stage.py``).
 
 Each is a ResNet + FPN trunk and one dense head over the FPN levels, with
@@ -10,11 +11,12 @@ padded output dict, and mmdet v2.3 keys (``backbone``, ``neck``,
 ``bbox_head``).  The options the JAX detectors read are ported; others
 raise, naming the ROADMAP.md item that ports them: Guided Anchoring's
 ``GARetinaHead``, ``RetinaSepBNHead``, ``LegacyAnchorGenerator``, other
-losses, and FCOS's ``dcn_on_last_conv``.
+losses, and FoveaBox's ``with_deform``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -22,8 +24,12 @@ from ...core.anchors import AnchorGenerator
 from ..dense_heads.atss_head import ATSSHead, atss_bboxes, atss_loss
 from ..dense_heads.fcos_head import (INF, FCOSHead, fcos_bboxes, fcos_loss,
                                      fcos_points)
+from ..dense_heads.fovea_head import FoveaHead, fovea_bboxes, fovea_loss
 from ..dense_heads.free_anchor_head import free_anchor_loss
+from ..dense_heads.fsaf_head import FSAFHead, fsaf_bboxes, fsaf_loss
 from ..dense_heads.gfl_head import GFLHead, gfl_bboxes, gfl_loss
+from ..dense_heads.reppoints_head import (RepPointsHead, reppoints_bboxes,
+                                          reppoints_loss)
 from ..dense_heads.retina_head import RetinaHead, retina_bboxes, retina_loss
 from .two_stage import _build_backbone, _build_neck
 
@@ -279,8 +285,6 @@ class FCOS(SingleStageDetector):
     ``norm_on_bbox``, ``centerness_on_reg`` and GIoU options."""
 
     def _setup_head(self, bh):
-        if bh.get("dcn_on_last_conv", False):
-            raise _unported("FCOS dcn_on_last_conv=True (deformable convs)")
         self.strides = tuple(bh.get("strides", (8, 16, 32, 64, 128)))
         self.regress_ranges = tuple(tuple(r) for r in bh.get(
             "regress_ranges", ((-1, 64), (64, 128), (128, 256), (256, 512),
@@ -296,7 +300,8 @@ class FCOS(SingleStageDetector):
             self.num_levels, bh.get("centerness_on_reg", False),
             bool(bh.get("norm_on_bbox", False)), self.strides,
             use_gn="norm_cfg" not in bh or dict(
-                bh.get("norm_cfg") or {}).get("type") == "GN")
+                bh.get("norm_cfg") or {}).get("type") == "GN",
+            dcn_on_last_conv=bool(bh.get("dcn_on_last_conv", False)))
 
     def _points(self, feats):
         return self._cached(feats, lambda sizes: fcos_points(sizes,
@@ -321,3 +326,136 @@ class FCOS(SingleStageDetector):
     def _decode(self, outs, feats, img_shape):
         return fcos_bboxes(*outs, self._points(feats), img_shape,
                            self.num_classes, self.test_cfg)
+
+
+class FSAF(SingleStageDetector):
+    """FSAF: RetinaNet's towers at one anchor-free prediction a cell, the
+    centre-region targets and the online level selection."""
+
+    def _setup_head(self, bh):
+        self.strides = tuple(bh.get("strides", (8, 16, 32, 64, 128)))
+        self.bbox_head = FSAFHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256), bh.get("stacked_convs", 4))
+        self.pos_scale = dict(self.train_cfg.get("assigner", {})).get(
+            "pos_scale", 0.2)
+
+    def _loss(self, outs, feats, batch):
+        return fsaf_loss(*outs, batch["gt_bboxes"], batch["gt_valid"],
+                         batch["gt_labels"], self.num_classes, self.strides,
+                         pos_scale=self.pos_scale, gamma=self.focal_gamma,
+                         alpha=self.focal_alpha)
+
+    def _decode(self, outs, feats, img_shape):
+        return fsaf_bboxes(*outs, img_shape, self.num_classes, self.strides,
+                           self.test_cfg)
+
+
+class FoveaBox(SingleStageDetector):
+    """FoveaBox: the fovea targets on each level's scale range, log
+    distances from each cell's corner."""
+
+    def _setup_head(self, bh):
+        if bh.get("with_deform", False):
+            raise _unported("FoveaBox with_deform=True (feature alignment)")
+        self.strides = tuple(bh.get("strides", (8, 16, 32, 64, 128)))
+        self.bbox_head = FoveaHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
+            use_gn=dict(bh.get("norm_cfg") or {}).get("type") == "GN")
+        lb = dict(bh.get("loss_bbox", {}))
+        self.loss_kw = dict(
+            strides=self.strides,
+            base_edge_list=tuple(bh.get("base_edge_list",
+                                        (16, 32, 64, 128, 256))),
+            scale_ranges=tuple(tuple(r) for r in bh.get(
+                "scale_ranges", ((8, 32), (16, 64), (32, 128), (64, 256),
+                                 (128, 512)))),
+            sigma=bh.get("sigma", 0.4), bbox_beta=lb.get("beta", 0.11),
+            loss_bbox_weight=lb.get("loss_weight", 1.0))
+
+    def _loss(self, outs, feats, batch):
+        return fovea_loss(*outs, batch["gt_bboxes"], batch["gt_valid"],
+                          batch["gt_labels"], self.num_classes,
+                          gamma=self.focal_gamma, alpha=self.focal_alpha,
+                          **self.loss_kw)
+
+    def _decode(self, outs, feats, img_shape):
+        return fovea_bboxes(*outs, img_shape, self.num_classes,
+                            self.test_cfg, self.strides,
+                            self.loss_kw["base_edge_list"])
+
+
+def point_centres(featmap_sizes, strides):
+    """Per level ``(H*W, 2)`` float32 points ``(x, y) = (j, i) * stride``,
+    row-major (mmdetection's ``PointGenerator``)."""
+    out = []
+    for (h, w), s in zip(featmap_sizes, strides):
+        ys, xs = np.meshgrid(np.arange(h, dtype=np.float32) * s,
+                             np.arange(w, dtype=np.float32) * s,
+                             indexing="ij")
+        out.append(np.stack([xs.ravel(), ys.ravel()], -1))
+    return out
+
+
+class RepPointsDetector(SingleStageDetector):
+    """RepPoints: point sets refined through deformable convs, the point
+    (or max-IoU) assigner for the init stage and max-IoU for the refine
+    stage."""
+
+    def _setup_head(self, bh):
+        self.num_points = bh.get("num_points", 9)
+        self.strides = tuple(bh.get("point_strides", (8, 16, 32, 64, 128)))
+        self.transform_method = bh.get("transform_method", "moment")
+        self.bbox_head = RepPointsHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256),
+            bh.get("point_feat_channels", 256), bh.get("stacked_convs", 3),
+            self.num_points, bh.get("gradient_mul", 0.1),
+            self.transform_method, bool(bh.get("use_grid_points", False)),
+            bool(bh.get("center_init", True)),
+            bh.get("point_base_scale", 4))
+        init = dict(dict(self.train_cfg.get("init", {})).get("assigner", {}))
+        refine = dict(dict(self.train_cfg.get("refine", {})).get(
+            "assigner", {}))
+        self.loss_kw = dict(
+            num_points=self.num_points,
+            point_base_scale=bh.get("point_base_scale", 4),
+            init_assigner="max_iou" if init.get("type") == "MaxIoUAssigner"
+            else "point",
+            init_assign_scale=init.get("scale", 4),
+            init_pos_num=init.get("pos_num", 1),
+            init_pos_iou=init.get("pos_iou_thr", 0.5),
+            init_neg_iou=init.get("neg_iou_thr", 0.4),
+            refine_pos_iou=refine.get("pos_iou_thr", 0.5),
+            refine_neg_iou=refine.get("neg_iou_thr", 0.4),
+            loss_init_weight=dict(bh.get("loss_bbox_init", {})).get(
+                "loss_weight", 0.5),
+            loss_refine_weight=dict(bh.get("loss_bbox_refine", {})).get(
+                "loss_weight", 1.0),
+            transform_method=self.transform_method)
+
+    def _centres(self, feats):
+        return self._cached(feats, lambda sizes: point_centres(
+            sizes, self.strides))
+
+    def _loss(self, outs, feats, batch):
+        centres = self._centres(feats)
+        dev = centres[0].device
+        strides = torch.cat([torch.full((len(c),), float(s), device=dev)
+                             for c, s in zip(centres, self.strides)])
+        lvls = torch.cat([torch.full((len(c),), int(np.log2(s)),
+                                     dtype=torch.int32, device=dev)
+                          for c, s in zip(centres, self.strides)])
+        return reppoints_loss(*outs, torch.cat(centres), strides, lvls,
+                              batch["gt_bboxes"], batch["gt_valid"],
+                              batch["gt_labels"], self.num_classes,
+                              gamma=self.focal_gamma, alpha=self.focal_alpha,
+                              **self.loss_kw)
+
+    def _decode(self, outs, feats, img_shape):
+        cls_scores, _, pts_refine, mt = outs
+        return reppoints_bboxes(cls_scores, pts_refine, mt,
+                                self._centres(feats), self.strides,
+                                img_shape, self.num_classes, self.test_cfg,
+                                self.num_points, self.transform_method)

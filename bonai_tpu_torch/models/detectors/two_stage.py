@@ -1,12 +1,18 @@
 """Two-stage detector trunk: Faster R-CNN, Mask R-CNN, Dynamic R-CNN,
 Libra R-CNN, Double-Head R-CNN, Mask Scoring R-CNN, the RPN-only detector,
-Fast R-CNN, and the base of LOFT, Cascade R-CNN, Grid R-CNN and PointRend
-(counterpart of ``bonai_tpu/models/detectors/two_stage.py``:
-``boxes_to_rois``, ``assign_rcnn``, ``assign_and_sample_rcnn``,
-``extract_feat``, ``_roi_align_cfg``, ``_bbox_head_forward``,
+Fast R-CNN, Guided-Anchoring Faster R-CNN, and the base of LOFT, Cascade
+R-CNN, Grid R-CNN and PointRend (counterpart of
+``bonai_tpu/models/detectors/two_stage.py``: ``boxes_to_rois``,
+``assign_rcnn``, ``assign_and_sample_rcnn``, ``extract_feat``,
+``_roi_align_cfg``, ``_bbox_head_forward``,
 ``_rpn_and_proposals``, ``forward_train``, ``_roi_forward_train``,
 ``_mask_forward_train``, ``simple_test``, ``_rcnn_simple_test``,
 ``FasterRCNN``, ``MaskRCNN``, ``DynamicRCNN``, ``RPN``, ``FastRCNN``).
+
+The RPN may be the plain ``RPNHead`` or the Guided Anchoring RPN
+(``GARPNHead``, with its ``approx_anchor_generator`` and
+``loc_filter_thr``): then the proposals come from its guided anchors and
+its loss adds the location and shape terms.
 
 Training is the random- or IoU-balanced-sampling path of the JAX package,
 with its box loss: L1 for an ``L1Loss`` or a ``SmoothL1Loss`` config (the
@@ -33,6 +39,7 @@ mmdet ``state_dict`` loads as it is.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -49,6 +56,9 @@ from ...ops.roi_align_fused import roi_align_fused
 from ...parallel import gather_cat
 from ..backbones.hrnet import HRNet
 from ..backbones.resnet import RegNet, Res2Net, ResNet
+from ..dense_heads.ga_rpn_head import (GARPNHead, approx_anchors,
+                                       ga_proposals, ga_rpn_loss,
+                                       square_anchors)
 from ..dense_heads.rpn_head import RPNHead, rpn_loss, rpn_proposals
 from ..losses import (balanced_l1_loss, binary_cross_entropy, cross_entropy,
                       l1_loss, mse_loss, smooth_l1_loss)
@@ -345,7 +355,12 @@ class TwoStageDetector(nn.Module):
                           else [rcnn] if rcnn else []):
                 _check_sampler(dict(dict(stage).get("sampler", {})))
 
+    ga_rpn = False          # the Guided Anchoring RPN
+
     def _setup_rpn(self, rh):
+        if rh.get("type") == "GARPNHead":
+            self._setup_ga_rpn(rh)
+            return
         _require_type(rh, "RPNHead", "A6")
         ag = dict(rh.get("anchor_generator", {}))
         _require_type(ag, "AnchorGenerator", "A6")
@@ -358,6 +373,21 @@ class TwoStageDetector(nn.Module):
             rh.get("in_channels", 256), rh.get("feat_channels", 256),
             len(ag.get("ratios", [0.5, 1.0, 2.0]))
             * len(ag.get("scales", [8])))
+
+    def _setup_ga_rpn(self, rh):
+        """``GARPNHead`` and its approximate anchors' settings (the squares
+        are ``octave_base_scale * stride`` on each cell, as in the JAX
+        package, whatever ``square_anchor_generator`` says)."""
+        ag = dict(rh.get("approx_anchor_generator", {}))
+        self.ga_rpn = True
+        self.ga_strides = [s if isinstance(s, (int, float)) else s[0]
+                           for s in ag.get("strides", [4, 8, 16, 32, 64])]
+        self.ga_octave_base_scale = ag.get("octave_base_scale", 8)
+        self.ga_scales_per_octave = ag.get("scales_per_octave", 3)
+        self.ga_ratios = tuple(ag.get("ratios", (0.5, 1.0, 2.0)))
+        self.loc_filter_thr = rh.get("loc_filter_thr", 0.01)
+        self.rpn_head = GARPNHead(rh.get("in_channels", 256),
+                                  rh.get("feat_channels", 256))
 
     def _setup_roi_head(self, cfg):
         """The box head (Double-Head's: its reg RoIs scaled by
@@ -527,13 +557,58 @@ class TwoStageDetector(nn.Module):
                 for a in self.anchor_generator.grid_anchors(sizes)]
         return self._anchors[key]
 
+    def _ga_anchors(self, feats):
+        """GA-RPN's per-level squares and the levels' concatenated
+        approximate anchors ``(N, 9, 4)``, built once per size."""
+        sizes = tuple((int(f.shape[1]), int(f.shape[2])) for f in feats)
+        key = ("ga", sizes, feats[0].device)
+        if key not in self._anchors:
+            dev = feats[0].device
+            squares = square_anchors(sizes, self.ga_strides,
+                                     self.ga_octave_base_scale)
+            approxs = approx_anchors(sizes, self.ga_strides,
+                                     self.ga_octave_base_scale,
+                                     self.ga_scales_per_octave,
+                                     self.ga_ratios)
+            self._anchors[key] = (
+                [torch.from_numpy(a).float().to(dev) for a in squares],
+                torch.from_numpy(np.concatenate(approxs)).float().to(dev))
+        return self._anchors[key]
+
     def _rpn_and_proposals(self, feats, img_shape, proposal_cfg):
-        cls_scores, bbox_preds = self.rpn_head(
-            [f.permute(0, 3, 1, 2) for f in feats])
-        props, scores, valid = rpn_proposals(
-            cls_scores, bbox_preds, self._grid_anchors(feats), img_shape,
-            proposal_cfg)
-        return props, scores, valid
+        outs = self.rpn_head([f.permute(0, 3, 1, 2) for f in feats])
+        return self._proposals(outs, feats, img_shape, proposal_cfg)
+
+    def _proposals(self, outs, feats, img_shape, proposal_cfg):
+        """Proposals ``(B, K, 4)``, their scores and validity from the RPN
+        head's outputs ``outs``."""
+        if self.ga_rpn:
+            return ga_proposals(*outs, self._ga_anchors(feats)[0],
+                                img_shape, proposal_cfg,
+                                self.loc_filter_thr)
+        return rpn_proposals(*outs, self._grid_anchors(feats), img_shape,
+                             proposal_cfg)
+
+    def _rpn_train(self, feats, batch, draw):
+        """The RPN's losses of a batch and its proposals (constants of the
+        step); ``draw`` is called for the RPN's sampler (GA-RPN: the shape
+        sampler's, then the RPN sampler's)."""
+        outs = self.rpn_head([f.permute(0, 3, 1, 2) for f in feats])
+        with torch.no_grad():       # proposals are constants of the step
+            proposals, _, prop_valid = self._proposals(
+                outs, feats, batch["img_shape"],
+                dict(self.train_cfg.get("rpn_proposal", {})))
+        if self.ga_rpn:
+            squares, approxs = self._ga_anchors(feats)
+            losses = ga_rpn_loss(
+                *outs, torch.cat(squares), approxs, batch["gt_bboxes"],
+                batch["gt_valid"], draw, dict(self.train_cfg["rpn"]),
+                self.ga_strides, self.ga_octave_base_scale)
+        else:
+            losses = rpn_loss(*outs, torch.cat(self._grid_anchors(feats)),
+                              batch["gt_bboxes"], batch["gt_valid"], draw,
+                              dict(self.train_cfg["rpn"]))
+        return losses, proposals.detach(), prop_valid
 
     # ---------------- training ----------------
     def forward_train(self, batch, draw):
@@ -548,18 +623,9 @@ class TwoStageDetector(nn.Module):
         called for the RPN and then for the R-CNN.
         """
         feats = self.extract_feat(batch["image"])
-        cls_scores, bbox_preds = self.rpn_head(
-            [f.permute(0, 3, 1, 2) for f in feats])
-        anchors = self._grid_anchors(feats)
-        with torch.no_grad():       # proposals are constants of the step
-            proposals, _, prop_valid = rpn_proposals(
-                cls_scores, bbox_preds, anchors, batch["img_shape"],
-                dict(self.train_cfg.get("rpn_proposal", {})))
-        losses = rpn_loss(cls_scores, bbox_preds, torch.cat(anchors),
-                          batch["gt_bboxes"], batch["gt_valid"], draw,
-                          dict(self.train_cfg["rpn"]))
+        losses, proposals, prop_valid = self._rpn_train(feats, batch, draw)
         losses.update(self._roi_forward_train(
-            feats, proposals.detach(), prop_valid, batch, draw))
+            feats, proposals, prop_valid, batch, draw))
         return losses
 
     def forward(self, batch, draw):
@@ -805,7 +871,12 @@ class DynamicRCNN(TwoStageDetector):
 class RPN(TwoStageDetector):
     """The RPN-only detector (reference ``mmdet/models/detectors/rpn.py``;
     ``roi_head=None``): its proposals are its detections, scored by
-    ``AR@N``."""
+    ``AR@N``.  Its RPN is the plain one (a ``GARPNHead`` raises A6)."""
+
+    def _setup_ga_rpn(self, rh):
+        raise NotImplementedError("the RPN-only detector with a GARPNHead "
+                                  "is not ported to bonai_tpu_torch yet "
+                                  "(ROADMAP.md item A6)")
 
     def forward_train(self, batch, draw):
         """The RPN losses; ``draw`` is called once (the JAX detector hands

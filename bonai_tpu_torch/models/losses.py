@@ -1,9 +1,9 @@
 """Weighted, masked losses with an explicit ``avg_factor`` (counterpart of
 ``bonai_tpu/models/losses.py``: ``weight_reduce_loss``, ``cross_entropy``,
 ``binary_cross_entropy``, ``l1_loss``, ``smooth_l1_loss``, ``mse_loss``,
-Libra R-CNN's ``BalancedL1Loss``; and the dense detectors' focal, IoU,
+Libra R-CNN's ``BalancedL1Loss``; the dense detectors' focal, IoU,
 GIoU, GHM-C/R, quality and distribution focal losses and PISA's ISR-P and
-CARL).
+CARL; Guided Anchoring's bounded IoU loss).
 
 Padded samples carry weight 0.  Every loss computes in float32 whatever
 the dtype of its inputs (the heads may run under bfloat16 autocast).
@@ -104,6 +104,33 @@ def sigmoid_focal_loss(logits, labels, gamma=2.0, alpha=0.25, weight=None,
     if reduction == "none":
         return loss if weight is None else loss * weight
     return weight_reduce_loss(loss, weight, avg_factor)
+
+
+def bounded_iou_loss(pred, target, beta=0.2, eps=1e-3):
+    """Elementwise bounded IoU loss of aligned ``(..., 4)`` boxes
+    (``(..., 4)``: the centre-x, centre-y, width and height terms, each
+    shaped as a smooth L1 at ``beta``).  The target's terms carry no
+    gradient."""
+    pred, target = _f32(pred, target)
+    pred_cx = (pred[..., 0] + pred[..., 2]) * 0.5
+    pred_cy = (pred[..., 1] + pred[..., 3]) * 0.5
+    pred_w = pred[..., 2] - pred[..., 0]
+    pred_h = pred[..., 3] - pred[..., 1]
+    t = target.detach()
+    t_cx = (t[..., 0] + t[..., 2]) * 0.5
+    t_cy = (t[..., 1] + t[..., 3]) * 0.5
+    t_w = t[..., 2] - t[..., 0]
+    t_h = t[..., 3] - t[..., 1]
+    dx = (t_cx - pred_cx).abs()
+    dy = (t_cy - pred_cy).abs()
+    zero = pred.new_zeros(())
+    loss_dx = 1 - torch.maximum((t_w - 2 * dx) / (t_w + 2 * dx + eps), zero)
+    loss_dy = 1 - torch.maximum((t_h - 2 * dy) / (t_h + 2 * dy + eps), zero)
+    loss_dw = 1 - torch.minimum(t_w / (pred_w + eps), pred_w / (t_w + eps))
+    loss_dh = 1 - torch.minimum(t_h / (pred_h + eps), pred_h / (t_h + eps))
+    comb = torch.stack([loss_dx, loss_dy, loss_dw, loss_dh], dim=-1)
+    return torch.where(comb < beta, 0.5 * comb * comb / beta,
+                       comb - 0.5 * beta)
 
 
 def iou_loss_terms(pred, target, eps=1e-7):

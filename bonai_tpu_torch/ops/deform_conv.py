@@ -1,6 +1,7 @@
 """Deformable convolution v1 and v2 (counterpart of
 ``bonai_tpu/ops/deform_conv.py``: ``deform_conv2d``, ``_deform_sample``,
-``_deform_contract``, ``ModulatedDeformConv2d``, ``DeformConv2dPack``),
+``_deform_contract``, ``DeformConv2d``, ``ModulatedDeformConv2d``,
+``DeformConv2dPack``),
 in plain PyTorch.
 
 The layer samples the input at ``K*K`` offset positions per output cell
@@ -171,6 +172,21 @@ def deform_conv2d(x, offset, weight, bias=None, stride=1, padding=1,
     out = out.reshape(b, ho, wo, cout).permute(0, 3, 1, 2)
     # contiguous NCHW on the CPU (see TwoStageDetector.extract_feat)
     return out if out.is_cuda else out.contiguous()
+
+
+class DeformConv2d(nn.Module):
+    """DCNv1 whose offsets the caller gives (mmcv's ``DeformConv2d``
+    without a bias): ``weight`` ``(Cout, Cin, K, K)``, stride 1, the
+    padding that keeps the map's size."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel_size, kernel_size))
+
+    def forward(self, x, offset):
+        return deform_conv2d(x, offset, self.weight,
+                             padding=(self.weight.shape[-1] - 1) // 2)
 
 
 class DeformConv2dPack(nn.Module):

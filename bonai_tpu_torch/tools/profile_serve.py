@@ -7,8 +7,9 @@ baselines, Grid R-CNN, PointRend, the RPN, Fast R-CNN (on 2000 synthetic
 proposals an image, ``profile_train.synthetic_proposals``), LOFT-FOA on
 HRNet-W32 + HRFPN, the trunk variants (the DCNv2, GCNet, Res2Net and
 RegNetX-3.2GF Mask R-CNNs, the generalized-attention and PAFPN Faster
-R-CNNs), HTC, DetectoRS, or a dense single-stage detector: RetinaNet, its
-GHM and PISA configs, FreeAnchor, ATSS, GFL, FCOS;
+R-CNNs), HTC, DetectoRS, Guided-Anchoring Faster R-CNN, or a dense
+single-stage detector: RetinaNet, its GHM and PISA configs, FreeAnchor,
+ATSS, GFL, FCOS, FSAF, FoveaBox, RepPoints;
 1024^2, B=2, bfloat16,
 seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
 loaded as the test CLI loads it) and prints
@@ -32,7 +33,8 @@ loaded as the test CLI loads it) and prints
   LOFT configs), and the rest; for a dense single-stage detector the
   backbone and the neck, the head (its towers and output convs over the
   levels), the anchors or points, the decode (per-level top-k, boxes) and
-  the multi-class NMS;
+  the multi-class NMS; a head's or a GA-RPN's deformable sampling apart
+  from it (``head: DCN sampling``, ``rpn: DCN sampling``);
 - from ``torch.profiler`` over one call: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled call, and
   the kernels that take the most time.
@@ -74,7 +76,11 @@ RFP_STEP = "neck: RFP step (ASPP + backbone copy)"
 # the dense detectors' decodes (in the detector module) and their NMS (in
 # the head module whose helper calls it)
 DENSE_DECODES = ("retina_bboxes", "atss_bboxes", "gfl_bboxes",
-                 "fcos_bboxes")
+                 "fcos_bboxes", "fsaf_bboxes", "fovea_bboxes",
+                 "reppoints_bboxes")
+# a dense detector's head, and the stage that holds a GA-RPN
+DENSE_HEAD = "head (towers + outputs)"
+RPN_STAGE = "rpn+proposals"
 
 
 def is_dense(model):
@@ -82,7 +88,13 @@ def is_dense(model):
 
 
 def geometry_attr(model):
-    """The dense detector's method that gives its anchors or points."""
+    """The dense detector's method that gives its anchors or points (none
+    for FSAF and FoveaBox, whose targets and decodes lay out their cells
+    inline)."""
+    if isinstance(model, (single_stage.FSAF, single_stage.FoveaBox)):
+        return None
+    if isinstance(model, single_stage.RepPointsDetector):
+        return "_centres"
     return "_points" if isinstance(model, single_stage.FCOS) else "_anchors"
 
 
@@ -122,14 +134,16 @@ def trunk(model):
 
 
 def patch_backbone_parts(model, totals):
-    """Time the backbone's deformable sampling (the forward, and in a
-    training step the backward, of ``ops/deform_conv.py``'s sampling
-    function), its attention blocks (``ContextBlock``,
+    """Time the deformable sampling (the forward, and in a training step
+    the backward, of ``ops/deform_conv.py``'s sampling function) under
+    the part that calls it: ``backbone: DCN sampling``, or ``head: DCN
+    sampling`` in a dense head, ``rpn: DCN sampling`` in a GA-RPN; the
+    backbone's attention blocks (``ContextBlock``,
     ``GeneralizedAttention``, ``NonLocal2d``) and its switchable atrous
     convs (``backbone: SAC``) as stages of their own, ``backbone:
     <part>``, and the RFP's ASPP and backbone copies as :data:`RFP_STEP`;
-    :func:`split_backbone` takes them out of the backbone's or the neck's
-    (and the backward's) time.  Returns what
+    :func:`split_backbone` takes them out of the backbone's, the neck's,
+    the head's or the RPN's (and the backward's) time.  Returns what
     :func:`restore_backbone_parts` puts back."""
     blocks = [(m, f"backbone: {type(m).__name__}")
               for m in model.backbone.modules()
@@ -143,33 +157,69 @@ def patch_backbone_parts(model, totals):
                                            *model.neck.rfp_modules)]
     for m, name in blocks:
         m.forward = _timed(name, m.forward, totals)
+    part = ["backbone"]
+    callers = [(m, name) for m, name in (
+        (getattr(model, "bbox_head", None), "head"),
+        (getattr(model, "rpn_head", None), "rpn"))
+        if m is not None and any(isinstance(x, deform_conv.DeformConv2d)
+                                 for x in m.modules())]
+    callers = [(m, name, m.__dict__.get("forward")) for m, name in callers]
+    for m, name, _ in callers:
+        m.forward = _in_part(part, name, m.forward)
     sample = deform_conv._DeformSample
     saved = {k: sample.__dict__[k] for k in ("forward", "backward")}
-    for k, fn in saved.items():
-        setattr(sample, k, staticmethod(_timed(
-            f"backbone: DCN sampling, {k}", fn.__func__, totals)))
-    return blocks, saved
+    fwd, bwd = saved["forward"].__func__, saved["backward"].__func__
+
+    def forward(ctx, *args):
+        ctx.stage_part = part[0]
+        return _timed(f"{part[0]}: DCN sampling, forward", fwd, totals)(
+            ctx, *args)
+
+    def backward(ctx, *grads):
+        return _timed(f"{ctx.stage_part}: DCN sampling, backward", bwd,
+                      totals)(ctx, *grads)
+    sample.forward, sample.backward = (staticmethod(forward),
+                                       staticmethod(backward))
+    return blocks, callers, saved
+
+
+def _in_part(part, name, fn):
+    def wrapper(*args, **kwargs):
+        outer, part[0] = part[0], name
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            part[0] = outer
+    return wrapper
 
 
 def restore_backbone_parts(saved):
-    blocks, fns = saved
+    blocks, callers, fns = saved
     for m, _ in blocks:
         del m.forward
+    for m, _, own in callers:       # the instance's own forward, if any
+        if own is None:
+            del m.forward
+        else:
+            m.forward = own
     for k, fn in fns.items():
         setattr(deform_conv._DeformSample, k, fn)
 
 
-def split_backbone(model, stages, backward=None):
+def split_backbone(model, stages, backward=None, rpn=RPN_STAGE):
     """Take the backbone parts' forward times out of the backbone's stage,
-    the RFP's steps out of the neck's, and their backward times out of
-    stage ``backward``."""
-    key = f"backbone ({type(model.backbone).__name__})"
-    neck = f"neck ({type(model.neck).__name__})"
+    the RFP's steps out of the neck's, a dense head's or a GA-RPN's
+    deformable sampling out of the head's or the RPN's stage (``rpn``),
+    and their backward times out of stage ``backward``."""
+    owners = {"backbone": f"backbone ({type(model.backbone).__name__})",
+              "neck": f"neck ({type(model.neck).__name__})",
+              "head": DENSE_HEAD, "rpn": rpn}
     for k, v in stages.items():
-        if k.startswith("backbone: "):
-            stages[backward if k.endswith("backward") else key] -= v
-        elif k.startswith("neck: "):
-            stages[neck] -= v
+        part = k.split(": ")[0]
+        if part not in owners or (part in ("head", "rpn")
+                                  and "DCN sampling" not in k):
+            continue
+        stages[backward if k.endswith("backward") else owners[part]] -= v
 
 
 def patch_functions(names, totals, modules=DETECTOR_MODULES):
@@ -218,9 +268,10 @@ def dense_stage_times(model, batch, reps=3):
     the head, the anchors or points, the decode and the NMS."""
     totals = collections.defaultdict(float)
     geometry = geometry_attr(model)
-    setattr(model, geometry, _timed("anchors or points",
-                                    getattr(model, geometry), totals))
-    heads = {**trunk(model), "head (towers + outputs)": model.bbox_head}
+    if geometry:
+        setattr(model, geometry, _timed("anchors or points",
+                                        getattr(model, geometry), totals))
+    heads = {**trunk(model), DENSE_HEAD: model.bbox_head}
     for k, m in heads.items():
         m.forward = _timed(k, m.forward, totals)
     saved = patch_functions(dict.fromkeys(DENSE_DECODES, "decode+nms"),
@@ -231,11 +282,12 @@ def dense_stage_times(model, batch, reps=3):
     try:
         wall = _timed_calls(model, batch, reps)
     finally:
-        delattr(model, geometry)
+        restore_backbone_parts(parts)
+        if geometry:
+            delattr(model, geometry)
         for m in heads.values():
             del m.forward
         restore_functions(saved)
-        restore_backbone_parts(parts)
     stages = {k: v / reps for k, v in totals.items()}
     split_backbone(model, stages)
     stages["decode (top-k, boxes)"] = stages.pop("decode+nms") \
@@ -250,7 +302,7 @@ def stage_times(model, batch, reps=3):
         return dense_stage_times(model, batch, reps)
     totals = collections.defaultdict(float)
     patched = {
-        "_rpn_and_proposals": ("rpn+proposals", model._rpn_and_proposals),
+        "_rpn_and_proposals": (RPN_STAGE, model._rpn_and_proposals),
     }
     for attr, (name, fn) in patched.items():
         setattr(model, attr, _timed(name, fn, totals))
@@ -271,12 +323,12 @@ def stage_times(model, batch, reps=3):
     try:
         wall = _timed_calls(model, batch, reps)
     finally:
+        restore_backbone_parts(parts)
         for attr in patched:
             delattr(model, attr)
         for m in heads.values():
             del m.forward
         restore_functions(saved)
-        restore_backbone_parts(parts)
     stages = {k: v / reps for k, v in totals.items()}
     split_backbone(model, stages)
     stages["other"] = wall / reps - sum(stages.values())

@@ -6,9 +6,9 @@ Dynamic, Libra, Double-Head and Mask Scoring R-CNN BONAI baselines, Grid
 R-CNN, PointRend, the RPN, Fast R-CNN, LOFT-FOA on HRNet-W32 + HRFPN,
 the trunk variants (DCNv2, GCNet, Res2Net, RegNetX-3.2GF, generalized
 attention, PAFPN), HTC (its batch with a ``gt_semantic_seg`` planted from
-the GT masks, so that the semantic loss runs), DetectoRS, or a dense
-single-stage detector: RetinaNet, its GHM and PISA configs,
-FreeAnchor, ATSS, GFL, FCOS) for
+the GT masks, so that the semantic loss runs), DetectoRS, Guided-Anchoring
+Faster R-CNN, or a dense single-stage detector: RetinaNet, its GHM and
+PISA configs, FreeAnchor, ATSS, GFL, FCOS, FSAF, FoveaBox, RepPoints) for
 training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
 config's SGD and schedule), takes a few steps on the synthetic padded
@@ -32,9 +32,13 @@ autocast, and prints
   + SGD, and what the step leaves after those (the backward, with the
   RoIAlign backward B2 inside); for a dense single-stage detector the
   backbone and the neck, the head (towers and outputs), the anchors or
-  points, the targets (the assignment: max-IoU, ATSS or FCOS's; FreeAnchor
-  matches inside its loss), the loss, the rest of the forward, clip +
-  SGD and the backward;
+  points, the targets (the assignment: max-IoU, ATSS, FCOS's, FSAF's
+  regions and level selection, FoveaBox's foveas, RepPoints' point and
+  max-IoU assigners; FreeAnchor matches inside its loss), the loss, the
+  rest of the forward, clip + SGD and the backward; a head's deformable
+  sampling (RepPoints') apart from the head, forward and backward;
+  GA-RPN's location and shape targets apart from the rest of its loss,
+  and its deformable sampling apart from its head;
 - from ``torch.profiler`` over one step: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled step, and
   the kernels that take the most time.
@@ -60,18 +64,22 @@ from ..apis.train import build_trainer
 from ..config import Config
 from ..core.samplers import generator_draws
 from ..engine import train_step as train_step_module
-from ..models.dense_heads import atss_head, fcos_head, gfl_head, retina_head
+from ..models.dense_heads import (atss_head, fcos_head, fovea_head, fsaf_head,
+                                  ga_rpn_head, gfl_head, reppoints_head,
+                                  retina_head)
 from ..models.detectors import single_stage
-from .profile_serve import (SEMANTIC_FUSION, geometry_attr, is_dense,
-                            patch_backbone_parts, patch_functions,
+from .profile_serve import (DENSE_HEAD, SEMANTIC_FUSION, geometry_attr,
+                            is_dense, patch_backbone_parts, patch_functions,
                             restore_backbone_parts, restore_functions,
                             roi_heads, split_backbone, time_heads, trunk)
 
 # the dense detectors' losses (in the detector module) and the target
 # functions they call (in the head modules)
 DENSE_LOSSES = ("retina_loss", "free_anchor_loss", "atss_loss", "gfl_loss",
-                "fcos_loss")
-DENSE_TARGETS = ("retina_targets", "atss_targets", "fcos_targets")
+                "fcos_loss", "fsaf_loss", "fovea_loss", "reppoints_loss")
+DENSE_TARGETS = ("retina_targets", "atss_targets", "fcos_targets",
+                 "fsaf_targets", "fovea_targets_level")
+GA_TARGETS = "rpn: loc/shape targets"
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
                       "configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py")
@@ -176,20 +184,26 @@ def _patch_stages(model, totals):
     and modules and what :func:`restore_functions` puts back."""
     patched = {"forward_train": "forward"}
     if is_dense(model):
-        patched[geometry_attr(model)] = "anchors or points"
-        heads = {**trunk(model), "head (towers + outputs)": model.bbox_head}
+        if geometry_attr(model):
+            patched[geometry_attr(model)] = "anchors or points"
+        heads = {**trunk(model), DENSE_HEAD: model.bbox_head}
         saved = patch_functions(dict.fromkeys(DENSE_LOSSES, "loss+targets"),
                                 totals, (single_stage,))
         saved += patch_functions(dict.fromkeys(DENSE_TARGETS, "targets"),
                                  totals, (retina_head, atss_head, gfl_head,
-                                          fcos_head))
+                                          fcos_head, fsaf_head, fovea_head))
+        saved += patch_functions(dict.fromkeys(
+            ("point_assign", "max_iou_assign"), "targets"), totals,
+            (reppoints_head,))
     else:
         heads = {**trunk(model), **({"rpn_head": model.rpn_head}
                                     if model.has_rpn else {}),
                  **dict(roi_heads(model))}
         saved = patch_functions(
             {"rpn_proposals": "proposals (NMS)",
+             "ga_proposals": "proposals (NMS)",
              "rpn_loss": "rpn targets+loss",
+             "ga_rpn_loss": "rpn targets+loss",
              "assign_and_sample_rcnn": "rcnn assign+sample",
              "roi_align_block": "roi_align_block fwd (B1)",
              "roi_align_fused": "roi_align_fused fwd (B1, strip rule)",
@@ -200,6 +214,9 @@ def _patch_stages(model, totals):
              "fine_grained_point_feats": "point features",
              "point_targets_from_instance_masks": "point targets",
              "roi_align": SEMANTIC_FUSION}, totals)
+        saved += patch_functions(dict.fromkeys(
+            ("ga_loc_targets", "ga_shape_targets"), GA_TARGETS), totals,
+            (ga_rpn_head,))
     for attr, name in patched.items():
         setattr(model, attr, _timed(name, getattr(model, attr), totals))
     time_heads(heads, totals)
@@ -224,21 +241,23 @@ def stage_times(model, train_step, batch, draw, reps=3):
             torch.cuda.synchronize()
             wall += (time.perf_counter() - t0) * 1e3
     finally:
+        restore_backbone_parts(parts)
         for attr in patched:
             delattr(model, attr)
         for m in heads.values():
             del m.forward
         restore_functions(saved)
-        restore_backbone_parts(parts)
         train_step_module.apply_gradients = saved_update
     stages = {k: v / reps for k, v in totals.items()}
     if "loss+targets" in stages:
         stages["loss"] = stages.pop("loss+targets") - stages.get("targets",
                                                                  0.0)
+    if GA_TARGETS in stages:
+        stages["rpn targets+loss"] -= stages[GA_TARGETS]
     forward = stages.pop("forward")
     backward = "backward (incl. B2) + rest"
     stages[backward] = wall / reps - forward - stages["clip+sgd"]
-    split_backbone(model, stages, backward)
+    split_backbone(model, stages, backward, rpn="rpn_head")
     # the forward's total holds the stages timed inside it
     stages["forward, rest"] = forward - sum(
         v for k, v in stages.items() if k not in ("clip+sgd", backward)

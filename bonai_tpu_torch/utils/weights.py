@@ -27,10 +27,16 @@ R-CNN no ``rpn_head.*``.  The JAX importer reads none of the BFP, the
 double head or the IoU head (ROADMAP.md queue C).
 
 The dense single-stage detectors (RetinaNet, FreeAnchor, ATSS, GFL,
-FCOS) have a ``bbox_head`` of mmdet's dense-head keys (``cls_convs.<i>.
-{conv,gn}``, ``reg_convs.<i>``, ``retina_{cls,reg}``, ``atss_{cls,reg,
-centerness}``, ``gfl_{cls,reg}``, ``fcos_{cls,reg,centerness}``,
-``scales.<l>.scale``) and no ``rpn_head``/``roi_head``; an FPN's extra
+FCOS, FSAF, FoveaBox, RepPoints) have a ``bbox_head`` of mmdet's
+dense-head keys (``cls_convs.<i>.{conv,gn}``, ``reg_convs.<i>``,
+``retina_{cls,reg}`` (FSAF's too), ``atss_{cls,reg,centerness}``,
+``gfl_{cls,reg}``, ``fcos_{cls,reg,centerness}``, FoveaBox's
+``conv_{cls,reg}``, RepPoints' ``reppoints_cls_{conv,out}``,
+``reppoints_pts_{init,refine}_{conv,out}`` and ``moment_transfer``,
+``scales.<l>.scale``) and no ``rpn_head``/``roi_head``; Guided
+Anchoring's RPN has ``rpn_head.{rpn_conv,conv_loc,conv_shape,conv_cls,
+conv_reg}`` and ``rpn_head.feature_adaption.{conv_offset,
+conv_adaption}``; an FPN's extra
 convs (flax ``extra_<i>``) are mmdet's ``neck.fpn_convs.<n>`` after its
 output convs.  The JAX importer reads ``rpn_head.*`` unconditionally and
 raises ``KeyError`` on such a checkpoint (ROADMAP.md queue C).  The GN
@@ -197,7 +203,12 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             for sub, p in refine.items():
                 layer(f"neck.{j}.refine.{sub}.conv", p)
     for name, p in params.get("rpn_head", {}).items():
-        layer(f"rpn_head.{name}", p)
+        if name == "adaption_kernel":                   # GA-RPN's DCN
+            sd["rpn_head.feature_adaption.conv_adaption.weight"] = _conv(p)
+        elif name == "conv_offset":
+            layer("rpn_head.feature_adaption.conv_offset", p)
+        else:
+            layer(f"rpn_head.{name}", p)
 
     for name, bh in params.items():
         m = re.fullmatch(r"bbox_head(?:_(\d+))?", name)
@@ -382,25 +393,42 @@ DENSE_OUTPUTS = {"retina_cls": "retina_cls", "retina_reg": "retina_reg",
                  "atss_cls": "atss_cls", "atss_reg": "atss_reg",
                  "atss_centerness": "atss_centerness", "gfl_cls": "gfl_cls",
                  "gfl_reg": "gfl_reg", "conv_cls": "fcos_cls",
-                 "conv_reg": "fcos_reg", "conv_centerness": "fcos_centerness"}
+                 "conv_reg": "fcos_reg", "conv_centerness": "fcos_centerness",
+                 "fovea_cls": "conv_cls", "fovea_reg": "conv_reg",
+                 "cls_out": "reppoints_cls_out",
+                 "pts_init_conv": "reppoints_pts_init_conv",
+                 "pts_init_out": "reppoints_pts_init_out",
+                 "pts_refine_out": "reppoints_pts_refine_out"}
+# RepPoints' variables that are arrays, not modules: flax name -> mmdet key
+DENSE_ARRAYS = {"cls_dcn_kernel": "reppoints_cls_conv.weight",
+                "refine_dcn_kernel": "reppoints_pts_refine_conv.weight",
+                "moment_transfer": "moment_transfer"}
 
 
 def _dense_head(bh, sd, layer):
     """A single-stage detector's dense head: ``cls|reg_conv<i>`` and
-    ``cls|reg_gn<i>`` -> ``bbox_head.cls|reg_convs.<i>.conv|gn``, the
-    output convs by :data:`DENSE_OUTPUTS`, ``scale<l>`` ->
+    ``cls|reg_gn<i>`` -> ``bbox_head.cls|reg_convs.<i>.conv|gn`` (a
+    deformable tower conv with its ``conv_offset``), the output convs by
+    :data:`DENSE_OUTPUTS`, RepPoints' arrays by :data:`DENSE_ARRAYS` (its
+    HWIO deformable kernels to OIHW), ``scale<l>`` ->
     ``bbox_head.scales.<l>.scale``."""
     for name, p in bh.items():
         tower = re.fullmatch(r"(cls|reg)_(conv|gn)(\d+)", name)
         scale = re.fullmatch(r"scale(\d+)", name)
         if tower and tower[2] == "conv":
-            layer(f"bbox_head.{tower[1]}_convs.{tower[3]}.conv", p)
+            key = f"bbox_head.{tower[1]}_convs.{tower[3]}.conv"
+            layer(key, p)
+            if "conv_offset" in p:              # FCOS's dcn_on_last_conv
+                layer(f"{key}.conv_offset", p["conv_offset"])
         elif tower:
             key = f"bbox_head.{tower[1]}_convs.{tower[3]}.gn"
             sd[f"{key}.weight"] = np.asarray(p["scale"])
             sd[f"{key}.bias"] = np.asarray(p["bias"])
         elif scale:
             sd[f"bbox_head.scales.{scale[1]}.scale"] = np.asarray(p)
+        elif name in DENSE_ARRAYS:
+            sd[f"bbox_head.{DENSE_ARRAYS[name]}"] = (
+                _conv(p) if name.endswith("kernel") else np.asarray(p))
         else:
             layer(f"bbox_head.{DENSE_OUTPUTS[name]}", p)
 
@@ -550,10 +578,22 @@ def mmdet_state_dict(model, sd):
     DetectoRS's ``ConvAWS`` convs carry ``weight_gamma``/``weight_beta``
     (mmcv's buffers); where the port's conv is a plain one (every conv
     outside SAC, as in the JAX package) mmcv's standardisation folds into
-    its weight (:func:`fold_aws`)."""
+    its weight (:func:`fold_aws`).
+
+    mmdetection's Guided Anchoring ``FeatureAdaption`` has four offset
+    groups (a 72-channel ``conv_offset``), the port's, as the JAX
+    package's, one (18): such a checkpoint raises ``ValueError``
+    (ROADMAP.md queue C)."""
     sd = {k: v for k, v in sd.items()
           if not k.endswith("num_batches_tracked")}
     own = model.state_dict()
+    key = "rpn_head.feature_adaption.conv_offset.weight"
+    if key in sd and key in own and sd[key].shape != own[key].shape:
+        raise ValueError(
+            f"{key}: {tuple(sd[key].shape)} is mmdetection's feature "
+            f"adaption of {sd[key].shape[0] // 18} offset groups; the "
+            f"port's, as the JAX package's, has one group "
+            f"{tuple(own[key].shape)} (ROADMAP.md queue C)")
     for key in [k for k in sd if k.endswith(".weight_gamma")
                 and k not in own]:
         base = key[:-len("weight_gamma")]

@@ -217,7 +217,15 @@ Phases, each of which must pass:
    warmup);
    the BONAI configs' checkpoints through the test CLI with ``--eval
    bbox`` on the first val crop (``score_thr=0``).  No kernel may launch.
-17. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+17. dense2: RepPoints, FSAF and FoveaBox on BONAI as the dense phase runs
+   its configs (one timed serve batch; RepPoints' small-input check runs
+   through its deformable convs, both point sets and ``moment_transfer``),
+   no kernel launch; Guided-Anchoring Faster R-CNN as the trunks phase
+   runs PAFPN (calibrated BatchNorm statistics, ``'block'``, its COCO
+   schedule's warmup; the small input's FPN levels and GA-RPN outputs
+   held to the CPU); each checkpoint through the test CLI with ``--eval
+   bbox``.  Each config's line carries the card's name and power limit.
+18. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -240,7 +248,9 @@ and 1 for their Faster R-CNNs, 6 for HTC (three box and three mask
 stages; its semantic fusion's RoIAlign is the plain one) and 4 for
 DetectoRS (three box stages and the mask); the file chain's RPN test runs
 launch nothing, its Fast R-CNN launches B1 and B2 once a training step and
-B1 once a test batch; the dense phase's runs launch nothing.
+B1 once a test batch; the dense phase's runs launch nothing, nor do the
+dense2 phase's RepPoints, FSAF and FoveaBox; its GA Faster R-CNN launches
+B1 once a serve batch, B1 and B2 once a step, B1 once a test batch.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -323,6 +333,19 @@ CASCADE_CONFIGS = (
     ("detectors", "configs/detectors/detectors_cascade_rcnn_r50_1x_bonai.py",
      4, False))
 CASCADE_STEPS = 3
+# RepPoints, FSAF, FoveaBox and Guided-Anchoring Faster R-CNN (the dense2
+# phase): label, config, the RoIAlign kernel calls of a batch or step (the
+# three dense detectors run the dense phase's pattern, GA the trunks
+# phase's for PAFPN: calibrated BatchNorm statistics, the warmup of its
+# COCO schedule)
+DENSE2_CONFIGS = (
+    ("reppoints", "configs/reppoints/reppoints_moment_r50_fpn_1x_bonai.py",
+     0),
+    ("fsaf", "configs/fsaf/fsaf_r50_fpn_1x_bonai.py", 0),
+    ("fovea", "configs/foveabox/fovea_r50_fpn_4x4_1x_bonai.py", 0),
+    ("ga_faster", "configs/guided_anchoring/ga_faster_r50_fpn_1x_bonai.py",
+     1))
+DENSE2_STEPS = 3
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
@@ -333,7 +356,9 @@ COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
                **{label: (("bbox", "segm") if calls == 2 else ("bbox",),
                           calls) for label, _, calls, *_ in TRUNK_CONFIGS},
                **{label: (("bbox", "segm"), calls)
-                  for label, _, calls, _ in CASCADE_CONFIGS}}
+                  for label, _, calls, _ in CASCADE_CONFIGS},
+               **{label: (("bbox",), calls)
+                  for label, _, calls in DENSE2_CONFIGS}}
 # the rest of the R-CNN family on BONAI (the rcnn2 phase): label, config,
 # the RoIAlign calls of a batch or step
 RCNN2_CONFIGS = (
@@ -2325,8 +2350,9 @@ def _trunk_cpu_check(model, what, r):
     where the port computes in float32: the sampling weights, the
     softmaxes and HTC's antialiased resize), with TF32 off: the
     backbone's deformable sampling, attention blocks and SAC convs and
-    the RFP (plain PyTorch on both devices) inside, and HTC's semantic
-    embedding after them.  Each level must agree within 1e-4
+    the RFP (plain PyTorch on both devices) inside, HTC's semantic
+    embedding after them, and a Guided-Anchoring RPN's four outputs (its
+    deformable feature adaption inside).  Each level must agree within 1e-4
     of its largest value, or within twice the float32 rounding that a
     float32 run on the CPU shows against the float64 one where that is
     larger (Res2Net with calibrated statistics: 9e-5 of the largest)."""
@@ -2347,9 +2373,15 @@ def _trunk_cpu_check(model, what, r):
         img = prepare_batch(model, small)[0]
         def outputs(m, x):
             feats = m.extract_feat(x)
+            named = [(f"FPN level {i}", f) for i, f in enumerate(feats)]
             if hasattr(m, "semantic"):          # HTC's semantic embedding
-                feats += (m.semantic(feats)[1],)
-            return feats
+                named.append(("semantic embedding", m.semantic(feats)[1]))
+            if getattr(m, "ga_rpn", False):
+                outs = m.rpn_head([f.permute(0, 3, 1, 2) for f in feats])
+                named += [(f"GA-RPN {kind} level {i}", o) for kind, level in
+                          zip(("logits", "deltas", "shapes", "location"),
+                              outs) for i, o in enumerate(level)]
+            return named
         with torch.inference_mode():
             got = outputs(model, img)
             cpu32 = outputs(cpu, img.cpu())
@@ -2357,12 +2389,10 @@ def _trunk_cpu_check(model, what, r):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
-    for i, (g, c, w) in enumerate(zip(got, cpu32, want)):
+    for (level, g), (_, c), (_, w) in zip(got, cpu32, want):
         err = float((g.cpu().double() - w).abs().max())
         noise = float((c.double() - w).abs().max())
         top = float(w.abs().max())
-        level = f"FPN level {i}" if i < len(got) - hasattr(
-            model, "semantic") else "semantic embedding"
         print(f"{what}: small float32 input ({tuple(img.shape[1:3])}), "
               f"{level} on the card vs float64 on the CPU: max abs diff "
               f"{err:.3g} (float32 on the CPU {noise:.3g}; values up to "
@@ -2601,14 +2631,17 @@ def _dense_config(config):
 def _dense_cpu_check(model, what, r):
     """The head outputs of a small float32 input (two 256x320 images) on
     the card and on the CPU, from the same weights, with TF32 off: each
-    output (logits, deltas or distances, centerness) must agree within
-    1e-4 of its largest value over the levels."""
+    output (logits, deltas or distances, centerness; RepPoints' two point
+    sets, through its deformable convs, and ``moment_transfer``) must
+    agree within 1e-4 of its largest value over the levels."""
     import copy
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import prepare_batch
-    tf32 = torch.backends.cudnn.allow_tf32
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         model.float()
         cpu = copy.deepcopy(model).cpu().to(
@@ -2624,8 +2657,11 @@ def _dense_cpu_check(model, what, r):
             want = cpu.bbox_head(cpu.extract_feat(img.cpu()))
         t2 = time.perf_counter()
     finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
     for i, (g, w) in enumerate(zip(got, want)):
+        if torch.is_tensor(g):                  # RepPoints' moment_transfer
+            g, w = [g], [w]
         err = max(float((a.cpu() - b).abs().max()) for a, b in zip(g, w))
         top = max(float(b.abs().max()) for b in w)
         print(f"{what}: small float32 input ({tuple(img.shape[1:3])}), "
@@ -2768,6 +2804,70 @@ def dense_phase():
     return out
 
 
+def dense2_phase():
+    """RepPoints, FSAF, FoveaBox and Guided-Anchoring Faster R-CNN
+    (``DENSE2_CONFIGS``) at full width with seeded random weights.  The
+    three dense detectors as the dense phase runs its configs
+    (:func:`dense_serve`, RepPoints' small-input check through its
+    deformable convs; ``DENSE2_STEPS`` steps at the base LR on
+    :func:`_dense_batch`; the test CLI with ``--eval bbox`` at
+    ``score_thr=0``), no kernel launch; GA as the trunks phase runs PAFPN
+    (calibrated BatchNorm statistics, the ``'block'`` route, its COCO
+    schedule's warmup): B1 once a serve batch, its RoI branch held to the
+    plain route and its FPN levels and GA-RPN outputs of a small float32
+    input to the CPU, B1 and B2 once a step, B1 once in the test CLI.
+    Returns each config's launch counts, times and peak memory."""
+    import numpy as np
+    from bonai_tpu_torch.config import Config
+    out = {}
+    for label, config, calls in DENSE2_CONFIGS:
+        config = os.path.join(REPO, config)
+        t0 = time.time()
+        if not calls:
+            serve, serve_ms, serve_peak = dense_serve(label, config, calls=1)
+            clip = dict(Config.fromfile(config).get("optimizer_config")
+                        or {}).get("grad_clip")
+            train = train_phase("block", DENSE2_STEPS, config,
+                                label=f"{label} train", keep=True,
+                                warmup=not clip, batch=_dense_batch())
+            options = ["test_cfg.score_thr=0.0"]
+        else:
+            weights = os.path.join(REPO, "build", "chip_smoke_dense2",
+                                   "init.pth")
+            _calibrated_weights(config, weights)
+            serve, serve_ms, serve_peak = serve_phase(
+                "block", config, calls=1, label=f"{label} serve",
+                checkpoint=weights,
+                inspect=lambda model, *_: _trunk_cpu_check(
+                    model, f"{label} serve", np.random.RandomState(1)))
+            train = train_phase("block", DENSE2_STEPS, config,
+                                label=f"{label} train", keep=True,
+                                load_from=weights)
+            shutil.rmtree(os.path.dirname(weights), ignore_errors=True)
+            options = []
+        if serve != 2 * calls or not (
+                train["fwd"] == train["bwd"] == DENSE2_STEPS * calls):
+            raise AssertionError(f"{label}: B1 {serve} launches serving, "
+                                 f"{train['fwd']} / B2 {train['bwd']} "
+                                 f"training; expected {calls} a batch or "
+                                 f"step")
+        coco = rcnn_coco(label, config, train["checkpoint"], options=options)
+        shutil.rmtree(train["work_dir"], ignore_errors=True)
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=coco, seconds=time.time() - t0)
+    card = _gpu_name_and_power()
+    for label, r in out.items():
+        print(f"dense2 {label}: serve {r['serve_ms']:.1f} ms a B=2 call, "
+              f"peak {r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} "
+              f"launches; train median step {r['train']['step_ms']:.1f} ms, "
+              f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
+              f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches; test "
+              f"CLI B1 {r['coco_cli']} launches; {r['seconds']:.1f} s; "
+              f"card {card}", flush=True)
+    return out
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -2854,6 +2954,7 @@ def main():
     trunks = trunks_phase()
     cascades = cascades_phase()
     dense = dense_phase()
+    dense2 = dense2_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -2916,7 +3017,8 @@ def main():
                 rcnn2_double_head_reg_rois=rcnn2["double_head"]["window"],
                 **{f"{phase}_{k}_{what}_launches": n
                    for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
-                                       ("cascades", cascades))
+                                       ("cascades", cascades),
+                                       ("dense2", dense2))
                    for k, r in runs.items()
                    for what, n in (("serve", r["serve"]),
                                    ("train", r["train"]["fwd"]),
@@ -2945,7 +3047,8 @@ def main():
                    "fast_train"][1],
                **{f"{phase}_{k}_train_launches": r["train"]["bwd"]
                   for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
-                                      ("cascades", cascades))
+                                      ("cascades", cascades),
+                                      ("dense2", dense2))
                   for k, r in runs.items()},
                **{f"dense_{k}_train_launches": r["train"]["bwd"]
                   for k, r in dense.items()}),

@@ -88,7 +88,7 @@ def test_build_detector_names_the_roadmap_item_for_unported_types():
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     cfg = Config.fromfile(CONFIG)
-    cfg.model.type = "RepPointsDetector"      # MaskRCNN is ported
+    cfg.model.type = "SSD"                    # MaskRCNN is ported
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
 

@@ -142,7 +142,11 @@ def test_port_imports_nothing_of_the_jax_side():
     assert len(files) > 50
     assert {"bonai_tpu_torch/ops/saconv.py",
             "bonai_tpu_torch/models/necks/rfp.py",
-            "bonai_tpu_torch/models/detectors/htc.py"} <= {
+            "bonai_tpu_torch/models/detectors/htc.py",
+            "bonai_tpu_torch/models/dense_heads/reppoints_head.py",
+            "bonai_tpu_torch/models/dense_heads/ga_rpn_head.py",
+            "bonai_tpu_torch/models/dense_heads/fsaf_head.py",
+            "bonai_tpu_torch/models/dense_heads/fovea_head.py"} <= {
         osp.relpath(p, ROOT) for p in files}
     found = []
     for path in files:

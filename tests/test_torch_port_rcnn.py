@@ -98,15 +98,16 @@ def test_configs_build_at_full_width(name):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(type="RepPointsDetector"), "A6"), (dict(type="CornerNet"), "A6"),
+    (dict(config="foveabox/fovea_r50_fpn_4x4_1x_bonai.py", with_deform=True),
+     "A6"), (dict(type="CornerNet"), "A6"),
     (dict(config="htc/htc_r50_fpn_1x_bonai.py",
           mask_head=dict(type="CoarseMaskHead")), "A7"),
     (dict(sampler=dict(type="ScoreHLRSampler", num=512)), "A7"),
     (dict(sampler=dict(type="OHEMSampler", num=512)), "A7"),
     (dict(reg_decoded_bbox=True), "A7"),
-    (dict(type="FSAF"), "A6"), (dict(type="SSD"), "A6"),
-    (dict(config="fcos/fcos_r50_fpn_1x_bonai.py", dcn_on_last_conv=True),
-     "A6"),
+    (dict(config="guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py"), "A6"),
+    (dict(type="SSD"), "A6"),
+    (dict(config="guided_anchoring/ga_rpn_r50_fpn_1x_coco.py"), "A6"),
     (dict(config="retinanet/retinanet_r50_fpn_1x_coco.py",
           bbox_head=dict(type="RetinaSepBNHead")), "A6"),
     (dict(neck=[dict(type="FPN"), dict(type="PAFPN")]), "A7"),
@@ -127,7 +128,9 @@ def test_unported_types_name_their_item(change, item):
     """A detector, head, sampler, loss, neck chain or GRoIE extractor the
     port does not build; an option of a config it builds (HTC's mask head
     type, DetectoRS's deformable SAC); a single-stage config's head
-    option (FCOS's deformable last conv, NAS-FPN's ``RetinaSepBNHead``)."""
+    option (FoveaBox's ``with_deform``, NAS-FPN's ``RetinaSepBNHead``);
+    Guided Anchoring's RetinaNet head, and its RPN in the RPN-only
+    detector."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     change = dict(change)

@@ -131,9 +131,16 @@ def test_configs_build_at_full_width(family):
                                       "RepPointsDetector", "SSD",
                                       "CornerNet", "NASFCOS"])
 def test_unported_single_stage_types_name_a6(det_type):
+    """SSD, CornerNet and NAS-FCOS raise A6; FSAF, FoveaBox (and its alias
+    ``FOVEA``) and RepPoints, ported since, build from the same layout."""
     from bonai_tpu_torch.models import build_detector
     cfg = dense_cfg("atss")
     cfg.model.type = det_type
+    if det_type in ("FSAF", "FOVEA", "FoveaBox", "RepPointsDetector"):
+        model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+        assert type(model).__name__ == {"FOVEA": "FoveaBox"}.get(det_type,
+                                                                  det_type)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
 

@@ -49,6 +49,14 @@ DENSE_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
     "gfl": "gfl/gfl_r50_fpn_1x_bonai.py",
     "fcos": "fcos/fcos_r50_fpn_1x_bonai.py"}.items()}
 
+# the point-set and anchor-free heads on BONAI (dense_cfg's families too)
+POINT_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
+    "reppoints": "reppoints/reppoints_moment_r50_fpn_1x_bonai.py",
+    "fsaf": "fsaf/fsaf_r50_fpn_1x_bonai.py",
+    "fovea": "foveabox/fovea_r50_fpn_4x4_1x_bonai.py"}.items()}
+GA_CONFIG = osp.join(ROOT,
+                     "configs/guided_anchoring/ga_faster_r50_fpn_1x_bonai.py")
+
 HRNET_CONFIG = osp.join(ROOT, "configs/hrnet/loft_foa_hrnetv2p_w32_2x_bonai.py")
 # HRNet at tiny widths: one module of one block a stage, branches of 8, 16,
 # 32 and 64 channels
@@ -142,7 +150,8 @@ def tiny_cfg(nms_pre=100, max_num=64, max_per_img=32, config=CONFIG):
 
 
 def dense_cfg(family, num_classes=3):
-    """The config of a ``DENSE_CONFIGS`` family at the tiny widths:
+    """The config of a ``DENSE_CONFIGS`` or ``POINT_CONFIGS`` family at the
+    tiny widths (RepPoints' point features 32 channels):
     ResNet-18 at base 8, a 16-channel FPN (the config's ``start_level=1``,
     extra convs and 5 outputs), two 64-channel tower convs (two channels
     to each of GroupNorm's 32 groups: one alone would be normalised over
@@ -150,11 +159,13 @@ def dense_cfg(family, num_classes=3):
     thousandfold), ``nms_pre`` 100 and 32 detections an image.  The
     RetinaNet-family configs (COCO's 80 classes) take ``num_classes``."""
     from bonai_tpu_torch import Config
-    cfg = Config.fromfile(DENSE_CONFIGS[family])
+    cfg = Config.fromfile({**DENSE_CONFIGS, **POINT_CONFIGS}[family])
     m = cfg.model
     m.backbone.update(depth=18, base_channels=8)
     m.neck.update(in_channels=[8, 16, 32, 64], out_channels=16)
     m.bbox_head.update(in_channels=16, feat_channels=64, stacked_convs=2)
+    if m.type == "RepPointsDetector":
+        m.bbox_head.point_feat_channels = 32
     if m.bbox_head.num_classes == 80:
         m.bbox_head.num_classes = num_classes
     cfg.test_cfg.update(nms_pre=100, max_per_img=32)
@@ -192,6 +203,17 @@ def trunk_cfg(family, train=False):
     neck.in_channels = [32, 64, 128, 256]
     if bk.type == "Res2Net":
         bk.base_width = 4
+    return cfg
+
+
+def ga_cfg(train=False):
+    """Guided-Anchoring Faster R-CNN's BONAI config at the tiny widths of
+    :func:`tiny_cfg` (the training sizes of :func:`tiny_train_cfg` with
+    ``train``), one class (its COCO base has 80)."""
+    cfg = (tiny_train_cfg if train else tiny_cfg)(config=GA_CONFIG)
+    cfg.model.roi_head.bbox_head.num_classes = 1
+    if train:
+        cfg.train_cfg.rpn.ga_sampler.num = 64
     return cfg
 
 
@@ -262,8 +284,9 @@ def jax_model(cfg, seed=0, **build_kw):
     r = np.random.RandomState(seed)
     params = _random_tree(shapes["params"], r)
     stats = _random_tree(shapes["batch_stats"], r)
-    if "rpn_head" in params:                    # Fast R-CNN has none
-        params["rpn_head"]["rpn_reg"]["kernel"] *= 0.1
+    for k in ("rpn_reg", "conv_reg", "conv_shape"):   # GA-RPN's last two
+        if k in params.get("rpn_head", {}):     # Fast R-CNN has none
+            params["rpn_head"][k]["kernel"] *= 0.1
     for name in params:                 # bbox_head, or a cascade's stages
         if not name.startswith("bbox_head") or "fc_cls" not in params[name]:
             continue                    # a single-stage detector's dense head
@@ -343,7 +366,7 @@ def jax_uniforms(key, n, streams=2):
 
 
 def jax_forward_train_draws(jm, variables, key, b, cascade=False,
-                            unsplit=False, htc=False):
+                            unsplit=False, htc=False, ga=False):
     """A draw source for the port's ``forward_train`` that hands out the
     numbers the JAX ``forward_train`` draws under ``rngs={"sampling":
     key}``.  ``draw(shape, device, n)``: the RPN's uniforms per image, then
@@ -351,7 +374,11 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
     ``sampling`` key (as many streams as the port's sampler asks for).
     With ``cascade``, the R-CNN's are stage ``i``'s at call ``i + 1``: the
     splits of the R-CNN key folded with ``i``
-    (``bonai_tpu/models/detectors/cascade_rcnn.py``).  With ``htc``, each
+    (``bonai_tpu/models/detectors/cascade_rcnn.py``).  With ``ga``
+    (Guided Anchoring's RPN, which samples twice), the RPN key gives the
+    shape sampler's per-image splits and the RPN key folded with 1 the RPN
+    sampler's (``bonai_tpu/models/dense_heads/ga_rpn_head.py``), before
+    the R-CNN's.  With ``htc``, each
     stage's box draw is followed by its interleaved mask draw, from the
     R-CNN key folded with ``100 + i`` (``bonai_tpu/models/detectors/
     htc.py``).  With ``unsplit``
@@ -374,7 +401,8 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
     else:
         stages = [jax.random.fold_in(rcnn, i) for i in range(8)] \
             if cascade else [rcnn]
-    keys = iter([rng] if unsplit else [rpn] + stages)
+    rpn_keys = [rpn, jax.random.fold_in(rpn, 1)] if ga else [rpn]
+    keys = iter([rng] if unsplit else rpn_keys + stages)
 
     def draw(shape, device, n=2):
         per_image = [jax_uniforms(k, shape[-1], n)
