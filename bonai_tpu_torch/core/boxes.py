@@ -34,17 +34,22 @@ def _div(a, b):
 
 
 def bbox2delta(proposals, gt, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.),
-               eps=1e-7):
+               eps=1e-7, legacy=False):
     """Encode ``gt`` boxes as deltas of ``proposals`` (both ``(..., 4)``);
-    ``eps`` keeps zero-size padded boxes finite."""
+    ``eps`` keeps zero-size padded boxes finite.  ``legacy``: mmdetection
+    v1.x's ``+1`` sizes (``LegacyDeltaXYWHBBoxCoder``)."""
     px = (proposals[..., 0] + proposals[..., 2]) * 0.5
     py = (proposals[..., 1] + proposals[..., 3]) * 0.5
-    pw = (proposals[..., 2] - proposals[..., 0]).clamp(min=eps)
-    ph = (proposals[..., 3] - proposals[..., 1]).clamp(min=eps)
+    pw = proposals[..., 2] - proposals[..., 0]
+    ph = proposals[..., 3] - proposals[..., 1]
     gx = (gt[..., 0] + gt[..., 2]) * 0.5
     gy = (gt[..., 1] + gt[..., 3]) * 0.5
     gw = gt[..., 2] - gt[..., 0]
     gh = gt[..., 3] - gt[..., 1]
+    if legacy:
+        pw, ph, gw, gh = pw + 1.0, ph + 1.0, gw + 1.0, gh + 1.0
+    pw = pw.clamp(min=eps)
+    ph = ph.clamp(min=eps)
     deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
                           torch.log(gw.clamp(min=eps) / pw),
                           torch.log(gh.clamp(min=eps) / ph)], dim=-1)
@@ -52,9 +57,10 @@ def bbox2delta(proposals, gt, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.),
 
 
 def delta2bbox(rois, deltas, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.),
-               max_shape=None, wh_ratio_clip=16 / 1000):
+               max_shape=None, wh_ratio_clip=16 / 1000, legacy=False):
     """Decode ``(..., 4*K)`` deltas on ``(..., 4)`` boxes.  ``max_shape``
-    is ``(h, w)``; each may be a tensor broadcasting against the boxes."""
+    is ``(h, w)``; each may be a tensor broadcasting against the boxes.
+    ``legacy``: mmdetection v1.x's ``+1`` sizes and ``0.5`` corners."""
     num_classes = deltas.shape[-1] // 4
     d = deltas.reshape(deltas.shape[:-1] + (num_classes, 4))
     d = d * d.new_tensor(stds) + d.new_tensor(means)
@@ -66,12 +72,16 @@ def delta2bbox(rois, deltas, means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.),
     py = ((rois[..., 1] + rois[..., 3]) * 0.5)[..., None]
     pw = (rois[..., 2] - rois[..., 0])[..., None]
     ph = (rois[..., 3] - rois[..., 1])[..., None]
+    if legacy:
+        pw, ph = pw + 1.0, ph + 1.0
     gw = pw * torch.exp(dw)
     gh = ph * torch.exp(dh)
     gx = px + pw * dx
     gy = py + ph * dy
     boxes = torch.stack([gx - gw * 0.5, gy - gh * 0.5,
                          gx + gw * 0.5, gy + gh * 0.5], dim=-1)
+    if legacy:
+        boxes = boxes + boxes.new_tensor([0.5, 0.5, -0.5, -0.5])
     if max_shape is not None:
         boxes = clip_boxes(boxes, max_shape)
     return boxes.reshape(deltas.shape)

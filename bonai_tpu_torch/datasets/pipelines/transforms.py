@@ -5,7 +5,9 @@ transforms.py`` that the BONAI and synthetic configs use):
 decoded-image cache), ``LoadAnnotations``, ``LoadProposals``, ``Resize``,
 ``RandomFlip``,
 ``Normalize``, ``Pad``, ``DefaultFormatBundle``, ``ImageToTensor``,
-``Collect`` and ``MultiScaleFlipAug``.
+``Collect`` and ``MultiScaleFlipAug``; CornerNet's
+``PhotoMetricDistortion`` (its HSV conversions in ``utils/color.py``) and
+``RandomCenterCropPad``.
 
 Masks travel as polygons (lists of ``(K, 2)`` float32 arrays per instance
 part) until the loader packs them, so the geometric steps are exact.
@@ -22,6 +24,7 @@ import numpy as np
 
 from ...core.masks import resize_bilinear
 from ...registry import Registry, build_from_cfg
+from ...utils.color import bgr_to_hsv, hsv_to_bgr
 from ...utils.png import read_png
 
 PIPELINES = Registry("pipeline")
@@ -30,9 +33,8 @@ PIPELINES = Registry("pipeline")
 UNPORTED = {
     **dict.fromkeys(("OffsetTransform", "RandomRotate", "Pointobb2RBBox"),
                     "item A5"),
-    **dict.fromkeys(("PhotoMetricDistortion", "Expand", "MinIoURandomCrop",
-                     "RandomCrop", "RandomCenterCropPad", "AutoAugment"),
-                    "item A6"),
+    **dict.fromkeys(("Expand", "MinIoURandomCrop", "RandomCrop",
+                     "AutoAugment"), "item A6"),
     "SegRescale": "item A7",
     "Corrupt": "item A8",
     **dict.fromkeys(("InstaBoost", "Albu"),
@@ -326,6 +328,134 @@ class RandomFlip:
             o = results["gt_offsets"].copy()
             o[:, 0 if horizontal else 1] *= -1
             results["gt_offsets"] = o
+        return results
+
+
+@PIPELINES.register_module()
+class RandomCenterCropPad:
+    """CornerNet's random centre crop with padding around.  Train mode: up
+    to 50 tries, each drawing from ``results['_rng']`` a ratio (of
+    ``ratios``, times ``crop_size``) and a centre away from the borders
+    (``randint`` x, then y); the image pasted on a mean-filled canvas of
+    that size; boxes whose centre falls in the pasted patch kept (with
+    their labels, offsets and polygons), shifted and clipped; a try that
+    keeps no box of an image that has some is redrawn.  Test mode: the
+    image centred on a canvas of ``logical_or``-padded (or
+    ``size_divisor``-rounded) size.  Both record ``border``."""
+
+    def __init__(self, crop_size=None, ratios=(0.9, 1.0, 1.1), border=128,
+                 mean=(0, 0, 0), std=None, to_rgb=None, test_mode=False,
+                 test_pad_mode=("logical_or", 127)):
+        self.crop_size = crop_size
+        self.ratios = ratios
+        self.border = border
+        self.mean = list(mean)[::-1] if to_rgb else list(mean)
+        self.test_mode = test_mode
+        self.test_pad_mode = test_pad_mode
+
+    @staticmethod
+    def _get_border(border, size):
+        k = 2 * border / size
+        i = 2 ** (np.ceil(np.log2(np.ceil(k))) + (k == int(k)))
+        return int(border // i)
+
+    def _paste(self, img, cy, cx, th, tw):
+        h, w = img.shape[:2]
+        x0, x1 = max(0, cx - tw // 2), min(cx + tw // 2, w)
+        y0, y1 = max(0, cy - th // 2), min(cy + th // 2, h)
+        canvas = np.empty((th, tw, img.shape[2]), img.dtype)
+        canvas[...] = np.asarray(self.mean, img.dtype)
+        ccy, ccx = th // 2, tw // 2
+        top, bottom = cy - y0, y1 - cy
+        left, right = cx - x0, x1 - cx
+        canvas[ccy - top:ccy + bottom, ccx - left:ccx + right] = \
+            img[y0:y1, x0:x1]
+        border = np.array([ccy - top, ccy + bottom, ccx - left,
+                           ccx + right], np.float32)
+        return canvas, border, (x0, y0, x1, y1), (ccx - left - x0,
+                                                  ccy - top - y0)
+
+    def __call__(self, results):
+        img = results["img"]
+        h, w = img.shape[:2]
+        if self.test_mode:
+            mode, value = self.test_pad_mode
+            if mode == "logical_or":
+                th, tw = h | value, w | value
+            else:
+                th = int(np.ceil(h / value) * value)
+                tw = int(np.ceil(w / value) * value)
+            results["img"], results["border"], _, _ = self._paste(
+                img, h // 2, w // 2, th, tw)
+            results["img_shape"] = (th, tw)
+            return results
+        rng = results.setdefault("_rng", np.random.RandomState())
+        boxes = results.get("gt_bboxes", np.zeros((0, 4), np.float32))
+        for _ in range(50):
+            scale = self.ratios[rng.randint(len(self.ratios))]
+            th = int(self.crop_size[0] * scale)
+            tw = int(self.crop_size[1] * scale)
+            hb = self._get_border(self.border, h)
+            wb = self._get_border(self.border, w)
+            cx = rng.randint(wb, max(w - wb, wb + 1))
+            cy = rng.randint(hb, max(h - hb, hb + 1))
+            canvas, border, patch, (sx, sy) = self._paste(img, cy, cx, th,
+                                                          tw)
+            ctr = (boxes[:, :2] + boxes[:, 2:]) / 2
+            keep = ((ctr[:, 0] > patch[0]) & (ctr[:, 1] > patch[1])
+                    & (ctr[:, 0] < patch[2]) & (ctr[:, 1] < patch[3]))
+            if len(boxes) and not keep.any():
+                continue
+            results["img"] = canvas
+            results["img_shape"] = (th, tw)
+            results["border"] = border
+            if len(boxes):
+                b = boxes[keep] + np.array([sx, sy, sx, sy], np.float32)
+                b[:, 0::2] = b[:, 0::2].clip(0, tw)
+                b[:, 1::2] = b[:, 1::2].clip(0, th)
+                results["gt_bboxes"] = b
+                for key in ("gt_labels", "gt_offsets"):
+                    if key in results and len(results[key]):
+                        results[key] = results[key][keep]
+                if "gt_masks" in results:
+                    shift = np.array([sx, sy], np.float32)
+                    results["gt_masks"] = [
+                        [p + shift for p in inst]
+                        for inst, k in zip(results["gt_masks"], keep) if k]
+            return results
+        return results
+
+
+@PIPELINES.register_module()
+class PhotoMetricDistortion:
+    """Brightness, contrast, saturation and hue jitter of the BGR image,
+    each applied when a ``randint(2)`` draw of ``results['_rng']`` says
+    so, in the JAX transform's order of draws; the image always makes the
+    round trip through uint8 HSV (``utils/color.py``, cv2's rounding)."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_range = contrast_range
+        self.saturation_range = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, results):
+        rng = results.setdefault("_rng", np.random.RandomState())
+        img = results["img"].astype(np.float32)
+        if rng.randint(2):
+            img += rng.uniform(-self.brightness_delta, self.brightness_delta)
+        if rng.randint(2):
+            img *= rng.uniform(*self.contrast_range)
+        hsv = bgr_to_hsv(img.clip(0, 255).astype(np.uint8)).astype(
+            np.float32)
+        if rng.randint(2):
+            hsv[..., 1] *= rng.uniform(*self.saturation_range)
+        if rng.randint(2):
+            hsv[..., 0] = (hsv[..., 0] + rng.uniform(-self.hue_delta,
+                                                     self.hue_delta)) % 180
+        results["img"] = hsv_to_bgr(hsv.clip(0, 255).astype(
+            np.uint8)).astype(np.float32)
         return results
 
 

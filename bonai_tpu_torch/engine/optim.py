@@ -6,7 +6,12 @@ The JAX package's optax chain is, in order: clip by the global norm of the
 trainable gradients, add weight decay, momentum (``torch.optim.SGD``
 semantics: decay enters before the momentum buffer, the buffer holds no
 LR), scale by the LR.  Here the clip is :func:`apply_gradients`' first
-step and ``torch.optim.SGD`` does the rest.  Frozen parameters (the
+step and ``torch.optim.SGD`` does the rest.  With ``'Adam'`` or
+``'AdamW'`` (CornerNet's recipe) the momentum is optax's
+``scale_by_adam`` (betas 0.9 and 0.999, epsilon 1e-8 outside the square
+root, bias correction), and the weight decay joins the gradient before
+it, in both: ``torch.optim.Adam``'s coupled L2, not ``AdamW``'s decoupled
+decay (ROADMAP.md queue C); the config's ``momentum`` is not read.  Frozen parameters (the
 backbone stem when ``frozen_stages >= 0`` and the first ``frozen_stages``
 stages, which the ResNet builds with ``requires_grad=False``) are not in
 the optimizer: no update, no decay, and no part of the clipped norm.
@@ -48,13 +53,20 @@ def build_lr_schedule(base_lr, steps_per_epoch, step_epochs, warmup="linear",
 
 def build_optimizer(model, optimizer_cfg):
     """``torch.optim.SGD`` over the trainable parameters of ``model`` from
-    ``dict(type='SGD', lr=..., momentum=..., weight_decay=...)``."""
+    ``dict(type='SGD', lr=..., momentum=..., weight_decay=...)``, or
+    ``torch.optim.Adam`` (coupled weight decay) for a type ``'Adam'`` or
+    ``'AdamW'``."""
     cfg = dict(optimizer_cfg)
-    if cfg.get("type", "SGD") != "SGD" or cfg.get("paramwise_cfg"):
+    opt_type = cfg.get("type", "SGD")
+    if opt_type not in ("SGD", "Adam", "AdamW") or cfg.get("paramwise_cfg"):
         raise NotImplementedError(
             f"optimizer {cfg.get('type')} / paramwise_cfg is not ported to "
             f"bonai_tpu_torch yet (ROADMAP.md item A7)")
     params = [p for p in model.parameters() if p.requires_grad]
+    if opt_type != "SGD":
+        return torch.optim.Adam(params, lr=cfg.get("lr", 0.02),
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=cfg.get("weight_decay", 0.0))
     return torch.optim.SGD(params, lr=cfg.get("lr", 0.02),
                            momentum=cfg.get("momentum", 0.9),
                            weight_decay=cfg.get("weight_decay", 0.0))

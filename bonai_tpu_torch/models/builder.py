@@ -16,8 +16,9 @@ from .detectors.grid_rcnn import GridRCNN
 from .detectors.htc import HTC
 from .detectors.loft import LOFT
 from .detectors.point_rend import PointRend
-from .detectors.single_stage import (ATSS, FCOS, FSAF, GFL, FoveaBox,
-                                     FreeAnchor, RepPointsDetector, RetinaNet,
+from .detectors.single_stage import (ATSS, FCOS, FSAF, GFL, NASFCOS, SSD,
+                                     CornerNet, FoveaBox, FreeAnchor,
+                                     RepPointsDetector, RetinaNet,
                                      SingleStageDetector)
 from .detectors.two_stage import (RPN, DynamicRCNN, FastRCNN, FasterRCNN,
                                   MaskRCNN, TwoStageDetector)
@@ -29,13 +30,9 @@ for _cls in (LOFT, FasterRCNN, MaskRCNN, TwoStageDetector, CascadeRCNN,
 DETECTORS.register_module(name="MaskScoringRCNN")(MaskRCNN)
 DETECTORS.register_module(name="HybridTaskCascade")(HTC)
 for _cls in (RetinaNet, FreeAnchor, ATSS, GFL, FCOS, FSAF, FoveaBox,
-             RepPointsDetector):
+             RepPointsDetector, NASFCOS, SSD, CornerNet):
     DETECTORS.register_module()(_cls)
 DETECTORS.register_module(name="FOVEA")(FoveaBox)
-
-# the JAX package's other single-stage types, which ROADMAP.md item A6
-# ports (its other detector types are item A7's)
-_UNPORTED_SINGLE_STAGE = ("SSD", "CornerNet", "NASFCOS")
 
 
 def _plain(obj):
@@ -62,10 +59,9 @@ def build_detector(cfg, train_cfg=None, test_cfg=None, roi_align_impl=None):
     cfg = _plain(dict(cfg))
     det_type = cfg.pop("type")
     if det_type not in DETECTORS:
-        item = "A6" if det_type in _UNPORTED_SINGLE_STAGE else "A7"
         raise NotImplementedError(
             f"detector type {det_type!r} is not ported to bonai_tpu_torch "
-            f"yet (ROADMAP.md item {item}; ported: "
+            f"yet (ROADMAP.md item A7; ported: "
             f"{sorted(DETECTORS.module_dict)})")
     train_cfg = _plain(dict(train_cfg)) if train_cfg else None
     test_cfg = _plain(dict(test_cfg)) if test_cfg else None

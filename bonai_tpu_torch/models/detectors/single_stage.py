@@ -1,12 +1,14 @@
 """The dense single-stage detectors: RetinaNet (with GHM-C/GHM-R losses or
-PISA), FreeAnchor, ATSS, GFL, FCOS (with ``dcn_on_last_conv``), FSAF,
-FoveaBox and RepPoints (counterparts of the classes of
+PISA; NAS-FPN's is a RetinaNet on a ``NASFPN`` neck), FreeAnchor, ATSS,
+GFL, FCOS (with ``dcn_on_last_conv``), NAS-FCOS, FSAF, FoveaBox,
+RepPoints, SSD and CornerNet (counterparts of the classes of
 ``bonai_tpu/models/detectors/single_stage.py``).
 
-Each is a ResNet + FPN trunk and one dense head over the FPN levels, with
-the port's detector contract: ``forward_train(batch, draw)`` (the batch
-contract of the two-stage detectors; none of these samples, so ``draw`` is
-never called), ``simple_test(img, img_shape, scale_factor)`` with the same
+Each is a backbone, a neck (none for SSD and CornerNet, whose backbones
+feed the head) and one dense head over the levels, with the port's
+detector contract: ``forward_train(batch, draw)`` (the batch contract of
+the two-stage detectors; none of these samples, so ``draw`` is never
+called), ``simple_test(img, img_shape, scale_factor)`` with the same
 padded output dict, and mmdet v2.3 keys (``backbone``, ``neck``,
 ``bbox_head``).  The options the JAX detectors read are ported; others
 raise, naming the ROADMAP.md item that ports them: Guided Anchoring's
@@ -20,8 +22,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core.anchors import AnchorGenerator
+from ...core.anchors import AnchorGenerator, SSDAnchorGenerator
+from ...core.nms import soft_nms
 from ..dense_heads.atss_head import ATSSHead, atss_bboxes, atss_loss
+from ..dense_heads.corner_head import (CornerHead, corner_targets,
+                                       decode_corners)
 from ..dense_heads.fcos_head import (INF, FCOSHead, fcos_bboxes, fcos_loss,
                                      fcos_points)
 from ..dense_heads.fovea_head import FoveaHead, fovea_bboxes, fovea_loss
@@ -30,8 +35,13 @@ from ..dense_heads.fsaf_head import FSAFHead, fsaf_bboxes, fsaf_loss
 from ..dense_heads.gfl_head import GFLHead, gfl_bboxes, gfl_loss
 from ..dense_heads.reppoints_head import (RepPointsHead, reppoints_bboxes,
                                           reppoints_loss)
+from ..dense_heads.nasfcos_head import NASFCOSHead
 from ..dense_heads.retina_head import RetinaHead, retina_bboxes, retina_loss
-from .two_stage import _build_backbone, _build_neck
+from ..dense_heads.ssd_head import SSDHead, ssd_bboxes, ssd_loss
+from ..losses import (associative_embedding_loss, gaussian_focal_loss,
+                      smooth_l1_loss)
+from ..necks.nasfcos_fpn import NASFCOS_FPN
+from .two_stage import _build_backbone, _build_neck, _kwargs
 
 
 def _unported(what):
@@ -56,8 +66,9 @@ ATSS_ANCHORS = dict(ratios=[1.0], octave_base_scale=8, scales_per_octave=1,
 
 
 class SingleStageDetector(nn.Module):
-    """ResNet + FPN and a dense head; subclasses set up the head and its
-    loss and decode."""
+    """A backbone, a neck (or none) and a dense head; subclasses set up the
+    head and its loss and decode, and may build their own backbone and
+    neck."""
 
     takes_proposals = False
 
@@ -66,9 +77,10 @@ class SingleStageDetector(nn.Module):
         super().__init__()
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
-        self.backbone = _build_backbone(backbone)
-        self.neck = _build_neck(neck)
-        nk = dict(neck[0] if isinstance(neck, (list, tuple)) else neck)
+        self.backbone = self._build_backbone(backbone)
+        self.neck = self._build_neck(neck)
+        nk = dict((neck[0] if isinstance(neck, (list, tuple)) else neck)
+                  or {})
         self.num_levels = nk.get("num_outs", 5)
         self._geometry = {}
         bh = dict(bbox_head)
@@ -80,6 +92,12 @@ class SingleStageDetector(nn.Module):
 
     def _setup_head(self, bh):
         raise NotImplementedError
+
+    def _build_backbone(self, cfg):
+        return _build_backbone(cfg)
+
+    def _build_neck(self, cfg):
+        return _build_neck(cfg)
 
     def init_weights(self, gen):
         """Seeded random weights from the ``torch.Generator`` ``gen``."""
@@ -94,7 +112,8 @@ class SingleStageDetector(nn.Module):
         x = img.permute(0, 3, 1, 2)
         if not x.is_cuda:
             x = x.contiguous()
-        return self.neck(self.backbone(x))
+        feats = self.backbone(x)
+        return feats if self.neck is None else self.neck(feats)
 
     def _cached(self, feats, make):
         """``make(sizes)``'s numpy arrays (anchors or points, per level) on
@@ -284,7 +303,8 @@ class FCOS(SingleStageDetector):
     """FCOS: points instead of anchors, with its centre-sampling,
     ``norm_on_bbox``, ``centerness_on_reg`` and GIoU options."""
 
-    def _setup_head(self, bh):
+    def _setup_points(self, bh):
+        """The points' strides, level ranges and centre sampling."""
         self.strides = tuple(bh.get("strides", (8, 16, 32, 64, 128)))
         self.regress_ranges = tuple(tuple(r) for r in bh.get(
             "regress_ranges", ((-1, 64), (64, 128), (128, 256), (256, 512),
@@ -292,6 +312,9 @@ class FCOS(SingleStageDetector):
         self.center_sample_radius = float(bh.get(
             "center_sample_radius", 1.5)) if bh.get("center_sampling",
                                                     False) else 0.0
+
+    def _setup_head(self, bh):
+        self._setup_points(bh)
         self.bbox_loss_mode = "giou" if dict(bh.get("loss_bbox", {})).get(
             "type") == "GIoULoss" else "iou"
         self.bbox_head = FCOSHead(
@@ -326,6 +349,33 @@ class FCOS(SingleStageDetector):
     def _decode(self, outs, feats, img_shape):
         return fcos_bboxes(*outs, self._points(feats), img_shape,
                            self.num_classes, self.test_cfg)
+
+
+class NASFCOS(FCOS):
+    """NAS-FCOS: FCOS (IoU loss, no ``norm_on_bbox``, centre sampling as
+    the config gives it) on the searched ``NASFCOS_FPN`` and the searched
+    head towers, or FCOS's own towers for a ``bbox_head`` of type
+    ``FCOSHead`` (the COCO ``nas_fcos_fcoshead`` configs)."""
+
+    def _build_neck(self, cfg):
+        return NASFCOS_FPN(**_kwargs(cfg, "neck", (
+            "in_channels", "out_channels", "num_outs", "start_level"), "A6"))
+
+    def _setup_head(self, bh):
+        self.num_classes = bh.get("num_classes", 1)
+        self._setup_points(bh)
+        self.bbox_loss_mode = "iou"
+        if bh.get("type") == "FCOSHead":
+            self.bbox_head = FCOSHead(
+                self.num_classes, bh.get("in_channels", 256),
+                bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
+                self.num_levels, bh.get("centerness_on_reg", False), False,
+                self.strides)
+        else:
+            self.bbox_head = NASFCOSHead(
+                self.num_classes, bh.get("in_channels", 256),
+                bh.get("feat_channels", 256), self.num_levels,
+                bh.get("centerness_on_reg", False))
 
 
 class FSAF(SingleStageDetector):
@@ -459,3 +509,161 @@ class RepPointsDetector(SingleStageDetector):
                                 self._centres(feats), self.strides,
                                 img_shape, self.num_classes, self.test_cfg,
                                 self.num_points, self.transform_method)
+
+
+SSD_ANCHORS = dict(strides=[8, 16, 32, 64, 100, 300],
+                   ratios=[[2], [2, 3], [2, 3], [2, 3], [2], [2]],
+                   basesize_ratio_range=(0.15, 0.9), input_size=300)
+
+
+class SSD(SingleStageDetector):
+    """SSD300/512: the VGG trunk feeds the head (no neck), softmax
+    classifiers with hard-negative mining, PISA with ``train_cfg.isr``/
+    ``carl``.  The backbone's ``input_size``, ``depth`` and
+    ``l2_norm_scale`` are read, its other keys and the neck ignored, as in
+    the JAX detector (so is the assigner's ``gt_max_assign_all``).  The
+    anchors keep the 300^2 (or 512^2) input's strides at any test size:
+    at 1024^2 the last two levels' 14^2 and 12^2 cells sit 100 and 300 px
+    apart, reaching past the image, and their boxes are clipped to it
+    (ROADMAP.md queue C)."""
+
+    def _build_backbone(self, cfg):
+        from ..backbones.ssd_vgg import SSDVGG
+        bk = dict(cfg or {})
+        self.input_size = int(bk.get("input_size", 300))
+        return SSDVGG(self.input_size, bk.get("depth", 16),
+                      bk.get("l2_norm_scale", 20.0))
+
+    def _build_neck(self, cfg):
+        return None
+
+    def _setup_head(self, bh):
+        ag = dict(bh.get("anchor_generator", SSD_ANCHORS))
+        legacy = ag.pop("type", "SSDAnchorGenerator") \
+            == "LegacySSDAnchorGenerator"
+        ag.setdefault("input_size", self.input_size)
+        self.anchor_generator = SSDAnchorGenerator(legacy=legacy, **ag)
+        self.num_levels = len(self.anchor_generator.strides)
+        self.bbox_head = SSDHead(
+            self.num_classes, tuple(bh.get(
+                "in_channels", (512, 1024, 512, 256, 256, 256))),
+            [len(a) for a in self.anchor_generator.base_anchors])
+        bc = dict(bh.get("bbox_coder", {}))
+        self.target_stds = tuple(bc.get("target_stds", (0.1, 0.1, 0.2, 0.2)))
+        self.legacy_coder = bc.get("type") == "LegacyDeltaXYWHBBoxCoder"
+
+    def _loss(self, outs, feats, batch):
+        pisa = {k: self.train_cfg[k] for k in ("isr", "carl")
+                if self.train_cfg.get(k)} or None
+        return ssd_loss(*outs, torch.cat(self._anchors(feats)),
+                        batch["gt_bboxes"], batch["gt_valid"],
+                        batch["gt_labels"], self.num_classes, self.train_cfg,
+                        target_stds=self.target_stds, pisa_cfg=pisa,
+                        legacy=self.legacy_coder)
+
+    def _decode(self, outs, feats, img_shape):
+        return ssd_bboxes(*outs, self._anchors(feats), img_shape,
+                          self.num_classes, self.test_cfg,
+                          target_stds=self.target_stds,
+                          legacy=self.legacy_coder)
+
+
+class CornerNet(SingleStageDetector):
+    """CornerNet: the stacked hourglass feeds the corner head (no neck).
+    Training: each level's gaussian focal loss on both heatmaps (over the
+    count of exact corners), smooth L1 offsets at the exact corners and
+    the pull and push losses of the GTs' corner embeddings, averaged over
+    the levels (``loss_offset``'s ``loss_weight`` is read and not applied,
+    as in the JAX detector).  Test: the last level decoded into
+    ``num_dets`` corner pairs, the gaussian soft-NMS
+    (``core/nms.py::soft_nms``) and the top ``max_per_img``."""
+
+    def _build_backbone(self, cfg):
+        cfg = dict(cfg)
+        cfg["type"] = "HourglassNet"
+        return _build_backbone(cfg)
+
+    def _build_neck(self, cfg):
+        return None
+
+    def _setup_head(self, bh):
+        self.num_classes = bh.get("num_classes", 1)
+        self.bbox_head = CornerHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("num_feat_levels", 2), bh.get("corner_emb_channels", 1))
+        lh = dict(bh.get("loss_heatmap") or {})
+        le = dict(bh.get("loss_embedding") or {})
+        lo = dict(bh.get("loss_offset") or {})
+        self.loss_kw = dict(
+            heat_alpha=lh.get("alpha", 2.0), heat_gamma=lh.get("gamma", 4.0),
+            heat_weight=lh.get("loss_weight", 1.0),
+            pull_weight=le.get("pull_weight", 0.25),
+            push_weight=le.get("push_weight", 0.25),
+            off_beta=lo.get("beta", 1.0))
+
+    def _loss(self, outs, feats, batch):
+        kw = self.loss_kw
+        img = batch["image"]
+        fh, fw = feats[-1].shape[2:]
+        tgt = corner_targets(batch["gt_bboxes"], batch["gt_valid"], fh, fw,
+                             img.shape[1], img.shape[2])
+        bidx = torch.arange(img.shape[0], device=img.device)[:, None]
+        det = off = pull = push = 0.0
+        for out in outs:
+            for side in ("tl", "br"):
+                heat_t = tgt[f"{side}_heat"]
+                pos = (heat_t == 1).float()
+                det = det + kw["heat_weight"] * gaussian_focal_loss(
+                    torch.sigmoid(out[f"{side}_heat"][:, 0].float()), heat_t,
+                    kw["heat_alpha"], kw["heat_gamma"],
+                    avg_factor=pos.sum().clamp(min=1.0)) / 2
+                pred = out[f"{side}_off"].permute(0, 2, 3, 1)
+                m = pos[..., None].expand_as(pred)
+                off = off + smooth_l1_loss(
+                    pred, tgt[f"{side}_off"], kw["off_beta"], m,
+                    avg_factor=(pos.sum() * 2).clamp(min=1.0)) / 2
+            if "tl_emb" in out:
+                tp, bp = tgt["tl_pos"], tgt["br_pos"]
+                te = out["tl_emb"][:, 0][bidx, tp[..., 0], tp[..., 1]]
+                be = out["br_emb"][:, 0][bidx, bp[..., 0], bp[..., 1]]
+                pl, ps = associative_embedding_loss(
+                    te, be, batch["gt_valid"], kw["pull_weight"],
+                    kw["push_weight"])
+                pull = pull + pl.mean()
+                push = push + ps.mean()
+        n = len(outs)
+        losses = {"loss_heatmap": det / n, "loss_offset": off / n}
+        if "tl_emb" in outs[0]:
+            losses.update(loss_pull=pull / n, loss_push=push / n)
+        return losses
+
+    @torch.inference_mode()
+    def simple_test(self, img, img_shape, scale_factor):
+        """As :meth:`SingleStageDetector.simple_test`; the head runs on the
+        last level alone, the one decoded."""
+        dtype = next(self.parameters()).dtype
+        feats = self.extract_feat(img.to(dtype))
+        out = self.bbox_head.level(feats[-1], self.bbox_head.num_feat_levels
+                                   - 1)
+        cfg = self.test_cfg
+        max_per_img = cfg.get("max_per_img", 100)
+        nms_cfg = dict(cfg.get("nms", dict(type="soft_nms", iou_threshold=0.5,
+                                           method="gaussian")))
+        boxes, scores = decode_corners(
+            out, img.shape[1], img.shape[2], k=cfg.get("corner_topk", 100),
+            distance_threshold=cfg.get("distance_threshold", 0.5),
+            num_dets=cfg.get("num_dets", 1000))
+        new_scores, rank = soft_nms(
+            boxes, scores.clamp(min=0.0),
+            iou_threshold=nms_cfg.get("iou_threshold", 0.5),
+            sigma=nms_cfg.get("sigma", 0.5),
+            method=nms_cfg.get("method", "gaussian"), max_out=max_per_img,
+            valid=scores > 0)
+        top_s, top_i = torch.sort(new_scores, dim=-1, descending=True,
+                                  stable=True)
+        top_s, top_i = top_s[:, :max_per_img], top_i[:, :max_per_img]
+        det = boxes.gather(1, top_i[..., None].expand(-1, -1, 4))
+        return {"det_bboxes": det / scale_factor.float()[:, None, None],
+                "det_scores": top_s,
+                "det_labels": torch.zeros_like(top_i, dtype=torch.int32),
+                "det_valid": (top_s > 0) & (rank.gather(1, top_i) >= 0)}

@@ -54,6 +54,7 @@ from ...ops.roi_align_block import roi_align_block
 from ...ops.roi_align_blocked import roi_align_blocked
 from ...ops.roi_align_fused import roi_align_fused
 from ...parallel import gather_cat
+from ..backbones.hourglass import HourglassNet
 from ..backbones.hrnet import HRNet
 from ..backbones.resnet import RegNet, Res2Net, ResNet
 from ..dense_heads.ga_rpn_head import (GARPNHead, approx_anchors,
@@ -65,6 +66,7 @@ from ..losses import (balanced_l1_loss, binary_cross_entropy, cross_entropy,
 from ..necks.bfp import BFP
 from ..necks.fpn import FPN
 from ..necks.hrfpn import HRFPN
+from ..necks.nas_fpn import NASFPN
 from ..necks.pafpn import PAFPN
 from ..necks.rfp import RFP
 from ..roi_heads.bbox_head import (DoubleConvFCBBoxHead, Shared2FCBBoxHead,
@@ -208,14 +210,28 @@ RESNET_KEYS = ("depth", "num_stages", "out_indices", "frozen_stages",
                "conv_cfg")
 
 
+HOURGLASS_KEYS = ("downsample_times", "num_stacks", "stage_channels",
+                  "stage_blocks", "feat_channel")
+
+
 def _build_backbone(cfg):
     """A ``ResNet`` or ``DetectoRS_ResNet`` (with the DCN, plugin, SAC and
-    ``output_img`` options), a ``Res2Net``, a ``RegNet`` or an ``HRNet``;
-    other backbones and options raise A6.  RegNet takes the base ResNet's
-    ``depth``, ``num_stages``, ``norm_eval`` and ``style`` that a merged
-    config carries, and ignores them, as the JAX builder does."""
+    ``output_img`` options), a ``Res2Net``, a ``RegNet``, an ``HRNet`` or
+    an ``HourglassNet``; other backbones and options raise A6, and
+    ``SSDVGG``, which the JAX builder refuses too (SSD builds it itself),
+    ``ValueError``.  RegNet and HourglassNet take the base ResNet's keys
+    that a merged config carries, and ignore them, as the JAX builder
+    does; so is ``input_size`` (the NAS-FPN and CornerNet configs' trace
+    size) read and ignored."""
     cfg = dict(cfg)
+    cfg.pop("input_size", None)
     btype = cfg.get("type", "ResNet")
+    if btype == "SSDVGG":
+        raise ValueError("unsupported backbone SSDVGG in the generic "
+                         "builder (the SSD detector builds its own)")
+    if btype == "HourglassNet":
+        kw = _kwargs(cfg, "backbone", HOURGLASS_KEYS + RESNET_KEYS, "A6")
+        return HourglassNet(**{k: kw[k] for k in HOURGLASS_KEYS if k in kw})
     if btype == "HRNet":
         return HRNet(**_kwargs(cfg, "backbone", (
             "extra", "frozen_stages", "norm_eval"), "A6"))
@@ -235,8 +251,9 @@ def _build_backbone(cfg):
 
 
 def _build_neck(cfg):
-    """An ``FPN``, a ``PAFPN``, an ``HRFPN`` or DetectoRS's ``RFP``, or a
-    chain of necks:
+    """An ``FPN``, a ``PAFPN``, an ``HRFPN``, a ``NASFPN`` or DetectoRS's
+    ``RFP``, or a chain of necks (``NASFCOS_FPN``, which the JAX builder
+    refuses too, raises ``ValueError``):
     Libra R-CNN's ``[FPN, BFP]`` (an ``nn.Sequential``: mmdet's
     ``neck.0``, ``neck.1``); another chain raises A7, other necks A6."""
     if isinstance(cfg, (list, tuple)):
@@ -256,6 +273,13 @@ def _build_neck(cfg):
         return RFP(**_kwargs(cfg, "neck", (
             "in_channels", "out_channels", "num_outs", "rfp_steps",
             "rfp_backbone", "aspp_out_channels", "aspp_dilations"), "A6"))
+    if dict(cfg).get("type") == "NASFPN":
+        return NASFPN(**_kwargs(cfg, "neck", (
+            "in_channels", "out_channels", "num_outs", "stack_times",
+            "start_level", "add_extra_convs"), "A6"))
+    if dict(cfg).get("type") == "NASFCOS_FPN":
+        raise ValueError("unsupported neck NASFCOS_FPN in the generic "
+                         "builder (the NASFCOS detector builds its own)")
     if dict(cfg).get("type") == "PAFPN":
         return PAFPN(**_kwargs(cfg, "neck", (
             "in_channels", "out_channels", "num_outs", "start_level",

@@ -3,7 +3,8 @@
 ``binary_cross_entropy``, ``l1_loss``, ``smooth_l1_loss``, ``mse_loss``,
 Libra R-CNN's ``BalancedL1Loss``; the dense detectors' focal, IoU,
 GIoU, GHM-C/R, quality and distribution focal losses and PISA's ISR-P and
-CARL; Guided Anchoring's bounded IoU loss).
+CARL; Guided Anchoring's bounded IoU loss; CornerNet's gaussian focal
+and associative embedding losses).
 
 Padded samples carry weight 0.  Every loss computes in float32 whatever
 the dtype of its inputs (the heads may run under bfloat16 autocast).
@@ -358,3 +359,39 @@ def carl_loss(pos_cls_prob, pos_mask, reg_loss_raw, k=1.0, bias=0.2,
     if avg_factor is None:
         avg_factor = float(reg_loss_raw.shape[0])
     return (reg_loss_raw.float() * (w * pf)[:, None]).sum() / avg_factor
+
+
+def gaussian_focal_loss(pred, gaussian_target, alpha=2.0, gamma=4.0,
+                        weight=None, avg_factor=None):
+    """CornerNet's focal loss on gaussian heatmap targets (JAX
+    ``GaussianFocalLoss`` without its ``loss_weight``): ``pred`` holds
+    probabilities; positives are the cells where the target is exactly 1,
+    other cells weigh ``(1 - target)^gamma``."""
+    pred, gaussian_target, weight = _f32(pred, gaussian_target, weight)
+    eps = 1e-12
+    pos = (gaussian_target == 1).float()
+    neg_w = (1 - gaussian_target) ** gamma
+    pos_loss = -torch.log(pred + eps) * (1 - pred) ** alpha * pos
+    neg_loss = -torch.log(1 - pred + eps) * pred ** alpha * neg_w \
+        * (1 - pos)
+    return weight_reduce_loss(pos_loss + neg_loss, weight, avg_factor)
+
+
+def associative_embedding_loss(tl, br, valid, pull_weight=0.25,
+                               push_weight=0.25):
+    """CornerNet's pull and push losses of ``(B, G)`` padded corner
+    embeddings (JAX ``AssociativeEmbeddingLoss``, one image a row):
+    each GT's two embeddings pulled to their mean, and every pair of
+    valid GTs' means pushed apart by ``max(0, 1 - |e_i - e_j|)``.  Returns
+    the ``(B,)`` weighted pull and push terms."""
+    tl, br = tl.float(), br.float()
+    v = valid.float()
+    n = v.sum(1).clamp(min=1.0)
+    mean = (tl + br) / 2.0
+    pull = (((tl - mean) ** 2 + (br - mean) ** 2) * v).sum(1) / n
+    diff = (mean[:, :, None] - mean[:, None, :]).abs()
+    pair_v = v[:, :, None] * v[:, None, :] * (1.0 - torch.eye(
+        tl.shape[1], device=tl.device))
+    push = ((1.0 - diff).clamp(min=0.0) * pair_v).sum((1, 2)) \
+        / (n * (n - 1.0)).clamp(min=1.0)
+    return pull_weight * pull, push_weight * push

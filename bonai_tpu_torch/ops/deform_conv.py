@@ -193,19 +193,20 @@ class DeformConv2dPack(nn.Module):
     """DCNv1 with its own offset conv (mmcv's ``DeformConv2dPack``, dcn
     type ``'DCN'``): ``conv_offset``, zero at the start, predicts the
     ``G*2*K*K`` offsets, so the layer starts as a plain convolution.
-    mmcv's keys: ``weight`` ``(Cout, Cin, K, K)``, ``conv_offset.
-    {weight,bias}``."""
+    mmcv's keys: ``weight`` ``(Cout, Cin, K, K)``, ``bias`` with
+    ``bias=True`` (NAS-FCOS's head), ``conv_offset.{weight,bias}``."""
 
     mask_parts = 0
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 padding=1, dilation=1, deform_groups=1):
+                 padding=1, dilation=1, deform_groups=1, bias=False):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.deform_groups = deform_groups
         kk = kernel_size * kernel_size
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.conv_offset = nn.Conv2d(
             in_channels, (2 + self.mask_parts) * kk * deform_groups,
             kernel_size, stride, padding, dilation)
@@ -214,13 +215,15 @@ class DeformConv2dPack(nn.Module):
         kaiming_fan_out_(self.weight, gen)
         zeros_(self.conv_offset.weight)
         zeros_(self.conv_offset.bias)
+        if self.bias is not None:
+            zeros_(self.bias)
 
     def forward(self, x):
         pred = self.conv_offset(x)
         n = 2 * self.weight.shape[2] * self.weight.shape[3] \
             * self.deform_groups
         return deform_conv2d(
-            x, pred[:, :n], self.weight, None, self.stride,
+            x, pred[:, :n], self.weight, self.bias, self.stride,
             self.padding, self.dilation,
             pred[:, n:] if self.mask_parts else None, self.deform_groups)
 

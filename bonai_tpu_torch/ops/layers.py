@@ -3,7 +3,7 @@ non-local block of Libra R-CNN's balanced feature pyramid and of the
 ResNet plugins (``NonLocal2d``; mmcv's as ``BFP`` builds it: embedded
 Gaussian, no scale), GCNet's global-context block (``ContextBlock``) and
 the empirical-attention block (``GeneralizedAttention``), in plain
-PyTorch on NCHW maps.
+PyTorch on NCHW maps; and CornerNet's corner pooling (``corner_pool``).
 
 Module names are mmcv's (``g``, ``theta``, ``phi``, ``conv_out``, each a
 ``ConvModule`` holding ``.conv``; ``conv_mask``, ``channel_add_conv.
@@ -249,3 +249,17 @@ class GeneralizedAttention(nn.Module):
             out = F.interpolate(out, size=(h, w), mode="bilinear",
                                 align_corners=False)
         return x + out
+
+
+def corner_pool(x, direction):
+    """CornerNet's corner pooling on an ``(B, C, H, W)`` map (JAX
+    ``corner_pool``, an ``associative_scan`` of ``max``): a running max
+    along H (``'top'``: ``out[i] = max(x[i:])``, ``'bottom'``:
+    ``max(x[:i + 1])``) or W (``'left'``, ``'right'``), as
+    ``torch.cummax``, flipped for ``'top'`` and ``'left'``.  Exact."""
+    if direction not in ("top", "bottom", "left", "right"):
+        raise ValueError(f"corner_pool direction {direction!r}")
+    dim = 2 if direction in ("top", "bottom") else 3
+    if direction in ("top", "left"):
+        return torch.cummax(x.flip(dim), dim).values.flip(dim)
+    return torch.cummax(x, dim).values

@@ -8,8 +8,9 @@ proposals an image, ``profile_train.synthetic_proposals``), LOFT-FOA on
 HRNet-W32 + HRFPN, the trunk variants (the DCNv2, GCNet, Res2Net and
 RegNetX-3.2GF Mask R-CNNs, the generalized-attention and PAFPN Faster
 R-CNNs), HTC, DetectoRS, Guided-Anchoring Faster R-CNN, or a dense
-single-stage detector: RetinaNet, its GHM and PISA configs, FreeAnchor,
-ATSS, GFL, FCOS, FSAF, FoveaBox, RepPoints;
+single-stage detector: RetinaNet, its GHM and PISA configs, NAS-FPN
+RetinaNet, FreeAnchor, ATSS, GFL, FCOS, NAS-FCOS, FSAF, FoveaBox,
+RepPoints, SSD300, CornerNet;
 1024^2, B=2, bfloat16,
 seeded random weights, or a trained ``.pth`` given with ``--checkpoint``,
 loaded as the test CLI loads it) and prints
@@ -34,7 +35,11 @@ loaded as the test CLI loads it) and prints
   backbone and the neck, the head (its towers and output convs over the
   levels), the anchors or points, the decode (per-level top-k, boxes) and
   the multi-class NMS; a head's or a GA-RPN's deformable sampling apart
-  from it (``head: DCN sampling``, ``rpn: DCN sampling``);
+  from it (``head: DCN sampling``, ``rpn: DCN sampling``); NAS-FPN's
+  stacks and NAS-FCOS's concat cells apart from the neck (``neck: NAS-FPN
+  stack <s>``, ``neck: cell <name>``); CornerNet's corner pools apart
+  from its head (``head: corner pool``), its corner decode and its
+  soft-NMS;
 - from ``torch.profiler`` over one call: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled call, and
   the kernels that take the most time.
@@ -57,9 +62,11 @@ import torch
 
 from ..apis import init_detector, prepare_batch
 from ..config import Config
-from ..models.dense_heads import retina_head
+from ..models.dense_heads import corner_head, retina_head, ssd_head
 from ..models.detectors import (cascade_rcnn, grid_rcnn, htc, point_rend,
                                 single_stage, two_stage)
+from ..models.necks.nas_fpn import NASFPN
+from ..models.necks.nasfcos_fpn import NASFCOS_FPN
 from ..models.necks.rfp import RFP
 from ..models.roi_heads.mask_head import HTCMaskHead
 from ..ops import deform_conv, layers
@@ -77,7 +84,8 @@ RFP_STEP = "neck: RFP step (ASPP + backbone copy)"
 # the head module whose helper calls it)
 DENSE_DECODES = ("retina_bboxes", "atss_bboxes", "gfl_bboxes",
                  "fcos_bboxes", "fsaf_bboxes", "fovea_bboxes",
-                 "reppoints_bboxes")
+                 "reppoints_bboxes", "ssd_bboxes")
+CORNER_POOL = "head: corner pool"
 # a dense detector's head, and the stage that holds a GA-RPN
 DENSE_HEAD = "head (towers + outputs)"
 RPN_STAGE = "rpn+proposals"
@@ -127,10 +135,24 @@ def _chain_timed(logits, chain):
 
 
 def trunk(model):
-    """The backbone and the neck, named with their types (``backbone
-    (HRNet)``)."""
+    """The backbone and the neck (SSD and CornerNet have none), named with
+    their types (``backbone (HRNet)``)."""
     return {f"{k} ({type(m).__name__})": m
-            for k, m in (("backbone", model.backbone), ("neck", model.neck))}
+            for k, m in (("backbone", model.backbone), ("neck", model.neck))
+            if m is not None}
+
+
+def neck_parts(neck):
+    """``(module, stage)`` of NAS-FPN's merge cells (by stack) and
+    NAS-FCOS's concat cells."""
+    if isinstance(neck, NASFPN):
+        return [(cell, f"neck: NAS-FPN stack {s}")
+                for s, stage in enumerate(neck.fpn_stages)
+                for cell in stage.values()]
+    if isinstance(neck, NASFCOS_FPN):
+        return [(cell, f"neck: cell {name}")
+                for name, cell in neck.fpn.items()]
+    return []
 
 
 def patch_backbone_parts(model, totals):
@@ -155,14 +177,16 @@ def patch_backbone_parts(model, totals):
     if isinstance(model.neck, RFP):
         blocks += [(m, RFP_STEP) for m in (model.neck.rfp_aspp,
                                            *model.neck.rfp_modules)]
+    blocks += neck_parts(model.neck)
     for m, name in blocks:
         m.forward = _timed(name, m.forward, totals)
     part = ["backbone"]
     callers = [(m, name) for m, name in (
         (getattr(model, "bbox_head", None), "head"),
         (getattr(model, "rpn_head", None), "rpn"))
-        if m is not None and any(isinstance(x, deform_conv.DeformConv2d)
-                                 for x in m.modules())]
+        if m is not None and any(isinstance(x, (
+            deform_conv.DeformConv2d, deform_conv.DeformConv2dPack))
+            for x in m.modules())]
     callers = [(m, name, m.__dict__.get("forward")) for m, name in callers]
     for m, name, _ in callers:
         m.forward = _in_part(part, name, m.forward)
@@ -217,7 +241,8 @@ def split_backbone(model, stages, backward=None, rpn=RPN_STAGE):
     for k, v in stages.items():
         part = k.split(": ")[0]
         if part not in owners or (part in ("head", "rpn")
-                                  and "DCN sampling" not in k):
+                                  and "DCN sampling" not in k
+                                  and k != CORNER_POOL):
             continue
         stages[backward if k.endswith("backward") else owners[part]] -= v
 
@@ -271,13 +296,23 @@ def dense_stage_times(model, batch, reps=3):
     if geometry:
         setattr(model, geometry, _timed("anchors or points",
                                         getattr(model, geometry), totals))
-    heads = {**trunk(model), DENSE_HEAD: model.bbox_head}
+    corner = isinstance(model, single_stage.CornerNet)
+    heads = trunk(model)
     for k, m in heads.items():
         m.forward = _timed(k, m.forward, totals)
+    # CornerNet's test runs the head's last level alone
+    head_attr = "level" if corner else "forward"
+    setattr(model.bbox_head, head_attr, _timed(
+        DENSE_HEAD, getattr(model.bbox_head, head_attr), totals))
     saved = patch_functions(dict.fromkeys(DENSE_DECODES, "decode+nms"),
                             totals, (single_stage,))
     saved += patch_functions({"multiclass_nms": "multiclass nms"}, totals,
-                             (retina_head,))
+                             (retina_head, ssd_head))
+    saved += patch_functions({"decode_corners": "corner decode",
+                              "soft_nms": "soft-NMS"}, totals,
+                             (single_stage,))
+    saved += patch_functions({"corner_pool": CORNER_POOL}, totals,
+                             (corner_head,))
     parts = patch_backbone_parts(model, totals)
     try:
         wall = _timed_calls(model, batch, reps)
@@ -287,11 +322,13 @@ def dense_stage_times(model, batch, reps=3):
             delattr(model, geometry)
         for m in heads.values():
             del m.forward
+        delattr(model.bbox_head, head_attr)
         restore_functions(saved)
     stages = {k: v / reps for k, v in totals.items()}
     split_backbone(model, stages)
-    stages["decode (top-k, boxes)"] = stages.pop("decode+nms") \
-        - stages["multiclass nms"]
+    if "decode+nms" in stages:
+        stages["decode (top-k, boxes)"] = stages.pop("decode+nms") \
+            - stages["multiclass nms"]
     stages["other"] = wall / reps - sum(stages.values())
     return stages, wall / reps
 

@@ -8,7 +8,8 @@ the trunk variants (DCNv2, GCNet, Res2Net, RegNetX-3.2GF, generalized
 attention, PAFPN), HTC (its batch with a ``gt_semantic_seg`` planted from
 the GT masks, so that the semantic loss runs), DetectoRS, Guided-Anchoring
 Faster R-CNN, or a dense single-stage detector: RetinaNet, its GHM and
-PISA configs, FreeAnchor, ATSS, GFL, FCOS, FSAF, FoveaBox, RepPoints) for
+PISA configs, NAS-FPN RetinaNet, FreeAnchor, ATSS, GFL, FCOS, NAS-FCOS,
+FSAF, FoveaBox, RepPoints, SSD300, CornerNet) for
 training with ``train_detector``'s
 ``build_trainer`` (seeded random float32 weights, channels-last, the
 config's SGD and schedule), takes a few steps on the synthetic padded
@@ -36,7 +37,10 @@ autocast, and prints
   regions and level selection, FoveaBox's foveas, RepPoints' point and
   max-IoU assigners; FreeAnchor matches inside its loss), the loss, the
   rest of the forward, clip + SGD and the backward; a head's deformable
-  sampling (RepPoints') apart from the head, forward and backward;
+  sampling (RepPoints', NAS-FCOS's) apart from the head, forward and
+  backward; NAS-FPN's stacks and NAS-FCOS's cells apart from the neck,
+  SSD's hard-negative mining apart from its loss, CornerNet's corner
+  pools apart from its head (forward);
   GA-RPN's location and shape targets apart from the rest of its loss,
   and its deformable sampling apart from its head;
 - from ``torch.profiler`` over one step: the summed CUDA kernel time, the
@@ -64,21 +68,26 @@ from ..apis.train import build_trainer
 from ..config import Config
 from ..core.samplers import generator_draws
 from ..engine import train_step as train_step_module
-from ..models.dense_heads import (atss_head, fcos_head, fovea_head, fsaf_head,
-                                  ga_rpn_head, gfl_head, reppoints_head,
-                                  retina_head)
+from ..models.dense_heads import (atss_head, corner_head, fcos_head,
+                                  fovea_head, fsaf_head, ga_rpn_head,
+                                  gfl_head, reppoints_head, retina_head,
+                                  ssd_head)
 from ..models.detectors import single_stage
-from .profile_serve import (DENSE_HEAD, SEMANTIC_FUSION, geometry_attr,
-                            is_dense, patch_backbone_parts, patch_functions,
-                            restore_backbone_parts, restore_functions,
-                            roi_heads, split_backbone, time_heads, trunk)
+from .profile_serve import (CORNER_POOL, DENSE_HEAD, SEMANTIC_FUSION,
+                            geometry_attr, is_dense, patch_backbone_parts,
+                            patch_functions, restore_backbone_parts,
+                            restore_functions, roi_heads, split_backbone,
+                            time_heads, trunk)
 
 # the dense detectors' losses (in the detector module) and the target
 # functions they call (in the head modules)
 DENSE_LOSSES = ("retina_loss", "free_anchor_loss", "atss_loss", "gfl_loss",
-                "fcos_loss", "fsaf_loss", "fovea_loss", "reppoints_loss")
+                "fcos_loss", "fsaf_loss", "fovea_loss", "reppoints_loss",
+                "ssd_loss")
 DENSE_TARGETS = ("retina_targets", "atss_targets", "fcos_targets",
-                 "fsaf_targets", "fovea_targets_level")
+                 "fsaf_targets", "fovea_targets_level", "ssd_targets",
+                 "corner_targets")
+HARD_NEGATIVES = "loss: hard-negative mining"
 GA_TARGETS = "rpn: loc/shape targets"
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "..",
@@ -186,15 +195,22 @@ def _patch_stages(model, totals):
     if is_dense(model):
         if geometry_attr(model):
             patched[geometry_attr(model)] = "anchors or points"
+        if isinstance(model, single_stage.CornerNet):    # its loss inline
+            patched["_loss"] = "loss+targets"
         heads = {**trunk(model), DENSE_HEAD: model.bbox_head}
         saved = patch_functions(dict.fromkeys(DENSE_LOSSES, "loss+targets"),
                                 totals, (single_stage,))
         saved += patch_functions(dict.fromkeys(DENSE_TARGETS, "targets"),
                                  totals, (retina_head, atss_head, gfl_head,
-                                          fcos_head, fsaf_head, fovea_head))
+                                          fcos_head, fsaf_head, fovea_head,
+                                          ssd_head, single_stage))
         saved += patch_functions(dict.fromkeys(
             ("point_assign", "max_iou_assign"), "targets"), totals,
             (reppoints_head,))
+        saved += patch_functions({"hard_negatives": HARD_NEGATIVES}, totals,
+                                 (ssd_head,))
+        saved += patch_functions({"corner_pool": CORNER_POOL}, totals,
+                                 (corner_head,))
     else:
         heads = {**trunk(model), **({"rpn_head": model.rpn_head}
                                     if model.has_rpn else {}),
@@ -250,8 +266,8 @@ def stage_times(model, train_step, batch, draw, reps=3):
         train_step_module.apply_gradients = saved_update
     stages = {k: v / reps for k, v in totals.items()}
     if "loss+targets" in stages:
-        stages["loss"] = stages.pop("loss+targets") - stages.get("targets",
-                                                                 0.0)
+        stages["loss"] = stages.pop("loss+targets") - stages.get(
+            "targets", 0.0) - stages.get(HARD_NEGATIVES, 0.0)
     if GA_TARGETS in stages:
         stages["rpn targets+loss"] -= stages[GA_TARGETS]
     forward = stages.pop("forward")

@@ -77,6 +77,21 @@ the backbone copy ``rfp_backbone<s>`` to ``neck.rfp_modules.<s - 1>``
 (with ``layer<k>.0.rfp_conv``), the ASPP to ``neck.rfp_aspp.aspp.<i>``
 and the gate to ``neck.rfp_weight``.  The JAX importer reads none of
 these (ROADMAP.md queue C).
+
+NAS-FPN's neck (flax ``lateral<i>``, ``extra<i>``, ``s<s>_<cell>``) goes
+to ``neck.lateral_convs.<k>``, ``neck.extra_downsamples.<i>.0`` and
+``neck.fpn_stages.<s>.<cell>.out_conv``, NAS-FCOS's (``adapt<i>``, its
+concat cells, ``extra<i>``) to ``neck.adapt_convs.<k>.{conv,bn}``,
+``neck.fpn.<cell>.{input1_conv,input2_conv,out_conv}`` and
+``neck.extra_downsamples.<i>.{norm,conv}`` (:func:`_nas_neck`), its head's
+searched towers to ``bbox_head.cls|reg_convs.<i>.{conv,gn}``; SSD's VGG
+to mmcv's ``backbone.features.<n>``, ``extra.<j>`` and ``l2_norm``
+(:func:`_vgg_var`) and its head to ``bbox_head.cls|reg_convs.<i>``;
+CornerNet's hourglass to ``backbone.{stem,hourglass_modules,out_convs,
+conv1x1s,remap_convs,inters}`` (:func:`_hourglass_var`) and its head to
+``bbox_head.tl|br_pool.<l>`` and ``bbox_head.tl|br_heat|off|emb.<l>``
+(:func:`_corner_head`).  The JAX importer reads ``rpn_head.*``
+unconditionally and raises ``KeyError`` on all four (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -164,12 +179,12 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         for name, p in bk.items():
             _backbone_var(prefix, name, p, bk, bs, layer, norm, block)
 
-    backbone("backbone", params["backbone"], batch_stats["backbone"])
+    backbone("backbone", params["backbone"], batch_stats.get("backbone", {}))
     # a chained neck shows by its BFP's variables (one without a refine
     # has none, and reads as a plain FPN)
     chained = "neck_extra0" in params
     neck = "neck.0" if chained else "neck"
-    nk = params["neck"]
+    nk = params.get("neck", {})
     if "fpn" in nk:                                     # DetectoRS's RFP
         for name, p in nk.items():
             step = re.fullmatch(r"rfp_backbone(\d+)", name)
@@ -183,6 +198,9 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
                 layer("neck.rfp_weight", p)
         nk = nk["fpn"]
     used = sum(name.startswith("lateral_") for name in nk)
+    if any(re.fullmatch(r"(lateral|adapt)\d+", name) for name in nk):
+        _nas_neck(nk, sd, layer)
+        nk = {}
     for name, p in nk.items():
         if name == "reduction":                         # HRFPN
             layer(f"{neck}.reduction_conv.conv", p)
@@ -216,6 +234,14 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             continue
         if name == "bbox_head" and DENSE_OUTPUTS.keys() & bh.keys():
             _dense_head(bh, sd, layer)
+            continue
+        if name == "bbox_head" and "cls_conv0" in bh:    # SSD's
+            for sub, p in bh.items():
+                kind, i = re.fullmatch(r"(cls|reg)_conv(\d+)", sub).groups()
+                layer(f"bbox_head.{kind}_convs.{i}", p)
+            continue
+        if name == "bbox_head" and "tl_pool0" in bh:     # CornerNet's
+            _corner_head(bh, sd, layer)
             continue
         key = "roi_head.bbox_head" + ("" if m[1] is None else f".{m[1]}")
         if "fc_branch_0" in bh:                         # Double-Head
@@ -300,7 +326,14 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
 def _backbone_var(prefix, name, p, bk, bs, layer, norm, block):
     """One top-level variable ``name`` of a JAX backbone tree ``bk`` under
     the port's module ``prefix``: a ResNet's stem and blocks, Res2Net's
-    deep stem, HRNet's transitions and modules."""
+    deep stem, HRNet's transitions and modules, SSD's VGG
+    (:func:`_vgg_var`) and the hourglass (:func:`_hourglass_var`)."""
+    if "l2_norm_scale_p" in bk:
+        _vgg_var(prefix, name, p, bk, layer)
+        return
+    if "stem0_conv" in bk:
+        _hourglass_var(prefix, name, p, bs, layer, norm, block)
+        return
     stem = re.fullmatch(r"(conv|bn)(\d)", name)
     deep = re.fullmatch(r"stem_(conv|bn)(\d)", name)     # Res2Net's stem
     res = re.fullmatch(r"layer(\d+)_(\d+)", name)
@@ -329,6 +362,114 @@ def _backbone_var(prefix, name, p, bk, bs, layer, norm, block):
     elif hr:
         _hr_module(f"{prefix}.stage{hr[1]}.{hr[2]}", p, bs[name], layer,
                    norm, block)
+
+
+def _vgg_var(prefix, name, p, bk, layer):
+    """SSD's VGG: ``conv<s>_<c>``, ``fc6`` and ``fc7`` -> mmcv's
+    ``features.<n>`` (its ReLUs and pools counted, as
+    ``ssd_vgg.py::feature_indices`` counts them for the stage sizes the
+    tree has), ``extra<j>`` -> ``extra.<j>``, ``l2_norm_scale_p`` ->
+    ``l2_norm.weight``."""
+    counts = [sum(re.fullmatch(rf"conv{s}_\d+", k) is not None for k in bk)
+              for s in range(1, 6)]
+    index, n = {}, 0
+    for s, convs in enumerate(counts):
+        for c in range(convs):
+            index[f"conv{s + 1}_{c + 1}"] = n
+            n += 2
+        n += 1 if s < 4 else 0
+    index.update(fc6=n + 1, fc7=n + 3)
+    if name == "l2_norm_scale_p":
+        layer(f"{prefix}.l2_norm", {"kernel": p}, np.asarray)
+    elif name.startswith("extra"):
+        layer(f"{prefix}.extra.{name[len('extra'):]}", p)
+    else:
+        layer(f"{prefix}.features.{index[name]}", p)
+
+
+def _hourglass_var(prefix, name, p, bs, layer, norm, block):
+    """The hourglass: ``stem0_conv|bn`` -> ``stem.0.conv|bn``, ``stem1_b0``
+    -> ``stem.1.0``, ``hg<i>`` -> ``hourglass_modules.<i>``
+    (:func:`_hourglass_module`), ``out<i>_``, ``inter1x1_<i>_`` and
+    ``remap<i>_conv|bn`` -> ``out_convs``, ``conv1x1s`` and
+    ``remap_convs.<i>.conv|bn``, ``inter<i>_b0`` -> ``inters.<i>``."""
+    conv_bn = re.fullmatch(r"(stem|out|inter1x1_|remap)(\d+)_(conv|bn)",
+                           name)
+    if conv_bn:
+        key = {"stem": "stem", "out": "out_convs", "inter1x1_": "conv1x1s",
+               "remap": "remap_convs"}[conv_bn[1]]
+        key = f"{prefix}.{key}.{conv_bn[2]}.{conv_bn[3]}"
+        if conv_bn[3] == "bn":
+            norm(key, p, bs[name])
+        else:
+            layer(key, p)
+    elif name == "stem1_b0":
+        block(f"{prefix}.stem.1.0", p, bs[name])
+    elif name.startswith("hg"):
+        _hourglass_module(f"{prefix}.hourglass_modules.{name[2:]}", p,
+                          bs[name], block)
+    else:
+        inter = re.fullmatch(r"inter(\d+)_b0", name)
+        block(f"{prefix}.inters.{inter[1]}", p, bs[name])
+
+
+def _hourglass_module(key, mod, stats, block):
+    """An hourglass module: ``up1|low1|low2|low3_b<j>`` -> ``<part>.<j>``,
+    a nested ``low2`` module -> ``low2``."""
+    for name, p in mod.items():
+        if name == "low2":
+            _hourglass_module(f"{key}.low2", p, stats[name], block)
+        else:
+            part, j = re.fullmatch(r"(up1|low[123])_b(\d+)", name).groups()
+            block(f"{key}.{part}.{j}", p, stats[name])
+
+
+def _nas_neck(nk, sd, layer):
+    """NAS-FPN's neck: ``lateral<i>`` (numbered from ``start_level``) ->
+    ``neck.lateral_convs.<k>.conv``, ``extra<i>`` ->
+    ``neck.extra_downsamples.<i>.0.conv``, ``s<s>_<cell>/out_conv`` ->
+    ``neck.fpn_stages.<s>.<cell>.out_conv.conv``; NAS-FCOS's:
+    ``adapt<i>``/``adapt_bn<i>`` -> ``neck.adapt_convs.<k>.conv|bn``,
+    ``<cell>/in1_conv|in2_conv`` -> ``neck.fpn.<cell>.input1_conv|
+    input2_conv.conv``, ``<cell>/out_norm|out_conv`` ->
+    ``neck.fpn.<cell>.out_conv.bn|conv``, ``extra<i>``/``extra_bn<i>`` ->
+    ``neck.extra_downsamples.<i>.conv|norm``."""
+    def gn(key, q):
+        sd[f"{key}.weight"] = np.asarray(q["scale"])
+        sd[f"{key}.bias"] = np.asarray(q["bias"])
+
+    firsts = sorted(int(n[len("lateral"):]) for n in nk
+                    if re.fullmatch(r"lateral\d+", n)) or sorted(
+        int(n[len("adapt"):]) for n in nk if re.fullmatch(r"adapt\d+", n))
+    nasfcos = any(n.startswith("adapt") for n in nk)
+    for name, p in nk.items():
+        m = re.fullmatch(r"(lateral|adapt|adapt_bn|extra|extra_bn)(\d+)",
+                         name)
+        stage = re.fullmatch(r"s(\d+)_(\w+)", name)
+        if m and m[1] in ("lateral", "adapt", "adapt_bn"):
+            k = int(m[2]) - firsts[0]
+            if m[1] == "lateral":
+                layer(f"neck.lateral_convs.{k}.conv", p)
+            elif m[1] == "adapt":
+                layer(f"neck.adapt_convs.{k}.conv", p)
+            else:
+                gn(f"neck.adapt_convs.{k}.bn", p)
+        elif m and m[1] == "extra_bn":
+            gn(f"neck.extra_downsamples.{m[2]}.norm", p)
+        elif m:
+            layer(f"neck.extra_downsamples.{m[2]}." +
+                  ("conv" if nasfcos else "0.conv"), p)
+        elif stage:
+            layer(f"neck.fpn_stages.{stage[1]}.{stage[2]}.out_conv.conv",
+                  p["out_conv"])
+        else:                                   # a NAS-FCOS cell
+            for sub, q in p.items():
+                if sub == "out_norm":
+                    gn(f"neck.fpn.{name}.out_conv.bn", q)
+                elif sub == "out_conv":
+                    layer(f"neck.fpn.{name}.out_conv.conv", q)
+                else:
+                    layer(f"neck.fpn.{name}.input{sub[2]}_conv.conv", q)
 
 
 def _sac(key, p, sd, layer):
@@ -408,11 +549,18 @@ DENSE_ARRAYS = {"cls_dcn_kernel": "reppoints_cls_conv.weight",
 def _dense_head(bh, sd, layer):
     """A single-stage detector's dense head: ``cls|reg_conv<i>`` and
     ``cls|reg_gn<i>`` -> ``bbox_head.cls|reg_convs.<i>.conv|gn`` (a
-    deformable tower conv with its ``conv_offset``), the output convs by
+    deformable tower conv with its ``conv_offset``; NAS-FCOS's
+    ``cls|reg_tower/op<i>|gn<i>`` likewise), the output convs by
     :data:`DENSE_OUTPUTS`, RepPoints' arrays by :data:`DENSE_ARRAYS` (its
     HWIO deformable kernels to OIHW), ``scale<l>`` ->
     ``bbox_head.scales.<l>.scale``."""
+    for kind in ("cls", "reg"):
+        for sub, p in bh.get(f"{kind}_tower", {}).items():
+            op, i = re.fullmatch(r"(op|gn)(\d+)", sub).groups()
+            bh = {**bh, f"{kind}_{'conv' if op == 'op' else 'gn'}{i}": p}
     for name, p in bh.items():
+        if name.endswith("_tower"):
+            continue
         tower = re.fullmatch(r"(cls|reg)_(conv|gn)(\d+)", name)
         scale = re.fullmatch(r"scale(\d+)", name)
         if tower and tower[2] == "conv":
@@ -431,6 +579,35 @@ def _dense_head(bh, sd, layer):
                 _conv(p) if name.endswith("kernel") else np.asarray(p))
         else:
             layer(f"bbox_head.{DENSE_OUTPUTS[name]}", p)
+
+
+# CornerNet's corner-pool modules: flax prefix -> mmdet name
+CORNER_POOL = {"d1": "direction1_conv", "d2": "direction2_conv",
+               "aftpool": "aftpool_conv", "conv1": "conv1", "conv2": "conv2"}
+
+
+def _corner_head(bh, sd, layer):
+    """CornerNet's head: ``tl|br_pool<l>/<part>_conv|bn`` ->
+    ``bbox_head.tl|br_pool.<l>.<mmdet part>.conv|bn`` (:data:`CORNER_POOL`;
+    the per-channel GroupNorms' ``scale`` -> ``weight``),
+    ``tl|br_heat|off|emb<l>_c<j>`` -> ``bbox_head.tl|br_heat|off|emb.<l>.
+    <j>.conv``."""
+    for name, p in bh.items():
+        pool = re.fullmatch(r"(tl|br)_pool(\d+)", name)
+        if pool:
+            for sub, q in p.items():
+                part, kind = sub.rsplit("_", 1)
+                key = f"bbox_head.{pool[1]}_pool.{pool[2]}." \
+                    f"{CORNER_POOL[part]}.{kind}"
+                if kind == "bn":
+                    sd[f"{key}.weight"] = np.asarray(q["scale"])
+                    sd[f"{key}.bias"] = np.asarray(q["bias"])
+                else:
+                    layer(key, q)
+            continue
+        side, kind, lvl, j = re.fullmatch(
+            r"(tl|br)_(heat|off|emb)(\d+)_c(\d)", name).groups()
+        layer(f"bbox_head.{side}_{kind}.{lvl}.{j}.conv", p)
 
 
 def _grid_head(key, gh, sd, layer):
@@ -581,19 +758,35 @@ def mmdet_state_dict(model, sd):
     its weight (:func:`fold_aws`).
 
     mmdetection's Guided Anchoring ``FeatureAdaption`` has four offset
-    groups (a 72-channel ``conv_offset``), the port's, as the JAX
-    package's, one (18): such a checkpoint raises ``ValueError``
-    (ROADMAP.md queue C)."""
+    groups (a 72-channel ``conv_offset``), its NAS-FCOS head's deformable
+    convs two (54 channels), the port's, as the JAX package's, one: such
+    a checkpoint raises ``ValueError`` (ROADMAP.md queue C).
+
+    Where mmdetection has a BatchNorm and the port, as the JAX package, a
+    per-channel GroupNorm (NAS-FCOS's FPN, CornerNet's corner pools), the
+    affine parameters load and the statistics are dropped; the norms the
+    JAX package adds before NAS-FCOS's extra levels, where mmdetection has
+    none, start at weight 1 and bias 0."""
     sd = {k: v for k, v in sd.items()
           if not k.endswith("num_batches_tracked")}
     own = model.state_dict()
-    key = "rpn_head.feature_adaption.conv_offset.weight"
-    if key in sd and key in own and sd[key].shape != own[key].shape:
+    for key in [k for k in sd if k.endswith("conv_offset.weight")
+                and k in own and sd[k].shape != own[k].shape]:
         raise ValueError(
-            f"{key}: {tuple(sd[key].shape)} is mmdetection's feature "
-            f"adaption of {sd[key].shape[0] // 18} offset groups; the "
-            f"port's, as the JAX package's, has one group "
+            f"{key}: {tuple(sd[key].shape)} is mmdetection's deformable "
+            f"conv of {sd[key].shape[0] // own[key].shape[0]} offset "
+            f"groups; the port's, as the JAX package's, has one group "
             f"{tuple(own[key].shape)} (ROADMAP.md queue C)")
+    for key in [k for k in sd if k.endswith((".running_mean",
+                                             ".running_var"))
+                and k not in own]:
+        if key.rsplit(".", 1)[0] + ".weight" in own:    # a GroupNorm here
+            del sd[key]
+    for key, v in own.items():
+        if re.fullmatch(r"neck\.extra_downsamples\.\d+\.norm\.(weight|bias)",
+                        key) and key not in sd:
+            sd[key] = torch.ones_like(v) if key.endswith("weight") \
+                else torch.zeros_like(v)
     for key in [k for k in sd if k.endswith(".weight_gamma")
                 and k not in own]:
         base = key[:-len("weight_gamma")]

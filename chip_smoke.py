@@ -225,7 +225,22 @@ Phases, each of which must pass:
    schedule's warmup; the small input's FPN levels and GA-RPN outputs
    held to the CPU); each checkpoint through the test CLI with ``--eval
    bbox``.  Each config's line carries the card's name and power limit.
-18. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+18. dense3: NAS-FPN RetinaNet (``configs/nas_fpn/
+   retinanet_r50_nasfpn_bonai.py``, COCO's 80 classes), NAS-FCOS, SSD300
+   and CornerNet (Hourglass-104) on BONAI as the dense2 phase runs its
+   dense detectors, from weights whose R50 and hourglass BatchNorm
+   statistics are calibrated: one timed serve batch; the small input
+   (SSD's 320x320, CornerNet's 256x384) on the card against the CPU, both
+   in float64 (float32 rounding through NAS-FCOS's per-channel GroupNorms
+   and Hourglass-104 reaches 1e-4 of an output's largest value), within
+   1e-4 of each output's largest value, through NAS-FCOS's deformable
+   towers and CornerNet's corner pools; 3
+   steps on the widened synthetic batch at the config's training side
+   (1024^2; SSD's 300^2, CornerNet's 511^2) at the base LR (NAS-FPN's
+   unclipped COCO schedule with its warmup; CornerNet's Adam); each
+   checkpoint through the test CLI with ``--eval bbox``.  No kernel
+   launch.  Each config's line carries the card's name and power limit.
+19. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -250,7 +265,8 @@ DetectoRS (three box stages and the mask); the file chain's RPN test runs
 launch nothing, its Fast R-CNN launches B1 and B2 once a training step and
 B1 once a test batch; the dense phase's runs launch nothing, nor do the
 dense2 phase's RepPoints, FSAF and FoveaBox; its GA Faster R-CNN launches
-B1 once a serve batch, B1 and B2 once a step, B1 once a test batch.
+B1 once a serve batch, B1 and B2 once a step, B1 once a test batch; the
+dense3 phase's four detectors launch nothing.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -346,6 +362,24 @@ DENSE2_CONFIGS = (
     ("ga_faster", "configs/guided_anchoring/ga_faster_r50_fpn_1x_bonai.py",
      1))
 DENSE2_STEPS = 3
+# NAS-FPN RetinaNet, NAS-FCOS, SSD300 and CornerNet (the dense3 phase):
+# label, config, whether its BatchNorm statistics are calibrated (the R50
+# trunks and the hourglass; SSD's VGG has none), its small float32
+# input's size (SSD's extra convs need 300-odd pixels a side, the
+# hourglass multiples of 128), its ``inference_detector`` image's size
+# (the hourglass takes the 1024^2-scaled image only at a multiple of 128,
+# as in the JAX package: 512x640 pads to 832x1024) and its training
+# batch's side (SSD's config trains at 300^2, CornerNet's at 511^2 crops)
+DENSE3_CONFIGS = (
+    ("nasfpn", "configs/nas_fpn/retinanet_r50_nasfpn_bonai.py", True,
+     (256, 320), (512, 640), 1024),
+    ("nasfcos", "configs/nas_fcos/nas_fcos_r50_fpn_bonai.py", True,
+     (256, 320), (512, 640), 1024),
+    ("ssd", "configs/ssd/ssd300_bonai.py", False, (320, 320), (512, 640),
+     300),
+    ("cornernet", "configs/cornernet/cornernet_hourglass104_bonai.py", True,
+     (256, 384), (512, 512), 511))
+DENSE3_STEPS = 3
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
@@ -358,7 +392,8 @@ COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
                **{label: (("bbox", "segm"), calls)
                   for label, _, calls, _ in CASCADE_CONFIGS},
                **{label: (("bbox",), calls)
-                  for label, _, calls in DENSE2_CONFIGS}}
+                  for label, _, calls in DENSE2_CONFIGS},
+               **{label: (("bbox",), 0) for label, *_ in DENSE3_CONFIGS}}
 # the rest of the R-CNN family on BONAI (the rcnn2 phase): label, config,
 # the RoIAlign calls of a batch or step
 RCNN2_CONFIGS = (
@@ -1960,7 +1995,8 @@ def _trunk_ms(models, reps=5):
 def _calibrated_weights(config, path):
     """Seeded random weights of ``config`` (``init_weights``, seed 0) with
     the stored statistics of every BatchNorm of the backbone and the neck
-    (DetectoRS's backbone copy) set to those of its input on a random
+    (DetectoRS's backbone copy; SSD and CornerNet have no neck) set to
+    those of its input on a random
     1024^2 B=2 batch, so that each one's output has unit variance, as a
     trained network's has.  With identity statistics
     HRNet's fuse sums grow from module to module, to head outputs of about
@@ -1979,7 +2015,7 @@ def _calibrated_weights(config, path):
         bn.running_mean.copy_(args[0].mean((0, 2, 3)))
         bn.running_var.copy_(args[0].var((0, 2, 3)))
     hooks = [m.register_forward_pre_hook(calibrate)
-             for part in (model.backbone, model.neck)
+             for part in (model.backbone, model.neck) if part is not None
              for m in part.modules() if isinstance(m, FrozenBatchNorm2d)]
     with torch.no_grad():
         model.extract_feat(img)
@@ -2628,12 +2664,20 @@ def _dense_config(config):
     return cfg
 
 
-def _dense_cpu_check(model, what, r):
-    """The head outputs of a small float32 input (two 256x320 images) on
-    the card and on the CPU, from the same weights, with TF32 off: each
+def _dense_cpu_check(model, what, r, size=(256, 320), float64=False):
+    """The head outputs of a small float32 input (two images of ``size``)
+    on the card and on the CPU, from the same weights, with TF32 off: each
     output (logits, deltas or distances, centerness; RepPoints' two point
-    sets, through its deformable convs, and ``moment_transfer``) must
-    agree within 1e-4 of its largest value over the levels."""
+    sets, through its deformable convs, and ``moment_transfer``; NAS-FCOS's
+    through its deformable towers; CornerNet's heat, offset and embedding
+    maps of both levels, through its corner pools) must agree within 1e-4
+    of its largest value over the levels.  With ``float64`` (the dense3
+    phase's detectors) both runs are in float64 (the heads cast their
+    outputs to float32): in float32, NAS-FCOS's per-channel GroupNorms
+    over a few cells and Hourglass-104's hundred layers leave the card
+    and the CPU each up to 1e-4 of the largest value from the float64
+    result (CornerNet's embeddings on the card 1.03e-4, on the CPU 3.9e-5,
+    PR 18); the CPU's float32 distance is printed beside."""
     import copy
     import numpy as np
     import torch
@@ -2646,48 +2690,68 @@ def _dense_cpu_check(model, what, r):
         model.float()
         cpu = copy.deepcopy(model).cpu().to(
             memory_format=torch.contiguous_format)
-        small = [r.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(2)]
-        model.cfg.data.test.pipeline[1].img_scale = (320, 320)
+        small = [r.randint(0, 256, size + (3,), np.uint8) for _ in range(2)]
+        model.cfg.data.test.pipeline[1].img_scale = (max(size),) * 2
         img, _, _, _ = prepare_batch(model, small)
-        t0 = time.perf_counter()
         with torch.inference_mode():
+            if float64:
+                cpu32 = cpu.bbox_head(cpu.extract_feat(img.cpu()))
+                model.double()
+                cpu.double()
+                img = img.double()
+            t0 = time.perf_counter()
             got = model.bbox_head(model.extract_feat(img))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             want = cpu.bbox_head(cpu.extract_feat(img.cpu()))
-        t2 = time.perf_counter()
+            t2 = time.perf_counter()
+            if not float64:
+                cpu32 = want
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
-    for i, (g, w) in enumerate(zip(got, want)):
+    if isinstance(got[0], dict):                # CornerNet's levels
+        got, cpu32, want = ([[lvl[k] for lvl in outs] for k in sorted(
+            outs[0])] for outs in (got, cpu32, want))
+    against = "the CPU, both in float64" if float64 else "the CPU"
+    for i, (g, c, w) in enumerate(zip(got, cpu32, want)):
         if torch.is_tensor(g):                  # RepPoints' moment_transfer
-            g, w = [g], [w]
-        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(g, w))
+            g, c, w = [g], [c], [w]
+        err = max(float((a.cpu().double() - b.double()).abs().max())
+                  for a, b in zip(g, w))
+        noise = max(float((a.double() - b.double()).abs().max())
+                    for a, b in zip(c, w))
         top = max(float(b.abs().max()) for b in w)
-        print(f"{what}: small float32 input ({tuple(img.shape[1:3])}), "
-              f"head output {i} on the card vs the CPU: max abs diff "
-              f"{err:.3g} (outputs up to {top:.3g}); card "
-              f"{(t1 - t0) * 1e3:.1f} ms, CPU {(t2 - t1) * 1e3:.1f} ms",
-              flush=True)
+        print(f"{what}: small input ({tuple(img.shape[1:3])}), "
+              f"head output {i} on the card vs {against}: max abs diff "
+              f"{err:.3g} (" + (f"float32 on the CPU {noise:.3g}; "
+                                if float64 else "") +
+              f"outputs up to {top:.3g}); card {(t1 - t0) * 1e3:.1f} ms, "
+              f"CPU {(t2 - t1) * 1e3:.1f} ms", flush=True)
         if not err <= 1e-4 * top:
             raise AssertionError(f"{what}: head output {i} differs between "
                                  f"the card and the CPU by {err}")
 
 
-def dense_serve(label, config, calls=2):
+def dense_serve(label, config, calls=2, checkpoint=None,
+                small=(256, 320), float64=False, single=(512, 640)):
     """Full-width serving of a dense detector through the port's entry
-    points (seeded random weights, bfloat16): ``calls`` timed batches and
-    one ``inference_detector`` call at the config's thresholds, one batch
-    with ``score_thr=0``, then :func:`_dense_cpu_check`.  No kernel may
-    launch.  Returns the forward kernel's launches (0), the median ms a
-    batch and the peak GiB."""
+    points (seeded random weights, or ``checkpoint``'s; bfloat16):
+    ``calls`` timed batches and one ``inference_detector`` call (an image
+    of ``single``) at the config's thresholds, one batch with
+    ``score_thr=0``, which must fill every image's ``max_per_img``
+    detections (CornerNet's, without a threshold, keep at least one),
+    then :func:`_dense_cpu_check` at ``small`` (both runs in float64 with
+    ``float64``).  No kernel may launch.  Returns the forward kernel's
+    launches (0), the median ms a batch and the peak GiB."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import (inference_detector, init_detector,
                                       prepare_batch)
     what = f"{label} serve"
     t0 = time.time()
-    model = init_detector(_dense_config(config), seed=0)    # cuda, bf16
+    model = init_detector(_dense_config(config), checkpoint,
+                          seed=0)                           # cuda, bf16
     print(f"{what}: init_detector {time.time() - t0:.1f} s, "
           f"{type(model).__name__}, {model.num_classes} classes, "
           f"{sum(p.numel() for p in model.parameters())} parameters",
@@ -2713,7 +2777,7 @@ def dense_serve(label, config, calls=2):
         _check_outputs(out, BATCH, max_per_img, model,
                        need_detections=False)
     t0 = time.perf_counter()
-    res = inference_detector(model, r.randint(0, 256, (512, 640, 3),
+    res = inference_detector(model, r.randint(0, 256, single + (3,),
                                               np.uint8))
     single_ms = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2735,28 +2799,34 @@ def dense_serve(label, config, calls=2):
     print(f"{what}: simple_test 1024^2 B={BATCH} bf16 ms per call "
           f"{[round(x, 1) for x in times]}; valid detections at score_thr "
           f"{thr} {out['det_valid'].sum(1).tolist()}; at 0 {n_every} "
-          f"({every_ms:.1f} ms); inference_detector 512x640 "
+          f"({every_ms:.1f} ms); inference_detector {single[0]}x{single[1]} "
           f"{single_ms:.1f} ms, {len(res[0])} class-0 detections; peak "
           f"memory {peak:.2f} GiB (max_memory_allocated); launches {counts}",
           flush=True)
-    if n_every != [max_per_img] * BATCH:
+    # CornerNet has no score threshold: its detections are the corner
+    # pairs that survive the decode's masks, each image must keep some
+    fill = [max_per_img] * BATCH if "score_thr" in model.cfg.test_cfg \
+        else None
+    if (n_every != fill) if fill else min(n_every) < 1:
         raise AssertionError(f"{what}: {n_every} detections at score_thr 0")
-    _dense_cpu_check(model, what, r)
+    _dense_cpu_check(model, what, r, small, float64)
     return counts[ROUTES["block"][1]], statistics.median(times), peak
 
 
-def _dense_batch():
-    """The synthetic training batch with its first 8 GTs an image made
-    256..1000 px wide and high (log-uniform, seed 1): its objects then
-    reach every pyramid level's targets (the batch's own 10..204 px boxes
-    stop at stride 32), so every level's learnable scale gets a
+def _dense_batch(size=SIZE):
+    """The synthetic training batch at ``size``^2 with its first 8 GTs an
+    image made a quarter to 0.98 of the side wide and high (log-uniform,
+    seed 1; 256..1000 px at 1024^2): its objects then reach every pyramid
+    level's targets (the batch's own boxes of 10 px to a fifth of the
+    side stop at stride 32), so every level's learnable scale gets a
     gradient."""
     import numpy as np
     from bonai_tpu_torch.tools.profile_train import synthetic_batch
-    batch = synthetic_batch()
+    batch = synthetic_batch(size=size)
     r = np.random.RandomState(1)
-    wh = np.exp(r.uniform(np.log(256), np.log(1000), (BATCH, 8, 2)))
-    xy = r.uniform(0, 1, (BATCH, 8, 2)) * (SIZE - 1 - wh)
+    lo, hi = 256.0 * size / SIZE, 1000.0 * size / SIZE
+    wh = np.exp(r.uniform(np.log(lo), np.log(hi), (BATCH, 8, 2)))
+    xy = r.uniform(0, 1, (BATCH, 8, 2)) * (size - 1 - wh)
     batch["gt_bboxes"][:, :8] = np.concatenate([xy, xy + wh], -1)
     return batch
 
@@ -2868,6 +2938,62 @@ def dense2_phase():
     return out
 
 
+def dense3_phase():
+    """NAS-FPN RetinaNet, NAS-FCOS, SSD300 and CornerNet
+    (``DENSE3_CONFIGS``) at full width with seeded random weights (the R50
+    trunks' and the hourglass's BatchNorm statistics calibrated,
+    ``_calibrated_weights``), as the dense phase runs its configs:
+    :func:`dense_serve` (one timed batch; the small input through
+    NAS-FCOS's deformable towers and CornerNet's corner pools on the card
+    against the CPU, both in float64), ``DENSE3_STEPS`` steps on :func:`_dense_batch` at the
+    config's training side (at the base LR where the schedule clips the
+    gradient; NAS-FPN's COCO schedule, unclipped, with its warmup), each
+    checkpoint through the test CLI with ``--eval bbox`` at
+    ``score_thr=0``.  No kernel may launch.  Returns each config's launch
+    counts, times and peak memory."""
+    from bonai_tpu_torch.config import Config
+    out = {}
+    for label, config, calibrate, small, single, side in DENSE3_CONFIGS:
+        config = os.path.join(REPO, config)
+        t0 = time.time()
+        weights = None
+        if calibrate:
+            weights = os.path.join(REPO, "build", "chip_smoke_dense3",
+                                   "init.pth")
+            _calibrated_weights(config, weights)
+        serve, serve_ms, serve_peak = dense_serve(
+            label, config, calls=1, checkpoint=weights, small=small,
+            float64=True, single=single)
+        clip = dict(Config.fromfile(config).get("optimizer_config")
+                    or {}).get("grad_clip")
+        train = train_phase("block", DENSE3_STEPS, config,
+                            label=f"{label} train", keep=True,
+                            warmup=not clip, load_from=weights,
+                            batch=_dense_batch(side))
+        if weights:
+            shutil.rmtree(os.path.dirname(weights), ignore_errors=True)
+        if serve or train["fwd"] or train["bwd"]:
+            raise AssertionError(f"{label}: B1 {serve} launches serving, "
+                                 f"{train['fwd']} / B2 {train['bwd']} "
+                                 f"training; expected none")
+        coco = rcnn_coco(label, config, train["checkpoint"],
+                         options=["test_cfg.score_thr=0.0"])
+        shutil.rmtree(train["work_dir"], ignore_errors=True)
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=coco, seconds=time.time() - t0)
+    card = _gpu_name_and_power()
+    for label, r in out.items():
+        print(f"dense3 {label}: serve {r['serve_ms']:.1f} ms a B=2 call, "
+              f"peak {r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} "
+              f"launches; train median step {r['train']['step_ms']:.1f} ms, "
+              f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
+              f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches; test "
+              f"CLI B1 {r['coco_cli']} launches; {r['seconds']:.1f} s; "
+              f"card {card}", flush=True)
+    return out
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -2955,6 +3081,7 @@ def main():
     cascades = cascades_phase()
     dense = dense_phase()
     dense2 = dense2_phase()
+    dense3 = dense3_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -3018,7 +3145,8 @@ def main():
                 **{f"{phase}_{k}_{what}_launches": n
                    for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
                                        ("cascades", cascades),
-                                       ("dense2", dense2))
+                                       ("dense2", dense2),
+                                       ("dense3", dense3))
                    for k, r in runs.items()
                    for what, n in (("serve", r["serve"]),
                                    ("train", r["train"]["fwd"]),
@@ -3048,7 +3176,8 @@ def main():
                **{f"{phase}_{k}_train_launches": r["train"]["bwd"]
                   for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
                                       ("cascades", cascades),
-                                      ("dense2", dense2))
+                                      ("dense2", dense2),
+                                      ("dense3", dense3))
                   for k, r in runs.items()},
                **{f"dense_{k}_train_launches": r["train"]["bwd"]
                   for k, r in dense.items()}),

@@ -557,10 +557,9 @@ def test_jax_importer_on_the_trunk_checkpoints():
                 assert read, k
 
 
-def test_bonai_configs_build_35_of_39():
-    """Every detector config of BONAI builds (on the meta device) or raises
-    ``NotImplementedError`` naming the ROADMAP.md item that ports it: 35
-    build, 4 raise."""
+def test_bonai_configs_build_39_of_39():
+    """Every detector config of BONAI builds (on the meta device); none
+    raises ``NotImplementedError`` naming a ROADMAP.md item."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     built, raised = [], {}
@@ -577,7 +576,7 @@ def test_bonai_configs_build_35_of_39():
         except NotImplementedError as e:
             raised[name.split("/")[0]] = re.search(
                 r"ROADMAP.md item (A\d)", str(e))[1]
-    assert len(built) == 35
+    assert len(built) == 39
     assert {osp.relpath(p, osp.join(ROOT, "configs"))
             for p in TRUNK_CONFIGS.values()} | {
         "htc/htc_r50_fpn_1x_bonai.py",
@@ -585,9 +584,11 @@ def test_bonai_configs_build_35_of_39():
         "reppoints/reppoints_moment_r50_fpn_1x_bonai.py",
         "guided_anchoring/ga_faster_r50_fpn_1x_bonai.py",
         "fsaf/fsaf_r50_fpn_1x_bonai.py",
-        "foveabox/fovea_r50_fpn_4x4_1x_bonai.py"} <= set(built)
-    assert raised == {"nas_fpn": "A6", "nas_fcos": "A6", "ssd": "A6",
-                      "cornernet": "A6"}
+        "foveabox/fovea_r50_fpn_4x4_1x_bonai.py",
+        "nas_fpn/retinanet_r50_nasfpn_bonai.py",
+        "nas_fcos/nas_fcos_r50_fpn_bonai.py", "ssd/ssd300_bonai.py",
+        "cornernet/cornernet_hourglass104_bonai.py"} <= set(built)
+    assert raised == {}
 
 
 @pytest.mark.parametrize("change", [
@@ -599,14 +600,12 @@ def test_bonai_configs_build_35_of_39():
     dict(base="res2net", sac=dict(type="SAC"),
          stage_with_sac=(False, True, True, True)),
     dict(neck=dict(type="RFP", rfp_backbone=dict(depth=18))),
-    dict(type="HourglassNet"), dict(type="SSDVGG"),
     dict(dcn=dict(type="DCNv3"), stage_with_dcn=(True,) * 4),
     dict(plugins=[dict(cfg=dict(type="GeneralizedAttention"),
                        position="after_conv4")]),
     dict(base="regnet", norm_cfg=dict(type="GN")),
     dict(base="res2net", dcn=dict(type="DCNv2"),
          stage_with_dcn=(True,) * 4),
-    dict(neck=dict(type="NASFPN")), dict(neck=dict(type="NASFCOS_FPN")),
     dict(neck=dict(type="RFP")), dict(neck=dict(type="FPN_CARAFE")),
     dict(neck=dict(type="PAFPN", add_extra_convs="on_output"))],
     ids=lambda c: "-".join(
@@ -621,6 +620,40 @@ def test_unported_trunk_options_name_a6(change):
     cfg.model.backbone.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(type="HourglassNet"), dict(neck=dict(type="NASFPN")),
+    dict(type="SSDVGG"), dict(neck=dict(type="NASFCOS_FPN"))],
+    ids=["HourglassNet", "NASFPN", "SSDVGG", "NASFCOS_FPN"])
+def test_generic_builders_take_the_hourglass_and_nas_fpn(change):
+    """The generic backbone and neck builders take ``HourglassNet`` (the
+    ResNet keys of the trunk's config read and ignored) and ``NASFPN`` on
+    an R-CNN trunk, as the JAX builders do; ``SSDVGG`` and
+    ``NASFCOS_FPN``, which the SSD and NAS-FCOS detectors build
+    themselves, get the JAX builders' unsupported-type refusal."""
+    from bonai_tpu.models import build_detector as jax_build
+    from bonai_tpu_torch.models import build_detector
+    change = dict(change)
+    cfg = trunk_cfg("dcn")
+    if "neck" in change:
+        cfg.model.neck.update(change.pop("neck"))
+    cfg.model.backbone.update(change)
+    kind = cfg.model.neck.type if "NAS" in cfg.model.neck.type \
+        else cfg.model.backbone.type
+    if kind in ("SSDVGG", "NASFCOS_FPN"):
+        what = "backbone" if kind == "SSDVGG" else "neck"
+        with pytest.raises(ValueError, match=f"unsupported {what} {kind}"):
+            build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+        jm = jax_build(cfg.model, cfg.train_cfg, cfg.test_cfg)
+        with pytest.raises(AssertionError, match=f"unsupported {what} {kind}"):
+            jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                           jnp.zeros((1, 256, 256, 3)))
+        return
+    with torch.device("meta"):
+        model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    built = model.neck if kind == "NASFPN" else model.backbone
+    assert type(built).__name__ == kind
 
 
 @pytest.mark.parametrize("change", [

@@ -113,10 +113,46 @@ def test_not_ported_parts_raise():
 
 UNPORTED_TRANSFORMS = {
     "OffsetTransform": "A5", "RandomRotate": "A5", "Pointobb2RBBox": "A5",
-    "PhotoMetricDistortion": "A6", "Expand": "A6", "MinIoURandomCrop": "A6",
-    "RandomCrop": "A6", "RandomCenterCropPad": "A6", "AutoAugment": "A6",
-    "SegRescale": "A7", "Corrupt": "A8",
+    "Expand": "A6", "MinIoURandomCrop": "A6", "RandomCrop": "A6",
+    "AutoAugment": "A6", "SegRescale": "A7", "Corrupt": "A8",
     "InstaBoost": "not queued", "Albu": "not queued"}
+# ported since their A6 cases here: CornerNet's train transforms, as its
+# BONAI config sets them
+CORNERNET_TRANSFORMS = {
+    "PhotoMetricDistortion": dict(brightness_delta=32,
+                                  contrast_range=(0.5, 1.5),
+                                  saturation_range=(0.5, 1.5), hue_delta=18),
+    "RandomCenterCropPad": dict(
+        crop_size=(511, 511), ratios=(0.6, 0.7, 0.8, 0.9, 1.0, 1.1, 1.2,
+                                      1.3), border=128,
+        mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+        to_rgb=True, test_mode=False, test_pad_mode=None)}
+
+
+@pytest.mark.parametrize("name", sorted(CORNERNET_TRANSFORMS))
+def test_cornernet_transforms_run(name):
+    """Each of CornerNet's train transforms, built through the pipeline
+    builder, runs a 96x128 BGR image with three boxes and gives the JAX
+    transform's result from the same ``RandomState`` (image exact, boxes,
+    labels and border exact); ``test_torch_port_cornernet.py`` holds them
+    further."""
+    from bonai_tpu.datasets.pipelines.transforms import PIPELINES as JAX_REG
+    from bonai_tpu_torch.datasets.pipelines import build_pipeline
+    r = np.random.RandomState(3)
+    sample = dict(img=r.randint(0, 256, (96, 128, 3)).astype(np.uint8),
+                  gt_bboxes=np.array([[10, 12, 40, 50], [60, 20, 120, 90],
+                                      [5, 70, 30, 94]], np.float32),
+                  gt_labels=np.zeros(3, np.int64))
+    cfg = dict(type=name, **CORNERNET_TRANSFORMS[name])
+    for seed in range(3):
+        want = JAX_REG.get(name)(**CORNERNET_TRANSFORMS[name])(
+            dict(copy.deepcopy(sample), _rng=np.random.RandomState(seed)))
+        got = build_pipeline([cfg])(
+            dict(copy.deepcopy(sample), _rng=np.random.RandomState(seed)))
+        for key in ("img", "gt_bboxes", "gt_labels", "border"):
+            if key in want:
+                np.testing.assert_array_equal(got[key], want[key],
+                                              err_msg=f"{name} {key}")
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_TRANSFORMS))

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_common as tpc
 from torch_port_common import CONFIG, jax_model, port_model, t, tiny_cfg
 
 IMG_SHAPE = np.array([[96, 96], [80, 90]], np.float32)
@@ -85,10 +86,12 @@ def test_init_detector_without_a_gpu_raises(monkeypatch):
 
 
 def test_build_detector_names_the_roadmap_item_for_unported_types():
+    """Every detector type of the JAX registry is ported; an unported head
+    of a ported type names its item (``RetinaSepBNHead``, A6)."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
-    cfg = Config.fromfile(CONFIG)
-    cfg.model.type = "SSD"                    # MaskRCNN is ported
+    cfg = Config.fromfile(tpc.DENSE_CONFIGS["retinanet"])
+    cfg.model.bbox_head.type = "RetinaSepBNHead"
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
 

@@ -146,7 +146,12 @@ def test_port_imports_nothing_of_the_jax_side():
             "bonai_tpu_torch/models/dense_heads/reppoints_head.py",
             "bonai_tpu_torch/models/dense_heads/ga_rpn_head.py",
             "bonai_tpu_torch/models/dense_heads/fsaf_head.py",
-            "bonai_tpu_torch/models/dense_heads/fovea_head.py"} <= {
+            "bonai_tpu_torch/models/dense_heads/fovea_head.py",
+            "bonai_tpu_torch/models/necks/nas_fpn.py",
+            "bonai_tpu_torch/models/necks/nasfcos_fpn.py",
+            "bonai_tpu_torch/models/dense_heads/ssd_head.py",
+            "bonai_tpu_torch/models/dense_heads/corner_head.py",
+            "bonai_tpu_torch/utils/color.py"} <= {
         osp.relpath(p, ROOT) for p in files}
     found = []
     for path in files:

@@ -99,14 +99,20 @@ def test_configs_build_at_full_width(name):
 
 @pytest.mark.parametrize("change,item", [
     (dict(config="foveabox/fovea_r50_fpn_4x4_1x_bonai.py", with_deform=True),
-     "A6"), (dict(type="CornerNet"), "A6"),
+     "A6"),
+    (dict(config="nas_fcos/nas_fcos_r50_fpn_bonai.py", neck=dict(
+        type="NASFCOS_FPN", in_channels=[256, 512, 1024, 2048],
+        out_channels=256, start_level=1, num_outs=5,
+        conv_cfg=dict(type="DCNv2", deform_groups=2))), "A6"),
     (dict(config="htc/htc_r50_fpn_1x_bonai.py",
           mask_head=dict(type="CoarseMaskHead")), "A7"),
     (dict(sampler=dict(type="ScoreHLRSampler", num=512)), "A7"),
     (dict(sampler=dict(type="OHEMSampler", num=512)), "A7"),
     (dict(reg_decoded_bbox=True), "A7"),
     (dict(config="guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py"), "A6"),
-    (dict(type="SSD"), "A6"),
+    (dict(neck=dict(type="FPN", in_channels=[8, 16, 32, 64],
+                    out_channels=16, num_outs=5,
+                    norm_cfg=dict(type="GN", num_groups=8))), "A6"),
     (dict(config="guided_anchoring/ga_rpn_r50_fpn_1x_coco.py"), "A6"),
     (dict(config="retinanet/retinanet_r50_fpn_1x_coco.py",
           bbox_head=dict(type="RetinaSepBNHead")), "A6"),
@@ -125,10 +131,11 @@ def test_configs_build_at_full_width(name):
         else "+".join(c["type"] for c in v) if isinstance(v, list)
         else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
-    """A detector, head, sampler, loss, neck chain or GRoIE extractor the
+    """A head, sampler, loss, neck option or chain or GRoIE extractor the
     port does not build; an option of a config it builds (HTC's mask head
-    type, DetectoRS's deformable SAC); a single-stage config's head
-    option (FoveaBox's ``with_deform``, NAS-FPN's ``RetinaSepBNHead``);
+    type, DetectoRS's deformable SAC, the COCO NAS-FCOS neck's deformable
+    cell convs, the FPN's norm); a single-stage config's head option
+    (FoveaBox's ``with_deform``, NAS-FPN's ``RetinaSepBNHead``);
     Guided Anchoring's RetinaNet head, and its RPN in the RPN-only
     detector."""
     from bonai_tpu_torch import Config

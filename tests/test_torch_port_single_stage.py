@@ -127,22 +127,38 @@ def test_configs_build_at_full_width(family):
         assert model.train_cfg["isr"] == dict(k=2.0, bias=0.0)
 
 
+# the BONAI configs of the single-stage types that bring their own trunk
+OWN_TRUNK = {"SSD": "ssd/ssd300_bonai.py",
+             "CornerNet": "cornernet/cornernet_hourglass104_bonai.py",
+             "NASFCOS": "nas_fcos/nas_fcos_r50_fpn_bonai.py"}
+
+
 @pytest.mark.parametrize("det_type", ["FSAF", "FOVEA", "FoveaBox",
                                       "RepPointsDetector", "SSD",
                                       "CornerNet", "NASFCOS"])
 def test_unported_single_stage_types_name_a6(det_type):
-    """SSD, CornerNet and NAS-FCOS raise A6; FSAF, FoveaBox (and its alias
-    ``FOVEA``) and RepPoints, ported since, build from the same layout."""
+    """Every single-stage type of the JAX registry is ported: FSAF,
+    FoveaBox (and its alias ``FOVEA``) and RepPoints build from ATSS's
+    layout; SSD, CornerNet and NAS-FCOS, which build their own backbone
+    or neck, from their BONAI configs (on the meta device)."""
+    from bonai_tpu import Config as JaxConfig
+    from bonai_tpu.models import build_detector as jax_build
+    from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
+    if det_type in OWN_TRUNK:
+        path = f"{tpc.ROOT}/configs/{OWN_TRUNK[det_type]}"
+        cfg = Config.fromfile(path)
+        jcfg = JaxConfig.fromfile(path)
+        assert jax_build(jcfg.model, jcfg.train_cfg, jcfg.test_cfg)
+        with torch.device("meta"):
+            model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+        assert type(model).__name__ == det_type
+        return
     cfg = dense_cfg("atss")
     cfg.model.type = det_type
-    if det_type in ("FSAF", "FOVEA", "FoveaBox", "RepPointsDetector"):
-        model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
-        assert type(model).__name__ == {"FOVEA": "FoveaBox"}.get(det_type,
-                                                                  det_type)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
-        build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    assert type(model).__name__ == {"FOVEA": "FoveaBox"}.get(det_type,
+                                                              det_type)
 
 
 @pytest.mark.parametrize("change", ["two_stage_on_dense", "dense_on_two",

@@ -90,6 +90,70 @@ DETECTORS_CONFIG = osp.join(
     ROOT, "configs/detectors/detectors_cascade_rcnn_r50_1x_bonai.py")
 
 
+# the last four BONAI configs: NAS-FPN RetinaNet, NAS-FCOS, SSD300 and
+# CornerNet
+NAS_SSD_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
+    "nasfpn": "nas_fpn/retinanet_r50_nasfpn_bonai.py",
+    "nasfcos": "nas_fcos/nas_fcos_r50_fpn_bonai.py",
+    "ssd": "ssd/ssd300_bonai.py",
+    "cornernet": "cornernet/cornernet_hourglass104_bonai.py"}.items()}
+# SSD's VGG stage widths in the parity tests (fc6, fc7 and the extras keep
+# theirs): both packages' module constants, set by ``tiny_vgg``
+TINY_VGG = (8, 16, 32, 64, 64)
+
+
+def tiny_vgg():
+    """A context in which both packages' SSD VGG has the stage widths
+    ``TINY_VGG`` (the JAX module reads its ``_STAGE_CH`` when it traces,
+    the port's ``STAGE_CHANNELS`` when it builds)."""
+    import contextlib
+
+    import bonai_tpu.models.backbones.ssd_vgg as jax_vgg
+    import bonai_tpu_torch.models.backbones.ssd_vgg as vgg
+
+    @contextlib.contextmanager
+    def patched():
+        saved = jax_vgg._STAGE_CH, vgg.STAGE_CHANNELS
+        jax_vgg._STAGE_CH = vgg.STAGE_CHANNELS = TINY_VGG
+        try:
+            yield
+        finally:
+            jax_vgg._STAGE_CH, vgg.STAGE_CHANNELS = saved
+    return patched()
+
+
+def nas_ssd_cfg(family, num_classes=3):
+    """The config of a ``NAS_SSD_CONFIGS`` family at tiny widths:
+    ResNet-18 at base 8 with a 16-channel NAS-FPN of two stacks (and
+    RetinaNet's 64-channel towers of two convs, ``num_classes`` for COCO's
+    80) or a 16-channel NAS-FCOS FPN and 64-channel searched towers; SSD's
+    head on the ``TINY_VGG`` conv4_3 (build it inside :func:`tiny_vgg`);
+    CornerNet's hourglass of two downsamplings at 8 and 16 channels, one
+    block a stage, 16 output channels.  ``nms_pre`` 100, 32 detections an
+    image (CornerNet: 20 corners a side, 50 pairs)."""
+    from bonai_tpu_torch import Config
+    cfg = Config.fromfile(NAS_SSD_CONFIGS[family])
+    m = cfg.model
+    if family in ("nasfpn", "nasfcos"):
+        m.backbone.update(depth=18, base_channels=8)
+        m.neck.update(in_channels=[8, 16, 32, 64], out_channels=16)
+        m.bbox_head.update(in_channels=16, feat_channels=64)
+        cfg.test_cfg.update(nms_pre=100, max_per_img=32)
+    if family == "nasfpn":
+        m.neck.stack_times = 2
+        m.bbox_head.update(stacked_convs=2, num_classes=num_classes)
+    elif family == "ssd":
+        m.bbox_head.in_channels = (TINY_VGG[3],) + tuple(
+            m.bbox_head.in_channels[1:])
+        cfg.test_cfg.update(nms_pre=100, max_per_img=32)
+    elif family == "cornernet":
+        m.backbone.update(downsample_times=2, stage_channels=[8, 16, 16],
+                          stage_blocks=[1, 1, 1], feat_channel=16)
+        m.bbox_head.in_channels = 16
+        cfg.test_cfg.update(corner_topk=20, num_dets=50, max_per_img=32)
+    return cfg
+
+
 def _each(x):
     """A per-stage config list as it is; one config as a list of one."""
     return x if isinstance(x, (list, tuple)) else [x]
@@ -267,9 +331,10 @@ def _random_tree(shapes, r):
     return out
 
 
-def jax_model(cfg, seed=0, **build_kw):
+def jax_model(cfg, seed=0, init_size=64, **build_kw):
     """The JAX LOFT of ``cfg`` in float32 with seeded random variables
-    (``build_kw``, e.g. ``roi_align_impl``, go to ``build_detector``).
+    (``build_kw``, e.g. ``roi_align_impl``, go to ``build_detector``;
+    initialised on an ``init_size``^2 image: NAS-FPN's P7 needs 256).
 
     The class weights are set so scores spread well apart (NMS order then
     does not hang on float noise), and the box deltas are kept small so
@@ -280,10 +345,10 @@ def jax_model(cfg, seed=0, **build_kw):
     model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
                            compute_dtype="float32", **build_kw)
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, 64, 64, 3)))
+                            jnp.zeros((1, init_size, init_size, 3)))
     r = np.random.RandomState(seed)
     params = _random_tree(shapes["params"], r)
-    stats = _random_tree(shapes["batch_stats"], r)
+    stats = _random_tree(shapes.get("batch_stats", {}), r)
     for k in ("rpn_reg", "conv_reg", "conv_shape"):   # GA-RPN's last two
         if k in params.get("rpn_head", {}):     # Fast R-CNN has none
             params["rpn_head"][k]["kernel"] *= 0.1
