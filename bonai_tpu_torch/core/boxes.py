@@ -1,13 +1,22 @@
 """Box and offset geometry (counterpart of ``bonai_tpu/core/boxes.py``):
-IoU, the delta-xywh box coder, the delta-xy offset coder, offset rotation
-and clipping, on batched tensors.  Each keeps the JAX function's order of
-operations: the assigner compares IoUs for exact equality."""
+IoU, the delta-xywh box coder, the delta-xy and polar offset coders
+(registered in ``BBOX_CODERS``), offset rotation and clipping, on batched
+tensors.  Each keeps the JAX function's order of operations: the assigner
+compares IoUs for exact equality."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..registry import Registry, build_from_cfg
+
+BBOX_CODERS = Registry("bbox_coder")
+
+
+def build_bbox_coder(cfg, **default_args):
+    return build_from_cfg(cfg, BBOX_CODERS, default_args)
 
 
 def bbox_area(boxes):
@@ -119,6 +128,53 @@ def delta2offset(rois, deltas, means=(0., 0.), stds=(0.5, 0.5),
         gx = torch.maximum(torch.minimum(gx, w), -w)
         gy = torch.maximum(torch.minimum(gy, h), -h)
     return torch.stack([gx, gy], dim=-1)
+
+
+@BBOX_CODERS.register_module()
+class DeltaXYOffsetCoder:
+    """Offsets relative to the box's width and height."""
+
+    def __init__(self, target_means=(0., 0.), target_stds=(0.5, 0.5)):
+        self.means = tuple(target_means)
+        self.stds = tuple(target_stds)
+
+    def encode(self, bboxes, gt_offsets):
+        return offset2delta(bboxes, gt_offsets, self.means, self.stds)
+
+    def decode(self, bboxes, pred_offsets, max_shape=None):
+        return delta2offset(bboxes, pred_offsets, self.means, self.stds,
+                            max_shape)
+
+
+@BBOX_CODERS.register_module()
+class DeltaPolarOffsetCoder:
+    """Polar offsets ``(length, angle)``: the length relative to the box's
+    diagonal, the angle as it is, then normalised by the means and
+    stds."""
+
+    def __init__(self, target_means=(0., 0.), target_stds=(0.5, 0.5)):
+        self.means = tuple(target_means)
+        self.stds = tuple(target_stds)
+
+    def encode(self, bboxes, gt_offsets, eps=1e-7):
+        pw = bboxes[..., 2] - bboxes[..., 0]
+        ph = bboxes[..., 3] - bboxes[..., 1]
+        diag = torch.sqrt(pw * pw + ph * ph)
+        deltas = torch.stack([gt_offsets[..., 0] / diag.clamp(min=eps),
+                              gt_offsets[..., 1]], dim=-1)
+        return _div(deltas - deltas.new_tensor(self.means), self.stds)
+
+    def decode(self, bboxes, pred_offsets, max_shape=None):
+        """``max_shape`` ``(h, w)`` bounds the length to ``[0, hypot(h,
+        w)]``."""
+        d = pred_offsets * pred_offsets.new_tensor(self.stds) \
+            + pred_offsets.new_tensor(self.means)
+        pw = bboxes[..., 2] - bboxes[..., 0]
+        ph = bboxes[..., 3] - bboxes[..., 1]
+        length = d[..., 0] * torch.sqrt(pw * pw + ph * ph)
+        if max_shape is not None:
+            length = length.clamp(0, math.hypot(*max_shape))
+        return torch.stack([length, d[..., 1]], dim=-1)
 
 
 def clip_boxes(boxes, img_shape):

@@ -232,6 +232,11 @@ def pack_sample(result, max_gt, inst_mask_size, train=True):
         out["gt_building_heights"] = gh
     if "gt_angle" in result:
         out["gt_angle"] = np.float32(result["gt_angle"])
+    # the dense maps at the image canvas's resolution (the pipeline
+    # resized and padded them with the image)
+    for key in ("gt_offset_field", "gt_edge_maps", "gt_side_face_maps"):
+        if key in result:
+            out[key] = np.asarray(result[key], np.float32)
     metas = dict(result.get("img_metas", {}))
     if n_truncated:
         # dropped GTs become false background for the losses: never silent

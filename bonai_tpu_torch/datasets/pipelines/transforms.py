@@ -2,15 +2,18 @@
 (counterparts of the steps of ``bonai_tpu/datasets/pipelines/
 transforms.py`` that the BONAI and synthetic configs use):
 ``LoadImageFromFile`` (PNG through ``utils/png.py``, with the
-decoded-image cache), ``LoadAnnotations``, ``LoadProposals``, ``Resize``,
-``RandomFlip``,
-``Normalize``, ``Pad``, ``DefaultFormatBundle``, ``ImageToTensor``,
-``Collect`` and ``MultiScaleFlipAug``; CornerNet's
+decoded-image cache), ``LoadAnnotations`` (with LOFT's edge, side-face and
+offset-field maps), ``LoadProposals``, ``Resize``, ``RandomFlip``,
+``OffsetTransform``, ``Normalize``, ``Pad``, ``DefaultFormatBundle``,
+``ImageToTensor``, ``Collect`` and ``MultiScaleFlipAug``; CornerNet's
 ``PhotoMetricDistortion`` (its HSV conversions in ``utils/color.py``) and
 ``RandomCenterCropPad``.
 
 Masks travel as polygons (lists of ``(K, 2)`` float32 arrays per instance
-part) until the loader packs them, so the geometric steps are exact.
+part) until the loader packs them, so the geometric steps are exact.  The
+dense maps (``edge_fields``, ``side_face_fields``, ``offset_field_fields``)
+travel at image resolution: resized nearest, flipped and padded with the
+image.
 """
 
 from __future__ import annotations
@@ -28,11 +31,11 @@ from ...utils.color import bgr_to_hsv, hsv_to_bgr
 from ...utils.png import read_png
 
 PIPELINES = Registry("pipeline")
+MAP_FIELDS = ("edge_fields", "side_face_fields", "offset_field_fields")
 
 # the JAX package's other transforms, by the ROADMAP.md item that ports them
 UNPORTED = {
-    **dict.fromkeys(("OffsetTransform", "RandomRotate", "Pointobb2RBBox"),
-                    "item A5"),
+    **dict.fromkeys(("RandomRotate", "Pointobb2RBBox"), "item A5"),
     **dict.fromkeys(("Expand", "MinIoURandomCrop", "RandomCrop",
                      "AutoAugment"), "item A6"),
     "SegRescale": "item A7",
@@ -111,7 +114,14 @@ class LoadImageFromFile:
 @PIPELINES.register_module()
 class LoadAnnotations:
     """Boxes, labels, polygon masks, offsets, building heights, footprint
-    boxes, the mean angle and the footprint-only flag of ``ann_info``."""
+    boxes, the mean angle and the footprint-only flag of ``ann_info``;
+    the image's edge and side-face maps (PNG, read as
+    ``cv2.IMREAD_UNCHANGED`` reads them, squeezed) and offset field
+    (``.npy``, the 400/500 sentinels zeroed) from the dataset's
+    ``<kind>_prefix``, where it has one."""
+
+    # sentinel component values of an offset field's unsupervised pixels
+    OFFSET_FIELD_IGNORE = (400.0, 500.0)
 
     def __init__(self, with_bbox=True, with_label=True, with_mask=False,
                  with_offset=False, with_building_height=False,
@@ -120,10 +130,9 @@ class LoadAnnotations:
                  with_only_footprint_flag=False,
                  with_edge=False, with_side_face=False,
                  with_offset_field=False, **kwargs):
-        if with_edge or with_side_face or with_offset_field:
-            raise NotImplementedError(
-                "edge, side-face and offset-field maps are not ported to "
-                "bonai_tpu_torch yet (ROADMAP.md item A5)")
+        self.with_edge = with_edge
+        self.with_side_face = with_side_face
+        self.with_offset_field = with_offset_field
         self.with_bbox = with_bbox
         self.with_label = with_label
         self.with_mask = with_mask
@@ -177,7 +186,50 @@ class LoadAnnotations:
         if self.with_only_footprint_flag:
             results["gt_only_footprint_flag"] = np.float32(
                 ann.get("only_footprint_flag", 0.0))
+        if self.with_edge:
+            self._load_aux_map(results, "edge")
+        if self.with_side_face:
+            self._load_aux_map(results, "side_face")
+        if self.with_offset_field:
+            self._load_offset_field(results)
         return results
+
+    @staticmethod
+    def _load_aux_map(results, kind):
+        """``gt_<kind>_maps``: the image's ``(H, W)`` map, registered in
+        ``<kind>_fields``."""
+        prefix = results.get(f"{kind}_prefix")
+        if prefix is None:
+            return
+        path = osp.join(prefix, results["ann_info"][f"{kind}_map"])
+        key = f"gt_{kind}_maps"
+        results[key] = np.squeeze(read_png(path, unchanged=True))
+        results.setdefault(f"{kind}_fields", []).append(key)
+
+    def _load_offset_field(self, results):
+        """``gt_offset_field``: the image's ``(H, W, 2)`` float32 field,
+        each component's sentinel pixels set to 0."""
+        prefix = results.get("offset_field_prefix")
+        if prefix is None:
+            return
+        field = np.load(osp.join(prefix, results["ann_info"][
+            "offset_field"])).astype(np.float32)
+        for c in range(2):
+            field[..., c][np.isin(field[..., c],
+                                  self.OFFSET_FIELD_IGNORE)] = 0.0
+        results["gt_offset_field"] = field
+        results.setdefault("offset_field_fields", []).append(
+            "gt_offset_field")
+
+
+def resize_nearest(img, h, w):
+    """``img`` ``(H, W, ...)`` resized to ``(h, w)`` as
+    ``cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)`` does:
+    source index ``floor(i / (h / H))`` in float64, clamped."""
+    sh, sw = img.shape[:2]
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))), sh - 1)
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))), sw - 1)
+    return img[ys.astype(np.int64)[:, None], xs.astype(np.int64)[None, :]]
 
 
 @PIPELINES.register_module()
@@ -212,7 +264,8 @@ class Resize:
     rescaled, as in the JAX package.  At the identity size (the 1024^2
     tiles at ``img_scale=(1024, 1024)``) nothing is resampled; other sizes
     resample bilinearly (``core/masks.py::resize_bilinear``, rounded to
-    ``uint8``).
+    ``uint8``), the dense maps by their nearest pixel
+    (:func:`resize_nearest`: their values are classes and offsets).
 
     Multi-scale training: ``img_scale`` may be a list of scales with
     ``multiscale_mode='value'`` (pick one) or ``'range'`` (long and short
@@ -272,15 +325,20 @@ class Resize:
             results["gt_masks"] = [
                 [p * np.array([w_scale, h_scale], np.float32) for p in inst]
                 for inst in results["gt_masks"]]
+        for group in MAP_FIELDS:
+            for key in results.get(group, []):
+                results[key] = resize_nearest(results[key], new_h, new_w)
         return results
 
 
 @PIPELINES.register_module()
 class RandomFlip:
-    """Horizontal / vertical flip of the image, boxes, polygons and offsets
-    (an offset's x is negated by a horizontal flip, its y by a vertical
-    one).  Draws ``rng.rand()`` and then ``rng.randint(len(directions))``
-    from ``results['_rng']``, in that order, unless ``flip`` is set."""
+    """Horizontal / vertical flip of the image, boxes, polygons, offsets
+    and dense maps (an offset's x is negated by a horizontal flip, its y by
+    a vertical one; so is an offset field's component, whose sentinel
+    pixels stay marked, as 500).  Draws ``rng.rand()`` and then
+    ``rng.randint(len(directions))`` from ``results['_rng']``, in that
+    order, unless ``flip`` is set."""
 
     def __init__(self, flip_ratio=0.5, direction="horizontal"):
         self.flip_ratio = flip_ratio
@@ -328,6 +386,41 @@ class RandomFlip:
             o = results["gt_offsets"].copy()
             o[:, 0 if horizontal else 1] *= -1
             results["gt_offsets"] = o
+        axis = 1 if horizontal else 0
+        for key in (results.get("edge_fields", [])
+                    + results.get("side_face_fields", [])):
+            results[key] = np.flip(results[key], axis=axis).copy()
+        comp = 0 if horizontal else 1
+        for key in results.get("offset_field_fields", []):
+            field = np.flip(results[key], axis=axis).copy()
+            ignore = np.isin(field[..., comp],
+                             LoadAnnotations.OFFSET_FIELD_IGNORE)
+            field[..., comp] = -field[..., comp]
+            field[..., comp][ignore] = 500.0
+            results[key] = field
+        return results
+
+
+@PIPELINES.register_module()
+class OffsetTransform:
+    """Offsets between rectangular ``(x, y)`` and polar ``(length,
+    angle)`` form: ``'xy2la'`` (the polar offset head's training
+    pipeline, after ``RandomFlip``) or ``'la2xy'``."""
+
+    def __init__(self, transform_flag="xy2la"):
+        self.transform_flag = transform_flag
+
+    def __call__(self, results):
+        if "gt_offsets" not in results or not len(results["gt_offsets"]):
+            return results
+        o = results["gt_offsets"]
+        if self.transform_flag == "xy2la":
+            out = [np.hypot(o[:, 0], o[:, 1]), np.arctan2(o[:, 1], o[:, 0])]
+        elif self.transform_flag == "la2xy":
+            out = [o[:, 0] * np.cos(o[:, 1]), o[:, 0] * np.sin(o[:, 1])]
+        else:
+            raise ValueError(self.transform_flag)
+        results["gt_offsets"] = np.stack(out, -1).astype(np.float32)
         return results
 
 
@@ -489,7 +582,8 @@ class Normalize:
 @PIPELINES.register_module()
 class Pad:
     """Zero padding at the bottom and right, to ``size`` or to a multiple
-    of ``size_divisor``."""
+    of ``size_divisor``; the dense maps are zero-padded to the same
+    canvas."""
 
     def __init__(self, size=None, size_divisor=None, pad_val=0):
         self.size = size
@@ -509,6 +603,14 @@ class Pad:
                          constant_values=self.pad_val)
         results["img"] = img
         results["pad_shape"] = (th, tw)
+        for group in MAP_FIELDS:
+            for key in results.get(group, []):
+                m = results[key]
+                mh, mw = m.shape[:2]
+                if (th, tw) != (mh, mw):
+                    pad = [(0, th - mh), (0, tw - mw)] + [(0, 0)] * (
+                        m.ndim - 2)
+                    results[key] = np.pad(m, pad, constant_values=0)
         return results
 
 
@@ -540,7 +642,8 @@ class Collect:
                     "scale_factor", "flip", "flip_direction")
     GT_KEYS = ("gt_bboxes", "gt_labels", "gt_masks", "gt_offsets",
                "gt_footprint_bboxes", "gt_only_footprint_flag",
-               "gt_building_heights", "gt_angle")
+               "gt_building_heights", "gt_angle", "gt_edge_maps",
+               "gt_side_face_maps", "gt_offset_field")
 
     def __init__(self, keys, meta_keys=None):
         self.keys = list(keys)

@@ -155,7 +155,7 @@ def rpn_targets(anchors, gt_bboxes, gt_valid, u_pos, u_neg, assigner_cfg,
 
 
 def rpn_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_valid, draw,
-             train_cfg):
+             train_cfg, reg_weight=None):
     """RPN losses of a batch: sigmoid cross-entropy over the sampled
     anchors and L1 over the positive ones, both averaged over all sampled
     anchors of the batch.
@@ -163,13 +163,16 @@ def rpn_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_valid, draw,
     ``cls_scores``/``bbox_preds`` are the head's per-level outputs,
     ``anchors`` the ``(N, 4)`` concatenated level anchors, ``draw`` the
     sampler's draw source (:func:`~bonai_tpu_torch.core.samplers
-    .generator_draws`)."""
+    .generator_draws`).  ``reg_weight`` ``(B,)`` scales each image's
+    regression weights (``SemiRPNHead``: 0 for a footprint-only image)."""
     cls, reg = _flatten(cls_scores, bbox_preds)
     u_pos, u_neg = draw(cls.shape, cls.device)
     labels, lw, bt, bw, ns = rpn_targets(
         anchors, gt_bboxes, gt_valid, u_pos, u_neg,
         dict(train_cfg["assigner"]), dict(train_cfg["sampler"]))
     num_total = ns.sum().clamp(min=1.0)
+    if reg_weight is not None:
+        bw = bw * reg_weight[:, None, None]
     return {"loss_rpn_cls": binary_cross_entropy(cls, labels, lw,
                                                  avg_factor=num_total),
             "loss_rpn_bbox": l1_loss(reg, bt, bw, avg_factor=num_total)}

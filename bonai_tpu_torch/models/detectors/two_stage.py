@@ -9,7 +9,9 @@ R-CNN, Grid R-CNN and PointRend (counterpart of
 ``_mask_forward_train``, ``simple_test``, ``_rcnn_simple_test``,
 ``FasterRCNN``, ``MaskRCNN``, ``DynamicRCNN``, ``RPN``, ``FastRCNN``).
 
-The RPN may be the plain ``RPNHead`` or the Guided Anchoring RPN
+The RPN may be the plain ``RPNHead``, ``SemiRPNHead`` (the plain head,
+trained on the footprint boxes of footprint-only images without their
+regression: ``_semi_rpn_gt``) or the Guided Anchoring RPN
 (``GARPNHead``, with its ``approx_anchor_generator`` and
 ``loc_filter_thr``): then the proposals come from its guided anchors and
 its loss adds the location and shape terms.
@@ -38,6 +40,8 @@ mmdet ``state_dict`` loads as it is.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -380,12 +384,15 @@ class TwoStageDetector(nn.Module):
                 _check_sampler(dict(dict(stage).get("sampler", {})))
 
     ga_rpn = False          # the Guided Anchoring RPN
+    semi_rpn = False        # SemiRPNHead: footprint boxes where flagged
 
     def _setup_rpn(self, rh):
         if rh.get("type") == "GARPNHead":
             self._setup_ga_rpn(rh)
             return
-        _require_type(rh, "RPNHead", "A6")
+        self.semi_rpn = rh.get("type") == "SemiRPNHead"
+        if not self.semi_rpn:
+            _require_type(rh, "RPNHead", "A6")
         ag = dict(rh.get("anchor_generator", {}))
         _require_type(ag, "AnchorGenerator", "A6")
         ag.pop("type", None)
@@ -613,10 +620,32 @@ class TwoStageDetector(nn.Module):
         return rpn_proposals(*outs, self._grid_anchors(feats), img_shape,
                              proposal_cfg)
 
-    def _rpn_train(self, feats, batch, draw):
+    def _semi_rpn_gt(self, batch, img_aux):
+        """``SemiRPNHead``'s GT boxes and per-image regression weight: a
+        footprint-only image (``gt_only_footprint_flag``) is supervised by
+        its footprint boxes, classification only, unless the predicted
+        off-nadir angle (``img_aux['angle_pred']``) is under 10 degrees,
+        where footprint and roof nearly coincide.  Other RPNs, and a batch
+        without footprint boxes: the GT boxes, no weight."""
+        gt = batch["gt_bboxes"]
+        if not self.semi_rpn or "gt_footprint_bboxes" not in batch:
+            return gt, None
+        flag = batch.get("gt_only_footprint_flag")
+        if flag is None:
+            flag = gt.new_zeros(gt.shape[0])
+        flag = flag.float()
+        gt = torch.where(flag[:, None, None] > 0.5,
+                         batch["gt_footprint_bboxes"], gt)
+        if "angle_pred" in img_aux:
+            deg = img_aux["angle_pred"][:, 0].abs() * (180.0 / math.pi)
+            flag = flag * (deg >= 10.0).float()
+        return gt, 1.0 - flag
+
+    def _rpn_train(self, feats, batch, draw, img_aux=None):
         """The RPN's losses of a batch and its proposals (constants of the
         step); ``draw`` is called for the RPN's sampler (GA-RPN: the shape
-        sampler's, then the RPN sampler's)."""
+        sampler's, then the RPN sampler's).  ``img_aux`` holds the image
+        heads' predictions (:meth:`_image_level_train`)."""
         outs = self.rpn_head([f.permute(0, 3, 1, 2) for f in feats])
         with torch.no_grad():       # proposals are constants of the step
             proposals, _, prop_valid = self._proposals(
@@ -629,9 +658,11 @@ class TwoStageDetector(nn.Module):
                 batch["gt_valid"], draw, dict(self.train_cfg["rpn"]),
                 self.ga_strides, self.ga_octave_base_scale)
         else:
+            gt, reg_weight = self._semi_rpn_gt(batch, img_aux or {})
             losses = rpn_loss(*outs, torch.cat(self._grid_anchors(feats)),
-                              batch["gt_bboxes"], batch["gt_valid"], draw,
-                              dict(self.train_cfg["rpn"]))
+                              gt, batch["gt_valid"], draw,
+                              dict(self.train_cfg["rpn"]),
+                              reg_weight=reg_weight)
         return losses, proposals.detach(), prop_valid
 
     # ---------------- training ----------------
@@ -647,10 +678,19 @@ class TwoStageDetector(nn.Module):
         called for the RPN and then for the R-CNN.
         """
         feats = self.extract_feat(batch["image"])
-        losses, proposals, prop_valid = self._rpn_train(feats, batch, draw)
+        img_losses, img_aux = self._image_level_train(feats, batch)
+        losses, proposals, prop_valid = self._rpn_train(feats, batch, draw,
+                                                        img_aux)
+        losses.update(img_losses)
         losses.update(self._roi_forward_train(
             feats, proposals, prop_valid, batch, draw))
         return losses
+
+    def _image_level_train(self, feats, batch):
+        """The image-level heads' losses and predictions ``(losses,
+        aux)``; LOFT's angle head gives ``aux['angle_pred']``, which gates
+        ``SemiRPNHead``."""
+        return {}, {}
 
     def forward(self, batch, draw):
         """:meth:`forward_train`, so that ``DistributedDataParallel``,

@@ -5,8 +5,9 @@ the FOA ``OffsetHeadExpandFeature``, ``rotate_feature``,
 
 The plain head is four 3x3 convs, two FCs and an FC to the offset.  In the
 FOA head each rotation branch turns the RoI features by k*90 degrees, runs
-its own conv tower and the shared FCs; inference keeps, per axis, the
-largest magnitude over the branches with the 0-degree branch's sign.
+its own conv tower and the shared FCs, or its own; inference keeps, per
+axis, the largest magnitude over the branches with the 0-degree branch's
+sign.
 """
 
 from __future__ import annotations
@@ -32,9 +33,10 @@ def _branch_swaps_xy(angle_deg):
 
 class OffsetHead(nn.Module):
     """``num_convs`` 3x3 convs, ``num_fcs`` FCs and ``fc_offset``, each
-    but the last followed by a ReLU (reference ``offset_head.py:23-105``;
-    rectangular offsets only: polar ones are ROADMAP.md item A5).  The
-    first FC reads the (C, H, W) flatten, as mmdet's does."""
+    but the last followed by a ReLU (reference ``offset_head.py:23-105``):
+    ``reg_num`` 2 for rectangular or polar offsets, 3 for polar ones as
+    ``(length, cos, sin)``.  The first FC reads the (C, H, W) flatten, as
+    mmdet's does."""
 
     def __init__(self, roi_feat_size=7, in_channels=256, num_convs=4,
                  num_fcs=2, reg_num=2, conv_out_channels=256,
@@ -74,17 +76,19 @@ class OffsetHead(nn.Module):
 
 
 class OffsetHeadExpandFeature(nn.Module):
+    """FOA: ``expand_feature_num`` rotation branches, each with its own
+    conv tower, and FCs shared by the branches (``fcs``, ``fc_offset``)
+    or each branch's own (``expand_fcs.<e>``, ``expand_fc_offsets.<e>``,
+    the JAX default)."""
+
     def __init__(self, roi_feat_size=7, in_channels=256, num_convs=4,
                  num_fcs=2, reg_num=2, conv_out_channels=256,
                  fc_out_channels=1024, expand_feature_num=4,
                  share_expand_fc=False, rotations=(0, 90, 180, 270),
                  offset_coordinate="rectangle"):
         super().__init__()
-        if not share_expand_fc or offset_coordinate != "rectangle":
-            raise NotImplementedError(
-                "bonai_tpu_torch ports the FOA head with shared FCs and "
-                "rectangular offsets; the rest is ROADMAP.md item A5")
         self.rotations = tuple(rotations[:expand_feature_num])
+        self.share_expand_fc = share_expand_fc
         self.expand_convs = nn.ModuleList([
             nn.ModuleList([
                 nn.Conv2d(in_channels if j == 0 else conv_out_channels,
@@ -93,35 +97,54 @@ class OffsetHeadExpandFeature(nn.Module):
             for _ in range(expand_feature_num)])
         flat = (conv_out_channels if num_convs else in_channels) \
             * roi_feat_size ** 2
-        self.fcs = nn.ModuleList([
-            nn.Linear(flat if i == 0 else fc_out_channels, fc_out_channels)
-            for i in range(num_fcs)])
-        self.fc_offset = nn.Linear(fc_out_channels if num_fcs else flat,
-                                   reg_num)
+
+        def fcs():
+            return nn.ModuleList([
+                nn.Linear(flat if i == 0 else fc_out_channels,
+                          fc_out_channels) for i in range(num_fcs)])
+
+        def fc_offset():
+            return nn.Linear(fc_out_channels if num_fcs else flat, reg_num)
+        if share_expand_fc:
+            self.fcs = fcs()
+            self.fc_offset = fc_offset()
+        else:
+            self.expand_fcs = nn.ModuleList(
+                [fcs() for _ in range(expand_feature_num)])
+            self.expand_fc_offsets = nn.ModuleList(
+                [fc_offset() for _ in range(expand_feature_num)])
+
+    def _branch_fcs(self):
+        """Each branch's FCs and output FC."""
+        if self.share_expand_fc:
+            return [(self.fcs, self.fc_offset)] * len(self.rotations)
+        return list(zip(self.expand_fcs, self.expand_fc_offsets))
 
     def init_weights(self, gen):
         for convs in self.expand_convs:
             for conv in convs:
                 kaiming_fan_out_(conv.weight, gen)
                 zeros_(conv.bias)
-        for fc in self.fcs:
-            fan_in_uniform_(fc.weight, gen)
-            zeros_(fc.bias)
-        normal_(self.fc_offset.weight, 0.01, gen)
-        zeros_(self.fc_offset.bias)
+        for fcs, out in dict.fromkeys(self._branch_fcs()):  # shared: once
+            for fc in fcs:
+                fan_in_uniform_(fc.weight, gen)
+                zeros_(fc.bias)
+            normal_(out.weight, 0.01, gen)
+            zeros_(out.bias)
 
     def forward(self, x):
         """``(N, S, S, C)`` RoI features -> float32 ``(E, N, reg_num)``."""
         x = x.permute(0, 3, 1, 2)
         outs = []
-        for angle, convs in zip(self.rotations, self.expand_convs):
+        for angle, convs, (fcs, fc_offset) in zip(
+                self.rotations, self.expand_convs, self._branch_fcs()):
             t = rotate_feature(x, angle)
             for conv in convs:
                 t = F.relu(conv(t))
             t = t.flatten(1)
-            for fc in self.fcs:
+            for fc in fcs:
                 t = F.relu(fc(t))
-            outs.append(self.fc_offset(t).float())
+            outs.append(fc_offset(t).float())
         return torch.stack(outs)
 
 

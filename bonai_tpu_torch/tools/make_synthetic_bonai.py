@@ -384,6 +384,41 @@ def write_split(out, name, n_tiles, seed, size=1024, stems=None):
     return jp, img_dir
 
 
+def write_attribute_maps(out, name):
+    """LOFT's dense GT of a written split: for each image, a side-face map
+    ``<name>/side_face/<file_name>`` (gray PNG, 255 on the pixels of a
+    building's box outside its roof, its visible facade) and an offset
+    field ``<name>/offset_field/<stem>.npy`` (``(H, W, 2)`` float32: each
+    roof pixel holds its building's offset, the other pixels the ignore
+    sentinel 400), the names the BONAI dataset reads under its
+    ``side_face_prefix`` and ``offset_field_prefix``.  Returns the two
+    directories."""
+    with open(osp.join(out, name, f"{name}.json")) as f:
+        ds = json.load(f)
+    dirs = [osp.join(out, name, d) for d in ("side_face", "offset_field")]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    anns = {}
+    for a in ds["annotations"]:
+        anns.setdefault(a["image_id"], []).append(a)
+    for im in ds["images"]:
+        h, w = im["height"], im["width"]
+        roof = np.zeros((h, w), np.int32)             # building index + 1
+        side = np.zeros((h, w), np.uint8)
+        offsets = [np.full(2, 400.0, np.float32)]
+        for k, a in enumerate(anns.get(im["id"], []), 1):
+            x, y, bw, bh = a["building_bbox"]
+            side[int(y):int(y + bh) + 1, int(x):int(x + bw) + 1] = 255
+            fill_poly(roof, [np.round(np.reshape(p, (-1, 2)))
+                             for p in a["segmentation"]], k)
+            offsets.append(np.asarray(a["offset"], np.float32))
+        side[roof > 0] = 0
+        write_png(osp.join(dirs[0], im["file_name"]), side)
+        np.save(osp.join(dirs[1], osp.splitext(im["file_name"])[0]
+                         + ".npy"), np.stack(offsets)[roof])
+    return dirs
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", required=True)

@@ -42,7 +42,10 @@ autocast, and prints
   SSD's hard-negative mining apart from its loss, CornerNet's corner
   pools apart from its head (forward);
   GA-RPN's location and shape targets apart from the rest of its loss,
-  and its deformable sampling apart from its head;
+  and its deformable sampling apart from its head; LOFT's dense-map
+  crops (the plain RoIAlign of its side-face and offset-field GT) apart
+  from its attribute losses (an attribute model trains on
+  :func:`attribute_gt`);
 - from ``torch.profiler`` over one step: the summed CUDA kernel time, the
   device's idle share against the wall time of an unprofiled step, and
   the kernels that take the most time.
@@ -72,7 +75,7 @@ from ..models.dense_heads import (atss_head, corner_head, fcos_head,
                                   fovea_head, fsaf_head, ga_rpn_head,
                                   gfl_head, reppoints_head, retina_head,
                                   ssd_head)
-from ..models.detectors import single_stage
+from ..models.detectors import loft, single_stage
 from .profile_serve import (CORNER_POOL, DENSE_HEAD, SEMANTIC_FUSION,
                             geometry_attr, is_dense, patch_backbone_parts,
                             patch_functions, restore_backbone_parts,
@@ -139,12 +142,13 @@ def semantic_seg(gt_bboxes, gt_valid, gt_masks, size, stride=8):
 
 
 def synthetic_batch(batch=2, size=1024, g=100, m=112, seed=0, proposals=0,
-                    semantic=False):
+                    semantic=False, attributes=False):
     """The padded batch of ``bench.py``'s training benchmark, from a numpy
     seed: normalised float images, ``g`` GT boxes of 10..``size/5`` px,
     random ``m``^2 instance masks, offsets within +-30 px; with
     ``proposals``, that many of :func:`synthetic_proposals` an image; with
-    ``semantic``, HTC's :func:`semantic_seg` at stride 8."""
+    ``semantic``, HTC's :func:`semantic_seg` at stride 8; with
+    ``attributes``, LOFT's attribute GT (:func:`attribute_gt`)."""
     r = np.random.RandomState(seed)
     xy1 = r.uniform(0, size * 0.6, (batch, g, 2)).astype(np.float32)
     wh = r.uniform(10, size * 0.2, (batch, g, 2)).astype(np.float32)
@@ -163,7 +167,40 @@ def synthetic_batch(batch=2, size=1024, g=100, m=112, seed=0, proposals=0,
     if semantic:
         out["gt_semantic_seg"] = semantic_seg(
             out["gt_bboxes"], out["gt_valid"], out["gt_masks"], size)
+    if attributes:
+        out.update(attribute_gt(out["gt_bboxes"], out["gt_offsets"], size,
+                                seed))
     return out
+
+
+def has_attributes(model):
+    """Whether ``model`` is a LOFT with an attribute head or the
+    semi-RPN, which train on :func:`attribute_gt`."""
+    heads = ("height_head", "offset_height_head", "angle_head",
+             "side_face_head", "offset_field_head")
+    return getattr(model, "semi_rpn", False) or any(
+        h in getattr(model, "roi_head", {}) for h in heads)
+
+
+def attribute_gt(gt_bboxes, gt_offsets, size, seed=0):
+    """LOFT's attribute GT for a batch's boxes, from a numpy seed: building
+    heights of 3..60 m, each image's off-nadir angle (0.05..0.6 rad),
+    random ``size``^2 side-face maps and offset fields (within +-30 px),
+    the roofs shifted by their offsets as footprint boxes, and the first
+    image footprint-only."""
+    r = np.random.RandomState(seed + 1)
+    b, g = gt_bboxes.shape[:2]
+    return {
+        "gt_building_heights": r.uniform(3, 60, (b, g)).astype(np.float32),
+        "gt_angle": r.uniform(0.05, 0.6, (b,)).astype(np.float32),
+        "gt_side_face_maps": (r.rand(b, size, size) > 0.8).astype(
+            np.float32),
+        "gt_offset_field": r.uniform(-30, 30, (b, size, size, 2)).astype(
+            np.float32),
+        "gt_footprint_bboxes": np.clip(
+            gt_bboxes - np.tile(gt_offsets, 2), 0, size - 1).astype(
+                np.float32),
+        "gt_only_footprint_flag": (np.arange(b) == 0).astype(np.float32)}
 
 
 def _timed(name, fn, totals):
@@ -233,6 +270,10 @@ def _patch_stages(model, totals):
         saved += patch_functions(dict.fromkeys(
             ("ga_loc_targets", "ga_shape_targets"), GA_TARGETS), totals,
             (ga_rpn_head,))
+        saved += patch_functions(
+            {"roi_align": "dense-map crops, plain RoIAlign",
+             "mask_targets_from_instance_masks": "mask targets"}, totals,
+            (loft,))
     for attr, name in patched.items():
         setattr(model, attr, _timed(name, getattr(model, attr), totals))
     time_heads(heads, totals)
@@ -318,7 +359,8 @@ def main(argv=None):
     draw = generator_draws(generator)
     batch = {k: torch.as_tensor(v).cuda() for k, v in synthetic_batch(
         proposals=2000 if model.takes_proposals else 0,
-        semantic="semantic_head" in getattr(model, "roi_head", {})).items()}
+        semantic="semantic_head" in getattr(model, "roi_head", {}),
+        attributes=has_attributes(model)).items()}
     train_step(batch, 0, draw)                          # warm-up
     torch.cuda.reset_peak_memory_stats()
     wall = step_ms(train_step, batch, draw)

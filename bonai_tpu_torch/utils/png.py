@@ -2,8 +2,9 @@
 
 :func:`write_png` writes what ``cv2.imwrite`` would for an 8-bit BGR or
 gray image (RGB or gray, non-interlaced, filter type 0 on every row);
-:func:`read_png` returns what ``cv2.imread(path, IMREAD_COLOR)`` does for an
-8-bit gray, gray+alpha, RGB or RGBA PNG, with any of the five row filters.
+:func:`read_png` returns what ``cv2.imread(path, IMREAD_COLOR)`` (or
+``IMREAD_UNCHANGED``) does for an 8-bit gray, gray+alpha, RGB or RGBA PNG,
+with any of the five row filters.
 Any other PNG (16-bit, palette, interlaced) raises ``NotImplementedError``
 (ROADMAP.md item A3c); so does any other file format.
 """
@@ -94,10 +95,12 @@ def _unfilter(raw, h, stride, bpp):
     return out
 
 
-def read_png(path):
+def read_png(path, unchanged=False):
     """Read an 8-bit PNG as an ``(H, W, 3)`` BGR ``uint8`` array, as
     ``cv2.imread(path, cv2.IMREAD_COLOR)`` does (gray replicated, alpha
-    dropped).  Raises ``FileNotFoundError`` for a missing file."""
+    dropped); with ``unchanged``, as ``cv2.IMREAD_UNCHANGED`` does: gray
+    ``(H, W)``, RGB as BGR, RGBA and gray+alpha as ``(H, W, 4)`` BGRA.
+    Raises ``FileNotFoundError`` for a missing file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
@@ -123,6 +126,12 @@ def read_png(path):
     nch = _CHANNELS[color_type]
     px = _unfilter(zlib.decompress(b"".join(idat)), h, w * nch,
                    nch).reshape(h, w, nch)
+    if unchanged and nch == 1:
+        return np.ascontiguousarray(px[..., 0])
     if nch <= 2:                                      # gray (+ alpha)
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., 2::-1])       # RGB(A) -> BGR
+        px = np.concatenate([np.repeat(px[..., :1], 3, axis=2),
+                             px[..., 1:]], axis=2)
+    bgr = px[..., 2::-1]                              # RGB(A) -> BGR
+    if unchanged and px.shape[2] == 4:
+        bgr = np.concatenate([bgr, px[..., 3:]], axis=2)
+    return np.ascontiguousarray(bgr)

@@ -8,7 +8,15 @@ flipped transposed-conv kernel back, and the first FC after RoI features
 (``shared_fc1``, offset ``fc0``) from the (H, W, C) flatten back to
 torch's (C, H, W).  The plain ``OffsetHead``'s convs (``conv<i>``) go to
 mmdet's ``roi_head.offset_head.convs.<i>``, which the JAX importer does
-not read back (ROADMAP.md queue C).
+not read back (ROADMAP.md queue C); the FOA head's own FCs of each branch
+(flax ``branch<e>_fc<i>``, ``branch<e>_fc_offset``, unshared FCs) to
+``roi_head.offset_head.expand_fcs.<e>.<i>`` and
+``expand_fc_offsets.<e>``.  LOFT's attribute heads (flax ``height_head``,
+``offset_height_head`` with their ``trunk``, ``angle_head``,
+``side_face_head``, ``offset_field_head``) go to ``roi_head.<head>.
+{convs.<i>,fcs.<i>,fc_height,fc_offset,fc_angle,upsample,conv_logits,
+conv_field}``: the reference removed those modules, so no mmdet key
+exists, and the JAX importer reads none of these (ROADMAP.md queue C).
 
 The detector may be LOFT, Faster, Mask or Dynamic R-CNN (the heads it has
 of ``bbox_head``, ``mask_head`` and ``offset_head``), or Cascade R-CNN,
@@ -303,24 +311,58 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             layer(f"{key}.convs.{name[len('conv'):]}.conv", p)
 
     for name, p in params.get("offset_head", {}).items():
-        m = re.fullmatch(r"branch(\d+)_conv(\d+)", name)
-        plain = re.fullmatch(r"conv(\d+)", name)
-        if m:
-            layer(f"roi_head.offset_head.expand_convs.{m[1]}.{m[2]}", p)
-        elif plain:
-            layer(f"roi_head.offset_head.convs.{plain[1]}", p)
-        elif name == "fc0":
-            sd["roi_head.offset_head.fcs.0.weight"] = _fc_to_chw(
-                p["kernel"], roi_feat, roi_feat)
-            sd["roi_head.offset_head.fcs.0.bias"] = np.asarray(p["bias"])
-        elif name == "fc_offset":
-            layer("roi_head.offset_head.fc_offset", p, _fc)
+        m = re.fullmatch(r"branch(\d+)_(conv|fc)(\d+|_offset)", name)
+        if m and m[2] == "conv":
+            layer(f"roi_head.offset_head.expand_convs.{m[1]}.{m[3]}", p)
+        elif m and m[3] == "_offset":   # a branch's own FCs
+            layer(f"roi_head.offset_head.expand_fc_offsets.{m[1]}", p, _fc)
+        elif m:
+            _roi_fc(f"roi_head.offset_head.expand_fcs.{m[1]}", m[3], p,
+                    roi_feat, sd, layer)
         else:
-            layer(f"roi_head.offset_head.fcs.{name[len('fc'):]}", p, _fc)
+            _roi_fc_or_conv("roi_head.offset_head", name, p, roi_feat, sd,
+                            layer)
+    for head in ("height_head", "offset_height_head"):
+        for name, p in params.get(head, {}).get("trunk", {}).items():
+            _roi_fc_or_conv(f"roi_head.{head}", name, p, roi_feat, sd,
+                            layer)
+        for name, p in params.get(head, {}).items():
+            if name != "trunk":
+                layer(f"roi_head.{head}.{name}", p, _fc)
+    for head in ("angle_head", "side_face_head", "offset_field_head"):
+        for name, p in params.get(head, {}).items():
+            if re.fullmatch(r"conv\d+", name):
+                layer(f"roi_head.{head}.convs.{name[len('conv'):]}", p)
+            else:
+                layer(f"roi_head.{head}.{name}", p,
+                      {"upsample": _deconv, "fc_angle": _fc}.get(name,
+                                                                 _conv))
     # np.array, not np.ascontiguousarray: the latter makes the scales'
     # 0-d arrays 1-d
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+def _roi_fc_or_conv(key, name, p, roi_feat, sd, layer):
+    """A RoI regressor's ``conv<i>`` (to ``<key>.convs.<i>``), ``fc<i>``
+    (``<key>.fcs.<i>``, the first from the (H, W, C) flatten) or output FC
+    (``<key>.<name>``)."""
+    if re.fullmatch(r"conv\d+", name):
+        layer(f"{key}.convs.{name[len('conv'):]}", p)
+    elif re.fullmatch(r"fc\d+", name):
+        _roi_fc(f"{key}.fcs", name[len("fc"):], p, roi_feat, sd, layer)
+    else:
+        layer(f"{key}.{name}", p, _fc)
+
+
+def _roi_fc(base, index, p, roi_feat, sd, layer):
+    """FC ``index`` of a RoI regressor's ``base``; FC 0 reads the (H, W,
+    C) flatten of the RoI features."""
+    if index == "0":
+        sd[f"{base}.0.weight"] = _fc_to_chw(p["kernel"], roi_feat, roi_feat)
+        sd[f"{base}.0.bias"] = np.asarray(p["bias"])
+    else:
+        layer(f"{base}.{index}", p, _fc)
 
 
 def _backbone_var(prefix, name, p, bk, bs, layer, norm, block):

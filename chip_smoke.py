@@ -240,7 +240,22 @@ Phases, each of which must pass:
    unclipped COCO schedule with its warmup; CornerNet's Adam); each
    checkpoint through the test CLI with ``--eval bbox``.  No kernel
    launch.  Each config's line carries the card's name and power limit.
-19. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+19. attr: LOFT-FOA with every attribute head (height, joint
+   offset-height, angle, side-face, offset-field, offset reweighting) and
+   ``SemiRPNHead`` (``attr``), and LOFT with polar offsets (``polar``),
+   both derived at full width from the LOFT configs (``_attr_config``,
+   ``_polar_config``), from weights whose R50 BatchNorm statistics are
+   calibrated: one serve batch and one ``inference_detector`` call; the
+   small float32 input's every RoI branch (the attribute heads' outputs
+   too) against the plain route; 3 steps on the synthetic batch (``attr``:
+   with 1024^2 side-face maps and offset fields, heights, angles,
+   footprint boxes, one footprint-only image; ``polar``: polar offsets),
+   every trainable tensor moving; then the train CLI 2 steps on the data
+   phase's 8 tiles with their side-face PNGs and offset-field ``.npy``
+   files (written by the port's generator) and the BONAI test CLI on its
+   checkpoint.  Each config's line carries the card's name and power
+   limit.
+20. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -266,13 +281,19 @@ launch nothing, its Fast R-CNN launches B1 and B2 once a training step and
 B1 once a test batch; the dense phase's runs launch nothing, nor do the
 dense2 phase's RepPoints, FSAF and FoveaBox; its GA Faster R-CNN launches
 B1 once a serve batch, B1 and B2 once a step, B1 once a test batch; the
-dense3 phase's four detectors launch nothing.
+dense3 phase's four detectors launch nothing; the attr phase's ``attr``
+model launches B1 8 times a serve or test batch (box, mask, offset, the
+reweighting's mask and side-face calls, the side-face head, the
+offset-field head and its aggregation's mask call) and B1 and B2 7 times
+a step (the offset field's aggregation runs at test only), its ``polar``
+model 3 times each.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device or outside the repository.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -380,6 +401,13 @@ DENSE3_CONFIGS = (
     ("cornernet", "configs/cornernet/cornernet_hourglass104_bonai.py", True,
      (256, 384), (512, 512), 511))
 DENSE3_STEPS = 3
+# LOFT's attribute heads with the semi-RPN, and polar offsets (the attr
+# phase): the RoIAlign kernel calls of a serve batch and of a training
+# step, and the steps
+ATTR_CALLS = {"attr": (8, 7), "polar": (3, 3)}
+ATTR_STEPS = 3
+ATTR_FILES_STEPS = 2
+ATTR_DIR = os.path.join(REPO, "build", "chip_smoke_attr")
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
@@ -830,16 +858,21 @@ def kernel_phase():
     return sums
 
 
-def _branches(model):
-    """Each RoI branch of a batch: ``(name, run, calls)``, where ``run(feats,
-    rois, valid)`` gives the branch's head outputs (a tuple) from its
-    ``calls`` RoIAlign kernel calls: the box head (a cascade's every stage;
-    Double-Head's two calls, its reg RoIs scaled), then the mask head (with
-    Mask Scoring's IoU head on the same RoI features; no kernel call behind
-    PointRend's single-level ``GenericRoIExtractor``, the plain RoIAlign),
-    Grid R-CNN's grid head and the offset head the model has.  HTC's
-    every box stage and mask stage (its info-flow chain inside) each take
-    the semantic embedding.  The RPN-only detector has none."""
+def _branches(model, train=False):
+    """Each RoI branch of a batch (with ``train``, of a training step):
+    ``(name, run, calls)``, where ``run(feats, rois, valid)`` gives the
+    branch's head outputs (a tuple) from its ``calls`` RoIAlign kernel
+    calls: the box head (a cascade's every stage; Double-Head's two calls,
+    its reg RoIs scaled), then the mask head (with Mask Scoring's IoU head
+    on the same RoI features; no kernel call behind PointRend's
+    single-level ``GenericRoIExtractor``, the plain RoIAlign), Grid
+    R-CNN's grid head and the offset head the model has.  LOFT's offset
+    branch adds the height heads on its features, and the mask and
+    side-face calls of its reweighting; then its side-face head, its
+    offset-field head (serving: with the mask call of its aggregation)
+    and its angle head (no RoIAlign).  HTC's every box stage and mask
+    stage (its info-flow chain inside) each take the semantic embedding.
+    The RPN-only detector has none."""
     import torch
     if "bbox_head" not in getattr(model, "roi_head", {}):
         return []                       # the RPN, a dense detector
@@ -877,15 +910,44 @@ def _branches(model):
             model._roi_align_cfg(model.grid_extractor_cfg, f, r, v))[
                 "fused"],), 1))
     if "offset_head" in model.roi_head:
-        out.append(("OffsetHead", lambda f, r, v: (model.roi_head[
-            "offset_head"](model._roi_align_cfg(model.offset_extractor_cfg,
-                                                f, r, v)),), 1))
+        reweights = getattr(model, "reweights", False)
+
+        def offset(f, r, v):
+            x = model._offset_feats(f, r, v)
+            outs = [model.roi_head["offset_head"](x)]
+            for h in ("height_head", "offset_height_head"):
+                if h in model.roi_head:
+                    o = model.roi_head[h](x)
+                    outs += list(o) if isinstance(o, tuple) else [o]
+            return tuple(outs)
+        out.append(("OffsetHead" + (", reweighted" if reweights else ""),
+                    offset, 3 if reweights else 1))
+    if "side_face_head" in model.roi_head:
+        out.append(("SideFaceHead", lambda f, r, v: (
+            model._side_face_logits(f, r, v),), 1))
+    if "offset_field_head" in model.roi_head:
+        from bonai_tpu_torch.models.roi_heads.attribute_heads import (
+            offset_field_to_offsets)
+        aggregate = model.with_mask and not train
+
+        def field(f, r, v):
+            x = model._roi_align_cfg(model.offset_field_extractor_cfg, f, r,
+                                     v)
+            y = model.roi_head["offset_field_head"](x)
+            if not aggregate:
+                return (y,)
+            return y, offset_field_to_offsets(y, model._mask_logits(f, r, v))
+        out.append(("OffsetFieldHead", field, 2 if aggregate else 1))
+    if "angle_head" in model.roi_head:
+        out.append(("AngleHead", lambda f, r, v: (
+            model.roi_head["angle_head"](f),), 0))
     return out
 
 
-def _roi_calls(model):
-    """The RoIAlign calls a batch or step of ``model`` makes."""
-    return sum(calls for _, _, calls in _branches(model))
+def _roi_calls(model, train=False):
+    """The RoIAlign calls a batch (with ``train``, a step) of ``model``
+    makes."""
+    return sum(calls for _, _, calls in _branches(model, train))
 
 
 def _max_dets(model):
@@ -935,6 +997,17 @@ def _check_outputs(out, b, p, model, need_detections=True):
         shapes["mask_scores"] = (b, p)
     if "offset_head" in roi_head:
         shapes["offsets"] = (b, p, 2)
+    side = 2 * dict(getattr(model, "side_face_extractor_cfg", {}).get(
+        "roi_layer", {})).get("output_size", 0)
+    for head, keys in (
+            ("height_head", {"heights": (b, p)}),
+            ("offset_height_head", {"offset_height_offsets": (b, p, 2),
+                                    "offset_height_heights": (b, p)}),
+            ("angle_head", {"angle": (b,)}),
+            ("side_face_head", {"side_face_probs": (b, p, side, side)}),
+            ("offset_field_head", {"offset_field_offsets": (b, p, 2)})):
+        if head in roi_head:
+            shapes.update(keys)
     if set(out) != set(shapes):
         raise AssertionError(f"outputs {sorted(out)}, expected "
                              f"{sorted(shapes)}")
@@ -1149,16 +1222,17 @@ def _roi_grad_check(model, impl, what):
     from bonai_tpu_torch.core.samplers import generator_draws
     from bonai_tpu_torch.models.detectors import two_stage
     from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    from bonai_tpu_torch.tools.profile_train import has_attributes
     attr, fwd_name, bwd_name = ROUTES[impl]
     kernel_fn = getattr(two_stage, attr)
     plain = _plain_route(impl)
-    n_roi = _roi_calls(model)
+    n_roi = _roi_calls(model, train=True)
     if not n_roi:
         print(f"{what}: no RoI branch, no gradient check", flush=True)
         return
     batch = {k: torch.as_tensor(v).cuda() for k, v in synthetic_batch(
         size=320, g=12, seed=1, proposals=500 if model.takes_proposals
-        else 0)
+        else 0, attributes=has_attributes(model))
         .items()}
     with torch.no_grad():
         feats = [f.detach().requires_grad_()
@@ -1306,7 +1380,7 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     if not all(np.isfinite(h[k]) for h in hist
                for k in keys + ["grad_norm"]):
         raise AssertionError("a loss or the gradient norm is not finite")
-    n_roi = _roi_calls(model)
+    n_roi = _roi_calls(model, train=True)
     _check_counts(counts, {fwd_name: n_roi * steps, bwd_name: n_roi * steps},
                   f"{what}, {steps} steps")
     init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
@@ -2994,6 +3068,221 @@ def dense3_phase():
     return out
 
 
+def _attr_config():
+    """The ``attr`` configuration, derived at full width from
+    ``configs/loft_foa/loft_foa_r50_fpn_2x_bonai.py`` (its ``'block'``
+    route; the same derivation as ``tests/torch_port_common.py::attr_cfg``
+    at tiny widths): ``SemiRPNHead``; height and joint offset-height heads
+    of 4 convs of 256 and 2 FCs of 1024; an angle head of 256 in, 2 convs
+    of 256; side-face and offset-field heads of 4 convs of 256; offset
+    reweighting; a train pipeline that loads heights, the angle, footprint
+    boxes and flag, side-face maps and offset fields.  Written to
+    ``ATTR_DIR``; returns its path."""
+    from bonai_tpu_torch.config import Config
+    cfg = Config.fromfile(CONFIG)
+    cfg.model.rpn_head.type = "SemiRPNHead"
+    trunk = dict(num_convs=4, num_fcs=2, conv_out_channels=256,
+                 fc_out_channels=1024)
+    cfg.model.roi_head.update(
+        height_head=dict(trunk), offset_height_head=dict(trunk),
+        angle_head=dict(in_channels=256, conv_out_channels=256,
+                        num_convs=2),
+        side_face_head=dict(num_convs=4, conv_out_channels=256),
+        offset_field_head=dict(num_convs=4, conv_out_channels=256),
+        offset_reweight=True)
+    load = cfg.data.train.pipeline[1]
+    assert load.type == "LoadAnnotations"
+    load.update(with_building_height=True, with_angle=True,
+                with_footprint_bbox=True, with_only_footprint_flag=True,
+                with_side_face=True, with_offset_field=True)
+    os.makedirs(ATTR_DIR, exist_ok=True)
+    path = os.path.join(ATTR_DIR, "loft_foa_r50_fpn_attr_bonai.py")
+    cfg.dump(path)
+    return path
+
+
+def _polar_config():
+    """The ``polar`` configuration, derived at full width from
+    ``configs/loft/loft_r50_fpn_2x_bonai.py`` (the same derivation as
+    ``tests/torch_port_common.py::polar_cfg`` at tiny widths): its
+    ``OffsetHead`` with ``reg_num=3`` and ``offset_coordinate='polar'``,
+    ``DeltaPolarOffsetCoder``, and ``OffsetTransform('xy2la')`` after
+    ``RandomFlip`` in the train pipeline.  Written to ``ATTR_DIR``;
+    returns its path."""
+    from bonai_tpu_torch.config import Config
+    cfg = Config.fromfile(LOFT_CONFIG)
+    oh = cfg.model.roi_head.offset_head
+    oh.update(reg_num=3, offset_coordinate="polar",
+              offset_coder=dict(type="DeltaPolarOffsetCoder",
+                                target_means=[0.0, 0.0],
+                                target_stds=[0.5, 0.5]))
+    pipeline = cfg.data.train.pipeline
+    flip = [i for i, t in enumerate(pipeline) if t.type == "RandomFlip"][0]
+    pipeline.insert(flip + 1, dict(type="OffsetTransform",
+                                   transform_flag="xy2la"))
+    os.makedirs(ATTR_DIR, exist_ok=True)
+    path = os.path.join(ATTR_DIR, "loft_r50_fpn_polar_bonai.py")
+    cfg.dump(path)
+    return path
+
+
+def _polar_batch():
+    """The synthetic batch with its offsets in polar form, as
+    ``OffsetTransform('xy2la')`` leaves them."""
+    import numpy as np
+    from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    batch = synthetic_batch()
+    o = batch["gt_offsets"]
+    batch["gt_offsets"] = np.stack([np.hypot(o[..., 0], o[..., 1]),
+                                    np.arctan2(o[..., 1], o[..., 0])],
+                                   -1).astype(np.float32)
+    return batch
+
+
+def attr_files(config, weights):
+    """The ``attr`` configuration from files: the side-face PNG and
+    offset-field ``.npy`` of each of the data phase's 8 tiles (written by
+    the port's generator, ``write_attribute_maps``, under ``DATA_DIR``;
+    the tiles too where no data phase ran), ``ATTR_FILES_STEPS`` steps of
+    the train CLI from ``weights`` (every attribute loss finite), then the
+    BONAI test CLI on its checkpoint (one batch of two tiles: ``(bbox,
+    segm, offsets)`` each).  Returns B1's and B2's launches of the train
+    CLI and B1's of the test CLI."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.config import Config
+    from bonai_tpu_torch.engine import latest_checkpoint
+    from bonai_tpu_torch.tools import bonai_test
+    from bonai_tpu_torch.tools import train as train_cli
+    from bonai_tpu_torch.tools.make_synthetic_bonai import (
+        write_attribute_maps, write_split)
+    _, fwd_name, bwd_name = ROUTES["block"]
+    serve_calls, step_calls = ATTR_CALLS["attr"]
+    train_dir = os.path.join(DATA_DIR, "train")
+    if not os.path.exists(os.path.join(train_dir, "train.json")):
+        write_split(DATA_DIR, "train", 8, 0, SIZE)
+    t0 = time.perf_counter()
+    side, field = write_attribute_maps(DATA_DIR, "train")
+    maps_s = time.perf_counter() - t0
+    cfg = Config.fromfile(config)
+    for split in (cfg.data.train, cfg.data.test):
+        split.update(ann_file=os.path.join(train_dir, "train.json"),
+                     img_prefix=os.path.join(train_dir, "images") + "/",
+                     side_face_prefix=side + "/",
+                     offset_field_prefix=field + "/")
+    cfg.data.workers_per_gpu = 2
+    cfg.load_from = weights
+    cfg.log_config = dict(interval=1)
+    work_dir = os.path.join(ATTR_DIR, "wd")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    cfg_path = os.path.join(ATTR_DIR, "attr_files.py")
+    cfg.dump(cfg_path)
+    _zero_counts()
+    t0 = time.perf_counter()
+    # the CLI prints its whole config: into the work directory
+    os.makedirs(work_dir)
+    with open(os.path.join(work_dir, "stdout.txt"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        train_cli.main([cfg_path, "--work-dir", work_dir, "--max-steps",
+                        str(ATTR_FILES_STEPS), "--n-devices", "1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _counts()
+    _check_counts(counts, {fwd_name: step_calls * ATTR_FILES_STEPS,
+                           bwd_name: step_calls * ATTR_FILES_STEPS},
+                  f"attr from files, {ATTR_FILES_STEPS} steps")
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    keys = ("loss", "loss_angle", "loss_height", "loss_offset_height",
+            "loss_side_face", "loss_offset_field", "loss_offset",
+            "loss_rpn_bbox")
+    if len(rows) != ATTR_FILES_STEPS or not all(
+            np.isfinite(r[k]) for r in rows for k in keys):
+        raise AssertionError(f"attr from files: log rows {rows}")
+    print(f"attr files: maps of {len(os.listdir(side))} tiles written in "
+          f"{maps_s:.1f} s; train CLI {ATTR_FILES_STEPS} steps in "
+          f"{train_s:.1f} s incl. set-up; " + " ".join(
+              f"{k} {rows[-1][k]:.4g}" for k in keys)
+          + f"; launches {counts}", flush=True)
+    pkl = os.path.join(ATTR_DIR, "attr.pkl")
+    _zero_counts()
+    t0 = time.perf_counter()
+    payload = bonai_test.main([cfg_path, latest_checkpoint(work_dir),
+                               "--out", pkl, "--city", "config",
+                               "--max-images", "2"])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_counts = _counts()
+    _check_counts(test_counts, {fwd_name: serve_calls},
+                  "attr test CLI, 1 batch")
+    results = payload["results"]
+    if len(results) != 2 or not all(
+            isinstance(r, tuple) and len(r) == 3
+            and len(r[2]) == len(r[0][0]) and np.isfinite(r[2]).all()
+            for r in results):
+        raise AssertionError("the attr test CLI's results are not (bbox, "
+                             "segm, offsets) 3-tuples")
+    print(f"attr files: BONAI test CLI {test_s:.1f} s (model build, 2 "
+          f"tiles, bf16), detections {[len(r[0][0]) for r in results]}; "
+          f"launches {test_counts}", flush=True)
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return counts[fwd_name], counts[bwd_name], test_counts[fwd_name]
+
+
+def attr_phase():
+    """LOFT-FOA with every attribute head and the semi-RPN (``attr``,
+    :func:`_attr_config`) and LOFT with polar offsets (``polar``,
+    :func:`_polar_config`) at full width, from seeded random weights whose
+    R50 BatchNorm statistics are calibrated (``_calibrated_weights``), with
+    the ``'block'`` route: one serve batch (B=2, 1024^2, bf16) and one
+    ``inference_detector`` call; the small float32 input's every RoI
+    branch output (the attribute heads' too) against the plain route;
+    ``ATTR_STEPS`` steps on the repeated synthetic batch (``attr``: with
+    random 1024^2 side-face maps and offset fields, heights, angles,
+    footprint boxes, the first image footprint-only; ``polar``: its
+    offsets polar), every trainable tensor moving; B1 and B2 launched
+    ``ATTR_CALLS`` times a batch or step.  Then :func:`attr_files`.
+    Returns the launch counts, times and peak memory."""
+    from bonai_tpu_torch.tools.profile_train import synthetic_batch
+    t0 = time.time()
+    out = {}
+    for label, config, batch in (
+            ("attr", _attr_config(), synthetic_batch(attributes=True)),
+            ("polar", _polar_config(), _polar_batch())):
+        weights = os.path.join(ATTR_DIR, f"{label}_init.pth")
+        _calibrated_weights(config, weights)
+        serve, serve_ms, serve_peak = serve_phase(
+            "block", config, calls=1, label=f"{label} serve",
+            checkpoint=weights)
+        train = train_phase("block", ATTR_STEPS, config,
+                            label=f"{label} train", load_from=weights,
+                            batch=batch)
+        serve_calls, step_calls = ATTR_CALLS[label]
+        if serve != 2 * serve_calls or not (
+                train["fwd"] == train["bwd"] == ATTR_STEPS * step_calls):
+            raise AssertionError(f"{label}: B1 {serve} launches serving, "
+                                 f"{train['fwd']} / B2 {train['bwd']} "
+                                 f"training; expected {serve_calls} a "
+                                 f"batch and {step_calls} a step")
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train)
+    files = attr_files(_attr_config(), os.path.join(ATTR_DIR,
+                                                     "attr_init.pth"))
+    out["files"] = dict(zip(("fwd", "bwd", "test_cli"), files))
+    card = _gpu_name_and_power()
+    for label in ATTR_CALLS:
+        r = out[label]
+        print(f"attr phase {label}: serve {r['serve_ms']:.1f} ms a B=2 "
+              f"call, peak {r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} "
+              f"launches; train median step {r['train']['step_ms']:.1f} ms, "
+              f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
+              f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches; card "
+              f"{card}", flush=True)
+    print(f"attr phase: {time.time() - t0:.1f} s", flush=True)
+    shutil.rmtree(ATTR_DIR, ignore_errors=True)
+    return out
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -3082,6 +3371,7 @@ def main():
     dense = dense_phase()
     dense2 = dense2_phase()
     dense3 = dense3_phase()
+    attr = attr_phase()
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -3155,7 +3445,12 @@ def main():
                    for what, n in (("serve", r["serve"]),
                                    ("train", r["train"]["fwd"]),
                                    ("coco_cli", r["coco_cli"]))
-                   if n is not None}),
+                   if n is not None},
+                **{f"{k}_{what}_launches": n for k in ATTR_CALLS
+                   for what, n in (("serve", attr[k]["serve"]),
+                                   ("train", attr[k]["train"]["fwd"]))},
+                attr_files_train_launches=attr["files"]["fwd"],
+                attr_test_cli_launches=attr["files"]["test_cli"]),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],
@@ -3180,7 +3475,10 @@ def main():
                                       ("dense3", dense3))
                   for k, r in runs.items()},
                **{f"dense_{k}_train_launches": r["train"]["bwd"]
-                  for k, r in dense.items()}),
+                  for k, r in dense.items()},
+               **{f"{k}_train_launches": attr[k]["train"]["bwd"]
+                  for k in ATTR_CALLS},
+               attr_files_train_launches=attr["files"]["bwd"]),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

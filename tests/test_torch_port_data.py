@@ -103,8 +103,13 @@ def test_not_ported_parts_raise():
     with pytest.raises(NotImplementedError, match="A7"):
         build_dataset(dict(type="ClassBalancedDataset", dataset={},
                            oversample_thr=0.1))
-    with pytest.raises(NotImplementedError, match="A5"):
-        LoadAnnotations(with_edge=True)
+    # LOFT's dense maps are ported (test_torch_port_attributes.py); the
+    # arbitrary-angle rotation is still A5
+    LoadAnnotations(with_edge=True, with_side_face=True,
+                    with_offset_field=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A5"):
+        build_pipeline([dict(type="LoadImageFromFile"),
+                        dict(type="RandomRotate", angles=[90])])
     # COCO evaluation is ported (test_torch_port_coco_eval.py); the
     # robustness benchmark's Corrupt transform is still A8
     with pytest.raises(NotImplementedError, match="A8"):
@@ -112,7 +117,7 @@ def test_not_ported_parts_raise():
 
 
 UNPORTED_TRANSFORMS = {
-    "OffsetTransform": "A5", "RandomRotate": "A5", "Pointobb2RBBox": "A5",
+    "RandomRotate": "A5", "Pointobb2RBBox": "A5",
     "Expand": "A6", "MinIoURandomCrop": "A6", "RandomCrop": "A6",
     "AutoAugment": "A6", "SegRescale": "A7", "Corrupt": "A8",
     "InstaBoost": "not queued", "Albu": "not queued"}
@@ -153,6 +158,29 @@ def test_cornernet_transforms_run(name):
             if key in want:
                 np.testing.assert_array_equal(got[key], want[key],
                                               err_msg=f"{name} {key}")
+
+
+@pytest.mark.parametrize("flag", ["xy2la", "la2xy"])
+def test_offset_transform_matches_jax(flag):
+    """``OffsetTransform`` (ported since its A5 case here), built through
+    the pipeline builder, against the JAX transform: exact, and a sample
+    without offsets passes through."""
+    from bonai_tpu.datasets.pipelines.transforms import PIPELINES as JAX_REG
+    from bonai_tpu_torch.datasets.pipelines import build_pipeline
+    r = np.random.RandomState(4)
+    offsets = r.uniform(-30, 30, (17, 2)).astype(np.float32)
+    if flag == "la2xy":
+        offsets[:, 1] = r.uniform(-np.pi, np.pi, 17)
+    got = build_pipeline([dict(type="OffsetTransform",
+                               transform_flag=flag)])(
+        dict(gt_offsets=offsets.copy()))
+    want = JAX_REG.get("OffsetTransform")(flag)(
+        dict(gt_offsets=offsets.copy()))
+    np.testing.assert_array_equal(got["gt_offsets"], want["gt_offsets"])
+    assert got["gt_offsets"].dtype == np.float32
+    empty = dict(gt_offsets=np.zeros((0, 2), np.float32))
+    assert build_pipeline([dict(type="OffsetTransform",
+                                transform_flag=flag)])(empty) is empty
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_TRANSFORMS))

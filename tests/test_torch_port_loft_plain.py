@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import (LOFT_CONFIG, jax_forward_train_draws,
+from torch_port_common import (CONFIG, LOFT_CONFIG, jax_forward_train_draws,
                                jax_model, port_model, t, tiny_cfg,
                                tiny_train_cfg, train_batch)
 
@@ -51,12 +51,20 @@ def test_config_builds_the_plain_head():
 
 
 def test_polar_offsets_name_the_roadmap_item():
+    """Polar offsets (ROADMAP.md item A5, ported): the plain head builds
+    with them, and the FOA head with them raises the JAX detector's
+    refusal (``test_torch_port_polar.py`` holds them to JAX)."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     cfg = Config.fromfile(LOFT_CONFIG)
     cfg.model.roi_head.offset_head.offset_coordinate = "polar"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A5"):
-        build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    with torch.device("meta"):
+        model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    assert model.offset_coordinate == "polar" and not model.foa
+    foa = Config.fromfile(CONFIG)
+    foa.model.roi_head.offset_head.offset_coordinate = "polar"
+    with pytest.raises(ValueError, match="pair with the plain OffsetHead"):
+        build_detector(foa.model, foa.train_cfg, foa.test_cfg)
 
 
 def test_offset_head_matches_jax(models):

@@ -309,6 +309,75 @@ def detectors_cfg(train=False):
     return cfg
 
 
+def attr_cfg(train=False):
+    """LOFT-FOA with every attribute head at the widths of
+    ``tests/test_attribute_heads.py::_attr_cfg`` on the trunk of
+    :func:`tiny_cfg` (the training sizes of :func:`tiny_train_cfg` with
+    ``train``): ``SemiRPNHead``, height and joint offset-height heads of
+    one 32-channel conv and one 32-wide FC, an angle head of one conv,
+    side-face and offset-field heads of one conv, offset reweighting.  The
+    angle head's ``in_channels`` is the FPN's 16 (the JAX module infers
+    it).  The same derivation as ``chip_smoke.py::_attr_config`` at full
+    width."""
+    cfg = (tiny_train_cfg if train else tiny_cfg)()
+    cfg.model.rpn_head.type = "SemiRPNHead"
+    rh = cfg.model.roi_head
+    trunk = dict(num_convs=1, num_fcs=1, conv_out_channels=32,
+                 fc_out_channels=32)
+    rh.height_head = dict(trunk, loss_weight=1.0, height_coder=dict(
+        target_means=[0.0], target_stds=[4.0]))
+    rh.offset_height_head = dict(trunk)
+    rh.angle_head = dict(in_channels=16, conv_out_channels=32, num_convs=1,
+                         loss_weight=1.0)
+    rh.side_face_head = dict(num_convs=1, conv_out_channels=32)
+    rh.offset_field_head = dict(num_convs=1, conv_out_channels=32)
+    rh.offset_reweight = True
+    return cfg
+
+
+def polar_cfg(train=False):
+    """LOFT with the plain ``OffsetHead`` regressing polar offsets as
+    ``(length, cos, sin)`` (``reg_num=3``, ``DeltaPolarOffsetCoder``) at
+    the widths of ``tests/test_polar_offsets.py::_polar_cfg`` on the trunk
+    of :func:`tiny_cfg`; its train pipeline turns the flipped offsets
+    polar (``OffsetTransform('xy2la')`` after ``RandomFlip``).  The same
+    derivation as ``chip_smoke.py::_polar_config`` at full width."""
+    cfg = (tiny_train_cfg if train else tiny_cfg)(config=LOFT_CONFIG)
+    cfg.model.roi_head.offset_head = dict(
+        type="OffsetHead", num_convs=1, num_fcs=1, in_channels=16,
+        conv_out_channels=32, fc_out_channels=32, reg_num=3,
+        offset_coordinate="polar",
+        offset_coder=dict(type="DeltaPolarOffsetCoder",
+                          target_means=[0.0, 0.0], target_stds=[0.5, 0.5]),
+        loss_offset=dict(type="SmoothL1Loss", loss_weight=8.0))
+    pipeline = cfg.data.train.pipeline
+    flip = [i for i, p in enumerate(pipeline) if p.type == "RandomFlip"][0]
+    pipeline.insert(flip + 1, dict(type="OffsetTransform",
+                                   transform_flag="xy2la"))
+    return cfg
+
+
+def attr_batch(seed=0, b=2, size=128, g=6):
+    """:func:`train_batch` with the attribute heads' GT: building heights,
+    the images' angles, a random side-face map and offset field at the
+    image's size, the roofs shifted by their offsets as footprint boxes,
+    and the first image footprint-only."""
+    r = np.random.RandomState(seed + 100)
+    batch = train_batch(seed, b=b, size=size, g=g)
+    fp = batch["gt_bboxes"] - np.tile(batch["gt_offsets"], 2)
+    fp = np.clip(fp, 0, size - 1) * batch["gt_valid"][..., None]
+    batch.update(
+        gt_building_heights=r.uniform(3, 30, (b, g)).astype(np.float32),
+        gt_angle=r.uniform(0.1, 0.6, (b,)).astype(np.float32),
+        gt_side_face_maps=(r.rand(b, size, size) > 0.7).astype(np.float32),
+        gt_offset_field=r.uniform(-10, 10, (b, size, size, 2)).astype(
+            np.float32),
+        gt_footprint_bboxes=fp.astype(np.float32),
+        gt_only_footprint_flag=np.array([1.0] + [0.0] * (b - 1),
+                                        np.float32))
+    return batch
+
+
 def _random_tree(shapes, r):
     """Seeded numpy values for every leaf of a flax variable tree: LeCun
     normal kernels, random biases and BatchNorm affine and statistics (so
