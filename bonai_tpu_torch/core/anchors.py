@@ -1,6 +1,6 @@
 """Anchor generation (counterpart of ``bonai_tpu/core/anchors.py``
-``AnchorGenerator``, ``SSDAnchorGenerator`` and
-``LegacySSDAnchorGenerator``).  Anchors depend only on the feature-map sizes, so
+``AnchorGenerator``, ``SSDAnchorGenerator``, ``LegacySSDAnchorGenerator``
+and ``RAnchorGenerator``).  Anchors depend only on the feature-map sizes, so
 they are built in numpy and moved to the device by the caller."""
 
 from __future__ import annotations
@@ -70,6 +70,46 @@ class AnchorGenerator:
             shifts = np.stack([xx, yy, xx, yy], axis=-1)
             out.append((base[None, :, :] + shifts[:, None, :])
                        .reshape(-1, 4).astype(np.float32))
+        return out
+
+
+class RAnchorGenerator(AnchorGenerator):
+    """Rotated anchors ``(xc, yc, w, h, theta)``: each level's base
+    anchors once per angle of ``angles`` (degrees; ``theta`` in radians),
+    ``(A * len(angles), 5)``, and the grid anchors ``(H*W*A*len(angles),
+    5)`` row-major over (y, x, anchor), the shifts moving the centres
+    only."""
+
+    def __init__(self, *args, angles=(0.0,), **kwargs):
+        self.angles = [float(a) for a in angles]
+        super().__init__(*args, **kwargs)
+
+    def _single_level_base_anchors(self, base_size, center=None):
+        aligned = super()._single_level_base_anchors(base_size, center)
+        xc = (aligned[:, 0] + aligned[:, 2]) * 0.5
+        yc = (aligned[:, 1] + aligned[:, 3]) * 0.5
+        w = aligned[:, 2] - aligned[:, 0]
+        h = aligned[:, 3] - aligned[:, 1]
+        return np.concatenate([
+            np.stack([xc, yc, w, h, np.full_like(xc, np.deg2rad(a))], -1)
+            for a in self.angles])
+
+    def grid_anchors(self, featmap_sizes):
+        """List of ``(H*W*A, 5)`` float32 arrays."""
+        if len(featmap_sizes) != self.num_levels:
+            raise ValueError(f"{len(featmap_sizes)} feature maps for "
+                             f"{self.num_levels} anchor levels")
+        out = []
+        for base, (feat_h, feat_w), stride in zip(
+                self.base_anchors, featmap_sizes, self.strides):
+            shift_x = np.arange(0, feat_w, dtype=np.float32) * stride[0]
+            shift_y = np.arange(0, feat_h, dtype=np.float32) * stride[1]
+            xx = np.tile(shift_x, feat_h)
+            yy = np.repeat(shift_y, feat_w)
+            zeros = np.zeros_like(xx)
+            shifts = np.stack([xx, yy, zeros, zeros, zeros], axis=-1)
+            out.append((base[None, :, :] + shifts[:, None, :])
+                       .reshape(-1, 5).astype(np.float32))
         return out
 
 

@@ -1,8 +1,8 @@
 """Box and offset geometry (counterpart of ``bonai_tpu/core/boxes.py``):
-IoU, the delta-xywh box coder, the delta-xy and polar offset coders
-(registered in ``BBOX_CODERS``), offset rotation and clipping, on batched
-tensors.  Each keeps the JAX function's order of operations: the assigner
-compares IoUs for exact equality."""
+IoU, the delta-xywh box coder, the delta-xy and polar offset coders and the
+rotated-box coder (registered in ``BBOX_CODERS``), offset rotation, box
+flips and clipping, on batched tensors.  Each keeps the JAX function's
+order of operations: the assigner compares IoUs for exact equality."""
 
 from __future__ import annotations
 
@@ -175,6 +175,78 @@ class DeltaPolarOffsetCoder:
         if max_shape is not None:
             length = length.clamp(0, math.hypot(*max_shape))
         return torch.stack([length, d[..., 1]], dim=-1)
+
+
+@BBOX_CODERS.register_module()
+class DeltaXYWHBBoxCoder:
+    """The delta-xywh box coder of :func:`bbox2delta` and
+    :func:`delta2bbox`."""
+
+    def __init__(self, target_means=(0., 0., 0., 0.),
+                 target_stds=(1., 1., 1., 1.)):
+        self.means = tuple(target_means)
+        self.stds = tuple(target_stds)
+
+    def encode(self, bboxes, gt_bboxes):
+        return bbox2delta(bboxes, gt_bboxes, self.means, self.stds)
+
+    def decode(self, bboxes, pred_bboxes, max_shape=None,
+               wh_ratio_clip=16 / 1000):
+        return delta2bbox(bboxes, pred_bboxes, self.means, self.stds,
+                          max_shape, wh_ratio_clip)
+
+
+@BBOX_CODERS.register_module()
+class DeltaRBBoxCoder:
+    """Rotated boxes ``(xc, yc, w, h, theta)`` as deltas ``(dx, dy, log dw,
+    log dh, dtheta)``, the centre offset projected into the proposal's
+    rotated frame."""
+
+    def __init__(self, target_means=(0., 0., 0., 0., 0.),
+                 target_stds=(1., 1., 1., 1., 1.)):
+        self.means = tuple(target_means)
+        self.stds = tuple(target_stds)
+
+    def encode(self, proposals, gt, eps=1e-7):
+        pw = proposals[..., 2].clamp(min=eps)
+        ph = proposals[..., 3].clamp(min=eps)
+        pt = proposals[..., 4]
+        cos_t, sin_t = torch.cos(pt), torch.sin(pt)
+        ddx = gt[..., 0] - proposals[..., 0]
+        ddy = gt[..., 1] - proposals[..., 1]
+        deltas = torch.stack([(cos_t * ddx + sin_t * ddy) / pw,
+                              (-sin_t * ddx + cos_t * ddy) / ph,
+                              torch.log(gt[..., 2].clamp(min=eps) / pw),
+                              torch.log(gt[..., 3].clamp(min=eps) / ph),
+                              gt[..., 4] - pt], dim=-1)
+        return _div(deltas - deltas.new_tensor(self.means), self.stds)
+
+    def decode(self, proposals, deltas, wh_ratio_clip=16 / 1000):
+        d = deltas * deltas.new_tensor(self.stds) \
+            + deltas.new_tensor(self.means)
+        max_ratio = abs(math.log(wh_ratio_clip))
+        dw = d[..., 2].clamp(-max_ratio, max_ratio)
+        dh = d[..., 3].clamp(-max_ratio, max_ratio)
+        pw, ph, pt = proposals[..., 2], proposals[..., 3], proposals[..., 4]
+        cos_t, sin_t = torch.cos(pt), torch.sin(pt)
+        gx = proposals[..., 0] + pw * d[..., 0] * cos_t \
+            - ph * d[..., 1] * sin_t
+        gy = proposals[..., 1] + pw * d[..., 0] * sin_t \
+            + ph * d[..., 1] * cos_t
+        return torch.stack([gx, gy, pw * torch.exp(dw), ph * torch.exp(dh),
+                            pt + d[..., 4]], dim=-1)
+
+
+def bbox_flip(bboxes, img_shape, direction="horizontal"):
+    """``(..., 4)`` boxes mirrored in an image of ``img_shape = (h, w)``
+    (numbers or tensors broadcasting against ``bboxes[..., 0]``)."""
+    h, w = img_shape
+    x1, y1, x2, y2 = bboxes.unbind(-1)
+    if direction == "horizontal":
+        return torch.stack([w - x2, y1, w - x1, y2], dim=-1)
+    if direction == "vertical":
+        return torch.stack([x1, h - y2, x2, h - y1], dim=-1)
+    raise ValueError(direction)
 
 
 def clip_boxes(boxes, img_shape):

@@ -4,7 +4,8 @@ transforms.py`` that the BONAI and synthetic configs use):
 ``LoadImageFromFile`` (PNG through ``utils/png.py``, with the
 decoded-image cache), ``LoadAnnotations`` (with LOFT's edge, side-face and
 offset-field maps), ``LoadProposals``, ``Resize``, ``RandomFlip``,
-``OffsetTransform``, ``Normalize``, ``Pad``, ``DefaultFormatBundle``,
+``RandomRotate`` (its warps in ``utils/warp.py``), ``OffsetTransform``,
+``Pointobb2RBBox``, ``Normalize``, ``Pad``, ``DefaultFormatBundle``,
 ``ImageToTensor``, ``Collect`` and ``MultiScaleFlipAug``; CornerNet's
 ``PhotoMetricDistortion`` (its HSV conversions in ``utils/color.py``) and
 ``RandomCenterCropPad``.
@@ -12,13 +13,14 @@ offset-field maps), ``LoadProposals``, ``Resize``, ``RandomFlip``,
 Masks travel as polygons (lists of ``(K, 2)`` float32 arrays per instance
 part) until the loader packs them, so the geometric steps are exact.  The
 dense maps (``edge_fields``, ``side_face_fields``, ``offset_field_fields``)
-travel at image resolution: resized nearest, flipped and padded with the
-image.
+travel at image resolution: resized nearest, flipped, rotated (nearest)
+and padded with the image.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 import os.path as osp
 import warnings
@@ -29,13 +31,13 @@ from ...core.masks import resize_bilinear
 from ...registry import Registry, build_from_cfg
 from ...utils.color import bgr_to_hsv, hsv_to_bgr
 from ...utils.png import read_png
+from ...utils.warp import min_area_rect, rotation_matrix_2d, warp_affine
 
 PIPELINES = Registry("pipeline")
 MAP_FIELDS = ("edge_fields", "side_face_fields", "offset_field_fields")
 
 # the JAX package's other transforms, by the ROADMAP.md item that ports them
 UNPORTED = {
-    **dict.fromkeys(("RandomRotate", "Pointobb2RBBox"), "item A5"),
     **dict.fromkeys(("Expand", "MinIoURandomCrop", "RandomCrop",
                      "AutoAugment"), "item A6"),
     "SegRescale": "item A7",
@@ -402,6 +404,130 @@ class RandomFlip:
 
 
 @PIPELINES.register_module()
+class RandomRotate:
+    """Rotation of the image, boxes, polygons, offsets and dense maps about
+    the image centre, by an angle drawn from ``angles`` (``'any'``: every
+    whole degree of 0..359).  Draws ``rng.rand()`` and, only when it
+    rotates, ``rng.randint(len(angles))`` from ``results['_rng']``, as the
+    JAX transform does.
+
+    Multiples of 90 degrees are exact: ``np.rot90`` and the matching
+    integer remap of the coordinates.  Other angles warp the image
+    bilinearly (``utils/warp.py::warp_affine``, cv2's ``warpAffine`` on
+    the same fixed canvas, zero border) and the edge and side-face maps and
+    the offset field by their nearest pixel; a box becomes the bounding box
+    of its four turned corners, clipped to the canvas; polygon points go
+    through the affine; offsets and the field's vectors turn by the angle
+    (``(x cos a + y sin a, -x sin a + y cos a)``)."""
+
+    def __init__(self, rotate_ratio=0.5, angles=(90, 180, 270)):
+        self.rotate_ratio = rotate_ratio
+        self.angles = list(range(0, 360)) if isinstance(angles, str) \
+            else list(angles)
+
+    @staticmethod
+    def _rotate_points(xy, m):
+        """A ``(2, 3)`` affine applied to ``(N, 2)`` points."""
+        return xy @ m[:, :2].T + m[:, 2]
+
+    @staticmethod
+    def _turn(vectors, angle):
+        """``(..., 2)`` vectors turned by ``angle`` degrees, float32."""
+        a = math.radians(angle)
+        c, s = math.cos(a), math.sin(a)
+        x, y = vectors[..., 0], vectors[..., 1]
+        return np.stack([x * c + y * s, -x * s + y * c],
+                        -1).astype(np.float32)
+
+    def _rotate_general(self, results, angle):
+        h, w = results["img_shape"][:2]
+        m = rotation_matrix_2d(((w - 1) * 0.5, (h - 1) * 0.5), angle)
+        results["img"] = warp_affine(results["img"], m, (w, h), "linear")
+        results["img_shape"] = results["img"].shape[:2]
+
+        def rot_boxes(b):
+            if not len(b):
+                return b
+            corners = np.stack([b[:, 0], b[:, 1], b[:, 2], b[:, 1],
+                                b[:, 2], b[:, 3], b[:, 0], b[:, 3]],
+                               -1).reshape(-1, 2)
+            r = self._rotate_points(corners, m).reshape(-1, 4, 2)
+            out = np.concatenate([r.min(1), r.max(1)],
+                                 -1).astype(np.float32)
+            out[:, 0::2] = out[:, 0::2].clip(0, w)
+            out[:, 1::2] = out[:, 1::2].clip(0, h)
+            return out
+
+        for key in ("gt_bboxes", "gt_footprint_bboxes", "proposals"):
+            if key in results:
+                results[key] = rot_boxes(results[key])
+        if "gt_masks" in results:
+            results["gt_masks"] = [
+                [self._rotate_points(p, m).astype(np.float32) for p in inst]
+                for inst in results["gt_masks"]]
+        if "gt_offsets" in results and len(results["gt_offsets"]):
+            results["gt_offsets"] = self._turn(results["gt_offsets"], angle)
+        for key in (results.get("edge_fields", [])
+                    + results.get("side_face_fields", [])):
+            results[key] = warp_affine(results[key], m, (w, h), "nearest")
+        for key in results.get("offset_field_fields", []):
+            results[key] = self._turn(
+                warp_affine(results[key], m, (w, h), "nearest"), angle)
+        return results
+
+    def draw_angle(self, rng):
+        """The angle to turn by, drawn from ``rng`` as the JAX transform
+        draws it, or ``None``: no turn."""
+        if rng.rand() >= self.rotate_ratio:
+            return None
+        return self.angles[rng.randint(len(self.angles))]
+
+    def __call__(self, results):
+        angle = self.draw_angle(results.setdefault("_rng",
+                                                   np.random.RandomState()))
+        if angle is None:
+            return results
+        if angle % 90 != 0:
+            return self._rotate_general(results, angle)
+        k = (angle // 90) % 4
+        if k == 0:
+            return results
+        h, w = results["img_shape"]
+        results["img"] = np.ascontiguousarray(np.rot90(results["img"], k=k))
+        results["img_shape"] = results["img"].shape[:2]
+
+        def rotate_xy(x, y, hh, ww):
+            """``(x, y)`` turned ``k`` quarter turns counter-clockwise."""
+            for _ in range(k):
+                x, y = y, ww - x
+                hh, ww = ww, hh
+            return x, y
+
+        for key in ("gt_bboxes", "gt_footprint_bboxes", "proposals"):
+            if key in results and len(results[key]):
+                b = results[key]
+                x1, y1 = rotate_xy(b[:, 0].copy(), b[:, 1].copy(), h, w)
+                x2, y2 = rotate_xy(b[:, 2].copy(), b[:, 3].copy(), h, w)
+                results[key] = np.stack(
+                    [np.minimum(x1, x2), np.minimum(y1, y2),
+                     np.maximum(x1, x2), np.maximum(y1, y2)], -1)
+        if "gt_masks" in results:
+            results["gt_masks"] = [
+                [np.stack(rotate_xy(p[:, 0].copy(), p[:, 1].copy(), h, w),
+                          -1) for p in inst]
+                for inst in results["gt_masks"]]
+        if "gt_offsets" in results and len(results["gt_offsets"]):
+            results["gt_offsets"] = self._turn(results["gt_offsets"], angle)
+        for key in (results.get("edge_fields", [])
+                    + results.get("side_face_fields", [])):
+            results[key] = np.ascontiguousarray(np.rot90(results[key], k=k))
+        for key in results.get("offset_field_fields", []):
+            results[key] = self._turn(np.ascontiguousarray(
+                np.rot90(results[key], k=k)), angle)
+        return results
+
+
+@PIPELINES.register_module()
 class OffsetTransform:
     """Offsets between rectangular ``(x, y)`` and polar ``(length,
     angle)`` form: ``'xy2la'`` (the polar offset head's training
@@ -421,6 +547,51 @@ class OffsetTransform:
         else:
             raise ValueError(self.transform_flag)
         results["gt_offsets"] = np.stack(out, -1).astype(np.float32)
+        return results
+
+
+@PIPELINES.register_module()
+class Pointobb2RBBox:
+    """Four-point oriented boxes ``(N, 8)`` of every key in
+    ``results['rbbox_fields']`` encoded for the rotated-box experiments:
+    ``'thetaobb'`` -> ``(xc, yc, w, h, theta)``, the minimum-area rectangle
+    of the rounded points (``utils/warp.py::min_area_rect``, cv2's
+    convention: theta in degrees, in ``[-90, 0)``); ``'hobb'`` -> ``(x1, y1,
+    x2, y2, h)`` from the point order (of the four cyclic rolls) nearest
+    the axis-aligned corners, ``h`` the length from its first point to its
+    fourth; ``'pointobb'``: unchanged."""
+
+    def __init__(self, encoding_method="thetaobb"):
+        if encoding_method not in ("thetaobb", "hobb", "pointobb"):
+            raise ValueError(encoding_method)
+        self.encoding_method = encoding_method
+
+    @staticmethod
+    def _best_point_sort(pointobb):
+        xs, ys = pointobb[0::2], pointobb[1::2]
+        ref = np.array([xs.min(), ys.min(), xs.max(), ys.min(),
+                        xs.max(), ys.max(), xs.min(), ys.max()])
+        rolls = [np.roll(pointobb, k) for k in (0, 2, 4, 6)]
+        d = [np.sum((c - ref) ** 2) for c in rolls]
+        return rolls[int(np.argmin(d))]
+
+    def __call__(self, results):
+        for key in results.get("rbbox_fields", []):
+            rb = np.asarray(results[key], np.float32).reshape(-1, 8)
+            if self.encoding_method == "thetaobb":
+                out = []
+                for p in rb:
+                    (x, y), (w, h), theta = min_area_rect(
+                        np.round(p).astype(np.int64).reshape(4, 2))
+                    out.append([x, y, w, h, theta])
+                results[key] = np.asarray(out, np.float32).reshape(-1, 5)
+            elif self.encoding_method == "hobb":
+                out = []
+                for p in rb:
+                    s = self._best_point_sort(p)
+                    h = float(np.hypot(s[6] - s[0], s[7] - s[1]))
+                    out.append([s[0], s[1], s[2], s[3], h])
+                results[key] = np.asarray(out, np.float32).reshape(-1, 5)
         return results
 
 
@@ -672,8 +843,8 @@ class Collect:
 class MultiScaleFlipAug:
     """The test pipeline's wrapper: runs ``transforms`` once, on the base
     view, the first ``img_scale`` unflipped, as the JAX step does.  The
-    views it declares (:meth:`tta_cfg`) are test-time augmentation,
-    ROADMAP.md item A5."""
+    views it declares (:meth:`tta_cfg`) are made from that base view on
+    the device by test-time augmentation (``apis/test.py``)."""
 
     def __init__(self, transforms, img_scale=None, flip=False,
                  flip_direction="horizontal", scale_factors=None):

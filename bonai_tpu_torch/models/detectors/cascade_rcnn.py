@@ -54,6 +54,13 @@ class CascadeRCNN(TwoStageDetector):
         self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
         self._setup_mask_head(cfg)
 
+    def _aug_test_box_head(self):
+        """The first stage's head with the last stage's coder: the JAX
+        cascade's ``aug_test`` runs the trunk's single-head path, whose
+        ``bbox_head_m`` is the first stage and ``bbox_coder_cfg`` the last
+        stage's (ROADMAP.md queue C)."""
+        return self.roi_head["bbox_head"][0], self.bbox_coders[-1]
+
     def _decode(self, i, rois, bbox_pred, img_shape, b):
         """Stage ``i``'s boxes ``(B, N, 4)``: its first four deltas decoded
         on ``rois`` ``(B*N, 5)`` and clipped to each image."""

@@ -36,6 +36,12 @@ MASK_HEAD_TYPES = ("FCNMaskHead", "HTCMaskHead")
 
 class HTC(CascadeRCNN):
 
+    def aug_test(self, *args, **kwargs):
+        """Refused: the JAX detector's ``aug_test`` does not run on HTC."""
+        self._refuse_aug_test(
+            "the JAX detector's aug_test reads the trunk's single mask head "
+            "(mask_head/conv0), which HTC's per-stage heads replace")
+
     def _setup_mask_head(self, cfg):
         """One ``HTCMaskHead`` a stage (with ``mask_info_flow``, a
         ``conv_res`` on every stage but the first), the semantic head and

@@ -43,11 +43,14 @@ class LOFT(TwoStageDetector):
     def _setup_roi_head(self, cfg):
         super()._setup_roi_head(cfg)
         oh = dict(cfg["offset_head"])
+        # the JAX detector reads any other type as the plain head and
+        # ignores the coder's type; a type neither package defines is
+        # refused here (ROADMAP.md queue C)
         oh_type = oh.get("type", "OffsetHeadExpandFeature")
         if oh_type not in ("OffsetHead", "OffsetHeadExpandFeature"):
-            raise NotImplementedError(f"{oh_type} is not ported to "
-                                      f"bonai_tpu_torch yet (ROADMAP.md "
-                                      f"item A5)")
+            raise ValueError(f"offset head type {oh_type!r}: neither "
+                             f"package defines it (OffsetHead, "
+                             f"OffsetHeadExpandFeature)")
         self.foa = oh_type == "OffsetHeadExpandFeature"
         self.offset_coordinate = oh.get("offset_coordinate", "rectangle")
         if self.foa and self.offset_coordinate == "polar":
@@ -57,9 +60,9 @@ class LOFT(TwoStageDetector):
         coder = dict(oh.get("offset_coder", {}))
         coder.setdefault("type", "DeltaXYOffsetCoder")
         if coder["type"] not in BBOX_CODERS:
-            raise NotImplementedError(f"{coder['type']} is not ported to "
-                                      f"bonai_tpu_torch yet (ROADMAP.md "
-                                      f"item A5)")
+            raise ValueError(f"offset coder type {coder['type']!r}: neither "
+                             f"package defines it "
+                             f"({', '.join(sorted(BBOX_CODERS.module_dict))})")
         self.offset_coder_means = tuple(coder.get("target_means", (0., 0.)))
         self.offset_coder_stds = tuple(coder.get("target_stds", (.5, .5)))
         # the polar branches use the polar coder whatever the config names

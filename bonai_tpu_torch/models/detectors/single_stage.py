@@ -151,6 +151,15 @@ class SingleStageDetector(nn.Module):
                 "det_scores": scores, "det_labels": labels,
                 "det_valid": valid}
 
+    def aug_test(self, *args, **kwargs):
+        """Refused: the JAX single-stage detectors have no ``aug_test``
+        (detection-level test-time augmentation runs them,
+        ``apis/test.py::make_tta_step``)."""
+        raise ValueError(f"{type(self).__name__} has no proposal-level "
+                         f"test-time augmentation: it has no proposals "
+                         f"(the JAX single-stage detectors have no "
+                         f"aug_test); use mode='det'")
+
 
 class RetinaNet(SingleStageDetector):
     """RetinaNet: focal + L1 losses over all anchors, GHM-C/GHM-R losses

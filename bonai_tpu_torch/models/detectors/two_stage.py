@@ -7,7 +7,8 @@ R-CNN, Grid R-CNN and PointRend (counterpart of
 ``_roi_align_cfg``, ``_bbox_head_forward``,
 ``_rpn_and_proposals``, ``forward_train``, ``_roi_forward_train``,
 ``_mask_forward_train``, ``simple_test``, ``_rcnn_simple_test``,
-``FasterRCNN``, ``MaskRCNN``, ``DynamicRCNN``, ``RPN``, ``FastRCNN``).
+``aug_test``, ``FasterRCNN``, ``MaskRCNN``, ``DynamicRCNN``, ``RPN``,
+``FastRCNN``).
 
 The RPN may be the plain ``RPNHead``, ``SemiRPNHead`` (the plain head,
 trained on the footprint boxes of footprint-only images without their
@@ -49,9 +50,9 @@ from torch import nn
 
 from ...core.anchors import AnchorGenerator
 from ...core.assigners import max_iou_assign
-from ...core.boxes import clip_boxes, delta2bbox
+from ...core.boxes import bbox_flip, clip_boxes, delta2bbox
 from ...core.masks import mask_targets_from_instance_masks
-from ...core.nms import multiclass_nms
+from ...core.nms import _sort_desc, multiclass_nms, nms
 from ...core.samplers import iou_balanced_neg_sample, random_sample
 from ...ops.roi_align import multilevel_roi_align, roi_align_at_levels
 from ...ops.roi_align_block import roi_align_block
@@ -913,6 +914,149 @@ class TwoStageDetector(nn.Module):
                            scale_factor):
         return {}
 
+    # ---------------- proposal-level test-time augmentation ----------------
+    def _refuse_aug_test(self, why):
+        raise ValueError(f"{type(self).__name__} has no proposal-level "
+                         f"test-time augmentation: {why}")
+
+    def _aug_test_box_head(self):
+        """The box head and coder config that :meth:`aug_test` scores the
+        merged proposals with."""
+        return self.roi_head["bbox_head"], self.bbox_coder
+
+    @torch.inference_mode()
+    def aug_test(self, img, img_shape, scale_factor, scales=(1.0,),
+                 flip_directions=(None, "horizontal")):
+        """Proposal-level test-time augmentation over the views ``scales``
+        x ``flip_directions`` (``None``: unflipped), the JAX package's
+        ``aug_test`` (mmdetection's ``merge_aug_proposals``,
+        ``merge_aug_bboxes`` and ``merge_aug_masks``):
+
+        1. every view's proposals, mapped back to the base frame, are
+           merged by plain NMS (the test RPN's ``nms_thr``) and the best
+           ``max_num`` kept;
+        2. the merged proposals are scored in every view, and the views'
+           decoded, clipped and unflipped boxes and softmax scores are
+           averaged before one ``multiclass_nms``;
+        3. every view's mask probabilities of the detections, unflipped,
+           are averaged, and so are the extra branches' outputs
+           (``_extra_simple_test``): an output whose key ends in
+           ``offsets`` has its component along the flip negated, one whose
+           key holds ``probs`` keeps the unflipped views only.
+
+        A flip mirrors the whole padded canvas of its scale; a scale view
+        resizes the canvas (:func:`apis.test.resize_image`).  Every RoI
+        feature goes through ``_roi_align_cfg``.  Returns the outputs of
+        ``simple_test``."""
+        from ...apis.test import resize_image, tta_size
+        head, coder = self._aug_test_box_head()
+        test_rpn = dict(self.test_cfg.get("rpn", {}))
+        rcnn = dict(self.test_cfg["rcnn"])
+        dtype = next(self.parameters()).dtype
+        b = img.shape[0]
+        pad_h, pad_w = float(img.shape[1]), float(img.shape[2])
+        img_shape, scale_factor = img_shape.float(), scale_factor.float()
+
+        views = []          # (feats, img_shape, (sy, sx), direction, (ph, pw))
+        for s in scales:
+            if s == 1.0:
+                img_s, shape_s, sy, sx = img, img_shape, 1.0, 1.0
+                ph, pw = pad_h, pad_w
+            else:
+                nh, nw = tta_size(pad_h, s), tta_size(pad_w, s)
+                sy, sx = nh / pad_h, nw / pad_w
+                img_s = resize_image(img, nh, nw)
+                shape_s = img_shape * img_shape.new_tensor([sy, sx])
+                ph, pw = float(nh), float(nw)
+            for direction in flip_directions:
+                img_v = img_s if direction is None else torch.flip(
+                    img_s, [2 if direction == "horizontal" else 1])
+                views.append((self.extract_feat(img_v.to(dtype)), shape_s,
+                              (sy, sx), direction, (ph, pw)))
+        nviews = img.new_tensor(float(len(views)))
+
+        # (1) the views' proposals merged in the base frame
+        props, scores, valid = [], [], []
+        for feats, shape_v, (sy, sx), direction, (ph, pw) in views:
+            p, sc, v = self._rpn_and_proposals(feats, shape_v, test_rpn)
+            if direction is not None:
+                p = bbox_flip(p, (ph, pw), direction)
+            props.append(p / p.new_tensor([sx, sy, sx, sy]))
+            scores.append(sc.float())
+            valid.append(v)
+        props, scores, valid = (torch.cat(x, 1)
+                                for x in (props, scores, valid))
+        max_num = int(test_rpn.get("max_num", 1000))
+        keep = nms(props, scores, float(test_rpn.get("nms_thr", 0.7)),
+                   valid=valid)
+        top, idx = (t[:, :max_num] for t in _sort_desc(
+            torch.where(keep, scores, torch.full_like(scores, -1.0))))
+        proposals = props.gather(1, idx[..., None].expand(-1, -1, 4))
+        prop_valid = top > 0
+
+        # (2) the merged proposals scored in every view, averaged
+        n = proposals.shape[1]
+        sum_boxes = sum_scores = 0.0
+        for feats, shape_v, (sy, sx), direction, (ph, pw) in views:
+            props_v = proposals * proposals.new_tensor([sx, sy, sx, sy])
+            if direction is not None:
+                props_v = bbox_flip(props_v, (ph, pw), direction)
+            rois, roi_valid = boxes_to_rois(props_v, prop_valid)
+            cls_score, bbox_pred = self._bbox_head_forward(head, feats, rois,
+                                                           roi_valid)
+            sum_scores = sum_scores + torch.softmax(
+                cls_score, dim=-1).reshape(b, n, -1)
+            boxes_v = delta2bbox(props_v, bbox_pred.reshape(b, n, -1),
+                                 coder.get("target_means", (0.,) * 4),
+                                 coder.get("target_stds", (1.,) * 4))
+            boxes_v = clip_boxes(boxes_v.reshape(b, n, -1, 4),
+                                 (shape_v[:, 0, None, None],
+                                  shape_v[:, 1, None, None]))
+            if direction is not None:
+                boxes_v = bbox_flip(boxes_v, (ph, pw), direction)
+            sum_boxes = sum_boxes + boxes_v / boxes_v.new_tensor(
+                [sx, sy, sx, sy])
+        det_boxes, det_scores, det_labels, det_valid = multiclass_nms(
+            (sum_boxes / nviews).reshape(b, n, -1), sum_scores / nviews,
+            rcnn.get("score_thr", 0.05),
+            dict(rcnn.get("nms", dict(type="nms", iou_threshold=0.5))),
+            rcnn.get("max_per_img", 100), valid=prop_valid)
+        out = {"det_bboxes": det_boxes / scale_factor[:, None, None],
+               "det_scores": det_scores, "det_labels": det_labels,
+               "det_valid": det_valid}
+
+        # (3) every view's masks and extra outputs, averaged
+        mask_sum = 0.0
+        extras = {}
+        for feats, shape_v, (sy, sx), direction, (ph, pw) in views:
+            det_v = det_boxes * det_boxes.new_tensor([sx, sy, sx, sy])
+            if direction is not None:
+                det_v = bbox_flip(det_v, (ph, pw), direction)
+            horizontal = direction == "horizontal"
+            if self.with_mask:
+                rois, roi_valid = boxes_to_rois(det_v, det_valid)
+                logits = self.roi_head["mask_head"](self._roi_align_cfg(
+                    self.mask_extractor_cfg, feats, rois, roi_valid))
+                probs = torch.sigmoid(logits[:, 0]).reshape(
+                    b, -1, *logits.shape[2:])
+                if direction is not None:
+                    probs = torch.flip(probs, [3 if horizontal else 2])
+                mask_sum = mask_sum + probs
+            sf_v = scale_factor * ((sx + sy) / 2.0)
+            for key, val in self._extra_simple_test(
+                    feats, det_v, det_valid, shape_v, sf_v).items():
+                if direction is not None and key.endswith("offsets"):
+                    val = val * val.new_tensor(
+                        [-1.0, 1.0] if horizontal else [1.0, -1.0])
+                elif direction is not None and "probs" in key:
+                    continue        # spatial maps: the unflipped views only
+                extras.setdefault(key, []).append(val)
+        if self.with_mask:
+            out["mask_probs"] = mask_sum / nviews
+        for key, vals in extras.items():
+            out[key] = sum(vals) / img.new_tensor(float(len(vals)))
+        return out
+
 
 class FasterRCNN(TwoStageDetector):
     """Faster R-CNN: the trunk without a mask head (reference
@@ -941,6 +1085,12 @@ class RPN(TwoStageDetector):
         raise NotImplementedError("the RPN-only detector with a GARPNHead "
                                   "is not ported to bonai_tpu_torch yet "
                                   "(ROADMAP.md item A6)")
+
+    def aug_test(self, *args, **kwargs):
+        """Refused: the JAX detector's ``aug_test`` needs a box head."""
+        self._refuse_aug_test("the JAX detector's aug_test scores the "
+                              "merged proposals with a box head, and the "
+                              "RPN-only detector has none")
 
     def forward_train(self, batch, draw):
         """The RPN losses; ``draw`` is called once (the JAX detector hands
@@ -976,6 +1126,11 @@ class FastRCNN(TwoStageDetector):
     one from the BONAI config's base and never runs it)."""
 
     has_rpn = False
+
+    def aug_test(self, *args, **kwargs):
+        """Refused: the JAX detector's ``aug_test`` needs an RPN."""
+        self._refuse_aug_test("the JAX detector's aug_test merges the "
+                              "RPN's proposals, and Fast R-CNN has no RPN")
 
     def forward_train(self, batch, draw):
         """The R-CNN losses on the batch's proposals; ``draw`` is called for

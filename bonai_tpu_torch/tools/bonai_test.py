@@ -6,7 +6,8 @@ On the card, from the repository root:
 
     python -m bonai_tpu_torch.tools.bonai_test CONFIG CHECKPOINT \\
         --out results.pkl [--city shanghai_xian|config] [--nms-score T] \\
-        [--max-images N] [--device cpu]
+        [--max-images N] [--aug-test [--aug-test-mode det|proposal]] \\
+        [--device cpu]
 
 ``--city config`` keeps the config's ``data.test``; any other city reads
 ``<data_root>coco/bonai_<city>_test.json`` and ``<data_root>test/images/``.
@@ -14,7 +15,12 @@ On the card, from the repository root:
 v2.3 checkpoint, run as ``apis.test.test_split`` runs it.  The pkl holds
 ``dict(results=..., filenames=...)`` in numpy arrays, lists, dicts and
 Python scalars only, so that the JAX package's evaluation CLI reads it
-too.
+too.  ``--aug-test`` runs test-time augmentation as the generic test CLI
+does (BONAI's test pipeline declares no views: horizontal and vertical
+flips at scale 1), merged at ``--aug-test-mode`` (``det`` by default).
+The JAX CLI declares ``--aug-test`` but reads an ``aug_test_mode`` that
+its parser lacks, and crashes; this one defines the flag (ROADMAP.md
+queue C).
 """
 
 from __future__ import annotations
@@ -35,6 +41,12 @@ def main(argv=None):
     parser.add_argument("--nms-score", type=float, default=None,
                         help="override rcnn nms iou_threshold")
     parser.add_argument("--max-images", type=int, default=None)
+    parser.add_argument("--aug-test", action="store_true",
+                        help="multi-view TTA (h+v flip or the views "
+                             "declared by MultiScaleFlipAug)")
+    parser.add_argument("--aug-test-mode", default="det",
+                        choices=["det", "proposal"],
+                        help="TTA merge level: det or proposal")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
     args = parser.parse_args(argv)
@@ -48,9 +60,10 @@ def main(argv=None):
         test_cfg["img_prefix"] = data_root + "test/images/"
     if args.nms_score is not None:
         cfg.test_cfg.rcnn.nms.iou_threshold = args.nms_score
-    dataset, results = test_split(cfg, args.checkpoint, test_cfg,
-                                  device=args.device,
-                                  max_images=args.max_images)
+    dataset, results = test_split(
+        cfg, args.checkpoint, test_cfg, device=args.device,
+        max_images=args.max_images,
+        tta=dict(mode=args.aug_test_mode) if args.aug_test else None)
     payload = dict(results=results,
                    filenames=[d["filename"] for d in dataset.data_infos])
     with open(args.out, "wb") as f:

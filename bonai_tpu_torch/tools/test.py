@@ -6,7 +6,7 @@ On the card, from the repository root:
 
     python -m bonai_tpu_torch.tools.test CONFIG CHECKPOINT [--out r.pkl] \\
         [--eval bbox segm] [--max-images N] [--options k=v ...] \\
-        [--device cpu]
+        [--aug-test [--aug-test-mode det|proposal]] [--device cpu]
 
 ``CHECKPOINT`` is a ``.pth``: the port's own ``step_N.pth`` or an mmdet
 v2.3 checkpoint, run as ``apis.test.test_split`` runs it.  The pkl holds
@@ -14,8 +14,12 @@ the results list (per image, the per-class boxes, or a tuple of boxes, RLE
 masks and offsets) in numpy arrays, lists, dicts and Python scalars only,
 as the JAX CLI writes it.
 ``--eval`` prints ``key: value`` for each of
-``bonai_tpu_torch.evaluation.evaluate_coco``'s metrics.  Test-time
-augmentation (``--aug-test``) is ROADMAP.md item A5.
+``bonai_tpu_torch.evaluation.evaluate_coco``'s metrics.  ``--aug-test``
+runs test-time augmentation over the views that the test pipeline's
+``MultiScaleFlipAug`` declares (else horizontal and vertical flips at
+scale 1), merged at the detection level (``--aug-test-mode det``, the
+default) or the proposal level (``proposal``): ``apis.test.run_inference``
+with ``tta``.
 """
 
 from __future__ import annotations
@@ -40,22 +44,23 @@ def main(argv=None):
     parser.add_argument("--options", nargs="+", default=None,
                         help="config overrides k=v (dotted keys)")
     parser.add_argument("--aug-test", action="store_true",
-                        help="test-time augmentation (not ported: A5)")
-    parser.add_argument("--aug-test-mode", default=None,
+                        help="multi-view TTA (scales x flips declared by "
+                             "MultiScaleFlipAug in the test pipeline; "
+                             "defaults to h+v flip)")
+    parser.add_argument("--aug-test-mode", default="det",
                         choices=["det", "proposal"],
-                        help="its merge level (not ported: A5)")
+                        help="TTA merge level: det (NMS over the views' "
+                             "detections) or proposal (merged proposals, "
+                             "averaged boxes and masks)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
     args = parser.parse_args(argv)
-    if args.aug_test or args.aug_test_mode:
-        raise NotImplementedError(
-            "--aug-test (test-time augmentation) is not ported to "
-            "bonai_tpu_torch yet (ROADMAP.md item A5)")
     cfg = Config.fromfile(args.config)
     if args.options:
         cfg.merge_from_dict(parse_options(args.options))
-    dataset, results = test_split(cfg, args.checkpoint, device=args.device,
-                                  max_images=args.max_images)
+    dataset, results = test_split(
+        cfg, args.checkpoint, device=args.device, max_images=args.max_images,
+        tta=dict(mode=args.aug_test_mode) if args.aug_test else None)
     if args.out:
         with open(args.out, "wb") as f:
             pickle.dump(results, f)

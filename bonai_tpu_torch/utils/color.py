@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .warp import fma32
+
 _SHIFT = 12
 VECTOR_BLOCK = 32                # pixels of a row in one vector step
 _i = np.arange(1, 256, dtype=np.float64)
@@ -27,12 +29,6 @@ _i = np.arange(1, 256, dtype=np.float64)
 _SDIV = np.concatenate([[0], np.rint((255 << _SHIFT) / _i)]).astype(np.int64)
 _HDIV = np.concatenate([[0], np.rint((180 << _SHIFT) / (6.0 * _i))]).astype(
     np.int64)
-
-
-def _fma(a, b, c):
-    """float32 ``a * b + c`` rounded once: the float32 product is exact in
-    float64."""
-    return (a.astype(np.float64) * b + c).astype(np.float32)
 
 
 # each sector's (b, g, r) picks of the four sector values
@@ -65,8 +61,8 @@ def hsv_to_bgr(hsv):
     h = h - sector
     width = hsv.shape[-2]
     vector = np.arange(width) < width // VECTOR_BLOCK * VECTOR_BLOCK
-    tab = np.stack([v, v * (f32(1.0) - s), v * _fma(-s, h, 1.0),
-                    v * _fma(-s, f32(1.0) - h, 1.0)], -1)
+    tab = np.stack([v, v * (f32(1.0) - s), v * fma32(-s, h, 1.0),
+                    v * fma32(-s, f32(1.0) - h, 1.0)], -1)
     picks = _SECTORS[sector.astype(np.int64)]
     bgr = np.take_along_axis(tab, picks, -1) * f32(255.0)
     bgr = np.where(vector[:, None], np.floor(bgr), np.rint(bgr))

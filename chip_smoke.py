@@ -255,7 +255,23 @@ Phases, each of which must pass:
    files (written by the port's generator) and the BONAI test CLI on its
    checkpoint.  Each config's line carries the card's name and power
    limit.
-20. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+20. tta: test-time augmentation of LOFT-FOA R50-FPN at full width
+   (``'block'``, bf16, 1024^2, B=2, seeded random weights with
+   calibrated R50 BatchNorm statistics): one warm and one timed batch of
+   the detection level at the default views (none, horizontal,
+   vertical), of the proposal level (``aug_test``) at the same views, and
+   of the detection level at scales (1.0, 0.5) with the horizontal flip,
+   each against a timed plain ``simple_test``, with its soft-NMS and
+   merges timed inside; a small float32 input through both levels, the
+   kernel against its plain version, matched detection by detection
+   within 1e-4 of each output's largest value (TF32 off).  Then from
+   files: the BONAI test CLI with ``--aug-test`` on the data phase's
+   checkpoint over two of the eval phase's val crops and the evaluation
+   CLI on its pkl; the train CLI 2 steps of the ``attr`` configuration
+   with ``RandomRotate(rotate_ratio=1.0, angles='any')`` after
+   ``RandomFlip`` (the numpy warps), every loss finite, the loader's
+   angles printed, at least one off the multiples of 90.
+21. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -286,7 +302,11 @@ model launches B1 8 times a serve or test batch (box, mask, offset, the
 reweighting's mask and side-face calls, the side-face head, the
 offset-field head and its aggregation's mask call) and B1 and B2 7 times
 a step (the offset field's aggregation runs at test only), its ``polar``
-model 3 times each.
+model 3 times each; the tta phase's LOFT-FOA launches B1 3 times a view
+(box, mask, offset): 9 a batch at the default views at either level, 12
+at the four scaled views, 9 in the BONAI test CLI's batch with
+``--aug-test``, and its rotated ``attr`` training B1 and B2 7 times a
+step.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -408,6 +428,17 @@ ATTR_CALLS = {"attr": (8, 7), "polar": (3, 3)}
 ATTR_STEPS = 3
 ATTR_FILES_STEPS = 2
 ATTR_DIR = os.path.join(REPO, "build", "chip_smoke_attr")
+# test-time augmentation on LOFT-FOA (the tta phase): label, merge level,
+# views, the RoIAlign kernel calls of a batch (3 a view: box, mask, offset)
+TTA_DEFAULT = dict(scales=[1.0], flip=True,
+                   flip_directions=["horizontal", "vertical"])
+TTA_RUNS = (("det", "det", TTA_DEFAULT, 9),
+            ("proposal", "proposal", TTA_DEFAULT, 9),
+            ("det scales", "det", dict(scales=[1.0, 0.5], flip=True,
+                                       flip_directions=["horizontal"]), 12))
+TTA_DIR = os.path.join(REPO, "build", "chip_smoke_tta")
+TTA_CHECKPOINT = os.path.join(REPO, "build", "chip_smoke_tta_ckpt",
+                              "data_phase.pth")
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
@@ -2066,12 +2097,28 @@ def _trunk_ms(models, reps=5):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+@contextlib.contextmanager
+def _reproducible_convs():
+    """cuDNN in float32 without TF32, its deterministic algorithms only:
+    the same numbers in every run, whatever the process ran before."""
+    import torch
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = \
+        False, True, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
+
+
 def _calibrated_weights(config, path):
     """Seeded random weights of ``config`` (``init_weights``, seed 0) with
     the stored statistics of every BatchNorm of the backbone and the neck
     (DetectoRS's backbone copy; SSD and CornerNet have no neck) set to
     those of its input on a random
-    1024^2 B=2 batch, so that each one's output has unit variance, as a
+    1024^2 B=2 batch (``_reproducible_convs``: the same statistics in
+    every run), so that each one's output has unit variance, as a
     trained network's has.  With identity statistics
     HRNet's fuse sums grow from module to module, to head outputs of about
     5e8.  Saves them to ``path`` as an mmdet ``.pth``."""
@@ -2091,7 +2138,7 @@ def _calibrated_weights(config, path):
     hooks = [m.register_forward_pre_hook(calibrate)
              for part in (model.backbone, model.neck) if part is not None
              for m in part.modules() if isinstance(m, FrozenBatchNorm2d)]
-    with torch.no_grad():
+    with torch.no_grad(), _reproducible_convs():
         model.extract_feat(img)
     for h in hooks:
         h.remove()
@@ -2313,7 +2360,6 @@ def rcnn_eval(config, checkpoint, work_dir):
           f"{len(results[0][0][0])} detections; evaluation CLI {eval_s:.1f} "
           f"s: {_scores(summary)}; launches {counts}", flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
-    shutil.rmtree(work_dir, ignore_errors=True)
     return counts[fwd_name]
 
 
@@ -3283,6 +3329,287 @@ def attr_phase():
     return out
 
 
+def _match_detections(got, ref, what):
+    """Hold two TTA outputs of the same input to each other: per image the
+    same number of valid detections, each of ``got``'s matched to the
+    nearest of ``ref``'s by box and score (a near-tie may order them
+    otherwise), every float output of a matched pair within 1e-4 of that
+    output's largest value (at least 1).  Returns the largest difference
+    and the number of pairs matched out of place."""
+    import torch
+    valid_g, valid_r = got["det_valid"], ref["det_valid"]
+    if not torch.equal(valid_g.sum(1), valid_r.sum(1)):
+        raise AssertionError(f"{what}: valid detections "
+                             f"{valid_g.sum(1).tolist()} against "
+                             f"{valid_r.sum(1).tolist()}")
+    keys = [k for k, v in ref.items() if v.is_floating_point()
+            and v.dim() >= 2]
+    worst, moved = 0.0, 0
+    for i in range(valid_r.shape[0]):
+        g = {k: got[k][i][valid_g[i]].float() for k in keys}
+        r = {k: ref[k][i][valid_r[i]].float() for k in keys}
+        key_g = torch.cat([g["det_bboxes"], g["det_scores"][:, None]], 1)
+        key_r = torch.cat([r["det_bboxes"], r["det_scores"][:, None]], 1)
+        order = torch.cdist(key_g, key_r).argmin(1)
+        if len(set(order.tolist())) != len(order):
+            raise AssertionError(f"{what}: image {i}'s detections do not "
+                                 f"pair off")
+        moved += int((order != torch.arange(len(order),
+                                            device=order.device)).sum())
+        for k in keys:
+            err = float((g[k] - r[k][order]).abs().max()) if len(order) \
+                else 0.0
+            scale = max(float(ref[k].float().abs().max()), 1.0)
+            worst = max(worst, err / scale)
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"{what}: {k} differs by {err} "
+                                     f"(outputs up to {scale})")
+    return worst, moved
+
+
+def _timed(module, name, sums):
+    """Replace ``module.name`` by a wrapper that adds its synchronised
+    milliseconds to ``sums[name]``; returns the undo."""
+    import torch
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sums[name] = sums.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+    setattr(module, name, timed)
+    return lambda: setattr(module, name, fn)
+
+
+def tta_serve():
+    """Test-time augmentation of LOFT-FOA R50-FPN at full width (``'block'``,
+    bf16, 1024^2, B=2, seeded random weights with calibrated R50 BatchNorm
+    statistics): one warm and one timed batch of each of ``TTA_RUNS``
+    (after a timed plain ``simple_test``), each held to its launches a
+    batch and to ``simple_test``'s outputs; the soft-NMS and the
+    detection-level merges timed inside each call.  Then a small float32
+    input through both merge levels at the default views, through the
+    kernel and through its plain version, matched detection by detection
+    within 1e-4 of each output's largest value (TF32 off).  Returns, per
+    run, its launches, ms and peak memory."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import init_detector, prepare_batch
+    from bonai_tpu_torch.apis import test as port_test
+    from bonai_tpu_torch.models.detectors import two_stage
+    attr, fwd_name, _ = ROUTES["block"]
+    weights = os.path.join(TTA_DIR, "loft_foa_init.pth")
+    _calibrated_weights(CONFIG, weights)
+    model = init_detector(_config("block"), weights, seed=0)
+    r = np.random.RandomState(0)
+    img, img_shape, scale, _ = prepare_batch(model, [
+        r.randint(0, 256, (SIZE, SIZE, 3), np.uint8) for _ in range(BATCH)])
+    max_per_img = _max_dets(model)
+    model.simple_test(img, img_shape, scale)              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.simple_test(img, img_shape, scale)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    out = {}
+    for label, mode, views, calls in TTA_RUNS:
+        run = port_test.tta_runner(model, dict(views, mode=mode))
+        run(img, img_shape, scale)                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        undo = [_timed(two_stage, "multiclass_nms", stages),
+                _timed(port_test, "merge_flip_tta", stages)]
+        _zero_counts()
+        try:
+            t0 = time.perf_counter()
+            res = run(img, img_shape, scale)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for u in undo:
+                u()
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _check_counts(counts, {fwd_name: calls}, f"tta {label}, 1 batch")
+        _check_outputs(res, BATCH, max_per_img, model)
+        out[label] = dict(launches=counts[fwd_name], ms=ms, peak_gib=peak)
+        print(f"tta {label} ({mode} level, views {views}): 1024^2 B={BATCH} "
+              f"{ms:.1f} ms a batch against simple_test's {plain_ms:.1f} "
+              f"(ratio {ms / plain_ms:.2f}); soft-NMS "
+              f"{stages.get('multiclass_nms', 0.0):.1f} ms, merges "
+              f"{stages.get('merge_flip_tta', 0.0):.1f} ms of it; peak "
+              f"{peak:.2f} GiB; valid detections "
+              f"{res['det_valid'].sum(1).tolist()}; launches {counts}",
+              flush=True)
+
+    # the small float32 input through both levels, kernel against plain
+    kernel_fn = getattr(two_stage, attr)
+    with _reproducible_convs():
+        model.float()
+        model.cfg.data.test.pipeline[1].img_scale = (320, 320)
+        small = [r.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(2)]
+        img_s, shp_s, sf_s, _ = prepare_batch(model, small)
+        for mode in ("det", "proposal"):
+            run = port_test.tta_runner(model, dict(TTA_DEFAULT, mode=mode))
+            launched = kernel_fn.launches
+            got = run(img_s, shp_s, sf_s)
+            if kernel_fn.launches != launched + 9:
+                raise AssertionError(f"tta small input ({mode}): "
+                                     f"{kernel_fn.launches - launched} "
+                                     f"launches, expected 9")
+            setattr(two_stage, attr, _plain_route("block"))
+            try:
+                ref = run(img_s, shp_s, sf_s)
+            finally:
+                setattr(two_stage, attr, kernel_fn)
+            worst, moved = _match_detections(got, ref, f"tta small input "
+                                                       f"({mode})")
+            print(f"tta small float32 input, {mode} level, kernel vs plain "
+                  f"route: largest difference {worst:.3g} of each output's "
+                  f"largest; {int(ref['det_valid'].sum())} valid "
+                  f"detections, {moved} paired out of place", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tta_files(checkpoint):
+    """Test-time augmentation and rotation from files: the BONAI test CLI
+    with ``--aug-test`` (detection level, the default horizontal and
+    vertical flips) on the data phase's checkpoint over two of the eval
+    phase's val crops, and the evaluation CLI on its pkl; then the train
+    CLI ``ATTR_FILES_STEPS`` steps of the ``attr`` configuration with
+    ``RandomRotate(rotate_ratio=1.0, angles='any')`` after ``RandomFlip``
+    on the data phase's tiles with their maps (thread loader), every loss
+    finite, at least one angle off the multiples of 90.  Removes the
+    checkpoint's directory.  Returns the launches of both."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.config import Config
+    from bonai_tpu_torch.datasets.pipelines.transforms import RandomRotate
+    from bonai_tpu_torch.tools import bonai_evaluation, bonai_test
+    from bonai_tpu_torch.tools import train as train_cli
+    from bonai_tpu_torch.tools.make_synthetic_bonai import (
+        write_attribute_maps, write_split, write_scene_split)
+    _, fwd_name, bwd_name = ROUTES["block"]
+    crops = os.path.join(DATA_DIR, "val", "val.json")
+    if not os.path.exists(crops):
+        write_scene_split(DATA_DIR, "val", 1, 77, scene_size=2048, crop=SIZE)
+    cfg_path = os.path.join(TTA_DIR, os.path.basename(SYNTH_CONFIG))
+    _synth_config(test=True).dump(cfg_path)
+    pkl = os.path.join(TTA_DIR, "tta.pkl")
+    _zero_counts()
+    t0 = time.perf_counter()
+    payload = bonai_test.main([cfg_path, checkpoint, "--out", pkl, "--city",
+                               "config", "--max-images", "2", "--aug-test"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = _counts()
+    _check_counts(cli_counts, {fwd_name: 9}, "tta BONAI test CLI, 1 batch")
+    results = payload["results"]
+    if len(results) != 2 or not all(
+            isinstance(res, tuple) and len(res) == 3
+            and len(res[2]) == len(res[0][0]) == len(res[1][0])
+            and np.isfinite(res[0][0]).all() and np.isfinite(res[2]).all()
+            for res in results):
+        raise AssertionError("the tta test CLI's results are not (bbox, "
+                             "segm, offsets) 3-tuples")
+    t0 = time.perf_counter()
+    summary = bonai_evaluation.main([pkl, "--gt-json", crops])
+    eval_s = time.perf_counter() - t0
+    print(f"tta files: BONAI test CLI --aug-test {cli_s:.1f} s (model "
+          f"build, 2 val crops, 3 views, bf16), detections "
+          f"{[len(res[0][0]) for res in results]}; launches {cli_counts}; "
+          f"evaluation CLI {eval_s:.1f} s: {_scores(summary)}", flush=True)
+    shutil.rmtree(os.path.dirname(checkpoint), ignore_errors=True)
+
+    train_dir = os.path.join(DATA_DIR, "train")
+    if not os.path.exists(os.path.join(train_dir, "train.json")):
+        write_split(DATA_DIR, "train", 8, 0, SIZE)
+    side, field = write_attribute_maps(DATA_DIR, "train")
+    cfg = Config.fromfile(_attr_config())
+    for split in (cfg.data.train,):
+        split.update(ann_file=os.path.join(train_dir, "train.json"),
+                     img_prefix=os.path.join(train_dir, "images") + "/",
+                     side_face_prefix=side + "/",
+                     offset_field_prefix=field + "/")
+    pipeline = cfg.data.train.pipeline
+    flip = [i for i, t in enumerate(pipeline) if t.type == "RandomFlip"][0]
+    pipeline.insert(flip + 1, dict(type="RandomRotate", rotate_ratio=1.0,
+                                   angles="any"))
+    cfg.data.update(workers_per_gpu=2, loader_mode="thread")
+    weights = os.path.join(TTA_DIR, "attr_init.pth")
+    _calibrated_weights(_attr_config(), weights)
+    cfg.load_from = weights
+    cfg.log_config = dict(interval=1)
+    rot_dir = os.path.join(TTA_DIR, "wd")
+    cfg_path = os.path.join(TTA_DIR, "attr_rotate.py")
+    cfg.dump(cfg_path)
+    angles = []
+    draw = RandomRotate.draw_angle
+
+    def recorded(self, rng):
+        angle = draw(self, rng)
+        angles.append(angle)
+        return angle
+    RandomRotate.draw_angle = recorded
+    _zero_counts()
+    try:
+        os.makedirs(rot_dir)
+        t0 = time.perf_counter()
+        with open(os.path.join(rot_dir, "stdout.txt"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            train_cli.main([cfg_path, "--work-dir", rot_dir, "--max-steps",
+                            str(ATTR_FILES_STEPS), "--n-devices", "1"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        RandomRotate.draw_angle = draw
+    counts = _counts()
+    step_calls = ATTR_CALLS["attr"][1]
+    _check_counts(counts, {fwd_name: step_calls * ATTR_FILES_STEPS,
+                           bwd_name: step_calls * ATTR_FILES_STEPS},
+                  f"rotated attr training, {ATTR_FILES_STEPS} steps")
+    with open(os.path.join(rot_dir, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    keys = [k for k in rows[0] if k.startswith("loss")]
+    if len(rows) != ATTR_FILES_STEPS or not all(
+            np.isfinite(row[k]) for row in rows for k in keys):
+        raise AssertionError(f"rotated attr training: log rows {rows}")
+    print(f"tta files: RandomRotate drew {angles} (the loader's draws, "
+          f"prefetch included)", flush=True)
+    if not any(a is not None and a % 90 for a in angles):
+        raise AssertionError("RandomRotate drew no angle off the multiples "
+                             "of 90: its general path did not run")
+    print(f"tta files: rotated attr train CLI {ATTR_FILES_STEPS} steps in "
+          f"{train_s:.1f} s incl. set-up; ms per step "
+          f"{[round(row['time'] * 1e3, 1) for row in rows]}, data_time ms "
+          f"{[round(row['data_time'] * 1e3, 1) for row in rows]}; "
+          + " ".join(f"{k} {rows[-1][k]:.4g}" for k in keys)
+          + f"; launches {counts}", flush=True)
+    return dict(test_cli=cli_counts[fwd_name], fwd=counts[fwd_name],
+                bwd=counts[bwd_name])
+
+
+def tta_phase(checkpoint):
+    """Test-time augmentation and rotated training: :func:`tta_serve`, then
+    :func:`tta_files` on the data phase's ``checkpoint`` (``main`` sets a
+    copy aside, ``TTA_CHECKPOINT``).  Returns the launch counts, times and
+    peaks."""
+    t0 = time.time()
+    shutil.rmtree(TTA_DIR, ignore_errors=True)
+    os.makedirs(TTA_DIR)
+    out = dict(serve=tta_serve(), files=tta_files(checkpoint))
+    print(f"tta phase: {time.time() - t0:.1f} s; card "
+          f"{_gpu_name_and_power()}", flush=True)
+    shutil.rmtree(TTA_DIR, ignore_errors=True)
+    return out
+
+
 def bench_phase():
     """The RoIAlign micro-benchmark, B5's entry point.  Returns B5's launch
     count of the run."""
@@ -3347,6 +3674,9 @@ def main():
     train = {impl: train_phase(impl, steps)
              for impl, steps in (("block", 6), ("pallas", 4))}
     files = data_phase()
+    # the tta phase tests the same checkpoint after eval_phase removes it
+    os.makedirs(os.path.dirname(TTA_CHECKPOINT), exist_ok=True)
+    shutil.copyfile(files["checkpoint"], TTA_CHECKPOINT)
     test_cli_launches = eval_phase(files["checkpoint"], files["work_dir"])
     resume_launches = resume_phase()
     _check_counts({name: resume_launches.get(
@@ -3372,6 +3702,7 @@ def main():
     dense2 = dense2_phase()
     dense3 = dense3_phase()
     attr = attr_phase()
+    tta = tta_phase(TTA_CHECKPOINT)
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -3450,7 +3781,11 @@ def main():
                    for what, n in (("serve", attr[k]["serve"]),
                                    ("train", attr[k]["train"]["fwd"]))},
                 attr_files_train_launches=attr["files"]["fwd"],
-                attr_test_cli_launches=attr["files"]["test_cli"]),
+                attr_test_cli_launches=attr["files"]["test_cli"],
+                **{f"tta_{k.replace(' ', '_')}_serve_launches": r["launches"]
+                   for k, r in tta["serve"].items()},
+                tta_test_cli_launches=tta["files"]["test_cli"],
+                tta_rotate_train_launches=tta["files"]["fwd"]),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],
@@ -3478,7 +3813,8 @@ def main():
                   for k, r in dense.items()},
                **{f"{k}_train_launches": attr[k]["train"]["bwd"]
                   for k in ATTR_CALLS},
-               attr_files_train_launches=attr["files"]["bwd"]),
+               attr_files_train_launches=attr["files"]["bwd"],
+               tta_rotate_train_launches=tta["files"]["bwd"]),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

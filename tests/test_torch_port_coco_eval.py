@@ -320,6 +320,31 @@ def test_test_cli_prints_the_jax_metrics(data, tmp_path, capsys):
                                       metric_types=("bbox", "segm"))
     assert metrics == ref
     assert printed[-6:] == [f"{k}: {v:.4f}" for k, v in ref.items()]
-    for flag in (["--aug-test"], ["--aug-test-mode", "proposal"]):
-        with pytest.raises(NotImplementedError, match="item A5"):
-            test_cli.main([cfg_path, ckpt, *flag, "--device", "cpu"])
+    # test-time augmentation (ported since this case raised A5): the
+    # synthetic test pipeline declares no views, so both merge levels run
+    # horizontal and vertical flips at scale 1; each pkl holds the merged
+    # views' results of run_inference(tta=...) on the same model
+    from bonai_tpu_torch.apis.test import run_inference
+    from bonai_tpu_torch.datasets import build_dataloader, build_dataset
+    loader = build_dataloader(build_dataset(dict(cfg.data.test,
+                                                 test_mode=True)),
+                              cfg.data.get("samples_per_gpu", 2),
+                              shuffle=False, train=False)
+    for mode in ("det", "proposal"):
+        out = str(tmp_path / f"tta_{mode}.pkl")
+        test_cli.main([cfg_path, ckpt, "--out", out, "--aug-test",
+                       "--aug-test-mode", mode, "--device", "cpu"])
+        with open(out, "rb") as f:
+            merged = pickle.load(f)
+        want = run_inference(model, loader, progress=False, tta=dict(
+            scales=[1.0], flip=True, flip_directions=["horizontal",
+                                                      "vertical"],
+            mode=mode))
+        assert len(merged) == len(want) == 4
+        assert sum(len(r[0][0]) for r in want) > 0
+        for got, ref in zip(merged, want):
+            assert len(got) == 3 and len(got[0][0]) == len(ref[0][0])
+            np.testing.assert_allclose(got[0][0], ref[0][0], rtol=0,
+                                       atol=1e-4)
+            np.testing.assert_allclose(got[2], ref[2], rtol=0, atol=1e-4)
+            assert got[1] == ref[1]

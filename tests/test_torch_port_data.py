@@ -103,13 +103,14 @@ def test_not_ported_parts_raise():
     with pytest.raises(NotImplementedError, match="A7"):
         build_dataset(dict(type="ClassBalancedDataset", dataset={},
                            oversample_thr=0.1))
-    # LOFT's dense maps are ported (test_torch_port_attributes.py); the
-    # arbitrary-angle rotation is still A5
+    # LOFT's dense maps and RandomRotate are ported
+    # (test_torch_port_attributes.py, test_torch_port_rotate.py); the
+    # random crop is still A6
     LoadAnnotations(with_edge=True, with_side_face=True,
                     with_offset_field=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_pipeline([dict(type="LoadImageFromFile"),
-                        dict(type="RandomRotate", angles=[90])])
+                        dict(type="RandomCrop", crop_size=(64, 64))])
     # COCO evaluation is ported (test_torch_port_coco_eval.py); the
     # robustness benchmark's Corrupt transform is still A8
     with pytest.raises(NotImplementedError, match="A8"):
@@ -117,7 +118,6 @@ def test_not_ported_parts_raise():
 
 
 UNPORTED_TRANSFORMS = {
-    "RandomRotate": "A5", "Pointobb2RBBox": "A5",
     "Expand": "A6", "MinIoURandomCrop": "A6", "RandomCrop": "A6",
     "AutoAugment": "A6", "SegRescale": "A7", "Corrupt": "A8",
     "InstaBoost": "not queued", "Albu": "not queued"}
@@ -181,6 +181,48 @@ def test_offset_transform_matches_jax(flag):
     empty = dict(gt_offsets=np.zeros((0, 2), np.float32))
     assert build_pipeline([dict(type="OffsetTransform",
                                 transform_flag=flag)])(empty) is empty
+
+
+# ported since their A5 cases here: the rotation and the oriented-box
+# encoding (test_torch_port_rotate.py holds them further)
+ROTATED_TRANSFORMS = {
+    "RandomRotate": dict(rotate_ratio=1.0, angles=[37, 90]),
+    "Pointobb2RBBox": dict(encoding_method="thetaobb")}
+
+
+@pytest.mark.parametrize("name", sorted(ROTATED_TRANSFORMS))
+def test_rotated_transforms_match_jax(name):
+    """``RandomRotate`` and ``Pointobb2RBBox``, built through the pipeline
+    builder, against the JAX transforms under three seeds: the image and
+    the edge map exact, boxes, polygons, offsets and the encoded oriented
+    boxes within 1e-5."""
+    from bonai_tpu.datasets.pipelines.transforms import PIPELINES as JAX_REG
+    from bonai_tpu_torch.datasets.pipelines import build_pipeline
+    r = np.random.RandomState(5)
+    quads = r.randint(0, 90, (12, 4, 2)).reshape(12, 8).astype(np.float32)
+    sample = dict(img=r.randint(0, 256, (80, 96, 3)).astype(np.uint8),
+                  img_shape=(80, 96),
+                  gt_bboxes=np.array([[10, 12, 40, 50], [60, 20, 90, 70]],
+                                     np.float32),
+                  gt_masks=[[r.uniform(10, 70, (5, 2)).astype(np.float32)],
+                            [r.uniform(10, 70, (4, 2)).astype(np.float32)]],
+                  gt_offsets=r.uniform(-9, 9, (2, 2)).astype(np.float32),
+                  gt_edge_maps=r.randint(0, 2, (80, 96)).astype(np.uint8),
+                  edge_fields=["gt_edge_maps"], gt_rbboxes=quads,
+                  rbbox_fields=["gt_rbboxes"])
+    for seed in range(3):
+        want = JAX_REG.get(name)(**ROTATED_TRANSFORMS[name])(
+            dict(copy.deepcopy(sample), _rng=np.random.RandomState(seed)))
+        got = build_pipeline([dict(type=name, **ROTATED_TRANSFORMS[name])])(
+            dict(copy.deepcopy(sample), _rng=np.random.RandomState(seed)))
+        for key in ("img", "gt_edge_maps", "img_shape"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        for key in ("gt_bboxes", "gt_offsets", "gt_rbboxes"):
+            assert got[key].dtype == want[key].dtype
+            np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                       atol=1e-5, err_msg=key)
+        for a, b in zip(got["gt_masks"], want["gt_masks"]):
+            np.testing.assert_allclose(a[0], b[0], rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_TRANSFORMS))

@@ -701,10 +701,11 @@ def ddp_step_rank(inputs, out_dir, cfg=None):
     np.savez(osp.join(out_dir, f"rank{rank}.npz"), **out)
 
 
-def infer_rank(cfg, checkpoint, out):
+def infer_rank(cfg, checkpoint, out, tta=None):
     """A rank of the sharded-inference test: the checkpoint's model on the
     CPU in float32, this rank's eval shard of ``cfg.data.test``,
-    ``run_inference``; rank 0 pickles the merged results to ``out``."""
+    ``run_inference`` (with the test-time augmentation ``tta``); rank 0
+    pickles the merged results to ``out``."""
     import pickle
     from bonai_tpu_torch import parallel
     from bonai_tpu_torch.apis import init_detector, run_inference
@@ -716,7 +717,7 @@ def infer_rank(cfg, checkpoint, out):
         build_dataset(dict(cfg.data.test, test_mode=True)),
         samples_per_gpu=2, shuffle=False, train=False, shard_id=rank,
         num_shards=world_size)
-    results = run_inference(model, loader, progress=False)
+    results = run_inference(model, loader, progress=False, tta=tta)
     if rank == 0:
         with open(out, "wb") as f:
             pickle.dump(results, f)
