@@ -17,9 +17,18 @@ serves all images (and, in the RPN, all pyramid levels) at once:
   its outputs unchanged.
 
 Padded entries carry ``valid=False`` (or score ``NEG_INF`` / 0).
+
+``nms`` and ``soft_nms`` run as the custom ops ``bonai_tpu_torch::nms``
+and ``bonai_tpu_torch::soft_nms``, whose bodies are the functions below
+and whose fake implementations give their fixed output shapes: the host
+decisions inside (the tile test, the fixpoint test, soft-NMS's early
+exit) then stay out of a graph that ``torch.export`` traces.  Their inputs
+are detached: neither output carries a gradient.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -35,9 +44,17 @@ def _sort_desc(scores):
 
 
 def nms(boxes, scores, iou_threshold, valid=None, tile_size=256):
-    """Greedy hard NMS over ``(..., N, 4)`` boxes and ``(..., N)`` scores.
-    Returns a bool keep mask ``(..., N)``; ``valid=False`` entries are
-    never kept and never suppress."""
+    """Greedy hard NMS over ``(..., N, 4)`` boxes and ``(..., N)`` scores
+    (the op ``bonai_tpu_torch::nms``).  Returns a bool keep mask
+    ``(..., N)``; ``valid=False`` entries are never kept and never
+    suppress."""
+    return _nms_op(boxes.detach(), scores.detach(), float(iou_threshold),
+                   None if valid is None else valid.detach(),
+                   int(tile_size))
+
+
+def _nms(boxes, scores, iou_threshold, valid, tile_size):
+    """The body of :func:`nms`."""
     batch_shape = scores.shape[:-1]
     n = scores.shape[-1]
     boxes = boxes.reshape(-1, n, 4)
@@ -78,6 +95,17 @@ def nms(boxes, scores, iou_threshold, valid=None, tile_size=256):
     return out.reshape(batch_shape + (n,))
 
 
+@torch.library.custom_op("bonai_tpu_torch::nms", mutates_args=())
+def _nms_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+            valid: Optional[torch.Tensor], tile_size: int) -> torch.Tensor:
+    return _nms(boxes, scores, iou_threshold, valid, tile_size)
+
+
+@_nms_op.register_fake
+def _(boxes, scores, iou_threshold, valid, tile_size):
+    return torch.empty_like(scores, dtype=torch.bool)
+
+
 def batched_nms(boxes, scores, idxs, iou_threshold, valid=None,
                 tile_size=256):
     """:func:`nms` in which boxes of different ``idxs`` (``(..., N)``: a
@@ -91,7 +119,22 @@ def batched_nms(boxes, scores, idxs, iou_threshold, valid=None,
 
 def soft_nms(boxes, scores, iou_threshold=0.3, sigma=0.5, min_score=1e-3,
              method="linear", max_out=None, valid=None):
-    """Soft-NMS (mmcv 1.0.5 semantics) over ``(..., N, 4)`` boxes.
+    """Soft-NMS (mmcv 1.0.5 semantics) over ``(..., N, 4)`` boxes (the op
+    ``bonai_tpu_torch::soft_nms``).
+
+    Returns ``(new_scores, keep_rank)``: decayed scores of the selected
+    boxes (0 for dropped or padded ones) in input order, and the selection
+    order (-1 for unselected).
+    """
+    return _soft_nms_op(boxes.detach(), scores.detach(),
+                        float(iou_threshold), float(sigma), float(min_score),
+                        str(method), None if max_out is None else int(max_out),
+                        None if valid is None else valid.detach())
+
+
+def _soft_nms(boxes, scores, iou_threshold, sigma, min_score, method,
+              max_out, valid):
+    """The body of :func:`soft_nms`.
 
     Returns ``(new_scores, keep_rank)``: decayed scores of the selected
     boxes (0 for dropped or padded ones) in input order, and the selection
@@ -137,6 +180,23 @@ def soft_nms(boxes, scores, iou_threshold=0.3, sigma=0.5, min_score=1e-3,
             break
     return (out.reshape(batch_shape + (n,)),
             rank.reshape(batch_shape + (n,)))
+
+
+@torch.library.custom_op("bonai_tpu_torch::soft_nms", mutates_args=())
+def _soft_nms_op(boxes: torch.Tensor, scores: torch.Tensor,
+                 iou_threshold: float, sigma: float, min_score: float,
+                 method: str, max_out: Optional[int],
+                 valid: Optional[torch.Tensor]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _soft_nms(boxes, scores, iou_threshold, sigma, min_score, method,
+                     max_out, valid)
+
+
+@_soft_nms_op.register_fake
+def _(boxes, scores, iou_threshold, sigma, min_score, method, max_out,
+      valid):
+    return (torch.empty_like(scores),
+            torch.empty_like(scores, dtype=torch.int32))
 
 
 def multiclass_nms(multi_bboxes, multi_scores, score_thr, nms_cfg,

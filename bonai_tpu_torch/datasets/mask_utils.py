@@ -1,19 +1,22 @@
-"""COCO compressed RLE and polygon rasterisation in numpy (counterpart of
-``bonai_tpu/datasets/mask_utils.py``, without its native build and without
-cv2).
+"""COCO compressed RLE and polygon rasterisation (counterpart of
+``bonai_tpu/datasets/mask_utils.py``, without cv2).
 
-The encoder is ``core/masks.py``'s (``counts_to_string`` and ``crop_rle``,
-which also paste the detector's masks); this module adds the decoder, the
-area, the full-mask encoder built on them, and ``mask_iou``, which
-intersects the run lengths themselves and never decodes a mask.  ``counts`` are ``str``, as
-the JAX package writes them, so the result pickles of the two packages
-read each other.
+Encoding, decoding and ``mask_iou`` without ``iscrowd`` run in the host's
+mask library (``bonai_tpu_torch/native.py``), where the JAX package takes
+its native library; a failed build raises.  Their numpy versions are the
+plain ones, taken only when the caller passes ``native=False``: the
+encoder of ``core/masks.py`` (``counts_to_string`` and ``crop_rle``, which
+also paste the detector's masks), the decoder below, and a ``mask_iou``
+that intersects the run lengths themselves and never decodes a mask.
+``counts`` are ``str``, as the JAX package writes them, so the result
+pickles of the two packages read each other.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native as maskops
 from ..core.masks import counts_to_string, crop_rle
 from ..utils.raster import fill_poly
 
@@ -62,9 +65,11 @@ def string_to_counts(s):
     return counts
 
 
-def rle_counts_to_mask(counts, h, w):
+def rle_counts_to_mask(counts, h, w, native=True):
     """Column-major run lengths, starting with a zero run -> ``(h, w)``
-    uint8 mask."""
+    uint8 mask (in the mask library unless ``native=False``)."""
+    if native:
+        return maskops.rle_decode_counts(counts, h, w)
     flat = np.repeat(np.arange(len(counts), dtype=np.uint8) & 1,
                      np.asarray(counts, np.int64))
     out = np.zeros(h * w, np.uint8)
@@ -72,10 +77,14 @@ def rle_counts_to_mask(counts, h, w):
     return out.reshape((h, w), order="F")
 
 
-def encode_mask(mask):
-    """``(h, w)`` binary mask -> COCO compressed RLE dict."""
+def encode_mask(mask, native=True):
+    """``(h, w)`` binary mask -> COCO compressed RLE dict (run lengths from
+    the mask library unless ``native=False``)."""
     mask = np.asarray(mask, np.uint8)
     h, w = mask.shape
+    if native:
+        return {"size": [int(h), int(w)], "counts": counts_to_string(
+            maskops.rle_encode_counts(mask))}
     return crop_rle(mask, 0, 0, h, w)
 
 
@@ -86,9 +95,9 @@ def _counts(rle):
     return counts
 
 
-def decode_mask(rle):
+def decode_mask(rle, native=True):
     h, w = rle["size"]
-    return rle_counts_to_mask(_counts(rle), h, w)
+    return rle_counts_to_mask(_counts(rle), h, w, native)
 
 
 def rle_area(rle):
@@ -132,13 +141,18 @@ def _overlap(a, b):
             and b[0] <= a[2] and a[1] <= b[3] and b[1] <= a[3])
 
 
-def mask_iou(rles_a, rles_b, iscrowd=None):
+def mask_iou(rles_a, rles_b, iscrowd=None, native=True):
     """Pairwise IoU ``(len(rles_a), len(rles_b))`` of two lists of COCO RLEs
     (the JAX package's ``mask_iou``: with ``iscrowd[j]`` the union is
-    ``a``'s area alone).  Computed from the run lengths: the intersection
-    of ``a`` and ``b`` is, over ``b``'s runs, ``a``'s pixels before each
-    run's end less those before its start.  Pairs whose bounding boxes do
-    not overlap intersect in nothing and are skipped."""
+    ``a``'s area alone).  Without ``iscrowd`` the mask library merges the
+    run lengths of each pair, as JAX's does, unless ``native=False``.  The
+    numpy version works from the run lengths too: the intersection of
+    ``a`` and ``b`` is, over ``b``'s runs, ``a``'s pixels before each
+    run's end less those before its start, and pairs whose bounding boxes
+    do not overlap intersect in nothing and are skipped."""
+    if native and iscrowd is None:
+        return maskops.rle_iou_matrix([_counts(r) for r in rles_a],
+                                      [_counts(r) for r in rles_b])
     ra = [_Runs(r) for r in rles_a]
     rb = [_Runs(r) for r in rles_b]
     out = np.zeros((len(ra), len(rb)), np.float64)

@@ -54,6 +54,20 @@ class CascadeRCNN(TwoStageDetector):
         self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
         self._setup_mask_head(cfg)
 
+    def forward_dummy(self, img):
+        """The JAX cascade's ``__call__``: the RPN head's outputs, and every
+        stage's box head and the mask head on the dummy RoIs' features
+        (``TwoStageDetector.forward_dummy``)."""
+        feats = self.extract_feat(img)
+        outs = self.rpn_head([f.permute(0, 3, 1, 2) for f in feats])
+        rois = self._dummy_rois(img)
+        bf = self._roi_align_cfg(self.bbox_extractor_cfg, feats, rois, None)
+        extra = [h(bf) for h in self.roi_head["bbox_head"]]
+        if self.with_mask:
+            extra.append(self.roi_head["mask_head"](self._roi_align_cfg(
+                self.mask_extractor_cfg, feats, rois, None)))
+        return outs, extra
+
     def _aug_test_box_head(self):
         """The first stage's head with the last stage's coder: the JAX
         cascade's ``aug_test`` runs the trunk's single-head path, whose

@@ -32,6 +32,11 @@ class GridRCNN(TwoStageDetector):
         self.grid_extractor_cfg = self._extractor(
             cfg.get("grid_roi_extractor") or cfg["bbox_roi_extractor"])
 
+    def _dummy_extra_heads(self, feats, rois):
+        """The grid head's fused and unfused heatmaps."""
+        return [self.roi_head["grid_head"](self._roi_align_cfg(
+            self.grid_extractor_cfg, feats, rois, None), unfused=True)]
+
     def _extra_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
                              pos_gt, draw):
         """``loss_grid``: the sigmoid cross-entropy of the fused and the

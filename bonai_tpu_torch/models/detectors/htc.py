@@ -42,6 +42,24 @@ class HTC(CascadeRCNN):
             "the JAX detector's aug_test reads the trunk's single mask head "
             "(mask_head/conv0), which HTC's per-stage heads replace")
 
+    def forward_dummy(self, img):
+        """The JAX HTC's ``__call__``: the RPN head's outputs, every stage's
+        box head on the dummy RoIs' features (no semantic fusion), the
+        semantic head's logits, and every stage's mask logits
+        (:meth:`mask_stage`, fused with the semantic embedding)."""
+        feats = self.extract_feat(img)
+        outs = self.rpn_head([f.permute(0, 3, 1, 2) for f in feats])
+        rois = self._dummy_rois(img)
+        bf = self._roi_align_cfg(self.bbox_extractor_cfg, feats, rois, None)
+        extra = [h(bf) for h in self.roi_head["bbox_head"]]
+        seg_logits, sem_feat = self.semantic(feats)
+        if seg_logits is not None:
+            extra.append(seg_logits)
+        if self.with_mask:
+            extra += [self.mask_stage(i, feats, rois, None, sem_feat)
+                      for i in range(self.num_stages)]
+        return outs, extra
+
     def _setup_mask_head(self, cfg):
         """One ``HTCMaskHead`` a stage (with ``mask_info_flow``, a
         ``conv_res`` on every stage but the first), the semantic head and

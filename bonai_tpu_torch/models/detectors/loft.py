@@ -140,6 +140,24 @@ class LOFT(TwoStageDetector):
                     extractor.get("out_channels", 256),
                     c.get("num_convs", 4), c.get("conv_out_channels", 256))
 
+    def _dummy_extra_heads(self, feats, rois):
+        """The offset head, and the attribute heads the config has, on the
+        dummy RoIs (no reweighting), as the JAX LOFT's."""
+        f = self._roi_align_cfg(self.offset_extractor_cfg, feats, rois, None)
+        outs = [self.roi_head["offset_head"](f)]
+        if "height_head" in self.roi_head:
+            outs.append(self.roi_head["height_head"](f))
+        if "offset_height_head" in self.roi_head:
+            outs.extend(self.roi_head["offset_height_head"](f))
+        if "angle_head" in self.roi_head:
+            outs.append(self.roi_head["angle_head"](feats))
+        for key in ("side_face", "offset_field"):
+            if f"{key}_head" in self.roi_head:
+                outs.append(self.roi_head[f"{key}_head"](self._roi_align_cfg(
+                    getattr(self, f"{key}_extractor_cfg"), feats, rois,
+                    None)))
+        return outs
+
     def _head(self, name):
         return self.roi_head[name] if name in self.roi_head else None
 

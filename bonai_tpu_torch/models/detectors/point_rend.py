@@ -39,6 +39,16 @@ class PointRend(TwoStageDetector):
         self.point_stride = list(self.mask_extractor_cfg.get(
             "featmap_strides", [4]))[0]
 
+    def _dummy_extra_heads(self, feats, rois):
+        """The point head at four points, each at the RoIs' centre."""
+        coarse = self.roi_head["mask_head"](self._roi_align_cfg(
+            self.mask_extractor_cfg, feats, rois, None))
+        rel = rois.new_full((rois.shape[0], 4, 2), 0.5)
+        fine = fine_grained_point_feats(feats[0], rois, rel,
+                                        self.point_stride)
+        return [self.roi_head["point_head"](
+            fine, coarse_point_sample(coarse, rel))]
+
     def _point_logits(self, feats, rois, coarse, rel_pts):
         """The point head's fg logits ``(N, P)`` at RoI-relative points."""
         fine = fine_grained_point_feats(feats[0], rois, rel_pts,

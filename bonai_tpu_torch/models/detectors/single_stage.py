@@ -138,6 +138,12 @@ class SingleStageDetector(nn.Module):
         feats = self.extract_feat(batch["image"])
         return self._loss(self.bbox_head(feats), feats, batch)
 
+    def forward_dummy(self, img):
+        """The dense head's outputs on ``(B, H, W, 3)`` images (NCHW maps),
+        as the JAX detector's ``__call__``; ``tools/get_flops.py`` counts
+        it."""
+        return self.bbox_head(self.extract_feat(img))
+
     @torch.inference_mode()
     def simple_test(self, img, img_shape, scale_factor):
         """Batched inference on ``(B, H, W, 3)`` normalised, padded images:

@@ -841,6 +841,42 @@ class TwoStageDetector(nn.Module):
                              pos_gt, draw):
         return {}
 
+    # ---------------- the dummy forward ----------------
+    @staticmethod
+    def _dummy_rois(img):
+        """The dummy forward's RoIs: four float32 ``[0, 0, 0, 32, 32]``."""
+        return img.new_tensor([[0.0, 0.0, 0.0, 32.0, 32.0]],
+                              dtype=torch.float32).repeat(4, 1)
+
+    def forward_dummy(self, img):
+        """Every head of the detector once on ``(B, H, W, 3)`` images, as
+        the JAX detector's ``__call__`` (reference ``two_stage.py:87-103``):
+        ``(rpn_outs, extra)``, the RPN head's outputs (``None`` without an
+        RPN; the RPN-only detector returns them alone) and the box head's,
+        mask head's and extra heads' outputs on four dummy RoIs.  Maps are
+        the port's NCHW.  ``tools/get_flops.py`` counts it."""
+        feats = self.extract_feat(img)
+        outs = (self.rpn_head([f.permute(0, 3, 1, 2) for f in feats])
+                if self.has_rpn else None)
+        if "bbox_head" not in self.roi_head:         # the RPN-only detector
+            return outs
+        rois = self._dummy_rois(img)
+        extra = [self._bbox_head_forward(self.roi_head["bbox_head"], feats,
+                                         rois, None)]
+        if self.with_mask:
+            mf = self._roi_align_cfg(self.mask_extractor_cfg, feats, rois,
+                                     None)
+            logits = self.roi_head["mask_head"](mf)
+            extra.append(logits)
+            if "mask_iou_head" in self.roi_head:
+                extra.append(self.roi_head["mask_iou_head"](mf, logits))
+        return outs, extra + self._dummy_extra_heads(feats, rois)
+
+    def _dummy_extra_heads(self, feats, rois):
+        """The outputs of the heads :meth:`forward_dummy` does not run
+        itself (a list)."""
+        return []
+
     # ---------------- inference ----------------
     @torch.inference_mode()
     def simple_test(self, img, img_shape, scale_factor):

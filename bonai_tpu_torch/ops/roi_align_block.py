@@ -14,23 +14,27 @@ kernels compute the strip route (``roi_align_fused``) under the strip rule,
 and the forward kernel the window-64 route (``roi_align_strip``).
 
 ``roi_align_block`` takes the plain version only for tensors on the CPU
-(autograd differentiates it there); for CUDA tensors it goes through
-:class:`_RoIAlignBlock`, whose forward launches the forward kernel and
-whose backward launches the backward kernel, or raises.  The RoIs get no
-gradient (the detector's RoIs are sampled proposals, constants of the
-step).
+(autograd differentiates it there); for CUDA tensors it calls the custom
+op ``bonai_tpu_torch::roi_align_levels`` (:func:`roi_align_levels_op`),
+which launches the forward kernel, and whose registered gradient,
+``bonai_tpu_torch::roi_align_levels_backward``, launches the backward
+kernel, or raises.  Both ops have fake implementations of their output
+shapes, so ``torch.export`` traces a detector through them and the
+exported program launches the kernels.  The RoIs get no gradient (the
+detector's RoIs are sampled proposals, constants of the step).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from ._build import load_library
-from .roi_align import (_as_pair, _level_samples, map_roi_levels,
-                        roi_align_at_levels)
+from .roi_align import (_as_pair, _level_samples, corner_plan,
+                        map_roi_levels, roi_align_at_levels, scatter_corners)
 
 _MAX_LEVELS = 4         # kMaxLevels in the CUDA source
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -192,8 +196,6 @@ def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                              f"C, got {tuple(f.shape)}")
         if not f.is_contiguous():
             raise ValueError("levels must be contiguous NHWC tensors")
-        if f.data_ptr() % 8:
-            raise ValueError("levels must be 8-byte aligned")
     if C % 2:
         raise ValueError(f"{name} needs an even channel count, got {C}")
     if (rois.device != dev or rois.dtype != torch.float32 or rois.dim() != 2
@@ -205,6 +207,13 @@ def _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                                   or roi_valid.shape != rois.shape[:1]):
         raise ValueError("roi_valid must be a bool (R,) tensor on the "
                          "levels' device")
+
+
+def _check_aligned(levels):
+    """Raises on levels the kernels cannot read 8 bytes at a time (checked
+    in the op's body: a traced graph's fake tensors have no address)."""
+    if any(f.data_ptr() % 8 for f in levels):
+        raise ValueError("levels must be 8-byte aligned")
 
 
 def launch_backward(grad_out, shapes, featmap_strides, rois, lvl,
@@ -231,14 +240,167 @@ def launch_backward(grad_out, shapes, featmap_strides, rois, lvl,
     return grads
 
 
+def _forward_counter(level_rule):
+    """The wrapper whose ``launches`` count the forward kernel's launches
+    under ``level_rule``."""
+    from .roi_align_fused import roi_align_fused
+    from .roi_align_strip import roi_align_strip
+    return {BLOCK_RULE: roi_align_block, STRIP_RULE: roi_align_fused,
+            WINDOW64_RULE: roi_align_strip}[level_rule]
+
+
+def _backward_counter(level_rule):
+    """The wrapper whose ``launches`` count the backward kernel's launches
+    at the levels of ``level_rule``."""
+    from .roi_align_fused import roi_align_fused_backward
+    return {BLOCK_RULE: roi_align_block_backward,
+            STRIP_RULE: roi_align_fused_backward}[level_rule]
+
+
+def _plain_levels(rois, featmap_strides, level_rule, finest_scale, window):
+    """Each RoI's level under ``level_rule``, as the plain versions compute
+    it."""
+    from .roi_align_fused import strip_levels
+    boxes = rois[:, 1:5].float()
+    if level_rule == BLOCK_RULE:
+        return block_levels(boxes, featmap_strides, finest_scale, window)
+    if level_rule == STRIP_RULE:
+        return strip_levels(boxes, featmap_strides, finest_scale, window)
+    return map_roi_levels(boxes, len(featmap_strides), finest_scale)
+
+
+@torch.library.custom_op("bonai_tpu_torch::roi_align_levels",
+                         mutates_args=())
+def roi_align_levels_op(levels: list[torch.Tensor], rois: torch.Tensor,
+                        roi_valid: Optional[torch.Tensor],
+                        output_size: list[int], featmap_strides: list[float],
+                        sampling_ratio: int, level_rule: int,
+                        finest_scale: int, window: int, want_levels: bool
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The multi-level RoIAlign of the forward kernel as the op
+    ``bonai_tpu_torch::roi_align_levels``: ``(out, lvl)``, the ``(R, oh,
+    ow, C)`` output in the levels' dtype and each RoI's ``int32`` level
+    under ``level_rule`` (empty unless ``want_levels``).
+
+    On CUDA tensors it launches the forward kernel (counted on the
+    wrapper of ``level_rule``: ``roi_align_block``, ``roi_align_fused`` or
+    ``roi_align_strip``); on CPU tensors it computes the plain version.
+    Arguments checked by the caller (``_check_inputs``), but for the
+    levels' alignment.  Its gradient, registered below, is
+    :func:`roi_align_levels_backward_op` at the saved levels."""
+    strides = tuple(featmap_strides)
+    if rois.is_cuda:
+        _check_aligned(levels)
+        out, lvl = launch_forward(levels, rois, roi_valid, output_size,
+                                  strides, sampling_ratio, level_rule,
+                                  finest_scale, window, want_levels)
+        _forward_counter(level_rule).launches += bool(rois.shape[0])
+    else:
+        out, lvl = _plain_forward(levels, rois, roi_valid, output_size,
+                                  strides, sampling_ratio, level_rule,
+                                  finest_scale, window, want_levels)
+    if lvl is None:
+        lvl = torch.empty(0, dtype=torch.int32, device=rois.device)
+    return out, lvl
+
+
+def _plain_forward(levels, rois, roi_valid, output_size, featmap_strides,
+                   sampling_ratio, level_rule, finest_scale, window,
+                   want_levels):
+    """The op's CPU body: the plain version of ``level_rule``."""
+    lvl = _plain_levels(rois, featmap_strides, level_rule, finest_scale,
+                        window)
+    if level_rule == WINDOW64_RULE:
+        from .roi_align_strip import roi_align_strip_ref
+        out = roi_align_strip_ref(levels, rois, output_size,
+                                  featmap_strides, sampling_ratio, True,
+                                  finest_scale, roi_valid)
+    else:
+        out = roi_align_at_levels(levels, rois, lvl, output_size,
+                                  featmap_strides, sampling_ratio,
+                                  roi_valid=roi_valid)
+    return out, lvl.int() if want_levels else None
+
+
+@roi_align_levels_op.register_fake
+def _(levels, rois, roi_valid, output_size, featmap_strides, sampling_ratio,
+      level_rule, finest_scale, window, want_levels):
+    R = rois.shape[0]
+    return (levels[0].new_empty((R, *output_size, levels[0].shape[-1])),
+            rois.new_empty((R,) if want_levels else (0,),
+                           dtype=torch.int32))
+
+
+@torch.library.custom_op("bonai_tpu_torch::roi_align_levels_backward",
+                         mutates_args=())
+def roi_align_levels_backward_op(grad_out: torch.Tensor, shapes: list[int],
+                                 featmap_strides: list[float],
+                                 rois: torch.Tensor, lvl: torch.Tensor,
+                                 roi_valid: Optional[torch.Tensor],
+                                 sampling_ratio: int, level_rule: int
+                                 ) -> list[torch.Tensor]:
+    """The gradient of :func:`roi_align_levels_op` with respect to its
+    levels, as the op ``bonai_tpu_torch::roi_align_levels_backward``:
+    ``shapes`` is the levels' ``(B, Hl, Wl, C)`` shapes, flattened.  On
+    CUDA it launches the backward kernel (counted on
+    ``roi_align_block_backward`` or ``roi_align_fused_backward`` by
+    ``level_rule``); on the CPU it is the plain scatter, summed in float32
+    and rounded once.  One ``(B, Hl, Wl, C)`` gradient per level, in
+    ``grad_out``'s dtype."""
+    level_shapes = [tuple(shapes[i:i + 4]) for i in range(0, len(shapes), 4)]
+    strides = tuple(featmap_strides)
+    if grad_out.is_cuda:
+        grads = launch_backward(grad_out, level_shapes, strides, rois, lvl,
+                                roi_valid, sampling_ratio)
+        _backward_counter(level_rule).launches += 1
+        return grads
+    corners, weights = corner_plan(level_shapes, rois, lvl,
+                                   grad_out.shape[1:3], strides,
+                                   sampling_ratio, True, roi_valid)
+    sizes = [b * h * w for b, h, w, _ in level_shapes]
+    dflat = scatter_corners(grad_out.float(), sum(sizes), corners, weights,
+                            sampling_ratio, torch.float32)
+    return [g.reshape(s).to(grad_out.dtype, copy=True)    # no shared base
+            for g, s in zip(dflat.split(sizes), level_shapes)]
+
+
+@roi_align_levels_backward_op.register_fake
+def _(grad_out, shapes, featmap_strides, rois, lvl, roi_valid,
+      sampling_ratio, level_rule):
+    return [grad_out.new_empty(shapes[i:i + 4])
+            for i in range(0, len(shapes), 4)]
+
+
+def _setup_backward(ctx, inputs, output):
+    levels, rois, roi_valid, _, strides, sr, rule = inputs[:7]
+    ctx.save_for_backward(rois, output[1], roi_valid)
+    ctx.shapes = [d for f in levels for d in f.shape]
+    ctx.strides, ctx.sampling_ratio, ctx.level_rule = strides, sr, rule
+
+
+def _levels_backward(ctx, grad_out, _grad_lvl):
+    rois, lvl, roi_valid = ctx.saved_tensors
+    if lvl.shape[0] != rois.shape[0]:
+        raise RuntimeError("roi_align_levels was called with "
+                           "want_levels=False: it has no gradient")
+    grads = roi_align_levels_backward_op(
+        grad_out.contiguous(), ctx.shapes, ctx.strides, rois, lvl,
+        roi_valid, ctx.sampling_ratio, ctx.level_rule)
+    return (grads,) + (None,) * 9
+
+
+roi_align_levels_op.register_autograd(_levels_backward,
+                                      setup_context=_setup_backward)
+
+
 def roi_align_block_backward(grad_out, shapes, featmap_strides, rois, lvl,
                              roi_valid, sampling_ratio=2):
-    """Gradient of the block RoIAlign with respect to its levels: launches
-    the backward kernel (``roi_align_block_backward.launches`` counts its
-    launches).
+    """Gradient of the block RoIAlign with respect to its levels: on CUDA
+    launches the backward kernel (``roi_align_block_backward.launches``
+    counts its launches) through :func:`roi_align_levels_backward_op`.
 
     Args:
-      grad_out: ``(R, oh, ow, C)`` CUDA gradient of the output (float32 or
+      grad_out: ``(R, oh, ow, C)`` gradient of the output (float32 or
         bfloat16, the levels' dtype).
       shapes: the levels' ``(B, Hl, Wl, C)`` shapes.
       rois, lvl, roi_valid: the forward's RoIs, ``int32`` levels and bool
@@ -247,40 +409,28 @@ def roi_align_block_backward(grad_out, shapes, featmap_strides, rois, lvl,
     Returns one ``(B, Hl, Wl, C)`` contiguous gradient per level in
     ``grad_out``'s dtype: summed in float32, rounded once.
     """
-    grads = launch_backward(grad_out, shapes, featmap_strides, rois, lvl,
-                            roi_valid, sampling_ratio)
-    roi_align_block_backward.launches += 1
-    return grads
+    return roi_align_levels_backward_op(
+        grad_out, [int(d) for s in shapes for d in s],
+        [float(s) for s in featmap_strides], rois, lvl, roi_valid,
+        int(sampling_ratio), BLOCK_RULE)
 
 
 roi_align_block_backward.launches = 0
 
 
-class _RoIAlignBlock(torch.autograd.Function):
-    """The block RoIAlign on CUDA: the forward kernel, which computes each
-    RoI's level and saves it, and the backward kernel at those levels."""
-
-    @staticmethod
-    def forward(ctx, rois, roi_valid, output_size, featmap_strides,
-                sampling_ratio, finest_scale, *levels):
-        out, lvl = launch_forward(levels, rois, roi_valid, output_size,
-                                  featmap_strides, sampling_ratio,
-                                  BLOCK_RULE, finest_scale, _WINDOW,
-                                  any(ctx.needs_input_grad[6:]))
-        roi_align_block.launches += bool(rois.shape[0])
-        ctx.save_for_backward(rois, lvl, roi_valid)
-        ctx.shapes = [tuple(f.shape) for f in levels]
-        ctx.strides = featmap_strides
-        ctx.sampling_ratio = sampling_ratio
-        return out
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        rois, lvl, roi_valid = ctx.saved_tensors
-        grads = roi_align_block_backward(grad_out, ctx.shapes, ctx.strides,
-                                         rois, lvl, roi_valid,
-                                         ctx.sampling_ratio)
-        return (None,) * 6 + tuple(grads)
+def roi_align_levels(levels, rois, output_size, featmap_strides,
+                     sampling_ratio, level_rule, finest_scale, window,
+                     roi_valid=None):
+    """:func:`roi_align_levels_op` on checked arguments, with the levels
+    saved for the backward kernel where the levels require a gradient."""
+    want = torch.is_grad_enabled() and any(f.requires_grad for f in levels)
+    out, _ = roi_align_levels_op(
+        list(levels), rois,
+        None if roi_valid is None else roi_valid.contiguous(),
+        list(_as_pair(output_size)), [float(s) for s in featmap_strides],
+        int(sampling_ratio), level_rule, int(finest_scale), int(window),
+        want)
+    return out
 
 
 def roi_align_block(levels, rois, output_size, featmap_strides,
@@ -310,11 +460,9 @@ def roi_align_block(levels, rois, output_size, featmap_strides,
     num_levels = len(featmap_strides)
     _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                   sampling_ratio)
-    if roi_valid is not None:
-        roi_valid = roi_valid.contiguous()
-    return _RoIAlignBlock.apply(rois, roi_valid, _as_pair(output_size),
-                                tuple(featmap_strides), int(sampling_ratio),
-                                int(finest_scale), *levels[:num_levels])
+    return roi_align_levels(levels[:num_levels], rois, output_size,
+                            featmap_strides, sampling_ratio, BLOCK_RULE,
+                            finest_scale, _WINDOW, roi_valid)
 
 
 roi_align_block.launches = 0

@@ -22,7 +22,8 @@ nothing in what is computed.
 
 ``roi_align_fused`` takes the plain version for tensors on the CPU; for
 CUDA tensors it launches the forward kernel and, where the levels require
-a gradient, the backward kernel (``backward="rmw"``), or raises; its own
+a gradient, the backward kernel (``backward="rmw"``), through the custom
+ops of ``roi_align_block.py`` under the strip rule, or raises; its own
 counters (``roi_align_fused.launches``,
 ``roi_align_fused_backward.launches``) count those launches.
 ``backward="scatter"`` (the JAX package's XLA scatter transpose,
@@ -36,8 +37,10 @@ import torch
 
 from .roi_align import (_as_pair, corner_plan, map_roi_levels,
                         roi_align_at_levels, scatter_corners)
-from .roi_align_block import (STRIP_RULE, _check_inputs, launch_backward,
-                              launch_forward)
+from .roi_align_block import (STRIP_RULE, _check_inputs,
+                              roi_align_levels,
+                              roi_align_levels_backward_op,
+                              roi_align_levels_op)
 
 _BACKWARDS = ("rmw", "scatter")
 
@@ -70,16 +73,16 @@ def roi_align_fused_ref(levels, rois, output_size, featmap_strides,
 
 def roi_align_fused_backward(grad_out, shapes, featmap_strides, rois, lvl,
                              roi_valid, sampling_ratio=2):
-    """Gradient of the strip RoIAlign with respect to its levels: launches
-    the backward kernel at the strip levels
+    """Gradient of the strip RoIAlign with respect to its levels: on CUDA
+    launches the backward kernel at the strip levels
     (``roi_align_fused_backward.launches`` counts its launches).  Arguments
     and result as :func:`~.roi_align_block.roi_align_block_backward`: one
     ``(B, Hl, Wl, C)`` gradient per level in ``grad_out``'s dtype, summed
     in float32 and rounded once."""
-    grads = launch_backward(grad_out, shapes, featmap_strides, rois, lvl,
-                            roi_valid, sampling_ratio)
-    roi_align_fused_backward.launches += 1
-    return grads
+    return roi_align_levels_backward_op(
+        grad_out, [int(d) for s in shapes for d in s],
+        [float(s) for s in featmap_strides], rois, lvl, roi_valid,
+        int(sampling_ratio), STRIP_RULE)
 
 
 roi_align_fused_backward.launches = 0
@@ -100,43 +103,32 @@ def strip_scatter_backward(grad_out, shapes, featmap_strides, rois, lvl,
     return [g.reshape(s) for g, s in zip(dflat.split(sizes), shapes)]
 
 
-class _RoIAlignFused(torch.autograd.Function):
-    """The strip RoIAlign with a chosen backward.  On CUDA the forward
-    launches the forward kernel, which computes each RoI's strip level and
-    saves it, and ``backward="rmw"`` the backward kernel at those levels;
-    on the CPU (``backward="scatter"`` only) the forward is the plain
-    version at :func:`strip_levels`' levels."""
+class _RoIAlignScatter(torch.autograd.Function):
+    """The strip RoIAlign under ``backward="scatter"``: the forward of
+    :func:`~.roi_align_block.roi_align_levels_op` (the forward kernel on
+    CUDA, which computes each RoI's strip level; the plain version on the
+    CPU), the backward :func:`strip_scatter_backward` at those levels."""
 
     @staticmethod
     def forward(ctx, rois, roi_valid, output_size, featmap_strides,
-                sampling_ratio, backward, finest_scale, window, *levels):
-        if levels[0].is_cuda:
-            out, lvl = launch_forward(levels, rois, roi_valid, output_size,
-                                      featmap_strides, sampling_ratio,
-                                      STRIP_RULE, finest_scale, window,
-                                      any(ctx.needs_input_grad[8:]))
-            roi_align_fused.launches += bool(rois.shape[0])
-        else:
-            lvl = strip_levels(rois[:, 1:5].float(), featmap_strides,
-                               finest_scale, window)
-            out = roi_align_at_levels(levels, rois, lvl, output_size,
-                                      featmap_strides, sampling_ratio,
-                                      roi_valid=roi_valid)
+                sampling_ratio, finest_scale, window, *levels):
+        out, lvl = roi_align_levels_op(
+            list(levels), rois, roi_valid, list(output_size),
+            [float(s) for s in featmap_strides], sampling_ratio, STRIP_RULE,
+            finest_scale, window, any(ctx.needs_input_grad[7:]))
         ctx.save_for_backward(rois, lvl, roi_valid)
         ctx.shapes = [tuple(f.shape) for f in levels]
         ctx.strides = featmap_strides
         ctx.sampling_ratio = sampling_ratio
-        ctx.backward = backward
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         rois, lvl, roi_valid = ctx.saved_tensors
-        fn = roi_align_fused_backward if ctx.backward == "rmw" \
-            else strip_scatter_backward
-        grads = fn(grad_out, ctx.shapes, ctx.strides, rois, lvl, roi_valid,
-                   ctx.sampling_ratio)
-        return (None,) * 8 + tuple(grads)
+        grads = strip_scatter_backward(grad_out, ctx.shapes, ctx.strides,
+                                       rois, lvl, roi_valid,
+                                       ctx.sampling_ratio)
+        return (None,) * 7 + tuple(grads)
 
 
 def roi_align_fused(levels, rois, output_size, featmap_strides,
@@ -175,12 +167,16 @@ def roi_align_fused(levels, rois, output_size, featmap_strides,
                       sampling_ratio, "roi_align_fused")
     elif not aligned:
         raise ValueError("roi_align_fused computes aligned=True only")
+    if backward == "rmw":
+        return roi_align_levels(levels[:num_levels], rois, output_size,
+                                featmap_strides, sampling_ratio, STRIP_RULE,
+                                finest_scale, window, roi_valid)
     if roi_valid is not None:
         roi_valid = roi_valid.contiguous()
-    return _RoIAlignFused.apply(rois, roi_valid, _as_pair(output_size),
-                                tuple(featmap_strides), int(sampling_ratio),
-                                backward, int(finest_scale), int(window),
-                                *levels[:num_levels])
+    return _RoIAlignScatter.apply(rois, roi_valid, _as_pair(output_size),
+                                  tuple(featmap_strides), int(sampling_ratio),
+                                  int(finest_scale), int(window),
+                                  *levels[:num_levels])
 
 
 roi_align_fused.launches = 0

@@ -22,9 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from .roi_align import (_as_pair, _level_samples, flatten_levels,
-                        map_roi_levels, pool_corners, window_corner_plan)
-from .roi_align_block import WINDOW64_RULE, _check_inputs, launch_forward
+from .roi_align import (_level_samples, flatten_levels, map_roi_levels,
+                        pool_corners, window_corner_plan)
+from .roi_align_block import WINDOW64_RULE, _check_inputs, roi_align_levels
 
 _WINDOW = 64            # kWindow64 in csrc/roi_align_block_fwd.cu
 
@@ -158,14 +158,9 @@ def roi_align_strip(levels, rois, output_size, featmap_strides,
         raise ValueError(f"roi_align_strip runs on cuda or cpu, not {device}")
     _check_inputs(levels, rois, roi_valid, num_levels, aligned,
                   sampling_ratio, "roi_align_strip")
-    if roi_valid is not None:
-        roi_valid = roi_valid.contiguous()
-    out, _ = launch_forward(levels[:num_levels], rois, roi_valid,
-                            _as_pair(output_size), featmap_strides,
-                            int(sampling_ratio), WINDOW64_RULE,
-                            int(finest_scale), _WINDOW, want_levels=False)
-    roi_align_strip.launches += bool(rois.shape[0])
-    return out
+    return roi_align_levels(levels[:num_levels], rois, output_size,
+                            featmap_strides, sampling_ratio, WINDOW64_RULE,
+                            finest_scale, _WINDOW, roi_valid)
 
 
 roi_align_strip.launches = 0

@@ -264,6 +264,210 @@ def thick_line(img, p0, p1, color, thickness):
     return img
 
 
+
+# --- lines, rectangles and polylines of OpenCV's drawing.cpp ---------------
+# (``LINE_8``, ``shift=0``): a line of thickness 1 is ``cv2.line``'s
+# Bresenham line; a thicker one is OpenCV's ``ThickLine``: the convex
+# quadrilateral of the line's width filled in 16.16 fixed point
+# (``FillConvexPoly``, its edges drawn by the fixed-point ``Line2``) and a
+# filled circle (``Circle``) at the capped ends.
+
+
+def _hline(img, y, x1, x2, raw):
+    h, w = img.shape[:2]
+    if 0 <= y < h and x2 >= 0 and x1 < w:
+        img[y, max(x1, 0):min(x2, w - 1) + 1] = raw
+
+
+def _line2(img, p1, p2, raw):
+    """OpenCV's ``Line2``: the line between two 16.16 points."""
+    h, w = img.shape[:2]
+    x1, y1, x2, y2, inside = _clip_line(w << XY_SHIFT, h << XY_SHIFT,
+                                        *p1, *p2)
+    if not inside:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    if ax > ay:
+        if dx < 0:
+            dy = -dy
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        x_step, y_step = XY_ONE, _trunc_div(dy << XY_SHIFT, ax | 1)
+        ecount = (x2 - x1) >> XY_SHIFT
+    else:
+        if dy < 0:
+            dx = -dx
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        x_step, y_step = _trunc_div(dx << XY_SHIFT, ay | 1), XY_ONE
+        ecount = (y2 - y1) >> XY_SHIFT
+    x1 += XY_ONE >> 1
+    y1 += XY_ONE >> 1
+
+    def put(x, y):
+        if 0 <= x < w and 0 <= y < h:
+            img[y, x] = raw
+    put((x2 + (XY_ONE >> 1)) >> XY_SHIFT, (y2 + (XY_ONE >> 1)) >> XY_SHIFT)
+    if ax > ay:
+        x1 >>= XY_SHIFT
+        for _ in range(ecount + 1):
+            put(x1, y1 >> XY_SHIFT)
+            x1 += 1
+            y1 += y_step
+    else:
+        y1 >>= XY_SHIFT
+        for _ in range(ecount + 1):
+            put(x1 >> XY_SHIFT, y1)
+            x1 += x_step
+            y1 += 1
+
+
+def _fill_convex_poly(img, v, raw):
+    """OpenCV's ``FillConvexPoly`` of 16.16 vertices ``v`` (``LINE_8``):
+    the outline by :func:`_line2`, then each row between the two edges
+    that walk down from the top vertex."""
+    h, w = img.shape[:2]
+    npts = len(v)
+    delta = XY_ONE >> 1
+    xs_ = [p[0] for p in v]
+    ys_ = [p[1] for p in v]
+    imin = ys_.index(min(ys_))
+    p0 = v[-1]
+    for p in v:
+        _line2(img, p0, p, raw)
+        p0 = p
+    xmin, xmax = (min(xs_) + delta) >> XY_SHIFT, (max(xs_) + delta) >> XY_SHIFT
+    ymin, ymax = (min(ys_) + delta) >> XY_SHIFT, (max(ys_) + delta) >> XY_SHIFT
+    if npts < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edge = [dict(idx=imin, di=1, x=-XY_ONE, dx=0, ye=ymin),
+            dict(idx=imin, di=npts - 1, x=-XY_ONE, dx=0, ye=ymin)]
+    edges = npts
+    y = ymin
+    while True:
+        for e in edge:
+            if y < e["ye"]:
+                continue
+            idx0 = e["idx"]
+            idx = (idx0 + e["di"]) % npts
+            while edges > 0:
+                edges -= 1
+                ty = (v[idx][1] + delta) >> XY_SHIFT
+                if ty > y:
+                    xs, xe = v[idx0][0], v[idx][0]
+                    e.update(ye=ty, idx=idx, x=xs, dx=_trunc_div(
+                        (xe - xs) * 2 + (ty - y), 2 * (ty - y)))
+                    break
+                idx0 = idx
+                idx = (idx + e["di"]) % npts
+            else:
+                edges -= 1
+        if edges < 0:
+            break
+        if y >= 0:
+            lo, hi = sorted((edge[0]["x"], edge[1]["x"]))
+            _hline(img, y, (lo + delta) >> XY_SHIFT, (hi + delta) >> XY_SHIFT,
+                   raw)
+        edge[0]["x"] += edge[0]["dx"]
+        edge[1]["x"] += edge[1]["dx"]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _circle_filled(img, cx, cy, radius, raw):
+    """OpenCV's ``Circle`` with ``fill``: the midpoint circle's spans."""
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    while dx >= dy:
+        for y, x1, x2 in ((cy - dy, cx - dx, cx + dx),
+                          (cy + dy, cx - dx, cx + dx),
+                          (cy - dx, cx - dy, cx + dy),
+                          (cy + dx, cx - dy, cx + dy)):
+            _hline(img, y, x1, x2, raw)
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:
+            err -= minus
+            dx -= 1
+            minus -= 2
+
+
+def _thick_line(img, p0, p1, raw, thickness, flags):
+    """OpenCV's ``ThickLine`` (``LINE_8``, ``shift=0``) between integer
+    points; ``flags`` bit 0 caps ``p0``, bit 1 caps ``p1``."""
+    h, w = img.shape[:2]
+    if thickness <= 1:
+        xs, ys = _line_pixels(w, h, *p0, *p1)
+        img[ys, xs] = raw
+        return
+    a = (int(p0[0]) << XY_SHIFT, int(p0[1]) << XY_SHIFT)
+    b = (int(p1[0]) << XY_SHIFT, int(p1[1]) << XY_SHIFT)
+    dx = (a[0] - b[0]) / XY_ONE
+    dy = (b[1] - a[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    t = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (t + odd * XY_ONE * 0.5) / math.sqrt(r)
+        ddx, ddy = round(dy * r), round(dx * r)
+        _fill_convex_poly(img, [(a[0] + ddx, a[1] + ddy),
+                                (a[0] - ddx, a[1] - ddy),
+                                (b[0] - ddx, b[1] - ddy),
+                                (b[0] + ddx, b[1] + ddy)], raw)
+    for i, p in enumerate((a, b)):
+        if flags & (i + 1):
+            _circle_filled(img, (p[0] + (XY_ONE >> 1)) >> XY_SHIFT,
+                           (p[1] + (XY_ONE >> 1)) >> XY_SHIFT,
+                           (t + (XY_ONE >> 1)) >> XY_SHIFT, raw)
+
+
+def line(img, p0, p1, color, thickness=1):
+    """``cv2.line(img, p0, p1, color, thickness)`` (``LINE_8``), in place;
+    returns ``img``."""
+    _thick_line(img, p0, p1, _raw_color(img, color), int(thickness), 3)
+    return img
+
+
+def polylines(img, pts, is_closed, color, thickness=1):
+    """``cv2.polylines(img, pts, is_closed, color, thickness)`` (``LINE_8``)
+    for a list of ``(n, 2)`` integer vertex arrays, in place; returns
+    ``img``."""
+    raw = _raw_color(img, color)
+    for p in pts:
+        v = [tuple(q) for q in np.asarray(p, np.int64).reshape(-1, 2).tolist()]
+        if not v:
+            continue
+        p0 = v[-1] if is_closed else v[0]
+        for q in v[0 if is_closed else 1:]:
+            _thick_line(img, p0, q, raw, int(thickness),
+                        2 if is_closed else 3)
+            p0 = q
+    return img
+
+
+def rectangle(img, pt1, pt2, color, thickness=1):
+    """``cv2.rectangle(img, pt1, pt2, color, thickness)`` (``LINE_8``,
+    ``thickness >= 0``), in place; returns ``img``."""
+    (x1, y1), (x2, y2) = pt1, pt2
+    return polylines(img, [np.array([(x1, y1), (x2, y1), (x2, y2),
+                                     (x1, y2)])], True, color, thickness)
+
+
+def arrowed_line(img, pt1, pt2, color, thickness=1, tip_length=0.1):
+    """``cv2.arrowedLine(img, pt1, pt2, color, thickness)`` (``LINE_8``):
+    the line and two tip strokes of ``tip_length`` of its length at 45
+    degrees, in place; returns ``img``."""
+    (x1, y1), (x2, y2) = (tuple(int(v) for v in p) for p in (pt1, pt2))
+    tip = math.hypot(x1 - x2, y1 - y2) * tip_length
+    line(img, (x1, y1), (x2, y2), color, thickness)
+    angle = math.atan2(y1 - y2, x1 - x2)
+    for sign in (1, -1):
+        p = (round(x2 + tip * math.cos(angle + sign * math.pi / 4)),
+             round(y2 + tip * math.sin(angle + sign * math.pi / 4)))
+        line(img, p, (x2, y2), color, thickness)
+    return img
+
 # --- contours ---------------------------------------------------------------
 
 # OpenCV's chain codes: 0 right, then counter-clockwise on the screen

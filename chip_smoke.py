@@ -271,7 +271,23 @@ Phases, each of which must pass:
    with ``RandomRotate(rotate_ratio=1.0, angles='any')`` after
    ``RandomFlip`` (the numpy warps), every loss finite, the loader's
    angles printed, at least one off the multiples of 90.
-21. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+21. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
+   1024^2) and the data phase's checkpoint: ``fuse_conv_bn`` and
+   ``publish_model`` on it, the checkpoint and each tool's file served
+   through ``inference_detector`` (B=2, bf16, two of the eval phase's val
+   crops); the fold held to the unfused model on a small float32 input
+   (TF32 off), on the checkpoint and on calibrated random weights, matched
+   detection by detection within 1e-4 of each output's largest value;
+   ``export_model``'s ``export_detector`` at B=1, the ``.pt2`` loaded by
+   ``load_exported`` in a fresh process, whose call must hold the
+   RoIAlign op, launch B1 3 times and give eager ``simple_test``'s outputs
+   within 1e-4 of each output's largest value (both calls timed);
+   ``get_flops`` at 1024^2; the mask library against its numpy versions
+   on the eval phase's masks (decode, encode, ``mask_iou``: equal, both
+   timed); ``show_result`` and ``browse_dataset`` on a crop and a train
+   tile, PNGs written; ``profile_time`` and ``device_trace`` around a
+   serve call, whose trace must hold B1's 3 kernels; ``collect_env``.
+22. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -306,7 +322,9 @@ model 3 times each; the tta phase's LOFT-FOA launches B1 3 times a view
 (box, mask, offset): 9 a batch at the default views at either level, 12
 at the four scaled views, 9 in the BONAI test CLI's batch with
 ``--aug-test``, and its rotated ``attr`` training B1 and B2 7 times a
-step.
+step; the tools phase's serve batches (the checkpoint, fused, published,
+traced), its eager call and its reloaded exported program (counted in
+its own process) B1 3 times each.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -439,6 +457,11 @@ TTA_RUNS = (("det", "det", TTA_DEFAULT, 9),
 TTA_DIR = os.path.join(REPO, "build", "chip_smoke_tta")
 TTA_CHECKPOINT = os.path.join(REPO, "build", "chip_smoke_tta_ckpt",
                               "data_phase.pth")
+# the tools phase: its files, and the eval phase's masks that the mask
+# library and its numpy versions encode, decode and intersect
+TOOLS_DIR = os.path.join(REPO, "build", "chip_smoke_tools")
+TOOLS_MASKS = 300
+TOOLS_TIMED = 3         # timed calls of the eager and the reloaded program
 # the rcnn phase's checkpoints scored COCO-style by the test CLI: --eval,
 # and the RoI calls of a batch
 COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
@@ -1657,7 +1680,7 @@ def eval_phase(checkpoint, work_dir):
     the acceptance set (seed 77, 2048^2, four 1024^2 crops) through the
     test CLI on the card, then the evaluation CLI per crop and merged, and
     the planted check.  Removes ``work_dir`` (the checkpoint's) at the end.
-    Returns B1's launches in the test CLI's run."""
+    Returns B1's launches in the test CLI's run and the CLI's results."""
     import pickle
     import numpy as np
     import torch
@@ -1761,7 +1784,7 @@ def eval_phase(checkpoint, work_dir):
                              f", expected {PLANTED}, aEPE 0")
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.rmtree(work_dir, ignore_errors=True)
-    return counts[fwd_name]
+    return counts[fwd_name], results
 
 
 RESUME_STEPS = 6        # 4 steps an epoch over the data phase's 8 tiles
@@ -3485,8 +3508,8 @@ def tta_files(checkpoint):
     CLI ``ATTR_FILES_STEPS`` steps of the ``attr`` configuration with
     ``RandomRotate(rotate_ratio=1.0, angles='any')`` after ``RandomFlip``
     on the data phase's tiles with their maps (thread loader), every loss
-    finite, at least one angle off the multiples of 90.  Removes the
-    checkpoint's directory.  Returns the launches of both."""
+    finite, at least one angle off the multiples of 90.  Returns the
+    launches of both."""
     import numpy as np
     import torch
     from bonai_tpu_torch.config import Config
@@ -3525,7 +3548,6 @@ def tta_files(checkpoint):
           f"build, 2 val crops, 3 views, bf16), detections "
           f"{[len(res[0][0]) for res in results]}; launches {cli_counts}; "
           f"evaluation CLI {eval_s:.1f} s: {_scores(summary)}", flush=True)
-    shutil.rmtree(os.path.dirname(checkpoint), ignore_errors=True)
 
     train_dir = os.path.join(DATA_DIR, "train")
     if not os.path.exists(os.path.join(train_dir, "train.json")):
@@ -3598,8 +3620,8 @@ def tta_files(checkpoint):
 def tta_phase(checkpoint):
     """Test-time augmentation and rotated training: :func:`tta_serve`, then
     :func:`tta_files` on the data phase's ``checkpoint`` (``main`` sets a
-    copy aside, ``TTA_CHECKPOINT``).  Returns the launch counts, times and
-    peaks."""
+    copy aside, ``TTA_CHECKPOINT``, which the tools phase uses and
+    removes).  Returns the launch counts, times and peaks."""
     t0 = time.time()
     shutil.rmtree(TTA_DIR, ignore_errors=True)
     os.makedirs(TTA_DIR)
@@ -3608,6 +3630,346 @@ def tta_phase(checkpoint):
           f"{_gpu_name_and_power()}", flush=True)
     shutil.rmtree(TTA_DIR, ignore_errors=True)
     return out
+
+
+_RELOAD = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from bonai_tpu_torch import ops
+from bonai_tpu_torch.tools.export_model import load_exported
+t0 = time.perf_counter()
+run = load_exported(sys.argv[2])
+load_s = time.perf_counter() - t0
+img = torch.load(sys.argv[3]).cuda()
+with torch.no_grad():
+    run(img)
+    torch.cuda.synchronize()
+    for fn in (ops.roi_align_block, ops.roi_align_block_backward,
+               ops.roi_align_fused, ops.roi_align_fused_backward,
+               ops.roi_align_strip):
+        fn.launches = 0
+    ms = []
+    for _ in range(int(sys.argv[5])):
+        t0 = time.perf_counter()
+        out = run(img)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[4])
+print(json.dumps({"launches": ops.launch_counts(), "ms": ms,
+                  "load_s": load_s}))
+"""
+
+
+def _serve_files(model, crops, label):
+    """``inference_detector`` on the B=2 batch ``crops``, its launches
+    zeroed just before and read just after (3 of B1).  Returns the host
+    results and the launches."""
+    import torch
+    from bonai_tpu_torch.apis import inference_detector
+    _, fwd_name, _ = ROUTES["block"]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    results = inference_detector(model, crops)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    _check_counts(counts, {fwd_name: 3}, f"tools: {label}, 1 batch")
+    print(f"tools: {label}: inference_detector 1024^2 B={len(crops)} "
+          f"{ms:.1f} ms (the model's first call: test pipeline, "
+          f"simple_test, paste + RLE); "
+          f"detections {[len(r[0][0]) for r in results]}; launches {counts}",
+          flush=True)
+    return results, counts[fwd_name]
+
+
+def _same_results(got, want, what):
+    """Host results of two serve runs of the same weights: the same
+    detections, boxes and offsets within 1e-4 of their largest value."""
+    import numpy as np
+    for g, w in zip(got, want):
+        for k in (0, 2):
+            a = np.asarray(g[k][0] if k == 0 else g[k], np.float32)
+            b = np.asarray(w[k][0] if k == 0 else w[k], np.float32)
+            if a.shape != b.shape or not np.abs(a - b).max(initial=0.0) \
+                    <= 1e-4 * max(np.abs(b).max(initial=0.0), 1.0):
+                raise AssertionError(f"{what}: output {k} differs")
+
+
+def _fused_small_check(pairs, r):
+    """Each ``(label, unfused, fused, bound)`` checkpoint pair of the
+    synthetic recipe on a small float32 input (TF32 off, deterministic
+    cuDNN): the FPN levels, and every RoI branch's outputs on the unfused
+    model's proposals (through B1), within ``bound`` of each output's
+    largest value."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import init_detector, prepare_batch
+    from bonai_tpu_torch.models.detectors import two_stage
+    cfg = _synth_config(test=True)
+    cfg.data.test.pipeline[1].img_scale = (320, 320)
+    small = [r.randint(0, 256, (256, 320, 3), np.uint8) for _ in range(2)]
+    with _reproducible_convs(), torch.inference_mode():
+        for label, unfused, fused, bound in pairs:
+            models = [init_detector(cfg, c, dtype=torch.float32)
+                      for c in (unfused, fused)]
+            img, img_shape, _, _ = prepare_batch(models[0], small)
+            feats = [m.extract_feat(img) for m in models]
+            props, _, pvalid = models[0]._rpn_and_proposals(
+                feats[0], img_shape, dict(models[0].test_cfg["rpn"]))
+            rois, rvalid = two_stage.boxes_to_rois(props, pvalid)
+            ref, got = ([*f, *(o for _, branch, _ in _branches(m)
+                               for o in branch(f, rois, rvalid))]
+                        for m, f in zip(models, feats))
+            worst = 0.0
+            for g, e in zip(got, ref):
+                err = float((g.float() - e.float()).abs().max())
+                scale = max(float(e.float().abs().max()), 1.0)
+                worst = max(worst, err / scale)
+                if not err <= bound * scale:
+                    raise AssertionError(f"tools: fused {label} differs by "
+                                         f"{err} (outputs up to {scale})")
+            print(f"tools: fused vs unfused {label}, small float32 input: "
+                  f"{len(ref)} outputs (FPN levels, RoI branches on "
+                  f"{int(rvalid.sum())} proposals), largest difference "
+                  f"{worst:.3g} of each output's largest (bound {bound:g})",
+                  flush=True)
+            del models
+
+
+def tools_export(cfg, checkpoint, crop):
+    """``export_detector`` of LOFT-FOA R50-FPN at B=1, 1024^2, bf16, saved;
+    the program loaded in a fresh process, its call's launches counted
+    there (3 of B1 a call, ``TOOLS_TIMED`` timed calls) and its outputs
+    held to eager ``simple_test``'s within 1e-4 of each output's largest
+    value.  Returns B1's launches a call there."""
+    import torch
+    from bonai_tpu_torch.apis import init_detector, prepare_batch
+    from bonai_tpu_torch.tools.export_model import export_detector
+    _, fwd_name, _ = ROUTES["block"]
+    model = init_detector(cfg, checkpoint)
+    t0 = time.perf_counter()
+    program = export_detector(model, SIZE, 1)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(TOOLS_DIR, "loft_foa.pt2")
+    torch.export.save(program, path)
+    save_s = time.perf_counter() - t0 - export_s
+    graph_ops = sorted({str(n.target) for n in program.graph.nodes
+                        if n.op == "call_function"
+                        and str(n.target).startswith("bonai_tpu_torch")})
+    if "bonai_tpu_torch.roi_align_levels.default" not in graph_ops:
+        raise AssertionError(f"the exported graph holds {graph_ops}")
+    img = prepare_batch(model, [crop])[0]
+    shp = torch.full((1, 2), float(SIZE), device="cuda")
+    one = torch.ones(1, device="cuda")
+    model.simple_test(img, shp, one)                      # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    eager_ms = []
+    for _ in range(TOOLS_TIMED):
+        t0 = time.perf_counter()
+        eager = model.simple_test(img, shp, one)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    _check_counts(_counts(), {fwd_name: 3 * TOOLS_TIMED},
+                  f"tools: eager simple_test, {TOOLS_TIMED} calls")
+    img_path = os.path.join(TOOLS_DIR, "img.pt")
+    out_path = os.path.join(TOOLS_DIR, "reloaded.pt")
+    torch.save(img.cpu(), img_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _RELOAD, REPO, path,
+                           img_path, out_path, str(TOOLS_TIMED)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the reload process failed:\n{proc.stderr}")
+    proc_s = time.perf_counter() - t0
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    counts = _by_kernel(run["launches"])
+    _check_counts(counts, {fwd_name: 3 * TOOLS_TIMED},
+                  f"tools: the reloaded program, {TOOLS_TIMED} calls")
+    got = torch.load(out_path)
+    if set(got) != set(eager):
+        raise AssertionError(f"reloaded outputs {sorted(got)}")
+    worst = 0.0
+    for k, v in eager.items():
+        g, e = got[k].cuda(), v
+        if not e.is_floating_point():
+            if not torch.equal(g, e):
+                raise AssertionError(f"reloaded {k} differs")
+            continue
+        err = float((g.float() - e.float()).abs().max())
+        scale = max(float(e.float().abs().max()), 1.0)
+        worst = max(worst, err / scale)
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"reloaded {k} differs by {err}")
+    print(f"tools: export_detector 1024^2 B=1 bf16 {export_s:.1f} s, "
+          f"torch.export.save {save_s:.1f} s "
+          f"({os.path.getsize(path) / 2 ** 20:.1f} MiB; graph ops "
+          f"{graph_ops}); reloaded in a fresh process ({proc_s:.1f} s, "
+          f"torch.export.load {run['load_s']:.1f} s): ms a call "
+          f"{[round(x, 1) for x in run['ms']]} (median "
+          f"{statistics.median(run['ms']):.1f}) against eager "
+          f"simple_test's {[round(x, 1) for x in eager_ms]} (median "
+          f"{statistics.median(eager_ms):.1f}; warm, synchronised); largest "
+          f"difference {worst:.3g} of each output's largest; valid "
+          f"detections {int(eager['det_valid'].sum())}; launches {counts}",
+          flush=True)
+    del model
+    return counts[fwd_name] // TOOLS_TIMED
+
+
+def tools_masks(results):
+    """The mask library against its numpy versions on the eval phase's
+    RLEs: decode, encode and ``mask_iou``, equal to the element, both
+    timed."""
+    import numpy as np
+    from bonai_tpu_torch.datasets import mask_utils
+    rles = [m for res in results for m in res[1][0]][:TOOLS_MASKS]
+    times = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        times[label] = time.perf_counter() - t0
+        return out
+    dec = {native: timed(f"decode {native}", lambda: [
+        mask_utils.decode_mask(r, native=native) for r in rles])
+        for native in (True, False)}
+    enc = {native: timed(f"encode {native}", lambda: [
+        mask_utils.encode_mask(m, native=native) for m in dec[True]])
+        for native in (True, False)}
+    iou = {native: timed(f"iou {native}", lambda: mask_utils.mask_iou(
+        rles, rles, native=native)) for native in (True, False)}
+    if not (all(np.array_equal(a, b) for a, b in zip(dec[True], dec[False]))
+            and enc[True] == enc[False] == rles
+            and np.array_equal(iou[True], iou[False])):
+        raise AssertionError("the mask library differs from numpy")
+    print(f"tools: mask library vs numpy on {len(rles)} of the eval phase's "
+          f"1024^2 masks, equal: decode {times['decode True']:.3f} / "
+          f"{times['decode False']:.3f} s, encode "
+          f"{times['encode True']:.3f} / {times['encode False']:.3f} s, "
+          f"mask_iou {len(rles)}x{len(rles)} {times['iou True']:.3f} / "
+          f"{times['iou False']:.3f} s ({int((iou[True] > 0).sum())} "
+          f"overlapping pairs)", flush=True)
+
+
+def tools_phase(checkpoint, eval_results):
+    """The host tools on LOFT-FOA R50-FPN at full width (``'block'``,
+    1024^2, the data phase's ``checkpoint``): ``fuse_conv_bn`` and
+    ``publish_model`` on it, each file served through
+    ``inference_detector`` (B=2, bf16, the eval phase's val crops, 3 B1
+    launches a batch); the fold held to the unfused model on a small
+    float32 input, on the checkpoint and on calibrated random weights (the
+    checkpoint's BatchNorm statistics are the identity's);
+    ``export_model``'s program reloaded in a fresh process
+    (:func:`tools_export`); ``get_flops`` at 1024^2; the mask library on
+    the eval phase's masks; ``show_result`` and ``browse_dataset`` on a
+    crop; ``profile_time`` and ``device_trace`` around a serve call.
+    Removes the checkpoint's directory.  Returns the launch counts of its
+    runs."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import init_detector, prepare_batch
+    from bonai_tpu_torch.tools import fuse_conv_bn, get_flops
+    from bonai_tpu_torch.tools.browse_dataset import browse
+    from bonai_tpu_torch.tools.publish_model import publish_model
+    from bonai_tpu_torch.utils.collect_env import env_info_str
+    from bonai_tpu_torch.utils.png import read_png
+    from bonai_tpu_torch.utils.profiling import device_trace, profile_time
+    from bonai_tpu_torch.utils.visualize import show_result
+    t_phase = time.time()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    print("tools: collect_env: " + "; ".join(env_info_str().splitlines()),
+          flush=True)
+    cfg = _synth_config(test=True)
+    val = os.path.join(DATA_DIR, "val", "images")
+    crops = [read_png(os.path.join(val, f))
+             for f in sorted(os.listdir(val))[:BATCH]]
+    launches = {}
+
+    fused = os.path.join(TOOLS_DIR, "fused.pth")
+    fuse_conv_bn.main([checkpoint, fused])
+    model = init_detector(cfg, checkpoint)
+    served, launches["unfused_serve"] = _serve_files(
+        model, crops, "the data phase's checkpoint")
+    img, img_shape, scale, _ = prepare_batch(model, crops)
+    with profile_time("tools", "simple_test 1024^2 B=2") as timed:
+        model.simple_test(img, img_shape, scale)
+    trace_dir = os.path.join(TOOLS_DIR, "trace")
+    _zero_counts()
+    with device_trace(trace_dir):
+        model.simple_test(img, img_shape, scale)
+    launches["traced_serve"] = _counts()[ROUTES["block"][1]]
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    b1 = [e for e in events if e.get("cat") == "kernel"
+          and "roi_align_block_fwd" in e.get("name", "")]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"tools: profile_time {timed['ms']:.1f} ms; device_trace: "
+          f"{len(events)} events, {kernels} kernels, B1 {len(b1)} "
+          f"({sum(e.get('dur', 0) for e in b1) / 1e3:.4f} ms); trace.json "
+          f"{os.path.getsize(os.path.join(trace_dir, 'trace.json')) / 2 ** 20:.1f}"
+          f" MiB", flush=True)
+    if len(b1) != 3 or launches["traced_serve"] != 3:
+        raise AssertionError(f"the trace holds {len(b1)} B1 kernels, "
+                             f"{launches['traced_serve']} launched")
+    t0 = time.perf_counter()
+    out = os.path.join(TOOLS_DIR, "show_result.png")
+    drawn = show_result(crops[0], served[0], out_file=out)
+    show_s = time.perf_counter() - t0
+    if not (np.array_equal(read_png(out), drawn)
+            and (drawn != crops[0]).any(-1).mean() > 0.001):
+        raise AssertionError("show_result drew nothing")
+    del model
+    model = init_detector(cfg, fused)
+    _, launches["fused_serve"] = _serve_files(model, crops,
+                                              "the fused checkpoint")
+    del model
+    published = publish_model(checkpoint, os.path.join(TOOLS_DIR,
+                                                       "loft_foa"))
+    model = init_detector(cfg, published)
+    got, launches["published_serve"] = _serve_files(
+        model, crops, f"the published {os.path.basename(published)}")
+    _same_results(got, served, "the published checkpoint")
+    del model
+    torch.cuda.empty_cache()
+
+    calibrated = os.path.join(TOOLS_DIR, "calibrated.pth")
+    _calibrated_weights(SYNTH_CONFIG, calibrated)
+    calibrated_fused = os.path.join(TOOLS_DIR, "calibrated_fused.pth")
+    fuse_conv_bn.main([calibrated, calibrated_fused])
+    # the data phase's statistics are the identity's (trained with
+    # norm_eval=False, frozen at their init): the fold changes nothing
+    # there, and the plain-route bound holds.  The calibrated statistics
+    # fold for real; the fold rounds each BatchNorm's affine once more in
+    # float32, which the 53 BatchNorms and the heads carry to about 1e-4
+    # of the largest output, as far as float32 rounding alone carries the
+    # unfused model from its float64 self; a wrong fold differs by O(1)
+    _fused_small_check((("data phase checkpoint", checkpoint, fused, 1e-4),
+                        ("calibrated weights", calibrated, calibrated_fused,
+                         1e-3)), np.random.RandomState(0))
+    launches["reloaded_export"] = tools_export(cfg, checkpoint, crops[0])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, flops, lines = get_flops.get_flops(cfg, (SIZE, SIZE), "cuda")
+    print(f"tools: get_flops ({time.perf_counter() - t0:.1f} s): "
+          + "; ".join(lines), flush=True)
+    tools_masks(eval_results)
+    t0 = time.perf_counter()
+    written = browse(_synth_config(), os.path.join(TOOLS_DIR, "browse"), 1)
+    browse_s = time.perf_counter() - t0
+    if len(written) != 1 or read_png(written[0]).shape != (SIZE, SIZE, 3):
+        raise AssertionError(f"browse_dataset wrote {written}")
+    print(f"tools: show_result on a 1024^2 crop ({len(served[0][0][0])} "
+          f"detections) {show_s:.2f} s; browse_dataset, one train tile, "
+          f"{browse_s:.2f} s; PNGs written", flush=True)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(checkpoint), ignore_errors=True)
+    print(f"tools phase: {time.time() - t_phase:.1f} s; card "
+          f"{_gpu_name_and_power()}", flush=True)
+    return launches
 
 
 def bench_phase():
@@ -3677,7 +4039,8 @@ def main():
     # the tta phase tests the same checkpoint after eval_phase removes it
     os.makedirs(os.path.dirname(TTA_CHECKPOINT), exist_ok=True)
     shutil.copyfile(files["checkpoint"], TTA_CHECKPOINT)
-    test_cli_launches = eval_phase(files["checkpoint"], files["work_dir"])
+    test_cli_launches, eval_results = eval_phase(files["checkpoint"],
+                                                 files["work_dir"])
     resume_launches = resume_phase()
     _check_counts({name: resume_launches.get(
         fn.__name__, 0) for name, (fn, _, _) in _kernels().items()},
@@ -3703,6 +4066,7 @@ def main():
     dense3 = dense3_phase()
     attr = attr_phase()
     tta = tta_phase(TTA_CHECKPOINT)
+    tools = tools_phase(TTA_CHECKPOINT, eval_results)
     bench_launches = bench_phase()
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
@@ -3785,7 +4149,8 @@ def main():
                 **{f"tta_{k.replace(' ', '_')}_serve_launches": r["launches"]
                    for k, r in tta["serve"].items()},
                 tta_test_cli_launches=tta["files"]["test_cli"],
-                tta_rotate_train_launches=tta["files"]["fwd"]),
+                tta_rotate_train_launches=tta["files"]["fwd"],
+                **{f"tools_{k}_launches": n for k, n in tools.items()}),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],
                train_from_files_launches=files["bwd"],

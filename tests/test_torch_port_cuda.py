@@ -24,6 +24,10 @@ and PISA losses, FreeAnchor, ATSS, GFL, FCOS) launch no kernel, and their
 head outputs on the card equal the CPU's.  A two-rank data-parallel
 step (gloo, both ranks on one card) must equal the step of the mean of
 its two half-batch gradients within 1e-4 of each tensor's largest update.
+The full-width LOFT-FOA exported by ``tools/export_model.py`` holds the
+RoIAlign custom op in its saved graph, and the program loaded from the
+file launches B1 three times a call and gives eager serving's outputs
+(1e-4 of each output's largest value).
 """
 
 import numpy as np
@@ -767,3 +771,43 @@ def test_ddp_rehearsal_equals_the_mean_of_halves(tmp_path):
     for rank in report["ranks"]:
         assert rank["counts"]["roi_align_block"] == 3
         assert rank["counts"]["roi_align_block_backward"] == 3
+
+
+@pytest.mark.cuda
+def test_exported_loft_foa_launches_the_block_kernel(tmp_path):
+    """The full-width LOFT-FOA R50-FPN (random weights, bfloat16) exported
+    by ``tools/export_model.py``'s ``export_detector`` at 512^2: the saved
+    graph holds the RoIAlign op, and the program loaded from the file
+    launches B1 three times a call and gives eager serving's detections
+    (validity and labels equal, the rest within 1e-4 of each output's
+    largest value)."""
+    _need_cuda()
+    from bonai_tpu_torch.apis import init_detector
+    from bonai_tpu_torch.ops import roi_align_block
+    from bonai_tpu_torch.tools.export_model import (export_detector,
+                                                    load_exported)
+    from torch_port_common import CONFIG
+    model = init_detector(CONFIG, device="cuda")
+    path = str(tmp_path / "loft_foa.pt2")
+    torch.export.save(export_detector(model, size=512, batch=1), path)
+    program = torch.export.load(path)
+    assert "bonai_tpu_torch.roi_align_levels.default" in {
+        str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    run = load_exported(path)
+    img = torch.from_numpy(np.random.RandomState(0).randn(1, 512, 512, 3)
+                           .astype(np.float32)).cuda()
+    before = roi_align_block.launches
+    with torch.no_grad():
+        got = run(img)
+    torch.cuda.synchronize()
+    assert roi_align_block.launches == before + 3
+    want = model.simple_test(img, torch.full((1, 2), 512.0, device="cuda"),
+                             torch.ones(1, device="cuda"))
+    assert set(got) == set(want)
+    for k in want:
+        if want[k].dtype in (torch.bool, torch.int32, torch.int64):
+            assert torch.equal(got[k], want[k]), k
+        else:
+            bound = 1e-4 * want[k].float().abs().max().item()
+            assert (got[k].float() - want[k].float()).abs().max().item() \
+                <= bound, k
