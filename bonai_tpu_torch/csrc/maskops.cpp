@@ -2,8 +2,12 @@
 // bilinear mask paste, the scanline polygon fill and the RLE IoU, with a
 // plain C interface bound through ctypes (bonai_tpu_torch/native.py), built
 // with the host's g++ at first use.  A copy of bonai_tpu/native/maskops.cpp
-// (which the port does not import), with one entry point added:
-// rle_iou_matrix, rle_iou over every pair of two lists of RLEs.
+// (which the port does not import), with entry points added:
+// rle_iou_matrix, rle_iou over every pair of two lists of RLEs, and the
+// float32 correlation loops of bonai_tpu_torch/utils/filters.py
+// (OpenCV 5.0's orders of fused multiply-adds; std::fma is the fused
+// operation, every other product and sum is rounded on its own, as the
+// ISO C++ mode of g++ compiles it without contraction).
 //
 // All masks are uint8 row-major (h, w) unless stated; RLE uses COCO
 // column-major runs starting with a zero-run.
@@ -158,6 +162,63 @@ void rle_iou_matrix(const int32_t* counts_a, const int64_t* off_a, int na,
             out[(int64_t)i * nb + j] = rle_iou(
                 counts_a + off_a[i], (int)(off_a[i + 1] - off_a[i]),
                 counts_b + off_b[j], (int)(off_b[j + 1] - off_b[j]));
+}
+
+// ---------------------------------------------------------------------------
+// Correlation loops over float32 rows.  filter_rows_seq: out[r][x] =
+// fma(src[r][x + (n-1)cn], k[n-1], ... fma(src[r][x + cn], k[1],
+// src[r][x] * k[0])), the taps left to right; src rows of in_len, out
+// rows of out_len.  filter_cols_sym: src of rows + n - 1 rows of len,
+// out[y][x] = the centre tap times k[r], then fma of each symmetric pair
+// sum (src[y + r - j] + src[y + r + j]) with k[r + j], j = 1..r.
+// filter_2d_fma: out[y][x] = fma chain from 0 over the nz taps (dy, dx,
+// f), src[y + dy][x + dx * cn] each; src rows of in_len.
+// ---------------------------------------------------------------------------
+void filter_rows_seq(const float* src, int rows, int in_len, float* out,
+                     int out_len, int cn, const float* k, int n) {
+    for (int r = 0; r < rows; ++r) {
+        const float* s = src + (int64_t)r * in_len;
+        float* o = out + (int64_t)r * out_len;
+        for (int x = 0; x < out_len; ++x) o[x] = s[x] * k[0];
+        for (int j = 1; j < n; ++j) {
+            const float* t = s + j * cn;
+            const float f = k[j];
+            for (int x = 0; x < out_len; ++x) o[x] = std::fma(t[x], f, o[x]);
+        }
+    }
+}
+
+void filter_cols_sym(const float* src, int rows, int len, float* out,
+                     const float* k, int n) {
+    const int r = n / 2;
+    for (int y = 0; y < rows; ++y) {
+        float* o = out + (int64_t)y * len;
+        const float* c = src + (int64_t)(y + r) * len;
+        for (int x = 0; x < len; ++x) o[x] = c[x] * k[r];
+        for (int j = 1; j <= r; ++j) {
+            const float* a = src + (int64_t)(y + r - j) * len;
+            const float* b = src + (int64_t)(y + r + j) * len;
+            const float f = k[r + j];
+            for (int x = 0; x < len; ++x) {
+                const float pair = a[x] + b[x];
+                o[x] = std::fma(pair, f, o[x]);
+            }
+        }
+    }
+}
+
+void filter_2d_fma(const float* src, int rows, int in_len, int out_len,
+                   float* out, int cn, const int* dy, const int* dx,
+                   const float* f, int nz) {
+    for (int y = 0; y < rows; ++y) {
+        float* o = out + (int64_t)y * out_len;
+        for (int x = 0; x < out_len; ++x) o[x] = 0.0f;
+        for (int i = 0; i < nz; ++i) {
+            const float* t = src + (int64_t)(y + dy[i]) * in_len + dx[i] * cn;
+            const float g = f[i];
+            for (int x = 0; x < out_len; ++x) o[x] = std::fma(t[x], g, o[x]);
+        }
+    }
 }
 
 }  // extern "C"

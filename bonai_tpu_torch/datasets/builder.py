@@ -25,6 +25,7 @@ per step) and serves the sharded evaluation.
 from __future__ import annotations
 
 import collections
+import math
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -34,15 +35,15 @@ from ..registry import Registry, build_from_cfg
 from ..utils.raster import fill_poly
 
 DATASETS = Registry("dataset")
-_NOT_PORTED = ("ClassBalancedDataset", "VOCDataset", "XMLDataset",
-               "LVISDataset", "CityscapesDataset", "WIDERFaceDataset",
-               "DeepFashionDataset")
 
 
 def _register_defaults():
     from .bonai import BONAI
     from .coco import CocoDataset
-    for cls in (CocoDataset, BONAI):
+    from .extra import (CityscapesDataset, DeepFashionDataset, LVISDataset,
+                        VOCDataset, WIDERFaceDataset, XMLDataset)
+    for cls in (CocoDataset, BONAI, VOCDataset, XMLDataset, LVISDataset,
+                CityscapesDataset, WIDERFaceDataset, DeepFashionDataset):
         if cls.__name__ not in DATASETS:
             DATASETS.register_module()(cls)
 
@@ -102,20 +103,57 @@ class RepeatDataset:
         return self.dataset.test_mode
 
 
+class ClassBalancedDataset:
+    """LVIS-style repeat-factor oversampling: image ``I`` appears
+    ``ceil(r(I))`` times, ``r(I) = max over its categories c of max(1,
+    sqrt(oversample_thr / f(c)))``, ``f(c)`` the share of images that
+    hold ``c``."""
+
+    def __init__(self, dataset, oversample_thr):
+        self.dataset = dataset
+        self.oversample_thr = oversample_thr
+        self.CLASSES = dataset.CLASSES
+        n = len(dataset)
+        per_img_cats = [set(dataset.get_cat_ids(i)) for i in range(n)]
+        freq = collections.Counter(c for cats in per_img_cats for c in cats)
+        cat_repeat = {c: max(1.0, math.sqrt(oversample_thr / (v / n)))
+                      for c, v in freq.items()}
+        self.repeat_indices = []
+        for i, cats in enumerate(per_img_cats):
+            r = max((cat_repeat[c] for c in cats), default=1.0)
+            self.repeat_indices.extend([i] * int(math.ceil(r)))
+
+    def __len__(self):
+        return len(self.repeat_indices)
+
+    def prepare(self, idx, rng=None):
+        return self.dataset.prepare(self.repeat_indices[idx], rng)
+
+    def get_ann_info(self, idx):
+        return self.dataset.get_ann_info(self.repeat_indices[idx])
+
+    def get_cat_ids(self, idx):
+        return self.dataset.get_cat_ids(self.repeat_indices[idx])
+
+    @property
+    def test_mode(self):
+        return self.dataset.test_mode
+
+
 def build_dataset(cfg, default_args=None):
     """The dataset of a config's ``data.train`` (or ``val``/``test``):
-    ``RepeatDataset`` wrappers, and an ``ann_file`` list built as one
-    dataset per file (each prefix a matching list or a shared value) and
-    concatenated."""
+    ``RepeatDataset`` and ``ClassBalancedDataset`` wrappers, and an
+    ``ann_file`` list built as one dataset per file (each prefix a
+    matching list or a shared value) and concatenated."""
     _register_defaults()
     cfg = dict(cfg)
     if cfg.get("type") == "RepeatDataset":
         return RepeatDataset(build_dataset(cfg["dataset"], default_args),
                              cfg["times"])
-    if cfg.get("type") in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg['type']} is not ported to bonai_tpu_torch yet (ROADMAP.md "
-            f"items A7-A8)")
+    if cfg.get("type") == "ClassBalancedDataset":
+        return ClassBalancedDataset(
+            build_dataset(cfg["dataset"], default_args),
+            cfg["oversample_thr"])
     ann_file = cfg.get("ann_file")
     if isinstance(ann_file, (list, tuple)):
         n = len(ann_file)

@@ -2,8 +2,10 @@ from .transforms import (PIPELINES, Collect, Compose, DefaultFormatBundle,
                          ImageToTensor, LoadAnnotations, LoadImageFromFile,
                          MultiScaleFlipAug, Normalize, Pad, RandomFlip,
                          Resize, build_pipeline)
+from .corrupt import Corrupt, corrupt_image
 
-__all__ = ["PIPELINES", "Collect", "Compose", "DefaultFormatBundle",
+__all__ = ["PIPELINES", "Collect", "Compose", "Corrupt",
+           "DefaultFormatBundle",
            "ImageToTensor", "LoadAnnotations", "LoadImageFromFile",
            "MultiScaleFlipAug", "Normalize", "Pad", "RandomFlip", "Resize",
-           "build_pipeline"]
+           "build_pipeline", "corrupt_image"]

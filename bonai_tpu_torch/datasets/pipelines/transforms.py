@@ -1,14 +1,15 @@
 """The train and test pipelines' steps in numpy, without cv2
 (counterparts of the steps of ``bonai_tpu/datasets/pipelines/
 transforms.py`` that the BONAI and synthetic configs use):
-``LoadImageFromFile`` (PNG through ``utils/png.py``, with the
-decoded-image cache), ``LoadAnnotations`` (with LOFT's edge, side-face and
-offset-field maps), ``LoadProposals``, ``Resize``, ``RandomFlip``,
-``RandomRotate`` (its warps in ``utils/warp.py``), ``OffsetTransform``,
-``Pointobb2RBBox``, ``Normalize``, ``Pad``, ``DefaultFormatBundle``,
-``ImageToTensor``, ``Collect`` and ``MultiScaleFlipAug``; CornerNet's
-``PhotoMetricDistortion`` (its HSV conversions in ``utils/color.py``) and
-``RandomCenterCropPad``.
+``LoadImageFromFile`` (PNG through ``utils/png.py`` and JPEG through
+``utils/jpeg.py``, with the decoded-image cache), ``LoadAnnotations``
+(with LOFT's edge, side-face and offset-field maps), ``LoadProposals``,
+``Resize``, ``RandomFlip``, ``RandomRotate`` (its warps in
+``utils/warp.py``), ``OffsetTransform``, ``Pointobb2RBBox``,
+``Normalize``, ``Pad``, ``DefaultFormatBundle``, ``ImageToTensor``,
+``Collect`` and ``MultiScaleFlipAug``; ``Corrupt`` (``corrupt.py``);
+CornerNet's ``PhotoMetricDistortion`` (its HSV conversions in
+``utils/color.py``) and ``RandomCenterCropPad``.
 
 Masks travel as polygons (lists of ``(K, 2)`` float32 arrays per instance
 part) until the loader packs them, so the geometric steps are exact.  The
@@ -30,6 +31,7 @@ import numpy as np
 from ...core.masks import resize_bilinear
 from ...registry import Registry, build_from_cfg
 from ...utils.color import bgr_to_hsv, hsv_to_bgr
+from ...utils.jpeg import read_jpeg
 from ...utils.png import read_png
 from ...utils.warp import min_area_rect, rotation_matrix_2d, warp_affine
 
@@ -41,7 +43,6 @@ UNPORTED = {
     **dict.fromkeys(("Expand", "MinIoURandomCrop", "RandomCrop",
                      "AutoAugment"), "item A6"),
     "SegRescale": "item A7",
-    "Corrupt": "item A8",
     **dict.fromkeys(("InstaBoost", "Albu"),
                     "not queued: it wraps a package (instaboostfast, "
                     "albumentations) that neither machine has"),
@@ -69,9 +70,18 @@ class Compose:
         return results
 
 
+def imread(path):
+    """A PNG or baseline JPEG file as ``(H, W, 3)`` BGR ``uint8``, as
+    ``cv2.imread(path, IMREAD_COLOR)`` reads it; the decoder is chosen by
+    the file's signature, not its name."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    return read_jpeg(path) if head == b"\xff\xd8" else read_png(path)
+
+
 @PIPELINES.register_module()
 class LoadImageFromFile:
-    """Loads the image as BGR ``uint8``.
+    """Loads the image as BGR ``uint8`` (``imread``).
 
     ``cache_dir``: a decoded-image cache.  The first read of a file
     decodes it and publishes a raw ``uint8`` ``.npy`` (written to a
@@ -85,12 +95,12 @@ class LoadImageFromFile:
 
     def _read(self, path):
         if not self.cache_dir:
-            return read_png(path)
+            return imread(path)
         key = hashlib.sha1(path.encode()).hexdigest()[:24]
         cpath = osp.join(self.cache_dir, key + ".npy")
         if osp.exists(cpath):
             return np.load(cpath)
-        img = read_png(path)
+        img = imread(path)
         tmp = cpath[:-4] + f".{os.getpid()}.tmp.npy"
         try:
             np.save(tmp, img)

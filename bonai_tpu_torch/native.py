@@ -14,7 +14,9 @@ mask), ``rle_decode_counts``, ``paste_mask_native`` (bilinear paste of a
 square probability map into a box, thresholded), ``fill_poly_native``
 (scanline fill, even-odd rule at half-pixel centres) and
 ``rle_iou_matrix`` (the C ``rle_iou``, the IoU of two masks' run lengths
-without decoding them, over every pair of two lists).
+without decoding them, over every pair of two lists), and the float32
+correlation loops of ``utils/filters.py`` (``filter_rows_seq``,
+``filter_cols_sym``, ``filter_2d_fma``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ _SIGNATURES = {
     "fill_poly": (None, [_P, _I, _P, _I, _I]),
     "rle_iou": (ctypes.c_double, [_P, _I, _P, _I]),
     "rle_iou_matrix": (None, [_P, _P, _I, _P, _P, _I, _P]),
+    "filter_rows_seq": (None, [_P, _I, _I, _P, _I, _I, _P, _I]),
+    "filter_cols_sym": (None, [_P, _I, _I, _P, _P, _I]),
+    "filter_2d_fma": (None, [_P, _I, _I, _I, _P, _I, _P, _P, _P, _I]),
 }
 
 
@@ -146,4 +151,43 @@ def rle_iou_matrix(counts_a, counts_b):
         library().rle_iou_matrix(fa.ctypes.data, oa.ctypes.data, len(oa) - 1,
                                  fb.ctypes.data, ob.ctypes.data, len(ob) - 1,
                                  out.ctypes.data)
+    return out
+
+
+def filter_rows_seq(padded, out_w, cn, k):
+    """Rows of the ``(rows, in_len)`` float32 ``padded``: ``out[r, x]`` the
+    left-to-right fused chain of ``padded[r, x + j * cn] * k[j]``, for
+    ``out_w * cn`` outputs a row."""
+    padded = np.ascontiguousarray(padded, np.float32)
+    k = np.ascontiguousarray(k, np.float32)
+    rows, in_len = padded.shape
+    out = np.empty((rows, out_w * cn), np.float32)
+    library().filter_rows_seq(padded.ctypes.data, rows, in_len,
+                              out.ctypes.data, out_w * cn, cn,
+                              k.ctypes.data, len(k))
+    return out
+
+
+def filter_cols_sym(padded, k):
+    """Columns of the ``(rows + n - 1, len)`` float32 ``padded`` through
+    the symmetric ``n``-tap ``k``: centre first, then the fused pairs."""
+    padded = np.ascontiguousarray(padded, np.float32)
+    k = np.ascontiguousarray(k, np.float32)
+    rows = padded.shape[0] - len(k) + 1
+    out = np.empty((rows, padded.shape[1]), np.float32)
+    library().filter_cols_sym(padded.ctypes.data, rows, padded.shape[1],
+                              out.ctypes.data, k.ctypes.data, len(k))
+    return out
+
+
+def filter_2d_fma(padded, rows, out_w, cn, dy, dx, f):
+    """``out[y, x]``: the fused chain from 0 over the taps ``(dy, dx, f)``
+    of ``padded[y + dy, x + dx * cn]`` (``out_w * cn`` outputs a row)."""
+    padded = np.ascontiguousarray(padded, np.float32)
+    dy, dx = (np.ascontiguousarray(v, np.int32) for v in (dy, dx))
+    f = np.ascontiguousarray(f, np.float32)
+    out = np.empty((rows, out_w * cn), np.float32)
+    library().filter_2d_fma(padded.ctypes.data, rows, padded.shape[1],
+                            out_w * cn, out.ctypes.data, cn, dy.ctypes.data,
+                            dx.ctypes.data, f.ctypes.data, len(f))
     return out

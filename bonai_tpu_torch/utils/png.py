@@ -1,12 +1,15 @@
 """PNG files without cv2: ``zlib`` and numpy.
 
-:func:`write_png` writes what ``cv2.imwrite`` would for an 8-bit BGR or
-gray image (RGB or gray, non-interlaced, filter type 0 on every row);
-:func:`read_png` returns what ``cv2.imread(path, IMREAD_COLOR)`` (or
-``IMREAD_UNCHANGED``) does for an 8-bit gray, gray+alpha, RGB or RGBA PNG,
-with any of the five row filters.
-Any other PNG (16-bit, palette, interlaced) raises ``NotImplementedError``
-(ROADMAP.md item A3c); so does any other file format.
+:func:`write_png` writes what ``cv2.imwrite`` would for a BGR or gray
+image of 8 bits, or a gray image of 16 (RGB or gray, non-interlaced,
+filter type 0 on every row); :func:`read_png` returns what
+``cv2.imread(path, IMREAD_COLOR)`` (or ``IMREAD_UNCHANGED``) does for an
+8- or 16-bit gray, gray+alpha, RGB or RGBA PNG, with any of the five row
+filters: ``IMREAD_UNCHANGED`` keeps 16-bit samples as ``uint16``,
+``IMREAD_COLOR`` keeps their high byte.
+Any other PNG (1-, 2- or 4-bit, palette, interlaced) raises
+``NotImplementedError`` (ROADMAP.md item A3c); so does any other file
+format.
 """
 
 from __future__ import annotations
@@ -26,21 +29,26 @@ def _chunk(kind, data):
 
 
 def write_png(path, img, level=1):
-    """Write an ``(H, W)`` gray or ``(H, W, 3)`` BGR ``uint8`` image to
-    ``path`` as a PNG (channels swapped to RGB as ``cv2.imwrite`` does)."""
+    """Write an ``(H, W)`` gray or ``(H, W, 3)`` BGR ``uint8`` image, or an
+    ``(H, W)`` gray ``uint16`` one, to ``path`` as a PNG (channels swapped
+    to RGB as ``cv2.imwrite`` does)."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
-            img.ndim == 3 and img.shape[2] not in (1, 3)):
-        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, got "
-                         f"{img.dtype} {img.shape}")
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
+    if not ((img.dtype == np.uint8 and (img.ndim == 2 or (
+            img.ndim == 3 and img.shape[2] == 3)))
+            or (img.dtype == np.uint16 and img.ndim == 2)):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8 or "
+                         f"(H, W) uint16, got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
     color_type = 0 if img.ndim == 2 else 2
     rows = img if img.ndim == 2 else img[..., ::-1]
-    raw = np.zeros((h, 1 + w * (1 if img.ndim == 2 else 3)), np.uint8)
-    raw[:, 1:] = rows.reshape(h, -1)                  # filter type 0
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    depth = 8 * img.dtype.itemsize
+    rows = np.ascontiguousarray(rows, rows.dtype.newbyteorder(">"))
+    rows = rows.view(np.uint8).reshape(h, -1)
+    raw = np.zeros((h, 1 + rows.shape[1]), np.uint8)
+    raw[:, 1:] = rows                                 # filter type 0
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
     data = (_SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
             + _chunk(b"IEND", b""))
@@ -96,10 +104,11 @@ def _unfilter(raw, h, stride, bpp):
 
 
 def read_png(path, unchanged=False):
-    """Read an 8-bit PNG as an ``(H, W, 3)`` BGR ``uint8`` array, as
+    """Read a PNG as an ``(H, W, 3)`` BGR ``uint8`` array, as
     ``cv2.imread(path, cv2.IMREAD_COLOR)`` does (gray replicated, alpha
-    dropped); with ``unchanged``, as ``cv2.IMREAD_UNCHANGED`` does: gray
-    ``(H, W)``, RGB as BGR, RGBA and gray+alpha as ``(H, W, 4)`` BGRA.
+    dropped, 16-bit samples cut to their high byte); with ``unchanged``,
+    as ``cv2.IMREAD_UNCHANGED`` does: gray ``(H, W)``, RGB as BGR, RGBA
+    and gray+alpha as ``(H, W, 4)`` BGRA, in ``uint16`` for a 16-bit PNG.
     Raises ``FileNotFoundError`` for a missing file."""
     with open(path, "rb") as f:
         data = f.read()
@@ -118,14 +127,21 @@ def read_png(path, unchanged=False):
         elif kind == b"IEND":
             break
     w, h, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in _CHANNELS or interlace:
+    if depth not in (8, 16) or color_type not in _CHANNELS or interlace:
         raise NotImplementedError(
             f"{path}: PNG bit depth {depth}, colour type {color_type}, "
-            f"interlace {interlace}; only 8-bit non-interlaced gray, RGB and "
-            f"their alpha forms are read without cv2 (ROADMAP.md A3c)")
+            f"interlace {interlace}; only 8- and 16-bit non-interlaced gray, "
+            f"RGB and their alpha forms are read without cv2 (ROADMAP.md "
+            f"A3c)")
     nch = _CHANNELS[color_type]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * nch,
-                   nch).reshape(h, w, nch)
+    nbytes = depth // 8
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * nch * nbytes,
+                   nch * nbytes)
+    if nbytes == 2:
+        px = px.view(">u2")
+        px = px.astype(np.uint16) if unchanged else (px >> 8).astype(
+            np.uint8)
+    px = px.reshape(h, w, nch)
     if unchanged and nch == 1:
         return np.ascontiguousarray(px[..., 0])
     if nch <= 2:                                      # gray (+ alpha)

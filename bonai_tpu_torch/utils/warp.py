@@ -15,9 +15,12 @@ computes them, for ``RandomRotate`` and ``Pointobb2RBBox`` without cv2.
   row in vector blocks of 16 pixels and its last ``width mod 16`` pixels
   in scalar code, which rounds otherwise: there the linear warp can differ
   by one level (a few pixels in a thousand warps; BONAI's 1024-pixel rows
-  have no such tail).  Any other number of channels takes the fixed-point
-  path, with ``'nearest'`` only: the float64 coordinates times 1024
-  rounded to integers, plus 512, shifted right by 10.
+  have no such tail).  A float32 single-channel image takes the same
+  blend without the final rounding; there the scalar tail's source point
+  is ``fma(m0, x, m1 * y) + m2``, which this module reproduces, so that
+  path is exact at every width.  Any other number of channels takes the
+  fixed-point path, with ``'nearest'`` only: the float64 coordinates
+  times 1024 rounded to integers, plus 512, shifted right by 10.
 - :func:`convex_hull` is ``cv2.convexHull`` of integer points (Sklansky's
   scan, with OpenCV's cyclic shift of the output), and
   :func:`min_area_rect` is ``cv2.minAreaRect``: the rotating calipers in
@@ -69,21 +72,31 @@ def invert_affine(m):
 
 def fma32(a, b, c):
     """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
-    product is exact in float64, and where the float64 sum falls on a
-    midpoint of float32 neighbours its rounding error decides the side."""
+    product is exact in float64, and the float64 sum rounds to float32 as
+    the exact sum does unless it falls on a midpoint of float32 neighbours
+    (its low 29 mantissa bits ``1 << 28``; below float32's normal range
+    every nonzero sum is checked): there its rounding error decides the
+    side."""
     a, b, c = (np.asarray(x, np.float32) for x in (a, b, c))
     p = a.astype(np.float64) * b
-    c = c.astype(np.float64)
-    s = p + c
+    s = np.asarray(p + c)
+    r = s.astype(np.float32)
+    cand = ((s.view(np.int64) & 0x1FFFFFFF) == 0x10000000) | (
+        (np.abs(s) < 2.0 ** -125) & (s != 0))
+    if not cand.any():
+        return r
+    p, c, s = (np.broadcast_to(v, s.shape)[cand]
+               for v in (p, c.astype(np.float64), s))
     bb = s - p
     err = (p - (s - bb)) + (c - bb)            # s + err == p + c exactly
-    r = s.astype(np.float32)
-    r64 = r.astype(np.float64)
-    lo = np.nextafter(r, np.float32(-np.inf)).astype(np.float64)
-    hi = np.nextafter(r, np.float32(np.inf)).astype(np.float64)
-    r = np.where((s == (r64 + lo) * 0.5) & (err < 0), lo, r)
-    r = np.where((s == (r64 + hi) * 0.5) & (err > 0), hi, r)
-    return np.asarray(r, np.float32)
+    rc = s.astype(np.float32)
+    r64 = rc.astype(np.float64)
+    lo = np.nextafter(rc, np.float32(-np.inf)).astype(np.float64)
+    hi = np.nextafter(rc, np.float32(np.inf)).astype(np.float64)
+    rc = np.where((s == (r64 + lo) * 0.5) & (err < 0), lo, rc)
+    rc = np.where((s == (r64 + hi) * 0.5) & (err > 0), hi, rc)
+    r[cand] = rc
+    return r
 
 
 def _gather(src, xs, ys):
@@ -123,11 +136,27 @@ def _fixed_point_nearest(src, inv, w, h):
                    (y0[:, None] + dy[None]) >> _AB_BITS)
 
 
+def _tail_source_points(inv, w, h, sx, sy):
+    """``sx, sy`` with the row's last ``w mod 16`` pixels replaced by the
+    scalar path's source points, ``fma(m0, x, m1 * y) + m2``."""
+    m = inv.reshape(6).astype(np.float32)
+    shape = (h, w)
+    xs = np.broadcast_to(np.arange(w, dtype=np.float32)[None], shape)
+    ys = np.broadcast_to(np.arange(h, dtype=np.float32)[:, None], shape)
+    tail = np.arange(w)[None] >= w - w % 16
+    out = []
+    for r, v in ((0, sx), (1, sy)):
+        t = fma32(np.broadcast_to(m[3 * r], shape), xs,
+                  m[3 * r + 1] * ys) + m[3 * r + 2]
+        out.append(np.where(tail, t, v))
+    return out
+
+
 def warp_affine(src, m, dsize, interpolation="linear"):
     """``cv2.warpAffine(src, m, dsize, flags=INTER_LINEAR|INTER_NEAREST)``
     with a zero constant border: ``src`` ``(H, W)`` or ``(H, W, C)``,
     ``m`` the ``(2, 3)`` forward matrix, ``dsize = (w, h)``.  ``'linear'``
-    takes uint8 images of 1, 3 or 4 channels."""
+    takes uint8 images of 1, 3 or 4 channels and float32 images of one."""
     w, h = (int(v) for v in dsize)
     inv = invert_affine(m)
     channels = 1 if src.ndim == 2 else src.shape[2]
@@ -139,10 +168,14 @@ def warp_affine(src, m, dsize, interpolation="linear"):
                        np.rint(sy).astype(np.int64))
     if interpolation != "linear":
         raise ValueError(f"interpolation {interpolation!r}")
-    if src.dtype != np.uint8 or channels not in (1, 3, 4):
+    is_f32 = src.dtype == np.float32 and src.ndim == 2
+    if not is_f32 and (src.dtype != np.uint8 or channels not in (1, 3, 4)):
         raise ValueError(f"the linear warp takes uint8 images of 1, 3 or 4 "
-                         f"channels, not {src.dtype} with {channels}")
+                         f"channels or float32 images of one, not "
+                         f"{src.dtype} with {channels}")
     sx, sy = _source_points(inv, w, h)
+    if is_f32:
+        sx, sy = _tail_source_points(inv, w, h, sx, sy)
     ix, iy = np.floor(sx), np.floor(sy)
     a, b = sx - ix, sy - iy
     ix, iy = ix.astype(np.int64), iy.astype(np.int64)
@@ -155,6 +188,8 @@ def warp_affine(src, m, dsize, interpolation="linear"):
     v0 = fma32(a, p01 - p00, p00)
     v1 = fma32(a, p11 - p10, p10)
     v = fma32(np.broadcast_to(b, p00.shape), v1 - v0, v0)
+    if is_f32:
+        return v
     return np.clip(np.rint(v), 0, 255).astype(np.uint8)
 
 

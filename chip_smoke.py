@@ -66,7 +66,9 @@ Phases, each of which must pass:
    config``, on the card) runs the config on the first crop to a pkl
    (``--max-images 1``: the 6-step weights leave about 1750 detections a
    crop to trace and overlay), and the evaluation CLI scores it per crop
-   and ``--merge``d into the scene; ``run_inference`` is timed warm over
+   and ``--merge``d into the scene (the best ``EVAL_TOP`` detections:
+   each scored record costs 0.1-0.3 s of host time); ``run_inference``
+   is timed warm over
    the four crops.  The
    results must be well formed, P/R/F1 finite within [0, 1] and aEPE
    finite (the weights have had 6 steps); the inference ms per tile and
@@ -79,9 +81,10 @@ Phases, each of which must pass:
    any process's RSS trains the 2x synthetic recipe 6 steps: the train CLI
    checkpoints and exits 75 at step 4 (its first log row, the first
    epoch's end), the wrapper resumes it once, and it ends at step 6.  An
-   unbroken run of the same 6 steps logs every step; both run under
-   ``--deterministic``, and the chunked run's logged losses and final
-   weights must equal the unbroken run's to the bit.  ``host_rss_gb`` is
+   unbroken run of the same 6 steps, at the same time on the same card,
+   logs every step; both run under ``--deterministic``, and the chunked
+   run's logged losses and final weights must equal the unbroken run's to
+   the bit.  ``host_rss_gb`` is
    printed at the start and the end.
 8. ddp: data parallelism, every run started through
    ``bonai_tpu_torch.parallel.launch``.  (a) The rehearsal: two gloo
@@ -94,9 +97,10 @@ Phases, each of which must pass:
    ranks share the card, so its step time is not a scaling figure.  (b)
    The CLI: ``bonai_tpu_torch.tools.train.main`` with ``--n-devices
    device_count()`` as every rank of a process group of that many ranks
-   (NCCL, one rank per card, under DDP even for one card) trains 4 steps of the 2x synthetic recipe from the data phase's tiles;
-   its step ms are printed against the data phase's (one process, no
-   DDP); then ``run_inference`` of the eval phase's four crops is sharded
+   (NCCL, one rank per card, under DDP even for one card) trains 4 steps
+   of the 2x synthetic recipe from the data phase's tiles, while (a)
+   runs; its step ms are printed against the data phase's (one process,
+   no DDP); then ``run_inference`` of the eval phase's four crops is sharded
    over as many ranks and merged in dataset order.
 9. loft: LOFT with the plain ``OffsetHead``
    (``configs/loft/loft_r50_fpn_2x_bonai.py``) at full width, seeded
@@ -116,8 +120,8 @@ Phases, each of which must pass:
    on the repeated synthetic batch (6 steps of Mask R-CNN, 3 of the
    others).  The Mask R-CNN's 6-step checkpoint goes through the test CLI
    on the card (one of the eval phase's val crops; a pkl of ``(bbox,
-   segm)`` 2-tuples) and the evaluation CLI, which prints roof and
-   footprint F1.  COCO-style scoring: the Mask R-CNN's and the Dynamic
+   segm)`` 2-tuples) and the evaluation CLI on its best ``EVAL_TOP``
+   detections, which prints roof and footprint F1.  COCO-style scoring: the Mask R-CNN's and the Dynamic
    R-CNN's checkpoints through the generic test CLI
    (``bonai_tpu_torch.tools.test``, ``--eval bbox segm`` and ``--eval
    bbox``) on that crop, with the AP keys and the seconds taken; the
@@ -267,11 +271,44 @@ Phases, each of which must pass:
    within 1e-4 of each output's largest value (TF32 off).  Then from
    files: the BONAI test CLI with ``--aug-test`` on the data phase's
    checkpoint over two of the eval phase's val crops and the evaluation
-   CLI on its pkl; the train CLI 2 steps of the ``attr`` configuration
+   CLI on its pkl's best ``EVAL_TOP`` detections; the train CLI 2 steps of the ``attr`` configuration
    with ``RandomRotate(rotate_ratio=1.0, angles='any')`` after
    ``RandomFlip`` (the numpy warps), every loss finite, the loader's
    angles printed, at least one off the multiples of 90.
-21. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
+21. datasets: the non-BONAI datasets and the robustness benchmark at full
+   width (``datasets_phase``).  Robustness: ``tools/test_robustness.py``
+   on LOFT-FOA R50-FPN (the 2x synthetic recipe, the flagship's model)
+   with the data phase's checkpoint over two of the eval phase's 1024^2
+   val crops, the clean run and the 15 benchmark corruptions at severity
+   3 (``Corrupt`` on the host, before the test pipeline's resize): every
+   corruption in the pkl with the JAX layout, the P, mPC and rPC tables
+   printed, B1 3 times a batch (96 in the 32 batches), and each
+   corruption's served detections different from the clean run's (a
+   corruption that never reached the served images would repeat them);
+   each corruption's host ms on a 1024^2 tile.  Pascal VOC: 4 VOC2007-layout 500x375 images
+   written as JPEGs by ``encode_jpeg``, with XML boxes, converted by the
+   port's converter (its boxes equal to ``VOCDataset``'s); JPEG decoding
+   timed at 500x375 and 1024^2, and ``read_jpeg(encode_jpeg(x, q))`` equal
+   to ``jpeg_round_trip(x, q)``; ``configs/pascal_voc/
+   faster_rcnn_r50_fpn_1x_voc0712.py`` trained 2 steps from the files at
+   1000x600 (its two-year list pointed at the one tree), one test batch
+   scored by ``VOCDataset.evaluate`` (``mAP``), and the VOC branch of
+   ``test_robustness`` on ``jpeg_compression`` at severity 5, its
+   detections different from the clean run's.
+   Cityscapes: a 2048x1024 ``leftImg8bit``/``gtFine`` tree with 16-bit
+   ``instanceIds`` (``write_png``) converted by the port's converter;
+   ``configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py`` trained 2
+   steps and one test batch served.  LVIS: an LVIS-v1-style json
+   (``coco_url`` only, 2000 image entries over 4 JPEGs, a long tail of 6
+   categories in one image each) under ``ClassBalancedDataset(
+   oversample_thr=1e-3)``, whose length must equal the closed form of its
+   repeat factors; ``configs/lvis/
+   mask_rcnn_r50_fpn_sample1e-3_mstrain_1x_lvis_v1.py`` trained 2 steps and
+   its 1203-class serve of one image timed.  The three configs run
+   with their own ``'gather'`` route (no kernel: their launch counts must
+   be 0) from calibrated random weights (``_calibrated_weights``); every
+   loss finite.
+22. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
    1024^2) and the data phase's checkpoint: ``fuse_conv_bn`` and
    ``publish_model`` on it, the checkpoint and each tool's file served
    through ``inference_detector`` (B=2, bf16, two of the eval phase's val
@@ -287,7 +324,7 @@ Phases, each of which must pass:
    timed); ``show_result`` and ``browse_dataset`` on a crop and a train
    tile, PNGs written; ``profile_time`` and ``device_trace`` around a
    serve call, whose trace must hold B1's 3 kernels; ``collect_env``.
-22. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+23. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -322,9 +359,10 @@ model 3 times each; the tta phase's LOFT-FOA launches B1 3 times a view
 (box, mask, offset): 9 a batch at the default views at either level, 12
 at the four scaled views, 9 in the BONAI test CLI's batch with
 ``--aug-test``, and its rotated ``attr`` training B1 and B2 7 times a
-step; the tools phase's serve batches (the checkpoint, fused, published,
-traced), its eager call and its reloaded exported program (counted in
-its own process) B1 3 times each.
+step; the datasets phase's robustness runs B1 3 times a batch, its VOC,
+Cityscapes and LVIS runs no kernel; the tools phase's serve batches (the
+checkpoint, fused, published, traced), its eager call and its reloaded
+exported program (counted in its own process) B1 3 times each.
 
 Prints the card's name and power limit, the kernels' JSON line, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -457,6 +495,18 @@ TTA_RUNS = (("det", "det", TTA_DEFAULT, 9),
 TTA_DIR = os.path.join(REPO, "build", "chip_smoke_tta")
 TTA_CHECKPOINT = os.path.join(REPO, "build", "chip_smoke_tta_ckpt",
                               "data_phase.pth")
+# the datasets phase: its files, the robustness run (tiles, severity) and
+# the configs it trains from files
+DATASETS_DIR = os.path.join(REPO, "build", "chip_smoke_datasets")
+ROBUST_TILES = 2
+ROBUST_SEVERITY = 3
+DATASETS_STEPS = 2
+VOC_CONFIG = os.path.join(REPO,
+                          "configs/pascal_voc/faster_rcnn_r50_fpn_1x_voc0712.py")
+CITYSCAPES_CONFIG = os.path.join(
+    REPO, "configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py")
+LVIS_CONFIG = os.path.join(
+    REPO, "configs/lvis/mask_rcnn_r50_fpn_sample1e-3_mstrain_1x_lvis_v1.py")
 # the tools phase: its files, and the eval phase's masks that the mask
 # library and its numpy versions encode, decode and intersect
 TOOLS_DIR = os.path.join(REPO, "build", "chip_smoke_tools")
@@ -504,6 +554,11 @@ STRIDES = [4, 8, 16, 32]
 # its own results (tests/test_torch_port_eval.py asserts the same counts)
 PLANTED = {"roof": (24, 1, 1), "footprint": (25, 0, 0)}
 SCORED_CROPS = 1            # of the eval phase's 4 (see eval_phase)
+# the evaluation CLI traces and overlays each scored mask on the host, at
+# 0.1-0.3 s a record for the noisy masks of barely trained weights; where
+# a phase only checks that the CLI scores its test CLI's pkl, it scores
+# the best EVAL_TOP detections
+EVAL_TOP = 100
 
 
 def _gpu_name_and_power():
@@ -1653,6 +1708,15 @@ def _planted_pkl(ann_file, path):
         pickle.dump(dict(results=results, filenames=names), f)
 
 
+def _top_thr(results, n=EVAL_TOP):
+    """The score of the ``n``-th best detection of ``results`` (class 0,
+    over all images): ``--score-thr`` for the evaluation CLI to score the
+    best ``n`` (and any tied with the last)."""
+    import numpy as np
+    scores = np.sort(np.concatenate([r[0][0][:, 4] for r in results]))[::-1]
+    return float(scores[min(n, len(scores)) - 1])
+
+
 def _scores(summary):
     """The evaluation CLI's summary must hold finite P/R/F1 within [0, 1]
     and a finite aEPE (-1 when nothing matched)."""
@@ -1763,14 +1827,19 @@ def eval_phase(checkpoint, work_dir):
     print(f"eval: pkl -> records {records_s:.2f} s "
           f"({sum(map(len, records.values()))} records)", flush=True)
 
-    for what, argv in (("per crop", ["--gt-json", crops]),
-                       ("merged", ["--merge", "--gt-json", scenes])):
-        t0 = time.perf_counter()
-        summary = bonai_evaluation.main([pkl, *argv])
-        eval_s = time.perf_counter() - t0
-        print(f"eval: {what}: {_scores(summary)}; evaluation CLI "
-              f"{eval_s:.2f} s (F1 about {eval_s - records_s:.2f} s of it)",
-              flush=True)
+    t0 = time.perf_counter()
+    summary = bonai_evaluation.main([pkl, "--gt-json", crops])
+    eval_s = time.perf_counter() - t0
+    print(f"eval: per crop: {_scores(summary)}; evaluation CLI "
+          f"{eval_s:.2f} s (F1 about {eval_s - records_s:.2f} s of it)",
+          flush=True)
+    thr = _top_thr(results)
+    t0 = time.perf_counter()
+    summary = bonai_evaluation.main([pkl, "--merge", "--gt-json", scenes,
+                                     "--score-thr", str(thr)])
+    print(f"eval: merged, the best {EVAL_TOP} detections (score_thr "
+          f"{thr:.4f}): {_scores(summary)}; evaluation CLI "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     planted = os.path.join(out_dir, "planted.pkl")
     _planted_pkl(crops, planted)
@@ -1791,22 +1860,73 @@ RESUME_STEPS = 6        # 4 steps an epoch over the data phase's 8 tiles
 RESUME_LOG = 4          # the watchdog checks at the first epoch's end
 
 
+def _start(argv, log, env=None):
+    """``argv`` started from the repo's root in a session of its own, its
+    standard output and error going to ``log`` + ``.out`` / ``.err`` (two
+    commands at once cannot block each other on a full pipe)."""
+    with open(log + ".out", "w") as out, open(log + ".err", "w") as err:
+        proc = subprocess.Popen(argv, cwd=REPO, stdout=out, stderr=err,
+                                env=dict(os.environ, **(env or {})),
+                                start_new_session=True)
+    proc.log, proc.t0 = log, time.perf_counter()
+    return proc
+
+
+def _finish(procs, what):
+    """Wait for every process of ``procs`` (of :func:`_start`); if waiting
+    fails or one exits non-zero, kill the others with all they started.
+    Returns each one's ``CompletedProcess`` and its seconds from start to
+    exit."""
+    ends = {}
+    try:
+        while len(ends) < len(procs):
+            for i, p in enumerate(procs):
+                if i not in ends and p.poll() is not None:
+                    ends[i] = time.perf_counter() - p.t0
+                    if p.returncode:
+                        raise AssertionError(f"{what}: {p.args[:4]} exited "
+                                             f"{p.returncode}:\n"
+                                             + _tail(p.log, 3000))
+            time.sleep(0.1)
+    finally:
+        _kill(procs)
+    done = []
+    for i, p in enumerate(procs):
+        with open(p.log + ".out") as out, open(p.log + ".err") as err:
+            done.append((subprocess.CompletedProcess(
+                p.args, p.returncode, out.read(), err.read()), ends[i]))
+    return done
+
+
+def _tail(log, n):
+    with open(log + ".out") as out, open(log + ".err") as err:
+        return f"{out.read()[-n:]}\n{err.read()[-n:]}"
+
+
+def _kill(procs):
+    """SIGKILL each process of :func:`_start` still running, and every
+    process of its session (the ranks and loader workers it spawned)."""
+    import signal
+    for p in procs:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+
+
 def _train_cli(module, work_dir, cfg_path, *args, env=None):
     """``python -m bonai_tpu_torch.tools.<module>`` to ``RESUME_STEPS`` steps
     in one process, on one card of any host (``train_chunked`` takes the
-    work dir as its second argument); returns the finished process with
-    its output."""
+    work dir as its second argument), started by :func:`_start` with its
+    log beside ``work_dir``."""
     where = [work_dir] if module == "train_chunked" else ["--work-dir",
                                                           work_dir]
-    proc = subprocess.run(
+    return _start(
         [sys.executable, "-m", f"bonai_tpu_torch.tools.{module}", cfg_path,
          *where, "--max-steps", str(RESUME_STEPS), "--n-devices", "1",
-         *args], cwd=REPO,
-        capture_output=True, text=True, env=dict(os.environ, **(env or {})))
-    if proc.returncode != 0:
-        raise AssertionError(f"{module} exited {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    return proc
+         *args], work_dir, env)
 
 
 def _run_end(proc, work_dir):
@@ -1838,8 +1958,10 @@ def resume_phase():
     checkpoints and exits 75 at step 4 (the first epoch's end, its first
     log row), the wrapper resumes it once and it ends at step 6.  Its
     logged losses and final weights must equal an unbroken run's of the
-    same steps: both run under ``--deterministic``, so to the bit.
-    Returns the summed kernel launches of the chunked run."""
+    same steps: both run under ``--deterministic``, so to the bit.  The
+    two runs share the card at the same time (their times are not a
+    single run's).  Returns the summed kernel launches of the chunked
+    run."""
     cfg = _synth_config()
     cfg.data.loader_mode = "process"
     cfg.log_config.interval = RESUME_LOG
@@ -1850,13 +1972,11 @@ def resume_phase():
     cfg.dump(cfg_path)
     whole_dir, chunked_dir = (os.path.join(out, d)
                               for d in ("unbroken", "chunked"))
-    t0 = time.perf_counter()
-    whole = _train_cli("train", whole_dir, cfg_path, "--deterministic",
-                       "--options", "log_config.interval=1")
-    t1 = time.perf_counter()
-    chunked = _train_cli("train_chunked", chunked_dir, cfg_path,
-                         "--deterministic", env={"BONAI_MAX_RSS_GB": "0.001"})
-    t2 = time.perf_counter()
+    (whole, whole_s), (chunked, chunked_s) = _finish([
+        _train_cli("train", whole_dir, cfg_path, "--deterministic",
+                   "--options", "log_config.interval=1"),
+        _train_cli("train_chunked", chunked_dir, cfg_path, "--deterministic",
+                   env={"BONAI_MAX_RSS_GB": "0.001"})], "resume")
     lines = chunked.stdout.splitlines()
     restarts = sum("RSS-limit restart (rc=75)" in x for x in lines)
     if restarts != 1 or lines[-1] != "[train_chunked] complete":
@@ -1873,8 +1993,8 @@ def resume_phase():
           f"--deterministic), BONAI_MAX_RSS_GB=0.001: exit 75 at step "
           f"{preempt['step']} (the end of epoch {preempt['epoch']}), "
           f"{restarts} restart, complete at step {ckpt_c['step']} in "
-          f"{t2 - t1:.1f} s; unbroken run {t1 - t0:.1f} s; launches "
-          f"{launches}", flush=True)
+          f"{chunked_s:.1f} s; unbroken run {whole_s:.1f} s, at the same "
+          f"time on the same card; launches {launches}", flush=True)
     print(f"resume: host_rss_gb of the unbroken run at step "
           f"{rows_w[0]['iter']} (start) {rows_w[0]['host_rss_gb']}, at step "
           f"{rows_w[-1]['iter']} (end) {rows_w[-1]['host_rss_gb']}; the "
@@ -1973,8 +2093,10 @@ def ddp_phase(card, files_step_ms):
     from the data phase's tiles, and ``run_inference`` over the eval
     phase's four crops is sharded over the same number of ranks.
 
-    Every rank must launch B1 and B2 3 times a step (B1 3 times a test
-    batch).  Returns the launch counts per rank of each run."""
+    The CLI runs while the rehearsal does, on the same card (their times
+    are not a single run's).  Every rank must launch B1 and B2 3 times a
+    step (B1 3 times a test batch).  Returns the launch counts per rank of
+    each run."""
     import pickle
     import numpy as np
     import torch
@@ -1988,9 +2110,24 @@ def ddp_phase(card, files_step_ms):
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
 
+    # (b) the CLI over every card, started first to run beside (a)
+    n = torch.cuda.device_count()
+    cfg = _synth_config(test=True)
+    cfg_path = os.path.join(out, os.path.basename(SYNTH_CONFIG))
+    cfg.dump(cfg_path)
+    work_dir = os.path.join(out, "wd")
+    cli = _start([sys.executable, "-c", CLI_RANKS, str(n), out, cfg_path,
+                  "--work-dir", work_dir, "--n-devices", str(n),
+                  "--max-steps", str(DDP_STEPS), "--options",
+                  "log_config.interval=1"], os.path.join(out, "cli"))
+
     # (a) two gloo ranks on one card against the mean of the halves
-    report = rehearse(_rehearsal_config(), synthetic_batch(), out,
-                      timeout=600)
+    try:
+        report = rehearse(_rehearsal_config(), synthetic_batch(),
+                          os.path.join(out, "rehearsal"), timeout=600)
+    except BaseException:
+        _kill([cli])
+        raise
     ranks = report["ranks"]
     counts = [_by_kernel(r["counts"]) for r in ranks]
     for r, c in enumerate(counts):
@@ -2001,28 +2138,15 @@ def ddp_phase(card, files_step_ms):
           f"{os.path.basename(CONFIG)} full width float32, one image each: "
           f"launch to exit {report['launch_s']:.1f} s, step ms per rank "
           f"{[round(r['ms'], 1) for r in ranks]} (first step, cold; not a "
-          f"scaling figure: both ranks share the card); loss {m['loss']:.5g}"
-          f" grad_norm {m['grad_norm']:.5g}; weights vs the mean-of-halves "
+          f"scaling figure: both ranks share the card with the CLI run); "
+          f"loss {m['loss']:.5g} grad_norm {m['grad_norm']:.5g}; weights "
+          f"vs the mean-of-halves "
           f"step: largest diff {report['worst']:.3g} of a tensor's largest "
           f"update ({report['moved']} of {report['tensors']} tensors "
           f"moved); launches per rank {counts}", flush=True)
 
-    # (b) the CLI over every card, then sharded testing
-    n = torch.cuda.device_count()
-    cfg = _synth_config(test=True)
-    cfg_path = os.path.join(out, os.path.basename(SYNTH_CONFIG))
-    cfg.dump(cfg_path)
-    work_dir = os.path.join(out, "wd")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", CLI_RANKS, str(n), out, cfg_path,
-         "--work-dir", work_dir, "--n-devices", str(n), "--max-steps",
-         str(DDP_STEPS), "--options", "log_config.interval=1"], cwd=REPO,
-        capture_output=True, text=True)
-    cli_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"train --n-devices {n} exited "
-                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    # (b) the CLI's end, then sharded testing
+    (proc, cli_s), = _finish([cli], f"train --n-devices {n}")
     with open(os.path.join(work_dir, "train_log.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     cli_counts = [_by_kernel(c) for c in rank_launches(proc.stderr)]
@@ -2042,7 +2166,7 @@ def ddp_phase(card, files_step_ms):
     print(f"ddp: train --n-devices {n} (NCCL, one rank per card, "
           f"{card}), {DDP_STEPS} steps of the 2x synthetic recipe from "
           f"files, global batch {cfg.data.samples_per_gpu * n}: "
-          f"{cli_s:.1f} s incl. start-up; ms per step "
+          f"{cli_s:.1f} s incl. start-up, beside the rehearsal; ms per step "
           f"{[round(x, 1) for x in step_ms]}, median of the warm steps "
           f"{statistics.median(step_ms[1:]):.1f} against "
           f"{files_step_ms:.1f} in the data phase (one process, no DDP); "
@@ -2375,13 +2499,16 @@ def rcnn_eval(config, checkpoint, work_dir):
                 and all(m["size"] == [SIZE, SIZE] for m in res[1][0])):
             raise AssertionError("the rcnn test CLI's results are not "
                                  "(bbox, segm) 2-tuples")
+    thr = _top_thr(results)
     t0 = time.perf_counter()
-    summary = bonai_evaluation.main([pkl, "--gt-json", crops])
+    summary = bonai_evaluation.main([pkl, "--gt-json", crops,
+                                     "--score-thr", str(thr)])
     eval_s = time.perf_counter() - t0
     print(f"rcnn mask_rcnn eval: test CLI {cli_s:.1f} s (model build, 1 of "
           f"{len(payload['filenames'])} crops, bf16), "
-          f"{len(results[0][0][0])} detections; evaluation CLI {eval_s:.1f} "
-          f"s: {_scores(summary)}; launches {counts}", flush=True)
+          f"{len(results[0][0][0])} detections; evaluation CLI of the best "
+          f"{EVAL_TOP} (score_thr {thr:.4f}) {eval_s:.1f} s: "
+          f"{_scores(summary)}; launches {counts}", flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
     return counts[fwd_name]
 
@@ -3541,13 +3668,16 @@ def tta_files(checkpoint):
             for res in results):
         raise AssertionError("the tta test CLI's results are not (bbox, "
                              "segm, offsets) 3-tuples")
+    thr = _top_thr(results)
     t0 = time.perf_counter()
-    summary = bonai_evaluation.main([pkl, "--gt-json", crops])
+    summary = bonai_evaluation.main([pkl, "--gt-json", crops,
+                                     "--score-thr", str(thr)])
     eval_s = time.perf_counter() - t0
     print(f"tta files: BONAI test CLI --aug-test {cli_s:.1f} s (model "
           f"build, 2 val crops, 3 views, bf16), detections "
           f"{[len(res[0][0]) for res in results]}; launches {cli_counts}; "
-          f"evaluation CLI {eval_s:.1f} s: {_scores(summary)}", flush=True)
+          f"evaluation CLI of the best {EVAL_TOP} (score_thr {thr:.4f}) "
+          f"{eval_s:.1f} s: {_scores(summary)}", flush=True)
 
     train_dir = os.path.join(DATA_DIR, "train")
     if not os.path.exists(os.path.join(train_dir, "train.json")):
@@ -3854,6 +3984,453 @@ def tools_masks(results):
           f"overlapping pairs)", flush=True)
 
 
+def _echoed(fn, *args):
+    """``fn(*args)`` with its standard output captured, echoed, and
+    returned beside its result."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return out, text
+
+
+def _no_launches(what):
+    counts = _counts()
+    _check_counts(counts, {}, what)
+    return counts
+
+
+@contextlib.contextmanager
+def _served_runs():
+    """The results of every ``run_inference`` that ``tools/
+    test_robustness.py`` makes while open, in order."""
+    from bonai_tpu_torch.tools import test_robustness
+    real, runs = test_robustness.run_inference, []
+
+    def recorded(*args, **kwargs):
+        runs.append(real(*args, **kwargs))
+        return runs[-1]
+
+    test_robustness.run_inference = recorded
+    try:
+        yield runs
+    finally:
+        test_robustness.run_inference = real
+
+
+def _corruptions_served(runs, names, what):
+    """The clean run's detections (``runs[0]``) against each corruption's
+    (``runs[1:]``, in ``names``' order): a corruption that did not reach
+    the served images would give the clean run's boxes and scores."""
+    import numpy as np
+
+    def boxes(results):
+        return [np.asarray((r[0] if isinstance(r, tuple) else r)[0])
+                for r in results]
+
+    if len(runs) != 1 + len(names):
+        raise AssertionError(f"{what}: {len(runs)} served runs for "
+                             f"{len(names)} corruptions and the clean one")
+    clean = boxes(runs[0])
+    same = [name for name, run in zip(names, runs[1:])
+            if all(a.shape == b.shape and np.array_equal(a, b)
+                   for a, b in zip(boxes(run), clean))]
+    if same:
+        raise AssertionError(f"{what}: {same} served the clean images' "
+                             f"detections")
+
+
+def datasets_robustness(checkpoint):
+    """``tools/test_robustness.py`` on LOFT-FOA with ``checkpoint`` over
+    ``ROBUST_TILES`` of the eval phase's val crops: the clean run and the
+    15 benchmark corruptions at ``ROBUST_SEVERITY``; each corruption's
+    detections must differ from the clean run's.  Returns B1's
+    launches."""
+    import pickle
+    import numpy as np
+    from bonai_tpu_torch.datasets.pipelines.corrupt import corrupt_image
+    from bonai_tpu_torch.tools import test_robustness
+    from bonai_tpu_torch.utils.png import read_png
+    val = os.path.join(DATA_DIR, "val")
+    with open(os.path.join(val, "val.json")) as f:
+        crops = json.load(f)
+    crops["images"] = crops["images"][:ROBUST_TILES]
+    keep = {im["id"] for im in crops["images"]}
+    crops["annotations"] = [a for a in crops["annotations"]
+                            if a["image_id"] in keep]
+    ann_file = os.path.join(DATASETS_DIR, "robust_val.json")
+    with open(ann_file, "w") as f:
+        json.dump(crops, f)
+    tile = read_png(os.path.join(val, "images",
+                                 crops["images"][0]["file_name"]))
+    host_ms = {}
+    for name in test_robustness.BENCHMARK_CORRUPTIONS:
+        t0 = time.perf_counter()
+        out = corrupt_image(tile, name, ROBUST_SEVERITY,
+                            np.random.RandomState(0))
+        host_ms[name] = round((time.perf_counter() - t0) * 1e3, 1)
+        if out.shape != tile.shape or out.dtype != np.uint8:
+            raise AssertionError(f"{name}: {out.shape} {out.dtype}")
+    print(f"datasets: corruption host ms per {SIZE}^2 tile at severity "
+          f"{ROBUST_SEVERITY}: {host_ms}; card {_gpu_name_and_power()}",
+          flush=True)
+    cfg = _synth_config(test=True)
+    cfg.data.test.ann_file = ann_file
+    cfg_path = os.path.join(DATASETS_DIR, "robust.py")
+    cfg.dump(cfg_path)
+    out = os.path.join(DATASETS_DIR, "robust.pkl")
+    runs = 1 + len(test_robustness.BENCHMARK_CORRUPTIONS)
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _served_runs() as served:
+        agg, text = _echoed(test_robustness.main, [
+            cfg_path, checkpoint, "--out", out, "--corruptions",
+            "benchmark", "--severities", "0", str(ROBUST_SEVERITY),
+            "--max-images", str(ROBUST_TILES)])
+    torch_s = time.perf_counter() - t0
+    fwd = ROUTES["block"][1]
+    counts = _counts()
+    _check_counts(counts, {fwd: 3 * ROBUST_TILES * runs},
+                  f"test_robustness, {runs} runs of {ROBUST_TILES} batches")
+    _corruptions_served(served, test_robustness.BENCHMARK_CORRUPTIONS,
+                        "test_robustness")
+    with open(out, "rb") as f:
+        saved = pickle.load(f)
+    if saved != agg or list(saved) != test_robustness.BENCHMARK_CORRUPTIONS:
+        raise AssertionError(f"the pkl holds {list(saved)}")
+    for name, by_sev in saved.items():
+        if list(by_sev) != [0, ROBUST_SEVERITY] or any(
+                set(e) != {"bbox"} or not {"AP", "AP50", "AP75"} <= set(
+                    e["bbox"]) or not all(np.isfinite(v) for v in
+                                          e["bbox"].values())
+                for e in by_sev.values()):
+            raise AssertionError(f"{name}: {by_sev}")
+    for table in ("Performance on Clean Data [P] (bbox)",
+                  "Mean Performance under Corruption [mPC] (bbox)",
+                  "Relative Performance under Corruption [rPC] (bbox)"):
+        if table not in text:
+            raise AssertionError(f"test_robustness printed no {table!r}")
+    print(f"datasets: test_robustness {runs} runs x {ROBUST_TILES} tiles in "
+          f"{torch_s:.1f} s ({torch_s / runs:.2f} s a run incl. corruption, "
+          f"serve and COCO scoring); clean bbox AP "
+          f"{saved['fog'][0]['bbox']['AP']:.4f}; each corruption's "
+          f"detections differ from the clean run's; B1 {counts[fwd]} "
+          f"launches", flush=True)
+    return counts[fwd]
+
+
+def _files_run(label, config, cfg, weights):
+    """``DATASETS_STEPS`` steps of ``train_detector`` on ``cfg`` (its
+    files) from ``weights``, every loss finite and no kernel launched.
+    Returns the checkpoint, the step ms and the losses."""
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import train_detector
+    from bonai_tpu_torch.engine import latest_checkpoint
+    work_dir = os.path.join(DATASETS_DIR, label, "wd")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    cfg.data.workers_per_gpu = 2
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, hist = train_detector(cfg, None, work_dir, seed=0,
+                             max_steps=DATASETS_STEPS, log_interval=1,
+                             n_devices=1, load_from=weights)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _no_launches(f"{label} train from files")
+    keys = [k for k in hist[0] if k.split(".")[-1].startswith("loss")]
+    if len(hist) != DATASETS_STEPS or not all(
+            np.isfinite(h[k]) for h in hist for k in keys + ["grad_norm"]):
+        raise AssertionError(f"{label}: log rows {hist}")
+    print(f"datasets {label}: train_detector from files "
+          f"({config[len(REPO) + 1:]}, B={cfg.data.samples_per_gpu}), "
+          f"{DATASETS_STEPS} steps in {wall:.1f} s incl. set-up; ms per step "
+          f"{[round(h['time'] * 1e3, 1) for h in hist]}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          + " ".join(f"{k} {hist[-1][k]:.4g}" for k in keys), flush=True)
+    return latest_checkpoint(work_dir)
+
+
+def datasets_voc():
+    """Pascal VOC from JPEG files: the converter, the JPEG codec's times
+    and round trip, 2 training steps, one scored test batch and the VOC
+    branch of ``test_robustness``."""
+    import pickle
+    import numpy as np
+    from bonai_tpu_torch.config import Config
+    from bonai_tpu_torch.apis.test import test_split
+    from bonai_tpu_torch.datasets import build_dataset
+    from bonai_tpu_torch.tools import test_robustness
+    from bonai_tpu_torch.tools.convert_datasets import pascal_voc
+    from bonai_tpu_torch.tools.make_synthetic_datasets import make_voc
+    from bonai_tpu_torch.utils.jpeg import (encode_jpeg, jpeg_round_trip,
+                                            read_jpeg)
+    from bonai_tpu_torch.utils.png import read_png
+    root = os.path.join(DATASETS_DIR, "voc", "VOCdevkit")
+    t0 = time.perf_counter()
+    voc_dir, split = make_voc(root, n=4, size=(375, 500), seed=0)
+    gen_s = time.perf_counter() - t0
+    with open(split) as f:
+        ids = f.read().split()
+    with open(os.path.join(os.path.dirname(split), "test.txt"), "w") as f:
+        f.write("\n".join(ids[:2]) + "\n")
+    jpgs = [os.path.join(voc_dir, "JPEGImages", i + ".jpg") for i in ids]
+    dec_ms = []
+    for path in jpgs:
+        t0 = time.perf_counter()
+        read_jpeg(path)
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+    crop = read_png(os.path.join(DATA_DIR, "val", "images", sorted(
+        os.listdir(os.path.join(DATA_DIR, "val", "images")))[0]))
+    big = {}
+    for q in (15, 60, 95):
+        t0 = time.perf_counter()
+        data = encode_jpeg(crop, q)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        decoded = read_jpeg(data)
+        dec = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rt = jpeg_round_trip(crop, q)
+        rt_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(decoded, rt):
+            raise AssertionError(f"read_jpeg(encode_jpeg(x, {q})) differs "
+                                 f"from jpeg_round_trip(x, {q})")
+        big[q] = (round(enc_ms, 1), round(dec, 1), round(rt_ms, 1),
+                  len(data))
+    voc_img = read_jpeg(jpgs[0])
+    if not np.array_equal(read_jpeg(encode_jpeg(voc_img, 40)),
+                          jpeg_round_trip(voc_img, 40)):
+        raise AssertionError("VOC image: round trip differs")
+    print(f"datasets voc: 4 VOC2007 images of 500x375 written in "
+          f"{gen_s:.2f} s; read_jpeg ms each {[round(x, 1) for x in dec_ms]}"
+          f"; a {SIZE}^2 val crop at quality 15 / 60 / 95: (encode ms, "
+          f"read_jpeg ms, jpeg_round_trip ms, bytes) {big}, the decodes equal"
+          f" to the round trips; card {_gpu_name_and_power()}", flush=True)
+    ann_json = os.path.join(DATASETS_DIR, "voc", "voc07_trainval.json")
+    n_img, n_ann = pascal_voc.convert(voc_dir, "trainval", ann_json)
+    load = [dict(type="LoadImageFromFile"),
+            dict(type="LoadAnnotations", with_bbox=True)]
+    xml = build_dataset(dict(type="VOCDataset", ann_file=split,
+                             img_prefix=voc_dir + "/", pipeline=load))
+    coco = build_dataset(dict(type="CocoDataset", ann_file=ann_json,
+                              img_prefix=voc_dir + "/", pipeline=load,
+                              min_size=0))
+    if n_img != 4 or len(xml) != len(coco) != 4 or any(
+            not np.array_equal(xml.get_ann_info(i)["bboxes"],
+                               coco.get_ann_info(i)["bboxes"])
+            for i in range(4)):
+        raise AssertionError("the converted json's boxes differ from "
+                             "VOCDataset's")
+    print(f"datasets voc: pascal_voc converter {n_img} images, {n_ann} "
+          f"annotations; boxes equal to VOCDataset's", flush=True)
+    weights = os.path.join(DATASETS_DIR, "voc", "calibrated.pth")
+    _calibrated_weights(VOC_CONFIG, weights)
+    cfg = Config.fromfile(VOC_CONFIG)
+    train = cfg.data.train
+    train.ann_file = [split] * len(train.ann_file)
+    train.img_prefix = [voc_dir + "/"] * len(train.img_prefix)
+    cfg.data.test.update(ann_file=os.path.join(os.path.dirname(split),
+                                               "test.txt"),
+                         img_prefix=voc_dir + "/")
+    checkpoint = _files_run("voc", VOC_CONFIG, cfg, weights)
+    # the 2-step weights score below the config's 0.05: serve at 0, so
+    # that every image keeps detections (of its max_per_img) to score
+    cfg.test_cfg.rcnn.score_thr = 0.0
+    _zero_counts()
+    t0 = time.perf_counter()
+    dataset, results = test_split(cfg, checkpoint)
+    serve_s = time.perf_counter() - t0
+    _no_launches("voc test batch")
+    # the results keep class 0's detections only, as the JAX test loop's
+    # (ROADMAP.md queue C)
+    if len(results) != 2 or any(
+            len(r) != 1 or not 0 < len(r[0]) <= cfg.test_cfg.rcnn.max_per_img
+            or not np.isfinite(r[0]).all() for r in results):
+        raise AssertionError("voc: results of the test batch")
+    m_ap = dataset.evaluate(results)["mAP"]
+    if not 0 <= m_ap <= 1:
+        raise AssertionError(f"voc mAP {m_ap}")
+    print(f"datasets voc: one test batch (2 images at 1000x600, score_thr "
+          f"0) through test_split in {serve_s:.1f} s incl. the model's load; "
+          f"{sum(len(d) for d in results[0])} class-0 detections in the "
+          f"first; "
+          f"VOCDataset.evaluate mAP {m_ap:.4f}", flush=True)
+    cfg_path = os.path.join(DATASETS_DIR, "voc", "voc.py")
+    cfg.dump(cfg_path)
+    out = os.path.join(DATASETS_DIR, "voc", "robust.pkl")
+    _zero_counts()
+    with _served_runs() as served:
+        agg, text = _echoed(test_robustness.main, [
+            cfg_path, checkpoint, "--out", out, "--corruptions",
+            "jpeg_compression", "--severities", "0", "5"])
+    _no_launches("voc test_robustness")
+    _corruptions_served(served, ["jpeg_compression"], "voc test_robustness")
+    with open(out, "rb") as f:
+        saved = pickle.load(f)
+    entries = saved.get("jpeg_compression", {})
+    if saved != agg or list(entries) != [0, 5] or any(
+            not isinstance(e, list) or len(e) != 1 or set(e[0]) != {"ap"}
+            for e in entries.values()) or \
+            "Mean Performance under Corruption [mPC] in AP50" not in text:
+        raise AssertionError(f"voc test_robustness: {saved}")
+    return m_ap
+
+
+def datasets_cityscapes():
+    """Cityscapes: the 16-bit tree, the converter, 2 training steps and
+    one served test batch."""
+    import numpy as np
+    from bonai_tpu_torch.apis.test import test_split
+    from bonai_tpu_torch.config import Config
+    from bonai_tpu_torch.tools.convert_datasets import cityscapes
+    from bonai_tpu_torch.tools.make_synthetic_datasets import \
+        make_cityscapes_tree
+    from bonai_tpu_torch.utils.png import read_png
+    root = os.path.join(DATASETS_DIR, "cityscapes")
+    t0 = time.perf_counter()
+    make_cityscapes_tree(root, n=2, size=(1024, 2048), seed=0)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _echoed(cityscapes.main, [root, os.path.join(root, "annotations")])
+    conv_s = time.perf_counter() - t0
+    ann_file = os.path.join(root, "annotations",
+                            "instancesonly_filtered_gtFine_train.json")
+    with open(ann_file) as f:
+        js = json.load(f)
+    inst = read_png(os.path.join(root, "gtFine", "train", "aachen",
+                                 "aachen_000000_000019_gtFine_instanceIds"
+                                 ".png"), unchanged=True)
+    cats = {a["category_id"] for a in js["annotations"]}
+    if inst.dtype != np.uint16 or inst.max() < 26000 or len(
+            js["images"]) != 2 or not cats <= {24, 25, 26} or 26 not in cats:
+        raise AssertionError(f"cityscapes json: {len(js['images'])} images, "
+                             f"categories {cats}, map {inst.dtype}")
+    print(f"datasets cityscapes: 2 2048x1024 frames with 16-bit instanceIds "
+          f"written in {gen_s:.1f} s; converted in {conv_s:.1f} s: "
+          f"{len(js['annotations'])} instances, categories {sorted(cats)}",
+          flush=True)
+    weights = os.path.join(root, "calibrated.pth")
+    _calibrated_weights(CITYSCAPES_CONFIG, weights)
+    cfg = Config.fromfile(CITYSCAPES_CONFIG)
+    prefix = os.path.join(root, "leftImg8bit", "train") + "/"
+    cfg.data.train.dataset.update(ann_file=ann_file, img_prefix=prefix)
+    cfg.data.test.update(ann_file=ann_file, img_prefix=prefix)
+    checkpoint = _files_run("cityscapes", CITYSCAPES_CONFIG, cfg, weights)
+    cfg.test_cfg.rcnn.score_thr = 0.0       # as the voc run serves
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, results = test_split(cfg, checkpoint, max_images=1)
+    serve_s = time.perf_counter() - t0
+    _no_launches("cityscapes test batch")
+    boxes, masks = results[0][:2]
+    if len(results) != 1 or len(boxes) != 1 or len(masks) != 1 or not len(
+            boxes[0]) or len(masks[0]) != len(boxes[0]) or not np.isfinite(
+                boxes[0]).all():
+        raise AssertionError("cityscapes: results of the test batch")
+    print(f"datasets cityscapes: one 2048x1024 test batch (score_thr 0) "
+          f"through test_split in {serve_s:.1f} s incl. the model's load; "
+          f"{len(boxes[0])} class-0 detections with their masks", flush=True)
+
+
+def datasets_lvis():
+    """LVIS v1 under ``ClassBalancedDataset``: its length against the
+    closed form, 2 training steps, the 1203-class serve of one image."""
+    import math
+    import numpy as np
+    import torch
+    from bonai_tpu_torch.apis import inference_detector, init_detector
+    from bonai_tpu_torch.config import Config
+    from bonai_tpu_torch.datasets import ClassBalancedDataset, build_dataset
+    from bonai_tpu_torch.tools.make_synthetic_datasets import make_lvis
+    from bonai_tpu_torch.utils.jpeg import read_jpeg
+    root = os.path.join(DATASETS_DIR, "lvis")
+    t0 = time.perf_counter()
+    ann_file = make_lvis(root, n_images=2000, n_files=4, n_rare=6,
+                         size=(480, 640), seed=0)
+    gen_s = time.perf_counter() - t0
+    cfg = Config.fromfile(LVIS_CONFIG)
+    # the loader stacks a batch's images unpadded, as the JAX loader does,
+    # so the multi-scale Resize trains one image a batch (ROADMAP.md C)
+    cfg.data.samples_per_gpu = 1
+    cfg.data.train.dataset.update(ann_file=ann_file, img_prefix=root + "/")
+    cfg.data.test.update(ann_file=ann_file, img_prefix=root + "/")
+    t0 = time.perf_counter()
+    ds = build_dataset(cfg.data.train)
+    build_s = time.perf_counter() - t0
+    with open(ann_file) as f:
+        js = json.load(f)
+    cats = {}
+    for a in js["annotations"]:
+        cats.setdefault(a["image_id"], set()).add(a["category_id"])
+    n = len(js["images"])
+    freq = {}
+    for s in cats.values():
+        for c in s:
+            freq[c] = freq.get(c, 0) + 1
+    thr = cfg.data.train.oversample_thr
+    repeats = [math.ceil(max(max(1.0, math.sqrt(thr / (freq[c] / n)))
+                             for c in cats.get(im["id"], ())) if
+                         cats.get(im["id"]) else 1.0) for im in js["images"]]
+    if not isinstance(ds, ClassBalancedDataset) or len(ds) != sum(
+            repeats) or max(repeats) < 2:
+        raise AssertionError(f"ClassBalancedDataset of {len(ds)} against "
+                             f"the closed form's {sum(repeats)}")
+    print(f"datasets lvis: json of {n} images over 4 JPEGs written in "
+          f"{gen_s:.1f} s; ClassBalancedDataset(oversample_thr={thr}) built "
+          f"in {build_s:.1f} s: {len(ds)} entries, the closed form's "
+          f"{sum(repeats)} (repeat factors up to {max(repeats)})",
+          flush=True)
+    weights = os.path.join(root, "calibrated.pth")
+    _calibrated_weights(LVIS_CONFIG, weights)
+    checkpoint = _files_run("lvis", LVIS_CONFIG, cfg, weights)
+    model = init_detector(cfg, checkpoint)
+    img = read_jpeg(os.path.join(root, "train2017", "000000000000.jpg"))
+    _zero_counts()
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inference_detector(model, [img])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _no_launches("lvis serve")
+    boxes = out[0][0] if isinstance(out[0], tuple) else out[0]
+    if len(boxes) != 1 or not all(np.isfinite(b).all() for b in boxes):
+        raise AssertionError(f"lvis serve: {len(boxes)} classes")
+    print(f"datasets lvis: 1203-class serve of one 640x480 image "
+          f"(inference_detector, bf16, score_thr "
+          f"{cfg.test_cfg.rcnn.score_thr}, max_per_img "
+          f"{cfg.test_cfg.rcnn.max_per_img}), ms per call "
+          f"{[round(x, 1) for x in ms]} (the first warm-up); "
+          f"{sum(len(b) for b in boxes)} detections of class 0 kept (the "
+          f"results keep class 0 only); card "
+          f"{_gpu_name_and_power()}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return statistics.median(ms[1:])
+
+
+def datasets_phase(checkpoint):
+    """The non-BONAI datasets and the robustness benchmark at full width
+    (the module's phase 21).  Returns B1's launches of the robustness
+    run."""
+    t_phase = time.time()
+    shutil.rmtree(DATASETS_DIR, ignore_errors=True)
+    os.makedirs(DATASETS_DIR)
+    launches = datasets_robustness(checkpoint)
+    datasets_voc()
+    datasets_cityscapes()
+    datasets_lvis()
+    shutil.rmtree(DATASETS_DIR, ignore_errors=True)
+    print(f"datasets phase: {time.time() - t_phase:.1f} s; card "
+          f"{_gpu_name_and_power()}", flush=True)
+    return launches
+
+
 def tools_phase(checkpoint, eval_results):
     """The host tools on LOFT-FOA R50-FPN at full width (``'block'``,
     1024^2, the data phase's ``checkpoint``): ``fuse_conv_bn`` and
@@ -4023,25 +4600,36 @@ def main():
     t0 = time.time()
     sources = sorted({source for source, *_ in KERNELS.values()})
     _build.build(sources)
-    print(f"build: {len(sources)} source(s) in {time.time() - t0:.1f} s",
-          flush=True)
+    build_s = time.time() - t0
+    print(f"build: {len(sources)} source(s) in {build_s:.1f} s", flush=True)
     for name in sources:
         log = (_build.BUILD_DIR / f"{name}.ptxas.txt")
         if log.exists():
             print(log.read_text().strip(), flush=True)
 
-    sums = kernel_phase()
-    serve_runs = {impl: serve_phase(impl) for impl in ("block", "pallas")}
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        phase_s[name] = round(time.time() - t, 1)
+        return out
+
+    sums = timed("kernels", kernel_phase)
+    serve_runs = timed("serve", lambda: {impl: serve_phase(impl)
+                                         for impl in ("block", "pallas")})
     serve = {impl: run[0] for impl, run in serve_runs.items()}
-    train = {impl: train_phase(impl, steps)
-             for impl, steps in (("block", 6), ("pallas", 4))}
-    files = data_phase()
-    # the tta phase tests the same checkpoint after eval_phase removes it
+    train = timed("train", lambda: {impl: train_phase(impl, steps)
+                                    for impl, steps in (("block", 6),
+                                                        ("pallas", 4))})
+    files = timed("data", data_phase)
+    # the tta, datasets and tools phases use the same checkpoint after
+    # eval_phase removes it
     os.makedirs(os.path.dirname(TTA_CHECKPOINT), exist_ok=True)
     shutil.copyfile(files["checkpoint"], TTA_CHECKPOINT)
-    test_cli_launches, eval_results = eval_phase(files["checkpoint"],
-                                                 files["work_dir"])
-    resume_launches = resume_phase()
+    test_cli_launches, eval_results = timed(
+        "eval", eval_phase, files["checkpoint"], files["work_dir"])
+    resume_launches = timed("resume", resume_phase)
     _check_counts({name: resume_launches.get(
         fn.__name__, 0) for name, (fn, _, _) in _kernels().items()},
         {"roi_align_block_fwd": 3 * RESUME_STEPS,
@@ -4053,21 +4641,25 @@ def main():
           f"{files['cold']:.1f} images/s cold, {files['warm']:.1f} warm, "
           f"against {2e3 / files['step_ms']:.1f} images/s the step takes",
           flush=True)
-    ddp = ddp_phase(card, files["step_ms"])
-    loft = loft_phase()
-    hrnet = hrnet_phase(serve_runs["block"][1], train["block"]["step_ms"])
-    rcnn = rcnn_phase()
-    rcnn2 = rcnn2_phase()
-    rcnn3 = rcnn3_phase()
-    trunks = trunks_phase()
-    cascades = cascades_phase()
-    dense = dense_phase()
-    dense2 = dense2_phase()
-    dense3 = dense3_phase()
-    attr = attr_phase()
-    tta = tta_phase(TTA_CHECKPOINT)
-    tools = tools_phase(TTA_CHECKPOINT, eval_results)
-    bench_launches = bench_phase()
+    ddp = timed("ddp", ddp_phase, card, files["step_ms"])
+    loft = timed("loft", loft_phase)
+    hrnet = timed("hrnet", hrnet_phase, serve_runs["block"][1],
+                  train["block"]["step_ms"])
+    rcnn = timed("rcnn", rcnn_phase)
+    rcnn2 = timed("rcnn2", rcnn2_phase)
+    rcnn3 = timed("rcnn3", rcnn3_phase)
+    trunks = timed("trunks", trunks_phase)
+    cascades = timed("cascades", cascades_phase)
+    dense = timed("dense", dense_phase)
+    dense2 = timed("dense2", dense2_phase)
+    dense3 = timed("dense3", dense3_phase)
+    attr = timed("attr", attr_phase)
+    tta = timed("tta", tta_phase, TTA_CHECKPOINT)
+    datasets = timed("datasets", datasets_phase, TTA_CHECKPOINT)
+    tools = timed("tools", tools_phase, TTA_CHECKPOINT, eval_results)
+    bench_launches = timed("bench", bench_phase)
+    print(f"phase seconds: {phase_s}; build {build_s:.1f}; card {card}",
+          flush=True)
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
         f_name, b_name = ROUTES[impl][1:]
         print(f"train ({impl}): {bwd} {sums[b_name, 'train'].ms:.4f} ms per "
@@ -4150,6 +4742,7 @@ def main():
                    for k, r in tta["serve"].items()},
                 tta_test_cli_launches=tta["files"]["test_cli"],
                 tta_rotate_train_launches=tta["files"]["fwd"],
+                datasets_robustness_launches=datasets,
                 **{f"tools_{k}_launches": n for k, n in tools.items()}),
         _entry("roi_align_block_bwd", "train (block)", train["block"]["bwd"],
                sums["roi_align_block_bwd", "train"],

@@ -98,11 +98,8 @@ def test_loader_matches_jax_process_loader(datasets, mode):
 
 
 def test_not_ported_parts_raise():
-    from bonai_tpu_torch.datasets.pipelines import (LoadAnnotations,
+    from bonai_tpu_torch.datasets.pipelines import (Corrupt, LoadAnnotations,
                                                     build_pipeline)
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_dataset(dict(type="ClassBalancedDataset", dataset={},
-                           oversample_thr=0.1))
     # LOFT's dense maps and RandomRotate are ported
     # (test_torch_port_attributes.py, test_torch_port_rotate.py); the
     # random crop is still A6
@@ -111,15 +108,16 @@ def test_not_ported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_pipeline([dict(type="LoadImageFromFile"),
                         dict(type="RandomCrop", crop_size=(64, 64))])
-    # COCO evaluation is ported (test_torch_port_coco_eval.py); the
-    # robustness benchmark's Corrupt transform is still A8
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_pipeline([dict(type="Corrupt", corruption="gaussian_noise")])
+    # COCO evaluation, ClassBalancedDataset and the robustness benchmark's
+    # Corrupt transform are ported (test_torch_port_coco_eval.py,
+    # test_torch_port_datasets_extra.py, test_torch_port_corrupt.py)
+    pipe = build_pipeline([dict(type="Corrupt", corruption="gaussian_noise")])
+    assert isinstance(pipe.transforms[0], Corrupt)
 
 
 UNPORTED_TRANSFORMS = {
     "Expand": "A6", "MinIoURandomCrop": "A6", "RandomCrop": "A6",
-    "AutoAugment": "A6", "SegRescale": "A7", "Corrupt": "A8",
+    "AutoAugment": "A6", "SegRescale": "A7",
     "InstaBoost": "not queued", "Albu": "not queued"}
 # ported since their A6 cases here: CornerNet's train transforms, as its
 # BONAI config sets them

@@ -251,7 +251,24 @@ def test_png_round_trips(tmp_path):
 
 
 def test_png_other_formats_raise(tmp_path):
-    cv2.imwrite(str(tmp_path / "a.png"), np.zeros((4, 4, 3), np.uint16))
+    """A palette PNG and a JPEG raise naming A3c.  16-bit PNGs are read
+    since the dataset slice (``test_torch_port_jpeg.py`` holds them to
+    cv2), and ``LoadImageFromFile`` reads JPEGs through ``utils/jpeg.py``."""
+    import struct
+    import zlib
+    cv2.imwrite(str(tmp_path / "a16.png"), np.zeros((4, 4, 3), np.uint16))
+    assert read_png(str(tmp_path / "a16.png"), unchanged=True).dtype == \
+        np.uint16
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    palette = (b"\x89PNG\r\n\x1a\n"
+               + chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 3, 0, 0, 0))
+               + chunk(b"PLTE", bytes(range(6)))
+               + chunk(b"IDAT", zlib.compress(b"\x00" * 20))
+               + chunk(b"IEND", b""))
+    (tmp_path / "a.png").write_bytes(palette)
     cv2.imwrite(str(tmp_path / "a.jpg"), np.zeros((4, 4, 3), np.uint8))
     for name in ("a.png", "a.jpg"):
         with pytest.raises(NotImplementedError, match="A3c"):
