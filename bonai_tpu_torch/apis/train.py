@@ -172,8 +172,9 @@ def may_leave_unused(model):
     """Whether a training step of ``model`` can leave trained parameters
     out of its graph: those behind a gradient stop (``stops_gradient``:
     HRNet's ``conv2``/``bn2`` at ``frozen_stages >= 1``, Res2Net's deep
-    stem, the stem and frozen stages of DetectoRS's RFP backbone copy), or
-    HTC's semantic logits on a batch without ``gt_semantic_seg``."""
+    stem, the stem and frozen stages of DetectoRS's RFP backbone copy, the
+    affine of a ``requires_grad=False`` BatchNorm), or HTC's semantic
+    logits on a batch without ``gt_semantic_seg``."""
     return any(getattr(m, "stops_gradient", False) for m in model.modules()) \
         or "semantic_head" in getattr(model, "roi_head", {})
 

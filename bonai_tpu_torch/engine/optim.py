@@ -14,7 +14,12 @@ it, in both: ``torch.optim.Adam``'s coupled L2, not ``AdamW``'s decoupled
 decay (ROADMAP.md queue C); the config's ``momentum`` is not read.  Frozen parameters (the
 backbone stem when ``frozen_stages >= 0`` and the first ``frozen_stages``
 stages, which the ResNet builds with ``requires_grad=False``) are not in
-the optimizer: no update, no decay, and no part of the clipped norm.
+the optimizer: no update, no decay, and no part of the clipped norm.  A
+norm of ``norm_cfg=dict(type='BN', requires_grad=False)`` outside them
+(the caffe-style trunks) reads its affine behind a gradient stop: it gets
+a zero gradient and stays in the optimizer, moved by weight decay and
+momentum, as the JAX package's frozen mask (by stage only) leaves it;
+mmdetection keeps it fixed (ROADMAP.md queue C).
 """
 
 from __future__ import annotations

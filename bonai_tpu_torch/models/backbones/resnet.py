@@ -1,11 +1,16 @@
-"""ResNet backbones with frozen BatchNorm (counterpart of
-``bonai_tpu/models/backbones/resnet.py`` for the BONAI configs:
-``style='pytorch'``, any ``frozen_stages``; BatchNorm stays frozen over its
-stored statistics whatever ``norm_eval`` says, as in the JAX package).
+"""ResNet backbones (counterpart of ``bonai_tpu/models/backbones/resnet.py``:
+``style='pytorch'`` or ``'caffe'``, any ``frozen_stages``; BatchNorm and
+SyncBN stay frozen over their stored statistics whatever ``norm_eval``
+says, as in the JAX package).
 
-- ``ResNet``, with the options of the BONAI trunk variants: a deformable
-  ``conv2`` (``dcn``, ``stage_with_dcn``: DCNv2 or, with ``type='DCN'``,
-  v1), the ``plugins`` of GCNet and empirical attention (a
+- ``ResNet``, with the options of the COCO recipes: ResNeXt's grouped
+  ``conv2`` (``groups``, ``base_width``), the caffe style (the stride on
+  ``conv1``), ``norm_cfg`` (``build_norm``: BN or SyncBN, its affine
+  behind a gradient stop with ``requires_grad=False``; GN) and
+  ``conv_cfg`` (``build_conv``: ``ConvWS``) on every conv and norm of the
+  stem, the blocks and the shortcuts; and of the BONAI trunk variants: a
+  deformable ``conv2`` (``dcn``, ``stage_with_dcn``: DCNv2 or, with
+  ``type='DCN'``, v1), the ``plugins`` of GCNet and empirical attention (a
   ``ContextBlock``, ``GeneralizedAttention`` or ``NonLocal2d`` after
   ``conv1``, ``conv2`` or ``conv3`` of the stages listed), and the deep
   stem of three 3x3 convs (``deep_stem``).
@@ -25,7 +30,8 @@ stored statistics whatever ``norm_eval`` says, as in the JAX package).
 
 Module and parameter names follow mmdet v2.3 / mmcv / torchvision
 (``backbone.layer1.0.conv1.weight``, ``backbone.layer1.0.downsample.1
-.running_var``, ``layer2.0.conv2.conv_offset.weight``,
+.running_var``, a GN trunk's ``backbone.gn1.weight`` and
+``layer1.0.gn3.bias``, ``layer2.0.conv2.conv_offset.weight``,
 ``layer2.0.context_block.conv_mask.weight``, ``stem.3.weight``,
 ``layer1.0.convs.2.weight``), so their checkpoints load as they are.
 
@@ -70,47 +76,148 @@ logger = logging.getLogger("bonai_tpu_torch")
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm over stored running statistics (whatever ``norm_eval``
     says): one per-channel multiply-add.  The affine parameters are parameters, the
-    statistics buffers, with ``nn.BatchNorm2d``'s names."""
+    statistics buffers, with ``nn.BatchNorm2d``'s names.
 
-    def __init__(self, channels, eps=1e-5):
+    With ``freeze_affine`` (mmdet's ``requires_grad=False``) the affine is
+    read behind a gradient stop: it stays trained, moved by weight decay
+    and momentum alone, as the JAX package's ``FrozenBatchNorm``
+    (``behind_stop``; mmdetection keeps it fixed, ROADMAP.md queue C)."""
+
+    def __init__(self, channels, eps=1e-5, freeze_affine=False):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.stops_gradient = freeze_affine
+        self.behind_stop = ("weight", "bias") if freeze_affine else ()
 
     def forward(self, x):
-        scale = self.weight.float() * torch.rsqrt(
+        weight, bias = self.weight, self.bias
+        if self.stops_gradient:
+            weight, bias = weight.detach(), bias.detach()
+        scale = weight.float() * torch.rsqrt(
             self.running_var.float() + self.eps)
-        shift = self.bias.float() - self.running_mean.float() * scale
+        shift = bias.float() - self.running_mean.float() * scale
         return x * scale.to(x.dtype)[:, None, None] \
             + shift.to(x.dtype)[:, None, None]
 
 
-def _conv(cin, cout, k, stride=1):
-    return nn.Conv2d(cin, cout, k, stride, k // 2, bias=False)
+def _norm_type(norm_cfg):
+    """``(type, num_groups, requires_grad)`` of an mmdet ``norm_cfg`` the
+    JAX ``make_norm`` computes: BN or SyncBN (both frozen over stored
+    statistics, also under DDP) or GN, at epsilon 1e-5.  The JAX builder
+    reads no ``eps`` and no other key: an ``eps`` other than 1e-5, another
+    key or type, or a GN without gradient raises."""
+    cfg = dict(norm_cfg or {})
+    ntype = cfg.pop("type", "BN")
+    groups = cfg.pop("num_groups", 32) if ntype == "GN" else None
+    requires_grad = cfg.pop("requires_grad", True)
+    eps = cfg.pop("eps", 1e-5)
+    if ntype not in ("BN", "SyncBN", "GN") or cfg or eps != 1e-5 or (
+            ntype == "GN" and not requires_grad):
+        raise NotImplementedError(
+            f"norm_cfg {norm_cfg} is not ported to bonai_tpu_torch (the JAX "
+            f"package reads BN, SyncBN and GN at epsilon 1e-5; ROADMAP.md "
+            f"item A6)")
+    return ntype, groups, requires_grad
 
 
-def _downsample(cin, cout, stride):
-    return nn.Sequential(_conv(cin, cout, 1, stride), FrozenBatchNorm2d(cout))
+def plain_norm(norm_cfg):
+    """Whether ``norm_cfg`` is the frozen BatchNorm with a trained affine
+    that a trunk without norm options computes (``None``, or BN/SyncBN
+    with ``requires_grad=True``)."""
+    ntype, _, requires_grad = _norm_type(norm_cfg)
+    return ntype != "GN" and requires_grad
 
 
-class BasicBlock(nn.Module):
+def build_norm(norm_cfg, channels, postfix=""):
+    """The norm of ``norm_cfg`` (JAX ``make_norm``) under mmcv's
+    ``build_norm_layer`` name: ``('bn<postfix>', FrozenBatchNorm2d)`` for
+    BN and SyncBN (the affine behind a gradient stop with
+    ``requires_grad=False``), ``('gn<postfix>', nn.GroupNorm)`` for GN.
+    The GroupNorm is torch's two-pass one, where flax takes the variance
+    as E[x^2] - E[x]^2."""
+    ntype, groups, requires_grad = _norm_type(norm_cfg)
+    if ntype == "GN":
+        return f"gn{postfix}", nn.GroupNorm(groups, channels, eps=1e-5)
+    return f"bn{postfix}", FrozenBatchNorm2d(
+        channels, freeze_affine=not requires_grad)
+
+
+def _conv_type(conv_cfg):
+    """The type of a ``conv_cfg``: ``Conv``, ``ConvWS`` or ``ConvAWS``;
+    another raises."""
+    ctype = dict(conv_cfg or {}).get("type", "Conv")
+    if ctype not in ("Conv", "ConvWS", "ConvAWS"):
+        raise NotImplementedError(
+            f"conv_cfg {conv_cfg} is not ported to bonai_tpu_torch yet "
+            f"(ROADMAP.md item A6)")
+    return ctype
+
+
+def build_conv(conv_cfg, cin, cout, k, stride=1, padding=None, bias=False,
+               groups=1):
+    """A conv of ``conv_cfg`` (JAX ``conv``): plain, ``ConvWS``
+    (``ops/layers.py::ConvWS2d``), or ``ConvAWS``, a plain conv outside
+    DetectoRS's SAC as in the JAX package (ROADMAP.md queue C)."""
+    cls = layers.ConvWS2d if _conv_type(conv_cfg) == "ConvWS" \
+        else nn.Conv2d
+    return cls(cin, cout, k, stride, k // 2 if padding is None else padding,
+               bias=bias, groups=groups)
+
+
+def _add_norm(module, norm_cfg, channels, postfix):
+    """Add the norm of ``norm_cfg`` to ``module`` under its mmcv name;
+    returns the name."""
+    name, norm = build_norm(norm_cfg, channels, postfix)
+    module.add_module(name, norm)
+    return name
+
+
+def _conv(cin, cout, k, stride=1, conv_cfg=None, groups=1):
+    return build_conv(conv_cfg, cin, cout, k, stride, groups=groups)
+
+
+def _downsample(cin, cout, stride, norm_cfg=None, conv_cfg=None):
+    return nn.Sequential(_conv(cin, cout, 1, stride, conv_cfg),
+                         build_norm(norm_cfg, cout)[1])
+
+
+class _Norms:
+    """``norm1``..``norm3``: a block's norms by their mmcv names
+    (``bn<i>`` or ``gn<i>``)."""
+
+    @property
+    def norm1(self):
+        return getattr(self, self.norm1_name)
+
+    @property
+    def norm2(self):
+        return getattr(self, self.norm2_name)
+
+    @property
+    def norm3(self):
+        return getattr(self, self.norm3_name)
+
+
+class BasicBlock(_Norms, nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 norm_cfg=None, conv_cfg=None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = FrozenBatchNorm2d(planes)
+        self.conv1 = _conv(inplanes, planes, 3, stride, conv_cfg)
+        self.norm1_name = _add_norm(self, norm_cfg, planes, 1)
+        self.conv2 = _conv(planes, planes, 3, 1, conv_cfg)
+        self.norm2_name = _add_norm(self, norm_cfg, planes, 2)
         self.downsample = downsample
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(out)) + identity)
+        out = F.relu(self.norm1(self.conv1(x)))
+        return F.relu(self.norm2(self.conv2(out)) + identity)
 
 
 # a plugin type (a class of ops/layers.py) -> mmcv's name for it
@@ -142,7 +249,7 @@ def stage_plugins(plugins, stage):
     return out
 
 
-def _dcn_conv(dcn, planes, stride):
+def _dcn_conv(dcn, width, stride):
     """The deformable ``conv2`` of a ``dcn`` config: ``'DCNv2'`` (the
     default) or ``'DCN'``, with its ``deform_groups``; mmdet's
     ``fallback_on_stride`` is read and ignored, as the JAX package does."""
@@ -155,7 +262,7 @@ def _dcn_conv(dcn, planes, stride):
             f"dcn {dtype} with {extra} is not ported to bonai_tpu_torch yet "
             f"(ROADMAP.md item A6)")
     cls = DeformConv2dPack if dtype == "DCN" else ModulatedDeformConv2dPack
-    return cls(planes, planes, 3, stride, 1,
+    return cls(width, width, 3, stride, 1,
                deform_groups=int(dcn.get("deform_groups", 1)))
 
 
@@ -170,38 +277,51 @@ def _check_sac(sac):
             f"SAC; ROADMAP.md item A6)")
 
 
-class Bottleneck(nn.Module):
-    """Pytorch style: the stride sits on the 3x3 conv2, which ``dcn``
-    makes deformable and ``sac`` switchable-atrous; ``plugins``
-    (``stage_plugins``' tuples) run after their conv's BN (and ReLU);
-    with ``rfp_inplanes`` an ``rfp_conv`` adds the RFP feature after the
-    residual sum."""
+class Bottleneck(_Norms, nn.Module):
+    """The stride sits on the 3x3 conv2 (``style='pytorch'``) or on the
+    1x1 conv1 (``'caffe'``); ``groups`` > 1 makes ``conv2`` ResNeXt's
+    grouped conv over ``int(planes * base_width / 64) * groups`` channels
+    (the JAX package's denominator: 64, where mmdet's ResNeXt divides by
+    ``base_channels``; ROADMAP.md queue C).  ``dcn`` makes ``conv2``
+    deformable (ungrouped, as in the JAX package) and ``sac``
+    switchable-atrous; ``norm_cfg``/``conv_cfg`` (``build_norm``,
+    ``build_conv``) apply to every conv and norm but the deformable and
+    SAC ``conv2``; ``plugins`` (``stage_plugins``' tuples) run after
+    their conv's norm (and ReLU); with ``rfp_inplanes`` an ``rfp_conv``
+    adds the RFP feature after the residual sum."""
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 dcn=None, plugins=(), sac=False, rfp_inplanes=None):
+                 dcn=None, plugins=(), sac=False, rfp_inplanes=None,
+                 groups=1, base_width=4, style="pytorch", norm_cfg=None,
+                 conv_cfg=None):
         super().__init__()
         if dcn is not None and sac:
             raise NotImplementedError(
                 "dcn and sac in one stage are not ported to bonai_tpu_torch "
                 "(the JAX package ignores sac there; ROADMAP.md item A6)")
-        self.conv1 = _conv(inplanes, planes, 1)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        width = planes if groups == 1 \
+            else int(planes * (base_width / 64)) * groups
+        c1_stride, c2_stride = (stride, 1) if style == "caffe" \
+            else (1, stride)
+        self.conv1 = _conv(inplanes, width, 1, c1_stride, conv_cfg)
+        self.norm1_name = _add_norm(self, norm_cfg, width, 1)
         if sac:
-            self.conv2 = SAConv2d(planes, planes, 3, stride)
+            self.conv2 = SAConv2d(width, width, 3, c2_stride)
         else:
-            self.conv2 = _conv(planes, planes, 3, stride) if dcn is None \
-                else _dcn_conv(dcn, planes, stride)
-        self.bn2 = FrozenBatchNorm2d(planes)
-        self.conv3 = _conv(planes, planes * 4, 1)
-        self.bn3 = FrozenBatchNorm2d(planes * 4)
+            self.conv2 = _conv(width, width, 3, c2_stride, conv_cfg,
+                               groups) if dcn is None \
+                else _dcn_conv(dcn, width, c2_stride)
+        self.norm2_name = _add_norm(self, norm_cfg, width, 2)
+        self.conv3 = _conv(width, planes * 4, 1, 1, conv_cfg)
+        self.norm3_name = _add_norm(self, norm_cfg, planes * 4, 3)
         self.downsample = downsample
         self.plugin_names = {p: [] for p in POSITIONS}
         for ptype, kwargs, position, postfix in plugins:
             name = PLUGINS[ptype] + postfix
             if hasattr(self, name):
                 raise ValueError(f"two plugins named {name} in one block")
-            channels = planes * 4 if position == "after_conv3" else planes
+            channels = planes * 4 if position == "after_conv3" else width
             self.add_module(name, getattr(layers, ptype)(channels,
                                                          **kwargs))
             self.plugin_names[position].append(name)
@@ -215,10 +335,11 @@ class Bottleneck(nn.Module):
 
     def forward(self, x, rfp_feat=None):
         identity = x if self.downsample is None else self.downsample(x)
-        out = self._plugins(F.relu(self.bn1(self.conv1(x))), "after_conv1")
-        out = self._plugins(F.relu(self.bn2(self.conv2(out))),
+        out = self._plugins(F.relu(self.norm1(self.conv1(x))),
+                            "after_conv1")
+        out = self._plugins(F.relu(self.norm2(self.conv2(out))),
                             "after_conv2")
-        out = self._plugins(self.bn3(self.conv3(out)), "after_conv3")
+        out = self._plugins(self.norm3(self.conv3(out)), "after_conv3")
         out = out + identity
         if rfp_feat is not None:
             out = out + self.rfp_conv(rfp_feat)
@@ -269,7 +390,11 @@ class Bottle2neck(nn.Module):
 
 class ResNet(nn.Module):
     """Returns the outputs of the stages in ``out_indices`` (NCHW), after
-    the input with ``output_img``."""
+    the input with ``output_img``.  ``groups``/``base_width`` make it
+    ResNeXt (mmdet's ``ResNeXt`` is this class); ``norm_cfg`` and
+    ``conv_cfg`` apply to the stem, every block and every shortcut;
+    ``zero_init_residual`` is read and ignored, as the JAX builder does
+    not read it (the port's init is the JAX package's)."""
 
     def __init__(self, depth=50, num_stages=4, out_indices=(0, 1, 2, 3),
                  frozen_stages=1, norm_eval=True, style="pytorch",
@@ -277,18 +402,22 @@ class ResNet(nn.Module):
                  stage_with_dcn=(False, False, False, False), plugins=None,
                  deep_stem=False, sac=None,
                  stage_with_sac=(False, False, False, False),
-                 output_img=False, rfp_inplanes=None, conv_cfg=None):
+                 output_img=False, rfp_inplanes=None, conv_cfg=None,
+                 norm_cfg=None, groups=1, base_width=4,
+                 zero_init_residual=None):
         super().__init__()
-        if dict(conv_cfg or {}).get("type", "ConvAWS") != "ConvAWS":
-            raise NotImplementedError(
-                f"conv_cfg {conv_cfg} is not ported to bonai_tpu_torch yet "
-                f"(ROADMAP.md item A6)")
+        _conv_type(conv_cfg)
+        _norm_type(norm_cfg)
         if sac is not None:
             _check_sac(sac)
-        if style != "pytorch":
+        if style not in ("pytorch", "caffe"):
             raise NotImplementedError(
-                "bonai_tpu_torch ports the pytorch-style ResNet; other "
-                "variants are ROADMAP.md item A6")
+                f"style={style!r} is not a ResNet style (mmdet's are "
+                f"'pytorch' and 'caffe')")
+        self.norm_cfg, self.conv_cfg = norm_cfg, conv_cfg
+        self.bottleneck_kw = dict(groups=groups, base_width=base_width,
+                                  style=style, norm_cfg=norm_cfg,
+                                  conv_cfg=conv_cfg)
         if not norm_eval:
             logger.info("ResNet(norm_eval=False): BatchNorm stays frozen over "
                         "its stored statistics, as in the JAX package")
@@ -300,10 +429,12 @@ class ResNet(nn.Module):
                 f"sac and the RFP on {type(self).__name__} depth {depth} are "
                 f"not ported to bonai_tpu_torch (the JAX package ignores "
                 f"them; ROADMAP.md item A6)")
-        if block is BasicBlock and (dcn is not None or plugins):
+        if block is BasicBlock and (dcn is not None or plugins
+                                    or groups != 1):
             raise NotImplementedError(
-                "dcn and plugins on a BasicBlock ResNet are not ported to "
-                "bonai_tpu_torch (mmdet has none; ROADMAP.md item A6)")
+                "dcn, plugins and groups on a BasicBlock ResNet are not "
+                "ported to bonai_tpu_torch (mmdet has none; ROADMAP.md item "
+                "A6)")
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.output_img = output_img
@@ -312,11 +443,11 @@ class ResNet(nn.Module):
             self.stem = nn.Sequential(*[
                 m for cin, cout, st in ((3, half, 2), (half, half, 1),
                                         (half, base_channels, 1))
-                for m in (_conv(cin, cout, 3, st), FrozenBatchNorm2d(cout),
-                          nn.ReLU())])
+                for m in (_conv(cin, cout, 3, st, conv_cfg),
+                          build_norm(norm_cfg, cout)[1], nn.ReLU())])
         else:
-            self.conv1 = nn.Conv2d(3, base_channels, 7, 2, 3, bias=False)
-            self.bn1 = FrozenBatchNorm2d(base_channels)
+            self.conv1 = _conv(3, base_channels, 7, 2, conv_cfg)
+            self.norm1_name = _add_norm(self, norm_cfg, base_channels, 1)
         inplanes, planes = base_channels, base_channels
         self.stages = []
         for i in range(num_stages):
@@ -343,7 +474,7 @@ class ResNet(nn.Module):
         # stages get no gradient, as mmdet's _freeze_stages; BN statistics
         # are buffers and never move.  A deep stem stays trained behind
         # the gradient stop after the max-pool, as in the JAX package
-        frozen = [self.conv1, self.bn1] if frozen_stages >= 0 \
+        frozen = [self.conv1, self.norm1] if frozen_stages >= 0 \
             and not deep_stem else []
         frozen += [getattr(self, f"layer{i}")
                    for i in range(1, frozen_stages + 1)]
@@ -354,12 +485,16 @@ class ResNet(nn.Module):
             else ()
         self.stops_gradient = bool(self.behind_stop)
 
+    @property
+    def norm1(self):
+        return getattr(self, self.norm1_name)
+
     def train_behind_stops(self):
         """Train the stem and the frozen stages behind the gradient stops
         (the JAX frozen mask matches ``backbone`` alone: the RFP's copy
         keeps them trained, moved by weight decay and momentum only)."""
-        names = ["conv1", "bn1"] if self.frozen_stages >= 0 and not hasattr(
-            self, "stem") else []
+        names = ["conv1", self.norm1_name] if self.frozen_stages >= 0 \
+            and not hasattr(self, "stem") else []
         names += [f"layer{i}" for i in range(1, self.frozen_stages + 1)]
         for n in names:
             for p in getattr(self, n).parameters():
@@ -371,17 +506,16 @@ class ResNet(nn.Module):
     def block_type(block_name):
         return Bottleneck if block_name == "bottleneck" else BasicBlock
 
-    @staticmethod
-    def shortcut(cin, cout, stride):
-        return _downsample(cin, cout, stride)
+    def shortcut(self, cin, cout, stride):
+        return _downsample(cin, cout, stride, self.norm_cfg, self.conv_cfg)
 
-    @staticmethod
-    def make_block(block, inplanes, planes, stride, ds, dcn, plugins, sac,
-                   rfp_inplanes):
+    def make_block(self, block, inplanes, planes, stride, ds, dcn, plugins,
+                   sac, rfp_inplanes):
         if block is BasicBlock:
-            return block(inplanes, planes, stride, ds)
+            return block(inplanes, planes, stride, ds, self.norm_cfg,
+                         self.conv_cfg)
         return block(inplanes, planes, stride, ds, dcn=dcn, plugins=plugins,
-                     sac=sac, rfp_inplanes=rfp_inplanes)
+                     sac=sac, rfp_inplanes=rfp_inplanes, **self.bottleneck_kw)
 
     def init_weights(self, gen):
         for m in self.modules():
@@ -401,7 +535,7 @@ class ResNet(nn.Module):
         if hasattr(self, "stem"):
             x = self.stem(x)
         else:
-            x = F.relu(self.bn1(self.conv1(x)))
+            x = F.relu(self.norm1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         if self.stops_gradient:
             x = x.detach()
@@ -428,10 +562,18 @@ class Res2Net(ResNet):
     average pool (floor mode, as the JAX package) before its 1x1 conv.
     The shortcut is mmdet's ``Sequential(pool, conv, BN)`` whatever the
     stride (keys ``downsample.1``/``.2``; an identity in the pool's place
-    at stride 1 or without ``avg_down``)."""
+    at stride 1 or without ``avg_down``).  The JAX ``Bottle2neck`` reads
+    no norm, conv, ``groups`` or style option: those raise."""
 
     def __init__(self, depth=50, scales=4, base_width=26, deep_stem=True,
                  avg_down=True, **kwargs):
+        if not plain_norm(kwargs.get("norm_cfg")) or kwargs.get(
+                "conv_cfg") or kwargs.get("groups", 1) != 1 \
+                or kwargs.get("style", "pytorch") != "pytorch":
+            raise NotImplementedError(
+                "norm_cfg, conv_cfg, groups and style on Res2Net are not "
+                "ported to bonai_tpu_torch (the JAX Bottle2neck ignores "
+                "them; ROADMAP.md item A6)")
         self.scales, self.base_width, self.avg_down = scales, base_width, \
             avg_down
         if ARCH_SETTINGS[depth][0] != "bottleneck":

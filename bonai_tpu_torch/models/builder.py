@@ -90,7 +90,7 @@ def build_detector(cfg, train_cfg=None, test_cfg=None, roi_align_impl=None):
             "detectors without an RPN or RoI head are not ported yet "
             "(ROADMAP.md item A7)")
     return cls(
-        backbone=cfg["backbone"], neck=cfg["neck"],
+        backbone=cfg["backbone"], neck=cfg.get("neck"),
         rpn_head=cfg.get("rpn_head"), roi_head=cfg.get("roi_head"),
         train_cfg=train_cfg, test_cfg=test_cfg,
         roi_align_impl=(os.environ.get("BONAI_ROI_IMPL") or roi_align_impl

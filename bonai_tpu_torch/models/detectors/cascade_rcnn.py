@@ -52,7 +52,7 @@ class CascadeRCNN(TwoStageDetector):
         self.roi_head["bbox_head"] = nn.ModuleList(h for h, _, _ in built)
         self.bbox_coders = [c for _, c, _ in built]
         self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
-        self._setup_mask_head(cfg)
+        self._setup_mask_head(cfg, cascade=True)
 
     def forward_dummy(self, img):
         """The JAX cascade's ``__call__``: the RPN head's outputs, and every

@@ -26,6 +26,14 @@ class GridRCNN(TwoStageDetector):
         _require_type(gh, "GridHead", "A7")
         self.grid_loss_weight = dict(gh.pop("loss_grid", None) or {}).get(
             "loss_weight", 15.0)
+        # the JAX grid head's convs always take GroupNorm(36) and read no
+        # norm_cfg: the gn-head configs' value is what it computes
+        norm = gh.pop("norm_cfg", None)
+        if norm is not None and dict(norm) != dict(type="GN",
+                                                   num_groups=36):
+            raise NotImplementedError(
+                f"grid_head norm_cfg {norm} is not ported to bonai_tpu_torch "
+                f"(the JAX grid head has GroupNorm(36); ROADMAP.md item A7)")
         self.roi_head["grid_head"] = GridHead(**_kwargs(gh, "grid_head", (
             "grid_points", "num_convs", "roi_feat_size", "in_channels",
             "point_feat_channels"), "A7"))

@@ -60,7 +60,7 @@ class HTC(CascadeRCNN):
                       for i in range(self.num_stages)]
         return outs, extra
 
-    def _setup_mask_head(self, cfg):
+    def _setup_mask_head(self, cfg, cascade=True):
         """One ``HTCMaskHead`` a stage (with ``mask_info_flow``, a
         ``conv_res`` on every stage but the first), the semantic head and
         the cascade's options."""

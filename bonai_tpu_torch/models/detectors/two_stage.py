@@ -61,7 +61,7 @@ from ...ops.roi_align_fused import roi_align_fused
 from ...parallel import gather_cat
 from ..backbones.hourglass import HourglassNet
 from ..backbones.hrnet import HRNet
-from ..backbones.resnet import RegNet, Res2Net, ResNet
+from ..backbones.resnet import RegNet, Res2Net, ResNet, plain_norm
 from ..dense_heads.ga_rpn_head import (GARPNHead, approx_anchors,
                                        ga_proposals, ga_rpn_loss,
                                        square_anchors)
@@ -212,28 +212,43 @@ def _require_type(cfg, expected, item):
 RESNET_KEYS = ("depth", "num_stages", "out_indices", "frozen_stages",
                "norm_eval", "style", "base_channels", "dcn", "stage_with_dcn",
                "plugins", "deep_stem", "sac", "stage_with_sac", "output_img",
-               "conv_cfg")
+               "conv_cfg", "norm_cfg", "groups", "base_width",
+               "zero_init_residual")
 
 
 HOURGLASS_KEYS = ("downsample_times", "num_stacks", "stage_channels",
                   "stage_blocks", "feat_channel")
 
 
+def _plain_norm_only(cfg, btype):
+    """RegNet and HourglassNet: the JAX builder passes them no
+    ``norm_cfg``; the value their configs carry, BN with a trained affine,
+    is what they compute, and another raises A6."""
+    if not plain_norm(cfg.get("norm_cfg")):
+        raise NotImplementedError(
+            f"{btype} with norm_cfg {cfg['norm_cfg']} is not ported to "
+            f"bonai_tpu_torch (the JAX builder reads none; ROADMAP.md item "
+            f"A6)")
+
+
 def _build_backbone(cfg):
-    """A ``ResNet`` or ``DetectoRS_ResNet`` (with the DCN, plugin, SAC and
-    ``output_img`` options), a ``Res2Net``, a ``RegNet``, an ``HRNet`` or
-    an ``HourglassNet``; other backbones and options raise A6, and
-    ``SSDVGG``, which the JAX builder refuses too (SSD builds it itself),
-    ``ValueError``.  RegNet and HourglassNet take the base ResNet's keys
-    that a merged config carries, and ignore them, as the JAX builder
-    does; so is ``input_size`` (the NAS-FPN and CornerNet configs' trace
-    size) read and ignored."""
+    """A ``ResNet``, ``ResNeXt`` or ``DetectoRS_ResNet`` (with the DCN,
+    plugin, SAC, ``output_img``, caffe-style and norm and conv options), a
+    ``Res2Net``, a ``RegNet``, an ``HRNet`` or an ``HourglassNet``; other
+    backbones and options raise A6, and ``SSDVGG``, which the JAX builder
+    refuses too (SSD builds it itself), ``ValueError``.  RegNet and
+    HourglassNet take the base ResNet's keys that a merged config
+    carries, and ignore them, as the JAX builder does, but for a
+    ``norm_cfg`` other than BN with a trained affine; so is ``input_size``
+    (the NAS-FPN and CornerNet configs' trace size) read and ignored."""
     cfg = dict(cfg)
     cfg.pop("input_size", None)
     btype = cfg.get("type", "ResNet")
     if btype == "SSDVGG":
         raise ValueError("unsupported backbone SSDVGG in the generic "
                          "builder (the SSD detector builds its own)")
+    if btype in ("HourglassNet", "RegNet"):
+        _plain_norm_only(cfg, btype)
     if btype == "HourglassNet":
         kw = _kwargs(cfg, "backbone", HOURGLASS_KEYS + RESNET_KEYS, "A6")
         return HourglassNet(**{k: kw[k] for k in HOURGLASS_KEYS if k in kw})
@@ -243,14 +258,14 @@ def _build_backbone(cfg):
     if btype == "RegNet":
         kw = _kwargs(cfg, "backbone", (
             "arch", "out_indices", "frozen_stages", "depth", "num_stages",
-            "norm_eval", "style"), "A6")
-        for k in ("depth", "num_stages", "norm_eval", "style"):
+            "norm_eval", "style", "norm_cfg"), "A6")
+        for k in ("depth", "num_stages", "norm_eval", "style", "norm_cfg"):
             kw.pop(k, None)
         return RegNet(**kw)
     if btype == "Res2Net":
         return Res2Net(**_kwargs(cfg, "backbone", RESNET_KEYS + (
             "scales", "base_width", "avg_down"), "A6"))
-    if btype != "DetectoRS_ResNet":
+    if btype not in ("DetectoRS_ResNet", "ResNeXt"):
         _require_type(cfg, "ResNet", "A6")
     return ResNet(**_kwargs(cfg, "backbone", RESNET_KEYS, "A6"))
 
@@ -260,7 +275,9 @@ def _build_neck(cfg):
     ``RFP``, or a chain of necks (``NASFCOS_FPN``, which the JAX builder
     refuses too, raises ``ValueError``):
     Libra R-CNN's ``[FPN, BFP]`` (an ``nn.Sequential``: mmdet's
-    ``neck.0``, ``neck.1``); another chain raises A7, other necks A6."""
+    ``neck.0``, ``neck.1``); another chain raises A7, other necks A6.  The
+    FPN takes ``norm_cfg``, ``conv_cfg`` and ``no_norm_on_lateral``, the
+    other necks none of them."""
     if isinstance(cfg, (list, tuple)):
         types = [dict(c).get("type") for c in cfg]
         if len(cfg) < 2 or types[0] != "FPN" or any(
@@ -293,7 +310,8 @@ def _build_neck(cfg):
     return FPN(**_kwargs(cfg, "neck", (
         "in_channels", "out_channels", "num_outs", "start_level",
         "end_level", "add_extra_convs", "extra_convs_on_inputs",
-        "relu_before_extra_convs"), "A6"))
+        "relu_before_extra_convs", "no_norm_on_lateral", "norm_cfg",
+        "conv_cfg"), "A6"))
 
 
 def _refuse_roi_keys(cfg, cascade=False):
@@ -313,14 +331,18 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
     """The box head of config ``cfg`` (``reg_class_agnostic``: the default
     when the config does not say), its coder's config and its
     ``loss_bbox`` config.  A ``Shared2FCBBoxHead`` or, but for a cascade's
-    stage, Double-Head's ``DoubleConvFCBBoxHead``.  Its ``loss_bbox`` may
+    stage (a plain two-FC head: the JAX cascade reads none of the options
+    below), ``Shared4Conv1FCBBoxHead`` (its convs' ``norm_cfg``/
+    ``conv_cfg``) and Double-Head's ``DoubleConvFCBBoxHead``;
+    ``num_shared_convs``/``num_shared_fcs`` are read as the JAX builder
+    reads them.  Its ``loss_bbox`` may
     be ``L1Loss`` or ``SmoothL1Loss`` (the JAX package computes L1 for
     both, ROADMAP.md queue C) or, but for a cascade's stage, Libra's
     ``BalancedL1Loss`` on the deltas."""
     bh = dict(cfg)
     heads, losses = ("Shared2FCBBoxHead",), ("L1Loss", "SmoothL1Loss")
     if not cascade:
-        heads += ("DoubleConvFCBBoxHead",)
+        heads += ("DoubleConvFCBBoxHead", "Shared4Conv1FCBBoxHead")
         losses += ("BalancedL1Loss",)
     htype = bh.get("type", "Shared2FCBBoxHead")
     if htype not in heads:
@@ -345,10 +367,19 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
             bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
             agnostic)
     else:
+        shared = {} if cascade else dict(
+            num_shared_convs=4, num_shared_fcs=1) \
+            if htype == "Shared4Conv1FCBBoxHead" else dict(
+                num_shared_convs=bh.get("num_shared_convs", 0),
+                num_shared_fcs=bh.get("num_shared_fcs", 2))
+        if shared:
+            shared.update(conv_out_channels=bh.get("conv_out_channels", 256),
+                          norm_cfg=bh.get("norm_cfg"),
+                          conv_cfg=bh.get("conv_cfg"))
         head = Shared2FCBBoxHead(
             bh.get("num_classes", 1), bh.get("in_channels", 256),
             bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
-            agnostic, bh.get("with_reg", True))
+            agnostic, bh.get("with_reg", True), **shared)
     return head, coder, loss
 
 
@@ -368,6 +399,12 @@ class TwoStageDetector(nn.Module):
     def __init__(self, backbone, neck, rpn_head, roi_head, train_cfg=None,
                  test_cfg=None, roi_align_impl=None):
         super().__init__()
+        if neck is None:
+            raise NotImplementedError(
+                "a two-stage detector without a neck (the C4 layout: its "
+                "dilated caffe trunk, ResLayerSharedHead and BBoxHead "
+                "with_avg_pool) is not ported to bonai_tpu_torch yet "
+                "(ROADMAP.md item A7)")
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
         self.roi_align_impl = roi_align_impl
@@ -436,8 +473,9 @@ class TwoStageDetector(nn.Module):
         self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
         self._setup_mask_head(cfg)
 
-    def _setup_mask_head(self, cfg):
-        """The optional mask head (FCN, or PointRend's coarse head) and its
+    def _setup_mask_head(self, cfg, cascade=False):
+        """The optional mask head (FCN, with its convs' ``norm_cfg``/
+        ``conv_cfg`` but on a cascade, or PointRend's coarse head) and its
         extractor (a Faster R-CNN config has neither), and Mask Scoring's
         IoU head."""
         if cfg.get("mask_head") is None:
@@ -451,9 +489,17 @@ class TwoStageDetector(nn.Module):
                 mh.get("roi_feat_size", 14))
         else:
             _require_type(mh, "FCNMaskHead", "A7")
+            norm = dict(norm_cfg=mh.get("norm_cfg"),
+                        conv_cfg=mh.get("conv_cfg"))
+            if cascade and any(norm.values()):
+                raise NotImplementedError(
+                    "norm_cfg/conv_cfg on a cascade's mask head are not "
+                    "ported to bonai_tpu_torch (the JAX cascade ignores "
+                    "them; ROADMAP.md item A7)")
             self.roi_head["mask_head"] = FCNMaskHead(
                 mh.get("num_convs", 4), mh.get("in_channels", 256),
-                mh.get("conv_out_channels", 256), mh.get("num_classes", 1))
+                mh.get("conv_out_channels", 256), mh.get("num_classes", 1),
+                **norm)
         self.mask_extractor_cfg = self._extractor(cfg["mask_roi_extractor"])
         if cfg.get("mask_iou_head") is None:
             return

@@ -1,5 +1,5 @@
 """Feature Pyramid Network (counterpart of ``bonai_tpu/models/necks/fpn.py``
-``FPN`` without its norm options): 1x1 laterals from backbone level
+``conv_module`` and ``FPN``): 1x1 laterals from backbone level
 ``start_level`` on, nearest 2x top-down adds, 3x3 output convs, and the
 levels past the inputs' either by ``max_pool2d(x, 1, stride=2)`` (kernel 1:
 plain stride-2 subsampling) or, with ``add_extra_convs``, by stride-2 3x3
@@ -7,27 +7,51 @@ convs (mmdet's ``fpn_convs.<n>`` after the output convs).  The first extra
 conv reads the last backbone level (``'input'``), the last output
 (``'output'``) or the last lateral (``'lateral'``); with
 ``relu_before_extra_convs`` the later ones read their input through a
-ReLU."""
+ReLU.  With ``norm_cfg`` every conv is followed by its norm (but the
+laterals with ``no_norm_on_lateral``) and has no bias; ``conv_cfg`` may
+make them ``ConvWS``."""
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from ..init import xavier_uniform_, zeros_
+from ..backbones import resnet
+from ..init import kaiming_fan_out_, xavier_uniform_, zeros_
 
 
 class ConvModule(nn.Module):
-    """mmcv ``ConvModule`` without norm or activation: holds ``.conv`` so
-    mmdet keys (``neck.lateral_convs.0.conv.weight``) load as they are."""
+    """mmcv ``ConvModule`` without activation (JAX ``conv_module``): a
+    conv, biased unless a norm of ``norm_cfg`` follows it
+    (``resnet.build_norm``: ``.gn`` or ``.bn``), of ``conv_cfg``'s type
+    (``resnet.build_conv``), so mmdet keys
+    (``neck.lateral_convs.0.conv.weight``, ``neck.fpn_convs.0.gn.bias``)
+    load as they are."""
 
-    def __init__(self, cin, cout, kernel, stride=1, padding=None):
+    def __init__(self, cin, cout, kernel, stride=1, padding=None,
+                 norm_cfg=None, conv_cfg=None):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride,
-                              kernel // 2 if padding is None else padding)
+        self.conv = resnet.build_conv(conv_cfg, cin, cout, kernel, stride,
+                                      padding, bias=norm_cfg is None)
+        self.norm_name = None
+        if norm_cfg is not None:
+            self.norm_name, norm = resnet.build_norm(norm_cfg, cout)
+            self.add_module(self.norm_name, norm)
+
+    def init_weights_as_jax(self, gen):
+        """The JAX ``conv_module``'s init: xavier uniform, or kaiming fan-out
+        for a ``ConvWS`` conv; a zero bias."""
+        if isinstance(self.conv, resnet.layers.ConvWS2d):
+            kaiming_fan_out_(self.conv.weight, gen)
+        else:
+            xavier_uniform_(self.conv.weight, gen)
+        if self.conv.bias is not None:
+            zeros_(self.conv.bias)
 
     def forward(self, x):
-        return self.conv(x)
+        x = self.conv(x)
+        return x if self.norm_name is None else getattr(
+            self, self.norm_name)(x)
 
 
 def extra_convs_mode(cfg):
@@ -48,7 +72,8 @@ class FPN(nn.Module):
     def __init__(self, in_channels=(256, 512, 1024, 2048), out_channels=256,
                  num_outs=5, start_level=0, end_level=-1,
                  add_extra_convs=False, extra_convs_on_inputs=True,
-                 relu_before_extra_convs=False):
+                 relu_before_extra_convs=False, no_norm_on_lateral=False,
+                 norm_cfg=None, conv_cfg=None):
         super().__init__()
         if end_level not in (-1, len(in_channels) - 1):
             raise NotImplementedError(
@@ -64,21 +89,25 @@ class FPN(nn.Module):
             raise ValueError(f"add_extra_convs={add_extra_convs!r}")
         self.relu_before_extra_convs = relu_before_extra_convs
         used = in_channels[start_level:]
+        opts = dict(norm_cfg=norm_cfg, conv_cfg=conv_cfg)
         self.lateral_convs = nn.ModuleList(
-            [ConvModule(c, out_channels, 1) for c in used])
+            [ConvModule(c, out_channels, 1, conv_cfg=conv_cfg,
+                        norm_cfg=None if no_norm_on_lateral else norm_cfg)
+             for c in used])
         self.fpn_convs = nn.ModuleList(
-            [ConvModule(out_channels, out_channels, 3) for _ in used])
+            [ConvModule(out_channels, out_channels, 3, **opts)
+             for _ in used])
         if self.extra_on is not None:
             for i in range(num_outs - len(used)):
                 cin = in_channels[-1] if i == 0 and self.extra_on == "input" \
                     else out_channels
-                self.fpn_convs.append(ConvModule(cin, out_channels, 3, 2))
+                self.fpn_convs.append(ConvModule(cin, out_channels, 3, 2,
+                                                 **opts))
 
     def init_weights(self, gen):
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                xavier_uniform_(m.weight, gen)
-                zeros_(m.bias)
+            if isinstance(m, ConvModule):
+                m.init_weights_as_jax(gen)
 
     def forward(self, inputs):
         laterals = [conv(x) for conv, x in zip(self.lateral_convs,

@@ -13,9 +13,10 @@ into the old.  The gate and the ``rfp_conv``\\s start at zero.
 
 As in the JAX package, each copy is a ResNet built from ``rfp_backbone``'s
 depth, stages, widths, frozen stages, style and SAC options, without its
-``conv_cfg`` or ``output_img``, with ``rfp_conv``\\s over the ASPP's
-channels; its stem and frozen stages stay trained behind their gradient
-stops (ROADMAP.md queue C).
+``conv_cfg``, ``norm_cfg`` or ``output_img`` (a ``norm_cfg`` other than
+BN with a trained affine, which is what the copy computes, raises), with
+``rfp_conv``\\s over the ASPP's channels; its stem and frozen stages stay
+trained behind their gradient stops (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..backbones.resnet import ResNet
+from ..backbones.resnet import ResNet, plain_norm
 from ..init import lecun_normal_, xavier_uniform_, zeros_
 from .fpn import FPN
 
@@ -72,12 +73,14 @@ class RFP(FPN):
                 "bonai_tpu_torch (the JAX package builds a default "
                 "ResNet-50; ROADMAP.md item A6)")
         rb = dict(rfp_backbone)
+        norm_cfg = rb.pop("norm_cfg", None)
         extra = sorted(set(rb) - set(RFP_BACKBONE_KEYS)
                        - set(RFP_BACKBONE_IGNORED))
-        if extra or rb.get("type", "ResNet") not in ("ResNet",
-                                                     "DetectoRS_ResNet"):
+        if extra or rb.get("type", "ResNet") not in (
+                "ResNet", "DetectoRS_ResNet") or not plain_norm(norm_cfg):
             raise NotImplementedError(
-                f"rfp_backbone {rb.get('type')} with {extra} is not ported "
+                f"rfp_backbone {rb.get('type')} with {extra} and norm_cfg "
+                f"{norm_cfg} is not ported "
                 f"to bonai_tpu_torch yet (ROADMAP.md item A6)")
         kw = {k: rb[k] for k in RFP_BACKBONE_KEYS if k in rb}
         kw.setdefault("frozen_stages", -1)

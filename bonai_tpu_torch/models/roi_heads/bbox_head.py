@@ -1,6 +1,7 @@
 """Box heads and their training targets (counterpart of
 ``bonai_tpu/models/roi_heads/bbox_head.py``: ``Shared2FCBBoxHead``, with
-Grid R-CNN's classification-only ``with_reg=False``,
+Grid R-CNN's classification-only ``with_reg=False`` and the shared convs
+of ``Shared4Conv1FCBBoxHead``,
 Double-Head R-CNN's ``DoubleConvFCBBoxHead`` and ``scale_rois``, and
 ``bbox_targets_single``, batched over images here).  v2.3 labels:
 foreground 0..C-1, background C (the last softmax column)."""
@@ -14,6 +15,7 @@ from torch import nn
 from ...core.boxes import bbox2delta
 from ..backbones.resnet import Bottleneck, FrozenBatchNorm2d
 from ..init import kaiming_fan_out_, normal_, xavier_uniform_, zeros_
+from ..necks.fpn import ConvModule
 
 
 def bbox_targets(sampled_boxes, sample_res, gt_bboxes, gt_labels,
@@ -38,22 +40,36 @@ def bbox_targets(sampled_boxes, sample_res, gt_bboxes, gt_labels,
 
 
 class Shared2FCBBoxHead(nn.Module):
-    """Two shared FCs, then the class logits and, ``with_reg``, the box
-    deltas.  Without ``fc_reg`` (Grid R-CNN) the deltas are zeros of the
-    same width, which decode to the proposal itself."""
+    """``num_shared_convs`` 3x3 convs of ``conv_out_channels`` (each a
+    ``ConvModule`` of ``norm_cfg``/``conv_cfg``, then a ReLU; mmdet's
+    ``shared_convs.<i>.conv``/``.gn``), ``num_shared_fcs`` shared FCs
+    (two by default; ``Shared4Conv1FCBBoxHead`` is 4 convs and 1 FC),
+    then the class logits and, ``with_reg``, the box deltas.  Without
+    ``fc_reg`` (Grid R-CNN) the deltas are zeros of the same width, which
+    decode to the proposal itself."""
 
     def __init__(self, num_classes=1, in_channels=256, fc_out_channels=1024,
-                 roi_feat_size=7, reg_class_agnostic=False, with_reg=True):
+                 roi_feat_size=7, reg_class_agnostic=False, with_reg=True,
+                 num_shared_convs=0, num_shared_fcs=2, conv_out_channels=256,
+                 norm_cfg=None, conv_cfg=None):
         super().__init__()
-        self.shared_fcs = nn.ModuleList([
-            nn.Linear(in_channels * roi_feat_size ** 2, fc_out_channels),
-            nn.Linear(fc_out_channels, fc_out_channels)])
-        self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
+        self.shared_convs = nn.ModuleList([
+            ConvModule(in_channels if i == 0 else conv_out_channels,
+                       conv_out_channels, 3, norm_cfg=norm_cfg,
+                       conv_cfg=conv_cfg) for i in range(num_shared_convs)])
+        last = (conv_out_channels if num_shared_convs else in_channels) \
+            * roi_feat_size ** 2
+        self.shared_fcs = nn.ModuleList()
+        for _ in range(num_shared_fcs):
+            self.shared_fcs.append(nn.Linear(last, fc_out_channels))
+            last = fc_out_channels
+        self.fc_cls = nn.Linear(last, num_classes + 1)
         self.reg_dim = 4 if reg_class_agnostic else 4 * num_classes
-        self.fc_reg = nn.Linear(fc_out_channels, self.reg_dim) \
-            if with_reg else None
+        self.fc_reg = nn.Linear(last, self.reg_dim) if with_reg else None
 
     def init_weights(self, gen):
+        for conv in self.shared_convs:
+            conv.init_weights_as_jax(gen)
         for fc in self.shared_fcs:
             xavier_uniform_(fc.weight, gen)
             zeros_(fc.bias)
@@ -66,7 +82,10 @@ class Shared2FCBBoxHead(nn.Module):
     def forward(self, x):
         """``(N, S, S, C)`` RoI features -> float32 ``(N, C+1)`` class
         logits and ``(N, 4*K)`` deltas; flattened in (C, H, W) order."""
-        x = x.permute(0, 3, 1, 2).flatten(1)
+        x = x.permute(0, 3, 1, 2)
+        for conv in self.shared_convs:
+            x = F.relu(conv(x))
+        x = x.flatten(1)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
         if self.fc_reg is None:

@@ -15,23 +15,35 @@ from ..necks.fpn import ConvModule
 
 
 class FCNMaskHead(nn.Module):
-    """``num_convs`` 3x3 convs, a 2x deconv, 1x1 logits."""
+    """``num_convs`` 3x3 convs (each a ``ConvModule`` of ``norm_cfg`` and
+    ``conv_cfg``: mmdet's ``convs.<i>.conv``/``.gn``), a 2x deconv, 1x1
+    logits."""
 
     def __init__(self, num_convs=4, in_channels=256, conv_out_channels=256,
-                 num_classes=1):
+                 num_classes=1, norm_cfg=None, conv_cfg=None):
         super().__init__()
         self.convs = nn.ModuleList([
             ConvModule(in_channels if i == 0 else conv_out_channels,
-                       conv_out_channels, 3) for i in range(num_convs)])
+                       conv_out_channels, 3, norm_cfg=norm_cfg,
+                       conv_cfg=conv_cfg) for i in range(num_convs)])
+        self.conv_module_init = norm_cfg is not None or conv_cfg is not None
         last = conv_out_channels if num_convs else in_channels
         self.upsample = nn.ConvTranspose2d(last, conv_out_channels, 2, 2)
         self.conv_logits = nn.Conv2d(conv_out_channels, num_classes, 1)
 
     def init_weights(self, gen):
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                kaiming_fan_out_(m.weight, gen)
-                zeros_(m.bias)
+        """Kaiming fan-out and zero biases; with a norm or conv option the
+        convs take the JAX ``conv_module``'s init."""
+        if self.conv_module_init:
+            for conv in self.convs:
+                conv.init_weights_as_jax(gen)
+            rest = [self.upsample, self.conv_logits]
+        else:
+            rest = [m for m in self.modules()
+                    if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+        for m in rest:
+            kaiming_fan_out_(m.weight, gen)
+            zeros_(m.bias)
 
     def forward(self, x):
         """``(N, S, S, C)`` RoI features -> float32 ``(N, K, 2S, 2S)``

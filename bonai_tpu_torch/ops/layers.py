@@ -1,4 +1,6 @@
-"""Attention blocks (counterparts of ``bonai_tpu/ops/layers.py``): the
+"""Weight-standardised convolution and attention blocks (counterparts of
+``bonai_tpu/ops/layers.py``): ``conv_ws_2d`` and ``ConvWS2d`` (mmcv's
+names; the gn+ws configs' ``conv_cfg=dict(type='ConvWS')``), the
 non-local block of Libra R-CNN's balanced feature pyramid and of the
 ResNet plugins (``NonLocal2d``; mmcv's as ``BFP`` builds it: embedded
 Gaussian, no scale), GCNet's global-context block (``ContextBlock``) and
@@ -25,6 +27,35 @@ from torch import nn
 
 from ..models.init import lecun_normal_, normal_, zeros_
 from ..models.necks.fpn import ConvModule
+
+
+def conv_ws_2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
+               groups=1, eps=1e-5):
+    """A convolution whose kernel is z-scored per output channel over
+    ``(in / groups, kh, kw)`` first: ``(w - mean) / (std + eps)``, with the
+    population std (ddof 0, ``jnp.std``'s in the JAX package; mmcv's
+    ``conv_ws_2d`` takes the unbiased one, ROADMAP.md queue C).  The
+    standardisation runs in float32 (float64 for a float64 weight) and
+    its result is cast to the weight's dtype."""
+    w = weight.to(torch.promote_types(weight.dtype, torch.float32))
+    flat = w.flatten(1)
+    mean = flat.mean(1).reshape(-1, 1, 1, 1)
+    std = flat.std(1, correction=0).reshape(-1, 1, 1, 1)
+    w = ((w - mean) / (std + eps)).to(weight.dtype)
+    return F.conv2d(x, w, bias, stride, padding, dilation, groups)
+
+
+class ConvWS2d(nn.Conv2d):
+    """``nn.Conv2d`` (its ``weight``/``bias`` keys) through
+    :func:`conv_ws_2d`."""
+
+    def __init__(self, *args, eps=1e-5, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.eps = eps
+
+    def forward(self, x):
+        return conv_ws_2d(x, self.weight, self.bias, self.stride,
+                          self.padding, self.dilation, self.groups, self.eps)
 
 
 class NonLocal2d(nn.Module):

@@ -51,6 +51,19 @@ raises ``KeyError`` on such a checkpoint (ROADMAP.md queue C).  The GN
 towers' convs keep the bias they have in the JAX package, which mmdet's
 convs before a norm lack: :func:`mmdet_state_dict` gives them a zero one.
 
+The COCO recipes' options: a GroupNorm (a norm without statistics in
+``batch_stats``) goes under mmcv's ``gn<i>`` name (``backbone.gn1``,
+``layer<s>.<b>.gn<k>``; ``downsample.1`` either way); an FPN conv's norm
+(flax ``lateral_<i>_norm``, ``fpn_<i>_norm``, ``extra_<i>_norm``) to
+``neck.lateral_convs.<i>.gn`` or ``.bn`` (``fpn_convs.<i>``, the extras
+after the outputs); ``Shared4Conv1FCBBoxHead``'s ``shared_conv<i>`` and
+``shared_conv<i>_norm`` to ``roi_head.bbox_head.shared_convs.<i - 1>.
+{conv,gn}`` and its ``shared_fc1`` to ``shared_fcs.0``; a mask head's
+``conv<i>_norm`` to ``roi_head.mask_head.convs.<i>.gn``.  ResNeXt's
+grouped and ConvWS's kernels are plain conv weights.  The JAX importer
+reads every norm as a BatchNorm with statistics: it raises ``KeyError``
+on a GN checkpoint (ROADMAP.md queue C).
+
 The trunk variants: a deformable ``conv2`` keeps mmcv's
 ``layer<s>.<b>.conv2.weight`` and adds ``conv2.conv_offset.{weight,
 bias}``; Res2Net's deep stem (flax ``stem_conv<i>``/``stem_bn<i>``) goes
@@ -148,10 +161,13 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             sd[f"{key}.bias"] = np.asarray(p["bias"])
 
     def norm(key, p, s):
+        """A BatchNorm (``s`` its statistics), or a GroupNorm (``s``
+        ``None``: the affine only)."""
         sd[f"{key}.weight"] = np.asarray(p["scale"])
         sd[f"{key}.bias"] = np.asarray(p["bias"])
-        sd[f"{key}.running_mean"] = np.asarray(s["mean"])
-        sd[f"{key}.running_var"] = np.asarray(s["var"])
+        if s is not None:
+            sd[f"{key}.running_mean"] = np.asarray(s["mean"])
+            sd[f"{key}.running_var"] = np.asarray(s["var"])
 
     def block(base, blk, stats):
         """A residual block's convs and norms (``ds_*``: its downsample;
@@ -165,7 +181,7 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             if sub == "ds_conv":
                 layer(f"{base}.downsample.{ds[0]}", p)
             elif sub == "ds_bn":
-                norm(f"{base}.downsample.{ds[1]}", p, stats[sub])
+                norm(f"{base}.downsample.{ds[1]}", p, stats.get(sub))
             elif split:
                 key = f"{base}.{split[1]}s.{split[2]}"
                 if split[1] == "bn":
@@ -174,8 +190,9 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
                     layer(key, p)
             elif re.fullmatch(r"after_conv\d_plugin\d+", sub):
                 _plugin(base, blk, sub, sd, layer)
-            elif sub.startswith("bn"):
-                norm(f"{base}.{sub}", p, stats[sub])
+            elif sub.startswith("bn"):                  # or a GN's gn<i>
+                norm(f"{base}.{sub if sub in stats else 'g' + sub[1:]}", p,
+                     stats.get(sub))
             else:
                 layer(f"{base}.{sub}", p)
                 if "conv_offset" in p:                  # DCN's conv2
@@ -205,12 +222,21 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             elif name == "rfp_weight":
                 layer("neck.rfp_weight", p)
         nk = nk["fpn"]
-    used = sum(name.startswith("lateral_") for name in nk)
+    used = sum(re.fullmatch(r"lateral_\d+", name) is not None
+               for name in nk)
     if any(re.fullmatch(r"(lateral|adapt)\d+", name) for name in nk):
         _nas_neck(nk, sd, layer)
         nk = {}
+    neck_stats = batch_stats.get("neck", {})
     for name, p in nk.items():
-        if name == "reduction":                         # HRFPN
+        fpn_norm = re.fullmatch(r"(lateral|fpn|extra)_(\d+)_norm", name)
+        if fpn_norm:                                    # an FPN's GN or BN
+            kind, i = fpn_norm[1], int(fpn_norm[2])
+            kind, i = ("fpn", used + i) if kind == "extra" else (kind, i)
+            norm(f"{neck}.{kind}_convs.{i}."
+                 f"{'bn' if name in neck_stats else 'gn'}", p,
+                 neck_stats.get(name))
+        elif name == "reduction":                       # HRFPN
             layer(f"{neck}.reduction_conv.conv", p)
         elif name.startswith("fpn_conv") and name[8:].isdigit():
             layer(f"{neck}.fpn_convs.{name[8:]}.conv", p)
@@ -256,10 +282,8 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             _double_head(key, bh, batch_stats[name], roi_feat, sd, layer,
                          norm, block)
             continue
-        sd[f"{key}.shared_fcs.0.weight"] = _fc_to_chw(
-            bh["shared_fc1"]["kernel"], roi_feat, roi_feat)
-        sd[f"{key}.shared_fcs.0.bias"] = np.asarray(bh["shared_fc1"]["bias"])
-        layer(f"{key}.shared_fcs.1", bh["shared_fc2"], _fc)
+        _shared_convs_fcs(key, bh, batch_stats.get(name, {}), roi_feat, sd,
+                          layer, norm)
         layer(f"{key}.fc_cls", bh["fc_cls"], _fc)
         if "fc_reg" in bh:                              # not Grid R-CNN's
             layer(f"{key}.fc_reg", bh["fc_reg"], _fc)
@@ -297,6 +321,10 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
                 layer(f"{key}.conv_logits", p)
             elif name == "conv_res":
                 layer(f"{key}.conv_res.conv", p)
+            elif name.endswith("_norm"):                # a GN or BN conv
+                stats = batch_stats.get(head, {}).get(name)
+                norm(f"{key}.convs.{name[len('conv'):-len('_norm')]}."
+                     f"{'gn' if stats is None else 'bn'}", p, stats)
             else:
                 layer(f"{key}.convs.{name[len('conv'):]}.conv", p)
     for name, p in params.get("semantic_head", {}).items():
@@ -343,6 +371,24 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
             for k, v in sd.items()}
 
 
+def _shared_convs_fcs(key, bh, stats, roi_feat, sd, layer, norm):
+    """A box head's ``shared_conv<i>`` (and their ``shared_conv<i>_norm``,
+    GN or BN) -> ``<key>.shared_convs.<i - 1>.conv`` (``.gn``, ``.bn``),
+    ``shared_fc<i>`` -> ``<key>.shared_fcs.<i - 1>``, the first from the
+    (H, W, C) flatten of the RoI features or of the convs' output."""
+    for name, p in bh.items():
+        conv = re.fullmatch(r"shared_conv(\d+)(_norm)?", name)
+        fc = re.fullmatch(r"shared_fc(\d+)", name)
+        if conv and conv[2]:
+            norm(f"{key}.shared_convs.{int(conv[1]) - 1}."
+                 f"{'bn' if name in stats else 'gn'}", p, stats.get(name))
+        elif conv:
+            layer(f"{key}.shared_convs.{int(conv[1]) - 1}.conv", p)
+        elif fc:
+            _roi_fc(f"{key}.shared_fcs", str(int(fc[1]) - 1), p, roi_feat,
+                    sd, layer)
+
+
 def _roi_fc_or_conv(key, name, p, roi_feat, sd, layer):
     """A RoI regressor's ``conv<i>`` (to ``<key>.convs.<i>``), ``fc<i>``
     (``<key>.fcs.<i>``, the first from the (H, W, C) flatten) or output FC
@@ -383,16 +429,17 @@ def _backbone_var(prefix, name, p, bk, bs, layer, norm, block):
     hr = re.fullmatch(r"stage(\d)_module(\d+)", name)
     if stem and stem[1] == "conv":
         layer(f"{prefix}.{name}", p)
-    elif stem:
-        norm(f"{prefix}.{name}", p, bs[name])
+    elif stem:                                  # bn1, or a GN's gn1
+        norm(f"{prefix}.{name if name in bs else 'g' + name[1:]}", p,
+             bs.get(name))
     elif deep:
         key = f"{prefix}.stem.{3 * int(deep[2]) + (deep[1] == 'bn')}"
         if deep[1] == "conv":
             layer(key, p)
         else:
-            norm(key, p, bs[name])
-    elif res:
-        block(f"{prefix}.layer{res[1]}.{res[2]}", p, bs[name])
+            norm(key, p, bs.get(name))
+    elif res:                           # a GN block has no statistics
+        block(f"{prefix}.layer{res[1]}.{res[2]}", p, bs.get(name, {}))
     elif trans:
         # HRNet's transition into stage s: a new branch (past the previous
         # stage's) is mmdet's Sequential of one conv-BN-ReLU

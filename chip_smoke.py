@@ -187,7 +187,22 @@ Phases, each of which must pass:
    stop after the max-pool, gets no gradient and moves by weight decay
    alone, its zero BN biases not at all); each checkpoint through the
    test CLI with ``--eval bbox`` (and ``segm`` for the Mask R-CNNs).
-15. cascades: the last two mask-producing cascades (``CASCADE_CONFIGS``):
+15. coco_trunks: the COCO recipes' trunk, neck and R-CNN head options
+   (``COCO_TRUNK_CONFIGS``): the ResNeXt-101 32x4d Mask R-CNN (grouped
+   3x3 convs), the R50 caffe-style Faster R-CNN (stride on the 1x1 conv,
+   BN affine behind a gradient stop) and the GN+WS R50 Mask R-CNN
+   (GroupNorm and weight-standardised convs in the trunk, the FPN, the
+   4-conv box head and the mask head), each at full width with seeded
+   random weights under ``'block'`` (the two BN trunks' statistics
+   calibrated) and the test scale at 1024^2, as the trunks phase runs
+   its configs: one serve batch and one ``inference_detector`` call; the
+   FPN levels of a small float32 input held to float64 on the CPU and
+   its RoI branches to the plain route; 3 steps at the base LR, clipped
+   at 35 as the BONAI recipes are, on the repeated synthetic batch (the
+   caffe trunk's BN affines get no
+   gradient and move by weight decay alone, their zero biases not at
+   all); each checkpoint through the test CLI.
+16. cascades: the last two mask-producing cascades (``CASCADE_CONFIGS``):
    HTC (``configs/htc/htc_r50_fpn_1x_bonai.py``: a mask head at every
    stage with the info-flow chain, interleaved mask sampling, the semantic
    head fused into every RoI feature) and DetectoRS
@@ -204,7 +219,7 @@ Phases, each of which must pass:
    ``layer1``, behind its gradient stops, visibly move by weight decay
    alone); each checkpoint through the test CLI with ``--eval bbox
    segm``.
-16. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
+17. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
    R50-FPN on its COCO config and on the GHM and PISA configs, which keep
    COCO's 80 classes, and FreeAnchor, ATSS, GFL and FCOS on BONAI), each
    at full width with seeded random weights: one serve batch (B=2,
@@ -221,7 +236,7 @@ Phases, each of which must pass:
    warmup);
    the BONAI configs' checkpoints through the test CLI with ``--eval
    bbox`` on the first val crop (``score_thr=0``).  No kernel may launch.
-17. dense2: RepPoints, FSAF and FoveaBox on BONAI as the dense phase runs
+18. dense2: RepPoints, FSAF and FoveaBox on BONAI as the dense phase runs
    its configs (one timed serve batch; RepPoints' small-input check runs
    through its deformable convs, both point sets and ``moment_transfer``),
    no kernel launch; Guided-Anchoring Faster R-CNN as the trunks phase
@@ -229,7 +244,7 @@ Phases, each of which must pass:
    schedule's warmup; the small input's FPN levels and GA-RPN outputs
    held to the CPU); each checkpoint through the test CLI with ``--eval
    bbox``.  Each config's line carries the card's name and power limit.
-18. dense3: NAS-FPN RetinaNet (``configs/nas_fpn/
+19. dense3: NAS-FPN RetinaNet (``configs/nas_fpn/
    retinanet_r50_nasfpn_bonai.py``, COCO's 80 classes), NAS-FCOS, SSD300
    and CornerNet (Hourglass-104) on BONAI as the dense2 phase runs its
    dense detectors, from weights whose R50 and hourglass BatchNorm
@@ -244,7 +259,7 @@ Phases, each of which must pass:
    unclipped COCO schedule with its warmup; CornerNet's Adam); each
    checkpoint through the test CLI with ``--eval bbox``.  No kernel
    launch.  Each config's line carries the card's name and power limit.
-19. attr: LOFT-FOA with every attribute head (height, joint
+20. attr: LOFT-FOA with every attribute head (height, joint
    offset-height, angle, side-face, offset-field, offset reweighting) and
    ``SemiRPNHead`` (``attr``), and LOFT with polar offsets (``polar``),
    both derived at full width from the LOFT configs (``_attr_config``,
@@ -259,7 +274,7 @@ Phases, each of which must pass:
    files (written by the port's generator) and the BONAI test CLI on its
    checkpoint.  Each config's line carries the card's name and power
    limit.
-20. tta: test-time augmentation of LOFT-FOA R50-FPN at full width
+21. tta: test-time augmentation of LOFT-FOA R50-FPN at full width
    (``'block'``, bf16, 1024^2, B=2, seeded random weights with
    calibrated R50 BatchNorm statistics): one warm and one timed batch of
    the detection level at the default views (none, horizontal,
@@ -275,7 +290,7 @@ Phases, each of which must pass:
    with ``RandomRotate(rotate_ratio=1.0, angles='any')`` after
    ``RandomFlip`` (the numpy warps), every loss finite, the loader's
    angles printed, at least one off the multiples of 90.
-21. datasets: the non-BONAI datasets and the robustness benchmark at full
+22. datasets: the non-BONAI datasets and the robustness benchmark at full
    width (``datasets_phase``).  Robustness: ``tools/test_robustness.py``
    on LOFT-FOA R50-FPN (the 2x synthetic recipe, the flagship's model)
    with the data phase's checkpoint over two of the eval phase's 1024^2
@@ -308,7 +323,7 @@ Phases, each of which must pass:
    with their own ``'gather'`` route (no kernel: their launch counts must
    be 0) from calibrated random weights (``_calibrated_weights``); every
    loss finite.
-22. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
+23. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
    1024^2) and the data phase's checkpoint: ``fuse_conv_bn`` and
    ``publish_model`` on it, the checkpoint and each tool's file served
    through ``inference_detector`` (B=2, bf16, two of the eval phase's val
@@ -324,7 +339,7 @@ Phases, each of which must pass:
    timed); ``show_result`` and ``browse_dataset`` on a crop and a train
    tile, PNGs written; ``profile_time`` and ``device_trace`` around a
    serve call, whose trace must hold B1's 3 kernels; ``collect_env``.
-23. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+24. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -344,7 +359,8 @@ mask; the IoU head reuses the mask features), 1 for Fast R-CNN, 0 for the
 RPN, 2 for Grid R-CNN (box and grid), 1 for PointRend (box; its mask
 extractor is the plain RoIAlign), 2 for the trunk variants' Mask R-CNNs
 and 1 for their Faster R-CNNs, 6 for HTC (three box and three mask
-stages; its semantic fusion's RoIAlign is the plain one) and 4 for
+stages; its semantic fusion's RoIAlign is the plain one), 2 for the
+COCO trunks' Mask R-CNNs and 1 for their Faster R-CNN, and 4 for
 DetectoRS (three box stages and the mask); the file chain's RPN test runs
 launch nothing, its Fast R-CNN launches B1 and B2 once a training step and
 B1 once a test batch; the dense phase's runs launch nothing, nor do the
@@ -431,6 +447,25 @@ TRUNK_CONFIGS = (
     ("pafpn", "configs/pafpn/faster_rcnn_r50_pafpn_1x_bonai.py", 1, True,
      True))
 TRUNK_STEPS = 3
+# the COCO recipes' trunk, neck and head options (the coco_trunks phase):
+# label, config, the RoIAlign kernel calls of a batch or step, whether its
+# BatchNorm statistics are calibrated (the two BN trunks; GN has no
+# statistics), and its test ``score_thr`` (the GN+WS head's random 81-way
+# softmax stays near 1/81 everywhere, below the config's 0.05, so it
+# serves at 0 and fills its 100 detections an image).  Each trains at its
+# base LR, clipped as the BONAI recipes are (max_norm 35): at the warmup's
+# first LRs weight decay moves the caffe trunk's BN affines, behind their
+# gradient stop, by less than a float32 ulp in 3 steps, and unclipped, as
+# the COCO schedules are, random weights diverge (X101: grad norm 277,
+# then 8.8e6, then NaN)
+COCO_TRUNK_CONFIGS = (
+    ("x101", "configs/mask_rcnn/mask_rcnn_x101_32x4d_fpn_1x_coco.py", 2,
+     True, 0.05),
+    ("r50_caffe", "configs/faster_rcnn/faster_rcnn_r50_caffe_fpn_1x_coco.py",
+     1, True, 0.05),
+    ("gn_ws", "configs/gn+ws/mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py", 2,
+     False, 0.0))
+COCO_TRUNK_DIR = os.path.join(REPO, "build", "chip_smoke_coco_trunks")
 # the last two mask-producing cascades (the cascades phase): label, config,
 # the RoIAlign kernel calls of a batch or step (HTC: 3 box stages and 3
 # mask stages; DetectoRS: 3 box stages and the mask), whether it trains
@@ -523,6 +558,9 @@ COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
                           calls) for label, _, calls, *_ in TRUNK_CONFIGS},
                **{label: (("bbox", "segm"), calls)
                   for label, _, calls, _ in CASCADE_CONFIGS},
+               **{label: (("bbox", "segm") if calls == 2 else ("bbox",),
+                          calls)
+                  for label, _, calls, *_ in COCO_TRUNK_CONFIGS},
                **{label: (("bbox",), calls)
                   for label, _, calls in DENSE2_CONFIGS},
                **{label: (("bbox",), 0) for label, *_ in DENSE3_CONFIGS}}
@@ -2762,6 +2800,66 @@ def trunks_phase():
     return out
 
 
+def coco_trunks_phase():
+    """The COCO recipes' trunk, neck and R-CNN head options
+    (``COCO_TRUNK_CONFIGS``: ResNeXt-101 32x4d, caffe style with the BN
+    affine behind a gradient stop, GN and ConvWS through the trunk, the
+    FPN, ``Shared4Conv1FCBBoxHead`` and the mask head) at full width with
+    seeded random weights (the BN trunks' statistics calibrated,
+    ``_calibrated_weights``) and the ``'block'`` route, as the trunks phase
+    runs its configs, each config's test scale set to 1024^2 and its
+    ``score_thr`` to the table's (written under ``COCO_TRUNK_DIR``): one
+    serve batch and one
+    ``inference_detector`` call, the FPN levels of a small float32 input
+    held to the CPU and its RoI branches to the plain route,
+    ``TRUNK_STEPS`` steps at the base LR, clipped at 35, on the repeated
+    synthetic batch (every trainable tensor moves; the caffe trunk's BN
+    affines, behind their gradient stop, by weight decay alone), then
+    each checkpoint through the test CLI on the first val crop.  Returns
+    each config's launch counts, times and peak memory."""
+    import numpy as np
+    out = {}
+    os.makedirs(COCO_TRUNK_DIR, exist_ok=True)
+    for label, config, calls, calibrate, score_thr in COCO_TRUNK_CONFIGS:
+        cfg = _dense_config(os.path.join(REPO, config))
+        cfg.optimizer_config.grad_clip = dict(max_norm=35, norm_type=2)
+        cfg.test_cfg.rcnn.score_thr = score_thr
+        config = os.path.join(COCO_TRUNK_DIR, f"{label}.py")
+        cfg.dump(config)
+        weights = None
+        if calibrate:
+            weights = os.path.join(COCO_TRUNK_DIR, "init.pth")
+            _calibrated_weights(config, weights)
+        serve, serve_ms, serve_peak = serve_phase(
+            "block", config, calls=1, label=f"{label} serve",
+            checkpoint=weights,
+            inspect=lambda model, *_: _trunk_cpu_check(
+                model, f"{label} serve", np.random.RandomState(1)))
+        train = train_phase("block", TRUNK_STEPS, config,
+                            label=f"{label} train", keep=True, warmup=False,
+                            load_from=weights)
+        if serve != 2 * calls or not (
+                train["fwd"] == train["bwd"] == TRUNK_STEPS * calls):
+            raise AssertionError(f"{label}: B1 {serve} launches serving, "
+                                 f"{train['fwd']} / B2 {train['bwd']} "
+                                 f"training; expected {calls} a batch or "
+                                 f"step")
+        coco = rcnn_coco(label, config, train["checkpoint"])
+        shutil.rmtree(train["work_dir"], ignore_errors=True)
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=coco)
+    shutil.rmtree(COCO_TRUNK_DIR, ignore_errors=True)
+    for label, r in out.items():
+        print(f"coco_trunks {label}: serve {r['serve_ms']:.1f} ms a B=2 "
+              f"call, peak {r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} "
+              f"launches; train median step {r['train']['step_ms']:.1f} ms, "
+              f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
+              f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches; test "
+              f"CLI B1 {r['coco_cli']} launches", flush=True)
+    return out
+
+
 def cascades_phase():
     """HTC and DetectoRS (``CASCADE_CONFIGS``) at full width with seeded
     random weights whose BatchNorm statistics are calibrated
@@ -4649,6 +4747,7 @@ def main():
     rcnn2 = timed("rcnn2", rcnn2_phase)
     rcnn3 = timed("rcnn3", rcnn3_phase)
     trunks = timed("trunks", trunks_phase)
+    coco_trunks = timed("coco_trunks", coco_trunks_phase)
     cascades = timed("cascades", cascades_phase)
     dense = timed("dense", dense_phase)
     dense2 = timed("dense2", dense2_phase)
@@ -4721,6 +4820,7 @@ def main():
                 rcnn2_double_head_reg_rois=rcnn2["double_head"]["window"],
                 **{f"{phase}_{k}_{what}_launches": n
                    for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
+                                       ("coco_trunks", coco_trunks),
                                        ("cascades", cascades),
                                        ("dense2", dense2),
                                        ("dense3", dense3))
@@ -4763,6 +4863,7 @@ def main():
                    "fast_train"][1],
                **{f"{phase}_{k}_train_launches": r["train"]["bwd"]
                   for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
+                                      ("coco_trunks", coco_trunks),
                                       ("cascades", cascades),
                                       ("dense2", dense2),
                                       ("dense3", dense3))

@@ -592,9 +592,6 @@ def test_bonai_configs_build_39_of_39():
 
 
 @pytest.mark.parametrize("change", [
-    dict(type="ResNeXt"), dict(groups=32), dict(style="caffe"),
-    dict(norm_cfg=dict(type="GN", num_groups=32)),
-    dict(conv_cfg=dict(type="ConvWS")),
     dict(sac=dict(type="SAC", use_deform=True),
          stage_with_sac=(False, True, True, True)),
     dict(base="res2net", sac=dict(type="SAC"),
@@ -620,6 +617,44 @@ def test_unported_trunk_options_name_a6(change):
     cfg.model.backbone.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(type="ResNeXt"), dict(groups=32), dict(style="caffe"),
+    dict(norm_cfg=dict(type="GN", num_groups=32)),
+    dict(conv_cfg=dict(type="ConvWS"))],
+    ids=lambda c: "-".join(
+        f"{k}={v.get('type', v) if isinstance(v, dict) else v}"
+        for k, v in c.items()))
+def test_coco_trunk_options_build(change):
+    """The trunk options of the COCO recipes, which raised A6 before
+    their port (``test_torch_port_coco_trunks.py`` holds them to JAX):
+    the DCN trunk's config at full width with each, on the meta device,
+    has the JAX detector's parameter count; ResNeXt's ``conv2`` is
+    grouped, caffe style strides ``conv1``, GN takes mmcv's ``gn<i>``
+    names, ConvWS standardises every trunk conv but the deformable
+    ones."""
+    from bonai_tpu import models as jax_models
+    from bonai_tpu_torch import Config
+    from bonai_tpu_torch.models import build_detector
+    from bonai_tpu_torch.ops.layers import ConvWS2d
+    cfg = Config.fromfile(TRUNK_CONFIGS["dcn"])
+    cfg.model.backbone.update(change)
+    with torch.device("meta"):
+        bk = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg).backbone
+    jm = jax_models.build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg,
+                                   compute_dtype="float32")
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 3)))
+    assert sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(
+        shapes["params"]["backbone"])) == sum(p.numel()
+                                               for p in bk.parameters())
+    first, down = bk.layer1[0], bk.layer2[0]
+    assert first.conv2.groups == change.get("groups", 1)
+    assert down.conv1.stride == ((2, 2) if "style" in change else (1, 1))
+    assert hasattr(first, "gn1") == ("norm_cfg" in change)
+    assert isinstance(first.conv2, ConvWS2d) == ("conv_cfg" in change)
+    assert type(down.conv2).__name__ == "ModulatedDeformConv2dPack"
 
 
 @pytest.mark.parametrize("change", [

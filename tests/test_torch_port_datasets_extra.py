@@ -17,9 +17,9 @@ datasets through the port's builders, on the CPU:
   pipeline through the test loader equal to the JAX process loader's;
 - the Pascal VOC and Cityscapes converters (16-bit ``instanceIds``
   written by ``write_png``): the same json as the JAX scripts';
-- the sweep: 12 configs build their detector and their train and test
-  datasets, whose ``prepare`` runs; the 4 ResNeXt LVIS configs raise
-  ``NotImplementedError`` naming ROADMAP.md item A6.
+- the sweep: all 16 configs build their detector (the 4 ResNeXt LVIS
+  configs too) and their train and test datasets, whose ``prepare``
+  runs.
 """
 
 import glob
@@ -309,12 +309,11 @@ def test_config_sweep_covers_the_16_configs():
 @pytest.mark.parametrize("config", CONFIG_FILES)
 def test_config_builds_its_detector_and_datasets(config, sweep_data):
     cfg = Config.fromfile(osp.join(ROOT, config))
-    if "x101" in config:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
-            build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
-    else:
-        with torch.device("meta"):
-            build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    with torch.device("meta"):
+        model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    if "x101" in config:                        # ResNeXt's grouped conv2
+        assert model.backbone.layer1[0].conv2.groups == (
+            32 if "32x4d" in config else 64)
     for name in ("train", "test"):
         split = _point_at_files(cfg.data[name], sweep_data)
         ds = build_dataset(dict(split, test_mode=name == "test")

@@ -110,9 +110,6 @@ def test_configs_build_at_full_width(name):
     (dict(sampler=dict(type="OHEMSampler", num=512)), "A7"),
     (dict(reg_decoded_bbox=True), "A7"),
     (dict(config="guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py"), "A6"),
-    (dict(neck=dict(type="FPN", in_channels=[8, 16, 32, 64],
-                    out_channels=16, num_outs=5,
-                    norm_cfg=dict(type="GN", num_groups=8))), "A6"),
     (dict(config="guided_anchoring/ga_rpn_r50_fpn_1x_coco.py"), "A6"),
     (dict(config="retinanet/retinanet_r50_fpn_1x_coco.py",
           bbox_head=dict(type="RetinaSepBNHead")), "A6"),
@@ -131,10 +128,10 @@ def test_configs_build_at_full_width(name):
         else "+".join(c["type"] for c in v) if isinstance(v, list)
         else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
-    """A head, sampler, loss, neck option or chain or GRoIE extractor the
-    port does not build; an option of a config it builds (HTC's mask head
-    type, DetectoRS's deformable SAC, the COCO NAS-FCOS neck's deformable
-    cell convs, the FPN's norm); a single-stage config's head option
+    """A head, sampler, loss, neck chain or GRoIE extractor the port does
+    not build; an option of a config it builds (HTC's mask head type,
+    DetectoRS's deformable SAC, the COCO NAS-FCOS neck's deformable cell
+    convs); a single-stage config's head option
     (FoveaBox's ``with_deform``, NAS-FPN's ``RetinaSepBNHead``);
     Guided Anchoring's RetinaNet head, and its RPN in the RPN-only
     detector."""
@@ -165,6 +162,27 @@ def test_unported_types_name_their_item(change, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md item {item}"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+
+
+def test_fpn_gn_neck_builds():
+    """The FPN's norm, which raised A6 before its port
+    (``test_torch_port_coco_trunks.py`` holds it to JAX): every conv of
+    the tiny Mask R-CNN's FPN is followed by a GroupNorm of 8 groups
+    (mmcv's ``.gn``) and has no bias, and the detector serves."""
+    from bonai_tpu_torch.models import build_detector
+    cfg = family_cfg("mask_rcnn")
+    cfg.model.neck = dict(type="FPN", in_channels=[8, 16, 32, 64],
+                          out_channels=16, num_outs=5,
+                          norm_cfg=dict(type="GN", num_groups=8))
+    model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg).eval()
+    convs = [*model.neck.lateral_convs, *model.neck.fpn_convs]
+    assert len(convs) == 8 and all(
+        m.conv.bias is None and m.gn.num_groups == 8 for m in convs)
+    with torch.no_grad():
+        out = model.simple_test(torch.zeros(1, 64, 64, 3),
+                                torch.tensor([[64.0, 64.0]]),
+                                torch.tensor([1.0]))
+    assert out["det_bboxes"].shape[0] == 1
 
 
 def test_smooth_l1_config_trains_with_the_l1_loss():

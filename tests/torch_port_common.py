@@ -80,6 +80,12 @@ TRUNK_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
     "res2net": "res2net/mask_rcnn_r2_50_fpn_2x_bonai.py",
     "regnet": "regnet/mask_rcnn_regnetx-3.2GF_fpn_1x_bonai.py",
     "pafpn": "pafpn/faster_rcnn_r50_pafpn_1x_bonai.py"}.items()}
+# the COCO recipes' trunk, neck and head options (item 6, first part):
+# ResNeXt on the caffe-style trunk whose BN affine is behind a gradient
+# stop, and GN + ConvWS through the trunk, FPN and R-CNN heads
+COCO_TRUNK_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
+    "x_caffe": "mask_rcnn/mask_rcnn_r50_caffe_fpn_1x_coco.py",
+    "gn_ws": "gn+ws/mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py"}.items()}
 # a RegNetX at tiny widths: stages of 8, 16, 32 and 64 channels (1, 1, 2
 # and 2 blocks), group widths 8
 TINY_REGNET = dict(w0=8, wa=12, wm=2, group_w=8, depth=6, bot_mul=1.0)
@@ -248,15 +254,19 @@ def a7_cfg(family, train=False):
 
 
 def trunk_cfg(family, train=False):
-    """The config of a ``TRUNK_CONFIGS`` family at tiny widths (the
-    training sizes of :func:`tiny_train_cfg` with ``train``): its trunk
-    as the config has it, but ResNet-50 at base 8 (Res2Net at
-    ``base_width`` 4), or RegNet at ``TINY_REGNET``; the heads of
-    :func:`tiny_cfg`, with one class (the attention and PAFPN configs
+    """The config of a ``TRUNK_CONFIGS`` or ``COCO_TRUNK_CONFIGS`` family
+    at tiny widths (the training sizes of :func:`tiny_train_cfg` with
+    ``train``): its trunk as the config has it, but ResNet-50 at base 8
+    (Res2Net at ``base_width`` 4), or RegNet at ``TINY_REGNET``; the heads
+    of :func:`tiny_cfg`, with one class (the attention and PAFPN configs
     keep their COCO base's 80; :func:`jax_model` sets one foreground
-    logit)."""
-    cfg = (tiny_train_cfg if train else tiny_cfg)(
-        config=TRUNK_CONFIGS[family])
+    logit).  ``x_caffe`` is the caffe config's trunk as ResNeXt of 4
+    groups at base width 16 (``int(planes * 16 / 64) * 4`` channels:
+    ``planes`` at base 8; at width 4 the JAX rule gives none), ``gn_ws``
+    the GN+WS config with 4 groups (base 8's stem has 8 channels) and a
+    16-channel box head."""
+    config = {**TRUNK_CONFIGS, **COCO_TRUNK_CONFIGS}[family]
+    cfg = (tiny_train_cfg if train else tiny_cfg)(config=config)
     cfg.model.roi_head.bbox_head.num_classes = 1
     bk, neck = cfg.model.backbone, cfg.model.neck
     if bk.type == "RegNet":
@@ -267,6 +277,14 @@ def trunk_cfg(family, train=False):
     neck.in_channels = [32, 64, 128, 256]
     if bk.type == "Res2Net":
         bk.base_width = 4
+    if family == "x_caffe":
+        bk.update(type="ResNeXt", groups=4, base_width=16)
+    if family == "gn_ws":
+        rh = cfg.model.roi_head
+        gn = dict(type="GN", num_groups=4, requires_grad=True)
+        for part in (bk, neck, rh.bbox_head, rh.mask_head):
+            part.norm_cfg = gn
+        rh.bbox_head.conv_out_channels = 16
     return cfg
 
 
