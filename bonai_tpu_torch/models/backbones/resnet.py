@@ -388,13 +388,30 @@ class Bottle2neck(nn.Module):
         return F.relu(out + identity)
 
 
+def _fixed_strides(num_stages, strides, dilations):
+    """The JAX ``ResNet`` reads no ``strides`` or ``dilations``: stage 0
+    has stride 1, every later stage 2, and none is dilated (mmdet's
+    defaults, and the C4 configs' values).  Other values raise A7."""
+    want = (1, 2, 2, 2, 2)[:num_stages], (1,) * num_stages
+    for name, got, value in (("strides", strides, want[0]),
+                             ("dilations", dilations, want[1])):
+        if got is not None and tuple(got) != value:
+            raise NotImplementedError(
+                f"ResNet {name}={tuple(got)} is not ported to bonai_tpu_torch "
+                f"(the JAX ResNet reads none and computes {value}; "
+                f"ROADMAP.md item A7)")
+
+
 class ResNet(nn.Module):
     """Returns the outputs of the stages in ``out_indices`` (NCHW), after
     the input with ``output_img``.  ``groups``/``base_width`` make it
     ResNeXt (mmdet's ``ResNeXt`` is this class); ``norm_cfg`` and
     ``conv_cfg`` apply to the stem, every block and every shortcut;
     ``zero_init_residual`` is read and ignored, as the JAX builder does
-    not read it (the port's init is the JAX package's)."""
+    not read it (the port's init is the JAX package's).  The first stage
+    has stride 1, every later one 2, and none is dilated, whatever the
+    number of stages (the C4 trunk's three): ``strides``/``dilations``
+    may only say so (:func:`_fixed_strides`)."""
 
     def __init__(self, depth=50, num_stages=4, out_indices=(0, 1, 2, 3),
                  frozen_stages=1, norm_eval=True, style="pytorch",
@@ -404,8 +421,9 @@ class ResNet(nn.Module):
                  stage_with_sac=(False, False, False, False),
                  output_img=False, rfp_inplanes=None, conv_cfg=None,
                  norm_cfg=None, groups=1, base_width=4,
-                 zero_init_residual=None):
+                 zero_init_residual=None, strides=None, dilations=None):
         super().__init__()
+        _fixed_strides(num_stages, strides, dilations)
         _conv_type(conv_cfg)
         _norm_type(norm_cfg)
         if sac is not None:
@@ -721,3 +739,58 @@ class RegNet(nn.Module):
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)
+
+
+
+class ResLayerSharedHead(nn.Module):
+    """The C4 layout's shared RoI head (JAX ``ResLayerSharedHead``; mmdet's
+    ``ResLayer`` shared head): ResNet stage ``stage`` (res5 by default) of
+    bottlenecks on the RoI features, its first block at ``stride``, with
+    ``style`` and ``norm_cfg`` (``build_norm``: a ``requires_grad=False``
+    BatchNorm's affine behind a gradient stop, still decayed, as the JAX
+    package).  Stage ``s`` has ``64 * 2**s`` planes and takes half as
+    many channels as it gives; mmdet names it ``layer<s + 1>.<b>``.
+    ``(R, S, S, C)`` RoI features -> ``(R, S / stride, S / stride, 4 *
+    planes)``; ``dilation`` other than 1 raises A7 (the JAX module reads
+    none)."""
+
+    def __init__(self, depth=50, stage=3, stride=2, dilation=1,
+                 style="caffe", norm_cfg=None, norm_eval=True):
+        super().__init__()
+        block_name, stage_blocks = ARCH_SETTINGS[depth]
+        if block_name != "bottleneck" or dilation != 1:
+            raise NotImplementedError(
+                f"ResLayer shared head of depth {depth}, dilation "
+                f"{dilation} is not ported to bonai_tpu_torch (the JAX "
+                f"module takes bottlenecks without dilation; ROADMAP.md "
+                f"item A7)")
+        planes = 64 * 2 ** stage
+        inplanes = planes * 2
+        blocks = []
+        for b in range(stage_blocks[stage]):
+            ds = None
+            if b == 0 and (stride != 1 or inplanes != planes * 4):
+                ds = _downsample(inplanes, planes * 4, stride, norm_cfg)
+            blocks.append(Bottleneck(inplanes, planes,
+                                     stride if b == 0 else 1, ds,
+                                     style=style, norm_cfg=norm_cfg))
+            inplanes = planes * 4
+        self.stride = stride
+        self.layer_name = f"layer{stage + 1}"
+        self.add_module(self.layer_name, nn.Sequential(*blocks))
+
+    def init_weights(self, gen):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                kaiming_fan_out_(m.weight, gen)
+
+    def forward(self, x):
+        """NHWC ``(R, S, S, C)`` -> NHWC.  On the CPU the stage runs in
+        contiguous NCHW, as the backbone does (``TwoStageDetector.
+        extract_feat``: the CPU weight gradient of a strided 1x1 conv over
+        a channels-last input, caffe style's first ``conv1``, corrupts the
+        heap)."""
+        x = x.permute(0, 3, 1, 2)
+        if not x.is_cuda:
+            x = x.contiguous()
+        return getattr(self, self.layer_name)(x).permute(0, 2, 3, 1)

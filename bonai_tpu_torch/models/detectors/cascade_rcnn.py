@@ -9,7 +9,9 @@ averaged over the stages, each run on the boxes of the one before.
 The choices of the JAX package, kept here (ROADMAP.md queue C lists where
 they leave mmdetection's ``CascadeRoIHead``):
 
-- every stage's box loss is L1, whatever its ``loss_bbox`` says;
+- every stage's box loss is L1, whatever its ``loss_bbox`` says, and no
+  stage reads PISA's ``isr``/``carl`` or ranks by a hard-mining sampler
+  (the port raises A7 for those);
 - a stage refines all its sampled slots, the GTs it sampled among them;
 - the regression is class-agnostic unless a stage's config says not, and
   refinement and the loss read the first four deltas;
@@ -37,6 +39,10 @@ def _img_hw(img_shape):
 
 
 class CascadeRCNN(TwoStageDetector):
+
+    # the stages sample at random, IoU-, instance-balanced or combined; the
+    # hard-mining samplers and PISA raise A7 as the detector is built
+    rcnn_extras = False
 
     def _setup_roi_head(self, cfg):
         _refuse_roi_keys(cfg, cascade=True)

@@ -17,20 +17,29 @@ regression: ``_semi_rpn_gt``) or the Guided Anchoring RPN
 ``loc_filter_thr``): then the proposals come from its guided anchors and
 its loss adds the location and shape terms.
 
-Training is the random- or IoU-balanced-sampling path of the JAX package,
-with its box loss: L1 for an ``L1Loss`` or a ``SmoothL1Loss`` config (the
-JAX package keeps both on its inline L1 path, ROADMAP.md queue C),
-``BalancedL1Loss`` as configured, SmoothL1 at the batch's beta under
-Dynamic R-CNN.  The mask branch is optional (``with_mask``), and with it
-Mask Scoring's IoU head.  The backbone may be a ResNet (with DCN and
-plugins), a Res2Net, a RegNet or an HRNet; the neck an FPN followed by
-Libra's BFP (mmdet's ``neck.0``, ``neck.1``), a PAFPN or an HRFPN.  A box
-head may classify only
-(``with_reg=False``: no ``loss_bbox``), the mask head may be PointRend's
-coarse head, and a mask extractor the single-level
-``GenericRoIExtractor`` (plain RoIAlign at every listed level, fused).
-PISA, hard mining and the other samplers and losses raise, naming the
-ROADMAP.md item that ports them.
+Training samples the R-CNN's candidates as the JAX package does: at
+random, IoU-balanced, instance-balanced or combined (Libra R-CNN), or
+ranked by a no-gradient pass of the box head over every candidate
+(``OHEMSampler`` by its classification loss, ``ScoreHLRSampler`` by its
+largest foreground score, with PISA's ISR-N weights).  The box loss is
+L1 for an ``L1Loss`` or a ``SmoothL1Loss`` config (the JAX package keeps
+both on its inline L1 path, ROADMAP.md queue C), ``BalancedL1Loss`` as
+configured, the IoU, GIoU or bounded IoU loss on decoded boxes
+(``reg_decoded_bbox=True``), SmoothL1 at the batch's beta under Dynamic
+R-CNN; PISA's ISR-P reweights the positives and CARL adds ``loss_carl``
+(``train_cfg.rcnn.isr``, ``carl``).  The mask branch is optional
+(``with_mask``), and with it Mask Scoring's IoU head.  The backbone may be
+a ResNet (with DCN and plugins), a Res2Net, a RegNet or an HRNet; the neck
+an FPN followed by Libra's BFP (mmdet's ``neck.0``, ``neck.1``), a PAFPN,
+an HRFPN, or none: the C4 layout, whose RoI features pass the shared
+res5 head (``ResLayerSharedHead``) before its average-pooled ``BBoxHead``
+and, with no mask extractor of its own, before the mask head.  A box
+head may classify only (``with_reg=False``: no ``loss_bbox``), the mask
+head may be PointRend's coarse head.  An extractor pools by RoIAlign,
+RoIPool or a deformable RoI pooling pack (``ops/roi_pool.py``), and a
+``GenericRoIExtractor`` every listed level, fused, with GRoIE's plugins
+(``roi_heads/roi_extractors.py``).  What the port does not build raises,
+naming the ROADMAP.md item that ports it.
 
 Public layouts are the JAX package's: images ``(B, H, W, 3)``, FPN levels
 ``(B, H, W, C)`` (NHWC views of channels-last NCHW maps, no copy), RoI
@@ -53,20 +62,25 @@ from ...core.assigners import max_iou_assign
 from ...core.boxes import bbox_flip, clip_boxes, delta2bbox
 from ...core.masks import mask_targets_from_instance_masks
 from ...core.nms import _sort_desc, multiclass_nms, nms
-from ...core.samplers import iou_balanced_neg_sample, random_sample
-from ...ops.roi_align import multilevel_roi_align, roi_align_at_levels
+from ...core.samplers import (combined_sample, instance_balanced_pos_sample,
+                              iou_balanced_neg_sample, ohem_sample,
+                              random_sample, score_hlr_neg_sample)
+from ...ops.roi_align import generic_roi_align, multilevel_roi_align
 from ...ops.roi_align_block import roi_align_block
 from ...ops.roi_align_blocked import roi_align_blocked
 from ...ops.roi_align_fused import roi_align_fused
+from ...ops.roi_pool import multilevel_deform_roi_pool, roi_pool
 from ...parallel import gather_cat
 from ..backbones.hourglass import HourglassNet
 from ..backbones.hrnet import HRNet
-from ..backbones.resnet import RegNet, Res2Net, ResNet, plain_norm
+from ..backbones.resnet import (RegNet, Res2Net, ResLayerSharedHead, ResNet,
+                                plain_norm)
 from ..dense_heads.ga_rpn_head import (GARPNHead, approx_anchors,
                                        ga_proposals, ga_rpn_loss,
                                        square_anchors)
 from ..dense_heads.rpn_head import RPNHead, rpn_loss, rpn_proposals
-from ..losses import (balanced_l1_loss, binary_cross_entropy, cross_entropy,
+from ..losses import (BoundedIoULoss, GIoULoss, IoULoss, balanced_l1_loss,
+                      binary_cross_entropy, carl_loss, cross_entropy, isr_p,
                       l1_loss, mse_loss, smooth_l1_loss)
 from ..necks.bfp import BFP
 from ..necks.fpn import FPN
@@ -78,6 +92,7 @@ from ..roi_heads.bbox_head import (DoubleConvFCBBoxHead, Shared2FCBBoxHead,
                                    bbox_targets, scale_rois)
 from ..roi_heads.mask_head import FCNMaskHead, MaskIoUHead, mask_iou_targets
 from ..roi_heads.point_head import CoarseMaskHead
+from ..roi_heads.roi_extractors import DEFORM_POOLS, RoIExtractor
 
 
 def boxes_to_rois(boxes, valid):
@@ -108,13 +123,30 @@ def assign_rcnn(proposals, proposal_valid, gt_bboxes, gt_valid,
     return cand, cand_valid, assigned, max_ov
 
 
-def _check_sampler(sampler_cfg):
-    """The R-CNN sampler's type, ``RandomSampler`` or Libra's
-    ``IoUBalancedNegSampler``; the others raise A7."""
+# the samplers that rank the candidates by a pass of the box head
+HARD_MINING = ("OHEMSampler", "ScoreHLRSampler")
+
+
+def _check_sampler(sampler_cfg, hard_mining=True):
+    """The R-CNN sampler's type: ``RandomSampler``, Libra's
+    ``IoUBalancedNegSampler``, ``InstanceBalancedPosSampler`` or
+    ``CombinedSampler`` (of a random or instance-balanced positive and a
+    random or IoU-balanced negative sampler), or with ``hard_mining``
+    ``OHEMSampler`` and ``ScoreHLRSampler``; others raise A7."""
     stype = sampler_cfg.get("type", "RandomSampler")
-    if stype not in ("RandomSampler", "IoUBalancedNegSampler"):
-        raise NotImplementedError(f"{stype} is not ported to bonai_tpu_torch "
-                                  f"yet (ROADMAP.md item A7)")
+    types = ("RandomSampler", "IoUBalancedNegSampler",
+             "InstanceBalancedPosSampler", "CombinedSampler") + (
+        HARD_MINING if hard_mining else ())
+    subs = [] if stype != "CombinedSampler" else [
+        (dict(sampler_cfg.get(k) or {}).get("type", "RandomSampler"), ok)
+        for k, ok in (("pos_sampler", ("RandomSampler",
+                                       "InstanceBalancedPosSampler")),
+                      ("neg_sampler", ("RandomSampler",
+                                       "IoUBalancedNegSampler")))]
+    for t, ok in [(stype, types)] + subs:
+        if t not in ok:
+            raise NotImplementedError(f"{t} is not ported to bonai_tpu_torch "
+                                      f"yet (ROADMAP.md item A7)")
     if not sampler_cfg.get("add_gt_as_proposals", True):
         raise NotImplementedError("add_gt_as_proposals=False is not ported "
                                   "to bonai_tpu_torch yet (ROADMAP.md item "
@@ -126,9 +158,9 @@ def assign_and_sample_rcnn(draw, proposals, proposal_valid, gt_bboxes,
                            gt_valid, assigner_cfg, sampler_cfg,
                            dyn_iou_topk=None):
     """Assign and sample the second-stage candidates of a batch, randomly
-    (``draw`` called for two streams) or IoU-balanced (three).  Returns the
-    sampler's result (``(B, num)`` each) and the sampled boxes ``(B, num,
-    4)``.
+    or instance-balanced (``draw`` called for two streams), IoU-balanced or
+    combined (three).  Returns the sampler's result (``(B, num)`` each) and
+    the sampled boxes ``(B, num, 4)``.
 
     With ``dyn_iou_topk`` (Dynamic R-CNN) the result also holds
     ``stat_kth_iou`` ``(B,)``: each image's ``dyn_iou_topk``-th largest
@@ -146,6 +178,15 @@ def assign_and_sample_rcnn(draw, proposals, proposal_valid, gt_bboxes,
             floor_thr=sampler_cfg.get("floor_thr", -1),
             floor_fraction=sampler_cfg.get("floor_fraction", 0.0),
             num_bins=sampler_cfg.get("num_bins", 3))
+    elif stype == "CombinedSampler":
+        u_pos, u_neg, u_fill = draw(assigned.shape, assigned.device, 3)
+        res = combined_sample(assigned, max_ov, num, pos_fraction, u_pos,
+                              u_neg, u_fill, sampler_cfg.get("pos_sampler"),
+                              sampler_cfg.get("neg_sampler"))
+    elif stype == "InstanceBalancedPosSampler":
+        u_pos, u_neg = draw(assigned.shape, assigned.device)
+        res = instance_balanced_pos_sample(assigned, num, pos_fraction,
+                                           u_pos, u_neg)
     else:
         u_pos, u_neg = draw(assigned.shape, assigned.device)
         res = random_sample(assigned, num, pos_fraction, u_pos, u_neg,
@@ -213,7 +254,7 @@ RESNET_KEYS = ("depth", "num_stages", "out_indices", "frozen_stages",
                "norm_eval", "style", "base_channels", "dcn", "stage_with_dcn",
                "plugins", "deep_stem", "sac", "stage_with_sac", "output_img",
                "conv_cfg", "norm_cfg", "groups", "base_width",
-               "zero_init_residual")
+               "zero_init_residual", "strides", "dilations")
 
 
 HOURGLASS_KEYS = ("downsample_times", "num_stacks", "stage_channels",
@@ -315,16 +356,22 @@ def _build_neck(cfg):
 
 
 def _refuse_roi_keys(cfg, cascade=False):
-    """The C4 shared head, and a cascade's Mask Scoring IoU head: a
-    detector type the port builds (a C4 config is a ``FasterRCNN``) could
-    carry them, so they raise."""
+    """A cascade's Mask Scoring IoU head and C4 shared head (the JAX
+    cascade reads neither): they raise."""
     unported = [k for k in ("mask_iou_head", "shared_head")
-                if cfg.get(k) is not None
-                and (cascade or k == "shared_head")]
+                if cfg.get(k) is not None and cascade]
     if unported:
         raise NotImplementedError(
             f"roi_head parts {unported} are not ported to bonai_tpu_torch "
             f"yet (ROADMAP.md item A7)")
+
+
+# the box losses on decoded boxes (``reg_decoded_bbox=True``): type ->
+# (class, the config keys it reads)
+IOU_LOSSES = {"IoULoss": (IoULoss, ("eps", "loss_weight", "linear")),
+              "GIoULoss": (GIoULoss, ("eps", "loss_weight")),
+              "BoundedIoULoss": (BoundedIoULoss, ("beta", "eps",
+                                                  "loss_weight"))}
 
 
 def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
@@ -333,29 +380,41 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
     ``loss_bbox`` config.  A ``Shared2FCBBoxHead`` or, but for a cascade's
     stage (a plain two-FC head: the JAX cascade reads none of the options
     below), ``Shared4Conv1FCBBoxHead`` (its convs' ``norm_cfg``/
-    ``conv_cfg``) and Double-Head's ``DoubleConvFCBBoxHead``;
+    ``conv_cfg``), the C4 layout's ``BBoxHead`` (no shared convs or FCs;
+    ``with_avg_pool``) and Double-Head's ``DoubleConvFCBBoxHead``;
     ``num_shared_convs``/``num_shared_fcs`` are read as the JAX builder
     reads them.  Its ``loss_bbox`` may
     be ``L1Loss`` or ``SmoothL1Loss`` (the JAX package computes L1 for
     both, ROADMAP.md queue C) or, but for a cascade's stage, Libra's
-    ``BalancedL1Loss`` on the deltas."""
+    ``BalancedL1Loss`` on the deltas, or with ``reg_decoded_bbox=True``
+    an ``IOU_LOSSES`` one on the decoded boxes.  ``reg_decoded_bbox``
+    with another loss raises A7: the JAX package ignores it under the L1
+    losses (ROADMAP.md queue C), and takes an IoU loss of deltas without
+    it."""
     bh = dict(cfg)
     heads, losses = ("Shared2FCBBoxHead",), ("L1Loss", "SmoothL1Loss")
     if not cascade:
-        heads += ("DoubleConvFCBBoxHead", "Shared4Conv1FCBBoxHead")
+        heads += ("DoubleConvFCBBoxHead", "Shared4Conv1FCBBoxHead",
+                  "BBoxHead")
         losses += ("BalancedL1Loss",)
     htype = bh.get("type", "Shared2FCBBoxHead")
     if htype not in heads:
         raise NotImplementedError(f"{htype} is not ported to bonai_tpu_torch "
                                   f"yet (ROADMAP.md item A7)")
     loss = dict(bh.get("loss_bbox") or {})
-    if loss.get("type", "L1Loss") not in losses:
-        raise NotImplementedError(f"loss_bbox {loss['type']} is not ported "
-                                  f"to bonai_tpu_torch yet (ROADMAP.md item "
-                                  f"A7)")
-    if bh.get("reg_decoded_bbox", False):
-        raise NotImplementedError("reg_decoded_bbox=True is not ported to "
-                                  "bonai_tpu_torch yet (ROADMAP.md item A7)")
+    decoded = bh.get("reg_decoded_bbox", False)
+    ltype = loss.get("type", "L1Loss")
+    if (ltype not in losses or decoded) and not (
+            decoded and not cascade and ltype in IOU_LOSSES):
+        raise NotImplementedError(
+            f"loss_bbox {ltype} with reg_decoded_bbox={decoded} is not "
+            f"ported to bonai_tpu_torch yet (ROADMAP.md item A7)")
+    if ltype in IOU_LOSSES:
+        _kwargs(loss, ltype, IOU_LOSSES[ltype][1] + ("reduction",), "A7")
+        if loss.get("reduction", "mean") != "mean":
+            raise NotImplementedError(
+                f"{ltype} reduction {loss['reduction']!r} is not ported to "
+                f"bonai_tpu_torch yet (ROADMAP.md item A7)")
     coder = dict(bh.get("bbox_coder", {}))
     _require_type(coder, "DeltaXYWHBBoxCoder", "A7")
     agnostic = bh.get("reg_class_agnostic", reg_class_agnostic)
@@ -370,12 +429,15 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
         shared = {} if cascade else dict(
             num_shared_convs=4, num_shared_fcs=1) \
             if htype == "Shared4Conv1FCBBoxHead" else dict(
+                num_shared_convs=0, num_shared_fcs=0) \
+            if htype == "BBoxHead" else dict(
                 num_shared_convs=bh.get("num_shared_convs", 0),
                 num_shared_fcs=bh.get("num_shared_fcs", 2))
         if shared:
             shared.update(conv_out_channels=bh.get("conv_out_channels", 256),
                           norm_cfg=bh.get("norm_cfg"),
-                          conv_cfg=bh.get("conv_cfg"))
+                          conv_cfg=bh.get("conv_cfg"),
+                          with_avg_pool=bh.get("with_avg_pool", False))
         head = Shared2FCBBoxHead(
             bh.get("num_classes", 1), bh.get("in_channels", 256),
             bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
@@ -384,11 +446,15 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
 
 
 class TwoStageDetector(nn.Module):
-    """FPN two-stage trunk: ResNet (DCN, plugins), Res2Net or RegNet + FPN
-    (+ BFP) or PAFPN, or HRNet + HRFPN; RPN, a box head and an optional
-    mask head."""
+    """Two-stage trunk: ResNet (DCN, plugins), Res2Net or RegNet + FPN
+    (+ BFP) or PAFPN, HRNet + HRFPN, or the C4 layout's three-stage ResNet
+    without a neck; RPN, a box head (behind the C4 shared head) and an
+    optional mask head."""
 
     has_rpn = True          # Fast R-CNN: proposals come with the batch
+    # whether the R-CNN's training takes the hard-mining samplers and
+    # PISA's train_cfg.rcnn.isr/carl (the JAX cascades read neither)
+    rcnn_extras = True
 
     @property
     def takes_proposals(self):
@@ -399,27 +465,36 @@ class TwoStageDetector(nn.Module):
     def __init__(self, backbone, neck, rpn_head, roi_head, train_cfg=None,
                  test_cfg=None, roi_align_impl=None):
         super().__init__()
-        if neck is None:
-            raise NotImplementedError(
-                "a two-stage detector without a neck (the C4 layout: its "
-                "dilated caffe trunk, ResLayerSharedHead and BBoxHead "
-                "with_avg_pool) is not ported to bonai_tpu_torch yet "
-                "(ROADMAP.md item A7)")
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
         self.roi_align_impl = roi_align_impl
         self.backbone = _build_backbone(backbone)
-        self.neck = _build_neck(neck)
+        self.neck = None if neck is None else _build_neck(neck)
         self._anchors = {}
         if self.has_rpn:
             self._setup_rpn(dict(rpn_head))
         self.roi_head = nn.ModuleDict()
         if roi_head is not None:
             self._setup_roi_head(dict(roi_head))
-            rcnn = (train_cfg or {}).get("rcnn")
-            for stage in (rcnn if isinstance(rcnn, (list, tuple))
-                          else [rcnn] if rcnn else []):
-                _check_sampler(dict(dict(stage).get("sampler", {})))
+            self._check_rcnn_train_cfg()
+
+    def _check_rcnn_train_cfg(self):
+        """The R-CNN options of ``train_cfg`` (each stage's): its sampler
+        (:func:`_check_sampler`) and, where ``rcnn_extras`` is false, no
+        PISA.  Checked when the detector is built, so that a config the
+        port builds also trains."""
+        rcnn = (self.train_cfg or {}).get("rcnn")
+        for stage in (rcnn if isinstance(rcnn, (list, tuple))
+                      else [rcnn] if rcnn else []):
+            stage = dict(stage)
+            _check_sampler(dict(stage.get("sampler", {})),
+                           hard_mining=self.rcnn_extras)
+            pisa = sorted(k for k in ("isr", "carl") if stage.get(k))
+            if pisa and not self.rcnn_extras:
+                raise NotImplementedError(
+                    f"train_cfg.rcnn options {pisa} on {type(self).__name__} "
+                    f"are not ported to bonai_tpu_torch (the JAX detector "
+                    f"ignores them; ROADMAP.md item A7)")
 
     ga_rpn = False          # the Guided Anchoring RPN
     semi_rpn = False        # SemiRPNHead: footprint boxes where flagged
@@ -460,17 +535,24 @@ class TwoStageDetector(nn.Module):
 
     def _setup_roi_head(self, cfg):
         """The box head (Double-Head's: its reg RoIs scaled by
-        ``reg_roi_scale_factor``), its extractor and loss, and the mask
-        branch."""
+        ``reg_roi_scale_factor``), its extractor and loss, the C4 shared
+        head, and the mask branch."""
         _refuse_roi_keys(cfg)
         self.roi_head["bbox_head"], self.bbox_coder, loss = _bbox_head(
             cfg["bbox_head"])
-        self.bbox_loss_cfg = loss if loss.get("type") == "BalancedL1Loss" \
-            else None
+        self.bbox_loss_cfg = loss if loss.get("type") in (
+            "BalancedL1Loss", *IOU_LOSSES) else None
         self.reg_roi_scale_factor = cfg.get("reg_roi_scale_factor", 1.3) \
             if isinstance(self.roi_head["bbox_head"],
                           DoubleConvFCBBoxHead) else None
-        self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"])
+        self.bbox_extractor_cfg = self._extractor(cfg["bbox_roi_extractor"],
+                                                  "bbox")
+        if cfg.get("shared_head") is not None:
+            self.roi_head["shared_head"] = ResLayerSharedHead(**_kwargs(
+                cfg["shared_head"], "shared_head", (
+                    "depth", "stage", "stride", "dilation", "style",
+                    "norm_cfg", "norm_eval"), "A7"))
+            _require_type(cfg["shared_head"], "ResLayer", "A7")
         self._setup_mask_head(cfg)
 
     def _setup_mask_head(self, cfg, cascade=False):
@@ -500,9 +582,18 @@ class TwoStageDetector(nn.Module):
                 mh.get("num_convs", 4), mh.get("in_channels", 256),
                 mh.get("conv_out_channels", 256), mh.get("num_classes", 1),
                 **norm)
-        self.mask_extractor_cfg = self._extractor(cfg["mask_roi_extractor"])
+        # the C4 layout's mask branch has no extractor: it reads the box
+        # branch's RoI features after the shared head
+        self.mask_extractor_cfg = None \
+            if cfg.get("mask_roi_extractor") is None \
+            else self._extractor(cfg["mask_roi_extractor"],
+                                 None if cascade else "mask")
         if cfg.get("mask_iou_head") is None:
             return
+        if self.mask_extractor_cfg is None:
+            raise NotImplementedError(
+                "a mask IoU head without a mask RoI extractor is not ported "
+                "to bonai_tpu_torch (ROADMAP.md item A7)")
         mi = dict(cfg["mask_iou_head"])
         _require_type(mi, "MaskIoUHead", "A7")
         self.roi_head["mask_iou_head"] = MaskIoUHead(
@@ -518,21 +609,25 @@ class TwoStageDetector(nn.Module):
     def with_mask(self):
         return "mask_head" in self.roi_head
 
-    @staticmethod
-    def _extractor(cfg):
-        """A ``SingleRoIExtractor`` with ``RoIAlign``, or a
-        ``GenericRoIExtractor`` with ``RoIAlign`` or ``SimpleRoIAlign``
-        (sampled 2x2 a bin as the JAX package samples both, where mmcv's
-        ``SimpleRoIAlign`` takes each bin's centre: ROADMAP.md queue C) and
-        without GRoIE's ``pre_cfg``/``post_cfg``; others raise A7."""
+    def _extractor(self, cfg, role=None):
+        """The config of a ``SingleRoIExtractor`` with ``RoIAlign``,
+        ``RoIPool`` or, with a ``role``, a deformable RoI pooling pack
+        (``DEFORM_POOLS``), or of a ``GenericRoIExtractor`` with
+        ``RoIAlign`` or ``SimpleRoIAlign`` (sampled 2x2 a bin as the JAX
+        package samples both, where mmcv's ``SimpleRoIAlign`` takes each
+        bin's centre: ROADMAP.md queue C); others raise A7.
+
+        With a ``role`` (``'bbox'``, ``'mask'``: the extractors the JAX
+        package builds modules for) a pooling pack and GRoIE's
+        ``pre_cfg``/``post_cfg`` get their module, ``roi_head.<role>_
+        roi_extractor`` (:class:`~bonai_tpu_torch.models.roi_heads.
+        roi_extractors.RoIExtractor`), named in the config's ``_module``.
+        Without one (a cascade's, Grid R-CNN's grid and LOFT's
+        extractors) GRoIE's plugins are not run, as in the JAX package
+        (ROADMAP.md queue C)."""
         cfg = dict(cfg)
-        layers = ("RoIAlign",)
+        layers = ("RoIAlign", "RoIPool") + (DEFORM_POOLS if role else ())
         if cfg.get("type") == "GenericRoIExtractor":
-            groie = sorted(k for k in ("pre_cfg", "post_cfg") if cfg.get(k))
-            if groie:
-                raise NotImplementedError(
-                    f"GenericRoIExtractor options {groie} (GRoIE) are not "
-                    f"ported to bonai_tpu_torch yet (ROADMAP.md item A7)")
             layers += ("SimpleRoIAlign",)
         else:
             _require_type(cfg, "SingleRoIExtractor", "A7")
@@ -541,6 +636,11 @@ class TwoStageDetector(nn.Module):
             raise NotImplementedError(f"{layer} is not ported to "
                                       f"bonai_tpu_torch yet (ROADMAP.md item "
                                       f"A7)")
+        groie = cfg.get("type") == "GenericRoIExtractor" and any(
+            cfg.get(k) for k in ("pre_cfg", "post_cfg"))
+        if role and (groie or layer in DEFORM_POOLS):
+            cfg["_module"] = f"{role}_roi_extractor"
+            self.roi_head[cfg["_module"]] = RoIExtractor(cfg)
         return cfg
 
     def init_weights(self, gen):
@@ -551,7 +651,8 @@ class TwoStageDetector(nn.Module):
 
     # ---------------- shared helpers ----------------
     def extract_feat(self, img):
-        """``(B, H, W, 3)`` image -> tuple of NHWC FPN levels.
+        """``(B, H, W, 3)`` image -> tuple of NHWC FPN levels (the C4
+        layout's one stride-16 map: no neck).
 
         On the CPU the backbone runs in contiguous NCHW: PyTorch's CPU
         (oneDNN) weight gradient of a strided 1x1 convolution over a
@@ -560,7 +661,9 @@ class TwoStageDetector(nn.Module):
         x = img.permute(0, 3, 1, 2)
         if not x.is_cuda:
             x = x.contiguous()
-        feats = self.neck(self.backbone(x))
+        feats = self.backbone(x)
+        if self.neck is not None:
+            feats = self.neck(feats)
         return tuple(f.permute(0, 2, 3, 1) for f in feats)
 
     def _roi_align_cfg(self, extractor_cfg, feats, rois, roi_valid):
@@ -579,22 +682,37 @@ class TwoStageDetector(nn.Module):
         - ``'blocked'``: ``roi_align_blocked`` on both devices, as in JAX;
         - ``'gather'`` (the default): ``multilevel_roi_align``.
 
-        A ``GenericRoIExtractor`` pools every RoI from every listed level
-        with the plain ``roi_align_at_levels`` (the JAX package runs it in
-        XLA, with no Pallas kernel) and fuses the levels by its
-        ``aggregation`` (``sum`` or ``concat``), whatever the route."""
+        Whatever the route, as in the JAX package (plain XLA there, no
+        Pallas kernel): a deformable pooling pack or ``RoIPool`` pools
+        every RoI at every level and keeps the FPN rule's
+        (``multilevel_deform_roi_pool``; ``roi_pool`` takes the sampling
+        ratio as its grid), and a ``GenericRoIExtractor`` pools every RoI
+        from every listed level with the plain single-level RoIAlign,
+        GRoIE's ``pre`` module on each, and fuses the levels by its
+        ``aggregation`` (``sum`` or ``concat``) before its ``post``
+        module (``generic_roi_align``)."""
         layer = dict(extractor_cfg.get("roi_layer", {}))
         out_size = layer.get("output_size", 7)
         sr = layer.get("sampling_ratio", 0) or 2    # static grid
         strides = list(extractor_cfg.get("featmap_strides", [4, 8, 16, 32]))
+        module = self.roi_head[extractor_cfg["_module"]] \
+            if "_module" in extractor_cfg else None
+        finest = extractor_cfg.get("finest_scale", 56)
+        if layer.get("type") in DEFORM_POOLS:
+            return multilevel_deform_roi_pool(
+                feats[:len(strides)], rois, module.roi_layers[0], strides,
+                roi_valid, finest)
+        if layer.get("type") == "RoIPool":
+            return multilevel_deform_roi_pool(
+                feats[:len(strides)], rois,
+                lambda f, r, scale: roi_pool(f, r, out_size, scale, sr),
+                strides, roi_valid, finest)
         if extractor_cfg.get("type") == "GenericRoIExtractor":
-            lvl = torch.zeros(rois.shape[0], dtype=torch.long,
-                              device=rois.device)
-            outs = [roi_align_at_levels([f], rois, lvl, out_size, [s], sr,
-                                        roi_valid=roi_valid)
-                    for f, s in zip(feats, strides)]
-            return sum(outs) if extractor_cfg.get(
-                "aggregation", "sum") == "sum" else torch.cat(outs, -1)
+            return generic_roi_align(
+                feats[:len(strides)], rois, out_size, strides, sr, roi_valid,
+                extractor_cfg.get("aggregation", "sum"),
+                None if module is None else module.pre,
+                None if module is None else module.post)
         impl = extractor_cfg.get("impl", self.roi_align_impl or "gather")
         if impl not in ("block", "pallas", "blocked", "gather"):
             raise NotImplementedError(
@@ -611,20 +729,35 @@ class TwoStageDetector(nn.Module):
         else:
             fn = multilevel_roi_align
         return fn(levels, rois, out_size, strides, sampling_ratio=sr,
-                  finest_scale=extractor_cfg.get("finest_scale", 56),
-                  roi_valid=roi_valid, **extra)
+                  finest_scale=finest, roi_valid=roi_valid, **extra)
 
-    def _bbox_head_forward(self, head, feats, rois, roi_valid):
-        """``head`` on its RoI features: one RoIAlign call, or two for
-        Double-Head (the reg branch's on the RoIs scaled about their
-        centres by ``reg_roi_scale_factor``, not clipped)."""
+    def _bbox_roi_feats(self, feats, rois, roi_valid):
+        """The box branch's RoI features: its extractor's, through the C4
+        shared head where there is one."""
         x = self._roi_align_cfg(self.bbox_extractor_cfg, feats, rois,
                                 roi_valid)
+        if "shared_head" in self.roi_head:
+            x = self.roi_head["shared_head"](x)
+        return x
+
+    def _mask_roi_feats(self, feats, rois, roi_valid):
+        """The mask branch's RoI features: its extractor's or, in the C4
+        layout (no mask extractor), the box branch's after the shared
+        head (JAX ``_mask_roi_feats``)."""
+        if self.mask_extractor_cfg is None:
+            return self._bbox_roi_feats(feats, rois, roi_valid)
+        return self._roi_align_cfg(self.mask_extractor_cfg, feats, rois,
+                                   roi_valid)
+
+    def _bbox_head_forward(self, head, feats, rois, roi_valid):
+        """``head`` on its RoI features: one RoI extraction, or two for
+        Double-Head (the reg branch's on the RoIs scaled about their
+        centres by ``reg_roi_scale_factor``, not clipped)."""
+        x = self._bbox_roi_feats(feats, rois, roi_valid)
         if not isinstance(head, DoubleConvFCBBoxHead):
             return head(x)
-        return head(x, self._roi_align_cfg(
-            self.bbox_extractor_cfg, feats,
-            scale_rois(rois, self.reg_roi_scale_factor), roi_valid))
+        return head(x, self._bbox_roi_feats(
+            feats, scale_rois(rois, self.reg_roi_scale_factor), roi_valid))
 
     def _grid_anchors(self, feats):
         sizes = tuple((int(f.shape[1]), int(f.shape[2])) for f in feats)
@@ -752,13 +885,11 @@ class TwoStageDetector(nn.Module):
         SmoothL1 at the batch's ``dyn_beta`` (the config's
         ``initial_beta`` without one), and the dict holds the batch's
         ``stat_dyn_iou`` and ``stat_dyn_beta``
-        (:func:`dynamic_rcnn_stats`)."""
+        (:func:`dynamic_rcnn_stats`).  A hard-mining sampler ranks the
+        candidates first (:meth:`_hard_mining_sample`); PISA's
+        ``train_cfg.rcnn.isr`` reweights the positives' classification
+        (:meth:`_isr_weights`) and ``carl`` adds ``loss_carl``."""
         rcnn = dict(self.train_cfg["rcnn"])
-        unported = sorted(k for k in ("isr", "carl") if rcnn.get(k))
-        if unported:
-            raise NotImplementedError(f"train_cfg.rcnn options {unported} "
-                                      f"are not ported to bonai_tpu_torch "
-                                      f"yet (ROADMAP.md item A7)")
         dyn = rcnn.get("dynamic_rcnn")
         assigner_cfg = dict(rcnn["assigner"])
         if dyn is not None and "dyn_iou_thr" in batch:
@@ -768,14 +899,29 @@ class TwoStageDetector(nn.Module):
         sampler_cfg = dict(rcnn["sampler"])
         num = sampler_cfg.get("num", 512)
         num_pos = int(num * sampler_cfg.get("pos_fraction", 0.25))
-        res, sampled = assign_and_sample_rcnn(
-            draw, proposals, prop_valid, batch["gt_bboxes"],
-            batch["gt_valid"], assigner_cfg, sampler_cfg,
-            dyn_iou_topk=None if dyn is None else dyn.get("iou_topk", 75))
         head = self.roi_head["bbox_head"]
-        st = self._bbox_stage(head, self.bbox_coder, feats, sampled, res,
-                              batch)
+        if sampler_cfg.get("type") in HARD_MINING:
+            res, sampled = self._hard_mining_sample(
+                head, feats, proposals, prop_valid, batch, assigner_cfg,
+                sampler_cfg, draw)
+        else:
+            res, sampled = assign_and_sample_rcnn(
+                draw, proposals, prop_valid, batch["gt_bboxes"],
+                batch["gt_valid"], assigner_cfg, sampler_cfg,
+                dyn_iou_topk=None if dyn is None else dyn.get("iou_topk",
+                                                              75))
         nc = head.fc_cls.out_features - 1
+        reweight = None
+        if "neg_label_weights" in res or rcnn.get("isr"):
+            def reweight(st):
+                w = st["label_w"]
+                if "neg_label_weights" in res:      # ScoreHLR's ISR-N
+                    w = w * res["neg_label_weights"].reshape(-1)
+                if rcnn.get("isr"):
+                    w = self._isr_weights(st, w, res, batch, nc, rcnn["isr"])
+                return w
+        st = self._bbox_stage(head, self.bbox_coder, feats, sampled, res,
+                              batch, reweight=reweight)
         losses = {"loss_cls": st["loss_cls"]}
         if head.fc_reg is not None:             # Grid R-CNN's head has none
             losses["loss_bbox"] = self._bbox_loss(st, nc, dyn, batch)
@@ -783,6 +929,8 @@ class TwoStageDetector(nn.Module):
             losses.update(dynamic_rcnn_stats(
                 res["stat_kth_iou"], st["bbox_t"], st["labels"] < nc,
                 dyn.get("beta_topk", 10)))
+        if rcnn.get("carl"):
+            losses["loss_carl"] = self._carl_loss(st, nc, rcnn["carl"])
         # the mask and extra branches take the positive slots (the sampler
         # ranks the positives first)
         pos_boxes = sampled[:, :num_pos]
@@ -795,20 +943,120 @@ class TwoStageDetector(nn.Module):
                                                 pos_gt, draw))
         return losses
 
-    def _bbox_loss(self, st, nc, dyn, batch):
-        """The box loss of a ``_bbox_stage`` result: the configured one,
-        or SmoothL1 at the batch's beta under Dynamic R-CNN."""
+    def _hard_mining_sample(self, head, feats, proposals, prop_valid, batch,
+                            assigner_cfg, sampler_cfg, draw):
+        """Assign, then sample by a pass of the box head over every
+        candidate (the GTs and the proposals) without gradient, as the JAX
+        ``_hard_mining_assign_and_sample``: ``OHEMSampler`` ranks by the
+        classification loss of each candidate's assigned class
+        (:func:`ohem_sample`), ``ScoreHLRSampler`` by its largest
+        foreground probability, with ISR-N weights
+        (:func:`score_hlr_neg_sample`; ``draw`` called for two streams).
+        Returns the sampler's result and the sampled boxes."""
+        cand, cand_valid, assigned, _ = assign_rcnn(
+            proposals, prop_valid, batch["gt_bboxes"], batch["gt_valid"],
+            assigner_cfg)
+        rois, roi_valid = boxes_to_rois(cand, cand_valid)
+        with torch.no_grad():
+            cls_score = self._bbox_head_forward(head, feats, rois,
+                                                roi_valid)[0].float()
+        b, n = assigned.shape
+        nc = head.fc_cls.out_features - 1
+        num = sampler_cfg.get("num", 512)
+        pos_fraction = sampler_cfg.get("pos_fraction", 0.25)
+        zero = cls_score.new_tensor(0.0)
+        if sampler_cfg["type"] == "ScoreHLRSampler":
+            max_fg = torch.softmax(cls_score, -1)[:, :nc].max(-1).values
+            max_fg = torch.where(cand_valid.reshape(-1), max_fg, zero)
+            u_pos, u_neg = draw(assigned.shape, assigned.device)
+            res = score_hlr_neg_sample(
+                assigned, max_fg.reshape(b, n), num, pos_fraction, u_pos,
+                u_neg, sampler_cfg.get("score_thr", 0.05),
+                sampler_cfg.get("bias", 0.0), sampler_cfg.get("k", 0.5))
+        else:
+            labels = batch["gt_labels"].long().gather(
+                1, (assigned.long() - 1).clamp(min=0))
+            labels = torch.where(assigned > 0, labels, nc)
+            ce = -torch.log_softmax(cls_score, -1).gather(
+                1, labels.reshape(-1, 1))[:, 0]
+            ce = torch.where(cand_valid.reshape(-1), ce, zero)
+            res = ohem_sample(ce.reshape(b, n), assigned, num, pos_fraction,
+                              sampler_cfg.get("neg_pos_ub", -1))
+        return res, cand.gather(1, res["inds"][..., None].expand(-1, -1, 4))
+
+    @staticmethod
+    def _pred4(st, nc):
+        """Each sampled slot's four deltas: its label's (clamped to the
+        foreground), or the class-agnostic ones."""
         n_tot = st["labels"].shape[0]
         if st["bbox_pred"].shape[1] == 4:       # class-agnostic or one class
-            pred4 = st["bbox_pred"][:, :4]
-        else:
-            pred4 = st["bbox_pred"].reshape(n_tot, nc, 4).gather(
-                1, st["labels"].clamp(0, nc - 1)[:, None, None]
-                .expand(-1, 1, 4))[:, 0]
+            return st["bbox_pred"][:, :4]
+        return st["bbox_pred"].reshape(n_tot, nc, 4).gather(
+            1, st["labels"].clamp(0, nc - 1)[:, None, None]
+            .expand(-1, 1, 4))[:, 0]
+
+    def _decoded(self, st, deltas):
+        """``deltas`` ``(N, 4)`` decoded on the sampled boxes by the box
+        head's coder."""
+        return delta2bbox(st["rois"][:, 1:5], deltas,
+                          self.bbox_coder.get("target_means", (0.,) * 4),
+                          self.bbox_coder.get("target_stds", (1.,) * 4))
+
+    def _isr_weights(self, st, label_w, res, batch, nc, isr):
+        """PISA's ISR-P label weights (JAX ``_roi_forward_train``): the
+        positives ranked by the IoU of their decoded prediction (no
+        gradient) with their decoded target, grouped by the matched GT,
+        offset per image (``gt_global``), and :func:`isr_p` of their
+        classification loss."""
+        labels = st["labels"]
+        pos = labels < nc
+        dec_pred = self._decoded(st, self._pred4(st, nc).detach().float())
+        dec_tgt = self._decoded(st, st["bbox_t"])
+        lt = torch.maximum(dec_pred[:, :2], dec_tgt[:, :2])
+        rb = torch.minimum(dec_pred[:, 2:], dec_tgt[:, 2:])
+        inter = (rb - lt).clamp(min=0).prod(-1)
+
+        def area(bx):
+            return (bx[:, 2:] - bx[:, :2]).clamp(min=0).prod(-1)
+        ious = inter / (area(dec_pred) + area(dec_tgt) - inter).clamp(
+            min=1e-6)
+        ce = -torch.log_softmax(st["cls_score"].detach().float(), -1).gather(
+            1, labels.clamp(0, nc)[:, None])[:, 0]
+        n_gt = batch["gt_bboxes"].shape[1]
+        b = res["pos_gt_inds"].shape[0]
+        gt_global = (res["pos_gt_inds"] + torch.arange(
+            b, device=labels.device)[:, None] * n_gt).reshape(-1)
+        return isr_p(label_w, ious, pos, labels, gt_global,
+                     torch.where(pos, ce, ce.new_tensor(0.0)),
+                     k=isr.get("k", 2.0), bias=isr.get("bias", 0.0))
+
+    def _carl_loss(self, st, nc, carl):
+        """PISA's ``loss_carl``: :func:`carl_loss` of the L1 distance of
+        the positives' deltas, by their class probability (with its
+        gradient)."""
+        labels = st["labels"]
+        prob = torch.softmax(st["cls_score"].float(), -1).gather(
+            1, labels.clamp(0, nc - 1)[:, None])[:, 0]
+        reg = (self._pred4(st, nc).float() - st["bbox_t"]).abs()
+        return carl.get("loss_weight", 1.0) * carl_loss(
+            prob, labels < nc, reg, k=carl.get("k", 1.0),
+            bias=carl.get("bias", 0.2), avg_factor=float(labels.shape[0]))
+
+    def _bbox_loss(self, st, nc, dyn, batch):
+        """The box loss of a ``_bbox_stage`` result: the configured one (an
+        IoU-family loss on the decoded boxes, weighted by the positives),
+        or SmoothL1 at the batch's beta under Dynamic R-CNN."""
+        n_tot = st["labels"].shape[0]
+        pred4 = self._pred4(st, nc)
         if dyn is None and self.bbox_loss_cfg is not None:
             lc = dict(self.bbox_loss_cfg)
-            lc.pop("type")
+            ltype = lc.pop("type")
             lc.pop("reduction", None)
+            if ltype in IOU_LOSSES:
+                return IOU_LOSSES[ltype][0](**lc)(
+                    self._decoded(st, pred4.float()),
+                    self._decoded(st, st["bbox_t"]), st["bbox_w"][:, 0],
+                    avg_factor=float(n_tot))
             return balanced_l1_loss(pred4, st["bbox_t"], st["bbox_w"],
                                     avg_factor=float(n_tot), **lc)
         if dyn is None:
@@ -820,10 +1068,12 @@ class TwoStageDetector(nn.Module):
             st["bbox_w"], avg_factor=float(n_tot))
 
     def _bbox_stage(self, head, coder, feats, sampled, res, batch,
-                    **head_kw):
+                    reweight=None, **head_kw):
         """One box head on the sampled boxes ``(B, num, 4)`` of a batch:
         the targets of ``coder`` (flattened to ``B*num`` rows), the head's
-        deltas, the classification loss and the RoIs.  ``head_kw`` go to
+        logits and deltas, the classification loss and the RoIs.
+        ``reweight(stage)`` gives the label weights of the loss in place
+        of the targets' ``label_w``; ``head_kw`` go to
         :meth:`_bbox_head_forward` (HTC's semantic feature)."""
         nc = head.fc_cls.out_features - 1
         labels, label_w, bbox_t, bbox_w = bbox_targets(
@@ -833,13 +1083,17 @@ class TwoStageDetector(nn.Module):
         rois, roi_valid = boxes_to_rois(sampled, res["valid"])
         cls_score, bbox_pred = self._bbox_head_forward(head, feats, rois,
                                                        roi_valid, **head_kw)
-        labels, label_w = labels.reshape(-1), label_w.reshape(-1)
-        return {"labels": labels, "bbox_t": bbox_t.reshape(-1, 4),
-                "bbox_w": bbox_w.reshape(-1, 4), "bbox_pred": bbox_pred,
-                "rois": rois,
-                "loss_cls": cross_entropy(
-                    cls_score, labels, label_w,
-                    avg_factor=(label_w > 0).sum().float().clamp(min=1.0))}
+        st = {"labels": labels.reshape(-1), "label_w": label_w.reshape(-1),
+              "bbox_t": bbox_t.reshape(-1, 4),
+              "bbox_w": bbox_w.reshape(-1, 4), "bbox_pred": bbox_pred,
+              "cls_score": cls_score, "rois": rois}
+        if reweight is not None:
+            st["label_w"] = reweight(st)
+        label_w = st["label_w"]
+        st["loss_cls"] = cross_entropy(
+            cls_score, st["labels"], label_w,
+            avg_factor=(label_w > 0).sum().float().clamp(min=1.0))
+        return st
 
     def _mask_forward_train(self, feats, batch, rcnn, pos_boxes, pos_is_pos,
                             pos_gt, draw):
@@ -850,8 +1104,7 @@ class TwoStageDetector(nn.Module):
             return {}
         mask_size = rcnn.get("mask_size", 28)
         rois, roi_valid = boxes_to_rois(pos_boxes, pos_is_pos)
-        mask_feats = self._roi_align_cfg(self.mask_extractor_cfg, feats,
-                                         rois, roi_valid)
+        mask_feats = self._mask_roi_feats(feats, rois, roi_valid)
         mask_logits = self.roi_head["mask_head"](mask_feats)
         logits = mask_logits[:, 0]
         gt_boxes = _gather_rows(batch["gt_bboxes"], pos_gt)
@@ -910,8 +1163,7 @@ class TwoStageDetector(nn.Module):
         extra = [self._bbox_head_forward(self.roi_head["bbox_head"], feats,
                                          rois, None)]
         if self.with_mask:
-            mf = self._roi_align_cfg(self.mask_extractor_cfg, feats, rois,
-                                     None)
+            mf = self._mask_roi_feats(feats, rois, None)
             logits = self.roi_head["mask_head"](mf)
             extra.append(logits)
             if "mask_iou_head" in self.roi_head:
@@ -972,8 +1224,7 @@ class TwoStageDetector(nn.Module):
                "det_labels": det_labels, "det_valid": det_valid}
         if self.with_mask:
             rois, roi_valid = boxes_to_rois(det_boxes, det_valid)
-            mask_feats = self._roi_align_cfg(self.mask_extractor_cfg, feats,
-                                             rois, roi_valid)
+            mask_feats = self._mask_roi_feats(feats, rois, roi_valid)
             logits = self.roi_head["mask_head"](mask_feats)
             probs = self._mask_probs(feats, rois, logits)
             out["mask_probs"] = probs.reshape(b, -1, *probs.shape[1:])
@@ -1117,8 +1368,8 @@ class TwoStageDetector(nn.Module):
             horizontal = direction == "horizontal"
             if self.with_mask:
                 rois, roi_valid = boxes_to_rois(det_v, det_valid)
-                logits = self.roi_head["mask_head"](self._roi_align_cfg(
-                    self.mask_extractor_cfg, feats, rois, roi_valid))
+                logits = self.roi_head["mask_head"](self._mask_roi_feats(
+                    feats, rois, roi_valid))
                 probs = torch.sigmoid(logits[:, 0]).reshape(
                     b, -1, *logits.shape[2:])
                 if direction is not None:

@@ -3,8 +3,8 @@
 ``binary_cross_entropy``, ``l1_loss``, ``smooth_l1_loss``, ``mse_loss``,
 Libra R-CNN's ``BalancedL1Loss``; the dense detectors' focal, IoU,
 GIoU, GHM-C/R, quality and distribution focal losses and PISA's ISR-P and
-CARL; Guided Anchoring's bounded IoU loss; CornerNet's gaussian focal
-and associative embedding losses).
+CARL; the bounded IoU loss of Guided Anchoring and of the R-CNN box
+head; CornerNet's gaussian focal and associative embedding losses).
 
 Padded samples carry weight 0.  Every loss computes in float32 whatever
 the dtype of its inputs (the heads may run under bfloat16 autocast).
@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..core.samplers import within_group_rank
 
 
 def _f32(*xs):
@@ -186,6 +188,21 @@ class GIoULoss:
             1 - giou, *_f32(weight), avg_factor)
 
 
+class BoundedIoULoss:
+    """:func:`bounded_iou_loss` of aligned boxes, an ``(N,)`` weight per
+    box."""
+
+    def __init__(self, beta=0.2, eps=1e-3, loss_weight=1.0):
+        self.beta, self.eps, self.loss_weight = beta, eps, loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        loss = bounded_iou_loss(pred, target, self.beta, self.eps)
+        if weight is not None:
+            weight = weight.float()[..., None]
+        return self.loss_weight * weight_reduce_loss(loss, weight,
+                                                     avg_factor)
+
+
 def ghm_edges(bins):
     """GHM's bin edges as the JAX package's ``jnp.linspace(0, 1, bins +
     1)`` gives them: ``i`` times the float32 reciprocal of ``bins``, in
@@ -294,24 +311,6 @@ def distribution_focal_loss(pred, target):
 
 
 # ---------------------------------------------------------------- PISA
-
-def within_group_rank(group_ids, order_key):
-    """Rank of each element within its group when sorted by ``group_ids``
-    then ``order_key`` (both ``(N,)``): one stable sort of the float32 key
-    ``2 * group + order_key`` and a segmented count, as
-    ``bonai_tpu/core/samplers.py::_within_group_rank`` ranks them (equal
-    keys keep their index order, as ``jnp.argsort`` does)."""
-    n = group_ids.shape[0]
-    key = group_ids.float() * 2.0 + order_key
-    order = torch.sort(key, stable=True).indices
-    g = group_ids[order]
-    arange = torch.arange(n, device=key.device)
-    changed = torch.ones(n, dtype=torch.bool, device=key.device)
-    changed[1:] = g[1:] != g[:-1]
-    starts = torch.cummax(torch.where(changed, arange, 0), dim=0).values
-    return torch.zeros(n, dtype=torch.long, device=key.device).scatter_(
-        0, order, arange - starts)
-
 
 def isr_p(label_weights, ious, pos_mask, labels, matched_gt, pos_loss_cls,
           k=2.0, bias=0.0):

@@ -1,7 +1,8 @@
 """Box heads and their training targets (counterpart of
 ``bonai_tpu/models/roi_heads/bbox_head.py``: ``Shared2FCBBoxHead``, with
-Grid R-CNN's classification-only ``with_reg=False`` and the shared convs
-of ``Shared4Conv1FCBBoxHead``,
+Grid R-CNN's classification-only ``with_reg=False``, the shared convs
+of ``Shared4Conv1FCBBoxHead`` and the C4 layout's average-pooled
+``BBoxHead``,
 Double-Head R-CNN's ``DoubleConvFCBBoxHead`` and ``scale_rois``, and
 ``bbox_targets_single``, batched over images here).  v2.3 labels:
 foreground 0..C-1, background C (the last softmax column)."""
@@ -46,19 +47,22 @@ class Shared2FCBBoxHead(nn.Module):
     (two by default; ``Shared4Conv1FCBBoxHead`` is 4 convs and 1 FC),
     then the class logits and, ``with_reg``, the box deltas.  Without
     ``fc_reg`` (Grid R-CNN) the deltas are zeros of the same width, which
-    decode to the proposal itself."""
+    decode to the proposal itself.  With ``with_avg_pool`` (mmdet's plain
+    ``BBoxHead``, the C4 layout's: no convs or shared FCs) the map is
+    averaged over its cells before the FCs."""
 
     def __init__(self, num_classes=1, in_channels=256, fc_out_channels=1024,
                  roi_feat_size=7, reg_class_agnostic=False, with_reg=True,
                  num_shared_convs=0, num_shared_fcs=2, conv_out_channels=256,
-                 norm_cfg=None, conv_cfg=None):
+                 norm_cfg=None, conv_cfg=None, with_avg_pool=False):
         super().__init__()
         self.shared_convs = nn.ModuleList([
             ConvModule(in_channels if i == 0 else conv_out_channels,
                        conv_out_channels, 3, norm_cfg=norm_cfg,
                        conv_cfg=conv_cfg) for i in range(num_shared_convs)])
+        self.with_avg_pool = with_avg_pool
         last = (conv_out_channels if num_shared_convs else in_channels) \
-            * roi_feat_size ** 2
+            * (1 if with_avg_pool else roi_feat_size ** 2)
         self.shared_fcs = nn.ModuleList()
         for _ in range(num_shared_fcs):
             self.shared_fcs.append(nn.Linear(last, fc_out_channels))
@@ -85,7 +89,7 @@ class Shared2FCBBoxHead(nn.Module):
         x = x.permute(0, 3, 1, 2)
         for conv in self.shared_convs:
             x = F.relu(conv(x))
-        x = x.flatten(1)
+        x = x.mean(dim=(2, 3)) if self.with_avg_pool else x.flatten(1)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
         if self.fc_reg is None:

@@ -13,7 +13,9 @@ here, the block rule in ``roi_align_block``, the strip rule in
 ``roi_align_fused``.  :func:`window_corner_plan` holds the border rule of
 the windowed formulations (``roi_align_strip``, ``roi_align_blocked``),
 and :func:`scatter_corners` the scatter backward.  :func:`roi_align` is the
-single-level RoIAlign (HTC's semantic fusion), plain on every device.
+single-level RoIAlign (HTC's semantic fusion), and
+:func:`generic_roi_align` a ``GenericRoIExtractor``'s every-level pooling
+(GRoIE, PointRend), plain on every device.
 """
 
 from __future__ import annotations
@@ -303,3 +305,25 @@ def roi_align(features, rois, output_size, spatial_scale=1.0,
     corners = (i00, i00 + 1, i00 + W, i00 + W + 1)
     return pool_corners(features.reshape(-1, C).float(), corners, weights,
                         output_size, sr).to(features.dtype)
+
+
+def generic_roi_align(levels, rois, output_size, featmap_strides,
+                      sampling_ratio=2, roi_valid=None, aggregation="sum",
+                      pre=None, post=None):
+    """``GenericRoIExtractor`` (counterpart of
+    ``bonai_tpu.ops.roi_align.generic_roi_align``): every RoI pooled from
+    every level, ``pre`` (GRoIE's plugin, one for all levels) on each
+    level's NHWC result, the levels summed or concatenated
+    (``aggregation``), ``post`` on the fusion, invalid RoIs zeroed last."""
+    lvl = torch.zeros(rois.shape[0], dtype=torch.long, device=rois.device)
+    outs = []
+    for f, s in zip(levels, featmap_strides):
+        x = roi_align_at_levels([f], rois, lvl, output_size, [s],
+                                sampling_ratio)
+        outs.append(x if pre is None else pre(x))
+    fused = sum(outs) if aggregation == "sum" else torch.cat(outs, -1)
+    if post is not None:
+        fused = post(fused)
+    if roi_valid is not None:
+        fused = fused * roi_valid[:, None, None, None].to(fused.dtype)
+    return fused

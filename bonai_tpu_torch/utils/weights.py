@@ -64,6 +64,14 @@ grouped and ConvWS's kernels are plain conv weights.  The JAX importer
 reads every norm as a BatchNorm with statistics: it raises ``KeyError``
 on a GN checkpoint (ROADMAP.md queue C).
 
+The C4 layout's shared head (flax ``shared_head/layer4_<b>``) goes to
+``roi_head.shared_head.layer4.<b>``; a deformable RoI pooling pack (flax
+``<role>_dpool``) to ``roi_head.<role>_roi_extractor.roi_layers.0.
+{offset_fc,mask_fc}.<i>`` in mmcv's layout, and GRoIE's modules to
+``roi_head.<role>_roi_extractor.{pre_module,post_module}``
+(:func:`_extractor_vars`).  The JAX importer reads none of them
+(ROADMAP.md queue C).
+
 The trunk variants: a deformable ``conv2`` keeps mmcv's
 ``layer<s>.<b>.conv2.weight`` and adds ``conv2.conv_offset.{weight,
 bias}``; Res2Net's deep stem (flax ``stem_conv<i>``/``stem_bn<i>``) goes
@@ -294,6 +302,14 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
               f"{'fc_logits' if name == 'fc_logits' else f'fcs.{name[2:]}.conv'}",
               p, _conv1d)
 
+    for name, p in params.get("shared_head", {}).items():    # C4's res5
+        stage, b = re.fullmatch(r"layer(\d+)_(\d+)", name).groups()
+        block(f"roi_head.shared_head.layer{stage}.{b}", p,
+              batch_stats.get("shared_head", {}).get(name, {}))
+    for role in ("bbox", "mask"):
+        _extractor_vars(f"roi_head.{role}_roi_extractor", params, role, sd,
+                        layer)
+
     for name, p in params.get("mask_iou_head", {}).items():
         key = "roi_head.mask_iou_head"
         if name == "fc0":               # on the convs' (S, S, C) output
@@ -369,6 +385,46 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
     # 0-d arrays 1-d
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+def _extractor_vars(key, params, role, sd, layer):
+    """An extractor's modules (``key``: ``roi_head.<role>_roi_extractor``):
+    the deformable pooling pack (flax ``<role>_dpool``) -> ``roi_layers.0.
+    offset_fc.{0,2,4}`` and ``mask_fc.{0,2}`` in mmcv's layout (the first
+    FCs read the ``(C, S, S)`` flatten, the offsets come out ``(2, S,
+    S)``); GRoIE's ``<role>_groie_pre`` -> ``pre_module.conv`` and
+    ``<role>_groie_post`` -> ``post_module.conv`` or the attention block's
+    variables under ``post_module``."""
+    dpool = params.get(f"{role}_dpool")
+    if dpool is not None:
+        base = f"{key}.roi_layers.0"
+        out = np.asarray(dpool["offset_fc2"]["kernel"])   # (dfc, S * S * 2)
+        side = int(round((out.shape[1] / 2) ** 0.5))
+        for stack, n in (("offset_fc", 3), ("mask_fc", 2)):
+            for i in range(n if f"{stack}0" in dpool else 0):
+                p = dpool[f"{stack}{i}"]
+                if i == 0:
+                    sd[f"{base}.{stack}.0.weight"] = _fc_to_chw(
+                        p["kernel"], side, side)
+                    sd[f"{base}.{stack}.0.bias"] = np.asarray(p["bias"])
+                else:
+                    layer(f"{base}.{stack}.{2 * i}", p, _fc)
+        # the offsets from (S, S, 2) to mmcv's (2, S, S)
+        k = f"{base}.offset_fc.4"
+        sd[f"{k}.weight"] = sd[f"{k}.weight"].reshape(
+            side, side, 2, -1).transpose(2, 0, 1, 3).reshape(out.shape[1],
+                                                             -1)
+        sd[f"{k}.bias"] = sd[f"{k}.bias"].reshape(side, side, 2).transpose(
+            2, 0, 1).reshape(-1)
+    pre = params.get(f"{role}_groie_pre")
+    if pre is not None:
+        layer(f"{key}.pre_module.conv", pre["conv"])
+    post = params.get(f"{role}_groie_post")
+    if post is not None and "value_conv" in post:
+        _plugin_vars(f"{key}.post_module", "gen_attention_block", post, sd,
+                     layer)
+    elif post is not None:
+        layer(f"{key}.post_module.conv", post["conv"])
 
 
 def _shared_convs_fcs(key, bh, stats, roi_feat, sd, layer, norm):
@@ -596,8 +652,12 @@ def _plugin(base, blk, name, sd, layer):
     if sum(re.fullmatch(r"after_conv\d_plugin\d+", k) is not None
            and _plugin_abbr(v) == abbr for k, v in blk.items()) > 1:
         raise ValueError(f"{base}: two {abbr} plugins in one block")
-    key = f"{base}.{abbr}"
-    for sub, p in blk[name].items():
+    _plugin_vars(f"{base}.{abbr}", abbr, blk[name], sd, layer)
+
+
+def _plugin_vars(key, abbr, variables, sd, layer):
+    """A plugin's variables under ``key`` (see :func:`_plugin`)."""
+    for sub, p in variables.items():
         fusion = re.fullmatch(r"(channel_(?:add|mul))_(conv1|conv2|ln)", sub)
         if fusion:
             idx = {"conv1": 0, "ln": 1, "conv2": 3}[fusion[2]]
@@ -809,11 +869,28 @@ def _hr_module(base, mod, stats, layer, norm, block):
 
 
 def load_mmdet_checkpoint(path):
-    """The ``state_dict`` of an mmdet ``.pth`` checkpoint, as it is: its
-    keys are the port's (a cascade's stage heads under
-    ``roi_head.bbox_head.<i>``)."""
+    """The ``state_dict`` of an mmdet ``.pth`` checkpoint: its keys are the
+    port's (a cascade's stage heads under ``roi_head.bbox_head.<i>``), but
+    for a deformable RoI pooling extractor's.  mmcv builds one pack a
+    pyramid level (``roi_layers.<l>``), the JAX package, and the port,
+    one that every level shares (``roi_layers.0``): the levels' FCs must
+    be equal, and the copies past the first are dropped; a checkpoint
+    whose levels differ raises ``ValueError`` (ROADMAP.md queue C)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return ckpt.get("state_dict", ckpt)
+    sd = dict(ckpt.get("state_dict", ckpt))
+    for key in list(sd):
+        m = re.fullmatch(r"(.*_roi_extractor\.roi_layers\.)(\d+)(\.(?:offset|"
+                         r"mask)_fc\..*)", key)
+        if not m or m[2] == "0":
+            continue
+        first = sd.get(f"{m[1]}0{m[3]}")
+        if first is None or not torch.equal(sd[key], first):
+            raise ValueError(
+                f"{key} differs from level 0's: mmcv's deformable RoI "
+                f"pooling has a pack a pyramid level, the port, as the JAX "
+                f"package, one pack for every level (ROADMAP.md queue C)")
+        del sd[key]
+    return sd
 
 
 def fold_aws(weight, gamma, beta):

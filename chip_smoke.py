@@ -20,7 +20,11 @@ Phases, each of which must pass:
    take (the bound).  Serving shapes: bbox R=6000 at 7x7, mask R=4000 at
    14x14, offset R=4000 at 7x7; training shapes: bbox R=2048 at 7x7, mask
    R=512 at 14x14, offset R=512 at 7x7; C=256.  Each forward and its
-   backward run on the same RoIs.
+   backward run on the same RoIs.  And B1 and B2 at the C4 layout's shape
+   (the coco_rcnn phase's C4 Mask R-CNN): one stride-16 level of
+   (2, 64, 64, 1024), 14x14 bins, every RoI on that level; serving bbox
+   R=2000 (1000 an image) and mask R=200, training bbox R=1024 (512 an
+   image) and the mask branch's positives R=256.
    - B1, the RoIAlign forward kernel, under the block rule and under the
      strip rule (B3's function, ``roi_align_impl='pallas'``), at the
      serving and training shapes; the levels the kernel computes must
@@ -202,7 +206,25 @@ Phases, each of which must pass:
    caffe trunk's BN affines get no
    gradient and move by weight decay alone, their zero biases not at
    all); each checkpoint through the test CLI.
-16. cascades: the last two mask-producing cascades (``CASCADE_CONFIGS``):
+16. coco_rcnn: item 6's A7 part (``COCO_RCNN_CONFIGS``): the C4 Mask
+   R-CNN (a three-stage caffe trunk, no neck, the shared res5 head on
+   14x14 RoIs of the one stride-16 map, whose mask branch reads the box
+   branch's RoIAlign: B1 twice a batch and a step), GRoIE's Mask R-CNN
+   and the modulated deformable RoI pooling Faster R-CNN (plain PyTorch
+   RoI extraction: no launch), and, trained, OHEM's Faster R-CNN (a
+   ranking pass of the box head without gradient: B1 twice a step, B2
+   once), PISA's Mask R-CNN (ISR-P, CARL), Libra's COCO Faster R-CNN (the
+   combined instance- and IoU-balanced sampler) and the GIoU Faster
+   R-CNN (decoded boxes); each at full width with seeded random weights,
+   its BN statistics calibrated, under ``'block'``, the test scale at
+   1024^2 and ``score_thr`` 0 (random 81-way heads stay under the
+   configs' 0.05), as the coco_trunks phase runs its configs: the first
+   three served (one batch and one ``inference_detector`` call, the
+   trunk's levels of a small float32 input held to float64 on the CPU
+   and the RoI branches to the plain route), every one trained 3 steps
+   at the base LR (every trainable tensor moves, the caffe affines by
+   weight decay alone) with the small-input gradient check; the C4
+   checkpoint through the test CLI.17. cascades: the last two mask-producing cascades (``CASCADE_CONFIGS``):
    HTC (``configs/htc/htc_r50_fpn_1x_bonai.py``: a mask head at every
    stage with the info-flow chain, interleaved mask sampling, the semantic
    head fused into every RoI feature) and DetectoRS
@@ -219,7 +241,7 @@ Phases, each of which must pass:
    ``layer1``, behind its gradient stops, visibly move by weight decay
    alone); each checkpoint through the test CLI with ``--eval bbox
    segm``.
-17. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
+18. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
    R50-FPN on its COCO config and on the GHM and PISA configs, which keep
    COCO's 80 classes, and FreeAnchor, ATSS, GFL and FCOS on BONAI), each
    at full width with seeded random weights: one serve batch (B=2,
@@ -236,7 +258,7 @@ Phases, each of which must pass:
    warmup);
    the BONAI configs' checkpoints through the test CLI with ``--eval
    bbox`` on the first val crop (``score_thr=0``).  No kernel may launch.
-18. dense2: RepPoints, FSAF and FoveaBox on BONAI as the dense phase runs
+19. dense2: RepPoints, FSAF and FoveaBox on BONAI as the dense phase runs
    its configs (one timed serve batch; RepPoints' small-input check runs
    through its deformable convs, both point sets and ``moment_transfer``),
    no kernel launch; Guided-Anchoring Faster R-CNN as the trunks phase
@@ -244,7 +266,7 @@ Phases, each of which must pass:
    schedule's warmup; the small input's FPN levels and GA-RPN outputs
    held to the CPU); each checkpoint through the test CLI with ``--eval
    bbox``.  Each config's line carries the card's name and power limit.
-19. dense3: NAS-FPN RetinaNet (``configs/nas_fpn/
+20. dense3: NAS-FPN RetinaNet (``configs/nas_fpn/
    retinanet_r50_nasfpn_bonai.py``, COCO's 80 classes), NAS-FCOS, SSD300
    and CornerNet (Hourglass-104) on BONAI as the dense2 phase runs its
    dense detectors, from weights whose R50 and hourglass BatchNorm
@@ -259,7 +281,7 @@ Phases, each of which must pass:
    unclipped COCO schedule with its warmup; CornerNet's Adam); each
    checkpoint through the test CLI with ``--eval bbox``.  No kernel
    launch.  Each config's line carries the card's name and power limit.
-20. attr: LOFT-FOA with every attribute head (height, joint
+21. attr: LOFT-FOA with every attribute head (height, joint
    offset-height, angle, side-face, offset-field, offset reweighting) and
    ``SemiRPNHead`` (``attr``), and LOFT with polar offsets (``polar``),
    both derived at full width from the LOFT configs (``_attr_config``,
@@ -274,7 +296,7 @@ Phases, each of which must pass:
    files (written by the port's generator) and the BONAI test CLI on its
    checkpoint.  Each config's line carries the card's name and power
    limit.
-21. tta: test-time augmentation of LOFT-FOA R50-FPN at full width
+22. tta: test-time augmentation of LOFT-FOA R50-FPN at full width
    (``'block'``, bf16, 1024^2, B=2, seeded random weights with
    calibrated R50 BatchNorm statistics): one warm and one timed batch of
    the detection level at the default views (none, horizontal,
@@ -290,7 +312,7 @@ Phases, each of which must pass:
    with ``RandomRotate(rotate_ratio=1.0, angles='any')`` after
    ``RandomFlip`` (the numpy warps), every loss finite, the loader's
    angles printed, at least one off the multiples of 90.
-22. datasets: the non-BONAI datasets and the robustness benchmark at full
+23. datasets: the non-BONAI datasets and the robustness benchmark at full
    width (``datasets_phase``).  Robustness: ``tools/test_robustness.py``
    on LOFT-FOA R50-FPN (the 2x synthetic recipe, the flagship's model)
    with the data phase's checkpoint over two of the eval phase's 1024^2
@@ -323,7 +345,7 @@ Phases, each of which must pass:
    with their own ``'gather'`` route (no kernel: their launch counts must
    be 0) from calibrated random weights (``_calibrated_weights``); every
    loss finite.
-23. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
+24. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
    1024^2) and the data phase's checkpoint: ``fuse_conv_bn`` and
    ``publish_model`` on it, the checkpoint and each tool's file served
    through ``inference_detector`` (B=2, bf16, two of the eval phase's val
@@ -339,7 +361,7 @@ Phases, each of which must pass:
    timed); ``show_result`` and ``browse_dataset`` on a crop and a train
    tile, PNGs written; ``profile_time`` and ``device_trace`` around a
    serve call, whose trace must hold B1's 3 kernels; ``collect_env``.
-24. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+25. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -466,6 +488,28 @@ COCO_TRUNK_CONFIGS = (
     ("gn_ws", "configs/gn+ws/mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py", 2,
      False, 0.0))
 COCO_TRUNK_DIR = os.path.join(REPO, "build", "chip_smoke_coco_trunks")
+# item 6's A7 part (the coco_rcnn phase): label, config, the RoIAlign
+# kernel calls of a serve batch (None: trained only; its serve path is
+# the plain Faster or Mask R-CNN's, or Libra's BFP, which the rcnn, rcnn2
+# and coco_trunks phases serve), and the forward and backward calls of a
+# step (OHEM's ranking pass runs the box branch once more, without
+# gradient; GRoIE's and the deformable pooling's RoI extraction is plain
+# PyTorch, as it is plain XLA in the JAX package)
+COCO_RCNN_CONFIGS = (
+    ("c4", "configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x_coco.py", 2, (2, 2)),
+    ("groie", "configs/groie/mask_rcnn_r50_fpn_groie_1x_coco.py", 0, (0, 0)),
+    ("mdpool", "configs/dcn/faster_rcnn_r50_fpn_mdpool_1x_coco.py", 0,
+     (0, 0)),
+    ("ohem", "configs/faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py", None,
+     (2, 1)),
+    ("pisa", "configs/pisa/pisa_mask_rcnn_r50_fpn_1x_coco.py", None,
+     (2, 2)),
+    ("libra", "configs/libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py",
+     None, (1, 1)),
+    ("giou", "configs/faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py", None,
+     (1, 1)))
+COCO_RCNN_DIR = os.path.join(REPO, "build", "chip_smoke_coco_rcnn")
+COCO_RCNN_STEPS = 3
 # the last two mask-producing cascades (the cascades phase): label, config,
 # the RoIAlign kernel calls of a batch or step (HTC: 3 box stages and 3
 # mask stages; DetectoRS: 3 box stages and the mask), whether it trains
@@ -563,6 +607,7 @@ COCO_SCORED = {"mask_rcnn": (("bbox", "segm"), 2), "dynamic": (("bbox",), 1),
                   for label, _, calls, *_ in COCO_TRUNK_CONFIGS},
                **{label: (("bbox",), calls)
                   for label, _, calls in DENSE2_CONFIGS},
+               "c4": (("bbox", "segm"), 2),
                **{label: (("bbox",), 0) for label, *_ in DENSE3_CONFIGS}}
 # the rest of the R-CNN family on BONAI (the rcnn2 phase): label, config,
 # the RoIAlign calls of a batch or step
@@ -588,6 +633,12 @@ BATCH, SIZE, C = 2, 1024, 256
 SERVE_BRANCHES = (("bbox", 6000, 7), ("mask", 4000, 14), ("offset", 4000, 7))
 TRAIN_BRANCHES = (("bbox", 2048, 7), ("mask", 512, 14), ("offset", 512, 7))
 STRIDES = [4, 8, 16, 32]
+# the C4 layout's RoIAlign (the coco_rcnn phase's C4 Mask R-CNN): one
+# stride-16 level of 1024 channels, 14x14 bins; serving 1000 proposals and
+# 100 detections an image, training 512 samples and their 128 positives
+C4_STRIDES, C4_C = [16], 1024
+C4_SERVE_BRANCHES = (("bbox", 2000, 14), ("mask", 200, 14))
+C4_TRAIN_BRANCHES = (("bbox", 1024, 14), ("mask", 256, 14))
 # TP/FP/FN of the planted check: the first val scene's crop json scored as
 # its own results (tests/test_torch_port_eval.py asserts the same counts)
 PLANTED = {"roof": (24, 1, 1), "footprint": (25, 0, 0)}
@@ -783,15 +834,15 @@ def _edge_rois():
     return torch.tensor(np.array(rows, np.float32), device="cuda")
 
 
-def _check_levels(name, levels, rois, size):
+def _check_levels(name, levels, rois, size, strides=STRIDES):
     """The levels that forward kernel ``name`` computes for ``rois`` must
     equal its torch rule's on the card; returns the RoIs checked."""
     import torch
     block = _block_module()
     rule, window = KERNELS[name][2]
-    _, lvl = block.launch_forward(levels, rois, None, (size, size), STRIDES,
+    _, lvl = block.launch_forward(levels, rois, None, (size, size), strides,
                                   2, getattr(block, rule), 56, window)
-    want = _kernels()[name][2](rois[:, 1:5], STRIDES)
+    want = _kernels()[name][2](rois[:, 1:5], strides)
     if not torch.equal(lvl.long(), want):
         bad = (lvl.long() != want).nonzero()[:, 0]
         raise AssertionError(f"{name}: the kernel's levels differ from the "
@@ -818,7 +869,7 @@ def _check_counts(counts, expected, what):
                              f"{want}")
 
 
-def _cells_read(name, shapes, rois, size, valid):
+def _cells_read(name, shapes, rois, size, valid, strides=STRIDES):
     """The distinct level cells that forward kernel ``name`` must read for
     these RoIs: the corners of nonzero weight of the valid RoIs' samples
     (B5's window-cut corners have weight zero)."""
@@ -826,17 +877,18 @@ def _cells_read(name, shapes, rois, size, valid):
     from bonai_tpu_torch.ops.roi_align import corner_plan
     from bonai_tpu_torch.ops.roi_align_strip import strip_corner_plan
     if _window64(name):
-        corners, weights = strip_corner_plan(shapes, rois, size, STRIDES)
+        corners, weights = strip_corner_plan(shapes, rois, size, strides)
         weights = [w * valid[:, None, None] for w in weights]
     else:
         corners, weights = corner_plan(
-            shapes, rois, _kernels()[name][2](rois[:, 1:5], STRIDES), size,
-            STRIDES, roi_valid=valid)
+            shapes, rois, _kernels()[name][2](rois[:, 1:5], strides), size,
+            strides, roi_valid=valid)
     return int(torch.unique(torch.cat(
         [c[w != 0] for c, w in zip(corners, weights)])).numel())
 
 
-def _forward_kernel(name, levels32, branches, seed, label):
+def _forward_kernel(name, levels32, branches, seed, label,
+                    strides=STRIDES):
     """One forward kernel against its plain version; returns the bfloat16
     per-batch sums.  ``seed`` draws the RoIs (the same seed, the same RoIs
     for every kernel).  The bound's bytes are the level cells this run's
@@ -845,13 +897,14 @@ def _forward_kernel(name, levels32, branches, seed, label):
     fn, ref_fn, level_rule = _kernels()[name]
     gen = torch.Generator().manual_seed(seed)
     sums = _Sums()
+    c = levels32[0].shape[-1]
     for dtype in (torch.float32, torch.bfloat16):
         levels = [f.to(dtype) for f in levels32]
         shapes = [tuple(f.shape) for f in levels]
-        cell_bytes = C * levels[0].element_size()
+        cell_bytes = c * levels[0].element_size()
         for branch, n, size in branches:
             rois, valid = _rois(n, gen)
-            args = (levels, rois, size, STRIDES)
+            args = (levels, rois, size, strides)
             with torch.no_grad():
                 got = fn(*args, roi_valid=valid)
                 torch.cuda.synchronize()
@@ -862,9 +915,10 @@ def _forward_kernel(name, levels32, branches, seed, label):
             else:       # one bf16 ulp relative
                 ok = bool((diff <= ref.float().abs() * 2 ** -7 + 1e-6).all())
             pushed = "" if _window64(name) else " pushed=%d" % int((
-                level_rule(rois[:, 1:5], STRIDES)
-                > level_rule(rois[:, 1:5], STRIDES, window=10 ** 9)).sum())
-            sums.levels_checked += _check_levels(name, levels, rois, size)
+                level_rule(rois[:, 1:5], strides)
+                > level_rule(rois[:, 1:5], strides, window=10 ** 9)).sum())
+            sums.levels_checked += _check_levels(name, levels, rois, size,
+                                                 strides)
 
             def kernel():
                 with torch.no_grad():
@@ -876,11 +930,11 @@ def _forward_kernel(name, levels32, branches, seed, label):
             ms = _time_ms(kernel, 20)
             device_ms = _device_ms(kernel, 20, name)
             plain_ms = _time_ms(plain, 3)
-            cells = _cells_read(name, shapes, rois, size, valid)
+            cells = _cells_read(name, shapes, rois, size, valid, strides)
             nbytes = (cells * cell_bytes + rois.numel() * 4 + valid.numel()
                       + got.numel() * got.element_size())
             # 4 corners x (multiply + add) per sample and channel, valid rows
-            flops = int(valid.sum()) * size * size * 4 * 4 * 2 * C
+            flops = int(valid.sum()) * size * size * 4 * 4 * 2 * c
             bound, bound_by = _bound_ms(nbytes, flops)
             print(f"kernel {name} {label} {str(dtype)[6:]} "
                   f"{branch} R={n} {size}x{size}: "
@@ -898,26 +952,28 @@ def _forward_kernel(name, levels32, branches, seed, label):
     return sums
 
 
-def _backward_kernel(name, levels32, seed):
+def _backward_kernel(name, levels32, seed, branches=TRAIN_BRANCHES,
+                     strides=STRIDES, label="train"):
     """One backward kernel at the training shapes against autograd through
     the plain version; returns the bfloat16 per-step sums."""
     import torch
     fn, ref_fn, level_rule = _kernels()[name]
     gen = torch.Generator().manual_seed(seed)
     sums = _Sums()
+    c = levels32[0].shape[-1]
     for dtype in (torch.float32, torch.bfloat16):
         levels = [f.to(dtype, copy=True).requires_grad_()
                   for f in levels32]
         shapes = [tuple(f.shape) for f in levels]
         grad_bytes = sum(f.numel() * f.element_size() for f in levels)
-        for branch, n, size in TRAIN_BRANCHES:
+        for branch, n, size in branches:
             rois, valid = _rois(n, gen)
-            lvl = level_rule(rois[:, 1:5], STRIDES).to(torch.int32)
-            cot = torch.randn(n, size, size, C, generator=gen).to(
+            lvl = level_rule(rois[:, 1:5], strides).to(torch.int32)
+            cot = torch.randn(n, size, size, c, generator=gen).to(
                 device="cuda", dtype=dtype)
 
             def kernel():
-                return fn(cot, shapes, STRIDES, rois, lvl, valid)
+                return fn(cot, shapes, strides, rois, lvl, valid)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
@@ -931,7 +987,7 @@ def _backward_kernel(name, levels32, seed):
                 raise AssertionError(f"{name} allocated {extra} bytes for "
                                      f"{grad_bytes} bytes of {dtype} "
                                      f"gradients")
-            out = ref_fn(levels, rois, size, STRIDES, roi_valid=valid)
+            out = ref_fn(levels, rois, size, strides, roi_valid=valid)
 
             def plain():
                 return torch.autograd.grad(out, levels, cot,
@@ -954,9 +1010,9 @@ def _backward_kernel(name, levels32, seed):
             nbytes = (cot.numel() * cot.element_size() + grad_bytes
                       + rois.numel() * 4 + lvl.numel() * 4 + valid.numel())
             # 4 corners x (multiply + add) per sample and channel, valid rows
-            flops = int(valid.sum()) * size * size * 4 * 4 * 2 * C
+            flops = int(valid.sum()) * size * size * 4 * 4 * 2 * c
             bound, bound_by = _bound_ms(nbytes, flops)
-            print(f"kernel {name} train {str(dtype)[6:]} {branch} "
+            print(f"kernel {name} {label} {str(dtype)[6:]} {branch} "
                   f"R={n} {size}x{size}: max_abs_err={err:.3g} "
                   f"within_tol={ok} invalid={int((~valid).sum())} "
                   f"ms={ms:.4f} device_ms={device_ms:.4f} "
@@ -994,6 +1050,27 @@ def kernel_phase():
                                               2, "train")
     for name in ("roi_align_block_bwd", "roi_align_fused_bwd"):
         sums[name, "train"] = _backward_kernel(name, levels32, 3)
+    # the C4 layout: one stride-16 level of 1024 channels, 14x14 bins
+    c4 = [torch.randn(BATCH, SIZE // 16, SIZE // 16, C4_C, generator=gen)
+          .cuda()]
+    sums["roi_align_block_fwd", "c4 serve"] = _forward_kernel(
+        "roi_align_block_fwd", c4, C4_SERVE_BRANCHES, 4, "c4 serve",
+        C4_STRIDES)
+    sums["roi_align_block_fwd", "c4 train"] = _forward_kernel(
+        "roi_align_block_fwd", c4, C4_TRAIN_BRANCHES, 5, "c4 train",
+        C4_STRIDES)
+    sums["roi_align_block_bwd", "c4 train"] = _backward_kernel(
+        "roi_align_block_bwd", c4, 5, C4_TRAIN_BRANCHES, C4_STRIDES,
+        "c4 train")
+    for key in (("roi_align_block_fwd", "c4 serve"),
+                ("roi_align_block_fwd", "c4 train"),
+                ("roi_align_block_bwd", "c4 train")):
+        v = sums[key]
+        print(f"kernel {key[0]} at the C4 shape, {key[1][3:]}: bf16 "
+              f"{v.ms:.4f} ms a batch or step (device {v.device_ms:.4f}), "
+              f"bound {v.bound_ms:.4f} ms ({v.bound_by}), "
+              f"{v.device_ms / v.bound_ms:.1f}x the bound; plain "
+              f"{v.plain_ms:.3f} ms", flush=True)
     edges = _edge_rois()
     for name in ("roi_align_block_fwd", "roi_align_fused_fwd",
                  "roi_align_strip_fwd"):
@@ -1019,7 +1096,10 @@ def _branches(model, train=False):
     offset-field head (serving: with the mask call of its aggregation)
     and its angle head (no RoIAlign).  HTC's every box stage and mask
     stage (its info-flow chain inside) each take the semantic embedding.
-    The RPN-only detector has none."""
+    The RPN-only detector has none.  An extractor that pools by GRoIE, a
+    ``GenericRoIExtractor``, RoIPool or a deformable pooling pack runs
+    plain PyTorch, no kernel (``_kernel_calls``); the C4 layout's mask
+    branch reads the box branch's RoIAlign and shared head."""
     import torch
     if "bbox_head" not in getattr(model, "roi_head", {}):
         return []                       # the RPN, a dense detector
@@ -1037,21 +1117,20 @@ def _branches(model, train=False):
     double = getattr(model, "reg_roi_scale_factor", None) is not None
     out = [(type(h).__name__,
             lambda f, r, v, h=h: model._bbox_head_forward(h, f, r, v),
-            2 if double else 1)
+            (2 if double else 1) * _kernel_calls(model.bbox_extractor_cfg))
            for h in (bbox if isinstance(bbox, torch.nn.ModuleList)
                      else [bbox])]
     if "mask_head" in model.roi_head:
         def mask(f, r, v):
-            x = model._roi_align_cfg(model.mask_extractor_cfg, f, r, v)
+            x = model._mask_roi_feats(f, r, v)
             logits = model.roi_head["mask_head"](x)
             if "mask_iou_head" not in model.roi_head:
                 return (logits,)
             return logits, model.roi_head["mask_iou_head"](x, logits)
-        generic = model.mask_extractor_cfg.get("type") == \
-            "GenericRoIExtractor"
         out.append(("mask head" + (" + IoU head" if "mask_iou_head" in
                                    model.roi_head else ""), mask,
-                    0 if generic else 1))
+                    _kernel_calls(model.mask_extractor_cfg
+                                  or model.bbox_extractor_cfg)))
     if "grid_head" in model.roi_head:
         out.append(("GridHead", lambda f, r, v: (model.roi_head["grid_head"](
             model._roi_align_cfg(model.grid_extractor_cfg, f, r, v))[
@@ -1091,10 +1170,31 @@ def _branches(model, train=False):
     return out
 
 
+def _kernel_calls(extractor_cfg):
+    """The kernel calls of one RoI extraction by ``extractor_cfg``: 1 for
+    a ``SingleRoIExtractor``'s RoIAlign, 0 for a ``GenericRoIExtractor``
+    (GRoIE, PointRend's), RoIPool or a deformable pooling pack."""
+    layer = dict(extractor_cfg.get("roi_layer", {})).get("type", "RoIAlign")
+    return int(extractor_cfg.get("type") != "GenericRoIExtractor"
+               and layer == "RoIAlign")
+
+
 def _roi_calls(model, train=False):
     """The RoIAlign calls a batch (with ``train``, a step) of ``model``
     makes."""
     return sum(calls for _, _, calls in _branches(model, train))
+
+
+def _train_calls(model):
+    """The forward and the backward kernel calls of a training step: a
+    hard-mining sampler (OHEM, ScoreHLR) runs the box branch once more,
+    without gradient, over every candidate."""
+    from bonai_tpu_torch.models.detectors.two_stage import HARD_MINING
+    n = _roi_calls(model, train=True)
+    rcnn = (getattr(model, "train_cfg", None) or {}).get("rcnn")
+    ranked = isinstance(rcnn, dict) and dict(rcnn.get("sampler", {})).get(
+        "type") in HARD_MINING
+    return n + (_branches(model, True)[0][2] if ranked else 0), n
 
 
 def _max_dets(model):
@@ -1121,10 +1221,16 @@ def _serve_proposals(model, img):
 
 
 def _mask_side(model):
-    """The side of a serve call's masks: 28 (FCN head), or PointRend's
-    coarse side doubled at each subdivision step (224)."""
+    """The side of a serve call's masks: twice its RoI features' (28 for
+    the FCN head on 14x14 RoIs, 14 for the C4 layout's 7x7 shared-head
+    map), or PointRend's coarse side doubled at each subdivision step
+    (224)."""
     if "point_head" not in model.roi_head:
-        return 28
+        ext = model.mask_extractor_cfg or model.bbox_extractor_cfg
+        side = dict(ext.get("roi_layer", {})).get("output_size", 14)
+        if model.mask_extractor_cfg is None:        # through the shared head
+            side //= model.roi_head["shared_head"].stride
+        return 2 * side
     tc = model.test_cfg["rcnn"]
     return model.roi_head["mask_head"].output_size * tc.get(
         "scale_factor", 2) ** tc.get("subdivision_steps", 5)
@@ -1373,7 +1479,7 @@ def _roi_grad_check(model, impl, what):
     attr, fwd_name, bwd_name = ROUTES[impl]
     kernel_fn = getattr(two_stage, attr)
     plain = _plain_route(impl)
-    n_roi = _roi_calls(model, train=True)
+    n_fwd, n_roi = _train_calls(model)
     if not n_roi:
         print(f"{what}: no RoI branch, no gradient check", flush=True)
         return
@@ -1399,8 +1505,10 @@ def _roi_grad_check(model, impl, what):
     def recorded(levels, rois, output_size, featmap_strides, **kw):
         out = kernel_fn([f.contiguous() for f in feats[:len(levels)]], rois,
                         output_size, featmap_strides, **kw)
-        out.retain_grad()
-        calls.append((rois, output_size, kw, out))
+        if torch.is_grad_enabled():     # not a hard-mining ranking pass
+            out.retain_grad()
+            calls.append((rois, output_size, list(featmap_strides), kw,
+                          out))
         return out
 
     _zero_counts()
@@ -1413,20 +1521,22 @@ def _roi_grad_check(model, impl, what):
         setattr(two_stage, attr, kernel_fn)
     sum(v for k, v in losses.items() if not k.startswith("stat_")).backward()
     torch.cuda.synchronize()
-    _check_counts(_counts(), {fwd_name: n_roi, bwd_name: n_roi},
+    _check_counts(_counts(), {fwd_name: n_fwd, bwd_name: n_roi},
                   f"{what}, small input")
-    levels = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
-    mags = [f.detach().requires_grad_() for f in feats[:len(STRIDES)]]
-    for rois, output_size, kw, out in calls:
-        ref = plain(levels, rois, output_size, STRIDES, **kw)
+    strides = max((c[2] for c in calls), key=len)
+    levels = [f.detach().requires_grad_() for f in feats[:len(strides)]]
+    mags = [f.detach().requires_grad_() for f in feats[:len(strides)]]
+    for rois, output_size, call_strides, kw, out in calls:
+        ref = plain(levels[:len(call_strides)], rois, output_size,
+                    call_strides, **kw)
         err = float((out - ref).abs().max())
         if not err <= 1e-4 * max(float(ref.abs().max()), 1.0):
             raise AssertionError(f"small input: RoI features differ from "
                                  f"the plain version by {err}")
         ref.backward(out.grad)
-        plain(mags, rois, output_size, STRIDES, **kw).backward(
-            out.grad.abs())
-    for s, f, e, m in zip(STRIDES, feats, levels, mags):
+        plain(mags[:len(call_strides)], rois, output_size, call_strides,
+              **kw).backward(out.grad.abs())
+    for s, f, e, m in zip(strides, feats, levels, mags):
         diff = (f.grad - e.grad).abs()
         top = float(e.grad.abs().max())
         ratio = float((diff / m.grad.clamp(min=1e-30)).max())
@@ -1527,8 +1637,8 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     if not all(np.isfinite(h[k]) for h in hist
                for k in keys + ["grad_norm"]):
         raise AssertionError("a loss or the gradient norm is not finite")
-    n_roi = _roi_calls(model, train=True)
-    _check_counts(counts, {fwd_name: n_roi * steps, bwd_name: n_roi * steps},
+    n_fwd, n_bwd = _train_calls(model)
+    _check_counts(counts, {fwd_name: n_fwd * steps, bwd_name: n_bwd * steps},
                   f"{what}, {steps} steps")
     init = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
     init.init_weights(torch.Generator().manual_seed(0))
@@ -1552,12 +1662,20 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     # gradient is 0 but for float noise
     noise_only = {n for n in names.values()
                   if n.endswith(("refine.phi.conv.bias", "conv_mask.bias"))}
+    # an attention block without the query-key term (GRoIE's type 0100)
+    # has the query conv the JAX block has, and reads it nowhere: weight
+    # decay and momentum alone move it, as in the JAX step
+    from bonai_tpu_torch.ops.layers import GeneralizedAttention
+    unused = {f"{n}.query_conv.weight" for n, m in model.named_modules()
+              if isinstance(m, GeneralizedAttention)
+              and hasattr(m, "query_conv") and not m.terms[0]}
     print(f"{what}: trainable tensors without a gradient in any step: "
           f"{sorted(no_grad) or 'none'}", flush=True)
-    if not behind_stop <= no_grad <= behind_stop | noise_only:
+    if not behind_stop | unused <= no_grad <= behind_stop | noise_only \
+            | unused:
         raise AssertionError(f"trainable tensors without a gradient in any "
                              f"step: {sorted(no_grad)}, expected "
-                             f"{sorted(behind_stop)} (and maybe "
+                             f"{sorted(behind_stop | unused)} (and maybe "
                              f"{sorted(noise_only)})")
     moved = frozen_moved = trainable = 0
     held = []
@@ -2857,6 +2975,70 @@ def coco_trunks_phase():
               f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
               f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches; test "
               f"CLI B1 {r['coco_cli']} launches", flush=True)
+    return out
+
+
+def coco_rcnn_phase():
+    """Item 6's A7 part (``COCO_RCNN_CONFIGS``: the C4 Mask R-CNN, GRoIE,
+    modulated deformable RoI pooling, OHEM, PISA, Libra's COCO samplers and
+    GIoU) at full width with seeded random weights, the BN statistics
+    calibrated (``_calibrated_weights``), under ``'block'``, the test scale
+    at 1024^2 and ``score_thr`` 0 (configs written under
+    ``COCO_RCNN_DIR``), as ``coco_trunks_phase`` runs its configs: those
+    with a serve count one serve batch and one ``inference_detector``
+    call, the trunk's levels of a small float32 input held to the CPU and
+    the RoI branches to the plain route; every one ``COCO_RCNN_STEPS``
+    steps at the base LR, clipped at 35, on the repeated synthetic batch
+    (every trainable tensor moves; the caffe trunk's and shared head's BN
+    affines by weight decay alone), the launch counts of the table, and
+    the C4 checkpoint through the test CLI.  Returns each config's launch
+    counts, times and peak memory (``None`` where not served)."""
+    import numpy as np
+    out = {}
+    os.makedirs(COCO_RCNN_DIR, exist_ok=True)
+    for label, config, calls, (fwd, bwd) in COCO_RCNN_CONFIGS:
+        cfg = _dense_config(os.path.join(REPO, config))
+        cfg.optimizer_config.grad_clip = dict(max_norm=35, norm_type=2)
+        cfg.test_cfg.rcnn.score_thr = 0.0
+        config = os.path.join(COCO_RCNN_DIR, f"{label}.py")
+        cfg.dump(config)
+        weights = os.path.join(COCO_RCNN_DIR, "init.pth")
+        _calibrated_weights(config, weights)
+        serve = serve_ms = serve_peak = None
+        if calls is not None:
+            serve, serve_ms, serve_peak = serve_phase(
+                "block", config, calls=1, label=f"{label} serve",
+                checkpoint=weights,
+                inspect=lambda model, *_: _trunk_cpu_check(
+                    model, f"{label} serve", np.random.RandomState(1)))
+        train = train_phase("block", COCO_RCNN_STEPS, config,
+                            label=f"{label} train", keep=label == "c4",
+                            warmup=False, load_from=weights)
+        if (calls is not None and serve != 2 * calls) \
+                or train["fwd"] != fwd * COCO_RCNN_STEPS \
+                or train["bwd"] != bwd * COCO_RCNN_STEPS:
+            raise AssertionError(
+                f"{label}: B1 {serve} launches serving, {train['fwd']} / B2 "
+                f"{train['bwd']} training; expected {calls} a batch, "
+                f"{fwd} / {bwd} a step")
+        coco = None
+        if label == "c4":
+            coco = rcnn_coco(label, config, train["checkpoint"])
+            shutil.rmtree(train["work_dir"], ignore_errors=True)
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=coco)
+    shutil.rmtree(COCO_RCNN_DIR, ignore_errors=True)
+    for label, r in out.items():
+        print(f"coco_rcnn {label}: " + (
+            "trained only" if r["serve"] is None else
+            f"serve {r['serve_ms']:.1f} ms a B=2 call, peak "
+            f"{r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} launches")
+              + f"; train median step {r['train']['step_ms']:.1f} ms, "
+              f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
+              f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches"
+              + ("" if r["coco_cli"] is None else
+                 f"; test CLI B1 {r['coco_cli']} launches"), flush=True)
     return out
 
 
@@ -4748,6 +4930,7 @@ def main():
     rcnn3 = timed("rcnn3", rcnn3_phase)
     trunks = timed("trunks", trunks_phase)
     coco_trunks = timed("coco_trunks", coco_trunks_phase)
+    coco_rcnn = timed("coco_rcnn", coco_rcnn_phase)
     cascades = timed("cascades", cascades_phase)
     dense = timed("dense", dense_phase)
     dense2 = timed("dense2", dense2_phase)
@@ -4776,6 +4959,15 @@ def main():
               f"{sums[a, what].ms / sums[b, what].ms:.3f}; same RoIs, "
               f"bounds {sums[a, what].bound_ms:.4f} / "
               f"{sums[b, what].bound_ms:.4f} ms)", flush=True)
+
+    def c4_numbers(name, whats):
+        """The kernel's numbers at the C4 layout's shape (the kernel
+        phase's bf16 sums a batch or step)."""
+        return {f"c4_{what}_{key}": getattr(sums[name, f"c4 {what}"], attr)
+                for what in whats for key, attr in (
+                    ("ms", "ms"), ("device_ms", "device_ms"),
+                    ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                    ("bound_by", "bound_by"), ("max_abs_err", "err"))}
 
     def forward(name, impl, label=None, **extra):
         return _entry(name, f"serve and train ({impl})", serve[impl],
@@ -4821,13 +5013,16 @@ def main():
                 **{f"{phase}_{k}_{what}_launches": n
                    for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
                                        ("coco_trunks", coco_trunks),
+                                       ("coco_rcnn", coco_rcnn),
                                        ("cascades", cascades),
                                        ("dense2", dense2),
                                        ("dense3", dense3))
                    for k, r in runs.items()
                    for what, n in (("serve", r["serve"]),
                                    ("train", r["train"]["fwd"]),
-                                   ("coco_cli", r["coco_cli"]))},
+                                   ("coco_cli", r["coco_cli"]))
+                   if n is not None},
+                **c4_numbers("roi_align_block_fwd", ("serve", "train")),
                 **{f"dense_{k}_{what}_launches": n for k, r in dense.items()
                    for what, n in (("serve", r["serve"]),
                                    ("train", r["train"]["fwd"]),
@@ -4864,6 +5059,7 @@ def main():
                **{f"{phase}_{k}_train_launches": r["train"]["bwd"]
                   for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
                                       ("coco_trunks", coco_trunks),
+                                      ("coco_rcnn", coco_rcnn),
                                       ("cascades", cascades),
                                       ("dense2", dense2),
                                       ("dense3", dense3))
@@ -4873,7 +5069,8 @@ def main():
                **{f"{k}_train_launches": attr[k]["train"]["bwd"]
                   for k in ATTR_CALLS},
                attr_files_train_launches=attr["files"]["bwd"],
-               tta_rotate_train_launches=tta["files"]["bwd"]),
+               tta_rotate_train_launches=tta["files"]["bwd"],
+               **c4_numbers("roi_align_block_bwd", ("train",))),
         forward("roi_align_fused_fwd", "pallas",
                 "roi_align_block_fwd (strip rule)"),
         _entry("roi_align_fused_bwd", "train (pallas)",

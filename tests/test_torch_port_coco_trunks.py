@@ -615,14 +615,18 @@ def test_full_width_parameter_counts_equal_jax(config):
 
 # every config of the sweep that stays unported, by the ROADMAP item its
 # error names
-UNPORTED = {"A6": 33, "A7": 19}
+UNPORTED = {"A6": 33}
 
 
 def test_configs_build_340_of_392():
     """Every config under ``configs/`` (``_base_/`` excluded) builds on the
-    meta device, but 52, each of which raises ``NotImplementedError``
-    naming its ROADMAP.md item (none a ``KeyError`` or ``TypeError``);
-    the three C4 configs name A7, the C4 shared head."""
+    meta device with its ``train_cfg``, whose R-CNN options the detector
+    checks as it is built (so a config that builds also trains), but 33,
+    each of which raises ``NotImplementedError`` naming A6 (none a
+    ``KeyError`` or ``TypeError``): 359 of 392 (340 when the test was
+    named, before item 6's A7 part).  The three C4 configs, GRoIE, the
+    deformable pooling packs, Libra's COCO samplers, OHEM, the IoU losses
+    and the four PISA R-CNNs among the built."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     built, raised = [], {}
@@ -639,14 +643,48 @@ def test_configs_build_340_of_392():
         except NotImplementedError as e:
             raised[name] = re.search(r"ROADMAP.md item (A\d)", str(e))[1]
     assert len(built) + len(raised) == 392
-    assert len(built) == 340
+    assert len(built) == 359
     assert {k: sum(v == k for v in raised.values())
-            for k in UNPORTED} == UNPORTED
-    c4 = {n: raised.get(n) for n in (
-        "faster_rcnn/faster_rcnn_r50_caffe_c4_1x_coco.py",
-        "mask_rcnn/mask_rcnn_r50_caffe_c4_1x_coco.py",
-        "rpn/rpn_r50_caffe_c4_1x_coco.py")}
-    assert set(c4.values()) == {"A7"}, c4
+            for k in set(raised.values()) | set(UNPORTED)} == UNPORTED
     for kind in ("x101", "caffe_fpn", "gn_ws", "gn-all", "gn-head",
-                 "syncbn", "regnetx", "hourglass"):
+                 "syncbn", "regnetx", "hourglass", "caffe_c4", "groie",
+                 "dpool", "mdpool", "ohem", "giou", "bounded_iou",
+                 "libra_faster_rcnn_r50_fpn_1x_coco", "pisa_faster_rcnn",
+                 "pisa_mask_rcnn"):
         assert any(kind in n for n in built), kind
+
+
+@pytest.mark.parametrize("config,rcnn", [
+    ("cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py",
+     dict(isr=dict(k=2, bias=0))),
+    ("cascade_rcnn/cascade_mask_rcnn_r50_fpn_1x_coco.py",
+     dict(sampler=dict(type="OHEMSampler", num=512))),
+    ("mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
+     dict(sampler=dict(type="RandomSampler", num=512,
+                       add_gt_as_proposals=False))),
+    ("libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py",
+     dict(sampler=dict(type="CombinedSampler", num=512,
+                       pos_sampler=dict(type="InstanceBalancedPosSampler"),
+                       neg_sampler=dict(type="OHEMSampler"))))],
+    ids=["cascade-isr", "cascade-ohem", "no-gt-proposals",
+         "combined-ohem-neg"])
+def test_refused_rcnn_train_options_raise_at_build(config, rcnn):
+    """A config whose ``train_cfg.rcnn`` carries an option the port's step
+    would refuse raises A7 when the detector is built, as the PISA R-CNN
+    configs did at their first step before their port (the sweep builds
+    with the train config): PISA on a cascade (the JAX cascade reads
+    neither ``isr`` nor ``carl``), a hard-mining sampler in a cascade's
+    stage, ``add_gt_as_proposals=False``, a combined sampler's unported
+    negative sampler."""
+    from bonai_tpu_torch import Config
+    from bonai_tpu_torch.models import build_detector
+    cfg = Config.fromfile(osp.join(ROOT, "configs", config))
+    stages = cfg.train_cfg.rcnn if isinstance(
+        cfg.train_cfg.rcnn, (list, tuple)) else [cfg.train_cfg.rcnn]
+    for stage in stages:
+        stage.update(rcnn)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item A7"):
+        with torch.device("meta"):
+            build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    with torch.device("meta"):          # the serving model builds
+        build_detector(cfg.model, None, cfg.test_cfg)

@@ -106,21 +106,17 @@ def test_configs_build_at_full_width(name):
         conv_cfg=dict(type="DCNv2", deform_groups=2))), "A6"),
     (dict(config="htc/htc_r50_fpn_1x_bonai.py",
           mask_head=dict(type="CoarseMaskHead")), "A7"),
-    (dict(sampler=dict(type="ScoreHLRSampler", num=512)), "A7"),
-    (dict(sampler=dict(type="OHEMSampler", num=512)), "A7"),
+    (dict(config="pisa/pisa_retinanet_r50_fpn_1x_coco.py"), "A6"),
+    (dict(config="nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py"), "A6"),
     (dict(reg_decoded_bbox=True), "A7"),
     (dict(config="guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py"), "A6"),
     (dict(config="guided_anchoring/ga_rpn_r50_fpn_1x_coco.py"), "A6"),
     (dict(config="retinanet/retinanet_r50_fpn_1x_coco.py",
           bbox_head=dict(type="RetinaSepBNHead")), "A6"),
     (dict(neck=[dict(type="FPN"), dict(type="PAFPN")]), "A7"),
-    (dict(extractor=dict(
-        type="GenericRoIExtractor", aggregation="sum",
-        roi_layer=dict(type="RoIAlign", output_size=7, sampling_ratio=2),
-        out_channels=16, featmap_strides=[4, 8, 16, 32],
-        pre_cfg=dict(type="ConvModule", in_channels=16, out_channels=16,
-                     kernel_size=5, padding=2, inplace=False))), "A7"),
-    (dict(loss_bbox=dict(type="GIoULoss")), "A7"),
+    (dict(config="regnet/mask_rcnn_regnetx-3.2GF_fpn_mdconv_c3-c5_1x_coco.py"),
+     "A6"),
+    (dict(config="legacy_1.x/faster_rcnn_r50_fpn_1x_coco_v1.py"), "A6"),
     (dict(config="detectors/detectors_cascade_rcnn_r50_1x_bonai.py",
           sac=dict(type="SAC", use_deform=True)), "A6")],
     ids=lambda x: x if isinstance(x, str) else "-".join(
@@ -128,13 +124,15 @@ def test_configs_build_at_full_width(name):
         else "+".join(c["type"] for c in v) if isinstance(v, list)
         else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
-    """A head, sampler, loss, neck chain or GRoIE extractor the port does
-    not build; an option of a config it builds (HTC's mask head type,
+    """A head, loss or neck chain the port does not build, and
+    ``reg_decoded_bbox`` under the L1 loss (the JAX package ignores it
+    there); an option of a config it builds (HTC's mask head type,
     DetectoRS's deformable SAC, the COCO NAS-FCOS neck's deformable cell
-    convs); a single-stage config's head option
-    (FoveaBox's ``with_deform``, NAS-FPN's ``RetinaSepBNHead``);
-    Guided Anchoring's RetinaNet head, and its RPN in the RPN-only
-    detector."""
+    convs, DCN on RegNet, NAS-FPN's ``norm_cfg``, the legacy R-CNN's
+    ``LegacyAnchorGenerator``); a single-stage config's head option
+    (FoveaBox's ``with_deform``, NAS-FPN's ``RetinaSepBNHead``,
+    ``PISARetinaHead``); Guided Anchoring's RetinaNet head, and its RPN in
+    the RPN-only detector."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     change = dict(change)
@@ -162,6 +160,44 @@ def test_unported_types_name_their_item(change, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md item {item}"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(sampler=dict(type="ScoreHLRSampler", num=512)),
+    dict(sampler=dict(type="OHEMSampler", num=512)),
+    dict(extractor=dict(
+        type="GenericRoIExtractor", aggregation="sum",
+        roi_layer=dict(type="RoIAlign", output_size=7, sampling_ratio=2),
+        out_channels=16, featmap_strides=[4, 8, 16, 32],
+        pre_cfg=dict(type="ConvModule", in_channels=16, out_channels=16,
+                     kernel_size=5, padding=2, inplace=False))),
+    dict(loss_bbox=dict(type="GIoULoss", loss_weight=10.0),
+         reg_decoded_bbox=True)],
+    ids=["ScoreHLRSampler", "OHEMSampler", "GenericRoIExtractor-pre_cfg",
+         "GIoULoss-reg_decoded_bbox"])
+def test_item6_a7_options_build(change):
+    """The options that raised A7 before item 6's A7 part was ported
+    (``test_torch_port_rcnn_sampling.py`` holds them to JAX) build on the
+    tiny Mask R-CNN: the hard-mining samplers, GRoIE's ``pre`` plugin (one
+    conv shared by the levels, under mmdet's ``roi_head.
+    bbox_roi_extractor.pre_module.conv``), GIoU on decoded boxes."""
+    from bonai_tpu_torch.models import build_detector
+    cfg = family_cfg("mask_rcnn")
+    change = dict(change)
+    if "sampler" in change:
+        cfg.train_cfg.rcnn.sampler = change.pop("sampler")
+    if "extractor" in change:
+        cfg.model.roi_head.bbox_roi_extractor = change.pop("extractor")
+    cfg.model.roi_head.bbox_head.update(change)
+    model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    sd = model.state_dict()
+    if cfg.model.roi_head.bbox_roi_extractor.get("pre_cfg"):
+        assert sd["roi_head.bbox_roi_extractor.pre_module.conv.weight"] \
+            .shape == (16, 16, 5, 5)
+    if change:
+        assert model.bbox_loss_cfg["type"] == "GIoULoss"
+    assert model.train_cfg["rcnn"]["sampler"]["type"] in (
+        "RandomSampler", "ScoreHLRSampler", "OHEMSampler")
 
 
 def test_fpn_gn_neck_builds():

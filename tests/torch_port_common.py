@@ -86,6 +86,20 @@ TRUNK_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
 COCO_TRUNK_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
     "x_caffe": "mask_rcnn/mask_rcnn_r50_caffe_fpn_1x_coco.py",
     "gn_ws": "gn+ws/mask_rcnn_r50_fpn_gn_ws-all_2x_coco.py"}.items()}
+# item 6's A7 part: the C4 layout, and the R-CNN options of the COCO
+# recipes on the FPN Mask and Faster R-CNNs
+C4_CONFIG = osp.join(ROOT, "configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x_coco.py")
+RCNN_OPTION_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
+    "groie": "groie/mask_rcnn_r50_fpn_groie_1x_coco.py",
+    "dpool": "dcn/faster_rcnn_r50_fpn_dpool_1x_coco.py",
+    "mdpool": "dcn/faster_rcnn_r50_fpn_mdpool_1x_coco.py",
+    "ohem": "faster_rcnn/faster_rcnn_r50_fpn_ohem_1x_coco.py",
+    "pisa": "pisa/pisa_mask_rcnn_r50_fpn_1x_coco.py",
+    "libra": "libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py",
+    "iou": "faster_rcnn/faster_rcnn_r50_fpn_iou_1x_coco.py",
+    "giou": "faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py",
+    "bounded_iou": "faster_rcnn/faster_rcnn_r50_fpn_bounded_iou_1x_coco.py",
+    }.items()}
 # a RegNetX at tiny widths: stages of 8, 16, 32 and 64 channels (1, 1, 2
 # and 2 blocks), group widths 8
 TINY_REGNET = dict(w0=8, wa=12, wm=2, group_w=8, depth=6, bot_mul=1.0)
@@ -285,6 +299,61 @@ def trunk_cfg(family, train=False):
         for part in (bk, neck, rh.bbox_head, rh.mask_head):
             part.norm_cfg = gn
         rh.bbox_head.conv_out_channels = 16
+    return cfg
+
+
+def c4_cfg(train=False):
+    """The C4 Mask R-CNN (``C4_CONFIG``) at tiny widths, one class: its
+    three-stage caffe ResNet-50 at base 8 (128 channels at stride 16, the
+    BN affine behind a gradient stop), a 16-channel RPN, and the shared
+    head at res5's widths of base 8: mmdet's stage 0 (64 planes, three
+    bottlenecks, 128 -> 256 channels), since the ``ResLayer`` fixes its
+    base at 64; 16-channel mask head.  ``train``: the sizes of
+    :func:`tiny_train_cfg`."""
+    from bonai_tpu_torch import Config
+    cfg = Config.fromfile(C4_CONFIG)
+    m = cfg.model
+    m.backbone.base_channels = 8
+    m.rpn_head.update(in_channels=128, feat_channels=16)
+    rh = m.roi_head
+    rh.shared_head.stage = 0
+    rh.bbox_roi_extractor.out_channels = 128
+    rh.bbox_head.update(in_channels=256, num_classes=1)
+    rh.mask_head.update(in_channels=256, conv_out_channels=16,
+                        num_classes=1)
+    cfg.test_cfg.rpn.update(nms_pre=100, nms_post=64, max_num=64)
+    cfg.test_cfg.rcnn.max_per_img = 32
+    if train:
+        cfg.train_cfg.rpn.sampler.num = 64
+        cfg.train_cfg.rpn_proposal.update(nms_pre=100, nms_post=32,
+                                          max_num=32)
+        cfg.train_cfg.rcnn.sampler.num = 64
+    return cfg
+
+
+def rcnn_option_cfg(family, train=False):
+    """The config of a ``RCNN_OPTION_CONFIGS`` family at the tiny widths of
+    :func:`tiny_cfg` (the training sizes of :func:`tiny_train_cfg` with
+    ``train``), one class: GRoIE's plugins at 16 channels (its
+    attention's 6 heads of 2 channels), the deformable pooling packs' FCs
+    at 32 channels."""
+    cfg = (tiny_train_cfg if train else tiny_cfg)(
+        config=RCNN_OPTION_CONFIGS[family])
+    rh = cfg.model.roi_head
+    rh.bbox_head.num_classes = 1
+    if rh.get("mask_head") is not None:
+        rh.mask_head.num_classes = 1
+    for k in ("bbox_roi_extractor", "mask_roi_extractor"):
+        ext = rh.get(k)
+        if ext is None:
+            continue
+        for plugin in ("pre_cfg", "post_cfg"):
+            if ext.get(plugin) is not None:
+                ext[plugin].in_channels = 16
+                if "out_channels" in ext[plugin]:
+                    ext[plugin].out_channels = 16
+        if ext.roi_layer.type.endswith("Pack"):
+            ext.roi_layer.update(output_channels=16, deform_fc_channels=32)
     return cfg
 
 
@@ -518,12 +587,14 @@ def jax_uniforms(key, n, streams=2):
 
 
 def jax_forward_train_draws(jm, variables, key, b, cascade=False,
-                            unsplit=False, htc=False, ga=False):
+                            unsplit=False, htc=False, ga=False, hlr=False):
     """A draw source for the port's ``forward_train`` that hands out the
     numbers the JAX ``forward_train`` draws under ``rngs={"sampling":
     key}``.  ``draw(shape, device, n)``: the RPN's uniforms per image, then
     the R-CNN's per image, from the splits of the module's first
-    ``sampling`` key (as many streams as the port's sampler asks for).
+    ``sampling`` key (as many streams as the port's sampler asks for:
+    three for the IoU-balanced sampler and for ``CombinedSampler``'s
+    ``pos``, ``neg`` and ``fill``).
     With ``cascade``, the R-CNN's are stage ``i``'s at call ``i + 1``: the
     splits of the R-CNN key folded with ``i``
     (``bonai_tpu/models/detectors/cascade_rcnn.py``).  With ``ga``
@@ -535,7 +606,10 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
     R-CNN key folded with ``100 + i`` (``bonai_tpu/models/detectors/
     htc.py``).  With ``unsplit``
     (the RPN-only detector and Fast R-CNN, which sample once), the one
-    call's are the splits of the key itself.
+    call's are the splits of the key itself.  With ``hlr``
+    (``ScoreHLRSampler``, which draws from a ``sampling`` key of its own
+    after the box head's ranking pass), the R-CNN's are the splits of the
+    module's second ``sampling`` key.
 
     The module's second ``sampling`` key gives ``draw.offsets(shape,
     device, amplitude)``, Grid R-CNN's jitter: split per image, each
@@ -554,6 +628,8 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
         stages = [jax.random.fold_in(rcnn, i) for i in range(8)] \
             if cascade else [rcnn]
     rpn_keys = [rpn, jax.random.fold_in(rpn, 1)] if ga else [rpn]
+    if hlr:
+        stages = [second]
     keys = iter([rng] if unsplit else rpn_keys + stages)
 
     def draw(shape, device, n=2):
