@@ -1,7 +1,8 @@
 """Anchor generation (counterpart of ``bonai_tpu/core/anchors.py``
-``AnchorGenerator``, ``SSDAnchorGenerator``, ``LegacySSDAnchorGenerator``
-and ``RAnchorGenerator``).  Anchors depend only on the feature-map sizes, so
-they are built in numpy and moved to the device by the caller."""
+``AnchorGenerator``, ``LegacyAnchorGenerator``, ``SSDAnchorGenerator``,
+``LegacySSDAnchorGenerator`` and ``RAnchorGenerator``).  Anchors depend
+only on the feature-map sizes, so they are built in numpy and moved to the
+device by the caller."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import numpy as np
 
 
 class AnchorGenerator:
+    legacy = False          # mmdetection v1.x's anchors (the subclass's)
+
     def __init__(self, strides, ratios, scales=None, base_sizes=None,
                  scale_major=True, octave_base_scale=None,
                  scales_per_octave=None, centers=None, center_offset=0.):
@@ -39,21 +42,11 @@ class AnchorGenerator:
         return len(self.strides)
 
     def _single_level_base_anchors(self, base_size, center=None):
-        w = h = float(base_size)
         if center is None:
-            x_c, y_c = self.center_offset * w, self.center_offset * h
-        else:
-            x_c, y_c = center
-        h_ratios = np.sqrt(self.ratios)
-        w_ratios = 1.0 / h_ratios
-        if self.scale_major:
-            ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
-            hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
-        else:
-            ws = (w * self.scales[:, None] * w_ratios[None, :]).reshape(-1)
-            hs = (h * self.scales[:, None] * h_ratios[None, :]).reshape(-1)
-        return np.stack([x_c - 0.5 * ws, y_c - 0.5 * hs,
-                         x_c + 0.5 * ws, y_c + 0.5 * hs], axis=-1)
+            c = self.center_offset * (float(base_size) - self.legacy)
+            center = (c, c)
+        return _base_anchors(base_size, self.scales, self.ratios, center,
+                             self.scale_major, self.legacy)
 
     def grid_anchors(self, featmap_sizes):
         """List of ``(H*W*A, 4)`` float32 arrays, row-major over (y, x, a)."""
@@ -71,6 +64,46 @@ class AnchorGenerator:
             out.append((base[None, :, :] + shifts[:, None, :])
                        .reshape(-1, 4).astype(np.float32))
         return out
+
+
+class LegacyAnchorGenerator(AnchorGenerator):
+    """mmdetection v1.x's anchors (the ``legacy_1.x`` configs): the base
+    anchors' centre at ``center_offset * (size - 1)``, their corners at
+    ``size - 1`` and rounded, and the valid flags of the cells inside the
+    unpadded image (the JAX ``LegacyAnchorGenerator``)."""
+
+    legacy = True
+
+    def valid_flags(self, featmap_sizes, pad_shape):
+        """Per level a bool ``(H*W*A,)``: whether the anchor's cell lies
+        within the ``ceil(size / stride)`` cells that ``pad_shape``'s
+        ``(h, w)`` covers."""
+        flags = []
+        h, w = pad_shape[:2]
+        for (feat_h, feat_w), stride, base in zip(
+                featmap_sizes, self.strides, self.base_anchors):
+            valid_h = min(int(np.ceil(h / stride[1])), feat_h)
+            valid_w = min(int(np.ceil(w / stride[0])), feat_w)
+            vy = np.arange(feat_h) < valid_h
+            vx = np.arange(feat_w) < valid_w
+            flags.append(np.repeat((vy[:, None] & vx[None, :]).reshape(-1),
+                                   len(base)))
+        return flags
+
+
+def build_anchor_generator(cfg):
+    """The ``AnchorGenerator`` or ``LegacyAnchorGenerator`` of an mmdet
+    ``anchor_generator`` config (``AnchorGenerator`` when it names no
+    type); another type raises, naming the ROADMAP.md item that ports
+    it."""
+    cfg = dict(cfg)
+    atype = cfg.pop("type", "AnchorGenerator")
+    gens = {"AnchorGenerator": AnchorGenerator,
+            "LegacyAnchorGenerator": LegacyAnchorGenerator}
+    if atype not in gens:
+        raise NotImplementedError(f"{atype} is not ported to bonai_tpu_torch "
+                                  f"yet (ROADMAP.md item A6)")
+    return gens[atype](**cfg)
 
 
 class RAnchorGenerator(AnchorGenerator):

@@ -19,13 +19,19 @@ norm of ``norm_cfg=dict(type='BN', requires_grad=False)`` outside them
 (the caffe-style trunks) reads its affine behind a gradient stop: it gets
 a zero gradient and stays in the optimizer, moved by weight decay and
 momentum, as the JAX package's frozen mask (by stage only) leaves it;
-mmdetection keeps it fixed (ROADMAP.md queue C).
+mmdetection keeps it fixed (ROADMAP.md queue C).  ``paramwise_cfg``'s
+``norm_decay_mult=0`` (the scratch and crop640 recipes) exempts every
+norm's affine (a BatchNorm's, GroupNorm's or LayerNorm's weight and bias:
+the JAX package's 1-D ``scale`` leaves and their ``bias``) from the
+weight decay; its ``bypass_duplicate`` is read and ignored, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def build_lr_schedule(base_lr, steps_per_epoch, step_epochs, warmup="linear",
@@ -56,18 +62,40 @@ def build_lr_schedule(base_lr, steps_per_epoch, step_epochs, warmup="linear",
     return schedule
 
 
+def _norm_params(model):
+    """The ids of the affine parameters of ``model``'s norms (the ones
+    ``paramwise_cfg.norm_decay_mult`` scales)."""
+    from ..models.backbones.resnet import FrozenBatchNorm2d
+    norms = (FrozenBatchNorm2d, nn.modules.batchnorm._NormBase,
+             nn.GroupNorm, nn.LayerNorm)
+    return {id(p) for m in model.modules() if isinstance(m, norms)
+            for p in m.parameters(recurse=False)}
+
+
 def build_optimizer(model, optimizer_cfg):
     """``torch.optim.SGD`` over the trainable parameters of ``model`` from
     ``dict(type='SGD', lr=..., momentum=..., weight_decay=...)``, or
     ``torch.optim.Adam`` (coupled weight decay) for a type ``'Adam'`` or
-    ``'AdamW'``."""
+    ``'AdamW'``; with ``paramwise_cfg=dict(norm_decay_mult=0)`` the norms'
+    affine parameters are a second group without weight decay.  Another
+    ``paramwise_cfg`` key or multiplier raises A7."""
     cfg = dict(optimizer_cfg)
     opt_type = cfg.get("type", "SGD")
-    if opt_type not in ("SGD", "Adam", "AdamW") or cfg.get("paramwise_cfg"):
+    pw = dict(cfg.get("paramwise_cfg") or {})
+    pw.pop("bypass_duplicate", None)
+    norm_mult = pw.pop("norm_decay_mult", 1.0)
+    if opt_type not in ("SGD", "Adam", "AdamW") or pw \
+            or norm_mult not in (0, 1):
         raise NotImplementedError(
-            f"optimizer {cfg.get('type')} / paramwise_cfg is not ported to "
-            f"bonai_tpu_torch yet (ROADMAP.md item A7)")
+            f"optimizer {cfg.get('type')} / paramwise_cfg "
+            f"{cfg.get('paramwise_cfg')} is not ported to bonai_tpu_torch "
+            f"yet (ROADMAP.md item A7)")
     params = [p for p in model.parameters() if p.requires_grad]
+    if norm_mult == 0:
+        norms = _norm_params(model)
+        params = [{"params": [p for p in params if id(p) not in norms]},
+                  {"params": [p for p in params if id(p) in norms],
+                   "weight_decay": 0.0}]
     if opt_type != "SGD":
         return torch.optim.Adam(params, lr=cfg.get("lr", 0.02),
                                 betas=(0.9, 0.999), eps=1e-8,

@@ -1,10 +1,12 @@
-"""The Guided Anchoring RPN: its head, square and approximate anchors,
-guided-anchor decode, location and shape targets, loss and proposals
-(counterpart of ``bonai_tpu/models/dense_heads/ga_rpn_head.py``:
-``GARPNHead``, ``square_anchors``, ``approx_anchors``,
-``decode_guided_anchors``, ``_region_bounds``, ``_paint``,
-``ga_loc_targets``, ``ga_shape_targets``, ``ga_rpn_loss`` and
-``ga_proposals_single``, batched over images here).
+"""Guided Anchoring: the RPN's and RetinaNet's heads, square and
+approximate anchors, guided-anchor decode, location and shape targets,
+losses, proposals and detections (counterpart of
+``bonai_tpu/models/dense_heads/ga_rpn_head.py``: ``GARPNHead``,
+``square_anchors``, ``approx_anchors``, ``decode_guided_anchors``,
+``_region_bounds``, ``_paint``, ``ga_loc_targets``, ``ga_shape_targets``,
+``ga_rpn_loss``, ``ga_proposals_single``, ``GARetinaHead``,
+``ga_retina_loss`` and ``ga_retina_bboxes_single``, batched over images
+here).
 
 Each cell predicts an objectness location score and an anchor shape
 ``(dw, dh)`` that scales the cell's square; a deformable 3x3 conv whose
@@ -13,12 +15,19 @@ the RPN's classification and deltas run on the adapted features over the
 guided anchors.  The shape targets come from approximate max-IoU: each
 square takes the best IoU of its cell's 9 approximate anchors.
 
+The RetinaNet head runs the retina towers, reads the location from the
+classification tower and the shape from the regression tower, adapts each
+tower by its own deformable conv and ends in RetinaNet's 3x3 outputs over
+one guided anchor a cell; its loss is RetinaNet's focal and L1 over all
+guided anchors beside the location and shape terms.
+
 Keys are mmdetection v2.3's (``rpn_head.{rpn_conv,conv_loc,conv_shape,
 feature_adaption.conv_offset,feature_adaption.conv_adaption,conv_cls,
-conv_reg}``), but the feature adaption has one offset group, as in the
+conv_reg}``; ``bbox_head.{cls_convs.<i>.conv,reg_convs.<i>.conv,conv_loc,
+conv_shape,feature_adaption_cls,feature_adaption_reg,retina_cls,
+retina_reg}``), but a feature adaption has one offset group, as in the
 JAX package: ``conv_offset`` predicts 18 channels, mmdetection's 72 (four
 groups; ``utils/weights.py::mmdet_state_dict`` refuses them).
-``GARetinaHead`` raises, naming ROADMAP.md item A6.
 """
 
 from __future__ import annotations
@@ -36,7 +45,9 @@ from ...ops.deform_conv import DeformConv2d
 from ..init import kaiming_fan_out_, zeros_
 from ..losses import (binary_cross_entropy, bounded_iou_loss, l1_loss,
                       sigmoid_focal_loss)
-from .retina_head import BIAS_PRIOR, gather_rows, init_output, top_per_level
+from .retina_head import (BIAS_PRIOR, clip_to, flatten_levels, gather_rows,
+                          init_output, init_towers, nms_detections,
+                          retina_targets, top_per_level, towers)
 from .rpn_head import rpn_targets
 
 # approximate anchors a chunk of the shape targets' IoU (a bound on the
@@ -241,14 +252,14 @@ def ga_shape_targets(squares, approxs, gt_bboxes, gt_valid, draw,
     return pos_mask, bbox_gts, res["valid"].float().sum(1)
 
 
-def ga_rpn_loss(cls_scores, bbox_preds, shape_preds, loc_preds, squares,
-                approxs, gt_bboxes, gt_valid, draw, train_cfg, strides,
-                octave_base_scale):
-    """GA-RPN's losses of a batch: focal location loss, bounded-IoU shape
-    loss on the sampled positive squares, and the RPN's classification and
-    L1 losses on the detached guided anchors.  ``squares`` ``(N, 4)`` and
-    ``approxs`` ``(N, 9, 4)`` are the levels' concatenated; ``draw`` gives
-    the shape sampler's uniforms, then the RPN sampler's."""
+def _ga_loc_shape_losses(shape_preds, loc_preds, squares, approxs,
+                         gt_bboxes, gt_valid, draw, train_cfg, strides,
+                         octave_base_scale, assigner_defaults):
+    """The location and shape losses of a batch and the guided anchors
+    ``(B, N, 4)``: focal location loss over the levels, bounded-IoU shape
+    loss on the sampled positive squares (``draw``'s uniforms; the
+    ``ga_assigner``'s thresholds default to ``assigner_defaults``'s:
+    ``pos_iou_thr``, ``neg_iou_thr``, ``min_pos_iou``)."""
     b = gt_bboxes.shape[0]
     ga_cfg = dict(train_cfg.get("ga_assigner", {}))
     samp_cfg = dict(train_cfg.get("ga_sampler", {}))
@@ -260,12 +271,9 @@ def ga_rpn_loss(cls_scores, bbox_preds, shape_preds, loc_preds, squares,
     loss_loc = sum(sigmoid_focal_loss(lp[:, 0], t, weight=w,
                                       avg_factor=loc_avg)
                    for lp, t, w in zip(loc_preds, loc_t, loc_w))
-
     pos_mask, bbox_gts, n_sampled = ga_shape_targets(
         squares, approxs, gt_bboxes, gt_valid, draw,
-        pos_iou_thr=ga_cfg.get("pos_iou_thr", 0.7),
-        neg_iou_thr=ga_cfg.get("neg_iou_thr", 0.3),
-        min_pos_iou=ga_cfg.get("min_pos_iou", 0.3),
+        **{k: ga_cfg.get(k, v) for k, v in assigner_defaults.items()},
         sample_num=samp_cfg.get("num", 256),
         pos_fraction=samp_cfg.get("pos_fraction", 0.5))
     shape_flat = torch.cat([s.permute(0, 2, 3, 1).reshape(b, -1, 2)
@@ -275,7 +283,22 @@ def ga_rpn_loss(cls_scores, bbox_preds, shape_preds, loc_preds, squares,
                                    beta=train_cfg.get("shape_beta", 0.2))
                   * pos_mask.float()[..., None] * 0.5).sum() \
         / n_sampled.sum().clamp(min=1.0)
+    return loss_loc, loss_shape, guided
 
+
+def ga_rpn_loss(cls_scores, bbox_preds, shape_preds, loc_preds, squares,
+                approxs, gt_bboxes, gt_valid, draw, train_cfg, strides,
+                octave_base_scale):
+    """GA-RPN's losses of a batch: focal location loss, bounded-IoU shape
+    loss on the sampled positive squares, and the RPN's classification and
+    L1 losses on the detached guided anchors.  ``squares`` ``(N, 4)`` and
+    ``approxs`` ``(N, 9, 4)`` are the levels' concatenated; ``draw`` gives
+    the shape sampler's uniforms, then the RPN sampler's."""
+    b = gt_bboxes.shape[0]
+    loss_loc, loss_shape, guided = _ga_loc_shape_losses(
+        shape_preds, loc_preds, squares, approxs, gt_bboxes, gt_valid, draw,
+        train_cfg, strides, octave_base_scale,
+        dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3))
     cls_flat = torch.cat([s.reshape(b, -1) for s in cls_scores], 1)
     reg_flat = torch.cat([r.permute(0, 2, 3, 1).reshape(b, -1, 4)
                           for r in bbox_preds], 1)
@@ -326,3 +349,105 @@ def ga_proposals(cls_scores, bbox_preds, shape_preds, loc_preds,
                                   kept.shape[1]))
     top = kept.gather(1, idx)
     return gather_rows(boxes, idx), top, top > 0
+
+
+class GARetinaHead(nn.Module):
+    """Guided Anchoring's RetinaNet head: the retina towers (3x3
+    conv-ReLUs shared over the levels), 1x1 convs to the location logit
+    (on the classification tower) and the shape (on the regression
+    tower), a feature adaption of each tower, and 3x3 convs to the ``C``
+    logits and the 4 deltas of the cell's guided anchor.  Outputs float32
+    per level: ``(B, C, H, W)``, ``(B, 4, H, W)``, ``(B, 2, H, W)`` and
+    ``(B, 1, H, W)``."""
+
+    def __init__(self, num_classes=80, in_channels=256, feat_channels=256,
+                 stacked_convs=4):
+        super().__init__()
+        self.num_classes = num_classes
+        self.cls_convs, self.reg_convs = towers(in_channels, feat_channels,
+                                                stacked_convs)
+        self.conv_loc = nn.Conv2d(feat_channels, 1, 1)
+        self.conv_shape = nn.Conv2d(feat_channels, 2, 1)
+        self.feature_adaption_cls = FeatureAdaption(feat_channels,
+                                                    feat_channels)
+        self.feature_adaption_reg = FeatureAdaption(feat_channels,
+                                                    feat_channels)
+        self.retina_cls = nn.Conv2d(feat_channels, num_classes, 3, padding=1)
+        self.retina_reg = nn.Conv2d(feat_channels, 4, 3, padding=1)
+
+    def init_weights(self, gen):
+        init_towers(self, gen, kaiming=False)
+        init_output(self.conv_loc, gen, BIAS_PRIOR)
+        init_output(self.conv_shape, gen)
+        init_output(self.retina_cls, gen, BIAS_PRIOR)
+        init_output(self.retina_reg, gen)
+
+    def forward(self, feats):
+        cls_scores, bbox_preds, shape_preds, loc_preds = [], [], [], []
+        for x in feats:
+            c = r = x
+            for conv in self.cls_convs:
+                c = conv(c)
+            for conv in self.reg_convs:
+                r = conv(r)
+            loc_preds.append(self.conv_loc(c).float())
+            shape = self.conv_shape(r).float()
+            shape_preds.append(shape)
+            c = self.feature_adaption_cls(c, shape)
+            r = self.feature_adaption_reg(r, shape)
+            cls_scores.append(self.retina_cls(c).float())
+            bbox_preds.append(self.retina_reg(r).float())
+        return cls_scores, bbox_preds, shape_preds, loc_preds
+
+
+def ga_retina_loss(cls_scores, bbox_preds, shape_preds, loc_preds, squares,
+                   approxs, gt_bboxes, gt_valid, gt_labels, num_classes, draw,
+                   train_cfg, strides, octave_base_scale, gamma=2.0,
+                   alpha=0.25):
+    """GA RetinaNet's losses of a batch: the location and shape losses (the
+    ``ga_assigner``'s thresholds 0.5 / 0.4 / 0.0 by default; ``draw``
+    called once, for the shape sampler), then RetinaNet's focal loss over
+    the non-ignored and L1 over the positive detached guided anchors, both
+    over the batch's positive count."""
+    loss_loc, loss_shape, guided = _ga_loc_shape_losses(
+        shape_preds, loc_preds, squares, approxs, gt_bboxes, gt_valid, draw,
+        train_cfg, strides, octave_base_scale,
+        dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0))
+    cls_flat = flatten_levels(cls_scores, num_classes)
+    reg_flat = flatten_levels(bbox_preds, 4)
+    onehot, cls_w, bt, bw, npos, _ = retina_targets(
+        guided.detach(), gt_bboxes, gt_valid, gt_labels, num_classes,
+        dict(train_cfg["assigner"]))
+    total_pos = npos.sum().clamp(min=1.0)
+    return {"loss_cls": sigmoid_focal_loss(cls_flat, onehot, gamma, alpha,
+                                           cls_w[..., None],
+                                           avg_factor=total_pos),
+            "loss_bbox": l1_loss(reg_flat, bt, bw, avg_factor=total_pos),
+            "loss_shape": loss_shape, "loss_loc": loss_loc}
+
+
+def ga_retina_bboxes(cls_scores, bbox_preds, shape_preds, loc_preds,
+                     squares_levels, img_shape, num_classes, cfg,
+                     target_stds=(1., 1., 1., 1.), loc_filter_thr=0.01):
+    """Detections of a batch: per level the guided anchors, the sigmoid
+    class scores zeroed where the location score is below
+    ``loc_filter_thr``, the ``nms_pre`` cells of the highest class score
+    decoded (``target_stds``) and clipped to ``img_shape`` ``(B, 2)``;
+    then multi-class NMS over the levels."""
+    nms_pre = int(cfg.get("nms_pre", 1000))
+    b = cls_scores[0].shape[0]
+    boxes_all, scores_all = [], []
+    for cs, bp, sp, lp, sq in zip(cls_scores, bbox_preds, shape_preds,
+                                  loc_preds, squares_levels):
+        guided = decode_guided_anchors(
+            sq, sp.permute(0, 2, 3, 1).reshape(b, -1, 2).float())
+        keep = torch.sigmoid(lp.reshape(b, -1).float()) >= loc_filter_thr
+        s = torch.sigmoid(flatten_levels([cs], num_classes)) * keep[..., None]
+        idx = top_per_level(s.max(dim=-1).values, min(nms_pre, s.shape[1]))
+        dec = delta2bbox(gather_rows(guided, idx),
+                         gather_rows(flatten_levels([bp], 4), idx),
+                         stds=tuple(target_stds))
+        boxes_all.append(clip_to(dec, img_shape))
+        scores_all.append(gather_rows(s, idx))
+    return nms_detections(torch.cat(boxes_all, 1), torch.cat(scores_all, 1),
+                          cfg, 0.5)

@@ -1,13 +1,14 @@
 """RetinaNet's head and its all-anchor targets, loss and decode
 (counterpart of ``bonai_tpu/models/dense_heads/retina_head.py``:
-``RetinaHead``, ``retina_targets``, ``retina_loss`` and
-``retina_bboxes_single``, batched over images here), with the pieces the
-other dense heads share: the conv towers and the flattening of the
+``RetinaHead``, ``RetinaSepBNHead``, ``retina_targets``, ``retina_loss``
+and ``retina_bboxes_single``, batched over images here), with the pieces
+the other dense heads share: the conv towers and the flattening of the
 levels' NCHW outputs to the anchors' ``(level, y, x, a)`` order.
 
 The head's keys are mmdetection v2.3's (``bbox_head.cls_convs.<i>.conv``,
-``reg_convs.<i>.conv``, ``retina_cls``, ``retina_reg``).  Every loss term
-computes in float32 whatever the head's dtype.
+``reg_convs.<i>.conv``, ``retina_cls``, ``retina_reg``; the SepBN head's
+``cls_convs.<level>.<i>.{conv,bn}``, the convs level 0's alone).  Every
+loss term computes in float32 whatever the head's dtype.
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ from torch import nn
 from ...core.assigners import max_iou_assign
 from ...core.boxes import bbox2delta, clip_boxes, delta2bbox
 from ...core.nms import multiclass_nms
+from ..backbones.resnet import FrozenBatchNorm2d
 from ..init import kaiming_fan_out_, normal_, zeros_
-from ..losses import (GHMC, GHMR, carl_loss, isr_p, l1_loss,
-                      sigmoid_focal_loss)
+from ..losses import (GHMC, GHMR, balanced_l1_loss, carl_loss, isr_p,
+                      l1_loss, sigmoid_focal_loss)
 
 GN_EPS = 1e-6                   # flax's GroupNorm epsilon
 BIAS_PRIOR = -math.log((1 - 0.01) / 0.01)   # initial foreground prob 0.01
@@ -163,14 +165,72 @@ class RetinaHead(nn.Module):
         return cls_scores, bbox_preds
 
 
+class SepBNConv(nn.Module):
+    """One tower conv of :class:`RetinaSepBNHead` at one level: its
+    frozen BatchNorm ``bn``, and the bias-free 3x3 ``conv`` that the
+    levels share (level 0's alone: ``None`` elsewhere)."""
+
+    def __init__(self, cin, cout, with_conv):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, 3, padding=1, bias=False) \
+            if with_conv else None
+        self.bn = FrozenBatchNorm2d(cout)
+
+
+class RetinaSepBNHead(nn.Module):
+    """RetinaNet's head with its tower convs shared over the levels and a
+    BatchNorm for each level and conv (mmdetection's ``RetinaSepBNHead``,
+    the NAS-FPN crop640 configs), then ReLUs and the shared outputs.  The
+    norms run over their stored statistics, as every BatchNorm of the JAX
+    package does, whatever ``norm_cfg`` says (mmdetection trains them in
+    batch mode: ROADMAP.md queue C); ``num_levels`` is the neck's output
+    count (the JAX head makes a norm for each level it is given)."""
+
+    def __init__(self, num_classes=80, in_channels=256, feat_channels=256,
+                 stacked_convs=4, num_anchors=9, num_levels=5):
+        super().__init__()
+        self.num_classes = num_classes
+        self.cls_convs, self.reg_convs = ([nn.ModuleList([nn.ModuleList(
+            [SepBNConv(in_channels if i == 0 else feat_channels,
+                       feat_channels, lvl == 0)
+             for i in range(stacked_convs)]) for lvl in range(num_levels)])
+            for _ in range(2)])
+        self.retina_cls = nn.Conv2d(feat_channels, num_anchors * num_classes,
+                                    3, padding=1)
+        self.retina_reg = nn.Conv2d(feat_channels, num_anchors * 4, 3,
+                                    padding=1)
+
+    def init_weights(self, gen):
+        for tower in (self.cls_convs[0], self.reg_convs[0]):
+            for m in tower:
+                normal_(m.conv.weight, 0.01, gen)
+        init_output(self.retina_cls, gen, BIAS_PRIOR)
+        init_output(self.retina_reg, gen)
+
+    def forward(self, feats):
+        """As :meth:`RetinaHead.forward`."""
+        cls_scores, bbox_preds = [], []
+        for lvl, x in enumerate(feats):
+            c = r = x
+            for shared_c, shared_r, own_c, own_r in zip(
+                    self.cls_convs[0], self.reg_convs[0],
+                    self.cls_convs[lvl], self.reg_convs[lvl]):
+                c = F.relu(own_c.bn(shared_c.conv(c)))
+                r = F.relu(own_r.bn(shared_r.conv(r)))
+            cls_scores.append(self.retina_cls(c))
+            bbox_preds.append(self.retina_reg(r))
+        return cls_scores, bbox_preds
+
+
 def retina_targets(anchors, gt_bboxes, gt_valid, gt_labels, num_classes,
                    assigner_cfg):
-    """All-anchor targets of a batch (no sampling): ``(B, A, C)`` one-hot
-    labels of the positives, ``(B, A)`` classification weights (0 for the
-    ignored anchors), ``(B, A, 4)`` delta targets and weights (the
-    positives'), the positive count ``(B,)``, and ``aux``: ``is_pos``,
-    ``matched`` (the GT index), ``labels`` and ``gt_boxes`` of each
-    anchor."""
+    """All-anchor targets of a batch (no sampling) over the ``(A, 4)``
+    anchors, or each image's own ``(B, A, 4)`` (Guided Anchoring's):
+    ``(B, A, C)`` one-hot labels of the positives, ``(B, A)``
+    classification weights (0 for the ignored anchors), ``(B, A, 4)``
+    delta targets and weights (the positives'), the positive count
+    ``(B,)``, and ``aux``: ``is_pos``, ``matched`` (the GT index),
+    ``labels`` and ``gt_boxes`` of each anchor."""
     assigned, _ = max_iou_assign(
         anchors, gt_bboxes, gt_valid,
         pos_iou_thr=assigner_cfg.get("pos_iou_thr", 0.5),
@@ -242,7 +302,8 @@ def retina_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_valid,
     """RetinaNet's losses of a batch over the ``(A, 4)`` concatenated
     anchors: sigmoid focal loss over the non-ignored anchors and L1 over
     the positives' deltas, both over the batch's positive count.
-    ``loss_cls_cfg``/``loss_bbox_cfg`` replace them with GHM-C/GHM-R;
+    ``loss_cls_cfg``/``loss_bbox_cfg`` replace them with GHM-C/GHM-R (or
+    the box loss with Libra's ``BalancedL1Loss``);
     ``pisa_cfg`` (``dict(isr=..., carl=...)``) applies ISR-P to the
     classification weights and adds ``loss_carl``."""
     cls_flat = flatten_levels(cls_scores, num_classes)
@@ -263,9 +324,12 @@ def retina_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_valid,
     else:
         loss_cls = sigmoid_focal_loss(cls_flat, onehot, gamma, alpha,
                                       cls_w[..., None], avg_factor=total_pos)
-    if loss_bbox_cfg:
+    if loss_bbox_cfg and loss_bbox_cfg["type"] == "GHMR":
         loss_bbox = GHMR(**_loss_kwargs(loss_bbox_cfg))(
             reg_flat, bt, bw, avg_factor=total_pos)
+    elif loss_bbox_cfg:
+        loss_bbox = balanced_l1_loss(reg_flat, bt, bw, avg_factor=total_pos,
+                                     **_loss_kwargs(loss_bbox_cfg))
     else:
         loss_bbox = l1_loss(reg_flat, bt, bw, avg_factor=total_pos)
     return {"loss_cls": loss_cls, "loss_bbox": loss_bbox, **extra}

@@ -41,13 +41,15 @@ class RPNHead(nn.Module):
         return cls_scores, bbox_preds
 
 
-def rpn_proposals(cls_scores, bbox_preds, anchors_levels, img_shape, cfg):
+def rpn_proposals(cls_scores, bbox_preds, anchors_levels, img_shape, cfg,
+                  legacy=False):
     """Proposals for a batch of images.
 
-    Per image and level: top ``nms_pre`` anchors by sigmoid score, decode,
-    clip to ``img_shape`` ``(B, 2)`` (h, w), hard NMS at ``nms_thr``; then
-    the top ``max_num`` over all levels.  Returns ``(B, max_num, 4)``
-    boxes, ``(B, max_num)`` scores and a bool valid mask.
+    Per image and level: top ``nms_pre`` anchors by sigmoid score, decode
+    (``legacy``: mmdetection v1.x's ``+1`` sizes), clip to ``img_shape``
+    ``(B, 2)`` (h, w), hard NMS at ``nms_thr``; then the top ``max_num``
+    over all levels.  Returns ``(B, max_num, 4)`` boxes, ``(B, max_num)``
+    scores and a bool valid mask.
     """
     nms_pre = cfg.get("nms_pre", 1000)
     max_num = cfg.get("max_num", cfg.get("nms_post", 1000))
@@ -68,7 +70,7 @@ def rpn_proposals(cls_scores, bbox_preds, anchors_levels, img_shape, cfg):
             a = anchors[idx]
         else:
             a = anchors.expand(b, -1, 4)
-        boxes = clip_boxes(delta2bbox(a, d), hw)
+        boxes = clip_boxes(delta2bbox(a, d, legacy=legacy), hw)
         valid = torch.ones_like(s, dtype=torch.bool)
         if min_bbox_size > 0:
             valid = ((boxes[..., 2] - boxes[..., 0] > min_bbox_size)
@@ -115,9 +117,10 @@ def _flatten(cls_scores, bbox_preds):
 
 
 def rpn_targets(anchors, gt_bboxes, gt_valid, u_pos, u_neg, assigner_cfg,
-                sampler_cfg):
+                sampler_cfg, legacy=False):
     """RPN targets of a batch over the flattened ``(N, 4)`` anchors, or
-    each image's own ``(B, N, 4)`` (Guided Anchoring's).
+    each image's own ``(B, N, 4)`` (Guided Anchoring's); ``legacy``
+    encodes the deltas with mmdetection v1.x's ``+1`` sizes.
 
     ``gt_bboxes`` ``(B, G, 4)``, ``gt_valid`` ``(B, G)``; ``u_pos``/
     ``u_neg`` ``(B, N)`` the sampler's uniforms.  Returns ``labels``,
@@ -144,7 +147,7 @@ def rpn_targets(anchors, gt_bboxes, gt_valid, u_pos, u_neg, assigner_cfg,
         1, res["pos_gt_inds"][..., None].expand(-1, -1, 4))
     sampled = anchors[inds] if anchors.dim() == 2 else anchors.gather(
         1, inds[..., None].expand(-1, -1, 4))
-    deltas = bbox2delta(sampled, matched)
+    deltas = bbox2delta(sampled, matched, legacy=legacy)
     idx4 = inds[..., None].expand(-1, -1, 4)
     w = pos[..., None]
     bbox_targets = anchors.new_zeros((b, n, 4)).scatter_add_(1, idx4,
@@ -155,7 +158,7 @@ def rpn_targets(anchors, gt_bboxes, gt_valid, u_pos, u_neg, assigner_cfg,
 
 
 def rpn_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_valid, draw,
-             train_cfg, reg_weight=None):
+             train_cfg, reg_weight=None, legacy=False):
     """RPN losses of a batch: sigmoid cross-entropy over the sampled
     anchors and L1 over the positive ones, both averaged over all sampled
     anchors of the batch.
@@ -164,12 +167,13 @@ def rpn_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_valid, draw,
     ``anchors`` the ``(N, 4)`` concatenated level anchors, ``draw`` the
     sampler's draw source (:func:`~bonai_tpu_torch.core.samplers
     .generator_draws`).  ``reg_weight`` ``(B,)`` scales each image's
-    regression weights (``SemiRPNHead``: 0 for a footprint-only image)."""
+    regression weights (``SemiRPNHead``: 0 for a footprint-only image);
+    ``legacy``: the v1.x targets (:func:`rpn_targets`)."""
     cls, reg = _flatten(cls_scores, bbox_preds)
     u_pos, u_neg = draw(cls.shape, cls.device)
     labels, lw, bt, bw, ns = rpn_targets(
         anchors, gt_bboxes, gt_valid, u_pos, u_neg,
-        dict(train_cfg["assigner"]), dict(train_cfg["sampler"]))
+        dict(train_cfg["assigner"]), dict(train_cfg["sampler"]), legacy)
     num_total = ns.sum().clamp(min=1.0)
     if reg_weight is not None:
         bw = bw * reg_weight[:, None, None]

@@ -1,19 +1,19 @@
-"""The dense single-stage detectors: RetinaNet (with GHM-C/GHM-R losses or
-PISA; NAS-FPN's is a RetinaNet on a ``NASFPN`` neck), FreeAnchor, ATSS,
-GFL, FCOS (with ``dcn_on_last_conv``), NAS-FCOS, FSAF, FoveaBox,
-RepPoints, SSD and CornerNet (counterparts of the classes of
-``bonai_tpu/models/detectors/single_stage.py``).
+"""The dense single-stage detectors: RetinaNet (with GHM-C/GHM-R or
+Libra's balanced L1 losses, PISA, mmdetection v1.x's anchors, the SepBN
+head, or Guided Anchoring's head; NAS-FPN's is a RetinaNet on a ``NASFPN``
+neck), FreeAnchor, ATSS, GFL, FCOS (with ``dcn_on_last_conv``), NAS-FCOS,
+FSAF, FoveaBox, RepPoints, SSD and CornerNet (counterparts of the classes
+of ``bonai_tpu/models/detectors/single_stage.py``).
 
 Each is a backbone, a neck (none for SSD and CornerNet, whose backbones
 feed the head) and one dense head over the levels, with the port's
 detector contract: ``forward_train(batch, draw)`` (the batch contract of
-the two-stage detectors; none of these samples, so ``draw`` is never
-called), ``simple_test(img, img_shape, scale_factor)`` with the same
-padded output dict, and mmdet v2.3 keys (``backbone``, ``neck``,
-``bbox_head``).  The options the JAX detectors read are ported; others
-raise, naming the ROADMAP.md item that ports them: Guided Anchoring's
-``GARetinaHead``, ``RetinaSepBNHead``, ``LegacyAnchorGenerator``, other
-losses, and FoveaBox's ``with_deform``.
+the two-stage detectors; Guided Anchoring's RetinaNet alone samples, its
+shape targets, and calls ``draw`` once), ``simple_test(img, img_shape,
+scale_factor)`` with the same padded output dict, and mmdet v2.3 keys
+(``backbone``, ``neck``, ``bbox_head``).  The options the JAX detectors
+read are ported; others raise, naming the ROADMAP.md item that ports
+them: other losses, and FoveaBox's ``with_deform``.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core.anchors import AnchorGenerator, SSDAnchorGenerator
+from ...core.anchors import SSDAnchorGenerator, build_anchor_generator
 from ...core.nms import soft_nms
 from ..dense_heads.atss_head import ATSSHead, atss_bboxes, atss_loss
 from ..dense_heads.corner_head import (CornerHead, corner_targets,
@@ -31,12 +31,16 @@ from ..dense_heads.fcos_head import (INF, FCOSHead, fcos_bboxes, fcos_loss,
                                      fcos_points)
 from ..dense_heads.fovea_head import FoveaHead, fovea_bboxes, fovea_loss
 from ..dense_heads.free_anchor_head import free_anchor_loss
+from ..dense_heads.ga_rpn_head import (GARetinaHead, approx_anchors,
+                                       ga_retina_bboxes, ga_retina_loss,
+                                       square_anchors)
 from ..dense_heads.fsaf_head import FSAFHead, fsaf_bboxes, fsaf_loss
 from ..dense_heads.gfl_head import GFLHead, gfl_bboxes, gfl_loss
 from ..dense_heads.reppoints_head import (RepPointsHead, reppoints_bboxes,
                                           reppoints_loss)
 from ..dense_heads.nasfcos_head import NASFCOSHead
-from ..dense_heads.retina_head import RetinaHead, retina_bboxes, retina_loss
+from ..dense_heads.retina_head import (RetinaHead, RetinaSepBNHead,
+                                      retina_bboxes, retina_loss)
 from ..dense_heads.ssd_head import SSDHead, ssd_bboxes, ssd_loss
 from ..losses import (associative_embedding_loss, gaussian_focal_loss,
                       smooth_l1_loss)
@@ -50,13 +54,9 @@ def _unported(what):
 
 
 def _anchor_generator(bh, default):
-    """The head's ``AnchorGenerator`` (``default`` when the config gives
-    none); ``LegacyAnchorGenerator`` raises A6."""
-    ag = dict(bh.get("anchor_generator", default))
-    atype = ag.pop("type", "AnchorGenerator")
-    if atype != "AnchorGenerator":
-        raise _unported(atype)
-    return AnchorGenerator(**ag)
+    """The head's anchor generator (``default``'s when the config gives
+    none)."""
+    return build_anchor_generator(bh.get("anchor_generator", default))
 
 
 RETINA_ANCHORS = dict(octave_base_scale=4, scales_per_octave=3,
@@ -115,11 +115,12 @@ class SingleStageDetector(nn.Module):
         feats = self.backbone(x)
         return feats if self.neck is None else self.neck(feats)
 
-    def _cached(self, feats, make):
+    def _cached(self, feats, make, kind=None):
         """``make(sizes)``'s numpy arrays (anchors or points, per level) on
-        the levels' device, built once per feature-map size."""
+        the levels' device, built once per feature-map size (and ``kind``,
+        where a detector caches more than one)."""
         sizes = tuple((int(f.shape[2]), int(f.shape[3])) for f in feats)
-        key = (sizes, feats[0].device)
+        key = (kind, sizes, feats[0].device)
         if key not in self._geometry:
             self._geometry[key] = [torch.from_numpy(a).to(feats[0].device)
                                    for a in make(sizes)]
@@ -168,19 +169,35 @@ class SingleStageDetector(nn.Module):
 
 
 class RetinaNet(SingleStageDetector):
-    """RetinaNet: focal + L1 losses over all anchors, GHM-C/GHM-R losses
-    in their place (``configs/ghm``), and PISA's ISR-P and CARL with
-    ``train_cfg.isr``/``carl`` (``configs/pisa``)."""
+    """RetinaNet: focal + L1 losses over all anchors, GHM-C/GHM-R or
+    Libra's ``BalancedL1Loss`` in their place (``configs/ghm``,
+    ``configs/libra_rcnn``; the JAX detector hands a ``loss_bbox`` other
+    than L1 or SmoothL1 to its loss registry), PISA's ISR-P and CARL with
+    ``train_cfg.isr``/``carl`` (``configs/pisa``: its ``PISARetinaHead`` is
+    a ``RetinaHead``, as the JAX detector builds one for it),
+    mmdetection v1.x's anchors (``legacy_1.x``; the v1.x box coder is not
+    read, as in the JAX detector: ROADMAP.md queue C), the SepBN head
+    (:class:`RetinaSepBNHead`), or Guided Anchoring's head
+    (:class:`GARetinaHead`: its approximate anchors' strides, octave base
+    scale and ratios, its squares' scale, ``loc_filter_thr`` and the box
+    coder's stds; ``train_cfg``'s assigner and sampler default as in the
+    JAX detector)."""
+
+    ga_head = False
 
     def _setup_head(self, bh):
         htype = bh.get("type", "RetinaHead")
-        if htype != "RetinaHead":       # GARetinaHead, RetinaSepBNHead
+        if htype == "GARetinaHead":
+            self._setup_ga_head(bh)
+            return
+        if htype not in ("RetinaHead", "PISARetinaHead", "RetinaSepBNHead"):
             raise _unported(htype)
         self.anchor_generator = _anchor_generator(bh, RETINA_ANCHORS)
-        self.bbox_head = RetinaHead(
-            self.num_classes, bh.get("in_channels", 256),
-            bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
-            len(self.anchor_generator.base_anchors[0]))
+        args = (self.num_classes, bh.get("in_channels", 256),
+                bh.get("feat_channels", 256), bh.get("stacked_convs", 4),
+                len(self.anchor_generator.base_anchors[0]))
+        self.bbox_head = RetinaSepBNHead(*args, self.num_levels) \
+            if htype == "RetinaSepBNHead" else RetinaHead(*args)
         # the JAX detector computes L1 for an L1Loss or a SmoothL1Loss
         # config (ROADMAP.md queue C)
         lc = dict(bh.get("loss_cls", {}))
@@ -188,10 +205,57 @@ class RetinaNet(SingleStageDetector):
         if lc.get("type", "FocalLoss") not in ("FocalLoss", "GHMC"):
             raise _unported(f"loss_cls {lc['type']}")
         if lb.get("type", "L1Loss") not in ("L1Loss", "SmoothL1Loss",
-                                            "GHMR"):
+                                            "GHMR", "BalancedL1Loss"):
             raise _unported(f"loss_bbox {lb['type']}")
         self.loss_cls_cfg = lc if lc.get("type") == "GHMC" else None
-        self.loss_bbox_cfg = lb if lb.get("type") == "GHMR" else None
+        self.loss_bbox_cfg = lb if lb.get("type") in (
+            "GHMR", "BalancedL1Loss") else None
+
+    def _setup_ga_head(self, bh):
+        self.ga_head = True
+        aag = dict(bh.get("approx_anchor_generator", {}))
+        self.ga_strides = [s if isinstance(s, (int, float)) else s[0]
+                           for s in aag.get("strides", [8, 16, 32, 64, 128])]
+        self.ga_octave_base_scale = aag.get("octave_base_scale", 4)
+        self.ga_scales_per_octave = aag.get("scales_per_octave", 3)
+        self.ga_ratios = tuple(aag.get("ratios", (0.5, 1.0, 2.0)))
+        self.ga_square_scale = list(dict(bh.get(
+            "square_anchor_generator", {})).get("scales", [4]))[0]
+        self.loc_filter_thr = bh.get("loc_filter_thr", 0.01)
+        self.target_stds = tuple(dict(bh.get("bbox_coder", {})).get(
+            "target_stds", (1., 1., 1., 1.)))
+        self.bbox_head = GARetinaHead(
+            self.num_classes, bh.get("in_channels", 256),
+            bh.get("feat_channels", 256), bh.get("stacked_convs", 4))
+
+    def _ga_geometry(self, feats):
+        """Guided Anchoring's per-level squares and the levels'
+        concatenated approximate anchors ``(N, 9, 4)``."""
+        out = self._cached(feats, lambda sizes: square_anchors(
+            sizes, self.ga_strides, self.ga_square_scale) + [np.concatenate(
+                approx_anchors(sizes, self.ga_strides,
+                               self.ga_octave_base_scale,
+                               self.ga_scales_per_octave, self.ga_ratios))],
+            "ga")
+        return out[:-1], out[-1]
+
+    def forward_train(self, batch, draw=None):
+        """The loss dict of one padded batch; Guided Anchoring's head calls
+        ``draw`` once (the JAX detector's ``sampling`` key, unsplit)."""
+        if not self.ga_head:
+            return super().forward_train(batch, draw)
+        feats = self.extract_feat(batch["image"])
+        squares, approxs = self._ga_geometry(feats)
+        tc = dict(self.train_cfg)
+        tc.setdefault("assigner", dict(pos_iou_thr=0.5, neg_iou_thr=0.5,
+                                       min_pos_iou=0.0))
+        tc.setdefault("sampler", dict(num=256, pos_fraction=0.5))
+        return ga_retina_loss(
+            *self.bbox_head(feats), torch.cat(squares).float(),
+            approxs.float(), batch["gt_bboxes"], batch["gt_valid"],
+            batch["gt_labels"], self.num_classes, draw, tc, self.ga_strides,
+            self.ga_octave_base_scale, gamma=self.focal_gamma,
+            alpha=self.focal_alpha)
 
     def _loss(self, outs, feats, batch):
         pisa = {k: self.train_cfg[k] for k in ("isr", "carl")
@@ -205,6 +269,11 @@ class RetinaNet(SingleStageDetector):
                            loss_bbox_cfg=self.loss_bbox_cfg, pisa_cfg=pisa)
 
     def _decode(self, outs, feats, img_shape):
+        if self.ga_head:
+            return ga_retina_bboxes(
+                *outs, [s.float() for s in self._ga_geometry(feats)[0]],
+                img_shape, self.num_classes, self.test_cfg, self.target_stds,
+                self.loc_filter_thr)
         return retina_bboxes(*outs, self._anchors(feats), img_shape,
                              self.num_classes, self.test_cfg)
 

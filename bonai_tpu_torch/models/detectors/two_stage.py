@@ -15,7 +15,10 @@ trained on the footprint boxes of footprint-only images without their
 regression: ``_semi_rpn_gt``) or the Guided Anchoring RPN
 (``GARPNHead``, with its ``approx_anchor_generator`` and
 ``loc_filter_thr``): then the proposals come from its guided anchors and
-its loss adds the location and shape terms.
+its loss adds the location and shape terms.  The plain RPN's anchors may
+be mmdetection v1.x's (``LegacyAnchorGenerator``), and its coder and the
+box head's ``LegacyDeltaXYWHBBoxCoder``: their proposals, targets and
+test decode then take v1.x's ``+1`` box sizes, as in the JAX package.
 
 Training samples the R-CNN's candidates as the JAX package does: at
 random, IoU-balanced, instance-balanced or combined (Libra R-CNN), or
@@ -57,7 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core.anchors import AnchorGenerator
+from ...core.anchors import build_anchor_generator
 from ...core.assigners import max_iou_assign
 from ...core.boxes import bbox_flip, clip_boxes, delta2bbox
 from ...core.masks import mask_targets_from_instance_masks
@@ -317,8 +320,10 @@ def _build_neck(cfg):
     refuses too, raises ``ValueError``):
     Libra R-CNN's ``[FPN, BFP]`` (an ``nn.Sequential``: mmdet's
     ``neck.0``, ``neck.1``); another chain raises A7, other necks A6.  The
-    FPN takes ``norm_cfg``, ``conv_cfg`` and ``no_norm_on_lateral``, the
-    other necks none of them."""
+    FPN takes ``norm_cfg``, ``conv_cfg`` and ``no_norm_on_lateral``; the
+    NAS-FPN reads ``norm_cfg`` and ignores it, as the JAX
+    ``build_neck_m`` does (its NAS-FPN has no norm: ROADMAP.md queue C);
+    the other necks take none of them."""
     if isinstance(cfg, (list, tuple)):
         types = [dict(c).get("type") for c in cfg]
         if len(cfg) < 2 or types[0] != "FPN" or any(
@@ -337,9 +342,11 @@ def _build_neck(cfg):
             "in_channels", "out_channels", "num_outs", "rfp_steps",
             "rfp_backbone", "aspp_out_channels", "aspp_dilations"), "A6"))
     if dict(cfg).get("type") == "NASFPN":
-        return NASFPN(**_kwargs(cfg, "neck", (
+        kw = _kwargs(cfg, "neck", (
             "in_channels", "out_channels", "num_outs", "stack_times",
-            "start_level", "add_extra_convs"), "A6"))
+            "start_level", "add_extra_convs", "norm_cfg"), "A6")
+        kw.pop("norm_cfg", None)        # the JAX NAS-FPN has no norm
+        return NASFPN(**kw)
     if dict(cfg).get("type") == "NASFCOS_FPN":
         raise ValueError("unsupported neck NASFCOS_FPN in the generic "
                          "builder (the NASFCOS detector builds its own)")
@@ -383,8 +390,9 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
     ``conv_cfg``), the C4 layout's ``BBoxHead`` (no shared convs or FCs;
     ``with_avg_pool``) and Double-Head's ``DoubleConvFCBBoxHead``;
     ``num_shared_convs``/``num_shared_fcs`` are read as the JAX builder
-    reads them.  Its ``loss_bbox`` may
-    be ``L1Loss`` or ``SmoothL1Loss`` (the JAX package computes L1 for
+    reads them.  Its coder may be ``DeltaXYWHBBoxCoder`` or
+    ``LegacyDeltaXYWHBBoxCoder`` (:func:`legacy_coder`).  Its ``loss_bbox``
+    may be ``L1Loss`` or ``SmoothL1Loss`` (the JAX package computes L1 for
     both, ROADMAP.md queue C) or, but for a cascade's stage, Libra's
     ``BalancedL1Loss`` on the deltas, or with ``reg_decoded_bbox=True``
     an ``IOU_LOSSES`` one on the decoded boxes.  ``reg_decoded_bbox``
@@ -416,7 +424,8 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
                 f"{ltype} reduction {loss['reduction']!r} is not ported to "
                 f"bonai_tpu_torch yet (ROADMAP.md item A7)")
     coder = dict(bh.get("bbox_coder", {}))
-    _require_type(coder, "DeltaXYWHBBoxCoder", "A7")
+    if not legacy_coder(coder):
+        _require_type(coder, "DeltaXYWHBBoxCoder", "A7")
     agnostic = bh.get("reg_class_agnostic", reg_class_agnostic)
     if htype == "DoubleConvFCBBoxHead":
         head = DoubleConvFCBBoxHead(
@@ -443,6 +452,12 @@ def _bbox_head(cfg, reg_class_agnostic=False, cascade=False):
             bh.get("fc_out_channels", 1024), bh.get("roi_feat_size", 7),
             agnostic, bh.get("with_reg", True), **shared)
     return head, coder, loss
+
+
+def legacy_coder(coder):
+    """Whether a box coder config is mmdetection v1.x's
+    ``LegacyDeltaXYWHBBoxCoder`` (``+1`` box sizes)."""
+    return dict(coder or {}).get("type") == "LegacyDeltaXYWHBBoxCoder"
 
 
 class TwoStageDetector(nn.Module):
@@ -498,6 +513,7 @@ class TwoStageDetector(nn.Module):
 
     ga_rpn = False          # the Guided Anchoring RPN
     semi_rpn = False        # SemiRPNHead: footprint boxes where flagged
+    rpn_legacy = False      # the RPN's LegacyDeltaXYWHBBoxCoder
 
     def _setup_rpn(self, rh):
         if rh.get("type") == "GARPNHead":
@@ -507,12 +523,13 @@ class TwoStageDetector(nn.Module):
         if not self.semi_rpn:
             _require_type(rh, "RPNHead", "A6")
         ag = dict(rh.get("anchor_generator", {}))
-        _require_type(ag, "AnchorGenerator", "A6")
-        ag.pop("type", None)
-        self.anchor_generator = AnchorGenerator(**ag)
+        self.anchor_generator = build_anchor_generator(ag)
         # the RPN decodes with unit stds whatever its bbox_coder says, as
         # the JAX package does (ROADMAP.md queue C)
-        _require_type(rh.get("bbox_coder", {}), "DeltaXYWHBBoxCoder", "A6")
+        self.rpn_legacy = legacy_coder(rh.get("bbox_coder"))
+        if not self.rpn_legacy:
+            _require_type(rh.get("bbox_coder", {}), "DeltaXYWHBBoxCoder",
+                          "A6")
         self.rpn_head = RPNHead(
             rh.get("in_channels", 256), rh.get("feat_channels", 256),
             len(ag.get("ratios", [0.5, 1.0, 2.0]))
@@ -798,7 +815,7 @@ class TwoStageDetector(nn.Module):
                                 img_shape, proposal_cfg,
                                 self.loc_filter_thr)
         return rpn_proposals(*outs, self._grid_anchors(feats), img_shape,
-                             proposal_cfg)
+                             proposal_cfg, self.rpn_legacy)
 
     def _semi_rpn_gt(self, batch, img_aux):
         """``SemiRPNHead``'s GT boxes and per-image regression weight: a
@@ -842,7 +859,7 @@ class TwoStageDetector(nn.Module):
             losses = rpn_loss(*outs, torch.cat(self._grid_anchors(feats)),
                               gt, batch["gt_valid"], draw,
                               dict(self.train_cfg["rpn"]),
-                              reg_weight=reg_weight)
+                              reg_weight=reg_weight, legacy=self.rpn_legacy)
         return losses, proposals.detach(), prop_valid
 
     # ---------------- training ----------------
@@ -921,7 +938,8 @@ class TwoStageDetector(nn.Module):
                     w = self._isr_weights(st, w, res, batch, nc, rcnn["isr"])
                 return w
         st = self._bbox_stage(head, self.bbox_coder, feats, sampled, res,
-                              batch, reweight=reweight)
+                              batch, reweight=reweight,
+                              legacy=legacy_coder(self.bbox_coder))
         losses = {"loss_cls": st["loss_cls"]}
         if head.fc_reg is not None:             # Grid R-CNN's head has none
             losses["loss_bbox"] = self._bbox_loss(st, nc, dyn, batch)
@@ -1068,10 +1086,12 @@ class TwoStageDetector(nn.Module):
             st["bbox_w"], avg_factor=float(n_tot))
 
     def _bbox_stage(self, head, coder, feats, sampled, res, batch,
-                    reweight=None, **head_kw):
+                    reweight=None, legacy=False, **head_kw):
         """One box head on the sampled boxes ``(B, num, 4)`` of a batch:
-        the targets of ``coder`` (flattened to ``B*num`` rows), the head's
-        logits and deltas, the classification loss and the RoIs.
+        the targets of ``coder``'s means and stds (``legacy``: with v1.x's
+        ``+1`` sizes, which the JAX cascades never read; flattened to
+        ``B*num`` rows), the head's logits and deltas, the classification
+        loss and the RoIs.
         ``reweight(stage)`` gives the label weights of the loss in place
         of the targets' ``label_w``; ``head_kw`` go to
         :meth:`_bbox_head_forward` (HTC's semantic feature)."""
@@ -1079,7 +1099,7 @@ class TwoStageDetector(nn.Module):
         labels, label_w, bbox_t, bbox_w = bbox_targets(
             sampled, res, batch["gt_bboxes"], batch["gt_labels"], nc,
             tuple(coder.get("target_means", (0.,) * 4)),
-            tuple(coder.get("target_stds", (1.,) * 4)))
+            tuple(coder.get("target_stds", (1.,) * 4)), legacy)
         rois, roi_valid = boxes_to_rois(sampled, res["valid"])
         cls_score, bbox_pred = self._bbox_head_forward(head, feats, rois,
                                                        roi_valid, **head_kw)
@@ -1201,7 +1221,8 @@ class TwoStageDetector(nn.Module):
         scores = torch.softmax(cls_score, dim=-1).reshape(b, n, -1)
         boxes = delta2bbox(proposals, bbox_pred.reshape(b, n, -1),
                            self.bbox_coder.get("target_means", (0.,) * 4),
-                           self.bbox_coder.get("target_stds", (1.,) * 4))
+                           self.bbox_coder.get("target_stds", (1.,) * 4),
+                           legacy=legacy_coder(self.bbox_coder))
         hw = (img_shape[:, 0, None, None].float(),
               img_shape[:, 1, None, None].float())
         boxes = clip_boxes(boxes.reshape(b, n, -1, 4), hw).reshape(b, n, -1)
@@ -1341,7 +1362,8 @@ class TwoStageDetector(nn.Module):
                 cls_score, dim=-1).reshape(b, n, -1)
             boxes_v = delta2bbox(props_v, bbox_pred.reshape(b, n, -1),
                                  coder.get("target_means", (0.,) * 4),
-                                 coder.get("target_stds", (1.,) * 4))
+                                 coder.get("target_stds", (1.,) * 4),
+                                 legacy=legacy_coder(coder))
             boxes_v = clip_boxes(boxes_v.reshape(b, n, -1, 4),
                                  (shape_v[:, 0, None, None],
                                   shape_v[:, 1, None, None]))
@@ -1412,12 +1434,9 @@ class DynamicRCNN(TwoStageDetector):
 class RPN(TwoStageDetector):
     """The RPN-only detector (reference ``mmdet/models/detectors/rpn.py``;
     ``roi_head=None``): its proposals are its detections, scored by
-    ``AR@N``.  Its RPN is the plain one (a ``GARPNHead`` raises A6)."""
-
-    def _setup_ga_rpn(self, rh):
-        raise NotImplementedError("the RPN-only detector with a GARPNHead "
-                                  "is not ported to bonai_tpu_torch yet "
-                                  "(ROADMAP.md item A6)")
+    ``AR@N``.  Its RPN may be Guided Anchoring's: its proposals and
+    ``ga_rpn_loss`` (the JAX ``RPN.forward_train`` hands a ``GARPNHead``'s
+    outputs to the plain ``rpn_loss`` and fails: ROADMAP.md queue C)."""
 
     def aug_test(self, *args, **kwargs):
         """Refused: the JAX detector's ``aug_test`` needs a box head."""
@@ -1426,13 +1445,20 @@ class RPN(TwoStageDetector):
                               "RPN-only detector has none")
 
     def forward_train(self, batch, draw):
-        """The RPN losses; ``draw`` is called once (the JAX detector hands
-        ``rpn_loss`` its ``sampling`` key unsplit)."""
+        """The RPN losses of the JAX detector's ``sampling`` key unsplit:
+        ``draw`` is called once (the plain RPN, whose v1.x coder the JAX
+        detector does not read here: ROADMAP.md queue C) or, for Guided
+        Anchoring's, twice: the shape sampler's, then the RPN sampler's
+        (the key folded with 1 in ``ga_rpn_loss``)."""
         feats = self.extract_feat(batch["image"])
-        cls_scores, bbox_preds = self.rpn_head(
-            [f.permute(0, 3, 1, 2) for f in feats])
-        return rpn_loss(cls_scores, bbox_preds,
-                        torch.cat(self._grid_anchors(feats)),
+        outs = self.rpn_head([f.permute(0, 3, 1, 2) for f in feats])
+        if self.ga_rpn:
+            squares, approxs = self._ga_anchors(feats)
+            return ga_rpn_loss(*outs, torch.cat(squares), approxs,
+                               batch["gt_bboxes"], batch["gt_valid"], draw,
+                               dict(self.train_cfg["rpn"]), self.ga_strides,
+                               self.ga_octave_base_scale)
+        return rpn_loss(*outs, torch.cat(self._grid_anchors(feats)),
                         batch["gt_bboxes"], batch["gt_valid"], draw,
                         dict(self.train_cfg["rpn"]))
 

@@ -20,10 +20,11 @@ from ..necks.fpn import ConvModule
 
 
 def bbox_targets(sampled_boxes, sample_res, gt_bboxes, gt_labels,
-                 num_classes, target_means, target_stds):
+                 num_classes, target_means, target_stds, legacy=False):
     """Targets of the sampled boxes ``(B, S, 4)`` of a batch, from the
     sampler's result (``is_pos``, ``valid``, ``pos_gt_inds``, each
-    ``(B, S)``) and the padded GT ``(B, G, 4)`` / ``(B, G)``.
+    ``(B, S)``) and the padded GT ``(B, G, 4)`` / ``(B, G)``; ``legacy``
+    encodes with mmdetection v1.x's ``+1`` sizes.
 
     Returns ``labels`` (int64, background = ``num_classes``),
     ``label_weights``, ``bbox_targets`` and ``bbox_weights``.
@@ -35,7 +36,7 @@ def bbox_targets(sampled_boxes, sample_res, gt_bboxes, gt_labels,
     label_weights = sample_res["valid"].float()
     deltas = bbox2delta(
         sampled_boxes, gt_bboxes.gather(1, matched[..., None].expand(-1, -1, 4)),
-        target_means, target_stds)
+        target_means, target_stds, legacy=legacy)
     w = is_pos.float()[..., None]
     return labels, label_weights, deltas * w, w.expand_as(deltas)
 

@@ -41,10 +41,15 @@ dense-head keys (``cls_convs.<i>.{conv,gn}``, ``reg_convs.<i>``,
 ``gfl_{cls,reg}``, ``fcos_{cls,reg,centerness}``, FoveaBox's
 ``conv_{cls,reg}``, RepPoints' ``reppoints_cls_{conv,out}``,
 ``reppoints_pts_{init,refine}_{conv,out}`` and ``moment_transfer``,
-``scales.<l>.scale``) and no ``rpn_head``/``roi_head``; Guided
-Anchoring's RPN has ``rpn_head.{rpn_conv,conv_loc,conv_shape,conv_cls,
-conv_reg}`` and ``rpn_head.feature_adaption.{conv_offset,
-conv_adaption}``; an FPN's extra
+``scales.<l>.scale``; Guided Anchoring's RetinaNet adds ``conv_loc``,
+``conv_shape`` and ``feature_adaption_cls|reg.{conv_offset,
+conv_adaption}``, the SepBN head has level 0's shared
+``cls|reg_convs.0.<i>.conv`` and every level's ``cls|reg_convs.<l>.<i>.
+bn``) and no ``rpn_head``/``roi_head``; Libra's RetinaNet's chained
+neck (flax ``neck/neck0``, ``neck/neck<j>``) goes to ``neck.0``,
+``neck.<j>`` as the two-stage detectors' does; Guided Anchoring's RPN
+has ``rpn_head.{rpn_conv,conv_loc,conv_shape,conv_cls,conv_reg}`` and
+``rpn_head.feature_adaption.{conv_offset,conv_adaption}``; an FPN's extra
 convs (flax ``extra_<i>``) are mmdet's ``neck.fpn_convs.<n>`` after its
 output convs.  The JAX importer reads ``rpn_head.*`` unconditionally and
 raises ``KeyError`` on such a checkpoint (ROADMAP.md queue C).  The GN
@@ -214,10 +219,17 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
 
     backbone("backbone", params["backbone"], batch_stats.get("backbone", {}))
     # a chained neck shows by its BFP's variables (one without a refine
-    # has none, and reads as a plain FPN)
-    chained = "neck_extra0" in params
-    neck = "neck.0" if chained else "neck"
+    # has none, and reads as a plain FPN); a single-stage detector's is one
+    # flax module of ``neck0`` (the FPN) and ``neck<j>`` (the BFPs)
     nk = params.get("neck", {})
+    extras = []
+    while f"neck_extra{len(extras)}" in params:
+        extras.append(params[f"neck_extra{len(extras)}"])
+    if "neck0" in nk:
+        extras = [nk[f"neck{j}"] for j in range(1, len(nk))]
+        nk = nk["neck0"]
+    chained = bool(extras)
+    neck = "neck.0" if chained else "neck"
     if "fpn" in nk:                                     # DetectoRS's RFP
         for name, p in nk.items():
             step = re.fullmatch(r"rfp_backbone(\d+)", name)
@@ -253,10 +265,8 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         else:                                           # FPN
             kind, i = name.rsplit("_", 1)
             layer(f"{neck}.{kind}_convs.{i}.conv", p)
-    j = 0
-    while f"neck_extra{j}" in params:                   # Libra's BFP
-        refine = params[f"neck_extra{j}"]["refine"]
-        j += 1
+    for j, extra in enumerate(extras, 1):               # Libra's BFP
+        refine = extra["refine"]
         if "kernel" in refine:                          # refine_type conv
             layer(f"neck.{j}.refine.conv", refine)
         else:                                           # non_local
@@ -275,7 +285,7 @@ def state_dict_from_jax(params, batch_stats, roi_feat=7):
         if not m:
             continue
         if name == "bbox_head" and DENSE_OUTPUTS.keys() & bh.keys():
-            _dense_head(bh, sd, layer)
+            _dense_head(bh, batch_stats.get(name, {}), sd, layer, norm)
             continue
         if name == "bbox_head" and "cls_conv0" in bh:    # SSD's
             for sub, p in bh.items():
@@ -688,21 +698,34 @@ DENSE_OUTPUTS = {"retina_cls": "retina_cls", "retina_reg": "retina_reg",
                  "cls_out": "reppoints_cls_out",
                  "pts_init_conv": "reppoints_pts_init_conv",
                  "pts_init_out": "reppoints_pts_init_out",
-                 "pts_refine_out": "reppoints_pts_refine_out"}
-# RepPoints' variables that are arrays, not modules: flax name -> mmdet key
+                 "pts_refine_out": "reppoints_pts_refine_out",
+                 "conv_loc": "conv_loc", "conv_shape": "conv_shape",
+                 "offset_cls": "feature_adaption_cls.conv_offset",
+                 "offset_reg": "feature_adaption_reg.conv_offset"}
+# RepPoints' and GA RetinaNet's variables that are arrays, not modules:
+# flax name -> mmdet key
 DENSE_ARRAYS = {"cls_dcn_kernel": "reppoints_cls_conv.weight",
                 "refine_dcn_kernel": "reppoints_pts_refine_conv.weight",
-                "moment_transfer": "moment_transfer"}
+                "moment_transfer": "moment_transfer",
+                "adaption_cls_kernel":
+                    "feature_adaption_cls.conv_adaption.weight",
+                "adaption_reg_kernel":
+                    "feature_adaption_reg.conv_adaption.weight"}
 
 
-def _dense_head(bh, sd, layer):
+def _dense_head(bh, stats, sd, layer, norm):
     """A single-stage detector's dense head: ``cls|reg_conv<i>`` and
     ``cls|reg_gn<i>`` -> ``bbox_head.cls|reg_convs.<i>.conv|gn`` (a
     deformable tower conv with its ``conv_offset``; NAS-FCOS's
-    ``cls|reg_tower/op<i>|gn<i>`` likewise), the output convs by
-    :data:`DENSE_OUTPUTS`, RepPoints' arrays by :data:`DENSE_ARRAYS` (its
-    HWIO deformable kernels to OIHW), ``scale<l>`` ->
+    ``cls|reg_tower/op<i>|gn<i>`` likewise; the SepBN head's shared
+    ``cls|reg_conv<i>`` -> level 0's ``cls|reg_convs.0.<i>.conv`` and its
+    ``cls|reg_bn_l<l>_c<i>``, with ``stats``' statistics, ->
+    ``cls|reg_convs.<l>.<i>.bn``), the output convs by
+    :data:`DENSE_OUTPUTS` (GA RetinaNet's location, shape and offset
+    convs among them), RepPoints' and GA's arrays by :data:`DENSE_ARRAYS`
+    (their HWIO deformable kernels to OIHW), ``scale<l>`` ->
     ``bbox_head.scales.<l>.scale``."""
+    sepbn = "cls_bn_l0_c0" in bh
     for kind in ("cls", "reg"):
         for sub, p in bh.get(f"{kind}_tower", {}).items():
             op, i = re.fullmatch(r"(op|gn)(\d+)", sub).groups()
@@ -712,8 +735,13 @@ def _dense_head(bh, sd, layer):
             continue
         tower = re.fullmatch(r"(cls|reg)_(conv|gn)(\d+)", name)
         scale = re.fullmatch(r"scale(\d+)", name)
-        if tower and tower[2] == "conv":
-            key = f"bbox_head.{tower[1]}_convs.{tower[3]}.conv"
+        sep = re.fullmatch(r"(cls|reg)_bn_l(\d+)_c(\d+)", name)
+        if sep:
+            norm(f"bbox_head.{sep[1]}_convs.{sep[2]}.{sep[3]}.bn", p,
+                 stats[name])
+        elif tower and tower[2] == "conv":
+            key = (f"bbox_head.{tower[1]}_convs.{'0.' if sepbn else ''}"
+                   f"{tower[3]}.conv")
             layer(key, p)
             if "conv_offset" in p:              # FCOS's dcn_on_last_conv
                 layer(f"{key}.conv_offset", p["conv_offset"])
@@ -868,28 +896,41 @@ def _hr_module(base, mod, stats, layer, norm, block):
             layer(f"{key}.0", p)
 
 
+# the modules that mmdetection repeats under every pyramid level and the
+# port, as the JAX package, keeps once: a deformable RoI pooling
+# extractor's FCs and the SepBN head's shared convs (level index, then the
+# rest of the key), and what each is
+PER_LEVEL_COPIES = (
+    (r"(.*_roi_extractor\.roi_layers\.)(\d+)(\.(?:offset|mask)_fc\..*)",
+     "mmcv's deformable RoI pooling has a pack a pyramid level, the port, "
+     "as the JAX package, one pack for every level"),
+    (r"(bbox_head\.(?:cls|reg)_convs\.)(\d+)(\.\d+\.conv\..*)",
+     "mmdetection's RetinaSepBNHead shares each tower conv over the levels "
+     "and stores it under each; the port, as the JAX package, keeps one"))
+
+
 def load_mmdet_checkpoint(path):
     """The ``state_dict`` of an mmdet ``.pth`` checkpoint: its keys are the
     port's (a cascade's stage heads under ``roi_head.bbox_head.<i>``), but
-    for a deformable RoI pooling extractor's.  mmcv builds one pack a
-    pyramid level (``roi_layers.<l>``), the JAX package, and the port,
-    one that every level shares (``roi_layers.0``): the levels' FCs must
-    be equal, and the copies past the first are dropped; a checkpoint
-    whose levels differ raises ``ValueError`` (ROADMAP.md queue C)."""
+    for the modules mmdetection stores once a pyramid level
+    (:data:`PER_LEVEL_COPIES`): a deformable RoI pooling extractor's
+    (``roi_layers.<l>``) and the SepBN head's shared convs
+    (``cls|reg_convs.<l>.<i>.conv``).  The port, as the JAX package, keeps
+    level 0's: the other levels' must be equal to it and are dropped; a
+    checkpoint whose levels differ raises ``ValueError`` naming the first
+    that does (ROADMAP.md queue C)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = dict(ckpt.get("state_dict", ckpt))
     for key in list(sd):
-        m = re.fullmatch(r"(.*_roi_extractor\.roi_layers\.)(\d+)(\.(?:offset|"
-                         r"mask)_fc\..*)", key)
-        if not m or m[2] == "0":
-            continue
-        first = sd.get(f"{m[1]}0{m[3]}")
-        if first is None or not torch.equal(sd[key], first):
-            raise ValueError(
-                f"{key} differs from level 0's: mmcv's deformable RoI "
-                f"pooling has a pack a pyramid level, the port, as the JAX "
-                f"package, one pack for every level (ROADMAP.md queue C)")
-        del sd[key]
+        for pattern, why in PER_LEVEL_COPIES:
+            m = re.fullmatch(pattern, key)
+            if not m or m[2] == "0":
+                continue
+            first = sd.get(f"{m[1]}0{m[3]}")
+            if first is None or not torch.equal(sd[key], first):
+                raise ValueError(f"{key} differs from level 0's: {why} "
+                                 f"(ROADMAP.md queue C)")
+            del sd[key]
     return sd
 
 

@@ -79,7 +79,10 @@ Phases, each of which must pass:
    the seconds of pkl -> records and of F1 are printed.  The planted
    check: the crop json's own roofs as results (full-size masks, score 1,
    the GT offsets) must score ``PLANTED``.
-7. resume: chunked training through the host-RSS watchdog.  On the data
+7. resume: chunked training through the host-RSS watchdog (phases 7, 8,
+   24 and 25 run in a child process of their own beside phases 9 to 23:
+   processes of their own or host-bound work, their times not a lone
+   run's).  On the data
    phase's 8 tiles (4 steps an epoch) in process loader mode, ``python -m
    bonai_tpu_torch.tools.train_chunked`` with ``BONAI_MAX_RSS_GB`` below
    any process's RSS trains the 2x synthetic recipe 6 steps: the train CLI
@@ -224,7 +227,23 @@ Phases, each of which must pass:
    and the RoI branches to the plain route), every one trained 3 steps
    at the base LR (every trainable tensor moves, the caffe affines by
    weight decay alone) with the small-input gradient check; the C4
-   checkpoint through the test CLI.17. cascades: the last two mask-producing cascades (``CASCADE_CONFIGS``):
+   checkpoint through the test CLI.
+17. coco_dense: item 6's A6 dense-head and anchor half
+   (``COCO_DENSE_CONFIGS``): Guided Anchoring's RetinaNet (the retina
+   towers, the location and shape branches, two deformable feature
+   adaptions a level) and RPN-only detector, the legacy v1.x Mask R-CNN
+   (``LegacyAnchorGenerator`` and the v1.x coder in the RPN and the box
+   head: B1 twice a batch and a step) and Cascade Mask R-CNN (B1 and B2 4
+   times a step), the legacy RetinaNet, the SepBN RetinaNet on the
+   crop640 NAS-FPN (per-level norms, calibrated too; its test side 640^2),
+   Libra's balanced-L1 and PISA's RetinaNets; each at full width with
+   seeded random weights, its BN statistics calibrated, ``score_thr`` 0:
+   GA RetinaNet, the GA RPN, the legacy Mask R-CNN and the SepBN RetinaNet
+   served (the RetinaNets as the dense phase serves, their head outputs,
+   GA's deformable adaptions among them, held to the CPU; the R-CNN and
+   the RPN as the trunks phase serves), every one trained 3 steps at the
+   base LR clipped at 35 (every trainable tensor moves).
+18. cascades: the last two mask-producing cascades (``CASCADE_CONFIGS``):
    HTC (``configs/htc/htc_r50_fpn_1x_bonai.py``: a mask head at every
    stage with the info-flow chain, interleaved mask sampling, the semantic
    head fused into every RoI feature) and DetectoRS
@@ -241,7 +260,7 @@ Phases, each of which must pass:
    ``layer1``, behind its gradient stops, visibly move by weight decay
    alone); each checkpoint through the test CLI with ``--eval bbox
    segm``.
-18. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
+19. dense: the dense single-stage detectors (``DENSE_CONFIGS``: RetinaNet
    R50-FPN on its COCO config and on the GHM and PISA configs, which keep
    COCO's 80 classes, and FreeAnchor, ATSS, GFL and FCOS on BONAI), each
    at full width with seeded random weights: one serve batch (B=2,
@@ -258,7 +277,7 @@ Phases, each of which must pass:
    warmup);
    the BONAI configs' checkpoints through the test CLI with ``--eval
    bbox`` on the first val crop (``score_thr=0``).  No kernel may launch.
-19. dense2: RepPoints, FSAF and FoveaBox on BONAI as the dense phase runs
+20. dense2: RepPoints, FSAF and FoveaBox on BONAI as the dense phase runs
    its configs (one timed serve batch; RepPoints' small-input check runs
    through its deformable convs, both point sets and ``moment_transfer``),
    no kernel launch; Guided-Anchoring Faster R-CNN as the trunks phase
@@ -266,12 +285,12 @@ Phases, each of which must pass:
    schedule's warmup; the small input's FPN levels and GA-RPN outputs
    held to the CPU); each checkpoint through the test CLI with ``--eval
    bbox``.  Each config's line carries the card's name and power limit.
-20. dense3: NAS-FPN RetinaNet (``configs/nas_fpn/
+21. dense3: NAS-FPN RetinaNet (``configs/nas_fpn/
    retinanet_r50_nasfpn_bonai.py``, COCO's 80 classes), NAS-FCOS, SSD300
    and CornerNet (Hourglass-104) on BONAI as the dense2 phase runs its
    dense detectors, from weights whose R50 and hourglass BatchNorm
    statistics are calibrated: one timed serve batch; the small input
-   (SSD's 320x320, CornerNet's 256x384) on the card against the CPU, both
+   (SSD's 320x320, CornerNet's 128x256) on the card against the CPU, both
    in float64 (float32 rounding through NAS-FCOS's per-channel GroupNorms
    and Hourglass-104 reaches 1e-4 of an output's largest value), within
    1e-4 of each output's largest value, through NAS-FCOS's deformable
@@ -281,7 +300,7 @@ Phases, each of which must pass:
    unclipped COCO schedule with its warmup; CornerNet's Adam); each
    checkpoint through the test CLI with ``--eval bbox``.  No kernel
    launch.  Each config's line carries the card's name and power limit.
-21. attr: LOFT-FOA with every attribute head (height, joint
+22. attr: LOFT-FOA with every attribute head (height, joint
    offset-height, angle, side-face, offset-field, offset reweighting) and
    ``SemiRPNHead`` (``attr``), and LOFT with polar offsets (``polar``),
    both derived at full width from the LOFT configs (``_attr_config``,
@@ -296,7 +315,7 @@ Phases, each of which must pass:
    files (written by the port's generator) and the BONAI test CLI on its
    checkpoint.  Each config's line carries the card's name and power
    limit.
-22. tta: test-time augmentation of LOFT-FOA R50-FPN at full width
+23. tta: test-time augmentation of LOFT-FOA R50-FPN at full width
    (``'block'``, bf16, 1024^2, B=2, seeded random weights with
    calibrated R50 BatchNorm statistics): one warm and one timed batch of
    the detection level at the default views (none, horizontal,
@@ -312,7 +331,7 @@ Phases, each of which must pass:
    with ``RandomRotate(rotate_ratio=1.0, angles='any')`` after
    ``RandomFlip`` (the numpy warps), every loss finite, the loader's
    angles printed, at least one off the multiples of 90.
-23. datasets: the non-BONAI datasets and the robustness benchmark at full
+24. datasets: the non-BONAI datasets and the robustness benchmark at full
    width (``datasets_phase``).  Robustness: ``tools/test_robustness.py``
    on LOFT-FOA R50-FPN (the 2x synthetic recipe, the flagship's model)
    with the data phase's checkpoint over two of the eval phase's 1024^2
@@ -345,7 +364,7 @@ Phases, each of which must pass:
    with their own ``'gather'`` route (no kernel: their launch counts must
    be 0) from calibrated random weights (``_calibrated_weights``); every
    loss finite.
-24. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
+25. tools: the host tools on LOFT-FOA R50-FPN at full width (``'block'``,
    1024^2) and the data phase's checkpoint: ``fuse_conv_bn`` and
    ``publish_model`` on it, the checkpoint and each tool's file served
    through ``inference_detector`` (B=2, bf16, two of the eval phase's val
@@ -361,7 +380,7 @@ Phases, each of which must pass:
    timed); ``show_result`` and ``browse_dataset`` on a crop and a train
    tile, PNGs written; ``profile_time`` and ``device_trace`` around a
    serve call, whose trace must hold B1's 3 kernels; ``collect_env``.
-25. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
+26. bench: ``bonai_tpu_torch.tools.bench_roi_align.main(["--iters", "3"])``,
    the entry point of B5.
 
 Every launch count is zeroed just before each serve, train, data, eval and
@@ -382,13 +401,15 @@ RPN, 2 for Grid R-CNN (box and grid), 1 for PointRend (box; its mask
 extractor is the plain RoIAlign), 2 for the trunk variants' Mask R-CNNs
 and 1 for their Faster R-CNNs, 6 for HTC (three box and three mask
 stages; its semantic fusion's RoIAlign is the plain one), 2 for the
-COCO trunks' Mask R-CNNs and 1 for their Faster R-CNN, and 4 for
+COCO trunks' Mask R-CNNs and 1 for their Faster R-CNN, 2 for the
+legacy v1.x Mask R-CNN and 4 for its Cascade Mask R-CNN, and 4 for
 DetectoRS (three box stages and the mask); the file chain's RPN test runs
 launch nothing, its Fast R-CNN launches B1 and B2 once a training step and
 B1 once a test batch; the dense phase's runs launch nothing, nor do the
 dense2 phase's RepPoints, FSAF and FoveaBox; its GA Faster R-CNN launches
 B1 once a serve batch, B1 and B2 once a step, B1 once a test batch; the
-dense3 phase's four detectors launch nothing; the attr phase's ``attr``
+dense3 phase's four detectors launch nothing, nor do the coco_dense
+phase's GA RPN and RetinaNets; the attr phase's ``attr``
 model launches B1 8 times a serve or test batch (box, mask, offset, the
 reweighting's mask and side-face calls, the side-face head, the
 offset-field head and its aggregation's mask call) and B1 and B2 7 times
@@ -410,6 +431,7 @@ result, without a CUDA device or outside the repository.
 import contextlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -510,6 +532,34 @@ COCO_RCNN_CONFIGS = (
      (1, 1)))
 COCO_RCNN_DIR = os.path.join(REPO, "build", "chip_smoke_coco_rcnn")
 COCO_RCNN_STEPS = 3
+# item 6's A6 dense-head and anchor half (the coco_dense phase): label,
+# config, the RoIAlign kernel calls of a serve batch (None: trained only;
+# the legacy Cascade's serve path is the Cascade Mask R-CNN's of the rcnn
+# phase, the trained-only RetinaNets' the dense phase's RetinaNet's), the
+# forward and backward calls of a step (the legacy Cascade's three box
+# stages and its mask branch, as the cascades phase counts DetectoRS's),
+# and the test side (None: SIZE; the crop640 config's 640)
+COCO_DENSE_CONFIGS = (
+    ("ga_retina", "configs/guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py",
+     0, (0, 0), None),
+    ("ga_rpn", "configs/guided_anchoring/ga_rpn_r50_fpn_1x_coco.py", 0,
+     (0, 0), None),
+    ("legacy_mask", "configs/legacy_1.x/mask_rcnn_r50_fpn_1x_coco_v1.py", 2,
+     (2, 2), None),
+    ("legacy_cascade",
+     "configs/legacy_1.x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py", None,
+     (4, 4), None),
+    ("legacy_retina", "configs/legacy_1.x/retinanet_r50_fpn_1x_coco_v1.py",
+     None, (0, 0), None),
+    ("sepbn_nasfpn",
+     "configs/nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py", 0, (0, 0),
+     640),
+    ("libra_retina", "configs/libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py",
+     None, (0, 0), None),
+    ("pisa_retina", "configs/pisa/pisa_retinanet_r50_fpn_1x_coco.py", None,
+     (0, 0), None))
+COCO_DENSE_DIR = os.path.join(REPO, "build", "chip_smoke_coco_dense")
+COCO_DENSE_STEPS = 3
 # the last two mask-producing cascades (the cascades phase): label, config,
 # the RoIAlign kernel calls of a batch or step (HTC: 3 box stages and 3
 # mask stages; DetectoRS: 3 box stages and the mask), whether it trains
@@ -554,7 +604,7 @@ DENSE3_CONFIGS = (
     ("ssd", "configs/ssd/ssd300_bonai.py", False, (320, 320), (512, 640),
      300),
     ("cornernet", "configs/cornernet/cornernet_hourglass104_bonai.py", True,
-     (256, 384), (512, 512), 511))
+     (128, 256), (512, 512), 511))
 DENSE3_STEPS = 3
 # LOFT's attribute heads with the semi-RPN, and polar offsets (the attr
 # phase): the RoIAlign kernel calls of a serve batch and of a training
@@ -1620,7 +1670,8 @@ def train_phase(impl, steps, config=CONFIG, label=None, keep=False,
     peak = torch.cuda.max_memory_allocated()
     wall = time.time() - t0
     step_ms = [h["time"] * 1e3 for h in hist]
-    print(f"{what}: train_detector 1024^2 B={BATCH} bf16 autocast, "
+    print(f"{what}: train_detector {batch['image'].shape[1]}^2 B={BATCH} "
+          f"bf16 autocast, "
           f"{steps} steps in {wall:.1f} s incl. set-up and the final "
           f"checkpoint; ms per step {[round(x, 1) for x in step_ms]}; "
           f"median of the {len(step_ms) - 1} warm steps "
@@ -2415,10 +2466,11 @@ def _reproducible_convs():
         cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
 
 
-def _calibrated_weights(config, path):
+def _calibrated_weights(config, path, head=False):
     """Seeded random weights of ``config`` (``init_weights``, seed 0) with
     the stored statistics of every BatchNorm of the backbone and the neck
-    (DetectoRS's backbone copy; SSD and CornerNet have no neck) set to
+    (DetectoRS's backbone copy; SSD and CornerNet have no neck), and with
+    ``head`` of the dense head (the SepBN head's per-level norms), set to
     those of its input on a random
     1024^2 B=2 batch (``_reproducible_convs``: the same statistics in
     every run), so that each one's output has unit variance, as a
@@ -2438,17 +2490,22 @@ def _calibrated_weights(config, path):
     def calibrate(bn, args):
         bn.running_mean.copy_(args[0].mean((0, 2, 3)))
         bn.running_var.copy_(args[0].var((0, 2, 3)))
+    parts = (model.backbone, model.neck) + ((model.bbox_head,) if head
+                                            else ())
     hooks = [m.register_forward_pre_hook(calibrate)
-             for part in (model.backbone, model.neck) if part is not None
+             for part in parts if part is not None
              for m in part.modules() if isinstance(m, FrozenBatchNorm2d)]
     with torch.no_grad(), _reproducible_convs():
-        model.extract_feat(img)
+        feats = model.extract_feat(img)
+        if head:
+            model.bbox_head(feats)
     for h in hooks:
         h.remove()
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({"state_dict": {k: v.cpu() for k, v in
                                model.state_dict().items()}}, path)
-    print(f"calibrated the {len(hooks)} backbone and neck BatchNorms of "
+    print(f"calibrated the {len(hooks)} backbone, neck"
+          f"{' and head' if head else ''} BatchNorms of "
           f"{os.path.basename(config)} on a random batch", flush=True)
     del model
     torch.cuda.empty_cache()
@@ -3042,6 +3099,82 @@ def coco_rcnn_phase():
     return out
 
 
+def coco_dense_phase():
+    """Item 6's A6 dense-head and anchor half (``COCO_DENSE_CONFIGS``:
+    Guided Anchoring's RetinaNet and RPN-only detector, the legacy v1.x
+    Mask and Cascade Mask R-CNNs and RetinaNet, the SepBN RetinaNet on the
+    crop640 NAS-FPN, Libra's and PISA's RetinaNets) at full width with
+    seeded random weights, the BN statistics calibrated
+    (``_calibrated_weights``, the SepBN head's per-level norms too), the
+    test side at 1024^2 (640^2 for the crop640 config) and ``score_thr`` 0
+    (configs written under ``COCO_DENSE_DIR``).  Those with a serve count
+    one serve batch: the RetinaNets through :func:`dense_serve` (every
+    image's detections filled at ``score_thr`` 0; their head outputs on a
+    small float32 input on the card against the CPU, GA's through its
+    deformable adaptions), the R-CNN and the RPN through
+    :func:`serve_phase` under ``'block'`` (the RPN's proposals; the FPN
+    levels and the GA-RPN's outputs of a small float32 input held to the
+    CPU, the legacy Mask R-CNN's RoI branches to the plain route).  Every
+    one ``COCO_DENSE_STEPS`` steps at the base LR, clipped at 35, on the
+    repeated synthetic batch (the RetinaNets' of :func:`_dense_batch` at
+    the test side): every trainable tensor moves, and the launch counts of
+    the table.  Returns each config's launch counts, times and peak
+    memory (``None`` where not served)."""
+    import numpy as np
+    out = {}
+    os.makedirs(COCO_DENSE_DIR, exist_ok=True)
+    for label, config, calls, (fwd, bwd), side in COCO_DENSE_CONFIGS:
+        t0 = time.time()
+        side = side or SIZE
+        cfg = _dense_config(os.path.join(REPO, config), side)
+        cfg.optimizer_config.grad_clip = dict(max_norm=35, norm_type=2)
+        dense = cfg.model.type == "RetinaNet"
+        if dense:
+            cfg.test_cfg.score_thr = 0.0
+        elif cfg.test_cfg.get("rcnn"):
+            cfg.test_cfg.rcnn.score_thr = 0.0
+        config = os.path.join(COCO_DENSE_DIR, f"{label}.py")
+        cfg.dump(config)
+        weights = os.path.join(COCO_DENSE_DIR, "init.pth")
+        _calibrated_weights(config, weights, head=label == "sepbn_nasfpn")
+        serve = serve_ms = serve_peak = None
+        if calls is not None and dense:
+            serve, serve_ms, serve_peak = dense_serve(
+                label, config, calls=1, checkpoint=weights, side=side)
+        elif calls is not None:
+            serve, serve_ms, serve_peak = serve_phase(
+                "block", config, calls=1, label=f"{label} serve",
+                checkpoint=weights,
+                inspect=lambda model, *_: _trunk_cpu_check(
+                    model, f"{label} serve", np.random.RandomState(1)))
+        train = train_phase("block", COCO_DENSE_STEPS, config,
+                            label=f"{label} train", warmup=False,
+                            load_from=weights,
+                            batch=_dense_batch(side) if dense else None)
+        if (calls is not None and serve != 2 * calls) \
+                or train["fwd"] != fwd * COCO_DENSE_STEPS \
+                or train["bwd"] != bwd * COCO_DENSE_STEPS:
+            raise AssertionError(
+                f"{label}: B1 {serve} launches serving, {train['fwd']} / B2 "
+                f"{train['bwd']} training; expected {calls} a batch, "
+                f"{fwd} / {bwd} a step")
+        out[label] = dict(serve=serve, serve_ms=serve_ms,
+                          serve_peak_gib=serve_peak, train=train,
+                          coco_cli=None, seconds=time.time() - t0)
+    shutil.rmtree(COCO_DENSE_DIR, ignore_errors=True)
+    card = _gpu_name_and_power()
+    for label, r in out.items():
+        print(f"coco_dense {label}: " + (
+            "trained only" if r["serve"] is None else
+            f"serve {r['serve_ms']:.1f} ms a B=2 call, peak "
+            f"{r['serve_peak_gib']:.2f} GiB, B1 {r['serve']} launches")
+              + f"; train median step {r['train']['step_ms']:.1f} ms, "
+              f"peak {r['train']['peak_gib']:.2f} GiB, B1 "
+              f"{r['train']['fwd']} / B2 {r['train']['bwd']} launches; "
+              f"{r['seconds']:.1f} s; card {card}", flush=True)
+    return out
+
+
 def cascades_phase():
     """HTC and DetectoRS (``CASCADE_CONFIGS``) at full width with seeded
     random weights whose BatchNorm statistics are calibrated
@@ -3205,12 +3338,12 @@ def rcnn2_files(rpn_checkpoint):
     return {k: (c[fwd_name], c[bwd_name]) for k, c in counts.items()}
 
 
-def _dense_config(config):
-    """A dense detector's config with its test scale at ``SIZE``^2 (the
+def _dense_config(config, side=SIZE):
+    """A dense detector's config with its test scale at ``side``^2 (the
     COCO configs' is 1333x800)."""
     from bonai_tpu_torch.config import Config
     cfg = Config.fromfile(config)
-    cfg.data.test.pipeline[1].img_scale = (SIZE, SIZE)
+    cfg.data.test.pipeline[1].img_scale = (side, side)
     return cfg
 
 
@@ -3284,9 +3417,11 @@ def _dense_cpu_check(model, what, r, size=(256, 320), float64=False):
 
 
 def dense_serve(label, config, calls=2, checkpoint=None,
-                small=(256, 320), float64=False, single=(512, 640)):
+                small=(256, 320), float64=False, single=(512, 640),
+                side=SIZE):
     """Full-width serving of a dense detector through the port's entry
-    points (seeded random weights, or ``checkpoint``'s; bfloat16):
+    points (seeded random weights, or ``checkpoint``'s; bfloat16) at the
+    test side ``side``:
     ``calls`` timed batches and one ``inference_detector`` call (an image
     of ``single``) at the config's thresholds, one batch with
     ``score_thr=0``, which must fill every image's ``max_per_img``
@@ -3300,7 +3435,7 @@ def dense_serve(label, config, calls=2, checkpoint=None,
                                       prepare_batch)
     what = f"{label} serve"
     t0 = time.time()
-    model = init_detector(_dense_config(config), checkpoint,
+    model = init_detector(_dense_config(config, side), checkpoint,
                           seed=0)                           # cuda, bf16
     print(f"{what}: init_detector {time.time() - t0:.1f} s, "
           f"{type(model).__name__}, {model.num_classes} classes, "
@@ -3308,10 +3443,10 @@ def dense_serve(label, config, calls=2, checkpoint=None,
           flush=True)
     max_per_img = model.test_cfg.get("max_per_img", 100)
     r = np.random.RandomState(0)
-    imgs = [r.randint(0, 256, (SIZE, SIZE, 3), np.uint8)
+    imgs = [r.randint(0, 256, (side, side, 3), np.uint8)
             for _ in range(BATCH)]
     img, img_shape, scale, _ = prepare_batch(model, imgs)
-    if tuple(img.shape[1:3]) != (SIZE, SIZE):
+    if tuple(img.shape[1:3]) != (side, side):
         raise AssertionError(f"{what}: input {tuple(img.shape)}")
     model.simple_test(img, img_shape, scale)            # warm-up
     torch.cuda.synchronize()
@@ -3346,7 +3481,7 @@ def dense_serve(label, config, calls=2, checkpoint=None,
     counts = _counts()
     _check_counts(counts, {}, f"{what}, {calls + 2} batches")
     n_every = every["det_valid"].sum(1).tolist()
-    print(f"{what}: simple_test 1024^2 B={BATCH} bf16 ms per call "
+    print(f"{what}: simple_test {side}^2 B={BATCH} bf16 ms per call "
           f"{[round(x, 1) for x in times]}; valid detections at score_thr "
           f"{thr} {out['det_valid'].sum(1).tolist()}; at 0 {n_every} "
           f"({every_ms:.1f} ms); inference_detector {single[0]}x{single[1]} "
@@ -4696,7 +4831,7 @@ def datasets_lvis():
 
 def datasets_phase(checkpoint):
     """The non-BONAI datasets and the robustness benchmark at full width
-    (the module's phase 21).  Returns B1's launches of the robustness
+    (the module's phase 24).  Returns B1's launches of the robustness
     run."""
     t_phase = time.time()
     shutil.rmtree(DATASETS_DIR, ignore_errors=True)
@@ -4723,8 +4858,7 @@ def tools_phase(checkpoint, eval_results):
     (:func:`tools_export`); ``get_flops`` at 1024^2; the mask library on
     the eval phase's masks; ``show_result`` and ``browse_dataset`` on a
     crop; ``profile_time`` and ``device_trace`` around a serve call.
-    Removes the checkpoint's directory.  Returns the launch counts of its
-    runs."""
+    Returns the launch counts of its runs."""
     import numpy as np
     import torch
     from bonai_tpu_torch.apis import init_detector, prepare_batch
@@ -4823,7 +4957,6 @@ def tools_phase(checkpoint, eval_results):
           f"detections) {show_s:.2f} s; browse_dataset, one train tile, "
           f"{browse_s:.2f} s; PNGs written", flush=True)
     shutil.rmtree(TOOLS_DIR, ignore_errors=True)
-    shutil.rmtree(os.path.dirname(checkpoint), ignore_errors=True)
     print(f"tools phase: {time.time() - t_phase:.1f} s; card "
           f"{_gpu_name_and_power()}", flush=True)
     return launches
@@ -4860,6 +4993,32 @@ def _entry(name, path, launches, sums, label=None, **extra):
             "device_ms": sums.device_ms, "plain_ms": sums.plain_ms,
             "bound_ms": sums.bound_ms, "bound_by": sums.bound_by,
             "library_ms": None, **extra}
+
+
+# the phases that run beside the families' (processes of their own, or
+# host-bound work): a child process of their own, started after the eval
+# phase; argv: the repository, the card, the data phase's step ms, the
+# eval phase's pickled results and the JSON file of their returns
+BESIDE = """
+import json, pickle, signal, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+# a SIGTERM unwinds the phases, whose cleanup stops what they started
+signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))
+with open(sys.argv[4], "rb") as f:
+    eval_results = pickle.load(f)
+out, seconds = {}, {}
+for name, fn, args in (
+        ("resume", cs.resume_phase, ()),
+        ("ddp", cs.ddp_phase, (sys.argv[2], float(sys.argv[3]))),
+        ("datasets", cs.datasets_phase, (cs.TTA_CHECKPOINT,)),
+        ("tools", cs.tools_phase, (cs.TTA_CHECKPOINT, eval_results))):
+    t = time.time()
+    out[name] = fn(*args)
+    seconds[name] = round(time.time() - t, 1)
+with open(sys.argv[5], "w") as f:
+    json.dump(dict(out, seconds=seconds), f)
+"""
 
 
 def main():
@@ -4909,19 +5068,48 @@ def main():
     shutil.copyfile(files["checkpoint"], TTA_CHECKPOINT)
     test_cli_launches, eval_results = timed(
         "eval", eval_phase, files["checkpoint"], files["work_dir"])
-    resume_launches = timed("resume", resume_phase)
-    _check_counts({name: resume_launches.get(
-        fn.__name__, 0) for name, (fn, _, _) in _kernels().items()},
-        {"roi_align_block_fwd": 3 * RESUME_STEPS,
-         "roi_align_block_bwd": 3 * RESUME_STEPS},
-        f"chunked training, {RESUME_STEPS} steps in two processes")
     print(f"compare train: from files {files['step_ms']:.1f} ms a step vs "
           f"the repeated synthetic batch {train['block']['step_ms']:.1f} ms "
           f"(same route, this run); the loader gives "
           f"{files['cold']:.1f} images/s cold, {files['warm']:.1f} warm, "
           f"against {2e3 / files['step_ms']:.1f} images/s the step takes",
           flush=True)
-    ddp = timed("ddp", ddp_phase, card, files["step_ms"])
+    beside_files = [os.path.join(REPO, "build", f"chip_smoke_beside.{ext}")
+                    for ext in ("pkl", "json")]
+    with open(beside_files[0], "wb") as f:
+        pickle.dump(eval_results, f)
+    beside = _start([sys.executable, "-c", BESIDE, REPO, card,
+                     str(files["step_ms"]), *beside_files],
+                    os.path.join(REPO, "build", "chip_smoke_beside"))
+    try:
+        return _families(phase_s, timed, card, build_s, sums, serve_runs,
+                         serve, train, files, test_cli_launches, beside,
+                         beside_files[1])
+    finally:
+        _stop(beside)
+        shutil.rmtree(os.path.dirname(TTA_CHECKPOINT), ignore_errors=True)
+
+
+def _stop(proc, grace=30):
+    """End a process of :func:`_start` that still runs: SIGTERM, so that
+    it stops the processes it started in process groups of their own, then,
+    after ``grace`` seconds, :func:`_kill`."""
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(grace)
+        except subprocess.TimeoutExpired:
+            pass
+    _kill([proc])
+
+
+def _families(phase_s, timed, card, build_s, sums, serve_runs, serve, train,
+              files, test_cli_launches, beside, beside_json):
+    """:func:`main` from the loft phase on: the family phases, then the
+    phases beside them (:data:`BESIDE`: their output printed, their
+    returns read), the launch counts' checks and the result lines."""
+    import torch
     loft = timed("loft", loft_phase)
     hrnet = timed("hrnet", hrnet_phase, serve_runs["block"][1],
                   train["block"]["step_ms"])
@@ -4931,15 +5119,31 @@ def main():
     trunks = timed("trunks", trunks_phase)
     coco_trunks = timed("coco_trunks", coco_trunks_phase)
     coco_rcnn = timed("coco_rcnn", coco_rcnn_phase)
+    coco_dense = timed("coco_dense", coco_dense_phase)
     cascades = timed("cascades", cascades_phase)
     dense = timed("dense", dense_phase)
     dense2 = timed("dense2", dense2_phase)
     dense3 = timed("dense3", dense3_phase)
     attr = timed("attr", attr_phase)
     tta = timed("tta", tta_phase, TTA_CHECKPOINT)
-    datasets = timed("datasets", datasets_phase, TTA_CHECKPOINT)
-    tools = timed("tools", tools_phase, TTA_CHECKPOINT, eval_results)
     bench_launches = timed("bench", bench_phase)
+    t = time.time()
+    (proc, beside_s), = _finish([beside], "the phases beside the families")
+    print(proc.stdout, end="", flush=True)
+    print(proc.stderr, end="", file=sys.stderr, flush=True)
+    with open(beside_json) as f:
+        beside = json.load(f)
+    phase_s.update({f"{name} (beside)": v
+                    for name, v in beside.pop("seconds").items()},
+                   beside_wait=round(time.time() - t, 1),
+                   beside_total=round(beside_s, 1))
+    resume_launches, ddp, datasets, tools = (
+        beside[k] for k in ("resume", "ddp", "datasets", "tools"))
+    _check_counts({name: resume_launches.get(
+        fn.__name__, 0) for name, (fn, _, _) in _kernels().items()},
+        {"roi_align_block_fwd": 3 * RESUME_STEPS,
+         "roi_align_block_bwd": 3 * RESUME_STEPS},
+        f"chunked training, {RESUME_STEPS} steps in two processes")
     print(f"phase seconds: {phase_s}; build {build_s:.1f}; card {card}",
           flush=True)
     for fwd, bwd, impl in (("B1", "B2", "block"), ("B3", "B4", "pallas")):
@@ -5014,6 +5218,7 @@ def main():
                    for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
                                        ("coco_trunks", coco_trunks),
                                        ("coco_rcnn", coco_rcnn),
+                                       ("coco_dense", coco_dense),
                                        ("cascades", cascades),
                                        ("dense2", dense2),
                                        ("dense3", dense3))
@@ -5060,6 +5265,7 @@ def main():
                   for phase, runs in (("rcnn3", rcnn3), ("trunks", trunks),
                                       ("coco_trunks", coco_trunks),
                                       ("coco_rcnn", coco_rcnn),
+                                      ("coco_dense", coco_dense),
                                       ("cascades", cascades),
                                       ("dense2", dense2),
                                       ("dense3", dense3))

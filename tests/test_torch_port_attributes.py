@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_common as tpc
 from torch_port_common import (CONFIG, attr_batch, attr_cfg,
                                jax_forward_train_draws, jax_model,
                                port_model, synth_data, t)
@@ -163,9 +164,8 @@ def test_simple_test_matches_jax(models):
     magnitude on the valid detections (the same detections in both)."""
     _, jm, variables, pm = models
     image = np.random.RandomState(0).randn(2, 96, 96, 3).astype(np.float32)
-    ref = jax.device_get(jax.jit(lambda v, i, s, f: jm.apply(
-        v, i, s, f, method="simple_test"))(variables, image, IMG_SHAPE,
-                                           SCALE))
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     assert set(got) == set(ref) == {
         "det_bboxes", "det_scores", "det_labels", "det_valid", "mask_probs",
@@ -258,7 +258,7 @@ def test_semi_rpn_gt_and_weight_match_jax(models, angle):
 
     def record(pkg):
         def fake(cls, bbox, anchors, gt, gt_valid, rng, train_cfg,
-                 reg_weight=None):
+                 reg_weight=None, legacy=False):     # the port's v1.x flag
             seen[pkg] = (np.asarray(gt), np.asarray(reg_weight))
             raise Stop
         return fake

@@ -25,7 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from torch_port_common import (ROOT, TINY_REGNET, TRUNK_CONFIGS, _random_tree,
-                               jax_model, t, trunk_cfg)
+                               jax_model, meta_device, t, trunk_cfg)
 
 
 def _close(got, want, tol):
@@ -570,7 +570,7 @@ def test_bonai_configs_build_39_of_39():
             continue
         cfg = Config.fromfile(path)
         try:
-            with torch.device("meta"):
+            with meta_device():
                 build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
             built.append(name)
         except NotImplementedError as e:

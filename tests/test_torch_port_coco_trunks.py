@@ -43,9 +43,10 @@ import torch
 import jax
 import jax.numpy as jnp
 from test_torch_port_rcnn import IMG_SHAPE, SCALE, compare_detections
+import torch_port_common as tpc
 from torch_port_common import (ROOT, _random_tree, jax_forward_train_draws,
-                               jax_model, port_model, t, train_batch,
-                               trunk_cfg)
+                               jax_model, meta_device, port_model, t,
+                               train_batch, trunk_cfg)
 
 LR, WD, MAX_NORM, STEPS = 0.02, 1e-2, 35.0, 3
 GN4 = dict(type="GN", num_groups=4, requires_grad=True)
@@ -164,9 +165,9 @@ def run(family):
         pm = port_model(cfg, variables)
         image = np.random.RandomState(1).randn(2, 128, 128, 3).astype(
             np.float32)
-        ref = jax.device_get(jax.jit(lambda v, i, s, f: jm.apply(
-            v, i, s, f, method="simple_test"))(variables, image, IMG_SHAPE,
-                                               SCALE))
+        ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+            v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE,
+            SCALE)
         with torch.no_grad():
             got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
         batch, key = train_batch(size=128), jax.random.PRNGKey(5)
@@ -615,18 +616,21 @@ def test_full_width_parameter_counts_equal_jax(config):
 
 # every config of the sweep that stays unported, by the ROADMAP item its
 # error names
-UNPORTED = {"A6": 33}
+UNPORTED = {"A6": 13}
 
 
 def test_configs_build_340_of_392():
     """Every config under ``configs/`` (``_base_/`` excluded) builds on the
     meta device with its ``train_cfg``, whose R-CNN options the detector
-    checks as it is built (so a config that builds also trains), but 33,
+    checks as it is built (so a config that builds also trains), but 13,
     each of which raises ``NotImplementedError`` naming A6 (none a
-    ``KeyError`` or ``TypeError``): 359 of 392 (340 when the test was
-    named, before item 6's A7 part).  The three C4 configs, GRoIE, the
-    deformable pooling packs, Libra's COCO samplers, OHEM, the IoU losses
-    and the four PISA R-CNNs among the built."""
+    ``KeyError`` or ``TypeError``): 379 of 392 (340 when the test was
+    named, before item 6's A7 part; 359 before its A6 dense-head half).
+    The three C4 configs, GRoIE, the deformable pooling packs, Libra's COCO
+    samplers, OHEM, the IoU losses and the four PISA R-CNNs among the
+    built, and Guided Anchoring's RetinaNets and RPN-only detectors, the
+    legacy v1.x configs, Libra's and PISA's RetinaNets and the two
+    crop640 NAS-FPN configs."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     built, raised = [], {}
@@ -637,20 +641,21 @@ def test_configs_build_340_of_392():
             continue
         cfg = Config.fromfile(path)
         try:
-            with torch.device("meta"):
+            with meta_device():
                 build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
             built.append(name)
         except NotImplementedError as e:
             raised[name] = re.search(r"ROADMAP.md item (A\d)", str(e))[1]
     assert len(built) + len(raised) == 392
-    assert len(built) == 359
+    assert len(built) == 379
     assert {k: sum(v == k for v in raised.values())
             for k in set(raised.values()) | set(UNPORTED)} == UNPORTED
     for kind in ("x101", "caffe_fpn", "gn_ws", "gn-all", "gn-head",
                  "syncbn", "regnetx", "hourglass", "caffe_c4", "groie",
                  "dpool", "mdpool", "ohem", "giou", "bounded_iou",
                  "libra_faster_rcnn_r50_fpn_1x_coco", "pisa_faster_rcnn",
-                 "pisa_mask_rcnn"):
+                 "pisa_mask_rcnn", "ga_retinanet", "ga_rpn", "_v1",
+                 "libra_retinanet", "pisa_retinanet", "crop640"):
         assert any(kind in n for n in built), kind
 
 

@@ -47,7 +47,7 @@ def model():
 
 
 def _jit(fn, *args):
-    return jax.device_get(jax.jit(fn)(*args))
+    return tpc.jax_call(fn, *args)
 
 
 def _close(got, want, tol=1e-5, err_msg=""):

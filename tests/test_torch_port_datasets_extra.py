@@ -41,7 +41,7 @@ from bonai_tpu_torch.datasets import (ClassBalancedDataset, build_dataloader,
 from bonai_tpu_torch.models import build_detector
 from bonai_tpu_torch.tools import make_synthetic_datasets as synth
 from bonai_tpu_torch.tools.convert_datasets import cityscapes, pascal_voc
-from torch_port_common import ROOT
+from torch_port_common import ROOT, meta_device
 
 LOAD = [dict(type="LoadImageFromFile"),
         dict(type="LoadAnnotations", with_bbox=True)]
@@ -309,7 +309,7 @@ def test_config_sweep_covers_the_16_configs():
 @pytest.mark.parametrize("config", CONFIG_FILES)
 def test_config_builds_its_detector_and_datasets(config, sweep_data):
     cfg = Config.fromfile(osp.join(ROOT, config))
-    with torch.device("meta"):
+    with meta_device():
         model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
     if "x101" in config:                        # ResNeXt's grouped conv2
         assert model.backbone.layer1[0].conv2.groups == (

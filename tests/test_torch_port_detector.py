@@ -47,9 +47,8 @@ def _compare(got, ref):
 
 def test_simple_test_matches_jax(models, image):
     _, jm, variables, pm = models
-    ref = jax.jit(lambda v, i, s, f: jm.apply(v, i, s, f,
-                                              method="simple_test"))(
-        variables, image, IMG_SHAPE, SCALE)
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     assert set(got) == set(ref)
     _compare(got, jax.device_get(ref))
@@ -68,10 +67,10 @@ def test_rcnn_stage_matches_jax_on_same_proposals(models, image):
     def stage(m, img, p, v, s, f):
         return m._rcnn_simple_test(m.extract_feat(img), p, v, s, f)
 
-    ref = jax.jit(lambda *a: jm.apply(variables, *a, method=stage))(
-        image, props, pvalid, IMG_SHAPE, SCALE)
-    feats = jax.device_get(jax.jit(lambda i: jm.apply(
-        variables, i, method="extract_feat"))(image))
+    ref = tpc.jax_call(lambda *a: jm.apply(variables, *a, method=stage),
+                       image, props, pvalid, IMG_SHAPE, SCALE)
+    feats = tpc.jax_call(lambda i: jm.apply(
+        variables, i, method="extract_feat"), image)
     with torch.inference_mode():
         got = pm._rcnn_simple_test([t(f) for f in feats], t(props),
                                    t(pvalid), t(IMG_SHAPE), t(SCALE))
@@ -87,11 +86,13 @@ def test_init_detector_without_a_gpu_raises(monkeypatch):
 
 def test_build_detector_names_the_roadmap_item_for_unported_types():
     """Every detector type of the JAX registry is ported; an unported head
-    of a ported type names its item (``RetinaSepBNHead``, A6)."""
+    option of a ported type names its item (FoveaBox's ``with_deform``,
+    A6; ``RetinaSepBNHead``, which this test refused until it was
+    ported, builds since item 6's A6 dense-head half)."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
-    cfg = Config.fromfile(tpc.DENSE_CONFIGS["retinanet"])
-    cfg.model.bbox_head.type = "RetinaSepBNHead"
+    cfg = Config.fromfile(tpc.POINT_CONFIGS["fovea"])
+    cfg.model.bbox_head.with_deform = True
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A6"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
 

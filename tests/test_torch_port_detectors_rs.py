@@ -28,6 +28,7 @@ import torch
 
 from test_torch_port_rcnn import IMG_SHAPE, SCALE, compare_detections
 from test_torch_port_trunks import LR, WD, _jax_step
+import torch_port_common as tpc
 from torch_port_common import (_random_tree, detectors_cfg, htc_cfg,
                                jax_forward_train_draws, jax_model,
                                port_model, t, train_batch)
@@ -200,9 +201,8 @@ def test_simple_test_matches_jax():
     cfg, jm, variables = models()
     pm = port_model(cfg, variables)
     image = np.random.RandomState(0).randn(2, 96, 96, 3).astype(np.float32)
-    ref = jax.device_get(jax.jit(lambda v, i, s, f: jm.apply(
-        v, i, s, f, method="simple_test"))(variables, image, IMG_SHAPE,
-                                           SCALE))
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     assert set(got) == set(ref) == {"det_bboxes", "det_scores",
                                     "det_labels", "det_valid", "mask_probs"}

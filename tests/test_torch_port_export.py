@@ -93,8 +93,8 @@ def test_forward_dummy_matches_jax_call(family):
     _, size, tol = FAMILIES[family]
     cfg, jm, variables, pm = models(family)
     img = np.random.RandomState(0).randn(1, size, size, 3).astype(np.float32)
-    want = jax.tree_util.tree_leaves(jax.device_get(
-        jax.jit(lambda v, x: jm.apply(v, x))(variables, img)))
+    want = jax.tree_util.tree_leaves(tpc.jax_call(
+        lambda v, x: jm.apply(v, x), variables, img))
     with torch.no_grad():
         got = _leaves(pm.forward_dummy(t(img)))
     assert len(got) == len(want) > 0
@@ -264,8 +264,8 @@ def test_exported_simple_test_reloads_in_another_process(tmp_path):
     assert set(got) == set(eager)
     for k in eager:
         assert torch.equal(got[k], eager[k]), k
-    ref = jax.device_get(jax.jit(lambda v, i, s, f: jm.apply(
-        v, i, s, f, method="simple_test"))(variables, img, shp, sf))
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, img, shp, sf)
     _compare_serving(got, ref)
 
 

@@ -21,6 +21,7 @@ import optax
 import pytest
 import torch
 
+import torch_port_common as tpc
 from torch_port_common import (HRNET_CONFIG, TINY_HRNET_EXTRA,
                                jax_forward_train_draws, jax_model,
                                port_model, t, tiny_cfg, tiny_train_cfg,
@@ -75,9 +76,8 @@ def test_simple_test_matches_jax(models):
     from test_torch_port_detector import _compare
     _, jm, variables, pm = models
     image = np.random.RandomState(1).randn(2, 128, 128, 3).astype(np.float32)
-    ref = jax.jit(lambda v, i, s, f: jm.apply(v, i, s, f,
-                                              method="simple_test"))(
-        variables, image, IMG_SHAPE, SCALE)
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     assert set(got) == set(ref) >= {"mask_probs", "offsets"}
     _compare(got, jax.device_get(ref))

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_common as tpc
 from torch_port_common import (CONFIG, LOFT_CONFIG, jax_forward_train_draws,
                                jax_model, port_model, t, tiny_cfg,
                                tiny_train_cfg, train_batch)
@@ -83,9 +84,8 @@ def test_simple_test_matches_jax(models):
     _, jm, variables, pm = models
     from test_torch_port_detector import _compare
     image = np.random.RandomState(0).randn(2, 96, 96, 3).astype(np.float32)
-    ref = jax.jit(lambda v, i, s, f: jm.apply(v, i, s, f,
-                                              method="simple_test"))(
-        variables, image, IMG_SHAPE, SCALE)
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     assert set(got) == set(ref)
     _compare(got, jax.device_get(ref))

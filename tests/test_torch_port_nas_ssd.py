@@ -56,7 +56,7 @@ def models(family):
 
 
 def _jit(fn, *args):
-    return jax.device_get(jax.jit(fn)(*args))
+    return tpc.jax_call(fn, *args)
 
 
 def _close(got, want, tol=1e-5, err_msg=""):

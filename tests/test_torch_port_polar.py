@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_common as tpc
 from torch_port_common import (LOFT_CONFIG, jax_forward_train_draws,
                                jax_model, polar_cfg, port_model, synth_data,
                                t, train_batch)
@@ -106,9 +107,8 @@ def test_offset_head_matches_jax(models):
 def test_simple_test_matches_jax(models):
     _, jm, variables, pm = models
     image = np.random.RandomState(0).randn(2, 96, 96, 3).astype(np.float32)
-    ref = jax.device_get(jax.jit(lambda v, i, s, f: jm.apply(
-        v, i, s, f, method="simple_test"))(variables, image, IMG_SHAPE,
-                                           SCALE))
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     assert set(got) == set(ref)
     valid = np.asarray(ref["det_valid"])

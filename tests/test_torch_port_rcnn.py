@@ -106,17 +106,11 @@ def test_configs_build_at_full_width(name):
         conv_cfg=dict(type="DCNv2", deform_groups=2))), "A6"),
     (dict(config="htc/htc_r50_fpn_1x_bonai.py",
           mask_head=dict(type="CoarseMaskHead")), "A7"),
-    (dict(config="pisa/pisa_retinanet_r50_fpn_1x_coco.py"), "A6"),
-    (dict(config="nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py"), "A6"),
     (dict(reg_decoded_bbox=True), "A7"),
-    (dict(config="guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py"), "A6"),
-    (dict(config="guided_anchoring/ga_rpn_r50_fpn_1x_coco.py"), "A6"),
-    (dict(config="retinanet/retinanet_r50_fpn_1x_coco.py",
-          bbox_head=dict(type="RetinaSepBNHead")), "A6"),
     (dict(neck=[dict(type="FPN"), dict(type="PAFPN")]), "A7"),
     (dict(config="regnet/mask_rcnn_regnetx-3.2GF_fpn_mdconv_c3-c5_1x_coco.py"),
      "A6"),
-    (dict(config="legacy_1.x/faster_rcnn_r50_fpn_1x_coco_v1.py"), "A6"),
+    (dict(config="carafe/mask_rcnn_r50_fpn_carafe_1x_coco.py"), "A6"),
     (dict(config="detectors/detectors_cascade_rcnn_r50_1x_bonai.py",
           sac=dict(type="SAC", use_deform=True)), "A6")],
     ids=lambda x: x if isinstance(x, str) else "-".join(
@@ -124,15 +118,12 @@ def test_configs_build_at_full_width(name):
         else "+".join(c["type"] for c in v) if isinstance(v, list)
         else k if isinstance(v, bool) else str(v) for k, v in x.items()))
 def test_unported_types_name_their_item(change, item):
-    """A head, loss or neck chain the port does not build, and
+    """A neck the port does not build (``FPN_CARAFE``) or chain, and
     ``reg_decoded_bbox`` under the L1 loss (the JAX package ignores it
     there); an option of a config it builds (HTC's mask head type,
     DetectoRS's deformable SAC, the COCO NAS-FCOS neck's deformable cell
-    convs, DCN on RegNet, NAS-FPN's ``norm_cfg``, the legacy R-CNN's
-    ``LegacyAnchorGenerator``); a single-stage config's head option
-    (FoveaBox's ``with_deform``, NAS-FPN's ``RetinaSepBNHead``,
-    ``PISARetinaHead``); Guided Anchoring's RetinaNet head, and its RPN in
-    the RPN-only detector."""
+    convs, DCN on RegNet); a single-stage config's head option (FoveaBox's
+    ``with_deform``)."""
     from bonai_tpu_torch import Config
     from bonai_tpu_torch.models import build_detector
     change = dict(change)
@@ -160,6 +151,41 @@ def test_unported_types_name_their_item(change, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md item {item}"):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+
+
+@pytest.mark.parametrize("config,bbox_head", [
+    ("pisa/pisa_retinanet_r50_fpn_1x_coco.py", None),
+    ("nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py", None),
+    ("guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py", None),
+    ("guided_anchoring/ga_rpn_r50_fpn_1x_coco.py", None),
+    ("retinanet/retinanet_r50_fpn_1x_coco.py",
+     dict(type="RetinaSepBNHead")),
+    ("legacy_1.x/faster_rcnn_r50_fpn_1x_coco_v1.py", None)],
+    ids=["PISARetinaHead", "NASFPN-norm_cfg", "GARetinaHead", "RPN-GARPNHead",
+         "RetinaSepBNHead", "LegacyAnchorGenerator"])
+def test_item6_a6_options_build(config, bbox_head):
+    """The options that raised A6 before item 6's A6 dense-head half was
+    ported (``test_torch_port_coco_dense.py`` holds them to JAX) build
+    from their configs: ``PISARetinaHead`` (a ``RetinaHead``), NAS-FPN's
+    ``norm_cfg`` with the SepBN head, Guided Anchoring's RetinaNet head
+    and its RPN in the RPN-only detector, ``RetinaSepBNHead`` on the FPN
+    (a norm for each of its 5 levels), and the legacy Faster R-CNN's
+    ``LegacyAnchorGenerator`` and v1.x coders."""
+    from bonai_tpu_torch import Config
+    from bonai_tpu_torch.models import build_detector
+    cfg = Config.fromfile(osp.join(ROOT, "configs", config))
+    if bbox_head:
+        cfg.model.bbox_head.update(bbox_head)
+    with tpc.meta_device():
+        model = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
+    assert type(model).__name__ == cfg.model.type
+    head = getattr(model, "bbox_head", None)
+    if config.startswith("nas_fpn") or bbox_head:
+        assert type(head).__name__ == "RetinaSepBNHead"
+        assert len(head.cls_convs) == 5
+    if "legacy" in config:
+        assert model.rpn_legacy and type(
+            model.anchor_generator).__name__ == "LegacyAnchorGenerator"
 
 
 @pytest.mark.parametrize("change", [
@@ -260,9 +286,8 @@ def test_simple_test_matches_jax(family):
     cfg, jm, variables = models(family)
     pm = port_model(cfg, variables)
     image = np.random.RandomState(0).randn(2, 96, 96, 3).astype(np.float32)
-    ref = jax.device_get(jax.jit(lambda v, i, s, f: jm.apply(
-        v, i, s, f, method="simple_test"))(variables, image, IMG_SHAPE,
-                                           SCALE))
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     assert set(got) == set(ref) == {"det_bboxes", "det_scores",
                                     "det_labels", "det_valid"} | (
@@ -286,7 +311,10 @@ def compare_detections(got, ref):
 
 def jax_losses_and_grads(jm, variables, batch, key):
     """JAX's loss dict of ``batch`` under ``key`` and the gradient of the
-    sum of its losses (not its ``stat_*``), as the port's state dict."""
+    sum of its losses (not its ``stat_*``), as the port's state dict;
+    compiled at XLA's lowest optimisation level but for a model with a
+    mask head (``torch_port_common.jax_call``: its mask targets' 0.5 ties
+    need the fused multiply-adds)."""
     from bonai_tpu_torch.utils.weights import state_dict_from_jax
 
     def total(params, batch):
@@ -297,11 +325,11 @@ def jax_losses_and_grads(jm, variables, batch, key):
         return sum(v for k, v in losses.items()
                    if not k.startswith("stat_")), losses
 
-    (_, ref), grads = jax.jit(jax.value_and_grad(total, has_aux=True))(
-        variables["params"], batch)
-    return ({k: float(v) for k, v in jax.device_get(ref).items()},
-            state_dict_from_jax(jax.device_get(grads),
-                                variables["batch_stats"]))
+    (_, ref), grads = tpc.jax_call(
+        jax.value_and_grad(total, has_aux=True), variables["params"], batch,
+        fast=not any(k.startswith("mask_head") for k in variables["params"]))
+    return ({k: float(v) for k, v in ref.items()},
+            state_dict_from_jax(grads, variables["batch_stats"]))
 
 
 def port_losses(pm, batch, draw):

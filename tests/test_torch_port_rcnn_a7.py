@@ -139,8 +139,8 @@ def test_simple_test_matches_jax(family):
     cfg, jm, variables = models(family)
     pm = port_model(cfg, variables)
     args = _serve_args(family)
-    ref = jax.device_get(jax.jit(lambda v, *a: jm.apply(
-        v, *a, method="simple_test"))(variables, *args))
+    ref = tpc.jax_call(lambda v, *a: jm.apply(
+        v, *a, method="simple_test"), variables, *args)
     got = pm.simple_test(*(t(a) for a in args))
     assert set(got) == {"det_bboxes", "det_scores", "det_labels",
                         "det_valid"} | ({"mask_probs", "mask_scores"}

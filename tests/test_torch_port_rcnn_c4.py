@@ -44,7 +44,7 @@ import torch
 import jax
 import jax.numpy as jnp
 import torch_port_common as tpc
-from test_torch_port_rcnn import IMG_SHAPE, SCALE
+from test_torch_port_rcnn import IMG_SHAPE, SCALE, jax_losses_and_grads
 from test_torch_port_rcnn_a7 import compare_outputs
 from torch_port_common import (ROOT, jax_forward_train_draws, jax_model,
                                port_model, t, train_batch)
@@ -103,27 +103,8 @@ def eager_roi_pool_grid(on=True):
 
 
 def jax_simple_test(jm, variables, *args):
-    return jax.device_get(jax.jit(lambda v, *a: jm.apply(
-        v, *a, method="simple_test"))(variables, *args))
-
-
-def jax_losses_and_grads(jm, variables, batch, key):
-    """JAX's loss dict of ``batch`` under ``key`` and the gradient of the
-    sum of its losses, as the port's state dict."""
-    from bonai_tpu_torch.utils.weights import state_dict_from_jax
-
-    def total(params, batch):
-        losses = jm.apply({"params": params,
-                           "batch_stats": variables["batch_stats"]},
-                          batch, method="forward_train",
-                          rngs={"sampling": key})
-        return sum(losses.values()), losses
-
-    (_, ref), grads = jax.jit(jax.value_and_grad(total, has_aux=True))(
-        variables["params"], batch)
-    return ({k: float(v) for k, v in jax.device_get(ref).items()},
-            state_dict_from_jax(jax.device_get(grads),
-                                variables["batch_stats"]))
+    return tpc.jax_call(lambda v, *a: jm.apply(
+        v, *a, method="simple_test"), variables, *args)
 
 
 def port_losses(pm, batch, draw):

@@ -33,6 +33,7 @@ from bonai_tpu_torch.ops import (map_roi_levels, roi_align_blocked,
                                  roi_align_fused_ref, roi_align_strip,
                                  roi_align_strip_ref, strip_levels)
 from bonai_tpu_torch.ops.roi_align_block import _check_inputs
+import torch_port_common as tpc
 from torch_port_common import (jax_forward_train_draws, jax_model,
                                port_model, t, tiny_train_cfg, train_batch)
 
@@ -349,9 +350,8 @@ def test_tiny_detector_route_matches_jax(impl, how, monkeypatch):
     pm = port_model(cfg, variables, **kw)
     assert jm.roi_align_impl == pm.roi_align_impl == impl
     image = np.random.RandomState(0).randn(2, 96, 96, 3).astype(np.float32)
-    ref = jax.device_get(jax.jit(lambda v, i, s, f: jm.apply(
-        v, i, s, f, method="simple_test"))(variables, image, IMG_SHAPE,
-                                           SCALE))
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     valid = np.asarray(ref["det_valid"])
     np.testing.assert_array_equal(got["det_valid"].numpy(), valid)

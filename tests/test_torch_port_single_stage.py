@@ -66,7 +66,7 @@ def _cfg(family):
 
 
 def _jit(fn, *args):
-    return jax.device_get(jax.jit(fn)(*args))
+    return tpc.jax_call(fn, *args)
 
 
 def _close(got, want, tol=1e-5, err_msg=""):
@@ -162,12 +162,15 @@ def test_unported_single_stage_types_name_a6(det_type):
 
 
 @pytest.mark.parametrize("change", ["two_stage_on_dense", "dense_on_two",
-                                    "ga_head", "legacy_anchors",
+                                    "head_type", "anchor_type",
                                     "loss_bbox"])
 def test_layouts_and_options_that_raise(change):
     """A two-stage type on a single-stage layout and the reverse raise
-    ``ValueError``; Guided Anchoring's head, ``LegacyAnchorGenerator``
-    and another box loss raise A6."""
+    ``ValueError``; a RetinaNet head type, an anchor generator and a box
+    loss that the port does not build raise A6 (Guided Anchoring's head,
+    ``LegacyAnchorGenerator`` and ``BalancedL1Loss``, which these cases
+    refused until item 6's A6 dense-head half, build:
+    ``test_torch_port_rcnn.py::test_item6_a6_options_build``)."""
     from bonai_tpu_torch.models import build_detector
     cfg = dense_cfg("retinanet")
     bh = cfg.model.bbox_head
@@ -179,12 +182,12 @@ def test_layouts_and_options_that_raise(change):
         cfg = tpc.tiny_cfg(config=tpc.MASK_RCNN_CONFIG)
         cfg.model.type = "ATSS"
         error, match = ValueError, "single-stage detector"
-    elif change == "ga_head":
-        bh.type = "GARetinaHead"
-    elif change == "legacy_anchors":
-        bh.anchor_generator.type = "LegacyAnchorGenerator"
+    elif change == "head_type":
+        bh.type = "FoveaHead"
+    elif change == "anchor_type":
+        bh.anchor_generator.type = "SSDAnchorGenerator"
     else:
-        bh.loss_bbox = dict(type="BalancedL1Loss")
+        bh.loss_bbox = dict(type="IoULoss")
     with pytest.raises(error, match=match):
         build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg)
 

@@ -24,6 +24,7 @@ import torch
 
 import jax
 from test_torch_port_rcnn import IMG_SHAPE, SCALE, compare_detections
+import torch_port_common as tpc
 from torch_port_common import (TRUNK_CONFIGS, jax_forward_train_draws,
                                jax_model, port_model, t, train_batch,
                                trunk_cfg)
@@ -49,9 +50,8 @@ def test_simple_test_matches_jax(family):
     pm = port_model(cfg, variables)
     image = np.random.RandomState(1).randn(2, 128, 128, 3).astype(
         np.float32)
-    ref = jax.device_get(jax.jit(lambda v, i, s, f: jm.apply(
-        v, i, s, f, method="simple_test"))(variables, image, IMG_SHAPE,
-                                           SCALE))
+    ref = tpc.jax_call(lambda v, i, s, f: jm.apply(
+        v, i, s, f, method="simple_test"), variables, image, IMG_SHAPE, SCALE)
     got = pm.simple_test(t(image), t(IMG_SHAPE), t(SCALE))
     masks = family not in ("attention", "pafpn")
     assert set(got) == set(ref) == {"det_bboxes", "det_scores",
@@ -83,7 +83,8 @@ def _jax_step(cfg, jm, variables, batch, key, max_norm):
             p, batch)
         updates, _ = tx.update(grads, tx.init(p), p)
         return losses, grads, optax.apply_updates(p, updates)
-    losses, grads, new = jax.device_get(jax.jit(step)(params, batch))
+    losses, grads, new = tpc.jax_call(step, params, batch, fast=not any(
+        k.startswith("mask_head") for k in params))
     frozen = jax.tree_util.tree_map(
         lambda f, p: np.full(np.shape(p), float(f), np.float32), mask,
         params)

@@ -3,6 +3,7 @@ LOFT-FOA config (or another two-stage BONAI config) cut to tiny widths,
 the JAX model with seeded random variables, and the port's model carrying
 the same weights through ``state_dict_from_jax``."""
 
+import contextlib
 import os
 import os.path as osp
 
@@ -100,6 +101,18 @@ RCNN_OPTION_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
     "giou": "faster_rcnn/faster_rcnn_r50_fpn_giou_1x_coco.py",
     "bounded_iou": "faster_rcnn/faster_rcnn_r50_fpn_bounded_iou_1x_coco.py",
     }.items()}
+# item 6's A6 part: Guided Anchoring's RetinaNet and RPN-only detector,
+# mmdetection v1.x's anchors and coders, the SepBN head on a NAS-FPN with
+# norm_cfg, Libra's and PISA's RetinaNets
+COCO_DENSE_CONFIGS = {k: osp.join(ROOT, "configs", v) for k, v in {
+    "ga_retina": "guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py",
+    "ga_rpn": "guided_anchoring/ga_rpn_r50_fpn_1x_coco.py",
+    "legacy_mask": "legacy_1.x/mask_rcnn_r50_fpn_1x_coco_v1.py",
+    "legacy_cascade": "legacy_1.x/cascade_mask_rcnn_r50_fpn_1x_coco_v1.py",
+    "legacy_retina": "legacy_1.x/retinanet_r50_fpn_1x_coco_v1.py",
+    "sepbn_nasfpn": "nas_fpn/retinanet_r50_nasfpn_crop640_50e_coco.py",
+    "libra_retina": "libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py",
+    "pisa_retina": "pisa/pisa_retinanet_r50_fpn_1x_coco.py"}.items()}
 # a RegNetX at tiny widths: stages of 8, 16, 32 and 64 channels (1, 1, 2
 # and 2 blocks), group widths 8
 TINY_REGNET = dict(w0=8, wa=12, wm=2, group_w=8, depth=6, bot_mul=1.0)
@@ -357,6 +370,74 @@ def rcnn_option_cfg(family, train=False):
     return cfg
 
 
+def coco_dense_cfg(family, train=False, num_classes=3):
+    """The config of a ``COCO_DENSE_CONFIGS`` family at tiny widths: the
+    two-stage ones (the GA RPN-only detector, the legacy Mask and Cascade
+    R-CNNs) at :func:`tiny_cfg`'s (the training sizes of
+    :func:`tiny_train_cfg` with ``train``; GA's shape sampler at 64), one
+    class; the RetinaNets at :func:`dense_cfg`'s (ResNet-18 at base 8, a
+    16-channel FPN, or NAS-FPN of two stacks, Libra's 16-channel BFP, two
+    64-channel tower convs), ``num_classes``, ``nms_pre`` 100 and 32
+    detections an image."""
+    from bonai_tpu_torch import Config
+    config = COCO_DENSE_CONFIGS[family]
+    if family in ("ga_rpn", "legacy_mask", "legacy_cascade"):
+        cfg = (tiny_train_cfg if train else tiny_cfg)(config=config)
+        rh = cfg.model.get("roi_head") or {}
+        for head in _each(rh.get("bbox_head", [])) + _each(
+                rh.get("mask_head", [])):
+            head.num_classes = 1
+        if family == "ga_rpn" and train:
+            cfg.train_cfg.rpn.ga_sampler.num = 64
+        if rh:                          # every image fills its detections
+            cfg.test_cfg.rcnn.score_thr = 0.0
+        return cfg
+    cfg = Config.fromfile(config)
+    m = cfg.model
+    m.backbone.update(depth=18, base_channels=8)
+    necks = _each(m.neck)
+    necks[0].update(in_channels=[8, 16, 32, 64], out_channels=16)
+    for neck in necks[1:]:                      # Libra's BFP
+        neck.in_channels = 16
+    if necks[0].type == "NASFPN":
+        necks[0].stack_times = 2
+    m.bbox_head.update(in_channels=16, feat_channels=64, stacked_convs=2,
+                       num_classes=num_classes)
+    cfg.test_cfg.update(nms_pre=100, max_per_img=32)
+    return cfg
+
+
+@contextlib.contextmanager
+def meta_device():
+    """Modules built on the meta device without the initialisers of
+    ``torch.nn``'s convs, linears and norms (no value exists there to set):
+    the config sweeps' builds, in about half the time."""
+    nn = torch.nn
+    classes = (nn.modules.conv._ConvNd, nn.Linear,
+               nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm)
+    saved = [(c, c.__dict__["reset_parameters"]) for c in classes]
+    try:
+        for c, _ in saved:
+            c.reset_parameters = lambda self: None
+        with torch.device("meta"):
+            yield
+    finally:
+        for c, reset in saved:
+            c.reset_parameters = reset
+
+
+def jax_call(fn, *args, fast=True):
+    """``fn(*args)`` jitted, on the host; with ``fast`` compiled at XLA's
+    lowest backend optimisation level: the same function, compiled in less
+    time, but without the fused multiply-adds that decide the exact 0.5
+    ties of the mask targets (``bonai_tpu_torch/core/masks.py``)."""
+    import jax
+    lowered = jax.jit(fn).lower(*args)
+    return jax.device_get(lowered.compile(
+        compiler_options={"xla_backend_optimization_level": 0} if fast
+        else None)(*args))
+
+
 def ga_cfg(train=False):
     """Guided-Anchoring Faster R-CNN's BONAI config at the tiny widths of
     :func:`tiny_cfg` (the training sizes of :func:`tiny_train_cfg` with
@@ -601,7 +682,9 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
     (Guided Anchoring's RPN, which samples twice), the RPN key gives the
     shape sampler's per-image splits and the RPN key folded with 1 the RPN
     sampler's (``bonai_tpu/models/dense_heads/ga_rpn_head.py``), before
-    the R-CNN's.  With ``htc``, each
+    the R-CNN's (with ``unsplit`` too, the GA RPN-only detector's: the
+    splits of the key itself, then of the key folded with 1).  With
+    ``htc``, each
     stage's box draw is followed by its interleaved mask draw, from the
     R-CNN key folded with ``100 + i`` (``bonai_tpu/models/detectors/
     htc.py``).  With ``unsplit``
@@ -630,7 +713,9 @@ def jax_forward_train_draws(jm, variables, key, b, cascade=False,
     rpn_keys = [rpn, jax.random.fold_in(rpn, 1)] if ga else [rpn]
     if hlr:
         stages = [second]
-    keys = iter([rng] if unsplit else rpn_keys + stages)
+    if unsplit:
+        rpn_keys = [rng, jax.random.fold_in(rng, 1)] if ga else [rng]
+    keys = iter(rpn_keys if unsplit else rpn_keys + stages)
 
     def draw(shape, device, n=2):
         per_image = [jax_uniforms(k, shape[-1], n)
